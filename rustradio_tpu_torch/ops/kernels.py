@@ -1,0 +1,494 @@
+"""The FM receive chain's CUDA kernels, their plain PyTorch versions, and
+the host-side geometry around them (port of
+``rustradio_tpu/ops/pallas_kernels.py``).
+
+Two hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`:
+
+* ``fir_decimate`` (``csrc/fir_decimate.cu``, kernel A) replaces
+  ``_fir_band_kernel`` (pallas_kernels.py:202): a decimating real FIR,
+  y[m] = sum_j taps[j] x[m*deci - j], zero history, ceil(n/deci) outputs,
+  true f32.  Complex input or taps take 2 or 4 real launches.
+* ``fm_chain_span`` (``csrc/fm_chain.cu``, kernel B) replaces
+  ``_fm_chain_kernel`` (:394), ``_fm_i8_kernel`` (:448) and
+  ``_fm_chain_db_kernel`` (:553): the FIR on both I/Q planes, the DC fold
+  and the polynomial-atan2 discriminator in one pass, over any span of
+  outputs, with a seed in and the last filtered sample out.  ``fm_chain``
+  (flat or packed planes) and ``fm_chain_window`` (a window of a packed
+  ring) are built on it.
+
+Routing: a wrapper runs the plain version only because its tensor lies on
+the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
+falls back.  ``*_plain`` are the plain versions themselves, callable on
+any device (the chip smoke test holds each kernel against them on the
+card).  Every kernel launch adds one to ``LAUNCHES[name]``.
+
+Precision modes keep the JAX package's contracts (plane dtype and error
+budget against float64), not its MXU mechanics:
+
+=========  ==========  ===========================================
+mode       plane       taps the kernel multiplies with (f32)
+=========  ==========  ===========================================
+highest    float32     the taps
+split3     float32     the taps
+w3 / w2    bfloat16    sum of the 3 / 2 exact bf16 terms of each tap
+i8         int8        sum_k d_k s_k of the 3-term scaled-s8 ladder
+=========  ==========  ===========================================
+
+bf16 and int8 planes are exact only for 8-bit-sourced data on the
+(u8 - 127)/128 wire grid; an int8 plane value v means x = (v + 1)/128.
+
+Packed planes (``fm_plane_pack``) are the flat form of the JAX layout:
+``wlen - 1`` zero-history samples (0, or -1 for int8), the samples, then
+trailing pad up to ``fm_pack_geometry(...).total`` — one 1-D tensor in
+the working dtype, written once at ingest.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import typing
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+from .demod import demod_pairs
+
+LAUNCHES = {"fir_decimate": 0, "fm_chain": 0}
+
+PRECISIONS = ("highest", "split3", "w3", "w2", "i8")
+MAX_TAPS = 4096  # the kernels' bound, as ops/fir.py:74 in the JAX package
+_PLANE_DTYPE = {"highest": torch.float32, "split3": torch.float32,
+                "w3": torch.bfloat16, "w2": torch.bfloat16, "i8": torch.int8}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def plane_dtype(precision: str) -> torch.dtype:
+    try:
+        return _PLANE_DTYPE[precision]
+    except KeyError:
+        raise ValueError(f"unknown precision {precision!r}; have "
+                         f"{PRECISIONS}") from None
+
+
+# ------------------------------------------------------------ host side
+
+def fir_window(ntaps: int, deci: int) -> int:
+    """Taps rounded up to a multiple of deci (the packed history is
+    wlen - 1 samples, as in the JAX layout)."""
+    return -(-ntaps // deci) * deci
+
+
+class PackGeometry(typing.NamedTuple):
+    wlen: int       # fir_window(ntaps, deci)
+    tile_rows: int  # normalized tile height (rows of 128 outputs)
+    g: int          # tiles covering the m outputs
+    m: int          # outputs, ceil(n / deci)
+    step: int       # input samples per packed row, deci * 128
+    total: int      # packed plane length
+
+
+def fm_pack_geometry(n: int, taps, deci: int,
+                     tile_rows: int | None = None) -> PackGeometry:
+    """Size of the packed plane for n samples: the same numbers as
+    ``_fm_pack_geometry`` (pallas_kernels.py:695), so packed planes carry
+    across from the JAX package unchanged."""
+    wlen = fir_window(len(taps), deci)
+    nshift = (deci * 127 + wlen - 1) // 128 + 1
+    nq = -(-nshift // deci)
+    tile_rows = max(1024 if tile_rows is None else tile_rows, nq)
+    tile_rows += (-tile_rows) % 16
+    m = -(-n // deci)
+    g = -(-(-(-m // 128)) // tile_rows)
+    nqp = nq + (-nq) % 8
+    step = deci * 128
+    return PackGeometry(wlen, tile_rows, g, m, step, (g * tile_rows + nqp) * step)
+
+
+def _round_bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def w_split_bf16(taps, terms: int) -> list[np.ndarray]:
+    """Exact bf16 split of the taps: taps ~= sum(parts), each part exactly
+    representable in bf16 (``_w_split_bf16``, pallas_kernels.py:652)."""
+    r = np.asarray(taps, np.float32)
+    parts = []
+    for _ in range(terms):
+        h = _round_bf16(r)
+        parts.append(h)
+        r = r - h
+    return parts
+
+
+def w_split_s8(taps, terms: int):
+    """Scaled-s8 ladder taps ~= sum_k d_k s_k, s_k int8, d_k f32
+    (``_w_split_s8``, pallas_kernels.py:667).  Returns (mats, scales)."""
+    r = np.asarray(taps, np.float64)
+    mats, scales = [], []
+    for _ in range(terms):
+        m = np.max(np.abs(r))
+        if m == 0:
+            m = 1.0
+        d = np.float32(m / 127.0)
+        s = np.clip(np.round(r / np.float64(d)), -127, 127).astype(np.int8)
+        mats.append(s)
+        scales.append(float(d))
+        r = r - s.astype(np.float64) * np.float64(d)
+    return mats, tuple(scales)
+
+
+def effective_taps(taps, precision: str) -> np.ndarray:
+    """The f32 taps the kernel multiplies with under ``precision``."""
+    plane_dtype(precision)
+    taps = np.asarray(taps, np.float32)
+    if precision in ("w2", "w3"):
+        parts = w_split_bf16(taps, 2 if precision == "w2" else 3)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out.astype(np.float32)
+    if precision == "i8":
+        mats, scales = w_split_s8(taps, 3)
+        return sum(s.astype(np.float64) * d for s, d in zip(mats, scales)
+                   ).astype(np.float32)
+    return taps
+
+
+_taps_cache: dict = {}
+
+
+def _device_trev(taps: np.ndarray, precision: str, device) -> torch.Tensor:
+    """Reversed effective taps on ``device``, made once per tap set."""
+    key = (taps.tobytes(), precision, str(device))
+    t = _taps_cache.get(key)
+    if t is None:
+        if len(_taps_cache) >= 64:
+            _taps_cache.clear()
+        rev = effective_taps(taps, precision)[::-1].copy()
+        t = _taps_cache[key] = torch.from_numpy(rev).to(device)
+    return t
+
+
+def _real_taps(taps) -> np.ndarray:
+    taps = np.asarray(taps)
+    if np.iscomplexobj(taps):
+        if np.any(np.imag(taps)):
+            raise ValueError("the FM chain needs real taps")
+        taps = np.real(taps)
+    return np.ascontiguousarray(taps, np.float32)
+
+
+def to_s8(x: torch.Tensor) -> torch.Tensor:
+    """f32 wire-grid plane ((u8 - 127)/128 levels) -> its exact s8 image
+    u8 - 128.  Off-grid values are clamped to the nearest level."""
+    return (torch.clamp(torch.round(x.float() * 128.0), -127.0, 128.0) - 1.0
+            ).to(torch.int8)
+
+
+def plane_cast(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """A flat f32 plane in the working dtype of ``precision``."""
+    dt = plane_dtype(precision)
+    if dt == torch.int8:
+        return to_s8(x)
+    return x.to(dt)
+
+
+def fm_plane_pack(x: torch.Tensor, taps, deci: int,
+                  tile_rows: int | None = None,
+                  precision: str = "w3") -> torch.Tensor:
+    """Pack one I/Q plane once, at ingest, into the 1-D packed layout on
+    ``x``'s device (see the module docstring).  Pass the result to
+    ``fm_chain(..., n=n)`` or ``fm_chain_window``."""
+    n = x.shape[0]
+    geo = fm_pack_geometry(n, taps, deci, tile_rows)
+    plane = plane_cast(x, precision)
+    out = torch.full((geo.total,), -1 if plane.dtype == torch.int8 else 0,
+                     dtype=plane.dtype, device=x.device)
+    out[geo.wlen - 1 : geo.wlen - 1 + n] = plane
+    return out
+
+
+# ------------------------------------------------------ launch plumbing
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True when ``t`` must go through a CUDA kernel; False for the plain
+    version (CPU tensors only)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+@contextlib.contextmanager
+def _true_f32():
+    """f32 convolutions without TF32: cuDNN takes TF32 for f32 convolutions
+    by default on the card (and a matmul-based fallback would read the
+    cuBLAS flag), which keeps only ~3 decimal digits.  Both are switched
+    off for the plain versions and restored after."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+            enabled=torch.backends.cudnn.enabled,
+            benchmark=torch.backends.cudnn.benchmark,
+            deterministic=torch.backends.cudnn.deterministic,
+            allow_tf32=False,
+        ):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+def _strided_fir(seg: torch.Tensor, trev: torch.Tensor, deci: int):
+    """z[o] = sum_k trev[k] seg[o*deci + k], in f32 (conv1d, no TF32)."""
+    with _true_f32():
+        return F.conv1d(seg[None, None], trev[None, None], stride=deci)[0, 0]
+
+
+# ------------------------------------------------ kernel A: fir_decimate
+
+def _check_fir(x: torch.Tensor, taps: np.ndarray, deci: int) -> None:
+    if x.dim() != 1 or x.dtype != torch.float32:
+        raise ValueError(f"fir_decimate needs a 1-D float32 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fir_decimate needs a contiguous tensor")
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ValueError(f"fir_decimate takes 1..{MAX_TAPS} taps, got {len(taps)}")
+    if deci < 1:
+        raise ValueError(f"deci must be >= 1, got {deci}")
+
+
+def _fir_real_plain(x: torch.Tensor, taps: np.ndarray, deci: int):
+    _check_fir(x, taps, deci)
+    ntaps, n = len(taps), x.shape[0]
+    m = -(-n // deci)
+    trev = _device_trev(taps, "highest", x.device)
+    return _strided_fir(F.pad(x, (ntaps - 1, m * deci - n)), trev, deci)
+
+
+def _fir_real(x: torch.Tensor, taps: np.ndarray, deci: int):
+    _check_fir(x, taps, deci)
+    if not _route(x):
+        return _fir_real_plain(x, taps, deci)
+    n = x.shape[0]
+    m = -(-n // deci)
+    y = torch.empty(m, dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    trev = _device_trev(taps, "highest", x.device)
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_fir_decimate(
+        x.data_ptr(), n, trev.data_ptr(), len(taps), deci, y.data_ptr(), m,
+        _stream(x.device)), "fir_decimate")
+    LAUNCHES["fir_decimate"] += 1
+    return y
+
+
+def _complex_split(real_fn, x: torch.Tensor, taps, deci: int):
+    """Real launches for complex input or taps, as pallas_fir_decimate
+    l.248-259: 2 for real taps, 4 for complex ones."""
+    taps = np.asarray(taps)
+    if not (np.iscomplexobj(taps) or x.is_complex()):
+        return real_fn(x, np.ascontiguousarray(taps, np.float32), deci)
+    if x.is_complex():
+        xr, xi = x.real.float().contiguous(), x.imag.float().contiguous()
+    else:
+        xr, xi = x.float(), torch.zeros_like(x, dtype=torch.float32)
+    tr = np.ascontiguousarray(np.real(taps), np.float32)
+    ti = np.ascontiguousarray(np.imag(taps), np.float32)
+    rr = real_fn(xr, tr, deci)
+    if not np.any(ti):
+        return torch.complex(rr, real_fn(xi, tr, deci))
+    ii = real_fn(xi, ti, deci)
+    ri = real_fn(xr, ti, deci)
+    ir = real_fn(xi, tr, deci)
+    return torch.complex(rr - ii, ri + ir)
+
+
+def fir_decimate(x: torch.Tensor, taps, deci: int) -> torch.Tensor:
+    """Decimating FIR y[m] = sum_j taps[j] x[m*deci - j] with zero history
+    and ceil(n/deci) outputs (f32, or complex64 for complex input/taps).
+    Kernel A on CUDA tensors; the plain version on CPU tensors."""
+    return _complex_split(_fir_real, x, taps, deci)
+
+
+def fir_decimate_plain(x: torch.Tensor, taps, deci: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fir_decimate` (any device)."""
+    return _complex_split(_fir_real_plain, x, taps, deci)
+
+
+# ---------------------------------------------- kernel B: fm_chain_span
+
+def _chain_consts(taps: np.ndarray, precision: str, offset: float):
+    """(scale, dc) of the post-dot fold y = acc*scale + dc, in f32 as the
+    TPU kernels compute them (pallas_kernels.py:441, :456, :601)."""
+    tapsum = np.float32(np.sum(taps, dtype=np.float64))
+    off = np.float32(offset)
+    if precision == "i8":
+        return 1.0 / 128.0, float((np.float32(1.0 / 128.0) + off) * tapsum)
+    return 1.0, float(off * tapsum)
+
+
+def _check_span(xr, xi, taps, deci, count, precision) -> None:
+    dt = plane_dtype(precision)
+    for p in (xr, xi):
+        if p.dim() != 1 or p.dtype != dt:
+            raise ValueError(f"precision {precision!r} needs 1-D {dt} planes, "
+                             f"got {tuple(p.shape)} {p.dtype}")
+        if not p.is_contiguous():
+            raise ValueError("fm_chain needs contiguous planes")
+    if xr.shape != xi.shape or xr.device != xi.device:
+        raise ValueError("I/Q planes differ in length or device")
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ValueError(f"fm_chain takes 1..{MAX_TAPS} taps, got {len(taps)}")
+    if deci < 1 or count < 0:
+        raise ValueError(f"bad deci {deci} or count {count}")
+
+
+def _seed_tensor(seed, device) -> torch.Tensor:
+    if seed is None:
+        return torch.zeros(2, dtype=torch.float32, device=device)
+    if torch.is_tensor(seed):
+        return seed.to(torch.float32).reshape(2).contiguous()
+    return torch.tensor(seed, dtype=torch.float32, device=device).reshape(2)
+
+
+def _plane_window(x: torch.Tensor, lo: int, hi: int, pad: float):
+    """x[lo:hi] as f32, with ``pad`` at positions outside the plane."""
+    a, b = max(lo, 0), min(hi, x.shape[0])
+    if a >= b:
+        return torch.full((hi - lo,), pad, dtype=torch.float32, device=x.device)
+    return F.pad(x[a:b].float(), (a - lo, hi - b), value=pad)
+
+
+def fm_chain_span_plain(xr, xi, taps, deci: int, gain: float = 1.0, *,
+                        first: int, count: int, shift: int,
+                        precision: str = "highest", offset: float = 0.0,
+                        seed=None):
+    """Plain PyTorch version of :func:`fm_chain_span` (any device)."""
+    taps = _real_taps(taps)
+    _check_span(xr, xi, taps, deci, count, precision)
+    ntaps = len(taps)
+    scale, dc = _chain_consts(taps, precision, offset)
+    pad = -1.0 if xr.dtype == torch.int8 else 0.0
+    trev = _device_trev(taps, precision, xr.device)
+    lo = (first - 1) * deci + shift
+    hi = (first + count - 1) * deci + shift + ntaps
+    # y[first-1 .. first+count-1]: count + 1 filtered samples
+    yr = _strided_fir(_plane_window(xr, lo, hi, pad), trev, deci) * scale + dc
+    yi = _strided_fir(_plane_window(xi, lo, hi, pad), trev, deci) * scale + dc
+    s = _seed_tensor(seed, xr.device)
+    yr = torch.cat([s[:1], yr[1:]])
+    yi = torch.cat([s[1:], yi[1:]])
+    audio = demod_pairs(yr[:-1], yi[:-1], yr[1:], yi[1:], gain)
+    return audio, torch.stack([yr[-1], yi[-1]])
+
+
+def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
+                  first: int, count: int, shift: int,
+                  precision: str = "highest", offset: float = 0.0, seed=None):
+    """Kernel B over outputs [first, first + count) of two planes in the
+    working dtype of ``precision``.
+
+    Filtered sample o is
+    ``y[o] = scale * sum_k taps[ntaps-1-k] * X[o*deci + shift + k] + dc``
+    (X the plane value, the pad value outside the plane; scale and dc fold
+    the int8 grid and ``offset`` post-dot), and
+    ``out[j] = gain * fast_atan2(conj(y[first+j-1]) * y[first+j])`` with
+    ``y[first-1]`` taken from ``seed`` (2 floats; zeros if None).
+
+    ``shift = 1 - ntaps`` reads a flat plane on the full-convolution grid,
+    ``shift = 0`` on the valid grid, and ``shift = wlen - ntaps`` reads a
+    packed plane.  Returns ``(audio, last)``: ``count`` f32 outputs and
+    ``last = y[first + count - 1]`` as 2 floats.
+    """
+    taps = _real_taps(taps)
+    _check_span(xr, xi, taps, deci, count, precision)
+    if not _route(xr):
+        return fm_chain_span_plain(xr, xi, taps, deci, gain, first=first,
+                                   count=count, shift=shift,
+                                   precision=precision, offset=offset,
+                                   seed=seed)
+    dev = xr.device
+    s = _seed_tensor(seed, dev)
+    if s.device != dev:
+        raise ValueError(f"seed on {s.device}, planes on {dev}")
+    if count == 0:
+        return torch.empty(0, dtype=torch.float32, device=dev), s.clone()
+    scale, dc = _chain_consts(taps, precision, offset)
+    trev = _device_trev(taps, precision, dev)
+    out = torch.empty(count, dtype=torch.float32, device=dev)
+    last = torch.empty(2, dtype=torch.float32, device=dev)
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_fm_chain(
+        _DTYPE_CODE[xr.dtype], xr.data_ptr(), xi.data_ptr(), xr.shape[0],
+        shift, -1.0 if xr.dtype == torch.int8 else 0.0, trev.data_ptr(),
+        len(taps), deci, first, count, scale, dc, float(gain), s.data_ptr(),
+        out.data_ptr(), last.data_ptr(), _stream(dev)), "fm_chain")
+    LAUNCHES["fm_chain"] += 1
+    return out, last
+
+
+def fm_chain(xr, xi, taps, deci: int, gain: float = 1.0,
+             tile_rows: int | None = None, offset: float = 0.0,
+             precision: str = "highest", n: int | None = None):
+    """The whole FM receive chain in one pass (``pallas_fm_chain``):
+    ``quadrature_demod(fir_decimate(x), gain)`` with the polynomial atan2,
+    m - 1 outputs for m = ceil(n/deci).
+
+    Flat planes (``n=None``): f32 I/Q planes, cast to the working dtype of
+    ``precision`` here.  Packed planes: pass ``fm_plane_pack`` outputs and
+    the true sample count ``n=``; ``tile_rows`` must match the packing.
+    ``offset`` is a DC offset folded in after the dot (filter(x + c) =
+    filter(x) + c*sum(taps)), applied under the zero history too.
+    """
+    taps = _real_taps(taps)
+    ntaps = len(taps)
+    if n is None:
+        pr, pi = plane_cast(xr, precision), plane_cast(xi, precision)
+        m = -(-xr.shape[0] // deci)
+        shift = 1 - ntaps
+    else:
+        geo = fm_pack_geometry(n, taps, deci, tile_rows)
+        for p in (xr, xi):
+            if tuple(p.shape) != (geo.total,):
+                raise ValueError(f"packed plane shape {tuple(p.shape)} != "
+                                 f"{(geo.total,)} for n={n}, deci={deci}, "
+                                 f"tile_rows={geo.tile_rows}")
+        pr, pi, m, shift = xr, xi, geo.m, geo.wlen - ntaps
+    audio, _ = fm_chain_span(pr, pi, taps, deci, gain, first=0, count=m,
+                             shift=shift, precision=precision, offset=offset)
+    return audio[1:]
+
+
+def fm_chain_window(xpr, xpi, taps, deci: int, gain: float = 1.0, *,
+                    row0: int, g: int, tile_rows: int = 1024,
+                    precision: str = "w3", offset: float = 0.0, seed=None):
+    """The chain over a WINDOW of resident packed planes
+    (``pallas_fm_chain_window``): output rows [row0, row0 + g*tile_rows)
+    of 128 outputs each, read in place at the offset.
+
+    Element j of the returned audio is demod(y[row0*128 + j - 1],
+    y[row0*128 + j]), the j = 0 pair's left side taken from ``seed`` (the
+    previous window's ``last``, so windows compose into one stream; at
+    stream start the zero seed makes element 0 meaningless).  Returns
+    ``(audio, last)`` with ``last`` this window's final filtered sample.
+    """
+    taps = _real_taps(taps)
+    wlen = fir_window(len(taps), deci)
+    tile_rows = fm_pack_geometry(0, taps, deci, tile_rows).tile_rows
+    first, count = row0 * 128, g * tile_rows * 128
+    if row0 < 0 or (first + count - 1) * deci + wlen > xpr.shape[0]:
+        raise ValueError(f"window rows [{row0}, {row0 + g * tile_rows}) lie "
+                         f"outside the packed planes ({xpr.shape[0]} samples)")
+    return fm_chain_span(xpr, xpi, taps, deci, gain, first=first, count=count,
+                         shift=wlen - len(taps), precision=precision,
+                         offset=offset, seed=seed)

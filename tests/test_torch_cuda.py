@@ -1,0 +1,105 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
+elsewhere.  They import only torch, numpy and the port, so they run on a
+machine without jax:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rustradio_tpu_torch import blocks
+from rustradio_tpu_torch.graph import Graph
+from rustradio_tpu_torch.ops import kernels
+
+# the JAX package's budgets against float64 (tests/test_pallas_interpret.py)
+BUDGET = {"highest": 2e-4, "w3": 3e-4, "w2": 8e-3, "split3": 8e-3, "i8": 3e-4}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _fm_iq(rng, n, device):
+    """A constant-envelope FM signal plus noise on the 8-bit wire grid."""
+    phase = np.cumsum(0.9 * np.sin(np.arange(n) * 2e-3))
+    noise = 0.02 * rng.randn(2, n)
+    planes = [np.round(np.clip((0.45 * f(phase) + e) * 128, -127, 128)) / 128
+              for f, e in ((np.cos, noise[0]), (np.sin, noise[1]))]
+    return [torch.from_numpy(p.astype(np.float32)).to(device) for p in planes]
+
+
+def _lp49():
+    return np.asarray(np.hamming(49) * np.sinc(0.2 * (np.arange(49) - 24)),
+                      np.float32)
+
+
+def test_torch_cuda_fir_decimate_matches_plain(cuda_device):
+    rng = np.random.RandomState(40)
+    x = torch.from_numpy(rng.randn(1 << 16).astype(np.float32)).to(cuda_device)
+    for ntaps, deci in [(49, 4), (1205, 1), (4096, 7), (3, 300)]:
+        taps = rng.randn(ntaps).astype(np.float32)
+        before = kernels.LAUNCHES["fir_decimate"]
+        got = kernels.fir_decimate(x, taps, deci)
+        assert kernels.LAUNCHES["fir_decimate"] == before + 1
+        want = kernels.fir_decimate_plain(x, taps, deci)
+        # fixed-order f32 FMA against cuDNN's f32 convolution (TF32 off)
+        tol = 2e-5 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol, (ntaps, deci)
+
+
+@pytest.mark.parametrize("precision", list(BUDGET))
+def test_torch_cuda_fm_chain_span_matches_plain(cuda_device, precision):
+    rng = np.random.RandomState(41)
+    a, b = _fm_iq(rng, 1 << 16, cuda_device)
+    pa, pb = kernels.plane_cast(a, precision), kernels.plane_cast(b, precision)
+    kw = dict(first=5, count=3000, shift=-48, precision=precision,
+              offset=0.01, seed=(0.3, -0.2))
+    got, last = kernels.fm_chain_span(pa, pb, _lp49(), 4, 0.9, **kw)
+    want, want_last = kernels.fm_chain_span_plain(pa, pb, _lp49(), 4, 0.9, **kw)
+    assert float((got - want).abs().max()) <= BUDGET[precision]
+    assert float((last - want_last).abs().max()) <= 1e-5
+    # whole flat stream through fm_chain, full-conv grid from 0
+    got = kernels.fm_chain(a, b, _lp49(), 4, 0.9, precision=precision)
+    want = kernels.fm_chain_span_plain(pa, pb, _lp49(), 4, 0.9, first=0,
+                                       count=1 << 14, shift=-48,
+                                       precision=precision)[0][1:]
+    assert float((got - want).abs().max()) <= BUDGET[precision]
+
+
+def test_torch_cuda_window_chaining_and_graph_launches(cuda_device):
+    rng = np.random.RandomState(42)
+    tile_rows, deci = 16, 4
+    chunk = deci * 128 * tile_rows
+    a, b = _fm_iq(rng, 4 * chunk, cuda_device)
+    taps = _lp49()
+    pa = kernels.fm_plane_pack(a, taps, deci, tile_rows, "w3")
+    pb = kernels.fm_plane_pack(b, taps, deci, tile_rows, "w3")
+    a1, last1 = kernels.fm_chain_window(pa, pb, taps, deci, row0=0, g=1,
+                                        tile_rows=tile_rows)
+    a2, last2 = kernels.fm_chain_window(pa, pb, taps, deci, row0=tile_rows,
+                                        g=1, tile_rows=tile_rows, seed=last1)
+    both, last12 = kernels.fm_chain_window(pa, pb, taps, deci, row0=0, g=2,
+                                           tile_rows=tile_rows)
+    # identical per-sample arithmetic: chained == one call, bit for bit
+    assert torch.equal(torch.cat([a1, a2]), both)
+    assert torch.equal(last2, last12)
+
+    g = Graph()
+    src = g.add(blocks.PackedIqRingSource(a, b, taps, deci, tile_rows=tile_rows))
+    fir = g.add(blocks.FirFilter(taps, deci=deci, precision="w3"), src)
+    q = g.add(blocks.QuadratureDemod(1.0), fir)
+    g.add(blocks.DeviceFoldSink(), q)
+    fn = g.compile_device_loop(chunk, 6, device=cuda_device)
+    before = kernels.LAUNCHES["fm_chain"]
+    got = float(next(iter(fn(0).values())))
+    assert kernels.LAUNCHES["fm_chain"] == before + 6
+    assert np.isfinite(got)
