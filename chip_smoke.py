@@ -2,10 +2,21 @@
 """Smoke test of rustradio_tpu_torch on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the FM receive
-chain's main path at full width (the models entry points and the Graph
-device loop over a packed ring), checks the launch counts show that the
-path went through the kernels, and times kernel beside plain version.
+against its plain PyTorch version on the card, and drives three paths at
+full width, each with the launch counts set to 0 just before it and read
+just after, so that each shows it went through its kernels:
+
+* the FM receive chain (the models entry points and the Graph device loop
+  over a packed ring): kernels A and B;
+* the AX.25 1200 bd receiver on the 1000-frame decode-rate corpus at
+  24 kHz (``ax25_1200_rx``, >= 980 decoded, on the kernels and on the
+  plain versions), and on a narrowband-FM IQ capture at 1.024 Msps
+  (``ax25_1200_rx_iq``), with each FIR stage of the receiver held
+  against its plain version at both rates: kernel A;
+* the standalone discriminator op (``ops.quad_demod_fast``): kernel C.
+
+Then it times kernel beside plain version, and the AX.25 decode split into
+its device front-end and host tail.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -36,6 +47,16 @@ RING = 4 * N_MAIN         # the Graph's packed ring
 N_CHUNKS = 8              # device-loop chunks of N_MAIN (two ring passes)
 # the JAX package's own budgets against float64 (tests/test_pallas_interpret.py)
 BUDGET = {"highest": 2e-4, "w3": 3e-4, "i8": 3e-4, "w2": 8e-3}
+GAIN_C = 0.7              # kernel C's gain, as tests/test_pallas_interpret.py:62
+FS_AUDIO = 24_000.0       # the decode-rate corpus (tests/test_decode_rate.py)
+N_FRAMES = 1000
+FRAME_GATE = 980          # the JAX package's gate on that corpus
+TONES_GATE = 900
+FS_IQ = 1_024_000.0       # rtl-sdr's rate (apps/rtl_fm.py)
+IQ_DEV = 3_000.0          # narrowband FM deviation, Hz
+IQ_NOISE = 0.3            # receiver noise per I/Q component; carrier 1.0
+N_IQ_FRAMES = 200         # corpus frames carried on the IQ capture
+IQ_FLOOR = 196            # of them decoded by ax25_1200_rx_iq
 SEED = 0
 DEVICE = "cuda"
 
@@ -99,6 +120,100 @@ def fm_chain_f64(xr: np.ndarray, xi: np.ndarray, taps: np.ndarray, gain=1.0):
     return gain * np.arctan2(d.imag, d.real)
 
 
+def wrapped_err(a: torch.Tensor, b: torch.Tensor, gain: float) -> float:
+    """max |a - b| folded into [-pi|g|, pi|g|): a +-pi branch flip of the
+    angle counts as no error."""
+    if a.shape != b.shape:
+        failures.append(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        return math.inf
+    g = abs(gain)
+    d = torch.remainder(a.double() - b.double() + math.pi * g, 2 * math.pi * g)
+    return float((d - math.pi * g).abs().max())
+
+
+# ---- the AX.25 corpus, built as tests/test_decode_rate.py:23-55 builds it
+
+def corpus_payload(i: int) -> bytes:
+    return f"N0CALL-{i%16}>APRS:T#{i:04d} corpus {'y'*(i%29)}".encode()
+
+
+def corpus_line(i: int, hdlc) -> np.ndarray:
+    """Frame i as an NRZI line (transition on 0)."""
+    framed = hdlc.hdlc_frame(hdlc.fcs_add(np.frombuffer(corpus_payload(i),
+                                                         np.uint8)))
+    return (1 + np.cumsum(1 - np.asarray(framed))) % 2
+
+
+def corpus_drift(i: int) -> float:
+    return ((i % 7) - 3) / 3 * 0.015
+
+
+def afsk(line: np.ndarray, baud: float, amp: float, fs: float,
+         lead: int) -> np.ndarray:
+    """Bell-202 tones for an NRZI line at ``fs``, between ``lead`` zeros."""
+    sps = fs / baud
+    n = int(len(line) * sps)
+    bit_at = np.minimum((np.arange(n) / sps).astype(int), len(line) - 1)
+    freqs = np.where(line[bit_at] == 1, 1200.0, 2200.0)
+    a = (amp * np.sin(np.cumsum(2 * np.pi * freqs / fs))).astype(np.float32)
+    z = np.zeros(lead, np.float32)
+    return np.concatenate([z, a, z])
+
+
+def audio_corpus(hdlc) -> np.ndarray:
+    """The 1000 frames at 24 kHz: amplitude 0.05-1.0, clock drift
+    +-1.5%, noise up to 0.4x amplitude, numpy RandomState(0)."""
+    noises = [0.0, 0.15, 0.3, 0.35, 0.4]
+    rng = np.random.RandomState(SEED)
+    parts = []
+    for i in range(N_FRAMES):
+        amp = 0.05 + 0.95 * (i % 10) / 9
+        x = afsk(corpus_line(i, hdlc), 1200.0 * (1 + corpus_drift(i)), amp,
+                 FS_AUDIO, 400)
+        parts.append(x + rng.randn(len(x)).astype(np.float32)
+                     * (noises[i % 5] * amp))
+    return np.concatenate(parts)
+
+
+def iq_capture(hdlc) -> np.ndarray:
+    """The first N_IQ_FRAMES corpus frames as an rtl-sdr capture: full-scale
+    Bell-202 audio frequency-modulates a carrier at IQ_DEV deviation,
+    sampled at FS_IQ, plus complex receiver noise (numpy default_rng)."""
+    lead = int(400 * FS_IQ / FS_AUDIO)  # the corpus' leads, in time
+    chunks, ph0 = [], 0.0
+    for i in range(N_IQ_FRAMES):
+        a = afsk(corpus_line(i, hdlc), 1200.0 * (1 + corpus_drift(i)), 1.0,
+                 FS_IQ, lead)
+        ph = ph0 + np.cumsum(a, dtype=np.float64) * (2 * np.pi * IQ_DEV / FS_IQ)
+        ph0 = float(ph[-1] % (2 * np.pi))
+        chunks.append(np.exp(1j * ph).astype(np.complex64))
+    iq = np.concatenate(chunks)
+    noise = np.random.default_rng(SEED).standard_normal((2, len(iq)),
+                                                        dtype=np.float32)
+    iq.real += IQ_NOISE * noise[0]
+    iq.imag += IQ_NOISE * noise[1]
+    return iq
+
+
+def decoded(packets, n: int) -> list[bytes]:
+    """The corpus payloads among the packets, in decode order."""
+    want = {corpus_payload(i) for i in range(n)}
+    return [bytes(p) for p in packets if bytes(p) in want]
+
+
+def wall(fn, reps: int = 3):
+    """Median host wall seconds of ``fn()`` between two synchronises, and
+    its last result."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts), out
+
+
 def time_pair(kernel_fn, plain_fn, plain_ctx, reps: int = 5, calls: int = 10):
     """Median over ``reps`` CUDA-event timings of each, after a warm-up,
     measured in turns; ``plain_fn`` runs inside ``plain_ctx()``.  One
@@ -130,10 +245,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels need an NVIDIA GPU", file=sys.stderr)
         return 1
-    from rustradio_tpu_torch import blocks, taps as tapgen
+    from rustradio_tpu_torch import blocks, ops, taps as tapgen
     from rustradio_tpu_torch.graph import Graph
-    from rustradio_tpu_torch.models import fm
-    from rustradio_tpu_torch.ops import cuda_lib, kernels
+    from rustradio_tpu_torch.models import ax25, fm
+    from rustradio_tpu_torch.ops import cuda_lib, hdlc, kernels
 
     @contextlib.contextmanager
     def plain_versions():
@@ -143,10 +258,57 @@ def main() -> int:
         with mock.patch.object(kernels, "fir_decimate",
                                kernels.fir_decimate_plain), \
              mock.patch.object(kernels, "fm_chain_span",
-                               kernels.fm_chain_span_plain):
+                               kernels.fm_chain_span_plain), \
+             mock.patch.object(kernels, "quad_demod_fast",
+                               kernels.quad_demod_fast_plain):
             yield
         if kernels.LAUNCHES != before:
             raise SystemExit("chip_smoke: a plain run launched a kernel")
+
+    def zero_counts():
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+
+    def stage_err(what: str, fn, x: torch.Tensor) -> torch.Tensor:
+        """``fn(x)`` on the kernels against ``fn(x)`` on the plain versions
+        at the FIR budget 2e-5 * max|y|; returns the kernels' output."""
+        got = fn(x)
+        with plain_versions():
+            want = fn(x)
+        g, w = (torch.view_as_real(t) if t.is_complex() else t
+                for t in (got, want))
+        report("6 ax25", f"{what} ({x.shape[0]} samples) vs plain",
+               max_err(g, w), 2e-5 * float(w.abs().max()))
+        return got
+
+    def front_end_errs(what: str, audio: torch.Tensor, fs: float,
+                       tones: bool) -> None:
+        """kernel A at the AX.25 receiver's own shapes, on its own data:
+        each FIR stage of ``bell202_demod`` (and of the tone demod's
+        one-symbol moving average), fed the kernels' input of that stage.
+        The stages are held one by one because the exact discriminator
+        between them turns a last-ulp difference at a near-zero analytic
+        sample into an arbitrary angle."""
+        bp = tapgen.band_pass(fs, 400.0, 2700.0, 65, "hamming")
+        lp = tapgen.low_pass(fs, 1100.0, 200.0, "hamming")
+        x = stage_err(f"{what}: band-pass {len(bp)} taps",
+                      lambda a: ops.filter_float(a, bp), audio)
+        x = stage_err(f"{what}: Hilbert 65 taps",
+                      lambda a: ops.hilbert_transform(a, 65, "hamming"), x)
+        stage_err(f"{what}: low-pass {len(lp)} taps",
+                  lambda a: ops.filter_float(a, lp),
+                  ops.quadrature_demod(x, 1.0))
+        if tones:
+            w = int(fs / 1200.0)
+            avg = np.ones(w, np.float32) / w
+            stage_err(f"{what}: tone moving average {w} taps",
+                      lambda a: ops.fir_filter_full(a, avg), audio)
+
+    def require(path: str, counts: dict, names) -> None:
+        for name in names:
+            if counts[name] == 0:
+                failures.append(f"kernel {name} never launched on the "
+                                f"{path} path")
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -174,7 +336,7 @@ def main() -> int:
     lp1205 = tapgen.low_pass(1_024_000.0, 100_000.0, 2048.0)
     if (len(lpr), len(lp1205)) != (49, 1205):
         raise SystemExit(f"chip_smoke: tap sets of {len(lpr)}, {len(lp1205)}")
-    errs = {"fir_decimate": 0.0, "fm_chain": 0.0}
+    errs = {"fir_decimate": 0.0, "fm_chain": 0.0, "quad_demod": 0.0}
     xg = torch.randn(N_FIR, generator=gen, device=dev)
     for taps, deci in [(lpr, 4), (lp1205, 1)]:
         got = kernels.fir_decimate(xg, taps, deci)
@@ -224,11 +386,25 @@ def main() -> int:
     errs["fm_chain"] = max(errs["fm_chain"], report(
         "3 kernels", "fm_chain_window w3 vs plain (audio, last)",
         max(max_err(a1, pa1), max_err(last1, plast1)), BUDGET["w3"]))
+    xc = torch.complex(i_main, q_main)  # the station, 2^24 complex64
+    got_c = kernels.quad_demod_fast(xc, GAIN_C)
+    want_c = kernels.quad_demod_fast_plain(xc, GAIN_C)
+    # unfused conjugate product in both; the polynomial's FMA contraction
+    # moves a few ulps; a +-pi branch flip is no error (wrapped)
+    errs["quad_demod"] = report(
+        "3 kernels", f"quad_demod gain {GAIN_C} n=2^24 vs plain (wrapped)",
+        wrapped_err(got_c, want_c, GAIN_C), 1e-6 * GAIN_C)
+    pre = xc[:N_PREFIX].cpu().numpy().astype(np.complex128)
+    pre_want = GAIN_C * np.angle(np.conj(pre[:-1]) * pre[1:])
+    report("3 kernels", "quad_demod vs float64 model, 2^18-sample prefix "
+           "(wrapped)", wrapped_err(got_c[: N_PREFIX - 1].cpu(),
+                                    torch.from_numpy(pre_want), GAIN_C),
+           2e-4 * GAIN_C)
+    del got_c, want_c
     end_phase("3")
 
-    # ---- 4 + 5. the main path, counted
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    # ---- 4 + 5. the FM path, counted
+    zero_counts()
     outs = {}
     for precision in ("w3", "i8"):
         pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
@@ -257,10 +433,8 @@ def main() -> int:
     print(f"[4+5 main path] launches {json.dumps(launches)}; models "
           f"{json.dumps(after_models)}; graph fm_chain launches "
           f"{graph_launches} for {N_CHUNKS} chunks")
-    for name, count in launches.items():
-        if count == 0:
-            failures.append(f"kernel {name} never launched on the main path")
-    if min(after_models.values()) < 2:
+    require("FM", launches, ("fir_decimate", "fm_chain"))
+    if min(after_models["fir_decimate"], after_models["fm_chain"]) < 2:
         failures.append("the models path launched fewer kernels than it calls")
     if graph_launches != N_CHUNKS:
         failures.append(f"graph launched fm_chain {graph_launches} times")
@@ -302,13 +476,91 @@ def main() -> int:
         failures.append("graph fold")
     end_phase("5")
 
-    # ---- 6. times: kernel beside plain version, median of 5 (ms per call)
+    # ---- 6. the AX.25 1200 bd path, counted: the corpus at 24 kHz, then an
+    # IQ capture at 1.024 Msps
+    t0 = time.perf_counter()
+    audio = torch.from_numpy(audio_corpus(hdlc)).to(dev)
+    print(f"[6 ax25] corpus: {N_FRAMES} frames, {audio.shape[0]} samples at "
+          f"{FS_AUDIO:.0f} Hz, synthesized in {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    rx_s, rx = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO), reps=1)
+    got = decoded(rx, N_FRAMES)
+    ax_counts = dict(kernels.LAUNCHES)
+    tones = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO, demod="tones"), N_FRAMES)
+    tone_counts = dict(kernels.LAUNCHES)
+    with plain_versions():
+        plain_got = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO), N_FRAMES)
+    print(f"[6 ax25] ax25_1200_rx decoded {len(set(got))}/{N_FRAMES} on the "
+          f"kernels (first call {rx_s:.3f} s, native build included), "
+          f"{len(set(plain_got))}/{N_FRAMES} on the "
+          f"plain versions; tones {len(set(tones))}/{N_FRAMES}; launches "
+          f"{json.dumps(ax_counts)}, with tones {json.dumps(tone_counts)}")
+    require("AX.25", ax_counts, ("fir_decimate",))
+    front_end_errs("corpus at 24 kHz", audio, FS_AUDIO, tones=True)
+    for what, n, gate in (("kernels", got, FRAME_GATE),
+                          ("plain versions", plain_got, FRAME_GATE),
+                          ("tones", tones, TONES_GATE)):
+        if len(set(n)) < gate:
+            failures.append(f"ax25_1200_rx on the {what}: {len(set(n))} < {gate}")
+
+    t0 = time.perf_counter()
+    iq_np = iq_capture(hdlc)
+    print(f"[6 ax25] IQ capture: {N_IQ_FRAMES} frames, {len(iq_np)} samples at "
+          f"{FS_IQ:.0f} Hz, {IQ_DEV:.0f} Hz deviation, noise {IQ_NOISE} per "
+          f"component, synthesized in {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    iq_s, iq_rx = wall(lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev),
+                       reps=1)
+    iq_got = decoded(iq_rx, N_IQ_FRAMES)
+    iq_counts = dict(kernels.LAUNCHES)
+    with plain_versions():
+        iq_plain_s, iq_plain_rx = wall(
+            lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev), reps=1)
+    iq_plain = decoded(iq_plain_rx, N_IQ_FRAMES)
+    print(f"[6 ax25] ax25_1200_rx_iq decoded {len(set(iq_got))}/{N_IQ_FRAMES} "
+          f"on the kernels ({iq_s:.3f} s), {len(set(iq_plain))}/{N_IQ_FRAMES} "
+          f"on the plain versions ({iq_plain_s:.3f} s); same list: "
+          f"{iq_got == iq_plain}; launches {json.dumps(iq_counts)}; card: {card}")
+    require("AX.25 IQ", iq_counts, ("fir_decimate",))
+    if iq_got != iq_plain:
+        failures.append("ax25_1200_rx_iq: kernels and plain versions decode "
+                        "different frames")
+    if len(set(iq_got)) < IQ_FLOOR:
+        failures.append(f"ax25_1200_rx_iq: {len(set(iq_got))} < {IQ_FLOOR}")
+    # the channel filter (FFT route), resampler and discriminator launch no
+    # kernel: one IQ front-end output feeds the stages at 50 kHz
+    fm_audio = ax25.iq_front_end(iq_np, FS_IQ, device=dev)
+    front_end_errs("IQ capture at 50 kHz", fm_audio, 50_000.0, tones=False)
+    del iq_np, iq_rx, iq_plain_rx, fm_audio
+    end_phase("6")
+
+    # ---- 7. the discriminator op path, counted
+    zero_counts()
+    out_c = ops.quad_demod_fast(xc, GAIN_C)
+    op_counts = dict(kernels.LAUNCHES)
+    require("op", op_counts, ("quad_demod",))
+    # per-sample receiver noise caps the raw correlation near 0.96; over the
+    # FM chain's 4-sample decimation it is the station's audio
+    m = (out_c.shape[0] // DECI) * DECI
+    mean4 = (out_c[:m].double() / GAIN_C).reshape(-1, DECI).mean(1)
+    truth = (phase[1 : m + 1] - phase[:m]).reshape(-1, DECI).mean(1)
+    corr = float(torch.corrcoef(torch.stack([mean4, truth]))[0, 1])
+    finite = bool(torch.isfinite(out_c).all())
+    print(f"[7 op] quad_demod_fast n=2^24: launches {json.dumps(op_counts)}; "
+          f"vs transmitted frequency (4-sample means) corr={corr:.6f} "
+          f"finite={finite} shape={tuple(out_c.shape)}")
+    if not (finite and corr > 0.99 and out_c.shape[0] == N_MAIN - 1):
+        failures.append("quad_demod_fast output")
+    del out_c
+    end_phase("7")
+
+    # ---- 8. times: kernel beside plain version, median of 5 (ms per call)
     rows = {}
 
     def timed(name, n_in, kernel_fn, plain_fn):
         ms, pms = time_pair(kernel_fn, plain_fn, plain_versions)
         rows[name] = (ms, pms)
-        print(f"[6 times] {name}: kernel {ms:.4f} ms ({n_in / ms / 1e3:.1f} "
+        print(f"[8 times] {name}: kernel {ms:.4f} ms ({n_in / ms / 1e3:.1f} "
               f"Msps), plain {pms:.4f} ms ({n_in / pms / 1e3:.1f} Msps); "
               f"card: {card}")
 
@@ -328,12 +580,27 @@ def main() -> int:
               kernels.fir_decimate_plain(xg, taps, deci))
     timed(f"graph device loop w3 {N_CHUNKS} x 2^24", N_CHUNKS * N_MAIN,
           lambda: loop(0), lambda: plain_loop(0))
+    timed("quad_demod n=2^24", N_MAIN, lambda: ops.quad_demod_fast(xc, GAIN_C),
+          lambda: kernels.quad_demod_fast_plain(xc, GAIN_C))
+    # the AX.25 decode of the corpus: wall time of the whole call, and of
+    # its device front-end alone (synchronised); the rest is the host tail
+    # (NRZ copy-back, native symbol sync, slicer, NRZI, HDLC)
+    for label, ctx in (("kernels", contextlib.nullcontext),
+                       ("plain", plain_versions)):
+        with ctx():
+            total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO))
+            front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO))
+        print(f"[8 times] ax25_1200_rx {N_FRAMES} frames ({audio.shape[0]} "
+              f"samples) on the {label}: {total_s * 1e3:.1f} ms wall, device "
+              f"front-end {front_s * 1e3:.1f} ms, host tail "
+              f"{(total_s - front_s) * 1e3:.1f} ms (median of 3); card: {card}")
 
     record = {"kernels": [
         {"name": "fir_decimate", "route": "cuda",
          "source": "rustradio_tpu_torch/csrc/fir_decimate.cu",
          "replaces": "rustradio_tpu/ops/pallas_kernels.py:202",
-         "launches": launches["fir_decimate"],
+         "launches": (launches["fir_decimate"] + ax_counts["fir_decimate"]
+                      + iq_counts["fir_decimate"]),
          "max_abs_err": errs["fir_decimate"],
          "ms": rows["fir_decimate 49 taps deci 4 n=2^22"][0],
          "plain_ms": rows["fir_decimate 49 taps deci 4 n=2^22"][1]},
@@ -344,6 +611,13 @@ def main() -> int:
          "max_abs_err": errs["fm_chain"],
          "ms": rows["fm_chain packed w3 n=2^24"][0],
          "plain_ms": rows["fm_chain packed w3 n=2^24"][1]},
+        {"name": "quad_demod", "route": "cuda",
+         "source": "rustradio_tpu_torch/csrc/quad_demod.cu",
+         "replaces": "rustradio_tpu/ops/pallas_kernels.py:91",
+         "launches": op_counts["quad_demod"],
+         "max_abs_err": errs["quad_demod"],
+         "ms": rows["quad_demod n=2^24"][0],
+         "plain_ms": rows["quad_demod n=2^24"][1]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

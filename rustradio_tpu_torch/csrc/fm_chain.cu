@@ -41,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "fast_atan2.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -49,21 +51,6 @@ constexpr size_t kMaxSmem = 227 * 1024;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
-
-// Same polynomial and octant reduction as ops/demod.fast_atan2 and
-// rustradio_tpu/ops/pallas_kernels.py:63-88 (|err| < 1e-4 rad).
-__device__ __forceinline__ float fast_atan2f(float y, float x) {
-  const float ay = fabsf(y), ax = fabsf(x);
-  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
-  const float z = mn / fmaxf(mx, 1e-37f);
-  const float z2 = z * z;
-  float a = z * (0.9998660f +
-                 z2 * (-0.3302995f +
-                       z2 * (0.1801410f + z2 * (-0.0851330f + z2 * 0.0208351f))));
-  if (ay > ax) a = 1.57079637f - a;   // float32(pi / 2)
-  if (x < 0.0f) a = 3.14159274f - a;  // float32(pi)
-  return y < 0.0f ? -a : a;
-}
 
 // Filtered sample o:  y[o] = scale * sum_k trev[k] * X(o*deci + shift + k) + dc,
 // X(p) = plane[p] for 0 <= p < L, else `pad`.
@@ -134,7 +121,7 @@ __global__ void fm_chain_kernel(const T* __restrict__ xr, const T* __restrict__ 
     const float pr = yr[t - 1], pi = yi[t - 1];
     const float dr = pr * fr + pi * fi;
     const float di = pr * fi - pi * fr;
-    out[jt] = gain * fast_atan2f(di, dr);
+    out[jt] = gain * rr::fast_atan2f(di, dr);
   }
 }
 

@@ -1,5 +1,25 @@
 """Receive chains built from the ops."""
 
+from .ax25 import (
+    Ax25Packet,
+    ax25_1200_rx,
+    ax25_1200_rx_iq,
+    bell202_demod,
+    bell202_tone_demod,
+    iq_front_end,
+    parse_ax25,
+)
 from .fm import fm_demod_chain, fm_demod_chain_planar, fm_pack_planes
 
-__all__ = ["fm_demod_chain", "fm_demod_chain_planar", "fm_pack_planes"]
+__all__ = [
+    "Ax25Packet",
+    "ax25_1200_rx",
+    "ax25_1200_rx_iq",
+    "bell202_demod",
+    "bell202_tone_demod",
+    "fm_demod_chain",
+    "fm_demod_chain_planar",
+    "fm_pack_planes",
+    "iq_front_end",
+    "parse_ax25",
+]

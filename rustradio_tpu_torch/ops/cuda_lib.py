@@ -2,9 +2,11 @@
 
 Every ``rustradio_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-loaded with ``ctypes``.  The library lands in ``rustradio_tpu_torch/_build/``
-(git-ignored), named by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one is a cache hit.  The build happens at
+loaded with ``ctypes``; the ``*.cuh`` headers beside them are included by
+the sources.  The library lands in ``rustradio_tpu_torch/_build/``
+(git-ignored; :mod:`.._buildcache`), named by a hash of every file in
+``csrc/`` and the flags, so a changed source rebuilds and an unchanged one
+is a cache hit.  The build happens at
 first use, never at import: a machine without ``nvcc`` imports every
 module and runs the plain versions on CPU tensors.  A failed build raises.
 """
@@ -12,27 +14,23 @@ module and runs the plain versions on CPU tensors.  A failed build raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import threading
 import time
 from pathlib import Path
 
+from .. import _buildcache
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = _buildcache.BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# what the last load() did: {"path", "cached", "seconds"}
+# what the last build() did: {"path", "cached", "seconds"}
 BUILD_INFO: dict = {}
-
-_lock = threading.Lock()
-_lib = None
 
 
 def _nvcc() -> str:
@@ -48,31 +46,20 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    parts = [" ".join(NVCC_FLAGS)]
     for src in sorted(CSRC_DIR.iterdir()):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"librr_cuda_{h.hexdigest()[:16]}.so"
+        parts += [src.name, src.read_bytes()]
+    return _buildcache.hashed_path(BUILD_DIR, "librr_cuda", parts)
 
 
 def build() -> Path:
     """Compile csrc/*.cu unless a library of the same hash exists."""
     out = library_path()
-    if out.exists():
-        BUILD_INFO.update(path=str(out), cached=True, seconds=0.0)
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), cached=False,
-                      seconds=time.perf_counter() - t0)
+    cached = _buildcache.build(out, lambda tmp: [
+        _nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())])
+    BUILD_INFO.update(path=str(out), cached=cached,
+                      seconds=0.0 if cached else time.perf_counter() - t0)
     return out
 
 
@@ -83,18 +70,19 @@ def _bind(lib):
     lib.rr_fm_chain.argtypes = [i, p, p, ll, ll, f, p, i, i, ll, ll, f, f, f,
                                 p, p, p, p]
     lib.rr_fm_chain.restype = i
+    lib.rr_quad_demod.argtypes = [p, ll, f, p, p]
+    lib.rr_quad_demod.restype = i
     lib.rr_cuda_error_string.argtypes = [i]
     lib.rr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+_LIBRARY = _buildcache.Library(build, _bind)
+
+
 def load():
     """The kernel library, built on first call."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
-        return _lib
+    return _LIBRARY.load()
 
 
 def check(code: int, what: str) -> None:

@@ -5,8 +5,8 @@ polynomial ``fast_atan2`` in ``rustradio_tpu/ops/pallas_kernels.py:63-88``).
   y[n] = gain * atan2(im, re) of conj(x[n]) * x[n+1].  One-sample halo.
 * ``fast_fm`` — reference src/quadrature_demod.rs:144-165 (Lyons p.760).
 * ``fast_atan2`` — the octant reduction + 7th-order odd polynomial the
-  fused FM kernel uses (|err| < 1e-4 rad).  ``csrc/fm_chain.cu`` inlines
-  the same constants.
+  fused FM kernel uses (|err| < 1e-4 rad).  ``csrc/fast_atan2.cuh`` holds
+  the same constants for kernels B and C.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""The FM receive chain's CUDA kernels, their plain PyTorch versions, and
-the host-side geometry around them (port of
+"""The port's CUDA kernels, their plain PyTorch versions, and the
+host-side geometry around them (port of
 ``rustradio_tpu/ops/pallas_kernels.py``).
 
-Two hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`:
+Three hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`:
 
 * ``fir_decimate`` (``csrc/fir_decimate.cu``, kernel A) replaces
   ``_fir_band_kernel`` (pallas_kernels.py:202): a decimating real FIR,
@@ -15,6 +15,9 @@ Two hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`:
   outputs, with a seed in and the last filtered sample out.  ``fm_chain``
   (flat or packed planes) and ``fm_chain_window`` (a window of a packed
   ring) are built on it.
+* ``quad_demod_fast`` (``csrc/quad_demod.cu``, kernel C) replaces
+  ``_quad_kernel`` (:91): gain * fast_atan2 of conj(x[k]) * x[k+1] over a
+  complex64 stream, n - 1 outputs.
 
 Routing: a wrapper runs the plain version only because its tensor lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
@@ -55,7 +58,7 @@ import torch.nn.functional as F
 from . import cuda_lib
 from .demod import demod_pairs
 
-LAUNCHES = {"fir_decimate": 0, "fm_chain": 0}
+LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0}
 
 PRECISIONS = ("highest", "split3", "w3", "w2", "i8")
 MAX_TAPS = 4096  # the kernels' bound, as ops/fir.py:74 in the JAX package
@@ -492,3 +495,45 @@ def fm_chain_window(xpr, xpi, taps, deci: int, gain: float = 1.0, *,
     return fm_chain_span(xpr, xpi, taps, deci, gain, first=first, count=count,
                          shift=wlen - len(taps), precision=precision,
                          offset=offset, seed=seed)
+
+
+# ------------------------------------------- kernel C: quad_demod_fast
+
+def _check_quad(x: torch.Tensor) -> None:
+    if x.dim() != 1 or x.dtype != torch.complex64:
+        raise ValueError(f"quad_demod_fast needs a 1-D complex64 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("quad_demod_fast needs a contiguous tensor")
+
+
+def quad_demod_fast_plain(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quad_demod_fast` (any device): the
+    same order of operations on explicit I/Q planes."""
+    _check_quad(x)
+    v = torch.view_as_real(x)
+    re, im = v[:, 0], v[:, 1]
+    return demod_pairs(re[:-1], im[:-1], re[1:], im[1:], gain)
+
+
+def quad_demod_fast(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+    """``out[k] = gain * fast_atan2(conj(x[k]) * x[k+1])`` for k < n - 1,
+    f32 (the polynomial atan2, |err| < 1e-4 rad; the JAX package's
+    ``pallas_quad_demod``).  Kernel C on CUDA tensors; the plain version
+    on CPU tensors."""
+    _check_quad(x)
+    if not _route(x):
+        return quad_demod_fast_plain(x, gain)
+    n = x.shape[0]
+    out = torch.empty(max(n - 1, 0), dtype=torch.float32, device=x.device)
+    if n < 2:
+        return out
+    planes = torch.view_as_real(x)
+    if planes.data_ptr() % 8:
+        raise ValueError("quad_demod_fast needs an 8-byte aligned tensor")
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_quad_demod(planes.data_ptr(), n, float(gain),
+                                     out.data_ptr(), _stream(x.device)),
+                   "quad_demod")
+    LAUNCHES["quad_demod"] += 1
+    return out

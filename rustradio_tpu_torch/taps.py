@@ -1,15 +1,17 @@
 """FIR tap generators (host-side numpy, computed once at graph build).
 
-A copy of the low-pass part of ``rustradio_tpu/taps.py``, not an import of
-it: importing any ``rustradio_tpu`` submodule runs that package's
+A copy of ``rustradio_tpu/taps.py`` (all but ``multiband``), not an import
+of it: importing any ``rustradio_tpu`` submodule runs that package's
 ``__init__``, which imports jax.  The port carries the generators its
-slice needs; ``band_pass``, ``hilbert`` and ``multiband`` come with the
-slices that use them.
+slices need; ``multiband`` comes with the slice that uses it.
 
 Numerically equivalent to the reference's generators:
 * ``low_pass`` — windowed sinc, DC-gain normalized (src/fir.rs:614-650)
 * ``low_pass_complex`` — same taps as complex (src/fir.rs:591-601)
 * ``compute_ntaps`` — attenuation-based length (src/fir.rs:603-607)
+* ``hilbert`` — odd antisymmetric 1/n taps (src/fir.rs:654-674)
+* ``band_pass`` — difference of two windowed sincs (no reference
+  counterpart; the AFSK front-end's input filter)
 
 All math is done in float32 like the reference's ``Float``.
 """
@@ -60,3 +62,50 @@ def low_pass_complex(
 ) -> np.ndarray:
     """Low-pass taps as complex64 (src/fir.rs:591-601)."""
     return low_pass(samp_rate, cutoff, twidth, window).astype(np.complex64)
+
+
+def band_pass(
+    samp_rate: float, low: float, high: float, ntaps: int = 65,
+    window: str = "hamming",
+) -> np.ndarray:
+    """Windowed-sinc band-pass taps (difference of two low-passes), unity
+    passband-center gain.
+
+    No reference counterpart (rustradio designs only low-pass/hilbert/
+    multiband); used by the AFSK front-end to band-limit noise BEFORE the
+    phase discriminator.
+    """
+    if not 0.0 < low < high < samp_rate / 2:
+        raise ValueError("need 0 < low < high < samp_rate/2")
+    n = np.arange(ntaps, dtype=np.float64) - (ntaps - 1) / 2.0
+
+    def lp(fc):
+        return np.sinc(2.0 * fc / samp_rate * n) * (2.0 * fc / samp_rate)
+
+    h = (lp(high) - lp(low)) * make_window(window, ntaps)
+    # normalize gain at the passband centre
+    fc = (low + high) / 2.0
+    g = np.abs(np.sum(h * np.exp(-2j * np.pi * fc / samp_rate * np.arange(ntaps))))
+    return (h / g).astype(np.float32)
+
+
+def hilbert(ntaps: int, window: str = "hamming") -> np.ndarray:
+    """Hilbert transformer taps (src/fir.rs:654-674).
+
+    Antisymmetric, odd length; even-index taps zero; normalized by the
+    alternating-sum gain exactly like the reference.
+    """
+    if ntaps % 2 != 1:
+        raise ValueError("hilbert filter length must be odd")
+    win = make_window(window, ntaps).astype(np.float32)
+    mid = (ntaps - 1) // 2
+    taps = np.zeros(ntaps, np.float32)
+    gain = np.float32(0.0)
+    for i in range(1, mid + 1):
+        if i % 2 == 1:
+            x = np.float32(1.0) / np.float32(i)
+            taps[mid + i] = x * win[mid + i]
+            taps[mid - i] = -x * win[mid - i]
+            gain = taps[mid + i] - gain
+    gain = np.float32(1.0) / (np.float32(2.0) * np.abs(gain))
+    return (taps * gain).astype(np.float32)

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from rustradio_tpu_torch import blocks
+from rustradio_tpu_torch import blocks, ops
 from rustradio_tpu_torch.graph import Graph
+from rustradio_tpu_torch.models import ax25
 from rustradio_tpu_torch.ops import kernels
 
 # the JAX package's budgets against float64 (tests/test_pallas_interpret.py)
@@ -103,3 +104,39 @@ def test_torch_cuda_window_chaining_and_graph_launches(cuda_device):
     got = float(next(iter(fn(0).values())))
     assert kernels.LAUNCHES["fm_chain"] == before + 6
     assert np.isfinite(got)
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 37, 129, 2, 1, 0])
+def test_torch_cuda_quad_demod_matches_plain(cuda_device, n):
+    rng = np.random.RandomState(43)
+    x = torch.from_numpy((rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64))
+    x = x.to(cuda_device)
+    before = kernels.LAUNCHES["quad_demod"]
+    got = ops.quad_demod_fast(x, 0.7)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quad_demod"] == before + (n >= 2)
+    want = kernels.quad_demod_fast_plain(x, 0.7)
+    assert got.shape == want.shape == (max(n - 1, 0),)
+    if n >= 2:
+        # unfused conjugate product: Re, Im and the +-pi branch as the plain
+        # version's; the polynomial's FMA contraction moves a few ulps
+        d = (got - want + np.pi * 0.7) % (2 * np.pi * 0.7) - np.pi * 0.7
+        assert float(d.abs().max()) <= 1e-6 * 0.7
+
+
+def test_torch_cuda_ax25_1200_rx_runs_on_kernel_a(cuda_device):
+    fs, frames = 24_000.0, [b"CARD FRAME ONE", b"CARD FRAME TWO, LONGER"]
+    parts = []
+    for p in frames:
+        bits = ops.hdlc_frame(ops.fcs_add(np.frombuffer(p, np.uint8)))
+        line = ops.nrzi_encode(torch.from_numpy(bits)).numpy()
+        at = np.minimum((np.arange(len(line) * 20) / 20).astype(int),
+                        len(line) - 1)
+        f = np.where(line[at] == 1, 1200.0, 2200.0)
+        parts += [np.zeros(400), 0.5 * np.sin(np.cumsum(2 * np.pi * f / fs))]
+    audio = np.concatenate(parts + [np.zeros(400)]).astype(np.float32)
+    before = kernels.LAUNCHES["fir_decimate"]
+    got = [bytes(p) for p in ax25.ax25_1200_rx(audio, fs, device=cuda_device)]
+    assert kernels.LAUNCHES["fir_decimate"] > before
+    assert got == frames
+    assert got == [bytes(p) for p in ax25.ax25_1200_rx(audio, fs, device="cpu")]

@@ -1,4 +1,5 @@
-"""Kernel B (the fused FM chain) of the port against the JAX package.
+"""Kernels B (the fused FM chain) and C (the standalone discriminator) of
+the port against the JAX package.
 
 On the CPU the port's wrappers run the plain PyTorch versions; the JAX
 side runs as its own tests run it: the CPU form of ``pallas_fm_chain``,
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 import rustradio_tpu.ops.pallas_kernels as pk
-from rustradio_tpu_torch import convert
+from rustradio_tpu_torch import convert, ops
 from rustradio_tpu_torch.ops import kernels
 from test_pallas_interpret import _fir_deci_f64, _fm_chain_f64
 
@@ -193,3 +194,54 @@ def test_torch_fm_chain_window_bounds():
     p = kernels.fm_plane_pack(torch.zeros(4 * 128 * 16), taps, 4, 16, "w3")
     with pytest.raises(ValueError, match="outside the packed planes"):
         kernels.fm_chain_window(p, p, taps, 4, row0=16, g=1, tile_rows=16)
+
+
+def _wrapped(d, gain):
+    """Difference folded into [-pi*|g|, pi*|g|): a +-pi branch flip of the
+    angle (opposite signs of a near-zero Im) counts as no error."""
+    g = abs(gain)
+    return (d + np.pi * g) % (2 * np.pi * g) - np.pi * g
+
+
+def _quad_f64(x, gain):
+    d = np.conj(x[:-1].astype(np.complex128)) * x[1:].astype(np.complex128)
+    return gain * np.arctan2(d.imag, d.real)
+
+
+def test_torch_quad_demod_fast_matches_jax_interpret(interpret_kernels):
+    # the interpret-mode TPU kernel at tile_rows=128 over 2 whole tiles and a
+    # ragged one, so its seam repair is crossed (test_pallas_interpret.py:58)
+    rng = np.random.RandomState(2)
+    n, gain = 2 * 128 * 128 + 100, 0.7
+    x = (rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)
+    got = ops.quad_demod_fast(_t(x), gain).numpy()
+    want_jax = np.asarray(pk.pallas_quad_demod(x, gain, tile_rows=128))
+    assert got.shape == want_jax.shape == (n - 1,)
+    # same polynomial in f32: a few ulps, but XLA's rounding of Im may flip
+    # the +-pi branch, hence the wrapped difference
+    assert np.abs(_wrapped(got - want_jax, gain)).max() <= 1e-6 * gain
+    # the polynomial's budget against float64 (test_pallas_interpret.py:67)
+    assert np.abs(_wrapped(got - _quad_f64(x, gain), gain)).max() <= 2e-4 * gain
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 129])
+def test_torch_quad_demod_fast_edges(n):
+    rng = np.random.RandomState(60 + n)
+    x = (rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)
+    before = dict(kernels.LAUNCHES)
+    got = ops.quad_demod_fast(_t(x), -1.3).numpy()
+    assert kernels.LAUNCHES == before  # a CPU tensor takes the plain version
+    assert got.shape == (max(n - 1, 0),) and got.dtype == np.float32
+    if n >= 2:
+        assert np.abs(_wrapped(got - _quad_f64(x, -1.3), -1.3)).max() <= 2e-4 * 1.3
+        want_jax = np.asarray(pk.pallas_quad_demod(x, -1.3))
+        assert np.abs(_wrapped(got - want_jax, -1.3)).max() <= 1e-6 * 1.3
+
+
+def test_torch_quad_demod_fast_checks_inputs():
+    with pytest.raises(ValueError, match="complex64"):
+        kernels.quad_demod_fast(torch.zeros(8, dtype=torch.complex128))
+    with pytest.raises(ValueError, match="complex64"):
+        kernels.quad_demod_fast(torch.zeros(8))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.quad_demod_fast(torch.zeros(16, dtype=torch.complex64)[::2])
