@@ -13,10 +13,18 @@ just after, so that each shows it went through its kernels:
   plain versions), and on a narrowband-FM IQ capture at 1.024 Msps
   (``ax25_1200_rx_iq``), with each FIR stage of the receiver held
   against its plain version at both rates: kernel A;
-* the standalone discriminator op (``ops.quad_demod_fast``): kernel C.
+* the standalone discriminator op (``ops.quad_demod_fast``): kernel C;
+* the clock recovery: kernels D (event-driven) and E (per-sample) held
+  against their plain versions (and E against native ``rr_symbol_sync``)
+  at bench.py's decode-bank shape, the AX.25 receiver with
+  ``sync="events"`` on the corpus, and the wideband multichannel receiver
+  (``decode_band_ax25``, 64 channels of a 2.048 Msps capture carrying 8
+  stations) with both sync methods: kernels A, D and E, each held again
+  against its plain version (E also against native) on the arguments
+  that these paths gave it.
 
-Then it times kernel beside plain version, and the AX.25 decode split into
-its device front-end and host tail.
+Then it times kernel beside plain version (or native), and the AX.25
+decode split into its device front-end and host tail.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -57,6 +65,22 @@ IQ_DEV = 3_000.0          # narrowband FM deviation, Hz
 IQ_NOISE = 0.3            # receiver noise per I/Q component; carrier 1.0
 N_IQ_FRAMES = 200         # corpus frames carried on the IQ capture
 IQ_FLOOR = 196            # of them decoded by ax25_1200_rx_iq
+BANK_CH = 64              # bench.py's decode bank (bench.py:223-232):
+BANK_N = 1 << 16          # 64 channels x 2^16 NRZ samples at sps 36.75,
+BANK_SPS = 36.75          # noise 0.1, default clock taps
+BANK_NOISE = 0.1
+BANK_EVENTS = 7133        # slot budget, 4 * 2^16 / 36.75
+N_SYNC_PREFIX = 1 << 12   # kernel E against its plain per-sample loop
+N_SYNC_WINDOW = 2048      # samples (E) or crossings (D) per window held
+                          # against the plain loops at a path's own shapes
+FS_WB = 2_048_000.0       # the wideband capture: an rtl-sdr rate,
+WB_CHANNELS = 64          # 64 channels of 32 kHz (sps 26.7),
+WB_STATIONS = (3, 9, 17, 26, 38, 45, 53, 60)  # 8 stations, 4 above M/2,
+WB_FRAMES = 25            # 25 corpus frames each (200 frames),
+WB_DEV = 3_000.0          # FM at 3 kHz deviation,
+WB_NOISE = 0.05           # complex noise per component
+WB_FLOOR = 196            # frames of 200 decoded per sync method
+PFB_CH, N_PFB = 256, 1 << 22  # bench.py's channelizer row (bench.py:194-209)
 SEED = 0
 DEVICE = "cuda"
 
@@ -201,6 +225,49 @@ def decoded(packets, n: int) -> list[bytes]:
     return [bytes(p) for p in packets if bytes(p) in want]
 
 
+def wideband_capture(hdlc, device, gen: torch.Generator) -> torch.Tensor:
+    """WB_FRAMES corpus frames per station, station s carrying frames
+    s*WB_FRAMES.., each Bell-202 at its corpus clock drift and full scale
+    between the corpus' leads, frequency-modulating a carrier at the center
+    of channel WB_STATIONS[s]; summed at FS_WB, plus complex noise.  Made
+    on the card (float64 phases)."""
+    lead = int(400 * FS_WB / FS_AUDIO)  # the corpus' leads, in time
+    z = torch.zeros(lead, dtype=torch.float64, device=device)
+    tones = []
+    for s in range(len(WB_STATIONS)):
+        parts = []
+        for i in range(s * WB_FRAMES, (s + 1) * WB_FRAMES):
+            line = torch.from_numpy(corpus_line(i, hdlc).astype(np.int64)).to(device)
+            sps = FS_WB / (1200.0 * (1 + corpus_drift(i)))
+            t = torch.arange(int(len(line) * sps), dtype=torch.float64,
+                             device=device)
+            bit_at = torch.clamp((t / sps).long(), max=len(line) - 1)
+            f = torch.where(line[bit_at] == 1, 1200.0, 2200.0)
+            parts += [z, torch.sin(torch.cumsum(2 * math.pi * f / FS_WB, 0)), z]
+        tones.append(torch.cat(parts))
+    n = max(len(a) for a in tones)
+    t = torch.arange(n, dtype=torch.float64, device=device)
+    iq = torch.zeros(n, dtype=torch.complex64, device=device)
+    for k, a in zip(WB_STATIONS, tones):
+        fc = (k if k < WB_CHANNELS / 2 else k - WB_CHANNELS) * FS_WB / WB_CHANNELS
+        ph = (torch.cumsum(torch.nn.functional.pad(a, (0, n - len(a))), 0)
+              * (2 * math.pi * WB_DEV / FS_WB) + (2 * math.pi * fc / FS_WB) * t)
+        iq += torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+    noise = WB_NOISE * torch.randn((2, n), generator=gen, device=device)
+    return iq + torch.complex(noise[0], noise[1])
+
+
+def decode_bank(device, gen: torch.Generator) -> torch.Tensor:
+    """bench.py's decode-bank input: random bits held for round(sps)
+    samples, plus Gaussian noise, (BANK_CH, BANK_N) f32 on the card."""
+    rep = int(round(BANK_SPS))
+    bits = torch.randint(0, 2, (BANK_CH, BANK_N // rep + 1), generator=gen,
+                         device=device) * 2.0 - 1.0
+    nrz = torch.repeat_interleave(bits, rep, dim=1)[:, :BANK_N]
+    return (nrz + BANK_NOISE * torch.randn(nrz.shape, generator=gen,
+                                           device=device)).contiguous()
+
+
 def wall(fn, reps: int = 3):
     """Median host wall seconds of ``fn()`` between two synchronises, and
     its last result."""
@@ -214,30 +281,44 @@ def wall(fn, reps: int = 3):
     return statistics.median(ts), out
 
 
-def time_pair(kernel_fn, plain_fn, plain_ctx, reps: int = 5, calls: int = 10):
+def time_pair(kernel_fn, plain_fn, plain_ctx, reps: int = 5, calls: int = 10,
+              plain_calls: int | None = None):
     """Median over ``reps`` CUDA-event timings of each, after a warm-up,
     measured in turns; ``plain_fn`` runs inside ``plain_ctx()``.  One
-    timing spans ``calls`` back-to-back calls and is divided by that
-    count, so the host's launch latency overlaps the device work as it
-    does in a stream of calls."""
-    def once(fn, ctx):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        with ctx():
-            s.record()
-            for _ in range(calls):
-                fn()
-            e.record()
-            e.synchronize()
-        return s.elapsed_time(e) / calls
-
-    once(kernel_fn, contextlib.nullcontext)
-    once(plain_fn, plain_ctx)
+    timing spans ``calls`` back-to-back calls (``plain_calls`` for the
+    plain version, default the same) and is divided by that count, so the
+    host's launch latency overlaps the device work as it does in a stream
+    of calls."""
+    plain_calls = calls if plain_calls is None else plain_calls
+    event_ms(kernel_fn, contextlib.nullcontext, calls)
+    event_ms(plain_fn, plain_ctx, plain_calls)
     k, p = [], []
     for _ in range(reps):
-        k.append(once(kernel_fn, contextlib.nullcontext))
-        p.append(once(plain_fn, plain_ctx))
+        k.append(event_ms(kernel_fn, contextlib.nullcontext, calls))
+        p.append(event_ms(plain_fn, plain_ctx, plain_calls))
     return statistics.median(k), statistics.median(p)
+
+
+def time_one(fn, reps: int = 5, calls: int = 10) -> float:
+    """Median over ``reps`` CUDA-event timings of ``calls`` calls of
+    ``fn`` (ms per call), after a warm-up."""
+    event_ms(fn, contextlib.nullcontext, calls)
+    return statistics.median(event_ms(fn, contextlib.nullcontext, calls)
+                             for _ in range(reps))
+
+
+def event_ms(fn, ctx, calls: int) -> float:
+    """CUDA-event ms per call over ``calls`` back-to-back calls of ``fn``
+    inside ``ctx()``."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    with ctx():
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+    return s.elapsed_time(e) / calls
 
 
 def main() -> int:
@@ -260,7 +341,11 @@ def main() -> int:
              mock.patch.object(kernels, "fm_chain_span",
                                kernels.fm_chain_span_plain), \
              mock.patch.object(kernels, "quad_demod_fast",
-                               kernels.quad_demod_fast_plain):
+                               kernels.quad_demod_fast_plain), \
+             mock.patch.object(kernels, "symbol_sync_scan",
+                               kernels.symbol_sync_scan_plain), \
+             mock.patch.object(kernels, "symbol_sync_events_scan",
+                               kernels.symbol_sync_events_scan_plain):
             yield
         if kernels.LAUNCHES != before:
             raise SystemExit("chip_smoke: a plain run launched a kernel")
@@ -595,6 +680,296 @@ def main() -> int:
               f"front-end {front_s * 1e3:.1f} ms, host tail "
               f"{(total_s - front_s) * 1e3:.1f} ms (median of 3); card: {card}")
 
+    # ---- 9. clock recovery (kernels D and E) and the wideband receiver
+    from rustradio_tpu_torch import native
+    from rustradio_tpu_torch.models import multichannel
+    from rustradio_tpu_torch.parallel import channelizer
+
+    @contextlib.contextmanager
+    def capturing(*names):
+        """Record the arguments of every call of the wrappers
+        ``kernels.<name>`` inside the block (the main path's own shapes);
+        the calls still go to the wrappers and count their launches."""
+        got = {name: [] for name in names}
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                real = getattr(kernels, name)
+                stack.enter_context(mock.patch.object(
+                    kernels, name, lambda *a, real=real, calls=got[name]:
+                    calls.append(a) or real(*a)))
+            yield got
+
+    def captured(name: str, fn):
+        """Run ``fn()`` and return the arguments of its first call of the
+        wrapper ``kernels.<name>``."""
+        with capturing(name) as got:
+            fn()
+        return got[name][0]
+
+    def outputs_equal(what, got, want) -> float:
+        """Bit-equality of two wrapper results (tuples of tensors); returns
+        the largest |difference| of the f32 outputs (tolerance 0)."""
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        report("9 sync", what, err, 0.0)
+        return err
+
+    def events_check(what, args, window: int | None = None) -> float:
+        """Kernel D on a path's own captured arguments against its plain
+        version: every output (ev_mid, ev_clock, final fstate and istate).
+        The whole call when ``window`` is None (the plain loop stops at the
+        last slot holding a crossing); else the first ``window`` slots and
+        the slots from ``window`` before the last crossing (of the channel
+        with the most) to the end, each run from the state the kernel
+        reaches there, and each also held against the whole kernel run
+        (so the windows stand for it, positions near n and the padding
+        tail included)."""
+        events, n, *consts, fs, ist = args
+        full = kernels.symbol_sync_events_scan(*args)
+        real = int((events < n).sum(1).max())
+        print(f"[9 sync] {what}: {events.shape[0]} ch x {events.shape[1]} "
+              f"slots, n={n}, at most {real} crossings per channel")
+        if window is None or real <= 2 * window:
+            return outputs_equal(f"{what}: kernel D whole vs plain", full,
+                                 kernels.symbol_sync_events_scan_plain(*args))
+        a = real - window
+        _, _, fa, ia = kernels.symbol_sync_events_scan(
+            events[:, :a].contiguous(), n, *consts, fs, ist)
+        errs_ = []
+        for label, ev, f0, i0, sl in (
+                ("first", events[:, :window], fs, ist, slice(0, window)),
+                ("last", events[:, a:], fa, ia, slice(a, None))):
+            ev = ev.contiguous()
+            got = kernels.symbol_sync_events_scan(ev, n, *consts, f0, i0)
+            want = kernels.symbol_sync_events_scan_plain(ev, n, *consts, f0, i0)
+            errs_.append(outputs_equal(
+                f"{what}: kernel D {label} {window} crossings vs plain", got,
+                want))
+            whole = (full[0][:, sl], full[1][:, sl])
+            if label == "last":
+                whole += full[2:]
+            errs_.append(outputs_equal(
+                f"{what}: kernel D {label} window vs the whole run",
+                got[: len(whole)], whole))
+        return max(errs_)
+
+    def scan_check(what, args, window: int) -> float:
+        """Kernel E on a path's own captured arguments: each channel's
+        symbols over the whole call bit-equal to native ``rr_symbol_sync``
+        (the path starts from the fresh state native starts from), and the
+        first and last ``window`` samples against the plain version, each
+        run from the state the kernel reaches there and held against the
+        whole kernel run."""
+        x, sps, max_dev, taps, st = args
+        mask, clocks, st_out = kernels.symbol_sync_scan(*args)
+        x_np = x.cpu().numpy()
+        unequal = [c for c in range(x.shape[0]) if not np.array_equal(
+            x[c][mask[c]].cpu().numpy(),
+            native.symbol_sync_f32(x_np[c], sps, max_dev, taps))]
+        print(f"[9 sync] {what}: kernel E {x.shape[0]} ch x {x.shape[1]} "
+              f"samples vs native: {x.shape[0] - len(unequal)}/{x.shape[0]} "
+              f"channels emit the same symbols bit for bit")
+        if unequal:
+            failures.append(f"{what}: kernel E differs from native on "
+                            f"channels {unequal}")
+        a = x.shape[1] - window
+        _, _, sa = kernels.symbol_sync_scan(x[:, :a].contiguous(), sps,
+                                            max_dev, taps, st)
+        errs_ = []
+        for label, xs, s0, sl in (("first", x[:, :window], st, slice(0, window)),
+                                  ("last", x[:, a:], sa, slice(a, None))):
+            xs = xs.contiguous()
+            got = kernels.symbol_sync_scan(xs, sps, max_dev, taps, s0)
+            want = kernels.symbol_sync_scan_plain(xs, sps, max_dev, taps, s0)
+            errs_.append(outputs_equal(
+                f"{what}: kernel E {label} {window} samples vs plain", got, want))
+            whole = (mask[:, sl], clocks[:, sl]) + ((st_out,) if label == "last"
+                                                   else ())
+            errs_.append(outputs_equal(
+                f"{what}: kernel E {label} window vs the whole run",
+                got[: len(whole)], whole))
+        return max(errs_)
+
+    def sync_equal(what, got, want):
+        """Bit-equality of (mask, clocks[, valid]) outputs: report the
+        clocks' max |error| (tolerance 0) and count unequal masks."""
+        err = max_err(got[1], want[1])
+        report("9 sync", f"{what} clocks", err, 0.0)
+        for name, a, b in zip(("mask", "valid"), (got[0], *got[2:]),
+                              (want[0], *want[2:])):
+            if not torch.equal(a, b):
+                failures.append(f"{what}: {name} differs from the plain version")
+        return err
+
+    bank = decode_bank(dev, gen)
+    ev_out, ev_valid = ops.symbol_sync_events(bank, BANK_SPS,
+                                              max_events=BANK_EVENTS)
+    with plain_versions():
+        ev_plain, ev_pvalid = ops.symbol_sync_events(bank, BANK_SPS,
+                                                     max_events=BANK_EVENTS)
+    errs["symbol_sync_events"] = sync_equal(
+        f"kernel D {BANK_CH} x 2^16 sps {BANK_SPS} max_events {BANK_EVENTS}",
+        (ev_out[1], ev_out[2], ev_valid), (ev_plain[1], ev_plain[2], ev_pvalid))
+    if not bool(ev_valid.all()):
+        failures.append("decode bank: a channel overflowed its slot budget")
+    (sc_v, sc_m, _), _ = ops.symbol_sync(bank, BANK_SPS)
+    bank_np = bank.cpu().numpy()
+    unequal = [c for c in range(BANK_CH) if not np.array_equal(
+        ops.compact(sc_v[c], sc_m[c]).cpu().numpy(),
+        native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5)))]
+    print(f"[9 sync] kernel E {BANK_CH} x 2^16 vs native rr_symbol_sync: "
+          f"{BANK_CH - len(unequal)}/{BANK_CH} channels emit the same symbols "
+          f"bit for bit ({int(sc_m.sum())} symbols)")
+    if unequal:
+        failures.append(f"kernel E differs from native on channels {unequal}")
+    prefix = bank[:, :N_SYNC_PREFIX].contiguous()
+    (_, pm, pc), pst = ops.symbol_sync(prefix, BANK_SPS)
+    with plain_versions():
+        (_, qm, qc), qst = ops.symbol_sync(prefix, BANK_SPS)
+    errs["symbol_sync_scan"] = sync_equal(
+        f"kernel E {BANK_CH} x 2^12 prefix", (pm, pc), (qm, qc))
+    report("9 sync", "kernel E 2^12 prefix final state",
+           max(max_err(pst[k].float(), qst[k].float()) for k in pst), 0.0)
+    end_phase("9 sync")
+
+    # the AX.25 receiver on the corpus with the device clock recovery
+    zero_counts()
+    with capturing("symbol_sync_events_scan") as ax_calls:
+        ev_s, ev_rx = wall(
+            lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync="events"), reps=1)
+    ev_got = decoded(ev_rx, N_FRAMES)
+    ev_counts = dict(kernels.LAUNCHES)
+    print(f"[9 ax25 events] ax25_1200_rx(sync='events') decoded "
+          f"{len(set(ev_got))}/{N_FRAMES} ({ev_s:.3f} s, first call); "
+          f"native sync decoded {len(set(got))}; launches "
+          f"{json.dumps(ev_counts)}")
+    require("AX.25 events", ev_counts, ("fir_decimate", "symbol_sync_events"))
+    if len(set(ev_got)) < FRAME_GATE:
+        failures.append(f"ax25_1200_rx(sync='events'): {len(set(ev_got))} < "
+                        f"{FRAME_GATE}")
+    # the kernels' arguments on each path, checked here and timed below
+    path_args = {"kernel D, AX.25 events path":
+                 ax_calls["symbol_sync_events_scan"][0]}
+    errs["symbol_sync_events"] = max(errs["symbol_sync_events"], events_check(
+        "AX.25 events path", path_args["kernel D, AX.25 events path"],
+        window=N_SYNC_WINDOW))
+    del ax_calls
+    end_phase("9 ax25 events")
+
+    # the wideband receiver at full width, both sync methods
+    t0 = time.perf_counter()
+    wide = wideband_capture(hdlc, dev, gen)
+    torch.cuda.synchronize()
+    print(f"[9 wideband] capture: {len(WB_STATIONS)} stations on channels "
+          f"{list(WB_STATIONS)} of {WB_CHANNELS}, {len(WB_STATIONS) * WB_FRAMES} "
+          f"frames, {wide.shape[0]} samples at {FS_WB:.0f} Hz "
+          f"({wide.shape[0] / FS_WB:.1f} s), noise {WB_NOISE} per component, "
+          f"synthesized on the card in {time.perf_counter() - t0:.1f} s")
+    want_wb = {(WB_STATIONS[i // WB_FRAMES], corpus_payload(i))
+               for i in range(len(WB_STATIONS) * WB_FRAMES)}
+    wb_counts, wb_first = {}, {}
+
+    def wideband(method):
+        return multichannel.decode_band_ax25(
+            wide, FS_WB, n_channels=WB_CHANNELS, max_active=len(WB_STATIONS),
+            sync_method=method)
+
+    for method in ("scan", "events"):
+        zero_counts()
+        with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
+            wb_first[method], res = wall(lambda: wideband(method), reps=1)
+        wb_counts[method] = dict(kernels.LAUNCHES)
+        found = {(r.channel, bytes(p)) for r in res for p in r.packets}
+        ok = len(found & want_wb)
+        chans = sorted(r.channel for r in res)
+        print(f"[9 wideband] decode_band_ax25 sync {method}: {ok}/{len(want_wb)} "
+              f"frames on their channels, channels decoded {chans}, "
+              f"{sum(len(r.packets) for r in res)} packets "
+              f"({wb_first[method]:.3f} s, first call); launches "
+              f"{json.dumps(wb_counts[method])}")
+        require(f"wideband {method}", wb_counts[method],
+                ("fir_decimate", f"symbol_sync_{method}"))
+        if chans != sorted(WB_STATIONS):
+            failures.append(f"wideband {method}: channels {chans} decoded")
+        if ok < WB_FLOOR:
+            failures.append(f"wideband {method}: {ok} < {WB_FLOOR} frames")
+        # the kernels at the shapes this path gave them (E also re-runs
+        # the channels that overflowed their event budget)
+        for args in calls["symbol_sync_events_scan"][:1]:
+            path_args[f"kernel D, wideband {method}"] = args
+            errs["symbol_sync_events"] = max(errs["symbol_sync_events"],
+                                             events_check(f"wideband {method}",
+                                                          args))
+        for args in calls["symbol_sync_scan"][:1]:
+            path_args[f"kernel E, wideband {method}"] = args
+            errs["symbol_sync_scan"] = max(errs["symbol_sync_scan"], scan_check(
+                f"wideband {method}", args, N_SYNC_WINDOW))
+        del calls
+    end_phase("9 wideband")
+
+    # times, median of 5 (ms per call); the card beside each
+    def timed9(name, ms, pms, other="plain"):
+        rows[name] = (ms, pms)
+        print(f"[9 times] {name}: kernel {ms:.4f} ms, {other} {pms:.4f} ms; "
+              f"card: {card}")
+
+    pfb_x = torch.complex(torch.randn(N_PFB, generator=gen, device=dev),
+                          torch.randn(N_PFB, generator=gen, device=dev))
+    pfb_taps = channelizer.channelizer_taps(PFB_CH)
+    pfb_ms = time_one(lambda: channelizer.pfb_channelize(pfb_x, pfb_taps, PFB_CH))
+    print(f"[9 times] pfb_channelize {PFB_CH} channels x 2^22 (plain torch + "
+          f"cuFFT, no kernel): {pfb_ms:.4f} ms ({N_PFB / pfb_ms / 1e3:.1f} "
+          f"Msps); card: {card}")
+    del pfb_x
+    d_args = captured("symbol_sync_events_scan", lambda: ops.symbol_sync_events(
+        bank, BANK_SPS, max_events=BANK_EVENTS))
+    timed9(f"kernel D {BANK_CH} x {BANK_EVENTS} slots", *time_pair(
+        lambda: kernels.symbol_sync_events_scan(*d_args),
+        lambda: kernels.symbol_sync_events_scan_plain(*d_args),
+        contextlib.nullcontext, plain_calls=1))
+    op_ms, op_pms = time_pair(
+        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
+        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
+        plain_versions, plain_calls=1)
+    print(f"[9 times] symbol_sync_events op {BANK_CH} x 2^16 (crossing list, "
+          f"kernel D, mask pass): {op_ms:.4f} ms "
+          f"({BANK_CH * BANK_N / op_ms / 1e3:.1f} Msps), on the plain versions "
+          f"{op_pms:.4f} ms; card: {card}")
+    e_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(bank, BANK_SPS))
+
+    def native_bank():
+        for c in range(BANK_CH):
+            native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5))
+
+    nat_s = statistics.median(
+        [wall(native_bank, reps=1)[0] for _ in range(5)])
+    e_ms = time_one(lambda: kernels.symbol_sync_scan(*e_args), calls=3)
+    timed9(f"kernel E {BANK_CH} x 2^16", e_ms, nat_s * 1e3,
+           f"native rr_symbol_sync on the host, {BANK_CH} channels in turn,")
+    p_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(prefix, BANK_SPS))
+    timed9(f"kernel E {BANK_CH} x 2^12 prefix", *time_pair(
+        lambda: kernels.symbol_sync_scan(*p_args),
+        lambda: kernels.symbol_sync_scan_plain(*p_args),
+        contextlib.nullcontext, plain_calls=1))
+    for name, args in path_args.items():
+        fn = (kernels.symbol_sync_events_scan if name.startswith("kernel D")
+              else kernels.symbol_sync_scan)
+        ms = time_one(lambda: fn(*args), calls=3)
+        print(f"[9 times] {name}, the path's own arguments "
+              f"({args[0].shape[0]} x {args[0].shape[1]}): kernel {ms:.4f} ms; "
+              f"card: {card}")
+    front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO))
+    for sync in ("native", "events"):
+        total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync=sync))
+        print(f"[9 times] ax25_1200_rx sync={sync} {N_FRAMES} frames: "
+              f"{total_s * 1e3:.1f} ms wall, device front-end "
+              f"{front_s * 1e3:.1f} ms, clock recovery and tail "
+              f"{(total_s - front_s) * 1e3:.1f} ms (median of 3); card: {card}")
+    for method in ("scan", "events"):
+        wb_s, _ = wall(lambda: wideband(method))
+        print(f"[9 times] decode_band_ax25 sync {method}, {wide.shape[0]} "
+              f"samples: {wb_s * 1e3:.1f} ms wall (median of 3; first call "
+              f"{wb_first[method] * 1e3:.1f} ms); card: {card}")
+
     record = {"kernels": [
         {"name": "fir_decimate", "route": "cuda",
          "source": "rustradio_tpu_torch/csrc/fir_decimate.cu",
@@ -618,6 +993,21 @@ def main() -> int:
          "max_abs_err": errs["quad_demod"],
          "ms": rows["quad_demod n=2^24"][0],
          "plain_ms": rows["quad_demod n=2^24"][1]},
+        {"name": "symbol_sync_events", "route": "cuda",
+         "source": "rustradio_tpu_torch/csrc/symbol_sync.cu",
+         "replaces": "rustradio_tpu/ops/symbol_sync.py:305",
+         "launches": (ev_counts["symbol_sync_events"]
+                      + wb_counts["events"]["symbol_sync_events"]),
+         "max_abs_err": errs["symbol_sync_events"],
+         "ms": rows[f"kernel D {BANK_CH} x {BANK_EVENTS} slots"][0],
+         "plain_ms": rows[f"kernel D {BANK_CH} x {BANK_EVENTS} slots"][1]},
+        {"name": "symbol_sync_scan", "route": "cuda",
+         "source": "rustradio_tpu_torch/csrc/symbol_sync.cu",
+         "replaces": "rustradio_tpu/ops/symbol_sync.py:145",
+         "launches": wb_counts["scan"]["symbol_sync_scan"],
+         "max_abs_err": errs["symbol_sync_scan"],
+         "ms": rows[f"kernel E {BANK_CH} x 2^12 prefix"][0],
+         "plain_ms": rows[f"kernel E {BANK_CH} x 2^12 prefix"][1]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

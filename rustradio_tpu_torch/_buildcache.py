@@ -32,10 +32,38 @@ def hashed_path(build_dir: Path, prefix: str,
     return build_dir / f"{prefix}_{h.hexdigest()[:16]}.so"
 
 
+def _failed(cmd: list[str], code: int, stderr: str) -> RuntimeError:
+    return RuntimeError(f"{Path(cmd[0]).name} failed (exit {code}): "
+                        f"{' '.join(cmd)}\n{stderr}")
+
+
+def run_all(commands: list[list[str]]) -> None:
+    """Run the compile commands concurrently, wait for all of them, and
+    raise with the first failure's command and output."""
+    procs = []
+    try:
+        for cmd in commands:
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    except OSError as e:
+        raise RuntimeError(f"{Path(cmd[0]).name} not runnable: "
+                           f"{' '.join(cmd)}\n{e}") from e
+    finally:
+        # every started compiler is waited for, also when a later one
+        # could not start
+        done = [(cmd, p.communicate()[1], p.returncode) for cmd, p in procs]
+    for cmd, err, code in done:
+        if code != 0:
+            raise _failed(cmd, code, err)
+
+
 def build(out: Path, command: Callable[[Path], list[str]]) -> bool:
     """Run ``command(tmp)`` to compile into a temp file beside ``out``,
-    then rename it to ``out``; skipped when ``out`` exists.  Returns True
-    when it was skipped."""
+    then rename it to ``out``; skipped when ``out`` exists.  ``command``
+    is called only when building, so it may run earlier steps (such as the
+    compiles that its link needs) itself.  Returns True when it was
+    skipped."""
     if out.exists():
         return True
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -48,8 +76,7 @@ def build(out: Path, command: Callable[[Path], list[str]]) -> bool:
         raise RuntimeError(f"{tool} not runnable: {' '.join(cmd)}\n{e}") from e
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"{tool} failed (exit {r.returncode}): {' '.join(cmd)}\n{r.stderr}")
+        raise _failed(cmd, r.returncode, r.stderr)
     os.replace(tmp, out)
     return False
 

@@ -10,8 +10,10 @@ package's 400-2700 Hz input band-pass in front.
 The dense front-end (filters, demod) runs on the input's device: every FIR
 on ``kernels.fir_decimate`` (kernel A on the card), the IQ channel filter
 by overlap-save FFT when it is longer than ``kernels.MAX_TAPS``.  Clock
-recovery (native ``rr_symbol_sync``), NRZI and HDLC run on the host over
-the NRZ stream copied back.
+recovery runs either on the host over the NRZ stream copied back
+(``sync="native"``, native ``rr_symbol_sync``) or on the device
+(``sync="events"``, ``symbol_sync_events`` on kernel D), which copies back
+only the symbols; NRZI and HDLC run on the host.
 
 Inputs: a tensor stays on its device; a numpy array goes to the ``device``
 the caller names (there is no default device).
@@ -28,9 +30,10 @@ import torch.nn.functional as F
 
 from .. import taps as tapgen
 from ..ops import demod as demod_ops
-from ..ops import fir, hdlc, hilbert, nrzi, resampler, symbol_sync
+from ..ops import fir, hdlc, hilbert, nrzi, resampler
 from ..ops.fft_filter import filter_complex, filter_float
 from ..ops.elementwise import add_const, binary_slicer
+from ..ops.symbol_sync import compact, recover_symbols, symbol_sync_events
 
 DEMODS = ("discriminator", "tones")
 _NP_DTYPE = {torch.float32: np.float32, torch.complex64: np.complex64}
@@ -88,12 +91,11 @@ def _stream(x, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, _NP_DTYPE[dtype])).to(device)
 
 
+SYNCS = ("native", "events")
+
+
 def _check_modes(demod: str, sync: str) -> None:
-    if sync == "events":
-        raise NotImplementedError(
-            "sync='events' (the event-driven device clock recovery) is not "
-            "ported yet: ROADMAP queue 1, item 7")
-    if sync != "native":
+    if sync not in SYNCS:
         raise ValueError(f"unknown sync {sync!r}; use 'native' or 'events'")
     if demod not in DEMODS:
         raise ValueError(f"unknown demod {demod!r}; use one of {DEMODS}")
@@ -174,9 +176,11 @@ def ax25_1200_rx(
     ``demod``: "discriminator" (the reference chain + an input band-pass,
     see :func:`bell202_demod`) or "tones" (the dual-tone correlator).
     ``band=None`` restores the reference-faithful discriminator input.
-    ``sync``: "native" (the sequential recurrence, bit-exact with the JAX
-    package's); "events" is not ported yet and raises.  ``audio`` is a
-    tensor (it stays on its device) or a numpy array with ``device=``.
+    ``sync``: "native" (the sequential host recurrence, bit-exact with the
+    JAX package's) or "events" (the event-driven device form on kernel D,
+    decode-equivalent; see ``ops.symbol_sync.symbol_sync_events``).
+    ``audio`` is a tensor (it stays on its device) or a numpy array with
+    ``device=``.
     """
     _check_modes(demod, sync)
     audio = _stream(audio, torch.float32, device)
@@ -184,9 +188,15 @@ def ax25_1200_rx(
         nrz = bell202_tone_demod(audio, float(samp_rate))
     else:
         nrz = bell202_demod(audio, float(samp_rate), band)
-    symbols = symbol_sync.recover_symbols(
-        nrz, float(samp_rate) / 1200.0, symbol_max_deviation, symbol_taps)
-    bits = nrzi.nrzi_decode(binary_slicer(torch.from_numpy(symbols)))
+    sps = float(samp_rate) / 1200.0
+    if sync == "events":
+        (vals, mask, _), _valid = symbol_sync_events(
+            nrz, sps, symbol_max_deviation, tuple(symbol_taps))
+        symbols = compact(vals, mask)  # stays on the device
+    else:
+        symbols = torch.from_numpy(recover_symbols(
+            nrz, sps, symbol_max_deviation, symbol_taps))
+    bits = nrzi.nrzi_decode(binary_slicer(symbols))
     packets, _ = hdlc.hdlc_deframe(bits, 10, 1500, keep_checksum=keep_checksum,
                                    fix_bits=fix_bits)
     return [Ax25Packet(np.asarray(d), int(p)) for d, p in packets]

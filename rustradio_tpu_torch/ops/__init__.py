@@ -3,7 +3,9 @@
 Ops run on their inputs' device.  The kernel wrappers (``kernels``) launch
 hand-written CUDA kernels for CUDA tensors and run their plain PyTorch
 versions for CPU tensors.  The host-side ops (``hdlc``, ``symbol_sync``)
-run on numpy arrays and take tensors from any device.
+run on numpy arrays and take tensors from any device; the device forms of
+the clock recovery (``symbol_sync``, ``symbol_sync_events``) run on their
+input's device through kernels D and E.
 """
 
 from . import kernels
@@ -40,7 +42,7 @@ from .kernels import (
 )
 from .nrzi import nrzi_decode, nrzi_encode
 from .resampler import rational_resampler, resampler_indices
-from .symbol_sync import recover_symbols
+from .symbol_sync import compact, recover_symbols, symbol_sync, symbol_sync_events
 
 
 def quad_demod_fast(x, gain: float = 1.0):
@@ -58,6 +60,7 @@ __all__ = [
     "add_const",
     "binary_slicer",
     "calc_crc",
+    "compact",
     "complex_to_float",
     "complex_to_mag2",
     "complex_to_real",
@@ -88,6 +91,8 @@ __all__ = [
     "rational_resampler",
     "recover_symbols",
     "resampler_indices",
+    "symbol_sync",
+    "symbol_sync_events",
     "xor",
     "xor_const",
 ]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``rustradio_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
 loaded with ``ctypes``; the ``*.cuh`` headers beside them are included by
 the sources.  The library lands in ``rustradio_tpu_torch/_build/``
 (git-ignored; :mod:`.._buildcache`), named by a hash of every file in
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import tempfile
 import time
 from pathlib import Path
 
@@ -26,8 +28,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = _buildcache.BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-shared",)
 
 # what the last build() did: {"path", "cached", "seconds"}
 BUILD_INFO: dict = {}
@@ -46,18 +49,28 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    parts = [" ".join(NVCC_FLAGS)]
+    parts = [" ".join(NVCC_FLAGS), " ".join(LINK_FLAGS)]
     for src in sorted(CSRC_DIR.iterdir()):
         parts += [src.name, src.read_bytes()]
     return _buildcache.hashed_path(BUILD_DIR, "librr_cuda", parts)
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same hash exists."""
+    """Compile csrc/*.cu unless a library of the same hash exists: the
+    sources in parallel into objects in a temporary directory, then one
+    link."""
     out = library_path()
     t0 = time.perf_counter()
-    cached = _buildcache.build(out, lambda tmp: [
-        _nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())])
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        def compile_then_link(tmp: Path) -> list[str]:
+            nvcc = _nvcc()
+            objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in sources()]
+            _buildcache.run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                                 for src, obj in zip(sources(), objs)])
+            return [nvcc, *LINK_FLAGS, "-o", str(tmp), *objs]
+
+        cached = _buildcache.build(out, compile_then_link)
     BUILD_INFO.update(path=str(out), cached=cached,
                       seconds=0.0 if cached else time.perf_counter() - t0)
     return out
@@ -72,6 +85,11 @@ def _bind(lib):
     lib.rr_fm_chain.restype = i
     lib.rr_quad_demod.argtypes = [p, ll, f, p, p]
     lib.rr_quad_demod.restype = i
+    lib.rr_symbol_sync_scan.argtypes = [p, i, ll, f, f, p, i, p, i, p, p, p]
+    lib.rr_symbol_sync_scan.restype = i
+    lib.rr_symbol_sync_events.argtypes = [p, i, i, i, f, f, p, i, p, i, p, p,
+                                          p, p]
+    lib.rr_symbol_sync_events.restype = i
     lib.rr_cuda_error_string.argtypes = [i]
     lib.rr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,6 +19,15 @@ Three hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`:
   ``_quad_kernel`` (:91): gain * fast_atan2 of conj(x[k]) * x[k+1] over a
   complex64 stream, n - 1 outputs.
 
+Two more have no Pallas counterpart: they replace the ``lax.scan``s of the
+clock recovery (``rustradio_tpu/ops/symbol_sync.py``), one thread per
+channel (``csrc/symbol_sync.cu``):
+
+* ``symbol_sync_events_scan`` (kernel D) runs the event step over each
+  channel's crossing slots (the scan at symbol_sync.py:305);
+* ``symbol_sync_scan`` (kernel E) runs the per-sample recurrence (the scan
+  at symbol_sync.py:145, and native ``rr_symbol_sync``).
+
 Routing: a wrapper runs the plain version only because its tensor lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
 falls back.  ``*_plain`` are the plain versions themselves, callable on
@@ -58,7 +67,8 @@ import torch.nn.functional as F
 from . import cuda_lib
 from .demod import demod_pairs
 
-LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0}
+LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0,
+            "symbol_sync_events": 0, "symbol_sync_scan": 0}
 
 PRECISIONS = ("highest", "split3", "w3", "w2", "i8")
 MAX_TAPS = 4096  # the kernels' bound, as ops/fir.py:74 in the JAX package
@@ -537,3 +547,271 @@ def quad_demod_fast(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
                    "quad_demod")
     LAUNCHES["quad_demod"] += 1
     return out
+
+
+# ------------------------------------ kernels D and E: clock recovery
+
+MAX_CLOCK_TAPS = 16  # the kernels' bound on the clock filter (symbol_sync.cu)
+
+
+class SyncConsts(typing.NamedTuple):
+    """The recurrences' f32 constants, as the JAX package computes them
+    (symbol_sync.py:53-57, :107, :217-223); Python floats holding f32
+    values, so a tensor op with them rounds as an f32 op."""
+    sps: float
+    mx: float
+    mi08: float   # mi * 0.8, the TED's lower bound
+    mx12: float   # mx * 1.2
+    lo: float     # the clock filter's clamp, mi - sps ..
+    hi: float     # .. mx - sps
+    taps: tuple   # clock filter taps, f32 values
+    nf: int       # filter history per channel, max(ntaps - 1, 1)
+
+
+def sync_consts(sps: float, max_deviation: float, clock_taps) -> SyncConsts:
+    taps = np.asarray(clock_taps, np.float32).reshape(-1)
+    if not 1 <= len(taps) <= MAX_CLOCK_TAPS:
+        raise ValueError(f"the clock filter takes 1..{MAX_CLOCK_TAPS} taps, "
+                         f"got {len(taps)}")
+    f = np.float32
+    s, d = f(sps), f(max_deviation)
+    mi, mx = f(s - d), f(s + d)
+    return SyncConsts(float(s), float(mx), float(f(mi * f(0.8))),
+                      float(f(mx * f(1.2))), float(f(mi - s)), float(f(mx - s)),
+                      tuple(float(t) for t in taps), max(len(taps) - 1, 1))
+
+
+def _clock_filter(k: SyncConsts, fbuf: list, sample):
+    """(clamped output, shifted history) of the clock filter: taps[0] *
+    sample + sum_j taps[j+1] * fbuf[j] in that order (symbol_sync.py:79-81),
+    the history newest first."""
+    ret = k.taps[0] * sample
+    for j in range(len(k.taps) - 1):
+        ret = ret + k.taps[j + 1] * fbuf[j]
+    ret = torch.clamp(ret, k.lo, k.hi)
+    if len(k.taps) > 1:
+        return ret, [ret] + fbuf[:-1]
+    return ret, fbuf
+
+
+def ted_reduce(t0_raw, clock, mx: float):
+    """``_ted_reduce`` (symbol_sync.py:149-167): the closed-form
+    pre-reduction, then six predicated steps of the reference's while loop
+    (the f32 sequence of the JAX form).  A step that changes no element
+    ends the loop: the steps after it would change none either."""
+    k0 = torch.clamp(torch.floor((t0_raw - mx) / clock) - 1.0, min=0.0)
+    t = t0_raw - k0 * clock
+    for _ in range(6):
+        t2 = t - clock
+        step = (t > mx) & (torch.abs(t - clock) >= torch.abs(t2 - clock))
+        if not bool(step.any()):
+            break
+        t = torch.where(step, t2, t)
+    return t
+
+
+def _check_sync(x: torch.Tensor, dtype, state: torch.Tensor, width: int,
+                what: str) -> None:
+    if x.dim() != 2 or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous (C, N) {dtype} tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if (state.dtype != torch.float32 or tuple(state.shape) != (x.shape[0], width)
+            or state.device != x.device):
+        raise ValueError(f"{what} needs a ({x.shape[0]}, {width}) float32 "
+                         f"state on {x.device}, got {tuple(state.shape)} "
+                         f"{state.dtype} on {state.device}")
+
+
+def symbol_sync_scan_plain(x: torch.Tensor, sps: float, max_deviation: float,
+                           clock_taps, state: torch.Tensor):
+    """Plain PyTorch version of :func:`symbol_sync_scan` (any device): a
+    Python loop over the samples on (C,) tensors, the inner while loops
+    run as predicated loops until no channel iterates."""
+    k = sync_consts(sps, max_deviation, clock_taps)
+    _check_sync(x, torch.float32, state, 5 + k.nf, "symbol_sync_scan")
+    clock, sign_f, pos, last_b, next_mid = state.unbind(1)[:5]
+    last_sign = sign_f != 0
+    fbuf = list(state.unbind(1)[5:])
+    masks, clks = [], []
+    for sample in x.unbind(1):
+        emit = pos >= next_mid
+        masks.append(emit)
+        clks.append(clock)
+        next_mid = torch.where(emit, next_mid + clock, next_mid)
+        sign = sample > 0.0
+        changed = sign != last_sign
+        adjust = changed & (pos > 0.0) & (last_b > 0.0)
+        if bool(adjust.any()):
+            # while t > mx { t2 = t - clock; if |t-clock| < |t2-clock| break;
+            # t = t2 }
+            t = pos - last_b
+            while True:
+                t2 = t - clock
+                step = adjust & (t > k.mx) & ~(
+                    torch.abs(t - clock) < torch.abs(t2 - clock))
+                if not bool(step.any()):
+                    break
+                t = torch.where(step, t2, t)
+            apply = adjust & (t > k.mi08) & (t < k.mx12)
+            ret, fbuf2 = _clock_filter(k, fbuf, t - k.sps)
+            new_clock = ret + k.sps
+            # next_mid = last_boundary + clock/2, bumped up to stream_pos
+            nm = last_b + new_clock / 2.0
+            while True:
+                step = apply & (nm < pos)
+                if not bool(step.any()):
+                    break
+                nm = torch.where(step, nm + new_clock, nm)
+            clock = torch.where(apply, new_clock, clock)
+            next_mid = torch.where(apply, nm, next_mid)
+            fbuf = [torch.where(apply, a, b) for a, b in zip(fbuf2, fbuf)]
+        last_b = torch.where(changed, pos, last_b)
+        last_sign = torch.where(changed, sign, last_sign)
+        pos = pos + 1.0
+        # step back to stay near zero (src/symbol_sync.rs:200-209)
+        sb = 10.0 * clock
+        back = (pos > sb) & (last_b > sb) & (next_mid > sb)
+        if bool(back.any()):
+            pos = torch.where(back, pos - sb, pos)
+            last_b = torch.where(back, last_b - sb, last_b)
+            next_mid = torch.where(back, next_mid - sb, next_mid)
+    c, n = x.shape
+    if n:
+        mask, clocks = torch.stack(masks, 1), torch.stack(clks, 1)
+    else:
+        mask = torch.zeros((c, 0), dtype=torch.bool, device=x.device)
+        clocks = torch.zeros((c, 0), dtype=torch.float32, device=x.device)
+    out = torch.stack([clock, last_sign.float(), pos, last_b, next_mid, *fbuf], 1)
+    return mask, clocks, out
+
+
+def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
+                     clock_taps, state: torch.Tensor):
+    """The per-sample clock recovery of every channel of ``x`` (C, N),
+    from ``state`` (C, 5 + nf) f32 rows ``[clock, last_sign, stream_pos,
+    last_boundary, next_mid, fbuf...]`` (nf = max(ntaps - 1, 1); native
+    ``rr_symbol_sync``'s layout).
+
+    Returns ``(mask, clocks, new_state)``: ``mask`` (C, N) bool marks the
+    emitted samples, ``clocks`` (C, N) f32 the clock at each sample before
+    its step.  Kernel E on CUDA tensors; the plain version on CPU
+    tensors."""
+    k = sync_consts(sps, max_deviation, clock_taps)
+    _check_sync(x, torch.float32, state, 5 + k.nf, "symbol_sync_scan")
+    if not _route(x):
+        return symbol_sync_scan_plain(x, sps, max_deviation, clock_taps, state)
+    c, n = x.shape
+    mask = torch.empty((c, n), dtype=torch.bool, device=x.device)
+    clocks = torch.empty((c, n), dtype=torch.float32, device=x.device)
+    out = state.clone()
+    if c == 0 or n == 0:
+        return mask, clocks, out
+    taps = np.asarray(k.taps, np.float32)
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_symbol_sync_scan(
+        x.data_ptr(), c, n, k.sps, float(np.float32(max_deviation)),
+        taps.ctypes.data, len(taps), out.data_ptr(), out.shape[1],
+        mask.data_ptr(), clocks.data_ptr(), _stream(x.device)),
+        "symbol_sync_scan")
+    LAUNCHES["symbol_sync_scan"] += 1
+    return mask, clocks, out
+
+
+def _check_events(events: torch.Tensor, n: int, fstate: torch.Tensor,
+                  istate: torch.Tensor, k: SyncConsts) -> None:
+    _check_sync(events, torch.int32, fstate, 3 + k.nf, "symbol_sync_events_scan")
+    if (istate.dtype != torch.int32 or tuple(istate.shape) != (events.shape[0], 3)
+            or istate.device != events.device):
+        raise ValueError(f"symbol_sync_events_scan needs a ({events.shape[0]}, "
+                         f"3) int32 istate on {events.device}")
+    if not 0 <= n < 1 << 24:
+        raise ValueError(f"n={n}: positions stay f32-exact only below 2^24")
+
+
+def symbol_sync_events_scan_plain(events: torch.Tensor, n: int, sps: float,
+                                  max_deviation: float, clock_taps,
+                                  fstate: torch.Tensor, istate: torch.Tensor):
+    """Plain PyTorch version of :func:`symbol_sync_events_scan` (any
+    device): a Python loop over the slots on (C,) tensors, up to the last
+    slot that holds a crossing on any channel (padding slots after it
+    change no state)."""
+    k = sync_consts(sps, max_deviation, clock_taps)
+    _check_events(events, n, fstate, istate, k)
+    clock, mid_off, bnd_off = fstate.unbind(1)[:3]
+    fbuf = list(fstate.unbind(1)[3:])
+    p_prev, have_b, started = istate.unbind(1)
+    have_b, started = have_b != 0, started != 0
+    c, n_ev = events.shape
+    last = int((events < n).sum(1).max()) if c and n_ev else 0
+    mids, clks = [], []
+    for p in events[:, :last].unbind(1):
+        is_pad = p >= n
+        gap_i = p - p_prev
+        gap = gap_i.float()
+        # emissions in (p_prev, p] bump mid before the crossing adjusts it
+        e_unc = torch.floor((gap - mid_off) / clock).to(torch.int32) + 1
+        e = torch.minimum(torch.clamp(e_unc, min=0), gap_i)
+        mid_off_p = mid_off + e.float() * clock - gap
+        t0_raw = gap + bnd_off
+        t = ted_reduce(t0_raw, clock, k.mx)
+        past_start = started | (p > 0)
+        apply = past_start & have_b & (t > k.mi08) & (t < k.mx12) & ~is_pad
+        ret, fbuf2 = _clock_filter(k, fbuf, t - k.sps)
+        new_clock = ret + k.sps
+        # next_sym_middle = last_boundary + clock/2 bumped to >= p, in
+        # closed form from the raw boundary offset
+        nm0 = new_clock / 2.0 - t0_raw
+        kk = torch.clamp(torch.ceil(-nm0 / new_clock), min=0.0)
+        nm = torch.clamp(nm0 + kk * new_clock, min=0.0)
+        clock = torch.where(apply, new_clock, clock)
+        fbuf = [torch.where(apply, a, b) for a, b in zip(fbuf2, fbuf)]
+        mid_off = torch.where(is_pad, mid_off, torch.where(apply, nm, mid_off_p))
+        p_prev = torch.where(is_pad, p_prev, p)
+        bnd_off = torch.where(is_pad, bnd_off, 0.0)
+        have_b = torch.where(is_pad, have_b, past_start)
+        mids.append(mid_off)
+        clks.append(clock)
+    def rows(per_slot: list, final: torch.Tensor) -> torch.Tensor:
+        # the padding tail holds the final state
+        col = final[:, None]
+        return torch.cat([torch.stack(per_slot, 1) if per_slot else col[:, :0],
+                          col.expand(c, n_ev - last)], 1)
+
+    ev_mid, ev_clock = rows(mids, mid_off), rows(clks, clock)
+    fout = torch.stack([clock, mid_off, bnd_off, *fbuf], 1)
+    iout = torch.stack([p_prev, have_b.to(torch.int32), started.to(torch.int32)], 1)
+    return ev_mid, ev_clock, fout, iout
+
+
+def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
+                            max_deviation: float, clock_taps,
+                            fstate: torch.Tensor, istate: torch.Tensor):
+    """The event step of ``symbol_sync_events`` over each channel's slots.
+
+    ``events`` (C, E) int32: each channel's crossing positions in a stream
+    of ``n`` samples, ascending, padded with ``n``.  ``fstate`` (C, 3 + nf)
+    f32 rows ``[clock, mid_off, bnd_off, fbuf...]`` and ``istate`` (C, 3)
+    int32 rows ``[p_prev, have_boundary, started]`` are the carried state.
+    Returns ``(ev_mid, ev_clock, fstate_out, istate_out)``, ``ev_mid`` and
+    ``ev_clock`` (C, E) f32 the mid offset and clock after each slot.
+    Kernel D on CUDA tensors; the plain version on CPU tensors."""
+    k = sync_consts(sps, max_deviation, clock_taps)
+    _check_events(events, n, fstate, istate, k)
+    if not _route(events):
+        return symbol_sync_events_scan_plain(events, n, sps, max_deviation,
+                                             clock_taps, fstate, istate)
+    c, n_ev = events.shape
+    ev_mid = torch.empty((c, n_ev), dtype=torch.float32, device=events.device)
+    ev_clock = torch.empty_like(ev_mid)
+    fout, iout = fstate.clone(), istate.clone()
+    if c == 0:
+        return ev_mid, ev_clock, fout, iout
+    taps = np.asarray(k.taps, np.float32)
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_symbol_sync_events(
+        events.data_ptr(), c, n_ev, n, k.sps, float(np.float32(max_deviation)),
+        taps.ctypes.data, len(taps), fout.data_ptr(), fout.shape[1],
+        iout.data_ptr(), ev_mid.data_ptr(), ev_clock.data_ptr(),
+        _stream(events.device)), "symbol_sync_events")
+    LAUNCHES["symbol_sync_events"] += 1
+    return ev_mid, ev_clock, fout, iout

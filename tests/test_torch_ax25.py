@@ -141,17 +141,28 @@ def test_torch_ax25_1200_rx_iq_decodes_jax_iq():
 
 def test_torch_ax25_1200_rx_rejects_unknown_modes():
     audio = np.zeros(4800, np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ax25.ax25_1200_rx(audio, FS, sync="events", device="cpu")
+    # sync="events" is a mode now: silence decodes to nothing
+    assert ax25.ax25_1200_rx(audio, FS, sync="events", device="cpu") == []
     with pytest.raises(ValueError, match="unknown sync 'bogus'"):
         ax25.ax25_1200_rx(audio, FS, sync="bogus", device="cpu")
     with pytest.raises(ValueError, match="unknown demod"):
         ax25.ax25_1200_rx(audio, FS, demod="pll", device="cpu")
-    with pytest.raises(NotImplementedError):
-        ax25.ax25_1200_rx_iq(audio.astype(np.complex64), 50e3, sync="events",
+    with pytest.raises(ValueError, match="unknown sync"):
+        ax25.ax25_1200_rx_iq(audio.astype(np.complex64), 50e3, sync="scan",
                              device="cpu")
     with pytest.raises(ValueError, match="device="):
         ax25.ax25_1200_rx(audio, FS)
+
+
+def test_torch_ax25_1200_rx_events_sync_decodes_as_native(corpus):
+    # the device clock recovery (kernel D's plain version here) decodes the
+    # same frames as the native recurrence; bit positions may move by the
+    # event form's closed-form rounding
+    audio, payloads = corpus
+    native = ax25.ax25_1200_rx(audio, FS, device="cpu")
+    events = ax25.ax25_1200_rx(torch.from_numpy(audio), FS, sync="events")
+    assert [bytes(p) for p in events] == [bytes(p) for p in native]
+    assert set(bytes(p) for p in events) == set(payloads)
 
 
 def test_torch_parse_ax25_matches_jax(corpus):

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from rustradio_tpu_torch import blocks, ops
+from rustradio_tpu_torch import blocks, native, ops
 from rustradio_tpu_torch.graph import Graph
-from rustradio_tpu_torch.models import ax25
+from rustradio_tpu_torch.models import ax25, multichannel
 from rustradio_tpu_torch.ops import kernels
 
 # the JAX package's budgets against float64 (tests/test_pallas_interpret.py)
@@ -140,3 +140,118 @@ def test_torch_cuda_ax25_1200_rx_runs_on_kernel_a(cuda_device):
     assert kernels.LAUNCHES["fir_decimate"] > before
     assert got == frames
     assert got == [bytes(p) for p in ax25.ax25_1200_rx(audio, fs, device="cpu")]
+
+
+def _nrz_bank(seed, c, n, sps, sigma):
+    """Noisy NRZ of random bits, as bench.py's decode bank makes it."""
+    rng = np.random.RandomState(seed)
+    r = int(round(sps))
+    bits = rng.randint(0, 2, (c, n // r + 1)) * 2.0 - 1.0
+    x = np.repeat(bits, r, axis=1)[:, :n].astype(np.float32)
+    return x + rng.randn(c, n).astype(np.float32) * sigma
+
+
+@pytest.mark.parametrize("taps", [(0.5, 0.5), (1 / 6,) * 6])
+def test_torch_cuda_symbol_sync_scan_matches_plain_and_native(cuda_device, taps):
+    # kernel E: bit-equal to its plain version (mask, clocks, final state)
+    # and its emitted symbols to native rr_symbol_sync, channel by channel
+    x = _nrz_bank(44, 8, 4096, 36.75, 0.1)
+    x[7] = np.random.RandomState(45).randn(4096)  # chatter on every sample
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = kernels.LAUNCHES["symbol_sync_scan"]
+    (v, m, c), st = ops.symbol_sync(xt, 36.75, 0.5, taps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["symbol_sync_scan"] == before + 1
+    (_, pm, pc), pst = ops.symbol_sync(torch.from_numpy(x), 36.75, 0.5, taps)
+    assert torch.equal(m.cpu(), pm) and torch.equal(c.cpu(), pc)
+    for k in st:
+        assert torch.equal(st[k].cpu(), pst[k]), k
+    for ch in range(8):
+        np.testing.assert_array_equal(
+            ops.compact(v[ch], m[ch]).cpu().numpy(),
+            native.symbol_sync_f32(x[ch], 36.75, 0.5, taps))
+    # chunks with the state carried on the card give the whole stream
+    (_, m1, _), s1 = ops.symbol_sync(xt[:, :1500], 36.75, 0.5, taps)
+    (_, m2, _), s2 = ops.symbol_sync(xt[:, 1500:], 36.75, 0.5, taps, state=s1)
+    assert torch.equal(torch.cat([m1, m2], 1), m)
+
+
+@pytest.mark.parametrize("taps", [(0.5, 0.5), (1 / 6,) * 6])
+def test_torch_cuda_symbol_sync_events_matches_plain(cuda_device, taps):
+    # kernel D: mask, clocks, valid and the carried state bit-equal to its
+    # plain version, whole and in chunks; an overflowing channel is flagged
+    x = _nrz_bank(46, 8, 1 << 14, 36.75, 0.1)
+    x[7] = np.random.RandomState(47).randn(1 << 14)
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = kernels.LAUNCHES["symbol_sync_events"]
+    (_, m, c), valid, st = ops.symbol_sync_events(
+        xt, 36.75, 0.5, taps, max_events=1024, return_state=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["symbol_sync_events"] == before + 1
+    (_, pm, pc), pvalid, pst = ops.symbol_sync_events(
+        torch.from_numpy(x), 36.75, 0.5, taps, max_events=1024,
+        return_state=True)
+    assert valid[:7].all() and not valid[7]
+    assert torch.equal(valid.cpu(), pvalid)
+    # channel 7 overflowed its budget: its outputs are not compared
+    assert torch.equal(m[:7].cpu(), pm[:7]) and torch.equal(c[:7].cpu(), pc[:7])
+    for k in st["ev"]:
+        assert torch.equal(st["ev"][k][:7].cpu(), pst["ev"][k][:7]), k
+    (_, m1, _), _, s1 = ops.symbol_sync_events(xt[:7, :6000], 36.75, 0.5, taps,
+                                               max_events=512, return_state=True)
+    (_, m2, _), v2, _ = ops.symbol_sync_events(xt[:7, 6000:], 36.75, 0.5,
+                                               taps, max_events=1024, state=s1)
+    assert v2.all() and torch.equal(torch.cat([m1, m2], 1), m[:7])
+
+
+def test_torch_cuda_symbol_sync_events_scan_padding_tail(cuda_device):
+    # kernel D stops at each channel's first padding slot and fills the
+    # tail in parallel: every slot's state and the final state bit-equal
+    # to the plain version, with tails of different lengths per channel
+    x = torch.from_numpy(_nrz_bank(48, 5, 1 << 13, 26.67, 0.1))
+    x[1, 3000:] = 1.0  # no crossing after sample 3000
+    x[2] = 1.0  # none at all
+    n = x.shape[1]
+    sign = x > 0
+    changed = torch.cat([sign[:, :1], sign[:, 1:] != sign[:, :-1]], 1)
+    budget = 1 << 12
+    events = torch.full((5, budget), n, dtype=torch.int32)
+    for c in range(5):
+        pos = torch.nonzero(changed[c]).flatten()[:budget]
+        events[c, : len(pos)] = pos.to(torch.int32)
+    fstate = torch.tensor([[26.67, 14.335, 1.0, 26.67]] * 5)
+    istate = torch.tensor([[-1, 0, 0]] * 5, dtype=torch.int32)
+    args = (26.67, 0.5, (0.5, 0.5))
+    want = kernels.symbol_sync_events_scan_plain(events, n, *args, fstate, istate)
+    got = kernels.symbol_sync_events_scan(
+        events.to(cuda_device), n, *args, fstate.to(cuda_device),
+        istate.to(cuda_device))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("sync", ["scan", "events"])
+def test_torch_cuda_decode_band_runs_on_kernels(cuda_device, sync):
+    fs, payload = 512_000.0, b"CARD BAND FRAME"
+    bits = ops.hdlc_frame(ops.fcs_add(np.frombuffer(payload, np.uint8)))
+    line = ops.nrzi_encode(torch.from_numpy(bits)).numpy()
+    sps = 32_000.0 / 1200.0
+    at = np.minimum((np.arange(int(len(line) * sps)) / sps).astype(int),
+                    len(line) - 1)
+    a = np.sin(np.cumsum(2 * np.pi * np.where(line[at] == 1, 1200.0, 2200.0)
+                         / 32_000.0))
+    up = np.repeat(np.concatenate([np.zeros(400), 0.8 * a, np.zeros(400)]), 16)
+    t = np.arange(len(up)) / fs
+    iq = np.exp(1j * (2 * np.pi * np.cumsum(3000.0 * up) / fs
+                      + 2 * np.pi * 5 * fs / 16 * t)).astype(np.complex64)
+    key = "symbol_sync_events" if sync == "events" else "symbol_sync_scan"
+    before = dict(kernels.LAUNCHES)
+    res = multichannel.decode_band_ax25(iq, fs, n_channels=16, max_active=3,
+                                        sync_method=sync, device=cuda_device)
+    assert kernels.LAUNCHES[key] > before[key]
+    assert kernels.LAUNCHES["fir_decimate"] > before["fir_decimate"]
+    got = {r.channel: [bytes(p) for p in r.packets] for r in res}
+    assert got == {5: [payload]}
+    cpu = multichannel.decode_band_ax25(iq, fs, n_channels=16, max_active=3,
+                                        sync_method=sync, device="cpu")
+    assert {r.channel: [bytes(p) for p in r.packets] for r in cpu} == got
