@@ -23,8 +23,19 @@ just after, so that each shows it went through its kernels:
   against its plain version (E also against native) on the arguments
   that these paths gave it.
 
-Then it times kernel beside plain version (or native), and the AX.25
-decode split into its device front-end and host tail.
+Kernels A and B are also held against their plain versions where their
+register-blocked design can break (every start residue of the 16-byte
+load grid, spans past both ends of a plane, counts around a tile, tap
+counts around the register block, large decimations), and the Graph
+device loop's CUDA-graph replay against its eager loop (bit-equal folds
+at two offsets).
+
+Then it times kernel beside plain version (or native): per call in a
+stream of calls, and the device time alone (ten calls replayed from a
+captured CUDA graph, inputs rotated so that the L2 cache starts cold),
+beside each kernel's bound on this card, the library call where one
+computes the same function, and the wrappers' host cost per call; and the
+AX.25 decode split into its device front-end and host tail.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -81,6 +92,46 @@ WB_DEV = 3_000.0          # FM at 3 kHz deviation,
 WB_NOISE = 0.05           # complex noise per component
 WB_FLOOR = 196            # frames of 200 decoded per sync method
 PFB_CH, N_PFB = 256, 1 << 22  # bench.py's channelizer row (bench.py:194-209)
+# the card's peaks (NVIDIA H100 SXM data sheet): device memory, f32
+# outside the tensor cores, and the boost clock the cycle counts below
+# are turned into time with
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+SM_HZ = 1.755e9
+# the loop-carried dependent chains of csrc/symbol_sync.cu, at 4 cycles per
+# dependent f32 operation and 36 per IEEE division.  Kernel D, a real
+# slot: gap and t0_raw (3 operations), ted_reduce (1 division, 6
+# operations, then 6 steps of 3), the clock filter, clamp and new clock
+# (order + 5), the next middle (2 divisions, 7 operations): 39 + order
+# operations and 3 divisions.  Kernel E, every sample: the position's add
+# and the step-back compare (2); a sample whose crossing is applied adds
+# the interval and its tests (2), the filter, clamp and clock (order + 5),
+# one division, and the middle's add and compare (2): 9 + order operations
+# and 1 division.  The same counts, a division as one operation, are the
+# kernels' operations in their bytes-and-operations bound.
+
+
+def d_slot_ops(order: int) -> tuple[int, int]:
+    """(f32 operations, divisions) of one real slot of kernel D."""
+    return 39 + order, 3
+
+
+E_SAMPLE_OPS = 2
+
+
+def e_crossing_ops(order: int) -> tuple[int, int]:
+    """(f32 operations, divisions) that an applied crossing adds in kernel E."""
+    return 9 + order, 1
+
+
+def chain_cycles(ops: int, divisions: int) -> int:
+    """Cycles of a dependent chain of these operations."""
+    return 4 * ops + 36 * divisions
+
+
+# outputs from which the FIR core's launcher takes its widest shape (two
+# blocks of 1024 outputs per SM)
+WIDE = 264 * 1024
 SEED = 0
 DEVICE = "cuda"
 
@@ -321,6 +372,60 @@ def event_ms(fn, ctx, calls: int) -> float:
     return s.elapsed_time(e) / calls
 
 
+def graph_ms(fn, reps: int = 5, calls: int = 10) -> float:
+    """Device ms per call without the host: ``fn(k)`` for k < ``calls``
+    captured once into a CUDA graph (after a warm-up on a side stream),
+    median over ``reps`` replays between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(calls):
+            fn(k)
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e) / calls)
+    return statistics.median(ts)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call: the wall time of ``calls`` calls with
+    no synchronise between them (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over its memory rate and the f32 operations
+    over its peak."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def fir_bound(n: int, ntaps: int, deci: int, rows: int = 1):
+    """Kernel A: n f32 in and ceil(n/deci) out per row, ntaps FMA each."""
+    m = -(-n // deci)
+    return bound(rows * 4 * (n + m), rows * 2 * m * ntaps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -488,6 +593,123 @@ def main() -> int:
     del got_c, want_c
     end_phase("3")
 
+    # ---- 3e. kernels A and B where the register-blocked design can break:
+    # one line per group, the case nearest its tolerance
+    def worst(what: str, cases) -> float:
+        cases = list(cases)
+        err, tol = max(cases, key=lambda c: c[0] / c[1])
+        report("3 edges", f"{what} ({len(cases)} cases)", err, tol)
+        return err
+
+    def slow_planes(n: int, ntaps: int, deci: int, precision: str):
+        """Wire-grid I/Q planes of an FM signal slow enough to pass a
+        unit-gain ``ntaps`` low-pass at full amplitude, and to turn by at
+        most 1 rad per output at ``deci``: no angle comes near +-pi, where
+        the last bit of the conjugate product picks the branch."""
+        d = min(0.9, 2.0 / ntaps, 1.0 / deci)
+        t = torch.arange(n, dtype=torch.float64, device=dev)
+        ph = torch.cumsum(d * torch.sin(t * (2e-3 * d)), 0)
+        out = []
+        for f in (torch.cos, torch.sin):
+            v = 0.45 * f(ph) + 0.02 * torch.randn(n, generator=gen, device=dev,
+                                                  dtype=torch.float64)
+            out.append(kernels.plane_cast(
+                (torch.round(torch.clamp(v * 128, -127, 128)) / 128).float(),
+                precision))
+        return out
+
+    def unit_lp(ntaps: int) -> np.ndarray:
+        w = np.hamming(ntaps) if ntaps > 1 else np.ones(1)
+        return (w / w.sum()).astype(np.float32)
+
+    def span_case(precision, ntaps, deci, first, count, shift, length):
+        """(err, tol) of kernel B's audio and of its last filtered sample
+        against the plain version on one span."""
+        a, b = slow_planes(length, ntaps, deci, precision)
+        kw = dict(first=first, count=count, shift=shift, precision=precision,
+                  offset=0.01, seed=(0.3, -0.2))
+        got, last = kernels.fm_chain_span(a, b, unit_lp(ntaps), deci, 0.9, **kw)
+        want, wlast = kernels.fm_chain_span_plain(a, b, unit_lp(ntaps), deci,
+                                                  0.9, **kw)
+        return [(max_err(got, want), BUDGET[precision]),
+                (max_err(last, wlast), 2e-5)]
+
+    # an input this small gets small tiles of 4 outputs a thread from the
+    # launcher; from WIDE outputs on it takes its widest shape (8 outputs a
+    # thread, tiles of 1024, and for deci 1, 2 and 4 the staging compiled
+    # with deci known), the shape of every full-size call: each case runs at
+    # its own count and again with WIDE outputs more
+    for extra in (0, WIDE):
+        size = f"+{extra} outputs"
+        tap_deci = [(1, 1), (7, 1), (9, 1), (3, 4), (5, 4), (49, 4), (49, 3),
+                    (1205, 1), (4096, 1), (4096, 50), (1, 50), (49, 50)]
+        errs["fm_chain"] = max(
+            errs["fm_chain"],
+            worst(f"{size}: fm_chain_span: the span starts at every "
+                  "residue of the 16-byte grid (f32, bf16, s8)",
+                  (c for prec, v in (("highest", 4), ("w3", 8), ("i8", 16))
+                   for r in range(v)
+                   for c in span_case(prec, 49, DECI, 3, 2500 + extra, -48 + r,
+                                      (1 << 15) + DECI * extra))),
+            worst(f"{size}: fm_chain_span: taps 1..4096, deci 1, 3, 4, "
+                  "50, spans past both ends of the plane (pad 0, -1 for "
+                  "s8)",
+                  (c for nt, d in tap_deci for prec in ("w3", "i8")
+                   for c in span_case(prec, nt, d, 0, 1500 + extra, 1 - nt,
+                                      (1500 + extra) * d + nt - 7))),
+            worst(f"{size}: fm_chain_span: counts 1, 2 and around a tile "
+                  "of 1024 and 2048",
+                  (c for cnt in (1, 2, 1023, 1024, 1025, 2047, 2049)
+                   for prec in ("w3", "i8")
+                   for c in span_case(prec, 49, DECI, 7, cnt + extra, -48,
+                                      (1 << 14) + DECI * extra))),
+            worst(f"{size}: fm_chain_span: a window that ends at the "
+                  "plane's last sample",
+                  (c for prec in ("w3", "i8")
+                   for c in span_case(prec, 49, DECI, 4096, 4096 + extra, 0,
+                                      (4096 + 4096 + extra - 1) * DECI + 49))))
+
+        def fir_cases():
+            for nt, d in [(1, 1), (3, 1), (5, 1), (7, 1), (9, 1), (49, 4), (49, 3),
+                          (65, 2), (1205, 1), (4096, 1), (4096, 50), (1, 50)]:
+                taps = np.random.RandomState(nt + d).randn(nt).astype(np.float32)
+                for n in (1, 1023 * 4, 1025 * 4 + 1, (1 << 16) + 3):
+                    n += extra * d
+                    base = torch.randn(n + 3, generator=gen, device=dev)
+                    for off in range(4):  # every residue of the 16-byte grid
+                        x = base[off : off + n]
+                        want = kernels.fir_decimate_plain(x, taps, d)
+                        yield (max_err(kernels.fir_decimate(x, taps, d), want),
+                               2e-5 * max(float(want.abs().max()), 1e-3))
+
+        errs["fir_decimate"] = max(errs["fir_decimate"], worst(
+            f"{size}: fir_decimate: taps 1..4096, deci 1..50, 1 to 2^16+3 "
+            "samples and up, every start residue", fir_cases()))
+    xc_edge = torch.complex(torch.randn((1 << 16) + 5, generator=gen, device=dev),
+                            torch.randn((1 << 16) + 5, generator=gen, device=dev))
+    before_edge = kernels.LAUNCHES["fir_decimate"]
+    both_planes = kernels.fir_decimate(xc_edge, lpr, DECI)
+    one_launch = kernels.LAUNCHES["fir_decimate"] - before_edge
+    each_plane = torch.complex(
+        kernels.fir_decimate(xc_edge.real.contiguous(), lpr, DECI),
+        kernels.fir_decimate(xc_edge.imag.contiguous(), lpr, DECI))
+    report("3 edges", f"fir_decimate complex input, real taps: {one_launch} "
+           "launch, against two 1-plane launches",
+           max_err(torch.view_as_real(both_planes),
+                   torch.view_as_real(each_plane)), 0.0)
+    if one_launch != 1:
+        failures.append(f"complex input took {one_launch} kernel-A launches")
+    null_seed = kernels.fm_chain_span(*packed["w3"], lpr, DECI, first=0,
+                                      count=4096, shift=3, precision="w3")
+    zero_seed = kernels.fm_chain_span(*packed["w3"], lpr, DECI, first=0,
+                                      count=4096, shift=3, precision="w3",
+                                      seed=(0.0, 0.0))
+    report("3 edges", "fm_chain_span without a seed == with the zero seed",
+           max(max_err(null_seed[0], zero_seed[0]),
+               max_err(null_seed[1], zero_seed[1])), 0.0)
+    del xc_edge, both_planes, each_plane
+    end_phase("3 edges")
+
     # ---- 4 + 5. the FM path, counted
     zero_counts()
     outs = {}
@@ -501,7 +723,7 @@ def main() -> int:
 
     ring_i, ring_q, _ = rtl_fm_iq(RING, dev, gen)
 
-    def build_graph():
+    def build_graph(cuda_graph=True):
         g = Graph()
         src = g.add(blocks.PackedIqRingSource(ring_i, ring_q, lpr, DECI,
                                               precision="w3"))
@@ -509,20 +731,28 @@ def main() -> int:
         qd = g.add(blocks.QuadratureDemod(1.0), fir)
         g.add(blocks.DeviceFoldSink(fn=lambda c, x: c + x.sum() + (x * x).sum()),
               qd)
-        return g.compile_device_loop(N_MAIN, N_CHUNKS, device=dev)
+        return g.compile_device_loop(N_MAIN, N_CHUNKS, device=dev,
+                                     cuda_graph=cuda_graph)
 
+    # the device loop's first call runs the loop once eagerly (its warm-up),
+    # captures it into a CUDA graph and replays it; later calls only replay
     loop = build_graph()
-    fold = float(next(iter(loop(0).values())))
+    fold_t = next(iter(loop(0).values()))
+    fold = float(fold_t)
     launches = dict(kernels.LAUNCHES)
     graph_launches = launches["fm_chain"] - after_models["fm_chain"]
+    fold_again = next(iter(loop(0).values()))
+    replay_launches = kernels.LAUNCHES["fm_chain"] - launches["fm_chain"]
     print(f"[4+5 main path] launches {json.dumps(launches)}; models "
           f"{json.dumps(after_models)}; graph fm_chain launches "
-          f"{graph_launches} for {N_CHUNKS} chunks")
+          f"{graph_launches} for {N_CHUNKS} chunks (warm-up and first replay), "
+          f"{replay_launches} for a replay alone")
     require("FM", launches, ("fir_decimate", "fm_chain"))
-    if min(after_models["fir_decimate"], after_models["fm_chain"]) < 2:
+    if after_models["fir_decimate"] < 1 or after_models["fm_chain"] < 2:
         failures.append("the models path launched fewer kernels than it calls")
-    if graph_launches != N_CHUNKS:
-        failures.append(f"graph launched fm_chain {graph_launches} times")
+    if graph_launches != 2 * N_CHUNKS or replay_launches != N_CHUNKS:
+        failures.append(f"graph launched fm_chain {graph_launches} then "
+                        f"{replay_launches} times")
 
     # ---- 4. checks of the models path
     with plain_versions():
@@ -550,9 +780,17 @@ def main() -> int:
         failures.append("models output")
     end_phase("4")
 
-    # ---- 5. the Graph against the same graph on the plain versions
+    # ---- 5. the captured loop against the eager loop (bit-equal folds, at
+    # two offsets), then against the same graph on the plain versions
+    eager_loop = build_graph(cuda_graph=False)
+    for offset0, got_fold in ((0, fold_t), (0, fold_again),
+                              (2 * N_MAIN, next(iter(loop(2 * N_MAIN).values())))):
+        want_fold = next(iter(eager_loop(offset0).values()))
+        report("5 graph", f"CUDA-graph replay == eager loop at offset0 "
+               f"{offset0} (fold {float(got_fold)!r})",
+               max_err(got_fold, want_fold), 0.0)
     with plain_versions():
-        plain_loop = build_graph()
+        plain_loop = build_graph(cuda_graph=False)
         plain_fold = float(next(iter(plain_loop(0).values())))
     rel = abs(fold - plain_fold) / abs(plain_fold)
     print(f"[5 graph] fold={fold!r} plain_fold={plain_fold!r} rel_err={rel:.3e}")
@@ -649,24 +887,83 @@ def main() -> int:
               f"Msps), plain {pms:.4f} ms ({n_in / pms / 1e3:.1f} Msps); "
               f"card: {card}")
 
+    dev_ms, bounds, lib_ms = {}, {}, {}
+
+    def device_row(name, fn_k, bound_pair, library=None):
+        """The device time of ``fn_k(k)`` alone (a replayed CUDA graph of
+        ten calls, ``k`` rotating the inputs so that L2 starts cold)
+        beside the stream time, the bound and the library call."""
+        dev_ms[name], bounds[name] = graph_ms(fn_k), bound_pair
+        lib_ms[name] = None
+        lib = ""
+        if library is not None:
+            event_ms(library, kernels._true_f32, 10)
+            lib_ms[name] = statistics.median(
+                event_ms(library, kernels._true_f32, 10) for _ in range(5))
+            lib = f"; library call {lib_ms[name]:.4f} ms"
+        stream = f"in a stream {rows[name][0]:.4f} ms; " if name in rows else ""
+        print(f"[8 times] {name}: device alone {dev_ms[name]:.4f} ms (10 calls "
+              f"replayed from a CUDA graph, median of 5), {stream}bound "
+              f"{bound_pair[0]:.4f} ms ({bound_pair[1]}), share of bound "
+              f"{bound_pair[0] / dev_ms[name]:.1%}{lib}; card: {card}")
+
     for precision in ("w3", "i8"):
         pr, pi = packed[precision]
+        copies = [(pr, pi)] + [(pr.clone(), pi.clone()) for _ in range(2)]
 
-        def run(pr=pr, pi=pi, precision=precision):
-            kernels.fm_chain(pr, pi, lpr, DECI, precision=precision, n=N_MAIN)
+        def run(k=0, copies=copies, precision=precision):
+            a, b = copies[k % len(copies)]
+            kernels.fm_chain(a, b, lpr, DECI, precision=precision, n=N_MAIN)
 
-        timed(f"fm_chain packed {precision} n=2^24", N_MAIN, run, run)
+        name = f"fm_chain packed {precision} n=2^24"
+        timed(name, N_MAIN, run, run)
+        device_row(name, run, bound(
+            2 * N_MAIN * pr.element_size() + 4 * (N_MAIN // DECI),
+            2 * 2 * (N_MAIN // DECI) * len(lpr)))
+        if precision == "w3":
+            b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
+                pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=N_MAIN)))
+        del copies
+    xgs = [xg] + [xg.clone() for _ in range(3)]
     for taps, deci in [(lpr, 4), (lp1205, 1)]:
-        def run(taps=taps, deci=deci):
-            kernels.fir_decimate(xg, taps, deci)
+        def run(k=0, taps=taps, deci=deci):
+            kernels.fir_decimate(xgs[k % len(xgs)], taps, deci)
 
-        timed(f"fir_decimate {len(taps)} taps deci {deci} n=2^22", N_FIR,
-              run, lambda taps=taps, deci=deci:
+        name = f"fir_decimate {len(taps)} taps deci {deci} n=2^22"
+        timed(name, N_FIR, run, lambda taps=taps, deci=deci:
               kernels.fir_decimate_plain(xg, taps, deci))
-    timed(f"graph device loop w3 {N_CHUNKS} x 2^24", N_CHUNKS * N_MAIN,
-          lambda: loop(0), lambda: plain_loop(0))
+        m = -(-N_FIR // deci)
+        padded = torch.nn.functional.pad(
+            xg, (len(taps) - 1, m * deci - N_FIR))[None, None]
+        w = kernels.tapset(taps).trev("highest", dev)[None, None]
+        device_row(name, run, fir_bound(N_FIR, len(taps), deci),
+                   library=lambda padded=padded, w=w, deci=deci:
+                   torch.nn.functional.conv1d(padded, w, stride=deci))
+    a_host = (host_us(lambda: kernels.fir_decimate(xg, lpr, DECI)),
+              host_us(lambda: kernels.fir_decimate(xg, kernels.tapset(lpr), DECI)))
+    print(f"[8 times] host cost per call, no synchronise between 200 calls: "
+          f"kernels.fm_chain packed w3 {b_host[0]:.1f} us with array taps, "
+          f"{b_host[1]:.1f} us with a TapSet; kernels.fir_decimate 49 taps "
+          f"{a_host[0]:.1f} us with array taps, {a_host[1]:.1f} us with a "
+          f"TapSet; card: {card}")
+    fft_ms = time_one(lambda: ops.fft_filter_float(xg, lp1205))
+    print(f"[8 times] the FFT route at 1205 taps n=2^22 (ops.fft_filter_float, "
+          f"torch.fft, no kernel): {fft_ms:.4f} ms beside kernel A's "
+          f"{rows['fir_decimate 1205 taps deci 1 n=2^22'][0]:.4f} ms; "
+          f"card: {card}")
+    del xgs
+    name = f"graph device loop w3 {N_CHUNKS} x 2^24"
+    timed(name, N_CHUNKS * N_MAIN, lambda: loop(0), lambda: plain_loop(0))
+    eager_ms = time_one(lambda: eager_loop(0))
+    loop_bound = bound(N_CHUNKS * (2 * N_MAIN * 2 + 4 * (N_MAIN // DECI)), 0.0)
+    print(f"[8 times] {name}: CUDA-graph replay {rows[name][0]:.4f} ms, eager "
+          f"loop {eager_ms:.4f} ms per loop (each with its final "
+          f"synchronise); kernel B's bound for the {N_CHUNKS} chunks "
+          f"{loop_bound[0]:.4f} ms; card: {card}")
     timed("quad_demod n=2^24", N_MAIN, lambda: ops.quad_demod_fast(xc, GAIN_C),
           lambda: kernels.quad_demod_fast_plain(xc, GAIN_C))
+    device_row("quad_demod n=2^24", lambda k: ops.quad_demod_fast(xc, GAIN_C),
+               bound(8 * N_MAIN + 4 * (N_MAIN - 1), 0.0))
     # the AX.25 decode of the corpus: wall time of the whole call, and of
     # its device front-end alone (synchronised); the rest is the host tail
     # (NRZ copy-back, native symbol sync, slicer, NRZI, HDLC)
@@ -679,6 +976,19 @@ def main() -> int:
               f"samples) on the {label}: {total_s * 1e3:.1f} ms wall, device "
               f"front-end {front_s * 1e3:.1f} ms, host tail "
               f"{(total_s - front_s) * 1e3:.1f} ms (median of 3); card: {card}")
+
+    # the front-end's three kernel-A launches alone, at the corpus' shape
+    parts = []
+    for label, taps in (
+            ("band-pass", tapgen.band_pass(FS_AUDIO, 400.0, 2700.0, 65, "hamming")),
+            ("Hilbert", tapgen.hilbert(65, "hamming")),
+            ("low-pass", tapgen.low_pass(FS_AUDIO, 1100.0, 200.0, "hamming"))):
+        ms = graph_ms(lambda k, taps=taps: kernels.fir_decimate(audio, taps, 1))
+        b_ms, by = fir_bound(audio.shape[0], len(taps), 1)
+        parts.append(f"{label} {len(taps)} taps {ms:.4f} ms (bound {b_ms:.4f} "
+                     f"ms, {by})")
+    print(f"[8 times] the AX.25 front-end's kernel-A launches alone on the "
+          f"device, {audio.shape[0]} samples: {'; '.join(parts)}; card: {card}")
 
     # ---- 9. clock recovery (kernels D and E) and the wideband receiver
     from rustradio_tpu_torch import native
@@ -920,12 +1230,60 @@ def main() -> int:
           f"cuFFT, no kernel): {pfb_ms:.4f} ms ({N_PFB / pfb_ms / 1e3:.1f} "
           f"Msps); card: {card}")
     del pfb_x
+    def chain_d(args):
+        """Kernel D's dependent-chain bound (ms) on these arguments: the
+        busiest channel's real slots times the cycles of one."""
+        events, n, _, _, clock_taps = args[:5]
+        real = int((events < n).sum(1).max())
+        cycles = chain_cycles(*d_slot_ops(len(clock_taps) - 1))
+        return real * cycles / SM_HZ * 1e3, f"{real} real slots x {cycles} cycles"
+
+    def ops_d(args) -> float:
+        """Kernel D's f32 operations on these arguments: every channel's
+        real slots times the operations of one."""
+        events, n, _, _, clock_taps = args[:5]
+        return float(int((events < n).sum()) * sum(d_slot_ops(len(clock_taps) - 1)))
+
+    def crossings_e(x):
+        """Sign changes per channel: kernel E's applied crossings at most."""
+        sign = x > 0
+        return (sign[:, 1:] != sign[:, :-1]).sum(1)
+
+    def chain_e(args):
+        """Kernel E's: every sample, plus the busiest channel's sign
+        changes as applied crossings."""
+        x, _, _, clock_taps = args[:4]
+        crossings = int(crossings_e(x).max())
+        per_sample = chain_cycles(E_SAMPLE_OPS, 0)
+        cycles = chain_cycles(*e_crossing_ops(len(clock_taps) - 1))
+        return ((x.shape[1] * per_sample + crossings * cycles) / SM_HZ * 1e3,
+                f"{x.shape[1]} samples x {per_sample} cycles + {crossings} "
+                f"crossings x {cycles}")
+
+    def ops_e(args) -> float:
+        x, _, _, clock_taps = args[:4]
+        return float(x.numel() * E_SAMPLE_OPS + int(crossings_e(x).sum())
+                     * sum(e_crossing_ops(len(clock_taps) - 1)))
+
+    chains = {}  # row -> (ms, what): kernels D and E, beside their bound
+
+    def chain_line(name, ms, chain):
+        chains[name] = chain
+        print(f"[9 times] {name}: dependent-chain bound {chain[0]:.4f} ms "
+              f"({chain[1]} at {SM_HZ / 1e9:.3f} GHz), share of it "
+              f"{chain[0] / ms:.1%}; card: {card}")
+
     d_args = captured("symbol_sync_events_scan", lambda: ops.symbol_sync_events(
         bank, BANK_SPS, max_events=BANK_EVENTS))
-    timed9(f"kernel D {BANK_CH} x {BANK_EVENTS} slots", *time_pair(
+    d_name = f"kernel D {BANK_CH} x {BANK_EVENTS} slots"
+    timed9(d_name, *time_pair(
         lambda: kernels.symbol_sync_events_scan(*d_args),
         lambda: kernels.symbol_sync_events_scan_plain(*d_args),
         contextlib.nullcontext, plain_calls=1))
+    # events in, both per-slot outputs out; the counted operations
+    device_row(d_name, lambda k: kernels.symbol_sync_events_scan(*d_args), bound(
+        12 * d_args[0].numel(), ops_d(d_args)))
+    chain_line(d_name, dev_ms[d_name], chain_d(d_args))
     op_ms, op_pms = time_pair(
         lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
         lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
@@ -945,18 +1303,25 @@ def main() -> int:
     e_ms = time_one(lambda: kernels.symbol_sync_scan(*e_args), calls=3)
     timed9(f"kernel E {BANK_CH} x 2^16", e_ms, nat_s * 1e3,
            f"native rr_symbol_sync on the host, {BANK_CH} channels in turn,")
+    chain_line(f"kernel E {BANK_CH} x 2^16", e_ms, chain_e(e_args))
     p_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(prefix, BANK_SPS))
-    timed9(f"kernel E {BANK_CH} x 2^12 prefix", *time_pair(
+    e_name = f"kernel E {BANK_CH} x 2^12 prefix"
+    timed9(e_name, *time_pair(
         lambda: kernels.symbol_sync_scan(*p_args),
         lambda: kernels.symbol_sync_scan_plain(*p_args),
         contextlib.nullcontext, plain_calls=1))
+    # samples in, a mask byte and a clock out; the counted operations
+    device_row(e_name, lambda k: kernels.symbol_sync_scan(*p_args), bound(
+        9 * p_args[0].numel(), ops_e(p_args)))
+    chain_line(e_name, dev_ms[e_name], chain_e(p_args))
     for name, args in path_args.items():
-        fn = (kernels.symbol_sync_events_scan if name.startswith("kernel D")
-              else kernels.symbol_sync_scan)
+        is_d = name.startswith("kernel D")
+        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
         ms = time_one(lambda: fn(*args), calls=3)
         print(f"[9 times] {name}, the path's own arguments "
               f"({args[0].shape[0]} x {args[0].shape[1]}): kernel {ms:.4f} ms; "
               f"card: {card}")
+        chain_line(name, ms, (chain_d if is_d else chain_e)(args))
     front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO))
     for sync in ("native", "events"):
         total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync=sync))
@@ -970,44 +1335,45 @@ def main() -> int:
               f"samples: {wb_s * 1e3:.1f} ms wall (median of 3; first call "
               f"{wb_first[method] * 1e3:.1f} ms); card: {card}")
 
+    def entry(name, source, replaces, n_launches, row):
+        """One kernel of the record: its launches on its paths, its error
+        against the plain version, its time in a stream of calls (``ms``)
+        and alone on the device, the plain version's, the bound computed
+        from this run's inputs (bytes over the memory rate or operations
+        over the f32 peak), and the library call's where one exists.  One
+        thread per channel (kernels D and E) is held by neither: its entry
+        also has ``chain_bound_ms``, the dependent chain of the busiest
+        channel counted from the source, and what it was counted from."""
+        out = {"name": name, "route": "cuda",
+               "source": f"rustradio_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": n_launches,
+               "max_abs_err": errs[name], "ms": rows[row][0],
+               "plain_ms": rows[row][1], "device_ms": dev_ms[row],
+               "bound_ms": bounds[row][0], "bound_by": bounds[row][1],
+               "library_ms": lib_ms[row]}
+        if row in chains:
+            out["chain_bound_ms"], out["chain"] = chains[row]
+        return out
+
     record = {"kernels": [
-        {"name": "fir_decimate", "route": "cuda",
-         "source": "rustradio_tpu_torch/csrc/fir_decimate.cu",
-         "replaces": "rustradio_tpu/ops/pallas_kernels.py:202",
-         "launches": (launches["fir_decimate"] + ax_counts["fir_decimate"]
-                      + iq_counts["fir_decimate"]),
-         "max_abs_err": errs["fir_decimate"],
-         "ms": rows["fir_decimate 49 taps deci 4 n=2^22"][0],
-         "plain_ms": rows["fir_decimate 49 taps deci 4 n=2^22"][1]},
-        {"name": "fm_chain", "route": "cuda",
-         "source": "rustradio_tpu_torch/csrc/fm_chain.cu",
-         "replaces": "rustradio_tpu/ops/pallas_kernels.py:394,448,553",
-         "launches": launches["fm_chain"],
-         "max_abs_err": errs["fm_chain"],
-         "ms": rows["fm_chain packed w3 n=2^24"][0],
-         "plain_ms": rows["fm_chain packed w3 n=2^24"][1]},
-        {"name": "quad_demod", "route": "cuda",
-         "source": "rustradio_tpu_torch/csrc/quad_demod.cu",
-         "replaces": "rustradio_tpu/ops/pallas_kernels.py:91",
-         "launches": op_counts["quad_demod"],
-         "max_abs_err": errs["quad_demod"],
-         "ms": rows["quad_demod n=2^24"][0],
-         "plain_ms": rows["quad_demod n=2^24"][1]},
-        {"name": "symbol_sync_events", "route": "cuda",
-         "source": "rustradio_tpu_torch/csrc/symbol_sync.cu",
-         "replaces": "rustradio_tpu/ops/symbol_sync.py:305",
-         "launches": (ev_counts["symbol_sync_events"]
-                      + wb_counts["events"]["symbol_sync_events"]),
-         "max_abs_err": errs["symbol_sync_events"],
-         "ms": rows[f"kernel D {BANK_CH} x {BANK_EVENTS} slots"][0],
-         "plain_ms": rows[f"kernel D {BANK_CH} x {BANK_EVENTS} slots"][1]},
-        {"name": "symbol_sync_scan", "route": "cuda",
-         "source": "rustradio_tpu_torch/csrc/symbol_sync.cu",
-         "replaces": "rustradio_tpu/ops/symbol_sync.py:145",
-         "launches": wb_counts["scan"]["symbol_sync_scan"],
-         "max_abs_err": errs["symbol_sync_scan"],
-         "ms": rows[f"kernel E {BANK_CH} x 2^12 prefix"][0],
-         "plain_ms": rows[f"kernel E {BANK_CH} x 2^12 prefix"][1]},
+        entry("fir_decimate", "fir_decimate.cu",
+              "rustradio_tpu/ops/pallas_kernels.py:202",
+              launches["fir_decimate"] + ax_counts["fir_decimate"]
+              + iq_counts["fir_decimate"],
+              "fir_decimate 49 taps deci 4 n=2^22"),
+        entry("fm_chain", "fm_chain.cu",
+              "rustradio_tpu/ops/pallas_kernels.py:394,448,553",
+              launches["fm_chain"], "fm_chain packed w3 n=2^24"),
+        entry("quad_demod", "quad_demod.cu",
+              "rustradio_tpu/ops/pallas_kernels.py:91",
+              op_counts["quad_demod"], "quad_demod n=2^24"),
+        entry("symbol_sync_events", "symbol_sync.cu",
+              "rustradio_tpu/ops/symbol_sync.py:305",
+              ev_counts["symbol_sync_events"]
+              + wb_counts["events"]["symbol_sync_events"], d_name),
+        entry("symbol_sync_scan", "symbol_sync.cu",
+              "rustradio_tpu/ops/symbol_sync.py:145",
+              wb_counts["scan"]["symbol_sync_scan"], e_name),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

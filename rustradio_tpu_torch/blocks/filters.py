@@ -26,9 +26,13 @@ class FirFilter(Block):
         self.deci = deci
         kernels.plane_dtype(precision)
         self.precision = precision
+        # real taps: the record the kernels' wrappers derive everything
+        # from, made once (complex taps are split per call)
+        self._taps = (self.taps if np.iscomplexobj(self.taps)
+                      else kernels.tapset(self.taps))
 
     def apply(self, x):
-        return fir_filter(x, self.taps, self.deci)
+        return fir_filter(x, self._taps, self.deci)
 
     def init_state(self):
         return {"buf": torch.zeros(0), "out_off": 0}
@@ -41,6 +45,6 @@ class FirFilter(Block):
         if buf.shape[0] < len(self.taps):
             return {"buf": buf, "out_off": out_off}, buf.new_zeros(0)
         n_out = (buf.shape[0] - len(self.taps)) // self.deci + 1
-        y = fir_filter(buf, self.taps, self.deci)
+        y = fir_filter(buf, self._taps, self.deci)
         return {"buf": buf[n_out * self.deci :].clone(),
                 "out_off": out_off + n_out}, y

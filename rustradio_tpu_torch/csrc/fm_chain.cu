@@ -12,13 +12,16 @@
 // the flat, packed and windowed entry points: the caller gives the plane,
 // its length and the index shift that maps output o to its input span.
 //
-// Each block computes the filtered I and Q for its outputs PLUS the one
-// filtered sample before them, so the discriminator at a block's first
-// output needs no seam repair (the TPU kernels fixed their tile seams
-// outside the kernel, pallas_kernels.py:1017-1043, or carried them through
-// a sequential grid).  The window's first output takes y[first-1] from
-// `seed`; the thread that owns the window's last filtered sample writes it
-// to `last`, so chunked launches compose into one continuous stream.
+// Each block stages one column more than its tile needs, and a helper
+// warp (one lane per plane) computes the one filtered sample before the
+// tile while the other warps compute theirs, in the same tap order and so
+// to the same bits as the neighbouring block; the discriminator at a
+// block's first output therefore needs no seam repair (the TPU kernels
+// fixed their tile seams outside the kernel, pallas_kernels.py:1017-1043,
+// or carried them through a sequential grid).  The window's first output
+// takes y[first-1] from `seed` (a null pointer means zeros); the thread
+// that owns the window's last filtered sample writes it to `last`, so
+// chunked launches compose into one continuous stream.
 //
 // Precision modes keep the JAX contracts (plane dtype and error budget),
 // not the MXU mechanics: the host folds the 2/3 exact bf16 tap terms
@@ -28,107 +31,125 @@
 // whose value is x = (v + 1) / 128).
 //
 // What bounds it on an H100: device memory.  It reads 2 B (bf16) or 1 B
-// (s8) per sample per plane and writes 4 B per output (deci 4: about 5 B
-// per input sample at w3, 3 B at i8), against about 26 FMA per input
-// sample at 49 taps.  The design keeps every intermediate (filtered
-// planes, products, angles) in shared memory and registers; planes are
-// read once with coalesced loads (plus a halo of ntaps samples per block).
-// Later work: bf16 wgmma for w2/w3 and s8 IMMA for i8 (exact s32 under the
-// same |acc| < 2^24 bound), TMA pipelining of the plane reads, and register
-// blocking of several outputs per thread.
+// (s8) per sample per plane and writes 4 B per output: at deci 4 and 2^24
+// samples 83.9 MB (w3) or 50.3 MB (i8), 25 or 15 us at 3.35 TB/s, against
+// 411 M FMA (12 us).  What the design does about it is the core's
+// (fir_core.cuh): the planes come in as 16-byte vectors (8 bf16 or 16 s8)
+// with the ends masked, tiles start at multiples of the tile size, and
+// each thread computes R consecutive outputs of both planes from register
+// windows, so the 49-tap dot product costs about a sixth of the
+// shared-memory loads of one output per thread.  Measured at 39% (w3) and
+// 25% (i8) of the memory bound on an H100 at 700 W; what is left is in
+// fir_core.cuh.  Every intermediate (filtered planes, products, angles) stays in
+// shared memory and registers; each thread writes its R outputs as float4.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fast_atan2.cuh"
+#include "fir_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kMaxSmem = 227 * 1024;
+using namespace rr::fir;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+constexpr int kHelper = 32;  // the warp that computes the sample before the tile
 
 // Filtered sample o:  y[o] = scale * sum_k trev[k] * X(o*deci + shift + k) + dc,
 // X(p) = plane[p] for 0 <= p < L, else `pad`.
 // Output j in [0, count):  out[j] = gain * fast_atan2(conj(y[first+j-1]) * y[first+j]),
 // with y[first-1] taken from seed.  last = y[first+count-1].
 //
-// Block b holds blockDim.x filtered samples, t = 0..blockDim.x-1, sample t
-// being y[first + j0 - 1 + t] with j0 = b * (blockDim.x - 1); it writes
-// outputs j0 .. j0 + blockDim.x - 2.
-// Dynamic shared memory: [taps | I span | Q span | y_I | y_Q].
-template <typename T>
-__global__ void fm_chain_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                                long long L, long long shift, float pad,
-                                const float* __restrict__ trev, int ntaps, int deci,
-                                long long first, long long count, float scale,
-                                float dc, float gain, const float* __restrict__ seed,
-                                float* __restrict__ out, float* __restrict__ last) {
-  extern __shared__ float smem[];
-  const int ny = blockDim.x;
-  const int span_len = (ny - 1) * deci + ntaps;
-  const int q_len = (span_len + deci - 1) / deci;
-  float* taps = smem;
-  float* sr = taps + ntaps;
-  float* si = sr + q_len * deci;
-  float* yr = si + q_len * deci;
-  float* yi = yr + ny;
+// Block b computes outputs [b*tile, (b+1)*tile); thread t < nmain owns R
+// of them, threads nmain and nmain + 1 the filtered I and Q before the tile.
+// Dynamic shared memory:
+// [taps | I rows | Q rows | prev I (nmain + 1) | prev Q (nmain + 1)].
+// The launch bounds cap the registers at 75 a thread: shared memory lets
+// five blocks of the usual shape (128 + 32 threads) share an SM, and the
+// staging pass would otherwise take registers that leave room for three.
+template <typename T, int R, int D>
+__global__ void __launch_bounds__(256 + kHelper, 3)
+fm_chain_kernel(const T* __restrict__ xr, const T* __restrict__ xi, long long L,
+                long long shift, float pad, const float* __restrict__ trev, Tile g,
+                long long first, long long count, float scale, float dc, float gain,
+                const float* __restrict__ seed, float* __restrict__ out,
+                float* __restrict__ last) {
+  extern __shared__ __align__(16) float smem[];
+  const int nmain = blockDim.x - kHelper;
+  const int plane_stride = g.nphase * g.row_len;
+  float* hp = smem;
+  float* span = hp + g.nphase * g.tstride;
+  float* prev_r = span + 2 * plane_stride;
+  float* prev_i = prev_r + nmain + 1;
 
-  const long long j0 = (long long)blockIdx.x * (ny - 1);
-  const long long p0 = (first + j0 - 1) * deci + shift;
-
-  for (int k = threadIdx.x; k < ntaps; k += blockDim.x) taps[k] = trev[k];
-  for (int i = threadIdx.x; i < span_len; i += blockDim.x) {
-    const long long p = p0 + i;
-    const bool in = p >= 0 && p < L;
-    const int s = (i % deci) * q_len + i / deci;
-    sr[s] = in ? to_f32(xr[p]) : pad;
-    si[s] = in ? to_f32(xi[p]) : pad;
-  }
+  const long long j0 = (long long)blockIdx.x * g.tile;
+  const long long p0 = (first + j0 - 1) * g.deci + shift;  // one column of lead
+  stage_taps<D>(hp, trev, g, threadIdx.x, blockDim.x);
+  const T* const planes[2] = {xr, xi};
+  stage_span<T, R, D, 2>(span, plane_stride, g, planes, L, p0, pad, threadIdx.x,
+                         blockDim.x);
   __syncthreads();
 
   const int t = threadIdx.x;
-  float ar = 0.0f, ai = 0.0f;
-  for (int r = 0; r < deci; ++r) {
-    const float* rowr = sr + r * q_len + t;
-    const float* rowi = si + r * q_len + t;
-    for (int k = r, q = 0; k < ntaps; k += deci, ++q) {
-      const float w = taps[k];
-      ar = fmaf(w, rowr[q], ar);
-      ai = fmaf(w, rowi[q], ai);
+  const long long jt = j0 + (long long)t * R;  // this thread's first output
+  const bool active = t < nmain && t * R < g.tile && jt < count;
+  float fr[R], fi[R];
+  if (active) {
+    float acc[2][R];
+    accumulate<R, 2, 1>(span, plane_stride, g, hp, t, acc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      fr[r] = fmaf(acc[0][r], scale, dc);
+      fi[r] = fmaf(acc[1][r], scale, dc);
+      if (jt + r == count - 1) {
+        last[0] = fr[r];
+        last[1] = fi[r];
+      }
     }
-  }
-  float fr = fmaf(ar, scale, dc);
-  float fi = fmaf(ai, scale, dc);
-  const long long jt = j0 - 1 + t;  // this sample is y[first + jt]
-  if (jt < 0) {
-    fr = seed[0];
-    fi = seed[1];
-  }
-  yr[t] = fr;
-  yi[t] = fi;
-  if (jt == count - 1) {
-    last[0] = fr;
-    last[1] = fi;
+    prev_r[t + 1] = fr[R - 1];
+    prev_i[t + 1] = fi[R - 1];
+  } else if (t >= nmain && t < nmain + 2) {
+    const int pl = t - nmain;
+    float v;
+    if (j0 == 0) {
+      v = seed != nullptr ? seed[pl] : 0.0f;
+    } else {
+      v = fmaf(accumulate_one<R>(span + pl * plane_stride, g, hp), scale, dc);
+    }
+    (pl ? prev_i : prev_r)[0] = v;
   }
   __syncthreads();
 
-  if (t >= 1 && jt < count) {
-    const float pr = yr[t - 1], pi = yi[t - 1];
-    const float dr = pr * fr + pi * fi;
-    const float di = pr * fi - pi * fr;
-    out[jt] = gain * rr::fast_atan2f(di, dr);
+  if (active) {
+    float pr = prev_r[t], pi = prev_i[t];
+    float res[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float dr = pr * fr[r] + pi * fi[r];
+      const float di = pr * fi[r] - pi * fr[r];
+      res[r] = gain * rr::fast_atan2f(di, dr);
+      pr = fr[r];
+      pi = fi[r];
+    }
+    store_run<R>(out + jt, res, count - jt);
   }
 }
 
-size_t smem_bytes(int threads, int ntaps, int deci) {
-  const long long span_len = (long long)(threads - 1) * deci + ntaps;
-  const long long q_len = (span_len + deci - 1) / deci;
-  return sizeof(float) * (size_t)(ntaps + 2 * q_len * deci + 2 * threads);
+template <typename T, int R, int D>
+int launch_r(const void* xr, const void* xi, long long L, long long shift, float pad,
+             const void* trev, int ntaps, int deci, long long first, long long count,
+             float scale, float dc, float gain, const void* seed, void* out,
+             void* last, const Shape& s, size_t smem, cudaStream_t stream) {
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(fm_chain_kernel<T, R, D>, smem, &allowed);
+  if (e != cudaSuccess) return (int)e;
+  const Tile g = make_tile<R>(s.tile, 1, ntaps, deci);
+  const long long blocks = (count + s.tile - 1) / s.tile;
+  fm_chain_kernel<T, R, D><<<(unsigned)blocks, s.threads + kHelper, smem, stream>>>(
+      (const T*)xr, (const T*)xi, L, shift, pad, (const float*)trev, g, first, count,
+      scale, dc, gain, (const float*)seed, (float*)out, (float*)last);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -136,27 +157,31 @@ int launch(const void* xr, const void* xi, long long L, long long shift, float p
            const void* trev, int ntaps, int deci, long long first, long long count,
            float scale, float dc, float gain, const void* seed, void* out, void* last,
            cudaStream_t stream) {
-  int threads = kThreads;
-  while (threads > 32 && smem_bytes(threads, ntaps, deci) > kMaxSmem) threads /= 2;
-  const size_t smem = smem_bytes(threads, ntaps, deci);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fm_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  Shape s;
+  size_t smem;
+  // two planes, one column of lead, two carried words per computing thread
+  if (!pick_shape(ntaps, deci, count, 2, 1, 2, 2, &s, &smem)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const long long blocks = (count + threads - 2) / (threads - 1);
-  fm_chain_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(
-      (const T*)xr, (const T*)xi, L, shift, pad, (const float*)trev, ntaps, deci,
-      first, count, scale, dc, gain, (const float*)seed, (float*)out, (float*)last);
-  return (int)cudaGetLastError();
+  auto* fn = launch_r<T, 4, 0>;
+  if (s.r == 8) {
+    switch (fixed_deci(s, ntaps, deci)) {
+      case 1: fn = launch_r<T, 8, 1>; break;
+      case 2: fn = launch_r<T, 8, 2>; break;
+      case 4: fn = launch_r<T, 8, 4>; break;
+      default: fn = launch_r<T, 8, 0>;
+    }
+  }
+  return fn(xr, xi, L, shift, pad, trev, ntaps, deci, first, count, scale, dc, gain, seed,
+            out, last, s, smem, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float, 1 = bfloat16, 2 = int8.  Planes xr/xi hold L values;
-// trev: ntaps f32 effective taps, reversed; seed: 2 f32; out: count f32;
-// last: 2 f32.  Returns the cudaError_t of the launch (0 on success).
+// trev: ntaps f32 effective taps, reversed; seed: 2 f32 or null (zeros);
+// out: count f32; last: 2 f32.  Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int rr_fm_chain(int dtype, const void* xr, const void* xi, long long L,
                            long long shift, float pad, const void* trev, int ntaps,
                            int deci, long long first, long long count, float scale,

@@ -5,12 +5,16 @@ A graph is a DAG evaluated in topological order, with
 * ``run(device)`` — offline mode: whole streams in one pass;
 * ``compile_device_loop(chunk_size, n_chunks, device)`` — a streaming
   loop over fixed-size chunks with each block's carried state and every
-  sink folding on the device, synchronising once at the end.
+  sink folding on the device, synchronising once at the end.  On a CUDA
+  device the n-chunk loop is captured once into a CUDA graph and replayed
+  (one submission instead of a Python dispatch per op); on the CPU it is
+  the plain loop.
 
 Maximal runs of device-domain blocks form segments; inside a segment the
 FM pattern ``[FloatToComplex ->] FirFilter -> QuadratureDemod`` lowers to
 one kernel B pass (``lowering.py``).  PyTorch runs eagerly, so a segment
-is a plain loop over its members.  ``run_stream``, checkpoints, meshes
+is a plain loop over its members (recorded once into the device loop's
+CUDA graph on the card).  ``run_stream``, checkpoints, meshes
 and profiling come in later slices.
 """
 
@@ -23,7 +27,10 @@ import torch
 
 from . import lowering
 from .blocks.base import Block, SourceBlock
+from .ops import kernels
 from .streams import Tag
+
+_MAX_CAPTURES = 8  # captured device loops kept per compiled loop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,13 +247,30 @@ class Graph:
                 tags[(node.idx, k)] = ot
 
     # ---- device-resident streaming ----
-    def compile_device_loop(self, chunk_size: int, n_chunks: int, device):
+    def compile_device_loop(self, chunk_size: int, n_chunks: int, device,
+                            cuda_graph: bool = True):
         """The whole streaming run as one loop over chunks on ``device``.
 
         Each of the ``n_chunks`` iterations runs {source emit -> segments
         (FM pairs as one kernel) -> sink fold}.  Block state and the sink
         folds stay on the device; nothing in the loop waits for the device,
         and the loop synchronises once at the end.
+
+        On a CUDA device the loop is captured into a ``torch.cuda.CUDAGraph``
+        at its first call and replayed after (``cuda_graph=False`` keeps
+        the eager loop, whose folds a replay equals bit for bit).  Source
+        offsets are baked into the captured launches, so a capture belongs
+        to one ``offset0`` reduced by the sources' periods; the last
+        ``_MAX_CAPTURES`` are kept and another offset captures again.  A
+        warm-up pass of the loop on a side stream comes before each
+        capture, so that everything that allocates, uploads or builds
+        (kernel library, device taps, resident source data) happens outside
+        it; states and carries are initialised inside the captured region,
+        so every replay starts clean.  The capture runs inside
+        ``kernels.recording()``, which counts the launches recorded there
+        apart and keeps their device taps alive; ``kernels.replayed`` adds
+        them to ``kernels.LAUNCHES`` after each replay.  Blocks and folds
+        must not wait for the device or read a value back.
 
         Requirements (raises ValueError otherwise):
 
@@ -317,12 +341,7 @@ class Graph:
                 for port, o in enumerate(outs):
                     vals[(node.idx, port)] = o
 
-        def fn(offset0: int = 0):
-            if offset0 % chunk_size:
-                raise ValueError(
-                    f"offset0 {offset0} is not a multiple of chunk_size "
-                    f"{chunk_size}"
-                )
+        def run_loop(offset0: int):
             states = {
                 n.idx: n.block.init_state()
                 for n in self.nodes
@@ -335,8 +354,56 @@ class Graph:
             }
             for index in range(n_chunks):
                 step(states, carries, offset0, index)
+            return carries
+
+        def check(offset0: int) -> None:
+            if offset0 % chunk_size:
+                raise ValueError(
+                    f"offset0 {offset0} is not a multiple of chunk_size "
+                    f"{chunk_size}"
+                )
+
+        def fn(offset0: int = 0):
+            check(offset0)
+            carries = run_loop(offset0)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             return carries
 
-        return fn
+        if device.type != "cuda" or not cuda_graph:
+            return fn
+
+        source_idxs = [n.idx for n in self.nodes
+                       if isinstance(n.block, SourceBlock)]
+        # offset0 -> (graph, its carries, the wrappers' record of the capture)
+        captures: dict[tuple, tuple] = {}
+
+        def capture(offset0: int):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                run_loop(offset0)  # warm-up: allocate, upload, build
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with kernels.recording() as record, torch.cuda.graph(graph):
+                carries = run_loop(offset0)
+            return graph, carries, record
+
+        def replay_fn(offset0: int = 0):
+            check(offset0)
+            key = tuple(offset0 % periods[i] if i in periods else offset0
+                        for i in source_idxs)
+            with torch.cuda.device(device):
+                entry = captures.get(key)
+                if entry is None:
+                    if len(captures) >= _MAX_CAPTURES:
+                        del captures[next(iter(captures))]
+                    entry = captures[key] = capture(offset0)
+                graph, carries, record = entry
+                graph.replay()
+                kernels.replayed(record)
+                out = {idx: c.clone() for idx, c in carries.items()}
+                torch.cuda.synchronize(device)
+            return out
+
+        return replay_fn

@@ -101,7 +101,7 @@ def find_fm_pairs(seg, ext_out):
         plan = {
             "fir": fir,
             "quad": n,
-            "taps": np.asarray(fir.block.taps, np.float32),
+            "taps": kernels.tapset(fir.block.taps),
             "deci": fir.block.deci,
             "gain": float(n.block.gain),
             "precision": fir.block.precision,

@@ -101,10 +101,11 @@ def _check_modes(demod: str, sync: str) -> None:
         raise ValueError(f"unknown demod {demod!r}; use one of {DEMODS}")
 
 
-def bell202_demod(audio: torch.Tensor, samp_rate: float,
-                  band: tuple | None = (400.0, 2700.0)) -> torch.Tensor:
+def bell202_demod(audio, samp_rate: float,
+                  band: tuple | None = (400.0, 2700.0),
+                  device=None) -> torch.Tensor:
     """Dense part of the Bell-202 AFSK demod: f32 audio -> NRZ floats, on
-    the audio's device.
+    the audio's device (a numpy input goes to ``device``).
 
     Band-pass -> Hilbert -> quad demod -> 1100 Hz low-pass ->
     centre-frequency offset (reference chain examples/ax25-1200-rx.rs:
@@ -113,7 +114,7 @@ def bell202_demod(audio: torch.Tensor, samp_rate: float,
     ``band=None`` restores the reference-faithful chain (100 Hz
     transition).
     """
-    audio = torch.as_tensor(audio).to(torch.float32)
+    audio = _stream(audio, torch.float32, device)
     if band is not None:
         bp = tapgen.band_pass(samp_rate, band[0], band[1], 65, "hamming")
         audio = filter_float(audio, bp)
@@ -126,14 +127,15 @@ def bell202_demod(audio: torch.Tensor, samp_rate: float,
     return add_const(filt, -float(np.float32(2.0 * np.pi * center / samp_rate)))
 
 
-def bell202_tone_demod(audio: torch.Tensor, samp_rate: float) -> torch.Tensor:
-    """Dual-tone correlator AFSK demod: f32 audio -> NRZ floats.
+def bell202_tone_demod(audio, samp_rate: float, device=None) -> torch.Tensor:
+    """Dual-tone correlator AFSK demod: f32 audio -> NRZ floats, on the
+    audio's device (a numpy input goes to ``device``).
 
     Mixes the audio against both Bell-202 tones and compares their energies
     over a one-symbol moving average (``fir.fir_filter_full``, kernel A on
     the card).  No reference equivalent.
     """
-    audio = torch.as_tensor(audio).to(torch.float32)
+    audio = _stream(audio, torch.float32, device)
     fs = float(samp_rate)
     n32 = torch.arange(audio.shape[0], dtype=torch.int32, device=audio.device)
     w = int(fs / 1200.0)

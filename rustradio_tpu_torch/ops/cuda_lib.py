@@ -78,7 +78,7 @@ def build() -> Path:
 
 def _bind(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.rr_fir_decimate.argtypes = [p, ll, p, i, i, p, ll, p]
+    lib.rr_fir_decimate.argtypes = [p, i, ll, p, i, i, p, ll, p]
     lib.rr_fir_decimate.restype = i
     lib.rr_fm_chain.argtypes = [i, p, p, ll, ll, f, p, i, i, ll, ll, f, f, f,
                                 p, p, p, p]
@@ -98,9 +98,16 @@ def _bind(lib):
 _LIBRARY = _buildcache.Library(build, _bind)
 
 
+_loaded = None
+
+
 def load():
-    """The kernel library, built on first call."""
-    return _LIBRARY.load()
+    """The kernel library, built on first call (later calls return it
+    without taking the build lock)."""
+    global _loaded
+    if _loaded is None:
+        _loaded = _LIBRARY.load()
+    return _loaded
 
 
 def check(code: int, what: str) -> None:

@@ -2,12 +2,15 @@
 host-side geometry around them (port of
 ``rustradio_tpu/ops/pallas_kernels.py``).
 
-Three hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`:
+Three hand-written kernels, built from ``csrc/`` by :mod:`.cuda_lib`;
+A and B share one register-blocked FIR core, ``csrc/fir_core.cuh``:
 
 * ``fir_decimate`` (``csrc/fir_decimate.cu``, kernel A) replaces
   ``_fir_band_kernel`` (pallas_kernels.py:202): a decimating real FIR,
   y[m] = sum_j taps[j] x[m*deci - j], zero history, ceil(n/deci) outputs,
-  true f32.  Complex input or taps take 2 or 4 real launches.
+  true f32, over the rows of a (rows, n) tensor in one launch.  A complex
+  stream is its I and Q planes as two rows: one launch for real taps, two
+  for complex ones.
 * ``fm_chain_span`` (``csrc/fm_chain.cu``, kernel B) replaces
   ``_fm_chain_kernel`` (:394), ``_fm_i8_kernel`` (:448) and
   ``_fm_chain_db_kernel`` (:553): the FIR on both I/Q planes, the DC fold
@@ -32,7 +35,24 @@ Routing: a wrapper runs the plain version only because its tensor lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
 falls back.  ``*_plain`` are the plain versions themselves, callable on
 any device (the chip smoke test holds each kernel against them on the
-card).  Every kernel launch adds one to ``LAUNCHES[name]``.
+card).  Every kernel launch adds one to ``LAUNCHES[name]``.  Inside
+``recording()`` (the region a CUDA graph captures, where a wrapper's call
+is recorded and nothing runs) the counts go to a :class:`LaunchRecord`
+instead, and ``replayed(record)`` adds them after each replay of the graph
+(``Graph.compile_device_loop`` on the card).
+
+Taps: every wrapper takes an array or a :class:`TapSet`, the record of a
+real tap set with what is derived from it (device copies of the effective
+taps, fold constants, packed geometries) made once.  An array is looked up
+by content per call (``tapset``); blocks, lowering plans and the FM models
+hold their TapSet, so the hot paths recompute nothing per call.
+
+How it is run.  The CPU tests (``python -m pytest tests/test_torch_*.py``)
+hold the plain versions to the JAX package; the kernels run only on an
+NVIDIA GPU, where ``python3 chip_smoke.py`` (the end-to-end drive) and
+``python -m pytest tests/test_torch_cuda.py`` (kernels against plain
+versions, edge cases of the register-blocked core, graph replay against
+the eager loop) build them at first use.
 
 Precision modes keep the JAX package's contracts (plane dtype and error
 budget against float64), not its MXU mechanics:
@@ -69,6 +89,53 @@ from .demod import demod_pairs
 
 LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0,
             "symbol_sync_events": 0, "symbol_sync_scan": 0}
+
+
+
+class LaunchRecord(typing.NamedTuple):
+    """What the wrappers did inside one ``recording()``: the launches per
+    kernel, and the TapSets of those launches, whose device taps the
+    recorded launches point into and which live as long as the record."""
+    counts: dict
+    tapsets: list
+
+
+_record: LaunchRecord | None = None
+
+
+def _launched(name: str, taps: "TapSet | None" = None) -> None:
+    """Count one launch of kernel ``name``, made with ``taps`` on the
+    device: into ``LAUNCHES``, or into the open ``recording()``."""
+    if _record is None:
+        LAUNCHES[name] += 1
+        return
+    _record.counts[name] = _record.counts.get(name, 0) + 1
+    if taps is not None and not any(t is taps for t in _record.tapsets):
+        _record.tapsets.append(taps)
+
+
+@contextlib.contextmanager
+def recording():
+    """Around the region that a CUDA graph captures.  A wrapper's call
+    there records its launch into the graph and runs nothing, so it counts
+    into the yielded :class:`LaunchRecord` and not into ``LAUNCHES``; hold
+    the record with the graph and call ``replayed(record)`` after each
+    replay."""
+    global _record
+    if _record is not None:
+        raise RuntimeError("kernels.recording() does not nest")
+    record = _record = LaunchRecord({}, [])
+    try:
+        yield record
+    finally:
+        _record = None
+
+
+def replayed(record: LaunchRecord) -> None:
+    """Add the launches of one replay of ``record``'s graph to ``LAUNCHES``."""
+    for name, count in record.counts.items():
+        LAUNCHES[name] += count
+
 
 PRECISIONS = ("highest", "split3", "w3", "w2", "i8")
 MAX_TAPS = 4096  # the kernels' bound, as ops/fir.py:74 in the JAX package
@@ -120,7 +187,7 @@ def fm_pack_geometry(n: int, taps, deci: int,
 
 
 def _round_bf16(a: np.ndarray) -> np.ndarray:
-    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    return torch.tensor(a).to(torch.bfloat16).float().numpy()
 
 
 def w_split_bf16(taps, terms: int) -> list[np.ndarray]:
@@ -169,28 +236,87 @@ def effective_taps(taps, precision: str) -> np.ndarray:
     return taps
 
 
-_taps_cache: dict = {}
+class TapSet:
+    """A real f32 tap set with what the wrappers derive from it, made once:
+    the reversed effective taps per precision and device, the DC-fold
+    constants and the packed-plane geometries.  ``tapset(taps)`` finds or
+    makes the record of an array; blocks and models hold theirs, so a call
+    with a TapSet recomputes nothing (and its device taps stay alive as
+    long as it does, which a captured CUDA graph relies on)."""
+
+    __slots__ = ("taps", "_sum", "_trev", "_consts", "_geo")
+
+    def __init__(self, taps: np.ndarray):
+        self.taps = taps
+        self.taps.setflags(write=False)
+        self._sum = np.float32(np.sum(taps, dtype=np.float64))
+        self._trev: dict = {}
+        self._consts: dict = {}
+        self._geo: dict = {}
+
+    def __len__(self) -> int:
+        return len(self.taps)
+
+    def __array__(self, dtype=None, copy=None):
+        return self.taps if dtype is None else self.taps.astype(dtype)
+
+    def trev(self, precision: str, device) -> torch.Tensor:
+        """Reversed effective taps on ``device``."""
+        key = (precision, device)
+        t = self._trev.get(key)
+        if t is None:
+            rev = effective_taps(self.taps, precision)[::-1].copy()
+            t = self._trev[key] = torch.from_numpy(rev).to(device)
+        return t
+
+    def consts(self, precision: str, offset: float):
+        """(scale, dc) of the post-dot fold y = acc*scale + dc, in f32 as
+        the TPU kernels compute them (pallas_kernels.py:441, :456, :601)."""
+        key = (precision, offset)
+        c = self._consts.get(key)
+        if c is None:
+            off = np.float32(offset)
+            if precision == "i8":
+                c = 1.0 / 128.0, float((np.float32(1.0 / 128.0) + off) * self._sum)
+            else:
+                c = 1.0, float(off * self._sum)
+            if len(self._consts) >= 64:
+                self._consts.clear()
+            self._consts[key] = c
+        return c
+
+    def geometry(self, n: int, deci: int, tile_rows: int | None) -> PackGeometry:
+        key = (n, deci, tile_rows)
+        g = self._geo.get(key)
+        if g is None:
+            if len(self._geo) >= 64:
+                self._geo.clear()
+            g = self._geo[key] = fm_pack_geometry(n, self.taps, deci, tile_rows)
+        return g
 
 
-def _device_trev(taps: np.ndarray, precision: str, device) -> torch.Tensor:
-    """Reversed effective taps on ``device``, made once per tap set."""
-    key = (taps.tobytes(), precision, str(device))
-    t = _taps_cache.get(key)
-    if t is None:
-        if len(_taps_cache) >= 64:
-            _taps_cache.clear()
-        rev = effective_taps(taps, precision)[::-1].copy()
-        t = _taps_cache[key] = torch.from_numpy(rev).to(device)
-    return t
+_tapsets: dict = {}
 
 
-def _real_taps(taps) -> np.ndarray:
-    taps = np.asarray(taps)
-    if np.iscomplexobj(taps):
-        if np.any(np.imag(taps)):
+def tapset(taps) -> TapSet:
+    """The :class:`TapSet` of real taps (a TapSet passes through), found
+    by content among the 64 last made.  Complex taps must have a zero
+    imaginary part."""
+    if type(taps) is TapSet:
+        return taps
+    a = np.asarray(taps)
+    if np.iscomplexobj(a):
+        if np.any(np.imag(a)):
             raise ValueError("the FM chain needs real taps")
-        taps = np.real(taps)
-    return np.ascontiguousarray(taps, np.float32)
+        a = np.real(a)
+    a = np.ascontiguousarray(a, np.float32)
+    key = a.tobytes()
+    ts = _tapsets.get(key)
+    if ts is None:
+        if len(_tapsets) >= 64:
+            _tapsets.clear()
+        ts = _tapsets[key] = TapSet(a.copy())
+    return ts
 
 
 def to_s8(x: torch.Tensor) -> torch.Tensor:
@@ -226,13 +352,15 @@ def fm_plane_pack(x: torch.Tensor, taps, deci: int,
 # ------------------------------------------------------ launch plumbing
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle: the raw call, which builds no Stream
+    object (several microseconds of each wrapper call otherwise)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _route(t: torch.Tensor) -> bool:
     """True when ``t`` must go through a CUDA kernel; False for the plain
     version (CPU tensors only)."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False
@@ -267,10 +395,10 @@ def _strided_fir(seg: torch.Tensor, trev: torch.Tensor, deci: int):
 
 # ------------------------------------------------ kernel A: fir_decimate
 
-def _check_fir(x: torch.Tensor, taps: np.ndarray, deci: int) -> None:
-    if x.dim() != 1 or x.dtype != torch.float32:
-        raise ValueError(f"fir_decimate needs a 1-D float32 tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+def _check_fir(x: torch.Tensor, taps: TapSet, deci: int) -> None:
+    if x.dim() not in (1, 2) or x.dtype != torch.float32:
+        raise ValueError(f"fir_decimate needs 1-D float32 (or complex) "
+                         f"samples, got {tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fir_decimate needs a contiguous tensor")
     if not 1 <= len(taps) <= MAX_TAPS:
@@ -279,76 +407,84 @@ def _check_fir(x: torch.Tensor, taps: np.ndarray, deci: int) -> None:
         raise ValueError(f"deci must be >= 1, got {deci}")
 
 
-def _fir_real_plain(x: torch.Tensor, taps: np.ndarray, deci: int):
+def _fir_planes_plain(x: torch.Tensor, taps: TapSet, deci: int):
+    """Plain version of :func:`_fir_planes`: the rows as the batch of one
+    strided convolution."""
     _check_fir(x, taps, deci)
-    ntaps, n = len(taps), x.shape[0]
+    ntaps, n = len(taps), x.shape[-1]
     m = -(-n // deci)
-    trev = _device_trev(taps, "highest", x.device)
-    return _strided_fir(F.pad(x, (ntaps - 1, m * deci - n)), trev, deci)
+    trev = taps.trev("highest", x.device)
+    xp = F.pad(x, (ntaps - 1, m * deci - n))
+    with _true_f32():
+        y = F.conv1d(xp.reshape(-1, 1, xp.shape[-1]), trev[None, None],
+                     stride=deci)
+    return y.reshape(*x.shape[:-1], m)
 
 
-def _fir_real(x: torch.Tensor, taps: np.ndarray, deci: int):
+def _fir_planes(x: torch.Tensor, taps: TapSet, deci: int):
+    """The same real FIR over ``x`` (n,) -> (m,), or over every row of
+    ``x`` (rows, n) -> (rows, m): one kernel A launch on CUDA tensors, the
+    plain version on CPU ones."""
     _check_fir(x, taps, deci)
     if not _route(x):
-        return _fir_real_plain(x, taps, deci)
-    n = x.shape[0]
+        return _fir_planes_plain(x, taps, deci)
+    n = x.shape[-1]
+    rows = x.shape[0] if x.dim() == 2 else 1
     m = -(-n // deci)
-    y = torch.empty(m, dtype=torch.float32, device=x.device)
-    if m == 0:
+    y = torch.empty((*x.shape[:-1], m), dtype=torch.float32, device=x.device)
+    if m == 0 or rows == 0:
         return y
-    trev = _device_trev(taps, "highest", x.device)
+    trev = taps.trev("highest", x.device)
     lib = cuda_lib.load()
     cuda_lib.check(lib.rr_fir_decimate(
-        x.data_ptr(), n, trev.data_ptr(), len(taps), deci, y.data_ptr(), m,
-        _stream(x.device)), "fir_decimate")
-    LAUNCHES["fir_decimate"] += 1
+        x.data_ptr(), rows, n, trev.data_ptr(), len(taps), deci, y.data_ptr(),
+        m, _stream(x.device)), "fir_decimate")
+    _launched("fir_decimate", taps)
     return y
 
 
-def _complex_split(real_fn, x: torch.Tensor, taps, deci: int):
-    """Real launches for complex input or taps, as pallas_fir_decimate
-    l.248-259: 2 for real taps, 4 for complex ones."""
-    taps = np.asarray(taps)
-    if not (np.iscomplexobj(taps) or x.is_complex()):
-        return real_fn(x, np.ascontiguousarray(taps, np.float32), deci)
-    if x.is_complex():
-        xr, xi = x.real.float().contiguous(), x.imag.float().contiguous()
+def _complex_split(planes_fn, x: torch.Tensor, taps, deci: int):
+    """A real or complex stream through real or complex taps on
+    ``planes_fn``: the I and Q planes of a complex stream go through real
+    taps as the two rows of ONE call, through complex taps as two calls
+    (real and imaginary taps)."""
+    if x.dim() != 1:
+        raise ValueError(f"fir_decimate needs a 1-D stream, got {tuple(x.shape)}")
+    complex_taps = type(taps) is not TapSet and np.iscomplexobj(taps)
+    if complex_taps:
+        tr = tapset(np.real(taps))
+        ti = tapset(np.imag(taps)) if np.any(np.imag(taps)) else None
     else:
-        xr, xi = x.float(), torch.zeros_like(x, dtype=torch.float32)
-    tr = np.ascontiguousarray(np.real(taps), np.float32)
-    ti = np.ascontiguousarray(np.imag(taps), np.float32)
-    rr = real_fn(xr, tr, deci)
-    if not np.any(ti):
-        return torch.complex(rr, real_fn(xi, tr, deci))
-    ii = real_fn(xi, ti, deci)
-    ri = real_fn(xr, ti, deci)
-    ir = real_fn(xi, tr, deci)
-    return torch.complex(rr - ii, ri + ir)
+        tr, ti = tapset(taps), None
+    if not x.is_complex():
+        re = planes_fn(x, tr, deci)
+        if not complex_taps:
+            return re
+        return torch.complex(re, torch.zeros_like(re) if ti is None
+                             else planes_fn(x, ti, deci))
+    # (n, 2) interleaved -> (2, n) planes in one copy
+    planes = torch.view_as_real(x.to(torch.complex64)).t().contiguous()
+    a = planes_fn(planes, tr, deci)  # [xr*tr, xi*tr]
+    if ti is None:
+        return torch.complex(a[0], a[1])
+    b = planes_fn(planes, ti, deci)  # [xr*ti, xi*ti]
+    return torch.complex(a[0] - b[1], b[0] + a[1])
 
 
 def fir_decimate(x: torch.Tensor, taps, deci: int) -> torch.Tensor:
     """Decimating FIR y[m] = sum_j taps[j] x[m*deci - j] with zero history
     and ceil(n/deci) outputs (f32, or complex64 for complex input/taps).
-    Kernel A on CUDA tensors; the plain version on CPU tensors."""
-    return _complex_split(_fir_real, x, taps, deci)
+    Kernel A on CUDA tensors (one launch per real tap set, the I and Q
+    planes of complex input together); the plain version on CPU tensors."""
+    return _complex_split(_fir_planes, x, taps, deci)
 
 
 def fir_decimate_plain(x: torch.Tensor, taps, deci: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`fir_decimate` (any device)."""
-    return _complex_split(_fir_real_plain, x, taps, deci)
+    return _complex_split(_fir_planes_plain, x, taps, deci)
 
 
 # ---------------------------------------------- kernel B: fm_chain_span
-
-def _chain_consts(taps: np.ndarray, precision: str, offset: float):
-    """(scale, dc) of the post-dot fold y = acc*scale + dc, in f32 as the
-    TPU kernels compute them (pallas_kernels.py:441, :456, :601)."""
-    tapsum = np.float32(np.sum(taps, dtype=np.float64))
-    off = np.float32(offset)
-    if precision == "i8":
-        return 1.0 / 128.0, float((np.float32(1.0 / 128.0) + off) * tapsum)
-    return 1.0, float(off * tapsum)
-
 
 def _check_span(xr, xi, taps, deci, count, precision) -> None:
     dt = plane_dtype(precision)
@@ -367,6 +503,7 @@ def _check_span(xr, xi, taps, deci, count, precision) -> None:
 
 
 def _seed_tensor(seed, device) -> torch.Tensor:
+    """``seed`` as 2 floats on its own device (a tensor) or ``device``."""
     if seed is None:
         return torch.zeros(2, dtype=torch.float32, device=device)
     if torch.is_tensor(seed):
@@ -387,12 +524,12 @@ def fm_chain_span_plain(xr, xi, taps, deci: int, gain: float = 1.0, *,
                         precision: str = "highest", offset: float = 0.0,
                         seed=None):
     """Plain PyTorch version of :func:`fm_chain_span` (any device)."""
-    taps = _real_taps(taps)
+    taps = tapset(taps)
     _check_span(xr, xi, taps, deci, count, precision)
     ntaps = len(taps)
-    scale, dc = _chain_consts(taps, precision, offset)
+    scale, dc = taps.consts(precision, offset)
     pad = -1.0 if xr.dtype == torch.int8 else 0.0
-    trev = _device_trev(taps, precision, xr.device)
+    trev = taps.trev(precision, xr.device)
     lo = (first - 1) * deci + shift
     hi = (first + count - 1) * deci + shift + ntaps
     # y[first-1 .. first+count-1]: count + 1 filtered samples
@@ -423,7 +560,7 @@ def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
     packed plane.  Returns ``(audio, last)``: ``count`` f32 outputs and
     ``last = y[first + count - 1]`` as 2 floats.
     """
-    taps = _real_taps(taps)
+    taps = tapset(taps)
     _check_span(xr, xi, taps, deci, count, precision)
     if not _route(xr):
         return fm_chain_span_plain(xr, xi, taps, deci, gain, first=first,
@@ -431,22 +568,26 @@ def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
                                    precision=precision, offset=offset,
                                    seed=seed)
     dev = xr.device
-    s = _seed_tensor(seed, dev)
-    if s.device != dev:
-        raise ValueError(f"seed on {s.device}, planes on {dev}")
+    if seed is not None:
+        seed = _seed_tensor(seed, dev)
+        if seed.device != dev:
+            raise ValueError(f"seed on {seed.device}, planes on {dev}")
     if count == 0:
-        return torch.empty(0, dtype=torch.float32, device=dev), s.clone()
-    scale, dc = _chain_consts(taps, precision, offset)
-    trev = _device_trev(taps, precision, dev)
+        return (torch.empty(0, dtype=torch.float32, device=dev),
+                _seed_tensor(seed, dev).clone())
+    scale, dc = taps.consts(precision, offset)
+    trev = taps.trev(precision, dev)
     out = torch.empty(count, dtype=torch.float32, device=dev)
     last = torch.empty(2, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
+    # a null seed pointer is the zero seed: no fill is launched for it
     cuda_lib.check(lib.rr_fm_chain(
         _DTYPE_CODE[xr.dtype], xr.data_ptr(), xi.data_ptr(), xr.shape[0],
         shift, -1.0 if xr.dtype == torch.int8 else 0.0, trev.data_ptr(),
-        len(taps), deci, first, count, scale, dc, float(gain), s.data_ptr(),
+        len(taps), deci, first, count, scale, dc, float(gain),
+        None if seed is None else seed.data_ptr(),
         out.data_ptr(), last.data_ptr(), _stream(dev)), "fm_chain")
-    LAUNCHES["fm_chain"] += 1
+    _launched("fm_chain", taps)
     return out, last
 
 
@@ -463,14 +604,14 @@ def fm_chain(xr, xi, taps, deci: int, gain: float = 1.0,
     ``offset`` is a DC offset folded in after the dot (filter(x + c) =
     filter(x) + c*sum(taps)), applied under the zero history too.
     """
-    taps = _real_taps(taps)
+    taps = tapset(taps)
     ntaps = len(taps)
     if n is None:
         pr, pi = plane_cast(xr, precision), plane_cast(xi, precision)
         m = -(-xr.shape[0] // deci)
         shift = 1 - ntaps
     else:
-        geo = fm_pack_geometry(n, taps, deci, tile_rows)
+        geo = taps.geometry(n, deci, tile_rows)
         for p in (xr, xi):
             if tuple(p.shape) != (geo.total,):
                 raise ValueError(f"packed plane shape {tuple(p.shape)} != "
@@ -495,9 +636,9 @@ def fm_chain_window(xpr, xpi, taps, deci: int, gain: float = 1.0, *,
     stream start the zero seed makes element 0 meaningless).  Returns
     ``(audio, last)`` with ``last`` this window's final filtered sample.
     """
-    taps = _real_taps(taps)
+    taps = tapset(taps)
     wlen = fir_window(len(taps), deci)
-    tile_rows = fm_pack_geometry(0, taps, deci, tile_rows).tile_rows
+    tile_rows = taps.geometry(0, deci, tile_rows).tile_rows
     first, count = row0 * 128, g * tile_rows * 128
     if row0 < 0 or (first + count - 1) * deci + wlen > xpr.shape[0]:
         raise ValueError(f"window rows [{row0}, {row0 + g * tile_rows}) lie "
@@ -545,7 +686,7 @@ def quad_demod_fast(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     cuda_lib.check(lib.rr_quad_demod(planes.data_ptr(), n, float(gain),
                                      out.data_ptr(), _stream(x.device)),
                    "quad_demod")
-    LAUNCHES["quad_demod"] += 1
+    _launched("quad_demod")
     return out
 
 
@@ -713,7 +854,7 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
         taps.ctypes.data, len(taps), out.data_ptr(), out.shape[1],
         mask.data_ptr(), clocks.data_ptr(), _stream(x.device)),
         "symbol_sync_scan")
-    LAUNCHES["symbol_sync_scan"] += 1
+    _launched("symbol_sync_scan")
     return mask, clocks, out
 
 
@@ -813,5 +954,5 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
         taps.ctypes.data, len(taps), fout.data_ptr(), fout.shape[1],
         iout.data_ptr(), ev_mid.data_ptr(), ev_clock.data_ptr(),
         _stream(events.device)), "symbol_sync_events")
-    LAUNCHES["symbol_sync_events"] += 1
+    _launched("symbol_sync_events")
     return ev_mid, ev_clock, fout, iout

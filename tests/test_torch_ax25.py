@@ -171,3 +171,13 @@ def test_torch_parse_ax25_matches_jax(corpus):
     assert pkts
     for p in pkts:
         assert (p.addresses, p.info) == jax25.parse_ax25(p.data)
+
+
+@pytest.mark.parametrize("fn", [ax25.bell202_demod, ax25.bell202_tone_demod])
+def test_torch_bell202_demods_numpy_input_needs_a_device(corpus, fn):
+    audio = corpus[0][:20_000]
+    with pytest.raises(ValueError, match="needs device="):
+        fn(audio, FS)
+    got = fn(audio, FS, device="cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(got, fn(torch.from_numpy(audio), FS))

@@ -21,6 +21,18 @@ BUDGET = {"highest": 2e-4, "w3": 3e-4, "w2": 8e-3, "split3": 8e-3, "i8": 3e-4}
 
 pytestmark = pytest.mark.cuda
 
+# The FIR core's launcher takes small tiles of 4 outputs a thread for a
+# small input, and from WIDE outputs on (two blocks per SM of 1024) its
+# widest shape, 8 outputs a thread in tiles of 1024: every edge case runs
+# at its own small count and again with WIDE outputs more, where the
+# launcher itself takes the shape of every full-size call.
+WIDE = 264 * 1024
+
+
+@pytest.fixture(params=[0, WIDE], ids=["small", "wide"])
+def extra(request):
+    return request.param
+
 
 @pytest.fixture
 def cuda_device():
@@ -41,6 +53,139 @@ def _fm_iq(rng, n, device):
 def _lp49():
     return np.asarray(np.hamming(49) * np.sinc(0.2 * (np.arange(49) - 24)),
                       np.float32)
+
+
+def _slow_fm_planes(rng, n, ntaps, deci, device):
+    """Wire-grid I/Q planes of an FM signal slow enough to pass an
+    ``ntaps`` moving-average-like low-pass at full amplitude, and to turn
+    by at most 1 rad per output at ``deci``: no angle comes near +-pi,
+    where the last bit of the conjugate product picks the branch."""
+    dev = min(0.9, 2.0 / ntaps, 1.0 / deci)
+    phase = np.cumsum(dev * np.sin(np.arange(n) * (2e-3 * dev)))
+    noise = 0.02 * rng.randn(2, n)
+    planes = [np.round(np.clip((0.45 * f(phase) + e) * 128, -127, 128)) / 128
+              for f, e in ((np.cos, noise[0]), (np.sin, noise[1]))]
+    return [torch.from_numpy(p.astype(np.float32)).to(device) for p in planes]
+
+
+def _lp(ntaps):
+    """A unit-gain Hamming low-pass of ``ntaps`` taps."""
+    w = np.hamming(ntaps) if ntaps > 1 else np.ones(1)
+    return (w / w.sum()).astype(np.float32)
+
+
+def _span_case(device, precision, ntaps, deci, first, count, shift, L, seed=17):
+    """Kernel B against its plain version on one span of (L,) planes:
+    audio at the precision's budget, the last filtered sample at the FIR
+    budget."""
+    rng = np.random.RandomState(seed)
+    a, b = _slow_fm_planes(rng, L, ntaps, deci, device)
+    pa, pb = kernels.plane_cast(a, precision), kernels.plane_cast(b, precision)
+    kw = dict(first=first, count=count, shift=shift, precision=precision,
+              offset=0.01, seed=(0.3, -0.2))
+    taps = _lp(ntaps)
+    before = kernels.LAUNCHES["fm_chain"]
+    got, last = kernels.fm_chain_span(pa, pb, taps, deci, 0.9, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_chain"] == before + 1
+    want, want_last = kernels.fm_chain_span_plain(pa, pb, taps, deci, 0.9, **kw)
+    assert got.shape == want.shape == (count,)
+    assert float((got - want).abs().max()) <= BUDGET[precision]
+    assert float((last - want_last).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("precision,residue", [
+    (p, r) for p, v in (("highest", 4), ("w3", 8), ("i8", 16)) for r in range(v)])
+def test_torch_cuda_fm_chain_span_every_start_residue(cuda_device, extra,
+                                                      precision, residue):
+    # the staged span starts at every residue of the planes' 16-byte grid
+    _span_case(cuda_device, precision, 49, 4, first=3, count=2500 + extra,
+               shift=-48 + residue, L=(1 << 15) + 4 * extra)
+
+
+@pytest.mark.parametrize("ntaps,deci", [(1, 1), (7, 1), (9, 1), (3, 4), (5, 4),
+                                        (49, 4), (49, 3), (1205, 1), (4096, 1),
+                                        (4096, 50), (1, 50), (49, 50)])
+def test_torch_cuda_fm_chain_span_taps_and_deci(cuda_device, extra, ntaps,
+                                                deci):
+    count = 1500 + extra
+    L = count * deci + ntaps
+    for precision in ("w3", "i8"):
+        # the span runs past both ends of the plane (pad 0, or -1 for s8)
+        _span_case(cuda_device, precision, ntaps, deci, first=0, count=count,
+                   shift=1 - ntaps, L=L - 7)
+
+
+@pytest.mark.parametrize("count", [1, 2, 1023, 1024, 1025, 2047, 2049])
+def test_torch_cuda_fm_chain_span_counts_around_a_tile(cuda_device, extra,
+                                                       count):
+    # wide: the last tile of 1024 holds 1, 2, 1023, all or (2047) its
+    # outputs but one
+    for precision in ("w3", "i8"):
+        _span_case(cuda_device, precision, 49, 4, first=7, count=count + extra,
+                   shift=-48, L=(1 << 14) + 4 * extra)
+
+
+@pytest.mark.parametrize("precision", ["w3", "i8"])
+def test_torch_cuda_fm_chain_window_ending_at_the_planes_end(cuda_device,
+                                                             extra,
+                                                             precision):
+    # the last window of a plane whose final sample is the span's last
+    first, count, deci, ntaps = 4096, 4096 + extra, 4, 49
+    L = (first + count - 1) * deci + ntaps
+    _span_case(cuda_device, precision, ntaps, deci, first=first, count=count,
+               shift=0, L=L)
+
+
+def test_torch_cuda_fm_chain_span_null_seed_is_zero_seed(cuda_device):
+    rng = np.random.RandomState(49)
+    a, b = _fm_iq(rng, 1 << 14, cuda_device)
+    pa, pb = kernels.plane_cast(a, "w3"), kernels.plane_cast(b, "w3")
+    kw = dict(first=0, count=4000, shift=-48, precision="w3")
+    got = kernels.fm_chain_span(pa, pb, _lp49(), 4, **kw)
+    zero = kernels.fm_chain_span(pa, pb, _lp49(), 4, seed=(0.0, 0.0), **kw)
+    assert torch.equal(got[0], zero[0]) and torch.equal(got[1], zero[1])
+
+
+@pytest.mark.parametrize("ntaps,deci", [(1, 1), (3, 1), (5, 1), (7, 1), (9, 1),
+                                        (49, 4), (49, 3), (1205, 1), (4096, 1),
+                                        (4096, 50), (1, 50), (65, 2)])
+@pytest.mark.parametrize("n", [1, 1023 * 4, 1025 * 4 + 1, (1 << 16) + 3])
+def test_torch_cuda_fir_decimate_edges(cuda_device, extra, ntaps, deci, n):
+    n += extra * deci  # WIDE outputs more
+    rng = np.random.RandomState(50)
+    base = torch.from_numpy(rng.randn(n + 3).astype(np.float32)).to(cuda_device)
+    taps = rng.randn(ntaps).astype(np.float32)
+    for off in range(4):  # every residue of the 16-byte grid
+        x = base[off : off + n]
+        got = kernels.fir_decimate(x, taps, deci)
+        want = kernels.fir_decimate_plain(x, taps, deci)
+        assert got.shape == want.shape == (-(-n // deci),)
+        tol = 2e-5 * max(float(want.abs().max()), 1e-3)
+        assert float((got - want).abs().max()) <= tol, off
+
+
+@pytest.mark.parametrize("complex_taps", [False, True])
+def test_torch_cuda_fir_decimate_complex_is_one_launch_per_tap_set(
+        cuda_device, complex_taps):
+    rng = np.random.RandomState(51)
+    n = (1 << 15) + 5  # the Q plane starts off the 16-byte grid
+    x = torch.from_numpy((rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64))
+    x = x.to(cuda_device)
+    taps = rng.randn(49).astype(np.float32)
+    if complex_taps:
+        taps = (taps + 1j * rng.randn(49)).astype(np.complex64)
+    before = kernels.LAUNCHES["fir_decimate"]
+    got = kernels.fir_decimate(x, taps, 4)
+    assert kernels.LAUNCHES["fir_decimate"] == before + (2 if complex_taps else 1)
+    want = kernels.fir_decimate_plain(x, taps, 4)
+    tol = 2e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    if not complex_taps:
+        # the 2-plane launch equals two 1-plane launches bit for bit
+        re = kernels.fir_decimate(x.real.contiguous(), taps, 4)
+        im = kernels.fir_decimate(x.imag.contiguous(), taps, 4)
+        assert torch.equal(got, torch.complex(re, im))
 
 
 def test_torch_cuda_fir_decimate_matches_plain(cuda_device):
@@ -99,11 +244,52 @@ def test_torch_cuda_window_chaining_and_graph_launches(cuda_device):
     fir = g.add(blocks.FirFilter(taps, deci=deci, precision="w3"), src)
     q = g.add(blocks.QuadratureDemod(1.0), fir)
     g.add(blocks.DeviceFoldSink(), q)
-    fn = g.compile_device_loop(chunk, 6, device=cuda_device)
+    fn = g.compile_device_loop(chunk, 6, device=cuda_device, cuda_graph=False)
     before = kernels.LAUNCHES["fm_chain"]
     got = float(next(iter(fn(0).values())))
     assert kernels.LAUNCHES["fm_chain"] == before + 6
     assert np.isfinite(got)
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_torch_cuda_device_loop_replay_equals_eager(cuda_device, ring):
+    # the captured CUDA graph against the eager loop: bit-equal folds,
+    # replayed twice and at a second offset0; a replay counts its launches
+    rng = np.random.RandomState(52)
+    tile_rows, deci, n_chunks = 16, 4, 6
+    chunk = deci * 128 * tile_rows
+    a, b = _fm_iq(rng, 4 * chunk, cuda_device)
+    taps = _lp49()
+
+    def build(cuda_graph):
+        g = Graph()
+        if ring:
+            src = g.add(blocks.PackedIqRingSource(a, b, taps, deci,
+                                                  tile_rows=tile_rows))
+        else:
+            src = g.add(blocks.VectorSource(torch.complex(a, b).cpu().numpy(),
+                                            repeat=3))
+        fir = g.add(blocks.FirFilter(taps, deci=deci, precision="w3"), src)
+        q = g.add(blocks.QuadratureDemod(1.0), fir)
+        g.add(blocks.DeviceFoldSink(fn=lambda c, x: c + x.sum() + (x * x).sum()),
+              q)
+        return g.compile_device_loop(chunk, n_chunks, device=cuda_device,
+                                     cuda_graph=cuda_graph)
+
+    eager, replay = build(False), build(True)
+    for offset0 in (0, chunk, 0, 3 * chunk):
+        want = next(iter(eager(offset0).values()))
+        before = kernels.LAUNCHES["fm_chain"]
+        first = next(iter(replay(offset0).values()))
+        again = next(iter(replay(offset0).values()))
+        assert kernels.LAUNCHES["fm_chain"] >= before + 2 * n_chunks
+        assert torch.equal(first, want) and torch.equal(again, want)
+        assert bool(torch.isfinite(want))
+    before = kernels.LAUNCHES["fm_chain"]
+    replay(chunk)  # captured above: a replay alone
+    assert kernels.LAUNCHES["fm_chain"] == before + n_chunks
+    with pytest.raises(ValueError, match="not a multiple of chunk_size"):
+        replay(chunk // 2)
 
 
 @pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 37, 129, 2, 1, 0])

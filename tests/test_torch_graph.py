@@ -145,6 +145,27 @@ def test_torch_device_loop_equals_offline(planes):
     np.testing.assert_allclose(got, off.total(), rtol=1e-5, atol=1e-3)
 
 
+def test_torch_device_loop_on_the_cpu_is_the_plain_loop():
+    # no CUDA graph off the card: every call runs the loop from fresh
+    # states, whatever ``cuda_graph`` says, and launches no kernel
+    from rustradio_tpu_torch.ops import kernels
+
+    rng = np.random.RandomState(64)
+    taps = (rng.randn(49) / 7).astype(np.float32)
+    chunk = 1024
+    data = (rng.randn(4 * chunk) + 1j * rng.randn(4 * chunk)).astype(np.complex64)
+    before = dict(kernels.LAUNCHES)
+    folds = []
+    for cuda_graph in (True, False):
+        g = _fm_graph(blocks, Graph, data, taps, 4, 1.0, blocks.DeviceFoldSink())
+        fn = g.compile_device_loop(chunk, 2, device="cpu", cuda_graph=cuda_graph)
+        folds += [fn(0), fn(0), fn(2 * chunk), fn(0)]
+    vals = [float(next(iter(f.values()))) for f in folds]
+    assert vals[0] == vals[1] == vals[3] == vals[4] == vals[5] == vals[7]
+    assert vals[2] == vals[6] and vals[2] != vals[0]
+    assert kernels.LAUNCHES == before
+
+
 def test_torch_resume_from_jax_state():
     # chunk 0 in JAX, its block states carried across, chunk 1 in the port
     rng = np.random.RandomState(63)

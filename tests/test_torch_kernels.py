@@ -189,6 +189,27 @@ def test_torch_fm_chain_window_seed_and_last(interpret_kernels, precision):
                                atol=BUDGET[precision], rtol=0)
 
 
+@pytest.mark.parametrize("precision", ["highest", "w3", "i8"])
+def test_torch_fm_chain_span_no_seed_is_the_zero_seed(precision):
+    rng = np.random.RandomState(13)
+    n = 4096
+    a = kernels.plane_cast(_t(_wire(rng, n)), precision)
+    b = kernels.plane_cast(_t(_wire(rng, n)), precision)
+    kw = dict(first=2, count=900, shift=-48, precision=precision, offset=0.01)
+    got, last = kernels.fm_chain_span(a, b, _lp49(), 4, 0.9, **kw)
+    for zero in ((0.0, 0.0), torch.zeros(2)):
+        want, want_last = kernels.fm_chain_span(a, b, _lp49(), 4, 0.9,
+                                                seed=zero, **kw)
+        assert torch.equal(got, want) and torch.equal(last, want_last)
+    # an empty span hands the seed on as its last sample
+    kw["count"] = 0
+    assert torch.equal(kernels.fm_chain_span(a, b, _lp49(), 4, **kw)[1],
+                       torch.zeros(2))
+    assert torch.equal(
+        kernels.fm_chain_span(a, b, _lp49(), 4, seed=(0.5, -1.0), **kw)[1],
+        torch.tensor([0.5, -1.0]))
+
+
 def test_torch_fm_chain_window_bounds():
     taps = _lp49()
     p = kernels.fm_plane_pack(torch.zeros(4 * 128 * 16), taps, 4, 16, "w3")
@@ -245,3 +266,32 @@ def test_torch_quad_demod_fast_checks_inputs():
         kernels.quad_demod_fast(torch.zeros(8))
     with pytest.raises(ValueError, match="contiguous"):
         kernels.quad_demod_fast(torch.zeros(16, dtype=torch.complex64)[::2])
+
+
+def test_torch_launch_recording_counts_apart_and_on_replay():
+    # inside recording() a launch counts into the record (a CUDA graph
+    # capture records it and runs nothing); replayed() adds it per replay
+    ts = kernels.tapset(np.ones(3, np.float32))
+    before = dict(kernels.LAUNCHES)
+    with kernels.recording() as record:
+        kernels._launched("fm_chain", ts)
+        kernels._launched("fm_chain", ts)
+        kernels._launched("quad_demod")
+        with pytest.raises(RuntimeError, match="does not nest"):
+            with kernels.recording():
+                pass
+    assert kernels.LAUNCHES == before
+    assert record.counts == {"fm_chain": 2, "quad_demod": 1}
+    assert len(record.tapsets) == 1 and record.tapsets[0] is ts
+    try:
+        kernels._launched("fm_chain", ts)  # outside: counted at once
+        kernels.replayed(record)
+        kernels.replayed(record)
+        assert kernels.LAUNCHES["fm_chain"] == before["fm_chain"] + 5
+        assert kernels.LAUNCHES["quad_demod"] == before["quad_demod"] + 2
+    finally:
+        kernels.LAUNCHES.update(before)
+    # a CPU call launches nothing, recording or not
+    with kernels.recording() as record:
+        kernels.fir_decimate(torch.ones(8), np.ones(3, np.float32), 1)
+    assert record.counts == {} and kernels.LAUNCHES == before

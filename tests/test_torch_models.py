@@ -55,3 +55,28 @@ def test_torch_fm_planar_flat_and_packed_match_jax(precision):
     assert jn == n
     assert torch.equal(convert.packed_from_jax(np.asarray(ji), precision), pi_)
     assert torch.equal(convert.packed_from_jax(np.asarray(jq), precision), pq)
+
+
+def test_torch_fm_models_numpy_input_needs_a_device():
+    # a tensor stays on its device; numpy goes where the caller says, and
+    # nowhere without being told
+    rng = np.random.RandomState(52)
+    n = 1 << 12
+    i, q = _wire(rng, n), _wire(rng, n)
+    iq = (i + 1j * q).astype(np.complex64)
+    for call in (lambda **kw: fm.fm_demod_chain(iq, **kw),
+                 lambda **kw: fm.fm_pack_planes(i, q, **kw),
+                 lambda **kw: fm.fm_demod_chain_planar(i, q, precision="w3",
+                                                       **kw)):
+        with pytest.raises(ValueError, match="needs device="):
+            call()
+    ti, tq = torch.from_numpy(i), torch.from_numpy(q)
+    assert torch.equal(fm.fm_demod_chain(iq, device="cpu"),
+                       fm.fm_demod_chain(torch.from_numpy(iq)))
+    assert torch.equal(
+        fm.fm_demod_chain_planar(i, q, precision="w3", device="cpu"),
+        fm.fm_demod_chain_planar(ti, tq, precision="w3"))
+    pi_, pq, n_packed = fm.fm_pack_planes(i, q, device="cpu")
+    ri, rq, _ = fm.fm_pack_planes(ti, tq)
+    assert n_packed == n and torch.equal(pi_, ri) and torch.equal(pq, rq)
+    assert pi_.device.type == "cpu"

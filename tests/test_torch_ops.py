@@ -81,6 +81,67 @@ def test_torch_fir_filter_matches_jax_and_f64(ntaps, deci, n, form, cplx):
     np.testing.assert_allclose(got, want_jax, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("complex_taps", [False, True])
+@pytest.mark.parametrize("deci,n", [(1, 3001), (4, 4099)])
+def test_torch_fir_decimate_complex_input_matches_jax(complex_taps, deci, n):
+    # the plane-batched plain version (I and Q as the two rows of one
+    # convolution; complex taps as two such calls) against
+    # pallas_fir_decimate's host route, which filters plane by plane
+    rng = np.random.RandomState(26 + deci)
+    taps = rng.randn(49).astype(np.float32)
+    if complex_taps:
+        taps = (taps + 1j * rng.randn(49)).astype(np.complex64)
+    x = (rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)
+    got = kernels.fir_decimate(torch.from_numpy(x), taps, deci).numpy()
+    want = np.asarray(pk.pallas_fir_decimate(x, taps, deci))
+    assert got.shape == want.shape == (-(-n // deci),)
+    assert got.dtype == np.complex64
+    # f32 sums of 49 products in two orders: the FIR budget
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max(),
+                               rtol=0)
+    # and each plane alone, filtered as a real stream
+    re = kernels.fir_decimate(torch.from_numpy(x.real.copy()), taps, deci)
+    np.testing.assert_allclose(got, re.numpy() + 1j * kernels.fir_decimate(
+        torch.from_numpy(x.imag.copy()), taps, deci).numpy(),
+        atol=2e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_torch_fir_decimate_real_input_complex_taps():
+    # a real stream through complex taps: real and imaginary tap sets
+    rng = np.random.RandomState(28)
+    taps = (rng.randn(33) + 1j * rng.randn(33)).astype(np.complex64)
+    x = rng.randn(2000).astype(np.float32)
+    got = kernels.fir_decimate(torch.from_numpy(x), taps, 3).numpy()
+    want = np.asarray(pk.pallas_fir_decimate(x, taps, 3))
+    assert got.shape == want.shape and got.dtype == np.complex64
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max(),
+                               rtol=0)
+
+
+def test_torch_tapset_is_found_by_content_and_passes_through():
+    rng = np.random.RandomState(29)
+    taps = rng.randn(49).astype(np.float32)
+    ts = kernels.tapset(taps)
+    assert kernels.tapset(ts) is ts and kernels.tapset(taps.copy()) is ts
+    assert kernels.tapset(taps.astype(np.complex64)) is ts
+    assert len(ts) == 49 and not ts.taps.flags.writeable
+    np.testing.assert_array_equal(np.asarray(ts), taps)
+    x = torch.from_numpy(rng.randn(500).astype(np.float32))
+    assert torch.equal(kernels.fir_decimate(x, ts, 4),
+                       kernels.fir_decimate(x, taps, 4))
+    # the fold constants and packed geometry of the record are the
+    # functions' own
+    assert ts.geometry(10_000, 4, None) == kernels.fm_pack_geometry(
+        10_000, taps, 4)
+    scale, dc = ts.consts("i8", 0.25)
+    tapsum = np.float32(np.sum(taps, dtype=np.float64))
+    assert scale == 1 / 128 and dc == float(
+        (np.float32(1 / 128) + np.float32(0.25)) * tapsum)
+    assert ts.consts("w3", 0.25) == (1.0, float(np.float32(0.25) * tapsum))
+    with pytest.raises(ValueError, match="real taps"):
+        kernels.tapset(np.array([1j, 1], np.complex64))
+
+
 def test_torch_fir_decimate_complex_taps_four_launch_form():
     # complex taps take the 4-real-pass split (pallas_fir_decimate l.256-259)
     rng = np.random.RandomState(24)
