@@ -28,14 +28,23 @@ register-blocked design can break (every start residue of the 16-byte
 load grid, spans past both ends of a plane, counts around a tile, tap
 counts around the register block, large decimations), and the Graph
 device loop's CUDA-graph replay against its eager loop (bit-equal folds
-at two offsets).
+at two offsets).  Kernels D and E are held bit for bit against their plain
+versions on the edge inputs of ``rustradio_tpu_torch/tools/sync_cases.py``
+(sizes around their tiles, misaligned rows, silence, chatter, crossings on
+a tile's edges, 2.5 to 100 samples per symbol, 1 to 16 clock taps, cut
+streams), and against their one-thread-per-channel forms
+(``rustradio_tpu_torch/tools/csrc/symbol_sync_lone.cu``, a library that
+``tools/time_sync.py`` builds) on every path's own arguments.
 
 Then it times kernel beside plain version (or native): per call in a
 stream of calls, and the device time alone (ten calls replayed from a
 captured CUDA graph, inputs rotated so that the L2 cache starts cold),
 beside each kernel's bound on this card, the library call where one
 computes the same function, and the wrappers' host cost per call; and the
-AX.25 decode split into its device front-end and host tail.
+AX.25 decode split into its device front-end and host tail.  Kernels D and
+E are timed beside their one-thread forms, and their dependent chains are
+counted at the latencies that ``tools/csrc/chain_calib.cu`` measures in
+this run.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
@@ -92,41 +101,176 @@ WB_DEV = 3_000.0          # FM at 3 kHz deviation,
 WB_NOISE = 0.05           # complex noise per component
 WB_FLOOR = 196            # frames of 200 decoded per sync method
 PFB_CH, N_PFB = 256, 1 << 22  # bench.py's channelizer row (bench.py:194-209)
-# the card's peaks (NVIDIA H100 SXM data sheet): device memory, f32
-# outside the tensor cores, and the boost clock the cycle counts below
-# are turned into time with
+# the card's peaks (NVIDIA H100 SXM data sheet): device memory, and f32
+# outside the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
-SM_HZ = 1.755e9
-# the loop-carried dependent chains of csrc/symbol_sync.cu, at 4 cycles per
-# dependent f32 operation and 36 per IEEE division.  Kernel D, a real
-# slot: gap and t0_raw (3 operations), ted_reduce (1 division, 6
-# operations, then 6 steps of 3), the clock filter, clamp and new clock
-# (order + 5), the next middle (2 divisions, 7 operations): 39 + order
-# operations and 3 divisions.  Kernel E, every sample: the position's add
-# and the step-back compare (2); a sample whose crossing is applied adds
-# the interval and its tests (2), the filter, clamp and clock (order + 5),
-# one division, and the middle's add and compare (2): 9 + order operations
-# and 1 division.  The same counts, a division as one operation, are the
-# kernels' operations in their bytes-and-operations bound.
+# The bound of kernels D and E is the longest chain of operations that each
+# need the one before: the recurrences of csrc/sync_core.cuh read as a
+# dataflow graph, whatever could run beside the chain left out of it.  A
+# link is (f32 operations, IEEE divisions, compares that a later link
+# waits for), each at the latency this run measures on the card
+# (tools/csrc/chain_calib.cu: a lone lane's chain of additions, of
+# divisions, and of add-compare-subtract steps) at the SM clock measured
+# with it.  Selects, clamps and conversions count as operations.
+#
+# Kernel D (EventsWalker::tile).  The gap, its conversion, t0_raw and both
+# quotients' numerators read only the slots and constants (bnd_off is 0
+# after a call's first slot): on no chain.  Two recurrences remain:
+# * clock to clock, at a slot whose crossing is applied: the division by
+#   the old clock, ted_reduce's pre-reduction (floor, - 1, max; k0 * clock,
+#   t0_raw - that: 5), one subtraction for each reduction step this slot
+#   takes, the loop's exit test and the range test (2 compares; the range
+#   test's two run side by side), the clock filter (t - sps, taps[0] *
+#   that, one addition a history tap, two clamps, + sps: 5 + order);
+# * mid_off to mid_off, at a slot that is not applied: gap - mid_off, the
+#   division, floor, to int, + 1, max, min, to float, * clock, + mid_off,
+#   - gap (10 and a division).  The clock stays, so these slots are off the
+#   clock's chain and run beside the applied slots that follow them.
+# An applied slot starts mid_off afresh from its new clock (clock / 2, -
+# t0_raw, the division, ceil, max, * clock, +, max: 7 and a division), so
+# a mid_off chain is that plus the not-applied slots up to the next applied
+# one.  The bound is the longer of the clock chain over all applied slots
+# and the latest end of a mid_off chain hanging off it (d_chain below
+# counts both from this run's slots and clocks).
+#
+# Kernel E (ScanWalker::tile).  Position to position: the samples between
+# two step backs are one addition, because position + run equals run
+# additions of 1 while the sums stay in the position's binade (add_ones;
+# jump_mismatches below checks every case), so the positions' chain is one
+# addition, the step back's test and its subtraction (2 and a compare) a
+# step back, one in 10 symbols: n / (10 sps) of them.  Emissions (next_mid)
+# and crossings (last boundary) read the position and feed it only through
+# the step back, so they run beside it.  The clock's own chain, at each
+# applied crossing t - clock, ted_walk's exit test and the range test (2
+# compares), the filter (5 + order), is the longer one wherever crossings
+# are applied; the written clocks show an applied crossing only where the
+# clock changed, so a clock held at its clamp counts as none (the bound
+# errs low).  The bound is the longer of the two: a small part of what a
+# lone lane needs to run the samples' tests, which no chain holds.
+#
+# The kernels' operations in their bytes-and-operations bound are all they
+# do, on a chain or not: D_SLOT_WORK a real slot of kernel D; kernel E one
+# a sample, two an emission, E_CROSSING_WORK a crossing.
 
 
-def d_slot_ops(order: int) -> tuple[int, int]:
-    """(f32 operations, divisions) of one real slot of kernel D."""
-    return 39 + order, 3
+def d_applied_ops(order: int, steps):
+    """(operations, divisions, compares) of kernel D's clock-to-clock chain
+    at an applied slot that takes ``steps`` reduction steps."""
+    return 10 + order + steps, 1, 2
 
 
-E_SAMPLE_OPS = 2
+D_QUIET_OPS = (10, 1, 0)   # mid_off to mid_off at a slot that is not applied
+D_MIDDLE_OPS = (7, 1, 0)   # new clock to mid_off at an applied slot
+E_STEP_BACK_OPS = (2, 0, 1)  # position to position at a step back
 
 
-def e_crossing_ops(order: int) -> tuple[int, int]:
-    """(f32 operations, divisions) that an applied crossing adds in kernel E."""
-    return 9 + order, 1
+def e_crossing_ops(order: int) -> tuple[int, int, int]:
+    """(operations, divisions, compares) of kernel E's clock-to-clock chain
+    at an applied crossing (no reduction step counted)."""
+    return 6 + order, 0, 2
 
 
-def chain_cycles(ops: int, divisions: int) -> int:
-    """Cycles of a dependent chain of these operations."""
-    return 4 * ops + 36 * divisions
+def d_slot_work(order: int) -> int:
+    return 30 + order
+
+
+def e_crossing_work(order: int) -> int:
+    return 15 + order
+
+
+def chain_cycles(ops, divisions: int, compares: int, cal: dict):
+    """Cycles of a dependent chain of these links at the calibrated
+    latencies ``cal`` (tools/time_sync.calibrate): an addition, a
+    division, and a compare that the next link waits for (the
+    add-compare-subtract step less its two additions)."""
+    compare = cal["step_cycles"] - 2 * cal["fadd_cycles"]
+    return (ops * cal["fadd_cycles"] + divisions * cal["fdiv_cycles"]
+            + compares * compare)
+
+
+def d_slot_profile(args, ev_clock: torch.Tensor):
+    """What each slot of kernel D's arguments does, recomputed from the
+    slots and the clocks the kernel wrote: (real, applied, reduction
+    steps), each (C, E)."""
+    from rustradio_tpu_torch.ops import kernels
+    events, n, sps, max_dev, taps, fstate, istate = args[:7]
+    k = kernels.sync_consts(sps, max_dev, taps)
+    p_prev = torch.cat([istate[:, :1], events[:, :-1]], 1)
+    clock = torch.cat([fstate[:, :1], ev_clock[:, :-1]], 1)
+    t0 = (events - p_prev).float()
+    t0[:, 0] += fstate[:, 2]
+    t = t0 - torch.clamp(torch.floor((t0 - k.mx) / clock) - 1.0, min=0.0) * clock
+    steps = torch.zeros_like(events)
+    for _ in range(6):
+        t2 = t - clock
+        step = (t > k.mx) & (t2.abs() >= (t2 - clock).abs())
+        t = torch.where(step, t2, t)
+        steps += step
+    past_start = (istate[:, 2:3] != 0) | (events > 0)
+    have_b = torch.cat([istate[:, 1:2] != 0, past_start[:, :-1]], 1)
+    real = events < n
+    applied = real & past_start & have_b & (t > k.mi08) & (t < k.mx12)
+    return real, applied, steps
+
+
+def d_chain(args, ev_clock: torch.Tensor, cal: dict):
+    """Kernel D's bound on these arguments, (cycles, what): the channel
+    with the longest dependent chain."""
+    real, applied, steps = d_slot_profile(args, ev_clock)
+    order = len(args[4]) - 1
+    if real.shape[1] == 0:
+        return 0.0, "no slot"
+    link = chain_cycles(*d_applied_ops(order, steps.double()), cal)
+    clock_at = torch.cumsum(torch.where(applied, link, 0.0), 1)
+    # a slot that is not applied ends a mid_off chain that began at the
+    # last applied slot before it (or at the call's start)
+    at = torch.arange(real.shape[1], device=real.device).expand_as(real)
+    last = torch.cummax(torch.where(applied, at, -1), 1).values
+    mid_at = (clock_at + (last >= 0) * chain_cycles(*D_MIDDLE_OPS, cal)
+              + (at - last) * chain_cycles(*D_QUIET_OPS, cal))
+    mid_end = torch.where(real & ~applied, mid_at, 0.0).max(1).values
+    path = torch.maximum(clock_at[:, -1], mid_end)
+    c = int(path.argmax())
+    n_applied = int(applied[c].sum())
+    return float(path[c]), (
+        f"{n_applied} applied of {int(real[c].sum())} real slots, "
+        f"{float(clock_at[c, -1]) / max(n_applied, 1):.1f} cycles an applied "
+        f"slot with {float(steps[c][applied[c]].double().mean()) if n_applied else 0.0:.2f} "
+        f"reduction steps; the latest mid_off chain ends at "
+        f"{float(mid_end[c]):.0f} of {float(path[c]):.0f} cycles")
+
+
+def jump_mismatches(device) -> int:
+    """Kernel E's jump over a quiet run (ScanWalker::add_ones), checked
+    exhaustively: for every f32 position in [1, 2^17) and every run of 1
+    to 32 samples that ends at or under the top of the position's binade,
+    position + run in one addition against run additions of 1, each
+    rounded.  Returns the number of pairs that differ."""
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    mantissas = torch.arange(1 << 23, dtype=torch.int32, device=device)
+    for e in range(17):
+        base = (mantissas + ((127 + e) << 23)).view(torch.float32)
+        chain = base.clone()
+        for run in range(1, 33):
+            chain += 1.0
+            single = base + float(run)
+            bad += ((single <= 2.0 ** (e + 1)) & (single != chain)).sum()
+    return int(bad)
+
+
+def e_chain(args, clocks: torch.Tensor, cal: dict):
+    """Kernel E's bound on these arguments, (cycles, what): the positions'
+    chain, or the clock's on the channel whose clock changes most often
+    (a change of the written clocks is an applied crossing)."""
+    n, sps, order = args[0].shape[1], float(args[1]), len(args[3]) - 1
+    changes = int((clocks[:, 1:] != clocks[:, :-1]).sum(1).max()) if n else 0
+    backs = math.ceil(n / (10.0 * sps))
+    per_back = chain_cycles(*E_STEP_BACK_OPS, cal)
+    per_cross = chain_cycles(*e_crossing_ops(order), cal)
+    return max(backs * per_back, changes * per_cross), (
+        f"{changes} clock changes x {per_cross:.1f} cycles; beside them "
+        f"{backs} step backs x {per_back:.1f} over {n} samples")
 
 
 # outputs from which the FIR core's launcher takes its widest shape (two
@@ -1033,8 +1177,8 @@ def main() -> int:
         reaches there, and each also held against the whole kernel run
         (so the windows stand for it, positions near n and the padding
         tail included)."""
-        events, n, *consts, fs, ist = args
-        full = kernels.symbol_sync_events_scan(*args)
+        events, n, *consts, fs, ist = args[:7]  # the windows run without
+        full = kernels.symbol_sync_events_scan(*args)  # the path's counts
         real = int((events < n).sum(1).max())
         print(f"[9 sync] {what}: {events.shape[0]} ch x {events.shape[1]} "
               f"slots, n={n}, at most {real} crossings per channel")
@@ -1141,6 +1285,32 @@ def main() -> int:
            max(max_err(pst[k].float(), qst[k].float()) for k in pst), 0.0)
     end_phase("9 sync")
 
+    # kernels D and E where their tiled, block-per-channel design can break
+    # (tools/sync_cases.py: sizes around a tile and the two in flight,
+    # misaligned rows, silence, chatter, crossings on a tile's edges, sps
+    # 2.5 to 100, 1 to 16 taps, cut streams): every output of the kernels
+    # on the card against the plain versions on CPU tensors, the chained
+    # runs against the whole ones
+    from rustradio_tpu_torch.tools import sync_cases, time_sync
+    edge_cases = sync_cases.cases(SEED)
+    unequal, compared = [], 0
+    for case in edge_cases:
+        got_e = sync_cases.run_case(case, dev)
+        compared += len(got_e)
+        unequal += [f"{case.name}: {k}" for k in
+                    sync_cases.mismatches(got_e, sync_cases.run_case(case, "cpu"))
+                    + sync_cases.self_mismatches(got_e)]
+    print(f"[9 edges] kernels D and E on {len(edge_cases)} edge cases "
+          f"({', '.join(c.name for c in edge_cases)}): {compared} outputs "
+          f"against the plain versions, bit for bit; unequal: {unequal}")
+    report("9 edges", "kernels D and E vs plain, unequal outputs",
+           float(len(unequal)), 0.0)
+    report("9 edges", "kernel E's jump over a quiet run: every f32 position "
+           "in [1, 2^17) x runs of 1..32 inside its binade, pairs where "
+           "pos + run differs from run additions of 1",
+           float(jump_mismatches(dev)), 0.0)
+    end_phase("9 edges")
+
     # the AX.25 receiver on the corpus with the device clock recovery
     zero_counts()
     with capturing("symbol_sync_events_scan") as ax_calls:
@@ -1216,6 +1386,14 @@ def main() -> int:
         del calls
     end_phase("9 wideband")
 
+    cal = time_sync.calibrate(dev)
+    print(f"[9 times] a lone lane's dependent chain on this card "
+          f"(tools/csrc/chain_calib.cu, 2^20 links, median of 5): f32 addition "
+          f"{cal['fadd_cycles']:.2f} cycles, IEEE division "
+          f"{cal['fdiv_cycles']:.2f}, add-compare-subtract step "
+          f"{cal['step_cycles']:.2f}; SM clock {cal['sm_hz'] / 1e9:.3f} GHz; "
+          f"card: {card}")
+
     # times, median of 5 (ms per call); the card beside each
     def timed9(name, ms, pms, other="plain"):
         rows[name] = (ms, pms)
@@ -1231,46 +1409,37 @@ def main() -> int:
           f"Msps); card: {card}")
     del pfb_x
     def chain_d(args):
-        """Kernel D's dependent-chain bound (ms) on these arguments: the
-        busiest channel's real slots times the cycles of one."""
-        events, n, _, _, clock_taps = args[:5]
-        real = int((events < n).sum(1).max())
-        cycles = chain_cycles(*d_slot_ops(len(clock_taps) - 1))
-        return real * cycles / SM_HZ * 1e3, f"{real} real slots x {cycles} cycles"
+        """Kernel D's dependent-chain bound on these arguments, (ms, what)."""
+        cycles, what = d_chain(
+            args, kernels.symbol_sync_events_scan(*args)[1], cal)
+        return cycles / cal["sm_hz"] * 1e3, what
 
     def ops_d(args) -> float:
         """Kernel D's f32 operations on these arguments: every channel's
         real slots times the operations of one."""
         events, n, _, _, clock_taps = args[:5]
-        return float(int((events < n).sum()) * sum(d_slot_ops(len(clock_taps) - 1)))
-
-    def crossings_e(x):
-        """Sign changes per channel: kernel E's applied crossings at most."""
-        sign = x > 0
-        return (sign[:, 1:] != sign[:, :-1]).sum(1)
+        return float(int((events < n).sum()) * d_slot_work(len(clock_taps) - 1))
 
     def chain_e(args):
-        """Kernel E's: every sample, plus the busiest channel's sign
-        changes as applied crossings."""
-        x, _, _, clock_taps = args[:4]
-        crossings = int(crossings_e(x).max())
-        per_sample = chain_cycles(E_SAMPLE_OPS, 0)
-        cycles = chain_cycles(*e_crossing_ops(len(clock_taps) - 1))
-        return ((x.shape[1] * per_sample + crossings * cycles) / SM_HZ * 1e3,
-                f"{x.shape[1]} samples x {per_sample} cycles + {crossings} "
-                f"crossings x {cycles}")
+        """Kernel E's dependent-chain bound on these arguments, (ms, what)."""
+        cycles, what = e_chain(args, kernels.symbol_sync_scan(*args)[1], cal)
+        return cycles / cal["sm_hz"] * 1e3, what
 
     def ops_e(args) -> float:
-        x, _, _, clock_taps = args[:4]
-        return float(x.numel() * E_SAMPLE_OPS + int(crossings_e(x).sum())
-                     * sum(e_crossing_ops(len(clock_taps) - 1)))
+        """Kernel E's f32 operations: one a sample, two an emission (one a
+        symbol), and every sign change as an applied crossing."""
+        x, sps, _, clock_taps = args[:4]
+        sign = x > 0
+        return float(x.numel() + 2 * x.numel() / sps
+                     + int((sign[:, 1:] != sign[:, :-1]).sum())
+                     * e_crossing_work(len(clock_taps) - 1))
 
     chains = {}  # row -> (ms, what): kernels D and E, beside their bound
 
     def chain_line(name, ms, chain):
         chains[name] = chain
         print(f"[9 times] {name}: dependent-chain bound {chain[0]:.4f} ms "
-              f"({chain[1]} at {SM_HZ / 1e9:.3f} GHz), share of it "
+              f"({chain[1]} at {cal['sm_hz'] / 1e9:.3f} GHz), share of it "
               f"{chain[0] / ms:.1%}; card: {card}")
 
     d_args = captured("symbol_sync_events_scan", lambda: ops.symbol_sync_events(
@@ -1322,6 +1491,29 @@ def main() -> int:
               f"({args[0].shape[0]} x {args[0].shape[1]}): kernel {ms:.4f} ms; "
               f"card: {card}")
         chain_line(name, ms, (chain_d if is_d else chain_e)(args))
+    lone_ms = {}
+    # each kernel beside its one-thread-per-channel form
+    # (tools/csrc/symbol_sync_lone.cu) on the same arguments: every output equal
+    # bit for bit, then the device times alone, in turns
+    path_args[d_name] = d_args
+    path_args[f"kernel E {BANK_CH} x 2^16"] = e_args
+    path_args[e_name] = p_args
+    for name, args in path_args.items():
+        is_d = name.startswith("kernel D")
+        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
+        lone = time_sync.events_lone if is_d else time_sync.scan_lone
+        outputs_equal(f"{name}: block per channel vs one thread per channel",
+                      fn(*args), lone(*args))
+        calls = 2 if args[0].numel() > 1 << 21 else 5
+        new_ms = [graph_ms(lambda k: fn(*args), calls=calls)]
+        old_ms = [graph_ms(lambda k: lone(*args), calls=calls) for _ in "12"]
+        new_ms.append(graph_ms(lambda k: fn(*args), calls=calls))
+        lone_ms[name] = min(old_ms)
+        print(f"[9 times] {name} ({args[0].shape[0]} x {args[0].shape[1]}), "
+              f"device alone: block per channel {min(new_ms):.4f} ms, one "
+              f"thread per channel {min(old_ms):.4f} ms "
+              f"({min(old_ms) / min(new_ms):.2f}x); card: {card}")
+    end_phase("9 times")
     front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO))
     for sync in ("native", "events"):
         total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync=sync))
@@ -1341,9 +1533,11 @@ def main() -> int:
         and alone on the device, the plain version's, the bound computed
         from this run's inputs (bytes over the memory rate or operations
         over the f32 peak), and the library call's where one exists.  One
-        thread per channel (kernels D and E) is held by neither: its entry
-        also has ``chain_bound_ms``, the dependent chain of the busiest
-        channel counted from the source, and what it was counted from."""
+        walking lane per channel (kernels D and E) is held by neither: its
+        entry also has ``chain_bound_ms``, the dependent chain of the
+        busiest channel counted from the source at this run's calibrated
+        latencies, what it was counted from, and the device time of the
+        one-thread-per-channel form on the same arguments."""
         out = {"name": name, "route": "cuda",
                "source": f"rustradio_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": n_launches,
@@ -1353,6 +1547,7 @@ def main() -> int:
                "library_ms": lib_ms[row]}
         if row in chains:
             out["chain_bound_ms"], out["chain"] = chains[row]
+            out["one_thread_device_ms"] = lone_ms[row]
         return out
 
     record = {"kernels": [

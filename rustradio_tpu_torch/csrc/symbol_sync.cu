@@ -1,5 +1,5 @@
 // Kernels D and E: clock recovery (zero-crossing TED + clamped IIR clock
-// filter, reference src/symbol_sync.rs:115-218), one thread per channel.
+// filter, reference src/symbol_sync.rs:115-218), one block per channel.
 //
 // Neither has a Pallas counterpart.  The JAX package runs both recurrences
 // as a lax.scan, vmapped over channels (models/multichannel.py:62-74), which
@@ -12,255 +12,164 @@
 //   symbol_sync (:145): the step of :87-143, which is also rr_symbol_sync of
 //   native/rr_native.cpp:292-369.
 //
-// What bounds them on an H100: the dependent chain of one channel.  Each
-// sample (E) or crossing slot (D) needs the previous one's clock and
-// offsets, so a channel is one thread walking its stream; the card's width
-// goes to channels, nothing else.  Each channel gets a block of its own
-// (one thread for E; for D one walking thread, then 128 that fill the
-// padding tail): the channels' branches differ (a crossing on one channel,
-// none on the next; while loops of different lengths), and lanes of one
-// warp would wait on each other's branches.  Kernel E reads its row with one
-// 4-byte load per sample (served by L1 after the first of each line) and
-// writes one mask byte and one clock per sample.
-//
-// Numerics: every f32 operation is rounded on its own (__fadd_rn,
-// __fsub_rn, __fmul_rn, __fdiv_rn), because nvcc contracts a*b+c into an FMA
-// by default and one contraction moves an emission by a sample.  The clock
-// filter sums in the order of the JAX scan (:79-81, :238-240) and the
-// native loop.  So both kernels give the plain PyTorch versions'
-// (ops/kernels.py) results bit for bit.
+// What bounds them on an H100 is one lane's dependent chain, and the design
+// (sync_core.cuh says both at length) keeps everything else off that lane:
+// in each block lane 0 of warp 0 walks the channel on registers and shared
+// memory only, warp 1 loads the next tile (kernel E: reduced to one sign
+// bit a sample; kernel D: the slot positions and the tile's first padding
+// slot), warps 2-3 write the previous tile's results out, and one
+// __syncthreads() a tile hands the three buffers on.  Both kernels equal
+// their plain PyTorch versions (ops/kernels.py) bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "sync_core.cuh"
+
 namespace {
 
-constexpr int kMaxTaps = 16;  // clock filter taps; the wrapper raises above
+using namespace rr::sync;
 
-struct SyncConsts {
-  float sps, mx, mi08, mx12, lo, hi;
-  float taps[kMaxTaps];
-  int order;  // ntaps - 1
-  int nf;     // floats of filter history kept per channel: max(order, 1)
-};
-
-// ret = taps[0]*sample + sum_j taps[j+1]*fbuf[j], in that order, clamped
-// to [lo, hi]; the history shifts in ret (newest first) when commit.
-__device__ __forceinline__ float clock_filter(const SyncConsts& k,
-                                              float (&fbuf)[kMaxTaps - 1],
-                                              float sample, bool commit) {
-  float ret = __fmul_rn(k.taps[0], sample);
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) {
-    if (j < k.order) ret = __fadd_rn(ret, __fmul_rn(k.taps[j + 1], fbuf[j]));
-  }
-  if (ret < k.lo) ret = k.lo;
-  if (ret > k.hi) ret = k.hi;
-  if (commit) {
-#pragma unroll
-    for (int j = kMaxTaps - 2; j > 0; --j) {
-      if (j < k.order) fbuf[j] = fbuf[j - 1];
+// Kernel E.  Round t: the walker walks tile t, the loader brings the signs
+// of tile t + 1, the flushers write tile t - 1.
+template <int NT>
+__global__ void __launch_bounds__(kThreads) symbol_sync_scan_kernel(
+    const float* __restrict__ x, long long n, Consts k,
+    float* __restrict__ state, int state_len, unsigned char* __restrict__ mask,
+    float* __restrict__ clocks) {
+  __shared__ uint32_t s_sign[2][kWords];
+  __shared__ ScanTile s_out[2];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = (long long)blockIdx.x * n;
+  const float* xr = x + row;
+  float* st = state + (long long)blockIdx.x * state_len;
+  const long long tiles = (n + kTile - 1) / kTile;
+  ScanWalker<NT> walker;
+  if (tid == 0) walker.load(k, st);
+  if (warp == 1) load_signs(xr, n, 0, s_sign[0], lane);
+  __syncthreads();
+  for (long long t = 0; t <= tiles; ++t) {
+    const int buf = (int)(t & 1);
+    if (warp == 0) {
+      if (tid == 0 && t < tiles)
+        walker.tile(k, s_sign[buf], (int)min((long long)kTile, n - t * kTile),
+                    s_out[buf]);
+      __syncwarp();
+    } else if (warp == 1) {
+      if (t + 1 < tiles) load_signs(xr, n, t + 1, s_sign[buf ^ 1], lane);
+    } else if (t > 0) {
+      const long long i0 = (t - 1) * kTile;
+      flush_scan(s_out[buf ^ 1], (int)min((long long)kTile, n - i0),
+                 mask + row + i0, clocks + row + i0, tid - 64);
     }
-    if (k.order > 0) fbuf[0] = ret;
+    __syncthreads();
   }
-  return ret;
+  if (tid == 0) walker.store(k, st);
 }
 
-// _ted_reduce (symbol_sync.py:149-167): the closed-form pre-reduction,
-// then six predicated steps of the reference's while loop.
-__device__ __forceinline__ float ted_reduce(float t0_raw, float clock,
-                                            float mx) {
-  const float q = floorf(__fdiv_rn(__fsub_rn(t0_raw, mx), clock));
-  const float k0 = fmaxf(0.0f, __fsub_rn(q, 1.0f));
-  float t = __fsub_rn(t0_raw, __fmul_rn(k0, clock));
-#pragma unroll
-  for (int s = 0; s < 6; ++s) {
-    const float t2 = __fsub_rn(t, clock);
-    const bool keep = fabsf(__fsub_rn(t, clock)) >= fabsf(__fsub_rn(t2, clock));
-    if (t > mx && keep) t = t2;
-  }
-  return t;
-}
-
-// Kernel E.  state row: [clock, last_sign, stream_pos, last_boundary,
-// next_mid, fbuf[0..nf)], read at the start and written at the end.
-__global__ void symbol_sync_scan_kernel(const float* __restrict__ x,
-                                        int channels, long long n,
-                                        SyncConsts k, float* __restrict__ state,
-                                        int state_len,
-                                        unsigned char* __restrict__ mask,
-                                        float* __restrict__ clocks) {
-  const int c = blockIdx.x;
-  if (c >= channels || threadIdx.x != 0) return;
-  float* st = state + (long long)c * state_len;
-  float clock = st[0];
-  bool last_sign = st[1] != 0.0f;
-  float pos = st[2], last_b = st[3], next_mid = st[4];
-  float fbuf[kMaxTaps - 1];
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) fbuf[j] = j < k.nf ? st[5 + j] : 0.0f;
-  const float* xr = x + (long long)c * n;
-  unsigned char* mr = mask + (long long)c * n;
-  float* cr = clocks + (long long)c * n;
-  for (long long i = 0; i < n; ++i) {
-    const float sample = xr[i];
-    const bool emit = pos >= next_mid;
-    mr[i] = emit;
-    cr[i] = clock;
-    if (emit) next_mid = __fadd_rn(next_mid, clock);
-    const bool sign = sample > 0.0f;
-    const bool changed = sign != last_sign;
-    if (changed && pos > 0.0f && last_b > 0.0f) {
-      float t = __fsub_rn(pos, last_b);
-      while (t > k.mx) {
-        const float t2 = __fsub_rn(t, clock);
-        if (fabsf(__fsub_rn(t, clock)) < fabsf(__fsub_rn(t2, clock))) break;
-        t = t2;
-      }
-      if (t > k.mi08 && t < k.mx12) {
-        const float ret = clock_filter(k, fbuf, __fsub_rn(t, k.sps), true);
-        clock = __fadd_rn(ret, k.sps);
-        float nm = __fadd_rn(last_b, __fdiv_rn(clock, 2.0f));
-        while (nm < pos) nm = __fadd_rn(nm, clock);
-        next_mid = nm;
-      }
-    }
-    if (changed) {
-      last_b = pos;
-      last_sign = sign;
-    }
-    pos = __fadd_rn(pos, 1.0f);
-    const float sb = __fmul_rn(10.0f, clock);
-    if (pos > sb && last_b > sb && next_mid > sb) {
-      pos = __fsub_rn(pos, sb);
-      last_b = __fsub_rn(last_b, sb);
-      next_mid = __fsub_rn(next_mid, sb);
-    }
-  }
-  st[0] = clock;
-  st[1] = last_sign ? 1.0f : 0.0f;
-  st[2] = pos;
-  st[3] = last_b;
-  st[4] = next_mid;
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) {
-    if (j < k.nf) st[5 + j] = fbuf[j];
-  }
-}
-
-// Kernel D.  fstate row: [clock, mid_off, bnd_off, fbuf[0..nf)]; istate
-// row: [p_prev, have_boundary, started].  Slots hold crossing positions,
-// ascending, padded with n; a padding slot leaves the state as it is.  So
-// one thread walks a channel's real slots (events_walk) and stops at the
-// first padding slot, then the block's threads write the constant state
-// into the padding tail: budgets are several times the real crossings, and
-// the tail is most of the slots.
-constexpr int kEventsThreads = 128;
-
-// event_step over one channel's slots up to its first padding slot,
-// prefetching the next slot's position.  Writes ev_mid/ev_clock of the
-// real slots and the final state; returns the first padding slot, and the
-// final mid offset and clock in mid_out / clock_out.
-__device__ int events_walk(const SyncConsts& k, const int* __restrict__ ev,
-                           int n_events, int n, float* __restrict__ fs,
-                           int* __restrict__ is, float* __restrict__ om,
-                           float* __restrict__ oc, float& mid_out,
-                           float& clock_out) {
-  float clock = fs[0], mid_off = fs[1], bnd_off = fs[2];
-  float fbuf[kMaxTaps - 1];
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) fbuf[j] = j < k.nf ? fs[3 + j] : 0.0f;
-  int p_prev = is[0];
-  bool have_b = is[1] != 0;
-  const bool started = is[2] != 0;
-  int e = 0;
-  int p = n_events > 0 ? ev[0] : n;
-  for (; e < n_events && p < n; ++e) {
-    const int p_next = e + 1 < n_events ? ev[e + 1] : n;
-    const int gap_i = p - p_prev;
-    const float gap = __int2float_rn(gap_i);
-    // emissions in (p_prev, p] bump mid before the crossing adjusts it
-    const int e_unc =
-        (int)floorf(__fdiv_rn(__fsub_rn(gap, mid_off), clock)) + 1;
-    const int emitted = min(max(e_unc, 0), gap_i);
-    const float mid_off_p = __fsub_rn(
-        __fadd_rn(mid_off, __fmul_rn(__int2float_rn(emitted), clock)), gap);
-    const float t0_raw = __fadd_rn(gap, bnd_off);
-    const float t = ted_reduce(t0_raw, clock, k.mx);
-    const bool in_range = t > k.mi08 && t < k.mx12;
-    const bool past_start = started || p > 0;
-    if (past_start && have_b && in_range) {
-      const float ret = clock_filter(k, fbuf, __fsub_rn(t, k.sps), true);
-      const float new_clock = __fadd_rn(ret, k.sps);
-      const float nm0 = __fsub_rn(__fdiv_rn(new_clock, 2.0f), t0_raw);
-      const float kk = fmaxf(0.0f, ceilf(__fdiv_rn(-nm0, new_clock)));
-      clock = new_clock;
-      mid_off = fmaxf(__fadd_rn(nm0, __fmul_rn(kk, new_clock)), 0.0f);
-    } else {
-      mid_off = mid_off_p;
-    }
-    p_prev = p;
-    bnd_off = 0.0f;
-    have_b = past_start;
-    om[e] = mid_off;
-    oc[e] = clock;
-    p = p_next;
-  }
-  fs[0] = clock;
-  fs[1] = mid_off;
-  fs[2] = bnd_off;
-#pragma unroll
-  for (int j = 0; j < kMaxTaps - 1; ++j) {
-    if (j < k.nf) fs[3 + j] = fbuf[j];
-  }
-  is[0] = p_prev;
-  is[1] = have_b ? 1 : 0;
-  mid_out = mid_off;
-  clock_out = clock;
-  return e;
-}
-
-__global__ void __launch_bounds__(kEventsThreads) symbol_sync_events_kernel(
-    const int* __restrict__ events, int channels, int n_events, int n,
-    SyncConsts k, float* __restrict__ fstate, int fstate_len,
+// Kernel D.  Slots hold crossing positions, ascending, padded with n; a
+// padding slot leaves the state as it is.  So the walker walks a channel's
+// real slots only, tile by tile up to the tile that holds the first
+// padding slot (round t: walk tile t, load tile t + 1, flush tile t - 1),
+// and then the whole block writes the constant final state into the
+// padding tail: budgets are several times the real crossings, and the tail
+// is most of the slots.
+template <int NT>
+__global__ void __launch_bounds__(kThreads) symbol_sync_events_kernel(
+    const int* __restrict__ events, const int* __restrict__ counts,
+    int n_events, int n, Consts k, float* __restrict__ fstate, int fstate_len,
     int* __restrict__ istate, float* __restrict__ ev_mid,
     float* __restrict__ ev_clock) {
-  const int c = blockIdx.x;
-  if (c >= channels) return;
-  float* om = ev_mid + (long long)c * n_events;
-  float* oc = ev_clock + (long long)c * n_events;
-  // the walk's end and final state reach the block through shared memory
-  __shared__ int s_end;
-  __shared__ float s_mid, s_clock;
-  if (threadIdx.x == 0) {
-    s_end = events_walk(k, events + (long long)c * n_events, n_events, n,
-                        fstate + (long long)c * fstate_len,
-                        istate + (long long)c * 3, om, oc, s_mid, s_clock);
+  __shared__ int s_ev[2][kTile];
+  __shared__ float s_mid[2][kTile], s_clk[2][kTile];
+  __shared__ int s_cnt[2];
+  __shared__ float s_fin[2];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = (long long)blockIdx.x * n_events;
+  const int* er = events + row;
+  float* om = ev_mid + row;
+  float* oc = ev_clock + row;
+  float* fs = fstate + (long long)blockIdx.x * fstate_len;
+  int* is = istate + (long long)blockIdx.x * 3;
+  const int real = counts ? min(counts[blockIdx.x], n_events) : -1;
+  EventsWalker<NT> walker;
+  if (tid == 0) walker.load(k, fs, is);
+  if (warp == 1)
+    load_slots(er, n_events, n, 0, real, s_ev[0], &s_cnt[0], lane);
+  __syncthreads();
+  int end = 0, prev_cnt = 0;
+  bool live = n_events > 0;  // tile t exists and every slot before it is real
+  for (int t = 0;; ++t) {
+    const int buf = t & 1, i0 = t * kTile;
+    int cnt = 0;
+    bool next = false;
+    if (live) {
+      cnt = s_cnt[buf];
+      next = cnt == kTile && i0 + kTile < n_events;
+      end = i0 + cnt;
+    }
+    if (warp == 0) {
+      if (tid == 0 && cnt > 0)
+        walker.tile(k, s_ev[buf], cnt, s_mid[buf], s_clk[buf]);
+      __syncwarp();
+    } else if (warp == 1) {
+      if (next)
+        load_slots(er, n_events, n, t + 1, real, s_ev[buf ^ 1],
+                   &s_cnt[buf ^ 1], lane);
+    } else if (prev_cnt > 0) {
+      flush_slots(s_mid[buf ^ 1], s_clk[buf ^ 1], prev_cnt, om + (i0 - kTile),
+                  oc + (i0 - kTile), tid - 64);
+    }
+    __syncthreads();
+    if (!live) break;
+    prev_cnt = cnt;
+    live = next;
+  }
+  if (tid == 0) {
+    walker.store(k, fs, is);
+    s_fin[0] = walker.mid_off;
+    s_fin[1] = walker.clock;
   }
   __syncthreads();
-  for (int e = s_end + threadIdx.x; e < n_events; e += blockDim.x) {
-    om[e] = s_mid;
-    oc[e] = s_clock;
+  for (int e = end + tid; e < n_events; e += kThreads) {
+    om[e] = s_fin[0];
+    oc[e] = s_fin[1];
   }
 }
 
-// The constants of both recurrences, in f32 as the JAX package computes
-// them; false when the tap count is out of range.
-bool make_consts(float sps, float max_dev, const float* taps, int ntaps,
-                 SyncConsts* k) {
-  if (ntaps < 1 || ntaps > kMaxTaps) return false;
-  const float mi = sps - max_dev;
-  const float mx = sps + max_dev;
-  k->sps = sps;
-  k->mx = mx;
-  k->mi08 = mi * 0.8f;
-  k->mx12 = mx * 1.2f;
-  k->lo = mi - sps;
-  k->hi = mx - sps;
-  for (int j = 0; j < kMaxTaps; ++j) k->taps[j] = j < ntaps ? taps[j] : 0.0f;
-  k->order = ntaps - 1;
-  k->nf = ntaps > 1 ? ntaps - 1 : 1;
-  return true;
+// The kernel compiled for the filter's tap count: 1, 2 and 6 taps have
+// their own instance, any other count takes the general form.
+template <template <int> class Launch, typename... Args>
+cudaError_t by_taps(int ntaps, Args... args) {
+  switch (ntaps) {
+    case 1: Launch<1>::run(args...); break;
+    case 2: Launch<2>::run(args...); break;
+    case 6: Launch<6>::run(args...); break;
+    default: Launch<0>::run(args...); break;
+  }
+  return cudaGetLastError();
 }
+
+template <int NT>
+struct LaunchScan {
+  static void run(int channels, cudaStream_t stream, const float* x,
+                  long long n, Consts k, float* state, int state_len,
+                  unsigned char* mask, float* clocks) {
+    symbol_sync_scan_kernel<NT><<<channels, kThreads, 0, stream>>>(
+        x, n, k, state, state_len, mask, clocks);
+  }
+};
+
+template <int NT>
+struct LaunchEvents {
+  static void run(int channels, cudaStream_t stream, const int* events,
+                  const int* counts, int n_events, int n, Consts k,
+                  float* fstate, int fstate_len, int* istate, float* ev_mid,
+                  float* ev_clock) {
+    symbol_sync_events_kernel<NT><<<channels, kThreads, 0, stream>>>(
+        events, counts, n_events, n, k, fstate, fstate_len, istate, ev_mid,
+        ev_clock);
+  }
+};
 
 }  // namespace
 
@@ -272,33 +181,36 @@ extern "C" int rr_symbol_sync_scan(const void* x, int channels, long long n,
                                    float sps, float max_dev, const float* taps,
                                    int ntaps, void* state, int state_len,
                                    void* mask, void* clocks, void* stream) {
-  SyncConsts k;
-  if (!make_consts(sps, max_dev, taps, ntaps, &k) || state_len != 5 + k.nf)
+  Consts k;
+  if (!make_consts(sps, max_dev, taps, ntaps, &k) ||
+      state_len != 5 + history_len(ntaps) || n < 0)
     return (int)cudaErrorInvalidValue;
   if (channels <= 0) return 0;
-  symbol_sync_scan_kernel<<<channels, 1, 0, (cudaStream_t)stream>>>(
-      (const float*)x, channels, n, k, (float*)state, state_len,
-      (unsigned char*)mask, (float*)clocks);
-  return (int)cudaGetLastError();
+  return (int)by_taps<LaunchScan>(
+      ntaps, channels, (cudaStream_t)stream, (const float*)x, n, k,
+      (float*)state, state_len, (unsigned char*)mask, (float*)clocks);
 }
 
 // events: (channels, n_events) int32 crossing positions, ascending, padded
-// with n; fstate: (channels, fstate_len) f32 (fstate_len = 3 + max(ntaps -
-// 1, 1)) and istate: (channels, 3) int32, both updated in place; ev_mid and
-// ev_clock: (channels, n_events) f32, the state after each slot.
-extern "C" int rr_symbol_sync_events(const void* events, int channels,
-                                     int n_events, int n, float sps,
-                                     float max_dev, const float* taps,
-                                     int ntaps, void* fstate, int fstate_len,
+// with n; counts: (channels) int32, each row's real slots, or null (the
+// loader then finds them); fstate: (channels, fstate_len) f32 (fstate_len
+// = 3 + max(ntaps - 1, 1)) and istate: (channels, 3) int32, both updated
+// in place; ev_mid and ev_clock: (channels, n_events) f32, the state after
+// each slot.
+extern "C" int rr_symbol_sync_events(const void* events, const void* counts,
+                                     int channels, int n_events, int n,
+                                     float sps, float max_dev,
+                                     const float* taps, int ntaps,
+                                     void* fstate, int fstate_len,
                                      void* istate, void* ev_mid,
                                      void* ev_clock, void* stream) {
-  SyncConsts k;
-  if (!make_consts(sps, max_dev, taps, ntaps, &k) || fstate_len != 3 + k.nf)
+  Consts k;
+  if (!make_consts(sps, max_dev, taps, ntaps, &k) ||
+      fstate_len != 3 + history_len(ntaps) || n_events < 0)
     return (int)cudaErrorInvalidValue;
   if (channels <= 0) return 0;
-  symbol_sync_events_kernel<<<channels, kEventsThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const int*)events, channels, n_events, n, k, (float*)fstate,
-      fstate_len, (int*)istate, (float*)ev_mid, (float*)ev_clock);
-  return (int)cudaGetLastError();
+  return (int)by_taps<LaunchEvents>(
+      ntaps, channels, (cudaStream_t)stream, (const int*)events,
+      (const int*)counts, n_events, n, k, (float*)fstate, fstate_len,
+      (int*)istate, (float*)ev_mid, (float*)ev_clock);
 }

@@ -212,9 +212,17 @@ class Graph:
         return new_states
 
     # ---- offline ----
-    def run(self, device="cpu") -> None:
+    def run(self, device="cuda") -> None:
         """Offline mode: evaluate every block once over whole streams,
-        sources emitting on ``device``."""
+        sources emitting on ``device``: the card unless the caller names
+        another.  Without a card the default raises; it never moves to the
+        CPU by itself (pass ``device="cpu"`` for the kernels' plain
+        versions)."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f'Graph.run(device="{device}"): no CUDA device here; pass '
+                'device="cpu" to run on the kernels\' plain versions')
         values: dict[tuple[int, int], Any] = {}
         tags: dict[tuple[int, int], list[Tag]] = {}
         segs = self._segments()

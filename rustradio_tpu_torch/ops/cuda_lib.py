@@ -10,6 +10,11 @@ the sources.  The library lands in ``rustradio_tpu_torch/_build/``
 is a cache hit.  The build happens at
 first use, never at import: a machine without ``nvcc`` imports every
 module and runs the plain versions on CPU tensors.  A failed build raises.
+
+:func:`build` also makes a second library from another directory of
+sources (``tools/csrc/``: the yardsticks of ``tools/time_sync.py``, which
+include the headers of ``csrc/``), so that nothing but the kernels of the
+paths is compiled into, or bound from, the library every user loads.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = _buildcache.BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR),
 )
 LINK_FLAGS = ("-shared",)
 
@@ -44,35 +49,41 @@ def _nvcc() -> str:
     return path
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(src_dir: Path = CSRC_DIR) -> list[Path]:
+    return sorted(src_dir.glob("*.cu"))
 
 
-def library_path() -> Path:
-    parts = [" ".join(NVCC_FLAGS), " ".join(LINK_FLAGS)]
-    for src in sorted(CSRC_DIR.iterdir()):
-        parts += [src.name, src.read_bytes()]
-    return _buildcache.hashed_path(BUILD_DIR, "librr_cuda", parts)
+def library_path(src_dir: Path = CSRC_DIR, prefix: str = "librr_cuda") -> Path:
+    """The library's file, named by the flags and every file of ``csrc/``
+    (and of ``src_dir``, where that is another directory: its sources may
+    include the headers of ``csrc/``)."""
+    parts = [" ".join(NVCC_FLAGS[:-2]), " ".join(LINK_FLAGS)]
+    for folder in dict.fromkeys((CSRC_DIR, src_dir)):
+        for src in sorted(folder.iterdir()):
+            parts += [src.name, src.read_bytes()]
+    return _buildcache.hashed_path(BUILD_DIR, prefix, parts)
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same hash exists: the
-    sources in parallel into objects in a temporary directory, then one
-    link."""
-    out = library_path()
+def build(src_dir: Path = CSRC_DIR, prefix: str = "librr_cuda") -> Path:
+    """Compile ``src_dir``/*.cu unless a library of the same hash exists:
+    the sources in parallel into objects in a temporary directory, then
+    one link."""
+    out = library_path(src_dir, prefix)
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         def compile_then_link(tmp: Path) -> list[str]:
             nvcc = _nvcc()
-            objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in sources()]
+            srcs = sources(src_dir)
+            objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in srcs]
             _buildcache.run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                                 for src, obj in zip(sources(), objs)])
+                                 for src, obj in zip(srcs, objs)])
             return [nvcc, *LINK_FLAGS, "-o", str(tmp), *objs]
 
         cached = _buildcache.build(out, compile_then_link)
-    BUILD_INFO.update(path=str(out), cached=cached,
-                      seconds=0.0 if cached else time.perf_counter() - t0)
+    if src_dir == CSRC_DIR:
+        BUILD_INFO.update(path=str(out), cached=cached,
+                          seconds=0.0 if cached else time.perf_counter() - t0)
     return out
 
 
@@ -87,8 +98,8 @@ def _bind(lib):
     lib.rr_quad_demod.restype = i
     lib.rr_symbol_sync_scan.argtypes = [p, i, ll, f, f, p, i, p, i, p, p, p]
     lib.rr_symbol_sync_scan.restype = i
-    lib.rr_symbol_sync_events.argtypes = [p, i, i, i, f, f, p, i, p, i, p, p,
-                                          p, p]
+    lib.rr_symbol_sync_events.argtypes = [p, p, i, i, i, f, f, p, i, p, i, p,
+                                          p, p, p]
     lib.rr_symbol_sync_events.restype = i
     lib.rr_cuda_error_string.argtypes = [i]
     lib.rr_cuda_error_string.restype = ctypes.c_char_p

@@ -23,13 +23,20 @@ A and B share one register-blocked FIR core, ``csrc/fir_core.cuh``:
   complex64 stream, n - 1 outputs.
 
 Two more have no Pallas counterpart: they replace the ``lax.scan``s of the
-clock recovery (``rustradio_tpu/ops/symbol_sync.py``), one thread per
-channel (``csrc/symbol_sync.cu``):
+clock recovery (``rustradio_tpu/ops/symbol_sync.py``), one block per
+channel in which one lane walks the recurrence on registers and shared
+memory while other warps load the next tile and write the previous one
+out (``csrc/symbol_sync.cu`` on ``csrc/sync_core.cuh``):
 
 * ``symbol_sync_events_scan`` (kernel D) runs the event step over each
   channel's crossing slots (the scan at symbol_sync.py:305);
 * ``symbol_sync_scan`` (kernel E) runs the per-sample recurrence (the scan
   at symbol_sync.py:145, and native ``rr_symbol_sync``).
+
+``tools/csrc/symbol_sync_lone.cu`` keeps both as one thread per channel,
+and ``tools/csrc/chain_calib.cu`` measures a lone lane's latencies:
+yardsticks that ``tools/time_sync.py`` builds into a library of its own
+(for itself and ``chip_smoke.py``); the package's library holds neither.
 
 Routing: a wrapper runs the plain version only because its tensor lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
@@ -51,8 +58,9 @@ How it is run.  The CPU tests (``python -m pytest tests/test_torch_*.py``)
 hold the plain versions to the JAX package; the kernels run only on an
 NVIDIA GPU, where ``python3 chip_smoke.py`` (the end-to-end drive) and
 ``python -m pytest tests/test_torch_cuda.py`` (kernels against plain
-versions, edge cases of the register-blocked core, graph replay against
-the eager loop) build them at first use.
+versions, edge cases of the register-blocked core and of the clock
+recovery's tiles, graph replay against the eager loop) build them at
+first use.
 
 Precision modes keep the JAX package's contracts (plane dtype and error
 budget against float64), not its MXU mechanics:
@@ -692,7 +700,7 @@ def quad_demod_fast(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
 
 # ------------------------------------ kernels D and E: clock recovery
 
-MAX_CLOCK_TAPS = 16  # the kernels' bound on the clock filter (symbol_sync.cu)
+MAX_CLOCK_TAPS = 16  # the kernels' bound on the clock filter (sync_core.cuh)
 
 
 class SyncConsts(typing.NamedTuple):
@@ -859,7 +867,8 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
 
 
 def _check_events(events: torch.Tensor, n: int, fstate: torch.Tensor,
-                  istate: torch.Tensor, k: SyncConsts) -> None:
+                  istate: torch.Tensor, k: SyncConsts,
+                  counts: torch.Tensor | None) -> None:
     _check_sync(events, torch.int32, fstate, 3 + k.nf, "symbol_sync_events_scan")
     if (istate.dtype != torch.int32 or tuple(istate.shape) != (events.shape[0], 3)
             or istate.device != events.device):
@@ -867,17 +876,24 @@ def _check_events(events: torch.Tensor, n: int, fstate: torch.Tensor,
                          f"3) int32 istate on {events.device}")
     if not 0 <= n < 1 << 24:
         raise ValueError(f"n={n}: positions stay f32-exact only below 2^24")
+    if counts is not None and (
+            counts.dtype != torch.int32 or tuple(counts.shape) != events.shape[:1]
+            or counts.device != events.device or not counts.is_contiguous()):
+        raise ValueError(f"symbol_sync_events_scan needs ({events.shape[0]},) "
+                         f"int32 counts on {events.device}")
 
 
 def symbol_sync_events_scan_plain(events: torch.Tensor, n: int, sps: float,
                                   max_deviation: float, clock_taps,
-                                  fstate: torch.Tensor, istate: torch.Tensor):
+                                  fstate: torch.Tensor, istate: torch.Tensor,
+                                  counts: torch.Tensor | None = None):
     """Plain PyTorch version of :func:`symbol_sync_events_scan` (any
     device): a Python loop over the slots on (C,) tensors, up to the last
     slot that holds a crossing on any channel (padding slots after it
-    change no state)."""
+    change no state).  It finds the padding itself, whether or not
+    ``counts`` is given."""
     k = sync_consts(sps, max_deviation, clock_taps)
-    _check_events(events, n, fstate, istate, k)
+    _check_events(events, n, fstate, istate, k, counts)
     clock, mid_off, bnd_off = fstate.unbind(1)[:3]
     fbuf = list(fstate.unbind(1)[3:])
     p_prev, have_b, started = istate.unbind(1)
@@ -926,7 +942,8 @@ def symbol_sync_events_scan_plain(events: torch.Tensor, n: int, sps: float,
 
 def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
                             max_deviation: float, clock_taps,
-                            fstate: torch.Tensor, istate: torch.Tensor):
+                            fstate: torch.Tensor, istate: torch.Tensor,
+                            counts: torch.Tensor | None = None):
     """The event step of ``symbol_sync_events`` over each channel's slots.
 
     ``events`` (C, E) int32: each channel's crossing positions in a stream
@@ -935,12 +952,15 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
     int32 rows ``[p_prev, have_boundary, started]`` are the carried state.
     Returns ``(ev_mid, ev_clock, fstate_out, istate_out)``, ``ev_mid`` and
     ``ev_clock`` (C, E) f32 the mid offset and clock after each slot.
-    Kernel D on CUDA tensors; the plain version on CPU tensors."""
+    ``counts`` (C,) int32, where the caller has it, is each channel's
+    number of crossing slots (the slots before its padding); the kernel
+    then looks for no padding.  Kernel D on CUDA tensors; the plain version
+    on CPU tensors."""
     k = sync_consts(sps, max_deviation, clock_taps)
-    _check_events(events, n, fstate, istate, k)
+    _check_events(events, n, fstate, istate, k, counts)
     if not _route(events):
         return symbol_sync_events_scan_plain(events, n, sps, max_deviation,
-                                             clock_taps, fstate, istate)
+                                             clock_taps, fstate, istate, counts)
     c, n_ev = events.shape
     ev_mid = torch.empty((c, n_ev), dtype=torch.float32, device=events.device)
     ev_clock = torch.empty_like(ev_mid)
@@ -950,7 +970,8 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
     taps = np.asarray(k.taps, np.float32)
     lib = cuda_lib.load()
     cuda_lib.check(lib.rr_symbol_sync_events(
-        events.data_ptr(), c, n_ev, n, k.sps, float(np.float32(max_deviation)),
+        events.data_ptr(), None if counts is None else counts.data_ptr(),
+        c, n_ev, n, k.sps, float(np.float32(max_deviation)),
         taps.ctypes.data, len(taps), fout.data_ptr(), fout.shape[1],
         iout.data_ptr(), ev_mid.data_ptr(), ev_clock.data_ptr(),
         _stream(events.device)), "symbol_sync_events")

@@ -5,7 +5,7 @@ src/symbol_sync.rs:115-218), in three forms:
 
 * :func:`symbol_sync`, the per-sample recurrence, bit-exact with the JAX
   package's scan and with native ``rr_symbol_sync``; kernel E
-  (``kernels.symbol_sync_scan``) on the card, one thread per channel.
+  (``kernels.symbol_sync_scan``) on the card, one block per channel.
 * :func:`symbol_sync_events`, the event-driven form: the recurrence
   advances only at zero crossings (kernel D, ``kernels.
   symbol_sync_events_scan``, over each channel's crossing slots), and the
@@ -177,9 +177,11 @@ def symbol_sync_events(x, sps: float, max_deviation: float = 0.5,
     changed = torch.cat([sign[:, :1] != last_sign0[:, None],
                          sign[:, 1:] != sign[:, :-1]], 1)
     events = _crossings(changed, max_events)
-    valid = changed.sum(1) <= max_events
+    crossings = changed.sum(1)
+    valid = crossings <= max_events
     ev_mid, ev_clock, fout, iout = kernels.symbol_sync_events_scan(
-        events, n, sps, max_deviation, clock_taps, fstate, istate)
+        events, n, sps, max_deviation, clock_taps, fstate, istate,
+        crossings.clamp(max=max_events).to(i32))
 
     # ---- vectorised emission mask over all samples
     p_tab = torch.cat([istate[:, :1], events], 1)

@@ -441,3 +441,104 @@ def test_torch_cuda_decode_band_runs_on_kernels(cuda_device, sync):
     cpu = multichannel.decode_band_ax25(iq, fs, n_channels=16, max_active=3,
                                         sync_method=sync, device="cpu")
     assert {r.channel: [bytes(p) for p in r.packets] for r in cpu} == got
+
+
+# ---- kernels D and E where their tiled, block-per-channel design can
+# break: the edge inputs of rustradio_tpu_torch/tools/sync_cases.py (sizes
+# around one tile and the two in flight, misaligned rows, silence, chatter,
+# crossings on a tile's first and last sample, sps 2.5 to 100, 1 to 16
+# taps, cut streams), the kernels on the card against the plain versions on
+# the CPU, every output bit for bit
+
+from rustradio_tpu_torch.tools import sync_cases  # noqa: E402
+
+SYNC_CASES = {c.name: c for c in sync_cases.cases()}
+
+
+@pytest.mark.parametrize("name", list(SYNC_CASES))
+def test_torch_cuda_symbol_sync_edge_case(cuda_device, name):
+    case = SYNC_CASES[name]
+    before = dict(kernels.LAUNCHES)
+    got = sync_cases.run_case(case, cuda_device)
+    c, n = case.x.shape
+    chunks = len(case.cuts) + 1
+    # whole + one call per chunk; kernel D also once on its own slots.  An
+    # empty stream launches nothing in the per-sample form
+    want_e = (1 + chunks) if c and n else 0
+    assert kernels.LAUNCHES["symbol_sync_scan"] - before["symbol_sync_scan"] == want_e
+    assert (kernels.LAUNCHES["symbol_sync_events"]
+            - before["symbol_sync_events"]) == 1 + chunks + 1
+    want = sync_cases.run_case(case, "cpu")
+    assert sync_cases.mismatches(got, want) == []
+    assert sync_cases.self_mismatches(got) == []
+
+
+def test_torch_cuda_symbol_sync_more_channels_than_sms(cuda_device):
+    # 300 channels are 300 blocks on 132 SMs: every channel against the
+    # plain version (the per-sample form on a prefix: its plain loop is slow)
+    x = _nrz_bank(50, 300, 3000, 12.6, 0.2)
+    xt = torch.from_numpy(x).to(cuda_device)
+    (_, m, c), valid = ops.symbol_sync_events(xt, 12.6)
+    (_, pm, pc), pvalid = ops.symbol_sync_events(torch.from_numpy(x), 12.6)
+    assert valid.all() and torch.equal(valid.cpu(), pvalid)
+    assert torch.equal(m.cpu(), pm) and torch.equal(c.cpu(), pc)
+    (v, m, c), st = ops.symbol_sync(xt, 12.6)
+    (_, pm, pc), pst = ops.symbol_sync(torch.from_numpy(x[:, :1100]), 12.6)
+    assert torch.equal(m[:, :1100].cpu(), pm)
+    assert torch.equal(c[:, :1100].cpu(), pc)
+    for ch in range(0, 300, 7):
+        np.testing.assert_array_equal(
+            ops.compact(v[ch], m[ch]).cpu().numpy(),
+            native.symbol_sync_f32(x[ch], 12.6, 0.5, (0.5, 0.5)))
+
+
+def test_torch_cuda_symbol_sync_events_scan_counts(cuda_device):
+    # kernel D told each channel's crossing slots (as ops.symbol_sync_events
+    # tells it) and left to find the padding itself: channels that fill
+    # their slots, half of them, a handful, and none
+    case = SYNC_CASES["slots2049"]
+    x = torch.from_numpy(case.x).to(cuda_device)
+    x = torch.cat([x, -torch.ones_like(x[:1])])
+    for slots in (1023, 1024, 2049):
+        args = sync_cases.fresh_event_args(x, case, slots)
+        counts = (args[0] < args[1]).sum(1, dtype=torch.int32)
+        assert counts[0] >= min(slots, 2000) and counts[3] == 0
+        want = kernels.symbol_sync_events_scan_plain(*(a.cpu() if torch.is_tensor(a)
+                                                      else a for a in args))
+        for got in (kernels.symbol_sync_events_scan(*args, counts),
+                    kernels.symbol_sync_events_scan(*args)):
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+def test_torch_cuda_symbol_sync_one_thread_forms_agree(cuda_device):
+    # the one-thread-per-channel yardsticks that tools/time_sync.py times
+    # the kernels against compute the same function
+    from rustradio_tpu_torch.tools import time_sync
+
+    case = SYNC_CASES["n2049"]
+    x = torch.from_numpy(case.x).to(cuda_device)
+    args = sync_cases.fresh_event_args(x, case, 1024)
+    for g, w in zip(time_sync.events_lone(*args),
+                    kernels.symbol_sync_events_scan(*args)):
+        assert torch.equal(g, w)
+    st = torch.tensor([[10.0, 0.0, 0.0, 0.0, 5.0, 10.0]] * 3, device=cuda_device)
+    for g, w in zip(time_sync.scan_lone(x, 10.0, 0.5, (0.5, 0.5), st),
+                    kernels.symbol_sync_scan(x, 10.0, 0.5, (0.5, 0.5), st)):
+        assert torch.equal(g, w)
+
+
+def test_torch_cuda_graph_run_defaults_to_the_card(cuda_device):
+    rng = np.random.RandomState(62)
+    taps = rng.randn(33).astype(np.float32) / 5
+    data = (rng.randn(3000) + 1j * rng.randn(3000)).astype(np.complex64)
+    sinks = []
+    for kw in ({}, {"device": "cpu"}):
+        g, s = Graph(), blocks.VectorSink()
+        g.chain(blocks.VectorSource(data), blocks.FirFilter(taps, deci=2), s)
+        before = kernels.LAUNCHES["fir_decimate"]
+        g.run(**kw)
+        assert (kernels.LAUNCHES["fir_decimate"] > before) == (not kw)
+        sinks.append(s.data())
+    np.testing.assert_allclose(sinks[0], sinks[1],
+                               atol=2e-5 * np.abs(sinks[1]).max(), rtol=0)

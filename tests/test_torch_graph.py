@@ -204,3 +204,18 @@ def test_torch_resume_from_jax_state():
     assert new_fir["out_off"] == sf2["out_off"]
     assert torch.equal(new_fir["buf"], sf2["buf"])
     np.testing.assert_allclose(got2.numpy(), want, atol=3e-4, rtol=0)
+
+
+def test_torch_graph_run_without_a_card_raises_and_names_cpu(monkeypatch):
+    # run() emits on the card unless told otherwise; with none it raises
+    # (no move to the CPU by itself) and says how to ask for the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g, s = Graph(), blocks.VectorSink()
+    g.chain(blocks.VectorSource(np.ones(64, np.float32)),
+            blocks.FirFilter(np.ones(3, np.float32)), s)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        g.run()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        g.run(device="cuda:0")
+    g.run(device="cpu")
+    assert s.data().shape == (62,)

@@ -251,3 +251,110 @@ def test_torch_symbol_sync_wrappers_check_their_inputs():
         tss.symbol_sync(np.zeros(64, np.float32), 10.0)
     with pytest.raises(ValueError, match="sps must be > 1"):
         tss.symbol_sync_events(x, 1.0)
+
+
+# ---- the edge inputs that the card tests and chip_smoke.py run on the
+# kernels (rustradio_tpu_torch/tools/sync_cases.py): here the plain versions
+# against the JAX package
+
+from rustradio_tpu_torch.tools import sync_cases  # noqa: E402
+
+EDGE_CASES = {c.name: c for c in sync_cases.cases()}
+
+
+def _exact(case) -> bool:
+    # taps and rates whose products are exact in f32 leave XLA's contracted
+    # FMA nothing to change: bit-equal.  Otherwise (module docstring) JAX's
+    # clocks may sit one ulp off the port's and native's.
+    return (all(float(t) in (0.5, 0.25, 0.75) for t in case.taps)
+            and float(case.sps) == float(np.float32(case.sps)))
+
+
+def _assert_clocks(case, got, want, what):
+    if _exact(case):
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        np.testing.assert_array_max_ulp(got, want, maxulp=1)
+
+
+def _assert_state(case, got, ch, jst, what):
+    # the whole final state: bit-equal where the clocks are; else the clock
+    # within its last place, and what derives from it (the filter history
+    # holds clock - sps; the positions step back by 10 clocks) within that
+    # last place's worth, 10 of them for the positions
+    assert bool(got["scan.state.last_sign"][ch]) == bool(jst["last_sign"]), what
+    ulp = float(np.spacing(np.float32(case.sps + case.max_deviation)))
+    for key, tol in (("clock", ulp), ("fbuf", ulp), ("stream_pos", 10 * ulp),
+                     ("last_sym_boundary_pos", 10 * ulp),
+                     ("next_sym_middle", 10 * ulp)):
+        mine = got[f"scan.state.{key}"][ch].numpy()
+        np.testing.assert_allclose(
+            mine, np.asarray(jst[key]), rtol=0,
+            atol=0 if _exact(case) else tol, err_msg=f"{what} {key}")
+
+
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+def test_torch_symbol_sync_edge_case_matches_jax(name):
+    # the per-sample form: masks, clocks and the whole final state against
+    # the JAX scan, channel by channel, from the case's entry state; the
+    # emitted symbols against native (from the fresh state, which is the
+    # only one native starts from); the stream cut at the case's positions
+    # against the whole stream
+    case = EDGE_CASES[name]
+    got = sync_cases.run_case(case, "cpu", forms=("scan",))
+    assert sync_cases.self_mismatches(got) == []
+    c, n = case.x.shape
+    args = (case.sps, case.max_deviation, case.taps)
+    for ch in range(c):
+        st = case.state0 and {k: v[ch] for k, v in case.state0.items()}
+        (_, jm, jc), jst = jss.symbol_sync(case.x[ch], *args, state=st,
+                                           unroll=1)
+        np.testing.assert_array_equal(got["scan.mask"][ch].numpy(),
+                                      np.asarray(jm))
+        _assert_clocks(case, got["scan.clocks"][ch].numpy(), np.asarray(jc),
+                       f"{name} channel {ch}")
+        _assert_state(case, got, ch, jst, f"{name} channel {ch}")
+        if case.state0 is None:
+            np.testing.assert_array_equal(
+                case.x[ch][got["scan.mask"][ch].numpy()],
+                native.symbol_sync_f32(case.x[ch], *args))
+
+
+@pytest.mark.parametrize("name", list(EDGE_CASES))
+def test_torch_symbol_sync_events_edge_case_matches_jax(name):
+    # the event form at the case's slot budget: masks and valid flags equal
+    # to the JAX package's, clocks as above, on the channels that did not
+    # overflow (an overflowed channel's output is declared untrustworthy by
+    # both); chained chunks equal the whole stream
+    case = EDGE_CASES[name]
+    got = sync_cases.run_case(case, "cpu", forms=("events",))
+    assert sync_cases.self_mismatches(got) == []
+    if case.x.shape[1] == 0:
+        # jnp.flatnonzero(size=) of an empty stream has nothing to trace
+        assert got["events.mask"].shape == case.x.shape
+        assert got["events.valid"].all()
+        return
+    _, jm, jc, jvalid = (np.asarray(o) for o in jbatch(
+        case.x, case.sps, case.max_deviation, case.taps, unroll=1,
+        method="events", max_events=case.max_events, return_valid=True))
+    ok = got["events.valid"].numpy()
+    np.testing.assert_array_equal(ok, jvalid)
+    np.testing.assert_array_equal(got["events.mask"].numpy()[ok], jm[ok])
+    _assert_clocks(case, got["events.clocks"].numpy()[ok], jc[ok], name)
+
+
+def test_torch_symbol_sync_events_scan_takes_counts():
+    # the crossing count that ops.symbol_sync_events hands to kernel D:
+    # the same results with and without it, and a count of another type,
+    # shape or layout is refused
+    case = EDGE_CASES["slots1025"]
+    args = sync_cases.fresh_event_args(torch.from_numpy(case.x), case, 1025)
+    counts = (args[0] < args[1]).sum(1, dtype=torch.int32)
+    assert counts.tolist() == sorted(counts.tolist(), reverse=True)
+    assert counts[0] == 1025 and 0 < counts[2] < 64
+    for g, w in zip(kernels.symbol_sync_events_scan(*args, counts),
+                    kernels.symbol_sync_events_scan(*args)):
+        assert torch.equal(g, w)
+    for bad in (counts.long(), counts[:2], counts.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="int32 counts"):
+            kernels.symbol_sync_events_scan(*args, bad)
