@@ -21,15 +21,24 @@ just after, so that each shows it went through its kernels:
   (``decode_band_ax25``, 64 channels of a 2.048 Msps capture carrying 8
   stations) with both sync methods: kernels A, D and E, each held again
   against its plain version (E also against native) on the arguments
-  that these paths gave it.
+  that these paths gave it;
+* the FM family's apps at 2^24 samples: ``rtl_fm`` on the main path's
+  capture written as c32 (kernel A) and as rtl-sdr u8 (kernel B, w3 and
+  i8), ``am_decode`` on an AM capture and ``wbfm_rx`` on the station
+  (kernel A), each .au or audio held against the same call on the plain
+  versions and its tones against the modulating ones; and the AX.25
+  receiver built from blocks (``ax25_1200_rx_graph``) on the corpus, both
+  sync methods, offline and through ``Graph.run_stream``, and a streamed
+  run paused at a checkpoint and resumed: kernels A and D.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
 load grid, spans past both ends of a plane, counts around a tile, tap
 counts around the register block, large decimations), and the Graph
 device loop's CUDA-graph replay against its eager loop (bit-equal folds
-at two offsets).  Kernels D and E are held bit for bit against their plain
-versions on the edge inputs of ``rustradio_tpu_torch/tools/sync_cases.py``
+at four offsets, two of them a chunk under and over 2^31).  Kernels D and
+E are held bit for bit against their plain versions on the edge inputs of
+``rustradio_tpu_torch/tools/sync_cases.py``
 (sizes around their tiles, misaligned rows, silence, chatter, crossings on
 a tile's edges, 2.5 to 100 samples per symbol, 1 to 16 clock taps, cut
 streams), and against their one-thread-per-channel forms
@@ -570,6 +579,346 @@ def fir_bound(n: int, ntaps: int, deci: int, rows: int = 1):
     return bound(rows * 4 * (n + m), rows * 2 * m * ntaps)
 
 
+# ---- phase 10: the FM family's apps and the streaming Graph
+
+FS_RTL = 1_024_000.0      # rtl_fm's default rate: the main path's capture
+AUDIO_RATE = 48_000.0     # rtl_fm's and am_decode's default audio rate
+APP_TONES = ((1000.0, 0.6), (3100.0, 0.3))  # rtl_fm_iq's modulating audio
+AM_TONE, AM_DEPTH = 1000.0, 0.6
+PCM = 1 / 32767           # one step of the .au encoding
+STREAM_CHUNK = 1 << 18    # run_stream's default chunk
+RESUME_AFTER = 20         # chunks before the checkpointed pause
+
+
+def tone_fit(audio: np.ndarray, rate: float, tones, skip: int = 256):
+    """Least-squares fit of ``audio[skip:-skip]`` on a sine and a cosine
+    of each tone: (each tone's amplitude, residual rms / audio rms)."""
+    k = np.arange(skip, len(audio) - skip)
+    cols = []
+    for f, _ in tones:
+        w = 2 * np.pi * f / rate * k
+        cols += [np.sin(w), np.cos(w)]
+    a = np.stack(cols, 1)
+    y = audio[k].astype(np.float64)
+    y = y - y.mean()
+    coef = np.linalg.lstsq(a, y, rcond=None)[0]
+    amps = [float(np.hypot(coef[2 * i], coef[2 * i + 1])) for i in range(len(tones))]
+    return amps, float(np.sqrt(np.mean((y - a @ coef) ** 2) / np.mean(y * y)))
+
+
+def deemphasis_gain(f: float, rate: float) -> float:
+    """|H| at ``f`` of wbfm_rx's 75 us single-pole de-emphasis at ``rate``."""
+    dt = 1.0 / rate
+    alpha = dt / (75e-6 + dt)
+    return abs(alpha / (1 - (1 - alpha) * np.exp(-2j * np.pi * f / rate)))
+
+
+def envelope_ratio(y: torch.Tensor, skip: int) -> float:
+    """max|y| / min|y| of a filtered stream past its first ``skip``
+    samples (the filter's start-up ramp)."""
+    m = y[skip:].abs()
+    return float(m.max() / m.min())
+
+
+def hold_fir_calls(phase: str, what: str, calls) -> float:
+    """Kernel A on each of a path's captured ``fir_decimate`` calls against
+    its plain version on the same arguments, at the FIR budget: the worst
+    |error| over max|y| of its own call against 2e-5.  Returns the largest
+    |error|."""
+    from rustradio_tpu_torch.ops import kernels
+
+    worst_abs = worst_rel = 0.0
+    for args in calls:
+        got, want = (torch.view_as_real(t) if t.is_complex() else t
+                     for t in (kernels.fir_decimate(*args),
+                               kernels.fir_decimate_plain(*args)))
+        err = max_err(got, want)
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / max(float(want.abs().max()), 1e-30))
+    report(phase, f"{what}: kernel A on each of its {len(calls)} calls vs "
+           "plain, |error| / max|y| of the call", worst_rel, 2e-5)
+    return worst_abs
+
+
+def hold_events_calls(phase: str, what: str, calls) -> float:
+    """Kernel D on each of a path's captured ``symbol_sync_events_scan``
+    calls (a streamed path: one chunk each, the state carried in from the
+    chunk before) against its plain version on the same arguments, every
+    slot and the final state bit for bit.  The plain loop runs the calls
+    of one ``n`` together, each call's channels as channels of one call
+    (they are independent), each padded with ``n`` to the longest.
+    Returns the largest |error| (tolerance 0)."""
+    from rustradio_tpu_torch.ops import kernels
+
+    groups: dict[tuple, list] = {}
+    for args in calls:
+        key = (args[1], args[2], args[3],
+               tuple(np.asarray(args[4], np.float64).ravel()))
+        groups.setdefault(key, []).append(args)
+    err, slots = 0.0, 0
+    for (n, sps, max_dev, _), group in groups.items():
+        taps = group[0][4]
+        rows = sum(a[0].shape[0] for a in group)
+        width = max(a[0].shape[1] for a in group)
+        events = torch.full((rows, width), n, dtype=group[0][0].dtype,
+                            device=group[0][0].device)
+        row = 0
+        for a in group:
+            c, e = a[0].shape
+            events[row:row + c, :e] = a[0]
+            row += c
+        want = kernels.symbol_sync_events_scan_plain(
+            events, n, sps, max_dev, taps, torch.cat([a[5] for a in group]),
+            torch.cat([a[6] for a in group]))
+        row = 0
+        for a in group:
+            c, e = a[0].shape
+            got = kernels.symbol_sync_events_scan(*a)
+            err = max(err, max_err(got[0], want[0][row:row + c, :e]),
+                      max_err(got[1], want[1][row:row + c, :e]),
+                      max_err(got[2], want[2][row:row + c]),
+                      max_err(got[3], want[3][row:row + c]))
+            slots += c * e
+            row += c
+    report(phase, f"{what}: kernel D on each of its {len(calls)} calls "
+           f"({slots} slots) vs plain, every slot and the final state",
+           err, 0.0)
+    return err
+
+
+def apps_phase(dev, card, i_main, q_main, audio, want_lists, plain_versions,
+               zero_counts, require, capturing):
+    """Phase 10: ``rtl_fm`` (c32, u8 w3, u8 i8) on the main path's capture,
+    ``am_decode`` on an AM capture and ``wbfm_rx`` on the station, each at
+    2^24 samples and held against the same call on the kernels' plain
+    versions; then ``ax25_1200_rx_graph`` on the corpus with both sync
+    methods, offline and streamed, a streamed run paused at a checkpoint
+    and resumed, and kernels A and D on the streamed path's own calls
+    against their plain versions.  Returns the launch counts of each path
+    and the largest |error| of each kernel held here."""
+    import tempfile
+    from pathlib import Path
+
+    from rustradio_tpu_torch import blocks, ops, taps as tapgen
+    from rustradio_tpu_torch.apps import am_decode, rtl_fm
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.io import au, rawfile
+    from rustradio_tpu_torch.models import ax25, fm
+    from rustradio_tpu_torch.ops import kernels
+
+    counts = {}
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    n = i_main.shape[0]
+    # the capture of the main path as files: u8 by rtlsdr_encode (the planes
+    # sit on its grid, (u8 - 127)/128, so the bytes are exact) and c32
+    iq = torch.complex(i_main, q_main).cpu().numpy()
+    u8 = rawfile.rtlsdr_encode(iq * np.float32(128 * 0.008))
+    u8.tofile(d / "fm.u8")
+    iq.tofile(d / "fm.c32")
+    back = (u8.reshape(-1, 2).astype(np.float32) - 127.0) / 128.0
+    if not (np.array_equal(back[:, 0], iq.real) and np.array_equal(back[:, 1], iq.imag)):
+        failures.append("rtlsdr_encode: the u8 capture is not the planes' grid")
+    gain = FS_RTL / (2 * np.pi * 75_000.0)
+    lp = tapgen.low_pass_complex(FS_RTL, 100_000.0, 50_000.0, "hamming")
+    x = torch.from_numpy(iq).to(dev)
+    with plain_versions():
+        y_ratio = envelope_ratio(ops.filter_complex(x, lp), len(lp))
+    for mode, args in (("c32", ["-r", str(d / "fm.c32")]),
+                       ("w3", ["-r", str(d / "fm.u8"), "--rtl_u8"]),
+                       ("i8", ["-r", str(d / "fm.u8"), "--rtl_u8", "--precision",
+                               "i8"])):
+        out, plain_out = d / f"{mode}.au", d / f"{mode}_plain.au"
+        zero_counts()
+        args = args + ["--device", str(dev)]
+        secs, _ = wall(lambda: rtl_fm.main(args + ["--out", str(out)]))
+        counts[f"rtl_fm {mode}"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        with plain_versions():
+            plain_s, _ = wall(lambda: rtl_fm.main(args + ["--out", str(plain_out)]),
+                              reps=1)
+        got, want = au.au_read(str(out))[0], au.au_read(str(plain_out))[0]
+        if mode == "c32":
+            # kernel A at 2e-5 of max|y| on each sample of a pair, through
+            # the exact discriminator: 2 * 2e-5 * max|y| / min|y| rad (past
+            # the 49-tap ramp: from the third audio sample on), times the
+            # gain, plus two PCM steps
+            tol = 2 * 2e-5 * y_ratio * gain + 2 * PCM
+            err = float(np.abs(got[3:] - want[3:]).max()) if len(got) == len(want) else math.inf
+        else:
+            tol = BUDGET[mode] * gain + 2 * PCM  # kernel B's budget
+            err = float(np.abs(got - want).max()) if len(got) == len(want) else math.inf
+        report("10 rtl_fm", f"rtl_fm {mode} 2^{n.bit_length() - 1} samples: .au "
+               f"audio vs the plain versions", err, tol)
+        amps, resid = tone_fit(got, AUDIO_RATE, APP_TONES)
+        print(f"[10 rtl_fm] rtl_fm {mode}: {len(got)} audio samples, tones "
+              f"{[round(a, 4) for a in amps]} (sent {[a for _, a in APP_TONES]}), "
+              f"residual {resid:.4f} of the audio; {secs:.3f} s wall (median "
+              f"of 3), plain versions {plain_s:.3f} s; launches "
+              f"{json.dumps(counts[f'rtl_fm {mode}'])}; card: {card}")
+        if not (len(got) == -(-n * 3 // 64)
+                and all(abs(a / s - 1) < 0.05 for a, (_, s) in zip(amps, APP_TONES))
+                and resid < 0.25):
+            failures.append(f"rtl_fm {mode}: the tones did not come out")
+        require(f"rtl_fm {mode}", counts[f"rtl_fm {mode}"],
+                ("fir_decimate",) if mode == "c32" else ("fm_chain",))
+
+    # WBFM: the same station through wbfm_rx (channel filter on kernel A)
+    lpw = tapgen.low_pass_complex(FS_RTL, 100_000.0, 25_000.0, "hamming")
+    with plain_versions():
+        w_ratio = envelope_ratio(ops.filter_complex(x, lpw), len(lpw))
+    zero_counts()
+    secs, got_w = wall(lambda: fm.wbfm_rx(x, FS_RTL))
+    counts["wbfm_rx"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    with plain_versions():
+        want_w = fm.wbfm_rx(x, FS_RTL)
+    # as rtl_fm c32 (the de-emphasis has gain <= 1)
+    report("10 wbfm", f"wbfm_rx 2^{n.bit_length() - 1} samples vs the plain "
+           "versions (past the ramp)", max_err(got_w[3:], want_w[3:]), 2 * 2e-5 * w_ratio * gain + 1e-6)
+    amps, resid = tone_fit(got_w.cpu().numpy(), AUDIO_RATE, APP_TONES)
+    sent = [a * deemphasis_gain(f, AUDIO_RATE) for f, a in APP_TONES]
+    print(f"[10 wbfm] wbfm_rx: tones {[round(a, 4) for a in amps]} (sent, "
+          f"de-emphasized {[round(a, 4) for a in sent]}), residual {resid:.4f}; "
+          f"{secs:.3f} s wall (median of 3); launches "
+          f"{json.dumps(counts['wbfm_rx'])}; card: {card}")
+    if not (all(abs(a / s - 1) < 0.05 for a, s in zip(amps, sent)) and resid < 0.25):
+        failures.append("wbfm_rx: the tones did not come out")
+    require("wbfm_rx", counts["wbfm_rx"], ("fir_decimate",))
+    del x, got_w, want_w
+
+    # AM: a 1 kHz tone at 60% depth on a carrier 2.5 kHz off centre, noise
+    t = torch.arange(n, dtype=torch.float64, device=dev) / FS_RTL
+    env = 0.5 * (1 + AM_DEPTH * torch.sin(2 * math.pi * AM_TONE * t))
+    am = torch.polar(env, 2 * math.pi * 2500.0 * t + 0.3).to(torch.complex64)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    am += 0.01 * torch.complex(torch.randn(n, generator=gen, device=dev),
+                               torch.randn(n, generator=gen, device=dev))
+    am.cpu().numpy().tofile(d / "am.c32")
+    lpa = tapgen.low_pass_complex(FS_RTL, 12_500.0, 10_000.0, "hamming")
+    lp2 = tapgen.low_pass(FS_RTL, AUDIO_RATE, 500.0, "hamming")
+    with plain_versions():
+        y_max = float(ops.filter_complex(am, lpa).abs().max())
+    del t, env, am
+    args = ["-r", str(d / "am.c32"), "--sample_rate", "1.024m", "--device",
+            str(dev)]
+    zero_counts()
+    secs, _ = wall(lambda: am_decode.main(args + ["-o", str(d / "am.f32")]))
+    counts["am_decode"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    with plain_versions():
+        am_decode.main(args + ["-o", str(d / "am_plain.f32")])
+    got_a = np.fromfile(d / "am.f32", "<f4")
+    want_a = np.fromfile(d / "am_plain.f32", "<f4")
+    # kernel A's 2e-5 * max|y| through |.| and the audio low-pass (sum |taps|)
+    tol = 2e-5 * y_max * float(np.abs(lp2).sum()) + 1e-6
+    report("10 am", f"am_decode 2^{n.bit_length() - 1} samples ({len(lpa)}-tap "
+           f"channel filter, "
+           f"{len(lp2)}-tap audio low-pass) vs the plain versions",
+           float(np.abs(got_a - want_a).max()) if got_a.shape == want_a.shape
+           else math.inf, tol)
+    amps, resid = tone_fit(got_a, AUDIO_RATE, ((AM_TONE, 0.0),))
+    print(f"[10 am] am_decode: tone {amps[0]:.4f} (sent {0.5 * AM_DEPTH}), "
+          f"residual {resid:.4f}; {secs:.3f} s wall (median of 3); launches "
+          f"{json.dumps(counts['am_decode'])}; card: {card}")
+    if not (abs(amps[0] / (0.5 * AM_DEPTH) - 1) < 0.05 and resid < 0.1):
+        failures.append("am_decode: the tone did not come out")
+    require("am_decode", counts["am_decode"], ("fir_decimate",))
+    tmp.cleanup()
+    end_phase("10 apps")
+
+    # the AX.25 receiver built from blocks, offline and streamed
+    def receiver(sync, upto=None):
+        """The chain of ax25_1200_rx_graph (for a checkpointed run), or its
+        first ``upto`` blocks into a NullSink."""
+        chain = [blocks.VectorSource(audio),
+                 blocks.FftFilterFloat(tapgen.band_pass(FS_AUDIO, 400.0, 2700.0,
+                                                        65, "hamming")),
+                 blocks.Hilbert(65), blocks.QuadratureDemod(1.0),
+                 blocks.FftFilterFloat(tapgen.low_pass(FS_AUDIO, 1100.0, 200.0,
+                                                       "hamming")),
+                 blocks.AddConst(-float(np.float32(2.0 * np.pi * 1700.0 / FS_AUDIO))),
+                 blocks.SymbolSync(FS_AUDIO / 1200.0, 0.5, (1 / 6,) * 6,
+                                   method=sync),
+                 blocks.BinarySlicer(), blocks.NrziDecode(),
+                 blocks.HdlcDeframer(10, 1500)]
+        sink = blocks.PduVectorSink() if upto is None else blocks.NullSink()
+        g = Graph()
+        g.chain(*chain[:upto], sink)
+        return g, sink
+
+    n_chunks = -(-audio.shape[0] // STREAM_CHUNK)
+    for sync in want_lists:
+        # the streaming runner's host time a chunk, the chain cut after the
+        # dense front-end (one device segment: 3 kernel-A launches a
+        # chunk), after the clock recovery, slicer and NRZI, and whole
+        parts = []
+        for upto, label in ((6, "front-end"), (9, "+ clock recovery, slicer, "
+                            "NRZI"), (None, "+ HDLC")):
+            secs, _ = wall(lambda: receiver(sync, upto)[0].run_stream(
+                chunk_size=STREAM_CHUNK, device=dev))
+            parts.append(f"{label} {secs * 1e3 / n_chunks:.3f}")
+        print(f"[10 ax25 graph] run_stream sync={sync}, host ms a chunk of "
+              f"{STREAM_CHUNK} ({n_chunks} chunks, wall / chunks, median of 3): "
+              f"{'; '.join(parts)}; card: {card}")
+
+    for sync, want in want_lists.items():
+        for chunk in (None, STREAM_CHUNK):
+            label = f"{sync} {'streamed' if chunk else 'offline'}"
+            zero_counts()
+            secs, out = wall(lambda: ax25.ax25_1200_rx_graph(
+                audio, FS_AUDIO, chunk_size=chunk, sync=sync))
+            counts[f"graph {label}"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+            got = decoded(out, N_FRAMES)
+            print(f"[10 ax25 graph] ax25_1200_rx_graph sync={label} (chunks of "
+                  f"{chunk or audio.shape[0]}): {len(set(got))}/{N_FRAMES} "
+                  f"decoded, same list as ax25_1200_rx: {got == want}; "
+                  f"{secs * 1e3:.1f} ms wall (median of 3); launches "
+                  f"{json.dumps(counts[f'graph {label}'])}; card: {card}")
+            if len(set(got)) < FRAME_GATE or got != want:
+                failures.append(f"ax25_1200_rx_graph {label}: {len(set(got))} "
+                                "frames, or not ax25_1200_rx's list")
+            require(f"ax25 graph {label}", counts[f"graph {label}"],
+                    ("fir_decimate", "symbol_sync_events") if sync == "events"
+                    else ("fir_decimate",))
+    with tempfile.TemporaryDirectory() as ck_dir:
+        ck = str(Path(ck_dir) / "events.pkl")
+        zero_counts()
+        g, first = receiver("events")
+        g.run_stream(chunk_size=STREAM_CHUNK, max_chunks=RESUME_AFTER,
+                     checkpoint_path=ck, checkpoint_every=RESUME_AFTER, device=dev)
+        g, rest = receiver("events")
+        secs, _ = wall(lambda: g.run_stream(chunk_size=STREAM_CHUNK,
+                                            resume_from=ck, device=dev), reps=1)
+        counts["graph events resumed"] = dict(kernels.LAUNCHES)
+    a = decoded([bytes(np.asarray(p.data)) for p in first.pdus()], N_FRAMES)
+    b = decoded([bytes(np.asarray(p.data)) for p in rest.pdus()], N_FRAMES)
+    print(f"[10 ax25 graph] events streamed, paused after {RESUME_AFTER} chunks "
+          f"at a checkpoint ({len(a)} frames), resumed ({len(b)} frames, "
+          f"{secs * 1e3:.1f} ms wall): the uninterrupted list "
+          f"{a + b == want_lists['events']}; launches "
+          f"{json.dumps(counts['graph events resumed'])}; card: {card}")
+    if a + b != want_lists["events"] or not a or not b:
+        failures.append("ax25 graph: the resumed stream is not the uninterrupted one")
+    require("ax25 graph resumed", counts["graph events resumed"],
+            ("fir_decimate", "symbol_sync_events"))
+
+    # the streamed path's own calls of kernels A (chunks plus the filters'
+    # history) and D (the state carried in from the chunk before), once
+    # more outside the counted runs, each held against its plain version
+    with capturing("fir_decimate", "symbol_sync_events_scan") as calls:
+        out = ax25.ax25_1200_rx_graph(audio, FS_AUDIO, chunk_size=STREAM_CHUNK,
+                                      sync="events")
+    if decoded(out, N_FRAMES) != want_lists["events"]:
+        failures.append("ax25 graph: the captured streamed run differs")
+    what = f"ax25_1200_rx_graph events streamed (chunks of {STREAM_CHUNK})"
+    call_errs = {
+        "fir_decimate": hold_fir_calls("10 ax25 graph", what,
+                                       calls["fir_decimate"]),
+        "symbol_sync_events": hold_events_calls(
+            "10 ax25 graph", what, calls["symbol_sync_events_scan"])}
+    del calls
+    end_phase("10 ax25 graph")
+    return counts, call_errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -927,8 +1276,12 @@ def main() -> int:
     # ---- 5. the captured loop against the eager loop (bit-equal folds, at
     # two offsets), then against the same graph on the plain versions
     eager_loop = build_graph(cuda_graph=False)
-    for offset0, got_fold in ((0, fold_t), (0, fold_again),
-                              (2 * N_MAIN, next(iter(loop(2 * N_MAIN).values())))):
+    # (offsets one chunk under and over 2^31 wrap the ring from its last
+    # chunk: the captures of other offsets)
+    far = [(o, next(iter(loop(o).values())))
+           for o in ((1 << 31) - N_MAIN, (1 << 31) + N_MAIN)]
+    for offset0, got_fold in [(0, fold_t), (0, fold_again),
+                              (2 * N_MAIN, next(iter(loop(2 * N_MAIN).values())))] + far:
         want_fold = next(iter(eager_loop(offset0).values()))
         report("5 graph", f"CUDA-graph replay == eager loop at offset0 "
                f"{offset0} (fold {float(got_fold)!r})",
@@ -1527,6 +1880,17 @@ def main() -> int:
               f"samples: {wb_s * 1e3:.1f} ms wall (median of 3; first call "
               f"{wb_first[method] * 1e3:.1f} ms); card: {card}")
 
+    # ---- 10. the FM family's apps and the streaming Graph, counted
+    apps, call_errs = apps_phase(dev, card, i_main, q_main, audio,
+                                 {"native": got, "events": ev_got},
+                                 plain_versions, zero_counts, require,
+                                 capturing)
+    for name, err in call_errs.items():
+        errs[name] = max(errs[name], err)
+
+    def total(name, prefix=""):
+        return sum(c[name] for k, c in apps.items() if k.startswith(prefix))
+
     def entry(name, source, replaces, n_launches, row):
         """One kernel of the record: its launches on its paths, its error
         against the plain version, its time in a stream of calls (``ms``)
@@ -1554,18 +1918,19 @@ def main() -> int:
         entry("fir_decimate", "fir_decimate.cu",
               "rustradio_tpu/ops/pallas_kernels.py:202",
               launches["fir_decimate"] + ax_counts["fir_decimate"]
-              + iq_counts["fir_decimate"],
+              + iq_counts["fir_decimate"] + total("fir_decimate"),
               "fir_decimate 49 taps deci 4 n=2^22"),
         entry("fm_chain", "fm_chain.cu",
               "rustradio_tpu/ops/pallas_kernels.py:394,448,553",
-              launches["fm_chain"], "fm_chain packed w3 n=2^24"),
+              launches["fm_chain"] + total("fm_chain"), "fm_chain packed w3 n=2^24"),
         entry("quad_demod", "quad_demod.cu",
               "rustradio_tpu/ops/pallas_kernels.py:91",
               op_counts["quad_demod"], "quad_demod n=2^24"),
         entry("symbol_sync_events", "symbol_sync.cu",
               "rustradio_tpu/ops/symbol_sync.py:305",
               ev_counts["symbol_sync_events"]
-              + wb_counts["events"]["symbol_sync_events"], d_name),
+              + wb_counts["events"]["symbol_sync_events"]
+              + total("symbol_sync_events"), d_name),
         entry("symbol_sync_scan", "symbol_sync.cu",
               "rustradio_tpu/ops/symbol_sync.py:145",
               wb_counts["scan"]["symbol_sync_scan"], e_name),

@@ -1,2 +1,25 @@
-"""CLI applications (port of ``rustradio_tpu/apps``): so far the wideband
-channel scanner."""
+"""CLI applications (port of ``rustradio_tpu/apps``): the wideband channel
+scanner, the narrow-band FM receiver ``rtl_fm`` and the AM receiver
+``am_decode``."""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from .._device import target_device
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the capture (default cuda)")
+
+
+def parse_device(p: argparse.ArgumentParser, name: str) -> torch.device:
+    """``--device`` as a torch device; the card's absence is a usage error
+    that names ``--device cpu`` (nothing moves to the CPU by itself)."""
+    try:
+        return target_device(name, "--device")
+    except RuntimeError:
+        p.error(f"--device {name}: no CUDA device here; pass --device cpu")

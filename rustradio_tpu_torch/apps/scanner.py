@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..dtypes import parse_frequency
+from . import add_device_arg, parse_device
 from ..io import rawfile
 from ..parallel.channelizer import channelizer_taps, pfb_channelize
 
@@ -43,8 +44,7 @@ def main(argv=None) -> int:
                         "per-sample recurrence, 'events' = event-driven "
                         "(~sps-times shorter sequential chain)")
     p.add_argument("-o", "--out", help="write demodulated channel audio (.f32)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device for the capture (default cuda)")
+    add_device_arg(p)
     opt = p.parse_args(argv)
     if opt.demod is not None:
         if not 0 <= opt.demod < opt.channels:
@@ -54,9 +54,7 @@ def main(argv=None) -> int:
     if opt.read == "sim":
         p.error("-r sim needs the simulated SDR source (hw/), which is not "
                 "ported yet; read a complex64 capture file")
-    device = torch.device(opt.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        p.error("--device cuda: no CUDA device here; pass --device cpu")
+    device = parse_device(p, opt.device)
 
     iq = torch.from_numpy(rawfile.read_samples(opt.read, "c32")).to(device)
 

@@ -1,10 +1,13 @@
-"""Elementwise blocks (port of ``FloatToComplex`` from
-``rustradio_tpu/blocks/elementwise.py``)."""
+"""Elementwise blocks (port of ``FloatToComplex``, ``AddConst``,
+``MultiplyConst`` and ``BinarySlicer`` from
+``rustradio_tpu/blocks/elementwise.py``).  Each runs on its input's
+device."""
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.elementwise import add_const, binary_slicer, multiply_const
 from .base import Block
 
 
@@ -16,3 +19,30 @@ class FloatToComplex(Block):
 
     def apply(self, re, im):
         return torch.complex(re.float(), im.float())
+
+
+class AddConst(Block):
+    """x + val (reference src/add_const.rs)."""
+
+    def __init__(self, val):
+        self.val = val
+
+    def apply(self, x):
+        return add_const(x, self.val)
+
+
+class MultiplyConst(Block):
+    """x * val (reference src/multiply_const.rs)."""
+
+    def __init__(self, val):
+        self.val = val
+
+    def apply(self, x):
+        return multiply_const(x, self.val)
+
+
+class BinarySlicer(Block):
+    """float > 0 -> 1u8 else 0u8 (reference src/binary_slicer.rs)."""
+
+    def apply(self, x):
+        return binary_slicer(x)

@@ -1,13 +1,21 @@
-"""Filter blocks with exact streaming state carry (port of ``FirFilter``
-from ``rustradio_tpu/blocks/filters.py``)."""
+"""Filter blocks with exact streaming state carry (port of ``FirFilter``,
+``FftFilter``, ``FftFilterFloat`` and ``Hilbert`` from
+``rustradio_tpu/blocks/filters.py``).
+
+Each streaming state lives on the stream's device: an initial state made
+on the host moves to the chunk's device at the first chunk.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import taps as tapgen
 from ..ops import kernels
-from ..ops.fir import fir_filter
+from ..ops.fft_filter import filter_complex, filter_float
+from ..ops.fir import fir_filter, fir_filter_translating
+from ..ops.hilbert import hilbert_transform
 from .base import Block
 
 
@@ -15,15 +23,19 @@ class FirFilter(Block):
     """Decimating FIR, valid-conv alignment (reference src/fir.rs:485-547).
 
     Streaming: carries unconsumed raw input, so chunked == offline exactly.
+    ``translate=(samp_rate, freq)`` mixes the input by ``-freq`` while
+    filtering (reference src/fir.rs:413-483, ``ops.fir_filter_translating``).
     ``precision`` is the kernel-B mode used when the graph lowering fuses
     this filter with a following QuadratureDemod ("w3"/"i8" are exact only
     for 8-bit-sourced wire grids); the unfused path always runs true f32.
-    Frequency translation comes in a later slice.
     """
 
-    def __init__(self, taps, deci: int = 1, precision: str = "highest"):
+    def __init__(self, taps, deci: int = 1,
+                 translate: tuple[float, float] | None = None,
+                 precision: str = "highest"):
         self.taps = np.asarray(taps)
         self.deci = deci
+        self.translate = translate
         kernels.plane_dtype(precision)
         self.precision = precision
         # real taps: the record the kernels' wrappers derive everything
@@ -32,6 +44,9 @@ class FirFilter(Block):
                       else kernels.tapset(self.taps))
 
     def apply(self, x):
+        if self.translate is not None:
+            sr, fq = self.translate
+            return fir_filter_translating(x, self.taps, sr, fq, self.deci)
         return fir_filter(x, self._taps, self.deci)
 
     def init_state(self):
@@ -45,6 +60,97 @@ class FirFilter(Block):
         if buf.shape[0] < len(self.taps):
             return {"buf": buf, "out_off": out_off}, buf.new_zeros(0)
         n_out = (buf.shape[0] - len(self.taps)) // self.deci + 1
-        y = fir_filter(buf, self._taps, self.deci)
+        if self.translate is not None:
+            sr, fq = self.translate
+            y = fir_filter_translating(buf, self.taps, sr, fq, self.deci)
+            # the rotator's phase at this chunk's first global output, mod
+            # 2*pi in float64 on the host (the raw product overflows f32)
+            ph = np.mod(-2.0 * np.pi * fq / sr * self.deci * out_off, 2.0 * np.pi)
+            y = y * complex(np.exp(1j * np.float32(ph)).astype(np.complex64))
+        else:
+            y = fir_filter(buf, self._taps, self.deci)
         return {"buf": buf[n_out * self.deci :].clone(),
                 "out_off": out_off + n_out}, y
+
+
+def _tail(ext: torch.Tensor, k: int) -> torch.Tensor:
+    """The last ``k`` samples of ``ext`` (none for k == 0)."""
+    return ext[ext.shape[0] - k :].clone()
+
+
+class FftFilter(Block):
+    """Fast-convolution filter, full-conv alignment (reference
+    src/fft_filter.rs:289-354): ``ops.filter_complex``, kernel A for real
+    taps up to ``kernels.MAX_TAPS``, overlap-save otherwise.  Streaming
+    state: the last ntaps-1 inputs."""
+
+    def __init__(self, taps, fft_size: int | None = None):
+        self.taps = np.asarray(taps)
+        self.fft_size = fft_size
+
+    def apply(self, x):
+        return filter_complex(x, self.taps, self.fft_size)
+
+    def init_state(self):
+        return torch.zeros(len(self.taps) - 1, dtype=torch.complex64)
+
+    def apply_chunk(self, state, x):
+        k = len(self.taps) - 1
+        ext = torch.cat([state.to(x.device, torch.complex64),
+                         x.to(torch.complex64)])
+        y = filter_complex(ext, self.taps, self.fft_size)[k:]
+        return _tail(ext, k), y
+
+
+class FftFilterFloat(Block):
+    """Float fast-convolution (reference src/fft_filter.rs:357-491):
+    ``ops.filter_float``, kernel A up to ``kernels.MAX_TAPS`` taps.
+    Streaming state: the last ntaps-1 inputs."""
+
+    def __init__(self, taps, fft_size: int | None = None):
+        self.taps = np.asarray(taps, np.float32)
+        self.fft_size = fft_size
+        self._taps = (kernels.tapset(self.taps)
+                      if len(self.taps) <= kernels.MAX_TAPS else self.taps)
+
+    def apply(self, x):
+        return filter_float(x, self._taps, self.fft_size)
+
+    def init_state(self):
+        return torch.zeros(len(self.taps) - 1, dtype=torch.float32)
+
+    def apply_chunk(self, state, x):
+        k = len(self.taps) - 1
+        ext = torch.cat([state.to(x.device, torch.float32), x.to(torch.float32)])
+        y = filter_float(ext, self._taps, self.fft_size)[k:]
+        return _tail(ext, k), y
+
+
+class Hilbert(Block):
+    """Hilbert transformer (reference src/hilbert.rs:68-125): float stream
+    -> analytic complex64 stream, ``ops.hilbert_transform`` (its FIR on
+    kernel A).  Streaming state: the last ntaps inputs, as the reference
+    keeps; chunked output is the offline stream."""
+
+    def __init__(self, ntaps: int = 65, window: str = "hamming"):
+        if ntaps % 2 != 1:
+            raise ValueError("hilbert filter len must be odd")
+        self.ntaps = ntaps
+        self.taps = kernels.tapset(tapgen.hilbert(ntaps, window))
+
+    def apply(self, x):
+        return hilbert_transform(x, self.ntaps, taps=self.taps)
+
+    def init_state(self):
+        return torch.zeros(self.ntaps, dtype=torch.float32)
+
+    def apply_chunk(self, state, x):
+        x = x.to(torch.float32)
+        ext = torch.cat([state.to(x.device), x])
+        n, k = x.shape[0], self.ntaps
+        # y_im[i] = sum_j taps[j] x[i-1-j]: the full convolution of ext
+        # read from position k-1 on
+        y_im = kernels.fir_decimate(ext, self.taps, 1)[k - 1 : k - 1 + n]
+        d = k - k // 2
+        y_re = ext[k - d : k - d + n]
+        return _tail(ext, k), torch.complex(y_re, y_im)

@@ -1,5 +1,5 @@
-"""Sink blocks (port of ``VectorSink``, ``NullSink`` and ``DeviceFoldSink``
-from ``rustradio_tpu/blocks/sinks.py``)."""
+"""Sink blocks (port of ``VectorSink``, ``NullSink``, ``DeviceFoldSink`` and
+``PduVectorSink`` from ``rustradio_tpu/blocks/sinks.py``)."""
 
 from __future__ import annotations
 
@@ -82,3 +82,20 @@ class DeviceFoldSink(Block):
 
     def total(self) -> float:
         return self._total
+
+
+class PduVectorSink(Block):
+    """Collects PDUs, the PDU-domain test sink."""
+
+    n_out = 0
+    domain = "host"
+
+    def __init__(self):
+        self._pdus = []
+
+    def apply(self, pdus):
+        self._pdus.extend(pdus)
+        return ()
+
+    def pdus(self):
+        return list(self._pdus)

@@ -25,15 +25,28 @@ def _canonical(a: np.ndarray) -> np.ndarray:
     return a
 
 
+_TORCH_CANON = {torch.float64: torch.float32, torch.complex128: torch.complex64,
+                torch.int64: torch.int32}
+
+
 class VectorSource(SourceBlock):
     """In-memory source with repeat + start/repeat/first tags
-    (reference src/vector_source.rs:50-80)."""
+    (reference src/vector_source.rs:50-80).
+
+    ``data`` is a numpy array or a tensor (kept on its device, and copied
+    to another only when asked to emit there)."""
 
     def __init__(self, data, repeat: int = 1, tags: list[Tag] | None = None):
-        self.data = _canonical(np.asarray(data))
+        self._resident: dict[str, torch.Tensor] = {}
+        if torch.is_tensor(data):
+            t = data.detach()
+            t = t.to(_TORCH_CANON.get(t.dtype, t.dtype)).contiguous()
+            self._resident[str(t.device)] = t
+            self.data = t
+        else:
+            self.data = _canonical(np.asarray(data))
         self.repeat = repeat
         self.user_tags = list(tags or [])
-        self._resident: dict[str, torch.Tensor] = {}
 
     def total_len(self):
         return len(self.data) * self.repeat
@@ -46,7 +59,9 @@ class VectorSource(SourceBlock):
         key = str(torch.device(device))
         t = self._resident.get(key)
         if t is None:
-            t = self._resident[key] = torch.from_numpy(self.data).to(device)
+            src = (self.data if torch.is_tensor(self.data)
+                   else torch.from_numpy(self.data))
+            t = self._resident[key] = src.to(device)
         return t
 
     def emit(self, offset, n, device):

@@ -1,9 +1,10 @@
 """Carry the JAX package's data across into the port, as numpy arrays.
 
 The port never imports jax; these take what the JAX package produced
-after ``np.asarray`` — packed planes and streaming block states — so a
-test can start the port from JAX's data and check that both compute the
-same stream.
+after ``np.asarray`` — packed planes and streaming block states (a
+checkpoint's leaves) — so a stream started in the JAX package goes on in
+the port.  Like every entry point of the port they put their tensors on
+the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -11,14 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import target_device
 from .ops import kernels
 
 
-def packed_from_jax(plane_np, precision: str, device="cpu") -> torch.Tensor:
+def packed_from_jax(plane_np, precision: str, device="cuda") -> torch.Tensor:
     """An ``fm_plane_pack`` output of the JAX package ((rows, deci*128),
     bfloat16 via ml_dtypes, int8 or float32) as the port's 1-D packed
-    plane: the same samples in the same order, a reshape plus a dtype
-    view."""
+    plane on ``device``: the same samples in the same order, a reshape plus
+    a dtype view."""
+    device = target_device(device, "packed_from_jax")
     a = np.ascontiguousarray(plane_np).reshape(-1)
     want = kernels.plane_dtype(precision)
     if want == torch.bfloat16:
@@ -34,16 +37,35 @@ def packed_from_jax(plane_np, precision: str, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def state_from_jax(states, device="cpu"):
-    """Streaming block state of the JAX package -> the port's.
-
-    Maps FirFilter's ``{"buf", "out_off"}`` and QuadratureDemod's
-    1-sample carry (or a dict of such states, keyed by node) from numpy to
-    tensors on ``device``; integer scalars (``out_off``) stay Python ints.
-    """
-    if isinstance(states, dict):
-        return {k: state_from_jax(v, device) for k, v in states.items()}
-    a = np.asarray(states)
+def _leaf(x, device: torch.device):
+    if torch.is_tensor(x):
+        return x.to(device)
+    if not isinstance(x, (np.ndarray, np.generic)):
+        return x  # Python ints, floats, bools, strings, tags: host-side
+    a = np.asarray(x)
     if a.ndim == 0 and a.dtype.kind in "iu":
         return int(a)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _to_port(states, device: torch.device):
+    if isinstance(states, dict):
+        return {k: _to_port(v, device) for k, v in states.items()}
+    if isinstance(states, (list, tuple)):
+        return type(states)(_to_port(v, device) for v in states)
+    return _leaf(states, device)
+
+
+def state_from_jax(states, device="cuda"):
+    """Streaming block state of the JAX package -> the port's, on
+    ``device``.
+
+    Walks dicts, lists and tuples (e.g. a checkpoint's ``{node: state}``,
+    FirFilter's ``{"buf", "out_off"}``, SymbolSync's ``{"sync": {...}}``,
+    the HDLC snapshot).  numpy arrays and scalars become tensors on
+    ``device``, except integer scalars (``out_off``, NrziDecode's bit),
+    which become Python ints; host-side leaves — Python ints, floats,
+    bools and strings, such as the HDLC snapshot's ``state``, ``cur`` and
+    ``stats`` — stay as they are.
+    """
+    return _to_port(states, target_device(device, "state_from_jax"))

@@ -3,6 +3,10 @@
 A graph is a DAG evaluated in topological order, with
 
 * ``run(device)`` — offline mode: whole streams in one pass;
+* ``run_stream(chunk_size, ..., device)`` — streaming mode: fixed-size
+  chunks with each block's carried state, semantically the offline
+  stream, with checkpoint/resume (``utils.checkpoint``), cancellation
+  (``cancel_token()``) and an end-of-stream drain (``flush()``);
 * ``compile_device_loop(chunk_size, n_chunks, device)`` — a streaming
   loop over fixed-size chunks with each block's carried state and every
   sink folding on the device, synchronising once at the end.  On a CUDA
@@ -12,10 +16,11 @@ A graph is a DAG evaluated in topological order, with
 
 Maximal runs of device-domain blocks form segments; inside a segment the
 FM pattern ``[FloatToComplex ->] FirFilter -> QuadratureDemod`` lowers to
-one kernel B pass (``lowering.py``).  PyTorch runs eagerly, so a segment
-is a plain loop over its members (recorded once into the device loop's
-CUDA graph on the card).  ``run_stream``, checkpoints, meshes
-and profiling come in later slices.
+one kernel B pass (``lowering.py``), offline and in both streaming
+runners.  PyTorch runs eagerly, so a segment is a plain loop over its
+members (recorded once into the device loop's CUDA graph on the card).
+The JAX package's batched scan runner (``run_stream(scan_chunks=)``),
+meshes and profiling come in later slices.
 """
 
 from __future__ import annotations
@@ -26,11 +31,32 @@ from typing import Any
 import torch
 
 from . import lowering
+from ._device import target_device
 from .blocks.base import Block, SourceBlock
 from .ops import kernels
 from .streams import Tag
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 _MAX_CAPTURES = 8  # captured device loops kept per compiled loop
+
+
+def _length(o) -> int:
+    """Samples in a stream value (a tensor, or a list of PDUs); 0 for a
+    value without a length (a packed-ring chunk)."""
+    if torch.is_tensor(o):
+        return o.shape[0] if o.dim() else 0
+    return len(o) if hasattr(o, "__len__") else 0
+
+
+def _cat_outputs(a, b):
+    """Two outputs of the same port, one after the other (flush drain)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if isinstance(a, list) or isinstance(b, list):
+        return list(a) + list(b)
+    return torch.cat([a, b.to(a.device)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +81,31 @@ class Node:
         return Port(self, 0)
 
 
+class CancellationToken:
+    """Cooperative cancellation (reference src/graph.rs:295-319): the
+    runners check it between blocks (``run``) or chunks (``run_stream``)
+    and stop without the end-of-stream drain."""
+
+    def __init__(self):
+        self._cancelled = False
+
+    def cancel(self):
+        self._cancelled = True
+
+    def is_cancelled(self) -> bool:
+        return self._cancelled
+
+
 class Graph:
     def __init__(self):
         self.nodes: list[Node] = []
+        self._token = CancellationToken()
         self._segs: dict[int, list[Node]] | None = None
         self._seg_member: dict[int, int] = {}
         self._plans: dict[int, tuple] = {}
+
+    def cancel_token(self) -> CancellationToken:
+        return self._token
 
     def add(self, block: Block, *inputs) -> Node:
         node = Node(self, block, len(self.nodes))
@@ -110,6 +155,7 @@ class Graph:
             n.block.domain == "device"
             and n.block.n_out > 0
             and not isinstance(n.block, SourceBlock)
+            and not hasattr(n.block, "set_tags")
         )
 
     def _segments(self) -> dict[int, list[Node]]:
@@ -161,10 +207,10 @@ class Graph:
 
     def _run_segment(self, seg, values, tags=None, states=None):
         """Execute a segment, FM pairs lowered.  Offline when ``states`` is
-        None (and then maps ``tags`` through every member), else one chunk
-        of the streaming form.  Reads its external inputs from ``values``,
-        writes its external outputs there, and returns the members' new
-        states."""
+        None, else one chunk of the streaming form; maps ``tags`` (when
+        given) through every member.  Reads its external inputs from
+        ``values``, writes its external outputs there, and returns the
+        members' new states."""
         ext_in, ext_out, plans, consumed = self._segment_plan(seg)
         vals = {k: values[k] for k in ext_in}
         lens: dict[int, list[int]] = {}
@@ -186,8 +232,14 @@ class Graph:
                     new_states[fir.idx], new_states[quad.idx], out = (
                         lowering.fused_fm_chunk(plan, states[fir.idx],
                                                 states[quad.idx], *xs))
+                    # the filter's outputs this chunk (a packed-ring chunk
+                    # leaves out_off as it is: one per demod output then)
+                    n_fir = (new_states[fir.idx]["out_off"]
+                             - states[fir.idx]["out_off"])
+                    lens[fir.idx] = [max(n_fir, out.shape[0])]
                     if f2c is not None:
                         new_states[f2c.idx] = states[f2c.idx]
+                        lens[f2c.idx] = [_length(xs[0])]
                 vals[(n.idx, 0)] = out
                 lens[n.idx] = [out.shape[0]]
                 continue
@@ -201,7 +253,7 @@ class Graph:
             outs = out if isinstance(out, tuple) else (out,)
             for k, o in enumerate(outs):
                 vals[(n.idx, k)] = o
-            lens[n.idx] = [o.shape[0] for o in outs]
+            lens[n.idx] = [_length(o) for o in outs]
         for key in ext_out:
             values[key] = vals[key]
         if tags is not None:
@@ -211,48 +263,215 @@ class Graph:
                     tags[(n.idx, k)] = ot
         return new_states
 
+    def _run_node(self, node: Node, values, tags, device, stream=None) -> None:
+        """Run one node outside a segment: offline (``stream`` None) or one
+        chunk of ``run_stream`` (``stream`` = (states, offset, n, sink
+        offsets)).  Fills ``values`` and ``tags`` for its output ports."""
+        b = node.block
+        if isinstance(b, SourceBlock):
+            if stream is None:
+                out = b.apply(device)
+                src_tags = b.emit_tags(0, b.total_len())
+            else:
+                _, offset, n, _ = stream
+                out = b.emit(offset, n, device)
+                src_tags = b.emit_tags(offset, n)
+            outs = out if isinstance(out, tuple) else (out,)
+            for k, o in enumerate(outs):
+                values[(node.idx, k)] = o
+                tags[(node.idx, k)] = list(src_tags)
+            return
+        keys = [(p.node.idx, p.index) for p in node.inputs]
+        xs = [values[k] for k in keys]
+        in_tags = [tags.get(k, []) for k in keys]
+        if hasattr(b, "set_tags") and in_tags:
+            b.set_tags(in_tags[0])
+        if stream is None:
+            out = b.apply(*xs)
+        else:
+            states = stream[0]
+            states[node.idx], out = b.apply_chunk(states[node.idx], *xs)
+        if b.n_out == 0:
+            if hasattr(b, "accept_tags") and in_tags:
+                if stream is None:
+                    b.accept_tags(in_tags[0], 0)
+                else:
+                    # sink-relative positions: the samples taken so far
+                    seen = stream[3]
+                    b.accept_tags(in_tags[0], seen.get(node.idx, 0))
+                    seen[node.idx] = seen.get(node.idx, 0) + _length(xs[0])
+            return
+        outs = out if isinstance(out, tuple) else (out,)
+        otags = b.process_tags(in_tags, [_length(o) for o in outs])
+        for k, (o, ot) in enumerate(zip(outs, otags)):
+            values[(node.idx, k)] = o
+            tags[(node.idx, k)] = ot
+
     # ---- offline ----
     def run(self, device="cuda") -> None:
         """Offline mode: evaluate every block once over whole streams,
         sources emitting on ``device``: the card unless the caller names
         another.  Without a card the default raises; it never moves to the
         CPU by itself (pass ``device="cpu"`` for the kernels' plain
-        versions)."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f'Graph.run(device="{device}"): no CUDA device here; pass '
-                'device="cpu" to run on the kernels\' plain versions')
+        versions).  Blocks with ``flush()`` drain at the end, unless the
+        run was cancelled."""
+        device = target_device(device, "Graph.run")
         values: dict[tuple[int, int], Any] = {}
         tags: dict[tuple[int, int], list[Tag]] = {}
         segs = self._segments()
         for node in self._topo():
+            if self._token.is_cancelled():
+                break
             first = self._seg_member.get(node.idx)
             if first is not None:
                 if first == node.idx:
                     self._run_segment(segs[first], values, tags)
                 continue
+            self._run_node(node, values, tags, device)
+        if not self._token.is_cancelled():
+            self._flush_pass()
+
+    # ---- streaming ----
+    def run_stream(self, chunk_size: int = 1 << 18,
+                   max_chunks: int | None = None,
+                   checkpoint_path: str | None = None,
+                   checkpoint_every: int = 0,
+                   resume_from: str | None = None,
+                   device="cuda") -> None:
+        """Streaming mode: fixed-size chunks with carried block state
+        (``rustradio_tpu/graph.py:846-1105`` less its scan, mesh and
+        profiler options).
+
+        Sources emit each chunk on ``device`` (the card unless the caller
+        names another; without a card the default raises).  Device
+        segments run one chunk at a time through their members' chunk
+        forms, FM pairs lowered to kernel B; host blocks see the chunks in
+        order; tags flow through ``process_tags`` / ``set_tags`` /
+        ``accept_tags`` with chunk-relative positions (sinks add what they
+        took before).  A bounded stream ends at its shortest source; an
+        unbounded one needs ``max_chunks``, which also bounds the chunks of
+        THIS call (a pause that a later ``resume_from`` continues).  A
+        source's ``exhausted()`` ends the stream early.
+
+        With ``checkpoint_path`` and ``checkpoint_every=k`` every block's
+        state, the stream offset and the blocks' ``host_state()`` are
+        saved every k chunks (the JAX package's format); ``resume_from``
+        restarts from such a file, which must come from a graph of the same
+        blocks.  The end-of-stream drain (``flush()``, or
+        ``flush_with_state(state)``) runs only at a true end of stream: a
+        ``max_chunks`` or cancel pause keeps pending output in the carried
+        state, so a resumed run emits it once.
+        """
+        device = target_device(device, "Graph.run_stream")
+        sources = [n for n in self.nodes if isinstance(n.block, SourceBlock)]
+        if not sources:
+            raise ValueError("graph has no sources")
+        totals = [s.block.total_len() for s in sources]
+        if any(t is None for t in totals):
+            if max_chunks is None:
+                raise ValueError("unbounded source needs max_chunks")
+            total = max_chunks * chunk_size
+        else:
+            total = min(totals)
+        states = {n.idx: n.block.init_state() for n in self.nodes}
+        segs = self._segments()
+        offset = 0
+        if resume_from is not None:
+            states, offset, extra = load_checkpoint(resume_from, states, device)
+            names = [n.block.name() for n in self.nodes]
+            if extra.get("blocks") is not None and extra["blocks"] != names:
+                raise ValueError(f"checkpoint was taken on a different graph: "
+                                 f"{extra['blocks']} vs {names}")
+            if extra.get("mesh"):
+                raise ValueError("checkpoint of a mesh run: it carries shard "
+                                 "halos, not block state")
+            for n in self.nodes:
+                hs = extra.get("host", {}).get(n.idx)
+                if hs is not None and hasattr(n.block, "restore_host_state"):
+                    n.block.restore_host_state(hs)
+        chunk_count = 0
+        sink_offsets: dict[int, int] = {}
+        ended = False  # a true end of stream, not a max_chunks/cancel pause
+        while True:
+            if offset >= total:
+                ended = True
+                break
+            if self._token.is_cancelled():
+                break
+            if max_chunks is not None and chunk_count >= max_chunks:
+                break
+            # live sources may end before their nominal bound
+            if any(getattr(s.block, "exhausted", lambda: False)()
+                   for s in sources):
+                ended = True
+                break
+            n_chunk = min(chunk_size, total - offset)
+            stream = (states, offset, n_chunk, sink_offsets)
+            values: dict[tuple[int, int], Any] = {}
+            tags: dict[tuple[int, int], list[Tag]] = {}
+            for node in self._topo():
+                first = self._seg_member.get(node.idx)
+                if first is not None:
+                    if first == node.idx:
+                        states.update(self._run_segment(segs[first], values,
+                                                        tags, states=states))
+                    continue
+                self._run_node(node, values, tags, device, stream)
+            offset += n_chunk
+            chunk_count += 1
+            if (checkpoint_path and checkpoint_every
+                    and chunk_count % checkpoint_every == 0):
+                self._save_checkpoint(checkpoint_path, states, offset)
+        if ended:
+            self._flush_pass(states)
+
+    def _save_checkpoint(self, path: str, states: dict, offset: int) -> None:
+        """Snapshot the stream: block states, offset, and the host-side
+        state of blocks that keep some outside their carried state
+        (``host_state()``)."""
+        save_checkpoint(path, states, offset, extra={
+            "blocks": [n.block.name() for n in self.nodes],
+            "mesh": False,
+            "host": {n.idx: n.block.host_state() for n in self.nodes
+                     if hasattr(n.block, "host_state")},
+        })
+
+    def _flush_pass(self, states=None) -> None:
+        """End-of-stream drain, once after the last chunk (reference
+        ``rustradio_tpu/graph.py:677-737``).
+
+        Blocks exposing ``flush()`` emit their final outputs here (the
+        reference's blocks that push on EOF, e.g. src/hasher.rs:41-49);
+        ``flush_with_state(state)`` reads the carried state instead, which
+        keeps the drain right across checkpoint/resume.  Drained values
+        propagate through the blocks downstream, one at a time (``apply``
+        offline, ``apply_chunk`` with the carried state when streaming),
+        so sinks see them.  A node runs only if it flushed or all its
+        inputs produced drain values."""
+        values: dict[tuple[int, int], Any] = {}
+        tags: dict[tuple[int, int], list[Tag]] = {}
+        # sinks count the drain's tag positions from 0
+        stream = None if states is None else (states, 0, 0, {})
+        for node in self._topo():
             b = node.block
-            xs = [values[(p.node.idx, p.index)] for p in node.inputs]
-            in_tags = [tags.get((p.node.idx, p.index), []) for p in node.inputs]
-            src_tags = None
-            if isinstance(b, SourceBlock):
-                out = b.apply(device)
-                src_tags = b.emit_tags(0, b.total_len())
+            keys = [(p.node.idx, p.index) for p in node.inputs]
+            if keys and all(k in values for k in keys):
+                self._run_node(node, values, tags, None, stream)
+            if states is not None and hasattr(b, "flush_with_state"):
+                fout = b.flush_with_state(states.get(node.idx))
             else:
-                out = b.apply(*xs)
-            if b.n_out == 0:
-                if hasattr(b, "accept_tags") and in_tags:
-                    b.accept_tags(in_tags[0], 0)
+                fout = b.flush() if hasattr(b, "flush") else None
+            if fout is None or b.n_out == 0:
                 continue
-            outs = out if isinstance(out, tuple) else (out,)
-            if src_tags is not None:
-                otags = [src_tags] * b.n_out
-            else:
-                otags = b.process_tags(in_tags, [o.shape[0] for o in outs])
-            for k, (o, ot) in enumerate(zip(outs, otags)):
-                values[(node.idx, k)] = o
-                tags[(node.idx, k)] = ot
+            fouts = fout if isinstance(fout, tuple) else (fout,)
+            merged = [_cat_outputs(values.get((node.idx, k)), f)
+                      for k, f in enumerate(fouts)]
+            in_tags = [tags.get(k, []) for k in keys]
+            otags = b.process_tags(in_tags, [_length(o) for o in merged])
+            for k, (o, ot) in enumerate(zip(merged, otags)):
+                if o is not None:
+                    values[(node.idx, k)] = o
+                    tags[(node.idx, k)] = ot
 
     # ---- device-resident streaming ----
     def compile_device_loop(self, chunk_size: int, n_chunks: int, device,
@@ -287,8 +506,11 @@ class Graph:
         * every other non-source block is device-domain;
         * a source declaring ``emit_period()`` (its ring or vector length)
           has a period that is a multiple of ``chunk_size``; its offsets
-          are reduced mod that period;
-        * tags are not processed.
+          are reduced mod that period (any ``offset0``, past 2^31 too: the
+          arithmetic is Python's);
+        * no source emits tags: the loop carries none, so a source that
+          gives any (``emit_tags`` over its whole pattern) is refused
+          rather than its tags dropped (``run_stream`` carries them).
 
         Returns ``fn(offset0) -> {sink node idx: fold carry}``; ``offset0``
         must be a multiple of ``chunk_size``.
@@ -308,8 +530,10 @@ class Graph:
         periods: dict[int, int] = {}
         for node in self.nodes:
             b = node.block
+            if not isinstance(b, SourceBlock):
+                continue
             per = getattr(b, "emit_period", None)
-            if isinstance(b, SourceBlock) and per is not None:
+            if per is not None:
                 p = per()
                 if p % chunk_size:
                     raise ValueError(
@@ -317,6 +541,12 @@ class Graph:
                         f"chunk_size for the device loop"
                     )
                 periods[node.idx] = p
+            src_tags = b.emit_tags(0, b.total_len() or chunk_size * n_chunks)
+            if src_tags:
+                raise ValueError(
+                    f"{b.name()} emits tags ({sorted({t.key for t in src_tags})})"
+                    f", which the device loop does not carry; use a source "
+                    f"without tags or run the graph with run_stream")
         segs = self._segments()
 
         def step(states, carries, offset0: int, index: int) -> None:
@@ -330,11 +560,10 @@ class Graph:
                                                         states=states))
                     continue
                 if isinstance(b, SourceBlock):
+                    offset = offset0 + index * chunk_size
                     p = periods.get(node.idx)
                     if p is not None:
-                        offset = offset0 % p + index % (p // chunk_size) * chunk_size
-                    else:
-                        offset = offset0 + index * chunk_size
+                        offset %= p
                     out = b.emit(offset, chunk_size, device)
                     outs = out if isinstance(out, tuple) else (out,)
                     for port, o in enumerate(outs):

@@ -1,5 +1,8 @@
-"""Host-side I/O (port of ``rustradio_tpu/io``): raw sample files."""
+"""Host-side I/O (port of ``rustradio_tpu/io``): raw sample files, the
+rtl-sdr u8 wire format and Sun .au audio."""
 
-from .rawfile import read_samples, write_samples
+from .au import au_decode, au_encode, au_read
+from .rawfile import read_samples, rtlsdr_decode, rtlsdr_encode, write_samples
 
-__all__ = ["read_samples", "write_samples"]
+__all__ = ["au_decode", "au_encode", "au_read", "read_samples",
+           "rtlsdr_decode", "rtlsdr_encode", "write_samples"]

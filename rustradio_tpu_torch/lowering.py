@@ -57,6 +57,7 @@ class PackedIqChunk:
 def _is_fm_fir(block) -> bool:
     return (
         isinstance(block, FirFilter)
+        and block.translate is None
         and not np.iscomplexobj(block.taps)
         and len(block.taps) <= 1024
         and block.deci >= 1

@@ -3,19 +3,28 @@
 from .ax25 import (
     Ax25Packet,
     ax25_1200_rx,
+    ax25_1200_rx_graph,
     ax25_1200_rx_iq,
     bell202_demod,
     bell202_tone_demod,
     iq_front_end,
     parse_ax25,
 )
-from .fm import fm_demod_chain, fm_demod_chain_planar, fm_pack_planes
+from .fm import (
+    am_rx,
+    fm_demod_chain,
+    fm_demod_chain_planar,
+    fm_pack_planes,
+    wbfm_rx,
+)
 from .multichannel import ChannelDecode, decode_band_ax25, recover_symbols_batch
 
 __all__ = [
     "Ax25Packet",
     "ChannelDecode",
+    "am_rx",
     "ax25_1200_rx",
+    "ax25_1200_rx_graph",
     "ax25_1200_rx_iq",
     "bell202_demod",
     "bell202_tone_demod",
@@ -26,4 +35,5 @@ __all__ = [
     "iq_front_end",
     "parse_ax25",
     "recover_symbols_batch",
+    "wbfm_rx",
 ]

@@ -15,6 +15,9 @@ recovery runs either on the host over the NRZ stream copied back
 (``sync="events"``, ``symbol_sync_events`` on kernel D), which copies back
 only the symbols; NRZI and HDLC run on the host.
 
+``ax25_1200_rx_graph`` is the same receiver built from blocks and run by
+the Graph runners (offline, or streamed in chunks).
+
 Inputs: a tensor stays on its device; a numpy array goes to the ``device``
 the caller names (there is no default device).
 """
@@ -202,6 +205,64 @@ def ax25_1200_rx(
     packets, _ = hdlc.hdlc_deframe(bits, 10, 1500, keep_checksum=keep_checksum,
                                    fix_bits=fix_bits)
     return [Ax25Packet(np.asarray(d), int(p)) for d, p in packets]
+
+
+def ax25_1200_rx_graph(
+    audio,
+    samp_rate: float,
+    chunk_size: int | None = None,
+    fix_bits: bool = False,
+    symbol_taps=(1 / 6,) * 6,
+    symbol_max_deviation: float = 0.5,
+    keep_checksum: bool = False,
+    band: tuple | None = (400.0, 2700.0),
+    sync: str = "native",
+    device=None,
+) -> list[bytes]:
+    """The receiver of :func:`ax25_1200_rx` as a BLOCK flowgraph, run by
+    the Graph runners: the reference's own structure
+    (examples/ax25-1200-rx.rs:209-253 connects the chain as blocks).
+
+    VectorSource -> [FftFilterFloat band-pass] -> Hilbert -> QuadratureDemod
+    -> FftFilterFloat low-pass -> AddConst (the dense front-end, one device
+    segment: kernel A) -> SymbolSync (``sync``: "native" on the host,
+    "events" on kernel D) -> BinarySlicer -> NrziDecode -> HdlcDeframer ->
+    PduVectorSink.  ``chunk_size`` selects ``Graph.run_stream``, else
+    ``Graph.run``.  ``audio`` is a tensor (the graph runs on its device) or
+    a numpy array with ``device=``.  An unknown ``sync`` raises.  Returns
+    the decoded payloads as bytes.
+    """
+    from .. import blocks
+    from ..graph import Graph
+
+    _check_modes("discriminator", sync)
+    audio = _stream(audio, torch.float32, device)
+    g = Graph()
+    sink = blocks.PduVectorSink()
+    chain = [blocks.VectorSource(audio)]
+    if band is not None:
+        chain.append(blocks.FftFilterFloat(
+            tapgen.band_pass(samp_rate, band[0], band[1], 65, "hamming")))
+    lp = tapgen.low_pass(samp_rate, 1100.0, 200.0 if band is not None else 100.0,
+                         "hamming")
+    chain += [
+        blocks.Hilbert(65),
+        blocks.QuadratureDemod(1.0),
+        blocks.FftFilterFloat(lp),
+        blocks.AddConst(-float(np.float32(2.0 * np.pi * 1700.0 / samp_rate))),
+        blocks.SymbolSync(float(samp_rate) / 1200.0, symbol_max_deviation,
+                          tuple(symbol_taps), method=sync),
+        blocks.BinarySlicer(),
+        blocks.NrziDecode(),
+        blocks.HdlcDeframer(10, 1500, fix_bits, keep_checksum),
+        sink,
+    ]
+    g.chain(*chain)
+    if chunk_size:
+        g.run_stream(chunk_size=chunk_size, device=audio.device)
+    else:
+        g.run(device=audio.device)
+    return [bytes(np.asarray(p.data)) for p in sink.pdus()]
 
 
 def _channel_fm(iq: torch.Tensor, samp_rate, new_rate, cutoff, twidth,

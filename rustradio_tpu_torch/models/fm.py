@@ -2,8 +2,9 @@
 reference's rtl_fm.rs example path).
 
 Taps are the real part of ``low_pass_complex(samp_rate, cutoff, twidth,
-"hamming")`` (49 taps at the defaults).  ``am_rx`` and ``wbfm_rx`` come in
-a later slice, with the resampler and FFT filter they need.
+"hamming")`` (49 taps at the defaults).  ``am_rx`` and ``wbfm_rx`` are the
+AM and broadcast-FM receivers: their channel filters run on kernel A
+through ``ops.filter_complex`` (and ``filter_float``), then plain torch.
 
 Inputs: a tensor stays on its device; a numpy array goes to the ``device``
 the caller names (there is no default device).
@@ -19,6 +20,9 @@ import torch
 from .. import taps as tapgen
 from ..ops import kernels
 from ..ops.demod import quadrature_demod
+from ..ops.fft_filter import filter_complex, filter_float
+from ..ops.iir import single_pole_iir
+from ..ops.resampler import rational_resampler
 
 
 @functools.lru_cache(maxsize=16)
@@ -105,3 +109,34 @@ def fm_demod_chain_planar(
     q = _on_device(q, np.float32, device)
     return kernels.fm_chain(i, q, taps, deci, gain, offset=dc_offset,
                             precision=precision, n=n)
+
+
+def am_rx(iq, samp_rate: float, audio_rate: float = 48_000.0,
+          volume: float = 1.0, device=None):
+    """AM receiver (reference examples/airspy_am_decode.rs:48-83): 12.5 kHz
+    channel filter -> envelope |x| -> audio low-pass -> resample to the
+    audio rate -> volume.  On ``iq``'s device (numpy goes to ``device``)."""
+    samp_rate, audio_rate = float(samp_rate), float(audio_rate)
+    x = _on_device(iq, np.complex64, device).to(torch.complex64)
+    lp = tapgen.low_pass_complex(samp_rate, 12_500.0, 10_000.0, "hamming")
+    env = filter_complex(x, lp).abs()
+    lp2 = tapgen.low_pass(samp_rate, audio_rate, 500.0, "hamming")
+    audio = filter_float(env, lp2)
+    audio = rational_resampler(audio, int(audio_rate), int(samp_rate))
+    return audio * float(np.float32(volume))
+
+
+def wbfm_rx(iq, samp_rate: float, audio_rate: float = 48_000.0,
+            channel_width: float = 100_000.0, device=None):
+    """Broadcast WBFM: channel filter, discriminator (75 kHz deviation),
+    resample to the audio rate, 75 us de-emphasis (a single-pole IIR).  On
+    ``iq``'s device (numpy goes to ``device``)."""
+    samp_rate, audio_rate = float(samp_rate), float(audio_rate)
+    x = _on_device(iq, np.complex64, device).to(torch.complex64)
+    lp = tapgen.low_pass_complex(samp_rate, channel_width, channel_width / 4,
+                                 "hamming")
+    y = filter_complex(x, lp)
+    demod = quadrature_demod(y, float(samp_rate / (2 * np.pi * 75_000.0)))
+    audio = rational_resampler(demod, int(audio_rate), int(samp_rate))
+    dt = 1.0 / audio_rate
+    return single_pole_iir(audio, float(dt / (75e-6 + dt)))

@@ -10,8 +10,8 @@ directory carried to another CPU builds its own library there.  The flags
 are the JAX package's (``rustradio_tpu/native.py``), so ``symbol_sync_f32``
 is bit-identical to the one it calls.
 
-Bound here: ``rr_symbol_sync`` (clock recovery) and ``rr_hdlc_*`` (the
-resumable HDLC deframer).
+Bound here: ``rr_symbol_sync`` (clock recovery, with its state carried in
+and out) and ``rr_hdlc_*`` (the resumable HDLC deframer).
 """
 
 from __future__ import annotations
@@ -96,22 +96,59 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def symbol_sync_f32(x: np.ndarray, sps: float, max_deviation: float,
-                    clock_taps):
-    """Native symbol sync from the initial state (``rr_symbol_sync``):
-    the exact f32 recurrence of the JAX package's ``ops.symbol_sync``.
-    Returns the emitted symbols as an f32 numpy array."""
+def _f32(v) -> np.float32:
+    """A state value (Python or numpy scalar, 0-d array or tensor on any
+    device) as an f32."""
+    return np.float32(float(v))
+
+
+def symbol_sync_f32_state(x: np.ndarray, sps: float, max_deviation: float,
+                          clock_taps, state: dict | None = None):
+    """Native symbol sync (``rr_symbol_sync``) from ``state`` (None: a fresh
+    stream): the exact f32 recurrence of the JAX package's
+    ``ops.symbol_sync``.  Returns ``(symbols, clocks, final_state)``, f32
+    numpy arrays and a dict with the scan's keys (``clock``,
+    ``last_sign``, ``stream_pos``, ``last_sym_boundary_pos``,
+    ``next_sym_middle``, ``fbuf``), as ``rustradio_tpu/native.py:247``
+    returns it, so a stream resumes across the two packages, the device
+    forms and checkpoints."""
     lib = load()
     x = np.ascontiguousarray(x, np.float32)
     taps = np.ascontiguousarray(clock_taps, np.float32)
+    nf = max(len(taps) - 1, 1)
+    st = np.empty(5 + nf, np.float32)
+    if state is None:
+        sps32 = np.float32(sps)
+        st[:5] = (sps32, 0.0, 0.0, 0.0, sps32 / np.float32(2.0))
+        st[5:] = sps32
+    else:
+        st[0] = _f32(state["clock"])
+        st[1] = 1.0 if bool(state["last_sign"]) else 0.0
+        st[2] = _f32(state["stream_pos"])
+        st[3] = _f32(state["last_sym_boundary_pos"])
+        st[4] = _f32(state["next_sym_middle"])
+        fbuf = state["fbuf"]
+        if hasattr(fbuf, "detach"):
+            fbuf = fbuf.detach().cpu().numpy()
+        st[5:] = np.asarray(fbuf, np.float32).reshape(-1)
     vals = np.empty(len(x), np.float32)
     clks = np.empty(len(x), np.float32)
-    # a NULL state starts the stream fresh
     k = lib.rr_symbol_sync(
         _ptr(x), len(x), ctypes.c_float(np.float32(sps)),
         ctypes.c_float(np.float32(max_deviation)), _ptr(taps), len(taps),
-        None, _ptr(vals), _ptr(clks))
-    return vals[:k].copy()
+        _ptr(st), _ptr(vals), _ptr(clks))
+    final = dict(
+        clock=np.float32(st[0]), last_sign=bool(st[1] != 0.0),
+        stream_pos=np.float32(st[2]), last_sym_boundary_pos=np.float32(st[3]),
+        next_sym_middle=np.float32(st[4]), fbuf=st[5:].copy())
+    return vals[:k].copy(), clks[:k].copy(), final
+
+
+def symbol_sync_f32(x: np.ndarray, sps: float, max_deviation: float,
+                    clock_taps, state: dict | None = None) -> np.ndarray:
+    """The emitted symbols of :func:`symbol_sync_f32_state` alone, as an f32
+    numpy array (from a fresh stream unless ``state`` is given)."""
+    return symbol_sync_f32_state(x, sps, max_deviation, clock_taps, state)[0]
 
 
 class HdlcDeframer:

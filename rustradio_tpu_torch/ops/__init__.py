@@ -30,9 +30,10 @@ from .fft_filter import (
     filter_complex,
     filter_float,
 )
-from .fir import fir_filter, fir_filter_full
+from .fir import fir_filter, fir_filter_full, fir_filter_translating
 from .hdlc import calc_crc, fcs_add, hdlc_deframe, hdlc_frame
 from .hilbert import hilbert_transform
+from .iir import single_pole_iir
 from .kernels import (
     LAUNCHES,
     fir_decimate,
@@ -75,6 +76,7 @@ __all__ = [
     "fir_decimate",
     "fir_filter",
     "fir_filter_full",
+    "fir_filter_translating",
     "float_to_complex",
     "fm_chain",
     "fm_chain_window",
@@ -91,6 +93,7 @@ __all__ = [
     "rational_resampler",
     "recover_symbols",
     "resampler_indices",
+    "single_pole_iir",
     "symbol_sync",
     "symbol_sync_events",
     "xor",

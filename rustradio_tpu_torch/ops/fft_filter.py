@@ -137,9 +137,11 @@ def fft_filter_float(x, taps, fft_size: int | None = None) -> torch.Tensor:
 def filter_float(x, taps, fft_size: int | None = None) -> torch.Tensor:
     """Real-stream filter, the semantics of ``fft_filter_float`` (zero
     history, y[m] = sum_j taps[j] x[m-j]).  Real taps up to
-    ``kernels.MAX_TAPS`` run on ``kernels.fir_decimate`` at stride 1
-    (``fft_size`` is then unused); others use overlap-save."""
-    taps = np.asarray(taps)
+    ``kernels.MAX_TAPS`` (an array or a ``kernels.TapSet``) run on
+    ``kernels.fir_decimate`` at stride 1 (``fft_size`` is then unused);
+    others use overlap-save."""
+    if type(taps) is not kernels.TapSet:
+        taps = np.asarray(taps)
     if not np.iscomplexobj(taps) and len(taps) <= kernels.MAX_TAPS:
         x = torch.as_tensor(x).to(torch.float32).contiguous()
         return kernels.fir_decimate(x, taps, 1)

@@ -171,6 +171,24 @@ class HdlcStateMachine:
                 self.cur = []
         return packets
 
+    def snapshot(self) -> dict:
+        """The machine's whole condition as host values (the JAX package's
+        keys, ``rustradio_tpu/ops/hdlc.py:179``): a checkpointable state."""
+        return {
+            "state": self.state, "shift": self.shift, "ones": self.ones,
+            "cur": list(self.cur), "stream_pos": self.stream_pos,
+            "stats": dict(self.stats),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Continue from a :meth:`snapshot` (of either package)."""
+        self.state = str(snap["state"])
+        self.shift = int(snap["shift"])
+        self.ones = int(snap["ones"])
+        self.cur = [int(b) for b in snap["cur"]]
+        self.stream_pos = int(snap["stream_pos"])
+        self.stats = {k: int(v) for k, v in snap["stats"].items()}
+
 
 def hdlc_deframe(bits, min_size: int = 1, max_size: int = 1500,
                  keep_checksum: bool = False, fix_bits: bool = False):

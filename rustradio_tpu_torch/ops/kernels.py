@@ -421,6 +421,8 @@ def _fir_planes_plain(x: torch.Tensor, taps: TapSet, deci: int):
     _check_fir(x, taps, deci)
     ntaps, n = len(taps), x.shape[-1]
     m = -(-n // deci)
+    if m == 0 or x.numel() == 0:  # as the kernel: no outputs
+        return x.new_zeros((*x.shape[:-1], m))
     trev = taps.trev("highest", x.device)
     xp = F.pad(x, (ntaps - 1, m * deci - n))
     with _true_f32():

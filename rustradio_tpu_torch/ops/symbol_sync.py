@@ -123,6 +123,13 @@ def _crossings(changed: torch.Tensor, max_events: int) -> torch.Tensor:
     return out[:, :max_events].contiguous()
 
 
+def default_max_events(n: int, sps: float) -> int:
+    """The crossing budget of an n-sample stream at ``sps``: ~4x the
+    crossings of NRZ, pow-2 bucketed, capped at n // 4."""
+    want = max(64, int(4 * n / sps))
+    return min(1 << (want - 1).bit_length(), max(8, n // 4))
+
+
 def symbol_sync_events(x, sps: float, max_deviation: float = 0.5,
                        clock_taps=(0.5, 0.5), max_events: int | None = None,
                        unroll: int = 8, state=None, return_state: bool = False,
@@ -147,8 +154,7 @@ def symbol_sync_events(x, sps: float, max_deviation: float = 0.5,
     c, n = xs.shape
     dev = xs.device
     if max_events is None:
-        want = max(64, int(4 * n / sps))
-        max_events = min(1 << (want - 1).bit_length(), max(8, n // 4))
+        max_events = default_max_events(n, sps)
     k = kernels.sync_consts(sps, max_deviation, clock_taps)
     f, i32 = torch.float32, torch.int32
     if state is None:

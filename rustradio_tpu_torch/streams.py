@@ -1,10 +1,11 @@
-"""Stream tags (a copy of the part of ``rustradio_tpu/streams.py`` the
-blocks use; importing that module would pull in jax through the
+"""Stream tags and PDUs (a copy of the part of ``rustradio_tpu/streams.py``
+the blocks use; importing that module would pull in jax through the
 ``rustradio_tpu`` package ``__init__``).
 
 A stream value is a whole chunk (or whole offline signal) as a tensor;
 tags ride beside it as a host-side sorted list of (pos, key, value) —
-sparse metadata never touches the device.
+sparse metadata never touches the device.  PDU streams are host lists of
+:class:`Pdu` (the reference's "nocopy" queues, src/stream.rs:456-478).
 """
 
 from __future__ import annotations
@@ -20,3 +21,11 @@ class Tag:
     pos: int
     key: str = dataclasses.field(compare=False)
     val: Any = dataclasses.field(compare=False)
+
+
+@dataclasses.dataclass
+class Pdu:
+    """One packet data unit."""
+
+    data: Any
+    tags: list[Tag] = dataclasses.field(default_factory=list)

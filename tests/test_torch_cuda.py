@@ -21,6 +21,15 @@ BUDGET = {"highest": 2e-4, "w3": 3e-4, "w2": 8e-3, "split3": 8e-3, "i8": 3e-4}
 
 pytestmark = pytest.mark.cuda
 
+
+class TaglessSource(blocks.VectorSource):
+    """The port's VectorSource without its start/repeat/first tags, for the
+    device loop, which refuses a source that emits tags."""
+
+    def emit_tags(self, offset, n):
+        return [t for t in super().emit_tags(offset, n)
+                if not t.key.startswith("VectorSource::")]
+
 # The FIR core's launcher takes small tiles of 4 outputs a thread for a
 # small input, and from WIDE outputs on (two blocks per SM of 1024) its
 # widest shape, 8 outputs a thread in tiles of 1024: every edge case runs
@@ -267,8 +276,8 @@ def test_torch_cuda_device_loop_replay_equals_eager(cuda_device, ring):
             src = g.add(blocks.PackedIqRingSource(a, b, taps, deci,
                                                   tile_rows=tile_rows))
         else:
-            src = g.add(blocks.VectorSource(torch.complex(a, b).cpu().numpy(),
-                                            repeat=3))
+            src = g.add(TaglessSource(torch.complex(a, b).cpu().numpy(),
+                                      repeat=3))
         fir = g.add(blocks.FirFilter(taps, deci=deci, precision="w3"), src)
         q = g.add(blocks.QuadratureDemod(1.0), fir)
         g.add(blocks.DeviceFoldSink(fn=lambda c, x: c + x.sum() + (x * x).sum()),
@@ -542,3 +551,112 @@ def test_torch_cuda_graph_run_defaults_to_the_card(cuda_device):
         sinks.append(s.data())
     np.testing.assert_allclose(sinks[0], sinks[1],
                                atol=2e-5 * np.abs(sinks[1]).max(), rtol=0)
+
+
+def _sweep_audio(n, seed, fs=24_000.0):
+    rng = np.random.RandomState(seed)
+    f = 1500.0 + 500.0 * np.sin(np.arange(n) * 2e-3)
+    return (np.sin(2 * np.pi * np.cumsum(f) / fs) + 0.05 * rng.randn(n)
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("sync", ["native", "events"])
+def test_torch_cuda_run_stream_on_the_card_equals_the_cpu(cuda_device, tmp_path,
+                                                         sync):
+    # the AX.25 chain from blocks, streamed on the card (kernel A in the
+    # front-end, kernel D for events) against the same stream on the CPU;
+    # a checkpoint taken on the card resumes on the card
+    fs = 24_000.0
+    frames = [b"STREAMED ON THE CARD ONE", b"STREAMED ON THE CARD TWO"]
+    parts = []
+    for p in frames:
+        bits = ops.hdlc_frame(ops.fcs_add(np.frombuffer(p, np.uint8)))
+        line = ops.nrzi_encode(torch.from_numpy(bits)).numpy()
+        at = np.minimum((np.arange(len(line) * 20) / 20).astype(int),
+                        len(line) - 1)
+        f = np.where(line[at] == 1, 1200.0, 2200.0)
+        parts += [np.zeros(400), 0.5 * np.sin(np.cumsum(2 * np.pi * f / fs))]
+    audio = np.concatenate(parts + [np.zeros(400)]).astype(np.float32)
+    chunk = len(audio) // 4 + 1
+    want = ax25.ax25_1200_rx_graph(audio, fs, chunk_size=chunk, sync=sync,
+                                   device="cpu")
+    before = dict(kernels.LAUNCHES)
+    got = ax25.ax25_1200_rx_graph(audio, fs, chunk_size=chunk, sync=sync,
+                                  device=cuda_device)
+    assert got == want == frames
+    assert kernels.LAUNCHES["fir_decimate"] > before["fir_decimate"]
+    if sync == "events":
+        assert kernels.LAUNCHES["symbol_sync_events"] > before["symbol_sync_events"]
+    # the dense front-end streamed on the card against the CPU stream
+    from rustradio_tpu_torch import taps as tapgen
+
+    x = _sweep_audio(40_000, 7)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        g, s = Graph(), blocks.VectorSink()
+        g.chain(blocks.VectorSource(x),
+                blocks.FftFilterFloat(tapgen.band_pass(fs, 400.0, 2700.0, 65)),
+                blocks.Hilbert(65), blocks.QuadratureDemod(1.0),
+                blocks.FftFilterFloat(tapgen.low_pass(fs, 1100.0, 200.0)),
+                blocks.AddConst(-0.4), s)
+        ck = str(tmp_path / f"{torch.device(dev).type}.pkl")
+        g.run_stream(chunk_size=9000, max_chunks=2, checkpoint_path=ck,
+                     checkpoint_every=2, device=dev)
+        g2, s2 = Graph(), blocks.VectorSink()
+        g2.chain(*[n.block for n in g.nodes[:-1]], s2)
+        g2.run_stream(chunk_size=9000, resume_from=ck, device=dev)
+        outs.append(np.concatenate([s.data(), s2.data()]))
+    # kernel A against conv1d at 2e-5 of |y| per FIR, through the exact
+    # discriminator on a strong signal
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("deci", [1, 3])
+def test_torch_cuda_translating_fir_passes_match_plain(cuda_device, deci):
+    # fir_filter_translating's complex-tap passes (two kernel-A launches of
+    # the I/Q rows) against their plain versions on the same card input
+    from rustradio_tpu_torch import taps as tapgen
+
+    rng = np.random.RandomState(33)
+    n, fs, freq = (1 << 18) + 7, 1_024_000.0, 123_456.0
+    x = torch.complex(torch.from_numpy(rng.randn(n).astype(np.float32)),
+                      torch.from_numpy(rng.randn(n).astype(np.float32))
+                      ).to(cuda_device)
+    taps = tapgen.low_pass_complex(fs, 20_000.0, 10_000.0)
+    before = kernels.LAUNCHES["fir_decimate"]
+    got = ops.fir_filter_translating(x, taps, fs, freq, deci)
+    assert kernels.LAUNCHES["fir_decimate"] == before + 2
+    import unittest.mock as mock
+
+    with mock.patch.object(kernels, "fir_decimate", kernels.fir_decimate_plain):
+        want = ops.fir_filter_translating(x, taps, fs, freq, deci)
+    d = torch.view_as_real(got - want).abs().max()
+    assert float(d) <= 2e-5 * float(want.abs().max())
+
+
+def test_torch_cuda_device_loop_replays_far_offsets(cuda_device):
+    # the captured loop at offsets one chunk under and over 2^31, wrapping a
+    # two-chunk ring, bit-equal to the eager loop
+    rng = np.random.RandomState(53)
+    tile_rows, deci, n_chunks = 16, 4, 5
+    chunk = deci * 128 * tile_rows
+    a, b = _fm_iq(rng, 2 * chunk, cuda_device)
+    taps = _lp49()
+
+    def build(cuda_graph):
+        g = Graph()
+        src = g.add(blocks.PackedIqRingSource(a, b, taps, deci,
+                                              tile_rows=tile_rows))
+        fir = g.add(blocks.FirFilter(taps, deci=deci, precision="w3"), src)
+        q = g.add(blocks.QuadratureDemod(1.0), fir)
+        g.add(blocks.DeviceFoldSink(fn=lambda c, x: c + x.sum() + (x * x).sum()),
+              q)
+        return g.compile_device_loop(chunk, n_chunks, device=cuda_device,
+                                     cuda_graph=cuda_graph)
+
+    eager, replay = build(False), build(True)
+    near = next(iter(eager(chunk).values()))
+    for offset0 in ((1 << 31) - chunk, (1 << 31) + chunk):
+        want = next(iter(eager(offset0).values()))
+        got = next(iter(replay(offset0).values()))
+        assert torch.equal(got, want) and torch.equal(want, near)

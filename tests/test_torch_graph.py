@@ -23,14 +23,26 @@ def interpret_kernels(monkeypatch):
     monkeypatch.setattr(pk, "_INTERPRET", True)
 
 
-def _fm_graph(mod, graph_cls, data, taps, deci, gain, sink, planes=False):
+class TaglessSource(blocks.VectorSource):
+    """The port's VectorSource without its start/repeat/first tags (or
+    any), for the device loop, which refuses a source that emits tags."""
+
+    def emit_tags(self, offset, n):
+        return [t for t in super().emit_tags(offset, n)
+                if not t.key.startswith("VectorSource::")]
+
+
+def _fm_graph(mod, graph_cls, data, taps, deci, gain, sink, planes=False,
+              tagless=False):
+    # tagless: the port's sources without stream tags (the device loop's)
+    src = TaglessSource if tagless else mod.VectorSource
     g = graph_cls()
     if planes:
-        src_r = g.add(mod.VectorSource(np.real(data).astype(np.float32)))
-        src_i = g.add(mod.VectorSource(np.imag(data).astype(np.float32)))
+        src_r = g.add(src(np.real(data).astype(np.float32)))
+        src_i = g.add(src(np.imag(data).astype(np.float32)))
         x = g.add(mod.FloatToComplex(), src_r, src_i)
     else:
-        x = g.add(mod.VectorSource(data))
+        x = g.add(src(data))
     fir = g.add(mod.FirFilter(taps, deci=deci), x)
     q = g.add(mod.QuadratureDemod(gain), fir)
     g.add(sink, q)
@@ -116,7 +128,7 @@ def test_torch_packed_ring_device_loop_matches_jax(interpret_kernels):
 
 def test_torch_device_loop_rejects_misaligned_offset():
     g = Graph()
-    g.chain(blocks.VectorSource(np.zeros(4096, np.complex64)),
+    g.chain(TaglessSource(np.zeros(4096, np.complex64)),
             blocks.FirFilter(np.ones(5, np.float32), deci=4),
             blocks.QuadratureDemod(1.0), blocks.DeviceFoldSink())
     fn = g.compile_device_loop(1024, 2, device="cpu")
@@ -139,7 +151,7 @@ def test_torch_device_loop_equals_offline(planes):
     off = blocks.DeviceFoldSink()
     _fm_graph(blocks, Graph, data, taps, 4, 1.0, off, planes).run(device="cpu")
     fn = _fm_graph(blocks, Graph, data, taps, 4, 1.0, blocks.DeviceFoldSink(),
-                   planes).compile_device_loop(chunk, 4, device="cpu")
+                   planes, tagless=True).compile_device_loop(chunk, 4, device="cpu")
     got = float(list(fn(0).values())[0])
     # f32 fold of 2047 outputs per chunk against the offline f64 total
     np.testing.assert_allclose(got, off.total(), rtol=1e-5, atol=1e-3)
@@ -157,7 +169,8 @@ def test_torch_device_loop_on_the_cpu_is_the_plain_loop():
     before = dict(kernels.LAUNCHES)
     folds = []
     for cuda_graph in (True, False):
-        g = _fm_graph(blocks, Graph, data, taps, 4, 1.0, blocks.DeviceFoldSink())
+        g = _fm_graph(blocks, Graph, data, taps, 4, 1.0, blocks.DeviceFoldSink(),
+                      tagless=True)
         fn = g.compile_device_loop(chunk, 2, device="cpu", cuda_graph=cuda_graph)
         folds += [fn(0), fn(0), fn(2 * chunk), fn(0)]
     vals = [float(next(iter(f.values()))) for f in folds]
@@ -181,7 +194,7 @@ def test_torch_resume_from_jax_state():
 
     st = convert.state_from_jax(
         {"fir": {"buf": np.asarray(sf["buf"]), "out_off": sf["out_off"]},
-         "quad": np.asarray(sq)})
+         "quad": np.asarray(sq)}, device="cpu")
     assert isinstance(st["fir"]["out_off"], int)
     x1 = torch.from_numpy(c1)
 

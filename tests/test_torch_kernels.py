@@ -128,8 +128,8 @@ def test_torch_fm_chain_packed_matches_jax_db_kernel(interpret_kernels,
     taps = _lp49()
     ja = np.asarray(pk.fm_plane_pack(a, taps, 4, tile_rows, precision))
     jb = np.asarray(pk.fm_plane_pack(b, taps, 4, tile_rows, precision))
-    pa = convert.packed_from_jax(ja, precision)
-    pb = convert.packed_from_jax(jb, precision)
+    pa = convert.packed_from_jax(ja, precision, device="cpu")
+    pb = convert.packed_from_jax(jb, precision, device="cpu")
     assert torch.equal(pa, kernels.fm_plane_pack(_t(a), taps, 4, tile_rows,
                                                  precision))
     got = kernels.fm_chain(pa, pb, taps, 4, 0.9, tile_rows=tile_rows,
@@ -156,8 +156,8 @@ def test_torch_fm_chain_window_seed_and_last(interpret_kernels, precision):
     taps = _lp49()
     ja = np.asarray(pk.fm_plane_pack(a, taps, deci, tile_rows, precision))
     jb = np.asarray(pk.fm_plane_pack(b, taps, deci, tile_rows, precision))
-    pa = convert.packed_from_jax(ja, precision)
-    pb = convert.packed_from_jax(jb, precision)
+    pa = convert.packed_from_jax(ja, precision, device="cpu")
+    pb = convert.packed_from_jax(jb, precision, device="cpu")
 
     def port(row0, g, seed):
         return kernels.fm_chain_window(pa, pb, taps, deci, 1.3, row0=row0,

@@ -53,8 +53,8 @@ def test_torch_fm_planar_flat_and_packed_match_jax(precision):
     # the packed planes are JAX's own, element for element
     ji, jq, jn = jfm.fm_pack_planes(i, q, precision=precision)
     assert jn == n
-    assert torch.equal(convert.packed_from_jax(np.asarray(ji), precision), pi_)
-    assert torch.equal(convert.packed_from_jax(np.asarray(jq), precision), pq)
+    assert torch.equal(convert.packed_from_jax(np.asarray(ji), precision, device="cpu"), pi_)
+    assert torch.equal(convert.packed_from_jax(np.asarray(jq), precision, device="cpu"), pq)
 
 
 def test_torch_fm_models_numpy_input_needs_a_device():
