@@ -29,7 +29,19 @@ just after, so that each shows it went through its kernels:
   versions and its tones against the modulating ones; and the AX.25
   receiver built from blocks (``ax25_1200_rx_graph``) on the corpus, both
   sync methods, offline and through ``Graph.run_stream``, and a streamed
-  run paused at a checkpoint and resumed: kernels A and D.
+  run paused at a checkpoint and resumed: kernels A and D;
+* the G3RUH modem and the burst receivers on 200 corpus frames each:
+  ``g3ruh_modulate`` (kernel A, the 723-tap channel filter at 300 kHz);
+  ``ax25_9600_rx`` on one 300 kHz G3RUH stream with both sync methods
+  (kernel D); ``ax25_9600_wpcr_rx`` on 300 kHz G3RUH bursts and
+  ``ax25_1200_wpcr_rx`` on 50 kHz AFSK bursts (kernel A at 1205 taps),
+  each >= 196 decoded and the plain versions' list; ``wpcr_batch`` on the
+  JAX package's WPCR corpus (>= 100, every burst's bin and symbols equal
+  to the CPU run's and to ``wpcr_numpy``); the apps ``ax25_9600_rx``,
+  ``ax25_1200_wpcr``, ``ax25_9600_wpcr``, ``g3ruh`` (RX to KISS, TX from
+  KISS) and ``burst_saver`` on the captures as files; and the 9600 WPCR
+  front half built from blocks, offline, streamed in chunks of 2^16 and
+  paused at a checkpoint inside a burst and resumed.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -289,6 +301,7 @@ SEED = 0
 DEVICE = "cuda"
 
 failures: list[str] = []
+T0 = time.perf_counter()
 
 
 def report(phase: str, what: str, err: float, tol: float) -> float:
@@ -303,6 +316,7 @@ def report(phase: str, what: str, err: float, tol: float) -> float:
 def end_phase(phase: str) -> None:
     if failures:
         raise SystemExit(f"chip_smoke: phase {phase} failed: {failures}")
+    print(f"[{phase}] passed, {time.perf_counter() - T0:.1f} s since the start")
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -916,6 +930,480 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists, plain_versions,
             "10 ax25 graph", what, calls["symbol_sync_events_scan"])}
     del calls
     end_phase("10 ax25 graph")
+    return counts, call_errs
+
+
+# ---- phase 11: the G3RUH modem and the burst receivers (WPCR)
+
+FS_G3 = 300_000.0         # the 9600 bd apps' default rate (apps/ax25_9600_rx.py)
+FS_AFSK = 50_000.0        # ax25_1200_wpcr's default rate
+N_G3 = 200                # corpus frames on each capture
+G3_GATE = 196             # of them decoded on each capture
+G3_NOISE = 0.05           # the stream's complex noise per component (amplitude 0.5)
+G3_MAX_DEV = 0.05         # ax25_9600_rx's clock bound (--symbol_max_deviation)
+G3_GAP, G3_GAP_NOISE = 0.05, 1e-3      # s of noise between the G3RUH bursts
+AFSK_GAP, AFSK_GAP_NOISE = 0.1, 0.01   # and between the AFSK bursts
+BURST_THRESHOLD = 0.01
+WPCR_GATE = 100           # the JAX package's gate on its WPCR corpus
+BURST_CHUNK = 1 << 16     # run_stream's chunk for the block-built front half
+
+
+def noisy(iq: torch.Tensor, sigma: float, gen: torch.Generator) -> torch.Tensor:
+    """``iq`` plus complex noise of ``sigma`` per component."""
+    n = iq.shape[0]
+    return iq + torch.complex(sigma * torch.randn(n, generator=gen, device=iq.device),
+                              sigma * torch.randn(n, generator=gen, device=iq.device))
+
+
+def burst_capture(bursts, gap: int, sigma: float, gen: torch.Generator):
+    """The bursts one after another, ``gap`` samples apart and before the
+    first and after the last, with complex noise of ``sigma`` per component
+    over the whole capture."""
+    z = torch.zeros(gap, dtype=torch.complex64, device=bursts[0].device)
+    parts = [z]
+    for b in bursts:
+        parts += [b, z]
+    return noisy(torch.cat(parts), sigma, gen)
+
+
+def afsk_burst(i: int, hdlc, ops, dev) -> torch.Tensor:
+    """Corpus frame i as Bell-202 AFSK at FS_AFSK frequency-modulating a
+    carrier, as tests/test_models_extra.py:51-62: conj(vco(0.3 * audio))
+    at 3.5 kHz a unit."""
+    audio = afsk(corpus_line(i, hdlc), 1200.0, 0.5, FS_AFSK, 0)
+    iq, _ = ops.vco(torch.from_numpy(0.3 * audio).to(dev),
+                    2 * np.pi * 3500.0 / FS_AFSK)
+    return iq.conj().resolve_conj()
+
+
+def wpcr_corpus(hdlc):
+    """tests/test_decode_rate.py:203-228: 200 NRZ bursts at 10 samples a
+    symbol with clock drift of +-1% and noise 0 to 0.55, numpy
+    RandomState(5)."""
+    rng = np.random.RandomState(5)
+    bursts, payloads = [], []
+    for i in range(200):
+        p = f"W#{i:03d} wpcr corpus".encode()
+        framed = hdlc.hdlc_frame(hdlc.fcs_add(np.frombuffer(p, np.uint8)))
+        line = ((1 + np.cumsum(1 - np.asarray(framed))) % 2) * 2.0 - 1.0
+        sps = 10.0 * (1 + ((i % 5) - 2) / 2 * 0.01)
+        n = int(len(line) * sps)
+        idx = np.minimum((np.arange(n) / sps).astype(int), len(line) - 1)
+        x = line[idx].astype(np.float32)
+        x += rng.randn(n).astype(np.float32) * [0.0, 0.1, 0.25, 0.4, 0.55][i % 5]
+        bursts.append(x)
+        payloads.append(p)
+    return bursts, payloads
+
+
+def wpcr_moved(centred: np.ndarray, syms: np.ndarray, info: dict, want) -> int:
+    """The port's WPCR result on a centred burst against ``wpcr_numpy``'s
+    (``want``): -1 unless both found the burst with the same bin (sps =
+    bin / len) and the same symbol count, and every symbol sits where the
+    numpy model's sequential f32 phase accumulator puts it, but where that
+    and the closed form the port keeps (as the JAX package) round
+    u_k = phase + k * sps to two sides of an integer (within 1e-4): there a
+    symbol moves by one sample.  Else the count of such moved symbols.  The
+    closed form's positions are held against the port's symbols first."""
+    if want is None or not info["found"]:
+        return 0 if want is None and not info["found"] else -1
+    sps, n = np.float32(info["sps"]), len(centred)
+    if info["sps"] != want[1] or info["bin"] != round(want[1] * n):
+        return -1
+    u = np.float32(info["phase"]) + np.arange(n, dtype=np.float32) * sps
+    fl = np.floor(u)
+    got_k = np.flatnonzero(np.concatenate([u[:1] >= 1.0, fl[1:] > fl[:-1]]))
+    seq, ph = [], np.float32(info["phase"])
+    for k in range(n):
+        if ph >= 1.0:
+            ph -= np.float32(1.0)
+            seq.append(k)
+        ph += sps
+    want_k = np.asarray(seq, np.int64)
+    if (not np.array_equal(centred[got_k], syms) or len(got_k) != len(want_k)
+            or len(want_k) != len(want[0])):
+        return -1
+    u64 = np.float64(info["phase"]) + np.arange(n) * np.float64(sps)
+    near = np.abs(u64 - np.round(u64)) < 1e-4
+    moved = np.flatnonzero(got_k != want_k)
+    for k in moved:
+        a, b = sorted((int(got_k[k]), int(want_k[k])))
+        if b - a != 1 or not near[a:b + 1].any():
+            return -1
+    return len(moved)
+
+
+def burst_phase(dev, card, plain_versions, zero_counts, require, capturing):
+    """Phase 11: the G3RUH modem and the burst receivers on their captures
+    (see the module docstring).  Returns the launch counts of each path and
+    the largest |error| of each kernel held here."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from rustradio_tpu_torch import blocks, ops, taps as tapgen
+    from rustradio_tpu_torch.apps import (ax25_1200_wpcr, ax25_9600_rx,
+                                          ax25_9600_wpcr, burst_saver, g3ruh)
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import hdlc, kernels
+    from rustradio_tpu_torch.ops.wpcr import wpcr_numpy
+    from rustradio_tpu_torch.utils.checkpoint import load_checkpoint
+
+    counts, call_errs = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    frames = [np.frombuffer(corpus_payload(i), np.uint8) for i in range(N_G3)]
+
+    # the captures; the transmitter's kernel-A calls (the 723-tap channel
+    # filter at 300 kHz, both planes) each held against the plain version
+    t0 = time.perf_counter()
+    zero_counts()
+    with capturing("fir_decimate") as calls:
+        clean = ax25.g3ruh_modulate(frames, FS_G3, device=dev)
+        g3_one = [ax25.g3ruh_modulate([f], FS_G3, device=dev) for f in frames]
+    counts["g3ruh_modulate"] = dict(kernels.LAUNCHES)
+    require("g3ruh_modulate", counts["g3ruh_modulate"], ("fir_decimate",))
+    call_errs["fir_decimate"] = hold_fir_calls(
+        "11 g3ruh", "g3ruh_modulate, the stream and each burst", calls["fir_decimate"])
+    del calls
+    stream = noisy(clean, G3_NOISE, gen)
+    g3_iq = burst_capture(g3_one, int(G3_GAP * FS_G3), G3_GAP_NOISE, gen)
+    afsk_iq = burst_capture([afsk_burst(i, hdlc, ops, dev) for i in range(N_G3)],
+                            int(AFSK_GAP * FS_AFSK), AFSK_GAP_NOISE, gen)
+    torch.cuda.synchronize()
+    print(f"[11 captures] G3RUH stream {clean.shape[0]} samples at {FS_G3:.0f} Hz "
+          f"(noise {G3_NOISE}), G3RUH bursts {g3_iq.shape[0]}, AFSK bursts "
+          f"{afsk_iq.shape[0]} at {FS_AFSK:.0f} Hz, {N_G3} corpus frames each, "
+          f"made on the card in {time.perf_counter() - t0:.1f} s")
+    secs, _ = wall(lambda: ax25.g3ruh_modulate(frames, FS_G3, device=dev))
+    print(f"[11 g3ruh] g3ruh_modulate {N_G3} frames -> {clean.shape[0]} samples: "
+          f"{secs * 1e3:.1f} ms wall (median of 3); card: {card}")
+
+    # the VCO's phase reaches ~1500 rad here (an f32 step of 1.2e-4): each
+    # stream the card makes is held against the same stream with its
+    # phase summed, wrapped and turned into sin and cos in float64, at
+    # twice the error of the JAX package's arithmetic (an f32 sum, in
+    # order, on the host; then the f32 remainder)
+    def vco_model(x, k, phase0, f32_sum):
+        inc = x * float(np.float32(k))
+        if f32_sum:
+            ph = torch.cumsum(inc.cpu(), 0).to(x.device) + float(phase0)
+            ph = torch.remainder(ph, float(np.float32(2 * math.pi)))
+        else:
+            ph = torch.remainder(torch.cumsum(inc.double(), 0) + float(phase0),
+                                 2 * math.pi)
+        return torch.complex(torch.sin(ph), torch.cos(ph)).to(torch.complex64), \
+            ph[-1].float()
+
+    refs = {}
+    for f32_sum in (False, True):
+        with mock.patch.object(ax25, "vco", lambda x, k, phase0=0.0: vco_model(
+                x, k, phase0, f32_sum)):
+            refs[f32_sum] = torch.view_as_real(ax25.g3ruh_modulate(
+                frames, FS_G3, device=dev))
+    ref64 = refs[False]
+    vco_tol = 2 * max_err(refs[True], ref64)
+    report("11 g3ruh", f"g3ruh_modulate {N_G3} frames vs its phase in float64 "
+           "(tolerance: twice the error of an f32 sum on the host)",
+           max_err(torch.view_as_real(clean), ref64), vco_tol)
+    del refs
+
+    def plain_d_on_host(plain_calls):
+        """Kernel D's plain loop on CPU copies of its arguments (one slot a
+        step: ~10 times faster on the host than launched on the card, and
+        the same f32 operations), its outputs back on the card; each call's
+        arguments and outputs kept in ``plain_calls``."""
+        def run(*args):
+            out = kernels.symbol_sync_events_scan_plain(
+                *(a.cpu() if torch.is_tensor(a) else a for a in args))
+            plain_calls.append((args, tuple(o.to(dev) for o in out)))
+            return plain_calls[-1][1]
+        return run
+
+    def path(name, fn, gate, needs, plain_calls=None):
+        """Decode with ``fn`` three times (launches counted) and once on the
+        plain versions: the same list, and at least ``gate`` frames.  With
+        ``plain_calls`` (a list), the plain kernel D's arguments and
+        outputs of that run are kept in it."""
+        zero_counts()
+        secs, out = wall(fn)
+        counts[name] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        got = decoded(out, N_G3)
+        with plain_versions(), contextlib.ExitStack() as stack:
+            if plain_calls is not None:
+                stack.enter_context(mock.patch.object(
+                    kernels, "symbol_sync_events_scan", plain_d_on_host(plain_calls)))
+            plain = decoded(fn(), N_G3)
+        print(f"[11 {name}] {len(set(got))}/{N_G3} decoded, the plain versions' "
+              f"list: {got == plain}; {secs * 1e3:.1f} ms wall (median of 3); "
+              f"launches {json.dumps(counts[name])}; card: {card} "
+              f"({time.perf_counter() - T0:.1f} s since the start)")
+        if len(set(got)) < gate or got != plain:
+            failures.append(f"{name}: {len(set(got))} frames, or not the plain "
+                            "versions' list")
+        require(name, counts[name], needs)
+        return [bytes(p) for p in out]
+
+    # the 9600 bd receiver on the stream (the 7227-tap channel filter takes
+    # the FFT route; kernel D in the events form)
+    rx, plain_d = {}, []
+    for sync in ("native", "events"):
+        rx[sync] = path(f"ax25_9600_rx {sync}", lambda: ax25.ax25_9600_rx(
+            stream, FS_G3, symbol_max_deviation=G3_MAX_DEV, sync=sync), G3_GATE,
+            ("symbol_sync_events",) if sync == "events" else (),
+            plain_d if sync == "events" else None)
+        n_default = len(set(decoded(ax25.ax25_9600_rx(stream, FS_G3, sync=sync), N_G3)))
+        print(f"[11 ax25_9600_rx {sync}] at the default clock bound 0.1 (taps "
+              f"0.0001, 0.99999999 hold the clock at sps + 0.1): {n_default}/{N_G3}")
+    # kernel D on each of its calls against the plain loop's outputs of the
+    # plain run (one loop over ~300,000 slots, not two): the calls' inputs
+    # bit-equal, then every slot and the final state
+    with capturing("symbol_sync_events_scan") as calls:
+        ax25.ax25_9600_rx(stream, FS_G3, symbol_max_deviation=G3_MAX_DEV,
+                          sync="events")
+    calls = calls["symbol_sync_events_scan"]
+    err = 0.0 if len(calls) == len(plain_d) else math.inf
+    for args, (pargs, want) in zip(calls, plain_d):
+        same_in = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                      for a, b in zip(args, pargs))
+        got = kernels.symbol_sync_events_scan(*args)
+        err = max([err] + [max_err(g, w) for g, w in zip(got, want)]
+                  + [0.0 if same_in else math.inf])
+    call_errs["symbol_sync_events"] = report(
+        "11 ax25_9600_rx", f"ax25_9600_rx events: kernel D on each of its "
+        f"{len(calls)} calls ({sum(a[0].numel() for a in calls)} slots) vs the "
+        "plain run's, the same inputs, every slot and the final state", err, 0.0)
+    rx["wpcr 9600"] = path("ax25_9600_wpcr_rx", lambda: ax25.ax25_9600_wpcr_rx(
+        g3_iq, FS_G3, threshold=BURST_THRESHOLD), G3_GATE, ())
+    rx["wpcr 1200"] = path("ax25_1200_wpcr_rx", lambda: ax25.ax25_1200_wpcr_rx(
+        afsk_iq, FS_AFSK, threshold=BURST_THRESHOLD), G3_GATE, ("fir_decimate",))
+    # the 50 kHz front-end's calls: the 1205-tap channel filter (both
+    # planes), the Hilbert and the 1205-tap low-pass
+    with capturing("fir_decimate") as calls:
+        ax25.ax25_1200_wpcr_rx(afsk_iq, FS_AFSK, threshold=BURST_THRESHOLD)
+    call_errs["fir_decimate"] = max(call_errs["fir_decimate"], hold_fir_calls(
+        "11 ax25_1200_wpcr_rx", "ax25_1200_wpcr_rx", calls["fir_decimate"]))
+    del calls
+    end_phase("11 receivers")
+
+    # WPCR on the JAX package's corpus: the card against the CPU and the
+    # numpy golden model, burst by burst
+    bursts, payloads = wpcr_corpus(hdlc)
+    on_card = [torch.from_numpy(b).to(dev) for b in bursts]
+    zero_counts()
+    secs, res = wall(lambda: ops.wpcr_batch(on_card))
+    counts["wpcr_batch"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    res_cpu = ops.wpcr_batch(bursts, device="cpu")
+    centred = [ops.midpoint(torch.from_numpy(b))[0].numpy() for b in bursts]
+    t0 = time.perf_counter()
+    golden = [wpcr_numpy(c) for c in centred]
+    numpy_s = time.perf_counter() - t0
+    n_dec, unequal, disagree, moved = 0, [], [], 0
+    for i, ((s, info), (cs, cinfo)) in enumerate(zip(res, res_cpu)):
+        if info != cinfo or not torch.equal(s.cpu(), cs):
+            unequal.append(i)
+        m = wpcr_moved(centred[i], s.cpu().numpy(), info, golden[i])
+        if m < 0:
+            disagree.append(i)
+        moved += max(m, 0)
+        if info["found"]:
+            bits = ops.nrzi_decode(ops.binary_slicer(s))
+            pkts, _ = ops.hdlc_deframe(bits, 5, 1500)
+            n_dec += any(bytes(np.asarray(d)) == payloads[i] for d, _ in pkts)
+    ties = sum(info["near_tie"] for _, info in res)
+    print(f"[11 wpcr] wpcr_batch on the WPCR corpus: {n_dec}/200 decoded, "
+          f"{sum(i['found'] for _, i in res)} found; bursts unlike the CPU run "
+          f"{unequal}, unlike wpcr_numpy {disagree} ({moved} symbols a sample "
+          f"away at a phase within 1e-4 of an integer); near-ties {ties}; "
+          f"{secs * 1e3 / 200:.4f} ms a burst on the card (median of 3), "
+          f"wpcr_numpy {numpy_s * 1e3 / 200:.4f} ms a burst on the host; launches "
+          f"{json.dumps(counts['wpcr_batch'])}; card: {card}")
+    if n_dec < WPCR_GATE or unequal or disagree:
+        failures.append(f"wpcr corpus: {n_dec} decoded, unequal {unequal}, "
+                        f"unlike numpy {disagree}")
+    end_phase("11 wpcr")
+
+    # the apps on the captures written as c32
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    for name, x in (("g3", stream), ("g3b", g3_iq), ("afsk", afsk_iq)):
+        x.cpu().numpy().tofile(d / f"{name}.c32")
+    (d / "tx.kiss").write_bytes(b"".join(g3ruh.kiss_encode_frame(f) for f in frames))
+    dev_arg = ["--device", str(dev)]
+
+    def app(name, main, args, needs=()):
+        """``main(args)`` once, its output to the console kept aside."""
+        zero_counts()
+        out = io.TextIOWrapper(io.BytesIO())
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc = main(args + dev_arg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[f"app {name}"] = dict(kernels.LAUNCHES)
+        if rc != 0:
+            failures.append(f"app {name}: exit code {rc}")
+        require(f"app {name}", counts[f"app {name}"], needs)
+        out.flush()
+        return secs, out.buffer.getvalue()
+
+    def written(out_dir):
+        return [p.read_bytes() for p in sorted(Path(out_dir).iterdir())]
+
+    def app_line(name, secs, ok, what):
+        print(f"[11 apps] {name}: {what}: {ok}; {secs * 1e3:.1f} ms wall (one "
+              f"call); launches {json.dumps(counts[f'app {name}'])}; card: {card}")
+        if not ok:
+            failures.append(f"app {name}: {what}")
+
+    for name, main_fn, args, want, needs in (
+            ("ax25_9600_rx", ax25_9600_rx.main,
+             ["-r", str(d / "g3.c32"), "--symbol_max_deviation", str(G3_MAX_DEV)],
+             rx["native"], ()),
+            ("ax25_9600_wpcr", ax25_9600_wpcr.main,
+             ["-r", str(d / "g3b.c32"), "--sample_rate", "300k", "--threshold",
+              str(BURST_THRESHOLD)], rx["wpcr 9600"], ()),
+            ("ax25_1200_wpcr", ax25_1200_wpcr.main,
+             ["-r", str(d / "afsk.c32"), "--threshold", str(BURST_THRESHOLD)],
+             rx["wpcr 1200"], ("fir_decimate",))):
+        secs, _ = app(name, main_fn, args + ["-o", str(d / name)], needs)
+        app_line(name, secs, written(d / name) == want,
+                 f"-o wrote the model call's {len(want)} frames")
+    secs, kiss = app("g3ruh rx", g3ruh.main,
+                     ["-r", str(d / "g3.c32"), "--symbol_max_deviation",
+                      str(G3_MAX_DEV), "--symbol_taps", "0.0001,0.99999999"])
+    app_line("g3ruh rx", secs, [bytes(f) for f in g3ruh.kiss_decode_stream(kiss)]
+             == rx["native"], f"KISS out holds the model call's {len(rx['native'])} frames")
+    secs, _ = app("g3ruh tx", g3ruh.main, ["--tx_in", str(d / "tx.kiss"), "--tx_out",
+                                           str(d / "tx.c32")], ("fir_decimate",))
+    tx = torch.from_numpy(np.fromfile(d / "tx.c32", np.complex64))
+    err = (max_err(torch.view_as_real(tx).to(dev), ref64)
+           if tx.shape == clean.shape else math.inf)
+    app_line("g3ruh tx", secs, err <= vco_tol, f"--tx_in {N_G3} KISS frames -> "
+             f"--tx_out the G3RUH stream, max |error| {err:.3e} against its phase "
+             f"in float64 (tol {vco_tol:.3e})")
+    # the burst gate's tail (5000 samples by default) would outlast the
+    # 2500-sample gaps at 50 kHz and swallow the next start
+    secs, _ = app("burst_saver", burst_saver.main,
+                  ["-r", str(d / "g3b.c32"), "-o", str(d / "bursts"), "--threshold",
+                   str(BURST_THRESHOLD), "--delay", "500", "--tail", "500"])
+    n_saved = len(list((d / "bursts").iterdir()))
+    app_line("burst_saver", secs, n_saved == N_G3,
+             f"cut {n_saved} bursts of the {N_G3} G3RUH bursts")
+    tmp.cleanup()
+    end_phase("11 apps")
+
+    # the 9600 WPCR receiver's front half from blocks: offline, streamed in
+    # chunks of 2^16 (bursts straddle chunks) and paused at a checkpoint
+    # inside a burst and resumed; each run's bursts and symbol PDUs against
+    # the model's and wpcr_batch's
+    lp = tapgen.low_pass_complex(FS_G3, 20_000.0, 100.0, "hamming")
+
+    def run_front(chunk=None, **kw):
+        """The front half as a graph, run offline or streamed: (its symbol
+        PDUs, the bursts StreamToPdu cut)."""
+        g, sink, cut = Graph(), blocks.PduVectorSink(), blocks.PduVectorSink()
+        x = g.add(blocks.RationalResampler(int(FS_AFSK), int(FS_G3)),
+                  g.add(blocks.FftFilter(lp), g.add(blocks.VectorSource(g3_iq))))
+        power = g.add(blocks.SinglePoleIirFilter(0.01),
+                      g.add(blocks.ComplexToMag2(), x))
+        # cut the power's chunks as the discriminator's (one sample fewer
+        # in the first), so that the tagger pairs the samples that the
+        # model pairs, streamed as offline
+        power = g.add(blocks.Skip(1), g.add(blocks.Delay(1), power))
+        tagged = g.add(blocks.BurstTagger(BURST_THRESHOLD),
+                       g.add(blocks.QuadratureDemod(1.0), x), power)
+        pdus = g.add(blocks.StreamToPdu("burst", 50_000, 50), tagged)
+        g.add(cut, pdus)
+        g.add(sink, g.add(blocks.Wpcr(), g.add(blocks.Midpointer(), pdus)))
+        if chunk:
+            g.run_stream(chunk_size=chunk, device=dev, **kw)
+        else:
+            g.run(device=dev)
+        return sink.pdus(), cut.pdus()
+
+    power, demod = ax25._burst_front(g3_iq, FS_G3, FS_AFSK, 20_000.0, 0.01)
+    n = min(demod.shape[0], power.shape[0])
+    start, end = ops.burst_tagger(power[:n], BURST_THRESHOLD)
+    model_bursts = ops.stream_to_pdu(demod[:n], start, end, 50_000, 50)
+    model = [(s, info) for s, info in ops.wpcr_batch(model_bursts) if info["found"]]
+    edges = list(zip(torch.nonzero(start)[:, 0].tolist(),
+                     torch.nonzero(end)[:, 0].tolist()))
+    # the first chunk boundary (in the discriminator's samples) inside a burst
+    pause = next(k for k in range(1, g3_iq.shape[0] // BURST_CHUNK)
+                 if any(s + 100 < k * BURST_CHUNK // 6 - 1 < e - 100 for s, e in edges))
+
+    def frames_of(syms):
+        out = []
+        for s in syms:
+            bits = ops.descramble(ops.nrzi_decode(ops.binary_slicer(s)))
+            out += [bytes(np.asarray(d)) for d, _ in ops.hdlc_deframe(bits, 10, 1500)[0]]
+        return out
+
+    model_frames = frames_of([s for s, _ in model])
+
+    def same_pdus(pdus, ref) -> bool:
+        """Symbol PDUs bit-equal to (symbols, info) pairs, sps and phase
+        tags included."""
+        tags = [{t.key: t.val for t in p.tags} for p in pdus]
+        return len(pdus) == len(ref) and all(
+            torch.equal(p.data, s) and t["sps"] == info["sps"]
+            and t["phase"] == info["phase"] for p, t, (s, info) in zip(pdus, tags, ref))
+
+    def held(label, pdus, cuts, exact):
+        """A run against the model: the bursts cut at the model's edges (the
+        same count and lengths), the symbol PDUs bit-equal to wpcr_batch
+        over the run's own bursts, and the model's frames decoded from
+        them; offline (``exact``) the bursts and PDUs are the model's bit
+        for bit.  Streamed, the 7227-tap channel filter runs chunk by chunk
+        (overlap-save FFTs of other lengths, ~3e-7 apart), and the angle of
+        a sample in the noise after a burst (|x| down to ~1e-7) turns on
+        those bits: the samples there differ, and WPCR's clock with them."""
+        cut_ok = len(cuts) == len(model_bursts) and all(
+            c.data.shape == m.shape for c, m in zip(cuts, model_bursts))
+        cut_err = max((max_err(c.data, m) for c, m in zip(cuts, model_bursts)),
+                      default=0.0) if cut_ok else math.inf
+        own = [(s, info) for s, info in ops.wpcr_batch([c.data for c in cuts])
+               if info["found"]]
+        own_equal = same_pdus(pdus, own)
+        model_equal = same_pdus(pdus, model)
+        frames_equal = frames_of([p.data for p in pdus]) == model_frames
+        print(f"[11 block graph] {label}: {len(cuts)} bursts cut at the model's "
+              f"edges: {cut_ok}, samples max |error| {cut_err:.3e}; {len(pdus)} "
+              f"symbol PDUs, bit-equal to wpcr_batch over these bursts: "
+              f"{own_equal}, to the model's: {model_equal}; the model's "
+              f"{len(model_frames)} frames decoded from them: {frames_equal}")
+        if not (cut_ok and own_equal and frames_equal) or (
+                exact and not (cut_err == 0.0 and model_equal)):
+            failures.append(f"block graph {label}: not the model's bursts and PDUs")
+
+    for label, chunk in (("offline", None), (f"streamed (chunks of {BURST_CHUNK})",
+                                             BURST_CHUNK)):
+        zero_counts()
+        secs, (pdus, cuts) = wall(lambda: run_front(chunk))
+        counts[f"graph {label}"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        held(label, pdus, cuts, chunk is None)
+        print(f"[11 block graph] {label}: {secs * 1e3:.1f} ms wall (median of 3); "
+              f"launches {json.dumps(counts[f'graph {label}'])}; card: {card}")
+    with tempfile.TemporaryDirectory() as ck_dir:
+        ck = str(Path(ck_dir) / "burst.pkl")
+        first, first_cuts = run_front(BURST_CHUNK, max_chunks=pause,
+                                      checkpoint_path=ck, checkpoint_every=pause)
+        states = load_checkpoint(ck, device=dev)[0]
+        modes = [s["mode"] for s in states.values()
+                 if isinstance(s, dict) and "mode" in s]
+        rest, rest_cuts = run_front(BURST_CHUNK, resume_from=ck)
+    resumed_equal = (len(first) + len(rest) == len(pdus) and all(
+        torch.equal(p.data, q.data) for p, q in zip(first + rest, pdus)))
+    print(f"[11 block graph] paused after {pause} chunks with a burst open "
+          f"(StreamToPdu mode {modes}: 1 is Packet), {len(first)} PDUs, resumed "
+          f"({len(rest)} PDUs): the uninterrupted streamed PDUs bit for bit: "
+          f"{resumed_equal}")
+    if modes != [blocks.StreamToPdu.PACKET] or not resumed_equal:
+        failures.append("block graph: not paused inside a burst, or the resumed "
+                        "stream is not the uninterrupted one")
+    held("paused and resumed", first + rest, first_cuts + rest_cuts, False)
+    end_phase("11 block graph")
     return counts, call_errs
 
 
@@ -1887,6 +2375,13 @@ def main() -> int:
                                  capturing)
     for name, err in call_errs.items():
         errs[name] = max(errs[name], err)
+
+    # ---- 11. the G3RUH modem and the burst receivers, counted
+    g3_counts, call_errs = burst_phase(dev, card, plain_versions, zero_counts,
+                                       require, capturing)
+    for name, err in call_errs.items():
+        errs[name] = max(errs[name], err)
+    apps.update({f"11 {k}": v for k, v in g3_counts.items()})
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))

@@ -1,6 +1,8 @@
 """CLI applications (port of ``rustradio_tpu/apps``): the wideband channel
-scanner, the narrow-band FM receiver ``rtl_fm`` and the AM receiver
-``am_decode``."""
+scanner, the narrow-band FM receiver ``rtl_fm``, the AM receiver
+``am_decode``, the 9600 bd receivers ``ax25_9600_rx`` and
+``ax25_9600_wpcr``, the 1200 bd burst receiver ``ax25_1200_wpcr``, the
+G3RUH KISS modem ``g3ruh`` and ``burst_saver``."""
 
 from __future__ import annotations
 

@@ -1,12 +1,38 @@
-"""Blocks of the FM receive chain and the AX.25 receiver (port of
-``rustradio_tpu/blocks``)."""
+"""Blocks of the port (port of ``rustradio_tpu/blocks``): the FM receive
+chain, the AX.25 receivers, the G3RUH modem and the burst receivers."""
 
 from .base import Block, SourceBlock
-from .demod import QuadratureDemod
-from .digital import NrziDecode, SymbolSync
-from .elementwise import AddConst, BinarySlicer, FloatToComplex, MultiplyConst
-from .filters import FftFilter, FftFilterFloat, FirFilter, Hilbert
-from .packets import HdlcDeframer
+from .demod import FastFM, QuadratureDemod, Vco
+from .digital import Descrambler, NrziDecode, NrziEncode, Scrambler, SymbolSync
+from .elementwise import (
+    AddConst,
+    BinarySlicer,
+    ComplexToMag2,
+    FloatToComplex,
+    MultiplyConst,
+)
+from .filters import (
+    FftFilter,
+    FftFilterFloat,
+    FirFilter,
+    Hilbert,
+    IqBalance,
+    SinglePoleIirFilter,
+)
+from .packets import (
+    BurstTagger,
+    FcsAdder,
+    HdlcDeframer,
+    HdlcFramer,
+    KissDecode,
+    KissEncode,
+    KissFrame,
+    Midpointer,
+    PduToStream,
+    StreamToPdu,
+    Wpcr,
+)
+from .rate import Delay, Head, RationalResampler, Skip
 from .sinks import DeviceFoldSink, NullSink, PduVectorSink, VectorSink
 from .sources import PackedIqRingSource, VectorSource
 
@@ -14,21 +40,43 @@ __all__ = [
     "AddConst",
     "BinarySlicer",
     "Block",
+    "BurstTagger",
+    "ComplexToMag2",
+    "Delay",
+    "Descrambler",
     "DeviceFoldSink",
+    "FastFM",
+    "FcsAdder",
     "FftFilter",
     "FftFilterFloat",
     "FirFilter",
     "FloatToComplex",
     "HdlcDeframer",
+    "HdlcFramer",
+    "Head",
     "Hilbert",
+    "IqBalance",
+    "KissDecode",
+    "KissEncode",
+    "KissFrame",
+    "Midpointer",
     "MultiplyConst",
     "NrziDecode",
+    "NrziEncode",
     "NullSink",
     "PackedIqRingSource",
+    "PduToStream",
     "PduVectorSink",
     "QuadratureDemod",
+    "RationalResampler",
+    "Scrambler",
+    "SinglePoleIirFilter",
+    "Skip",
     "SourceBlock",
+    "StreamToPdu",
     "SymbolSync",
     "VectorSink",
     "VectorSource",
+    "Vco",
+    "Wpcr",
 ]

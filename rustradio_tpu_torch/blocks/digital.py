@@ -1,5 +1,6 @@
-"""Bit-level digital blocks: NRZI decode and clock recovery (port of
-``NrziDecode`` and ``SymbolSync`` from ``rustradio_tpu/blocks/digital.py``).
+"""Bit-level digital blocks: NRZI, G3RUH scrambling and clock recovery
+(port of ``NrziDecode``, ``NrziEncode``, ``Descrambler``, ``Scrambler`` and
+``SymbolSync`` from ``rustradio_tpu/blocks/digital.py``).
 """
 
 from __future__ import annotations
@@ -8,7 +9,8 @@ import numpy as np
 import torch
 
 from .. import native
-from ..ops.nrzi import nrzi_decode
+from ..ops.nrzi import nrzi_decode, nrzi_encode
+from ..ops.scramble import descramble, scramble
 from ..ops.symbol_sync import (
     compact,
     default_max_events,
@@ -34,6 +36,72 @@ class NrziDecode(Block):
         # a data-dependent upstream (clock recovery) can emit an empty
         # chunk; keep the carried bit then
         return (state if x.shape[0] == 0 else x[-1:].clone()), y
+
+
+class NrziEncode(Block):
+    """NRZI-S encode (reference src/nrzi.rs:64-69); carries the current
+    line state (0 at stream start, a Python int or a 1-element tensor)."""
+
+    def apply(self, x):
+        return nrzi_encode(x)
+
+    def init_state(self):
+        return 0
+
+    def apply_chunk(self, state, x):
+        y = nrzi_encode(x, out0=int(state))
+        return (state if y.shape[0] == 0 else y[-1:].clone()), y
+
+
+class Descrambler(Block):
+    """Feed-forward LFSR descramble (reference src/descrambler.rs); the
+    streaming state is the last length+1 input bits (uint8)."""
+
+    def __init__(self, mask: int = 0x21, seed: int = 0, length: int = 16):
+        # the seed affects only the first length+1 outputs; the reference
+        # notes it is irrelevant in practice (src/descrambler.rs:3-5): 0
+        self.mask, self.length = mask, length
+
+    @classmethod
+    def g3ruh(cls):
+        return cls(0x21, 0, 16)
+
+    def apply(self, x):
+        return descramble(x, self.mask, self.length)
+
+    def init_state(self):
+        return torch.zeros(self.length + 1, dtype=torch.uint8)
+
+    def apply_chunk(self, state, x):
+        x = x.to(torch.uint8)
+        state = state.to(x.device, torch.uint8)
+        y = descramble(x, self.mask, self.length, history=state)
+        ext = torch.cat([state, x])
+        return ext[-(self.length + 1):].clone(), y
+
+
+class Scrambler(Block):
+    """LFSR scramble (reference src/descrambler.rs:39-45); the streaming
+    state is the length+1 register bits (uint8)."""
+
+    def __init__(self, mask: int = 0x21, seed: int = 0, length: int = 16):
+        self.mask, self.seed, self.length = mask, seed, length
+
+    @classmethod
+    def g3ruh(cls):
+        return cls(0x21, 0, 16)
+
+    def apply(self, x):
+        y, _ = scramble(x, self.mask, self.length, self.seed)
+        return y
+
+    def init_state(self):
+        return torch.tensor([(self.seed >> j) & 1 for j in range(self.length + 1)],
+                            dtype=torch.uint8)
+
+    def apply_chunk(self, state, x):
+        y, s = scramble(x, self.mask, self.length, state=state)
+        return s, y
 
 
 class SymbolSync(Block):

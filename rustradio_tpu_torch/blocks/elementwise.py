@@ -1,5 +1,5 @@
 """Elementwise blocks (port of ``FloatToComplex``, ``AddConst``,
-``MultiplyConst`` and ``BinarySlicer`` from
+``MultiplyConst``, ``ComplexToMag2`` and ``BinarySlicer`` from
 ``rustradio_tpu/blocks/elementwise.py``).  Each runs on its input's
 device."""
 
@@ -7,7 +7,12 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.elementwise import add_const, binary_slicer, multiply_const
+from ..ops.elementwise import (
+    add_const,
+    binary_slicer,
+    complex_to_mag2,
+    multiply_const,
+)
 from .base import Block
 
 
@@ -39,6 +44,13 @@ class MultiplyConst(Block):
 
     def apply(self, x):
         return multiply_const(x, self.val)
+
+
+class ComplexToMag2(Block):
+    """|x|^2 (reference src/complex_to_mag2.rs): the burst gate's power."""
+
+    def apply(self, x):
+        return complex_to_mag2(x)
 
 
 class BinarySlicer(Block):

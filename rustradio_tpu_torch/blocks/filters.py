@@ -1,6 +1,6 @@
 """Filter blocks with exact streaming state carry (port of ``FirFilter``,
-``FftFilter``, ``FftFilterFloat`` and ``Hilbert`` from
-``rustradio_tpu/blocks/filters.py``).
+``FftFilter``, ``FftFilterFloat``, ``Hilbert``, ``SinglePoleIirFilter`` and
+``IqBalance`` from ``rustradio_tpu/blocks/filters.py``).
 
 Each streaming state lives on the stream's device: an initial state made
 on the host moves to the chunk's device at the first chunk.
@@ -16,6 +16,7 @@ from ..ops import kernels
 from ..ops.fft_filter import filter_complex, filter_float
 from ..ops.fir import fir_filter, fir_filter_translating
 from ..ops.hilbert import hilbert_transform
+from ..ops.iir import single_pole_iir
 from .base import Block
 
 
@@ -154,3 +155,53 @@ class Hilbert(Block):
         d = k - k // 2
         y_re = ext[k - d : k - d + n]
         return _tail(ext, k), torch.complex(y_re, y_im)
+
+
+class SinglePoleIirFilter(Block):
+    """y += alpha (x - y) (reference src/single_pole_iir_filter.rs), on
+    ``ops.single_pole_iir``; carries the last output y0 (None at stream
+    start)."""
+
+    def __init__(self, alpha: float):
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("alpha out of range")
+        self.alpha = alpha
+
+    def apply(self, x):
+        return single_pole_iir(x, self.alpha)
+
+    def init_state(self):
+        return None
+
+    def apply_chunk(self, state, x):
+        if x.shape[0] == 0:
+            return state, single_pole_iir(x, self.alpha)
+        y = single_pole_iir(x, self.alpha, y0=state)
+        return y[-1].clone(), y
+
+
+class IqBalance(Block):
+    """DC offset removal: out = x - running_mean(x)
+    (reference src/iq_balance.rs:50-78: mean = mean*(1-a) + x*a,
+    out = x - mean); carries the running mean."""
+
+    def __init__(self, alpha: float | None = None,
+                 sample_rate: float | None = None, tau: float = 0.2):
+        if alpha is None:
+            if sample_rate is None:
+                raise ValueError("need alpha or sample_rate")
+            alpha = float(np.clip(1.0 - np.exp(-1.0 / (tau * sample_rate)),
+                                  0.0, 1.0))
+        self.alpha = float(np.clip(alpha, 0.0, 1.0))
+
+    def apply(self, x):
+        return x - single_pole_iir(x, self.alpha)
+
+    def init_state(self):
+        return None
+
+    def apply_chunk(self, state, x):
+        if x.shape[0] == 0:
+            return state, x
+        m = single_pole_iir(x, self.alpha, y0=state)
+        return m[-1].clone(), x - m

@@ -14,6 +14,7 @@ import torch
 
 from ._device import target_device
 from .ops import kernels
+from .streams import Tag
 
 
 def packed_from_jax(plane_np, precision: str, device="cuda") -> torch.Tensor:
@@ -37,9 +38,23 @@ def packed_from_jax(plane_np, precision: str, device="cuda") -> torch.Tensor:
     return t.to(device)
 
 
+def _is_tag(x) -> bool:
+    """A stream tag of either package (the JAX package's ``Tag`` has the
+    same fields; the port never imports it)."""
+    return (type(x).__name__ == "Tag" and hasattr(x, "pos")
+            and hasattr(x, "key") and hasattr(x, "val"))
+
+
+def _host_value(v):
+    """A numpy scalar as the Python value; anything else as it is."""
+    return v.item() if isinstance(v, np.generic) else v
+
+
 def _leaf(x, device: torch.device):
     if torch.is_tensor(x):
         return x.to(device)
+    if _is_tag(x):
+        return Tag(int(x.pos), x.key, _host_value(x.val))
     if not isinstance(x, (np.ndarray, np.generic)):
         return x  # Python ints, floats, bools, strings, tags: host-side
     a = np.asarray(x)
@@ -62,10 +77,14 @@ def state_from_jax(states, device="cuda"):
 
     Walks dicts, lists and tuples (e.g. a checkpoint's ``{node: state}``,
     FirFilter's ``{"buf", "out_off"}``, SymbolSync's ``{"sync": {...}}``,
-    the HDLC snapshot).  numpy arrays and scalars become tensors on
-    ``device``, except integer scalars (``out_off``, NrziDecode's bit),
-    which become Python ints; host-side leaves — Python ints, floats,
-    bools and strings, such as the HDLC snapshot's ``state``, ``cur`` and
-    ``stats`` — stay as they are.
+    the HDLC snapshot, StreamToPdu's ``{"mode", "buf", "tail_left",
+    "tags"}``).  numpy arrays and scalars become tensors on ``device``
+    (the Scrambler's and Descrambler's uint8 registers, Vco's phase,
+    SinglePoleIirFilter's y0, Delay's carried tail, an open burst), except
+    integer scalars (``out_off``, NrziDecode's bit), which become Python
+    ints; the JAX package's stream tags become the port's ``Tag``;
+    host-side leaves — Python ints, floats, bools and strings, such as the
+    HDLC snapshot's ``state``, ``cur`` and ``stats``, BurstTagger's
+    ``last`` or RationalResampler's offsets — stay as they are.
     """
     return _to_port(states, target_device(device, "state_from_jax"))

@@ -5,8 +5,12 @@ from .ax25 import (
     ax25_1200_rx,
     ax25_1200_rx_graph,
     ax25_1200_rx_iq,
+    ax25_1200_wpcr_rx,
+    ax25_9600_rx,
+    ax25_9600_wpcr_rx,
     bell202_demod,
     bell202_tone_demod,
+    g3ruh_modulate,
     iq_front_end,
     parse_ax25,
 )
@@ -26,12 +30,16 @@ __all__ = [
     "ax25_1200_rx",
     "ax25_1200_rx_graph",
     "ax25_1200_rx_iq",
+    "ax25_1200_wpcr_rx",
+    "ax25_9600_rx",
+    "ax25_9600_wpcr_rx",
     "bell202_demod",
     "bell202_tone_demod",
     "decode_band_ax25",
     "fm_demod_chain",
     "fm_demod_chain_planar",
     "fm_pack_planes",
+    "g3ruh_modulate",
     "iq_front_end",
     "parse_ax25",
     "recover_symbols_batch",

@@ -1,7 +1,9 @@
-"""AX.25 1200 bd Bell-202 AFSK receiver (port of the 1200 bd part of
-``rustradio_tpu/models/ax25.py``).
+"""AX.25 receivers: 1200 bd Bell 202 AFSK and 9600 bd G3RUH, with the
+burst receivers on whole-packet clock recovery and the G3RUH transmitter
+(port of ``rustradio_tpu/models/ax25.py``, IL2P aside).
 
-Mirrors the reference's flagship app, examples/ax25-1200-rx.rs:229-315:
+``ax25_1200_rx`` mirrors the reference's flagship app,
+examples/ax25-1200-rx.rs:229-315:
 Hilbert(65, Hamming) -> QuadratureDemod(1.0) -> FftFilterFloat(low_pass(fs,
 1100, ...)) -> add_const(-2*pi*1700/fs) -> SymbolSync(fs/1200, ...) ->
 BinarySlicer -> NrziDecode -> HdlcDeframer(10, 1500), with the JAX
@@ -18,6 +20,15 @@ only the symbols; NRZI and HDLC run on the host.
 ``ax25_1200_rx_graph`` is the same receiver built from blocks and run by
 the Graph runners (offline, or streamed in chunks).
 
+``ax25_9600_rx`` (examples/ax25-9600-rx.rs:136-207): a 12.5 kHz channel
+filter, resampling to 50 kHz, the discriminator, then the same clock
+recovery (``sync``), slicer, NRZI, G3RUH descrambler and HDLC.  The burst
+receivers ``ax25_1200_wpcr_rx`` and ``ax25_9600_wpcr_rx``
+(examples/ax25-{1200,9600}-wpcr.rs) gate the stream on its power, cut the
+bursts (``ops.stream_to_pdu``) and recover each burst's clock with one
+batched ``ops.wpcr_batch`` on the device.  ``g3ruh_modulate`` is the TX
+half of examples/g3ruh.rs.
+
 Inputs: a tensor stays on its device; a numpy array goes to the ``device``
 the caller names (there is no default device).
 """
@@ -33,10 +44,15 @@ import torch.nn.functional as F
 
 from .. import taps as tapgen
 from ..ops import demod as demod_ops
-from ..ops import fir, hdlc, hilbert, nrzi, resampler
+from .._device import target_device
+from ..ops import fir, hdlc, hilbert, iir, nrzi, resampler
+from ..ops.burst import burst_tagger, stream_to_pdu
+from ..ops.elementwise import add_const, binary_slicer, complex_to_mag2
 from ..ops.fft_filter import filter_complex, filter_float
-from ..ops.elementwise import add_const, binary_slicer
+from ..ops.scramble import descramble, scramble
 from ..ops.symbol_sync import compact, recover_symbols, symbol_sync_events
+from ..ops.vco import vco
+from ..ops.wpcr import wpcr_batch
 
 DEMODS = ("discriminator", "tones")
 _NP_DTYPE = {torch.float32: np.float32, torch.complex64: np.complex64}
@@ -292,3 +308,178 @@ def ax25_1200_rx_iq(iq, samp_rate: float, device=None,
     _check_modes(kw.get("demod", "discriminator"), kw.get("sync", "native"))
     audio = iq_front_end(iq, samp_rate, device=device)
     return ax25_1200_rx(audio, 50_000.0, **kw)
+
+
+def _clock_recovery(nrz: torch.Tensor, sps: float, max_deviation: float,
+                    taps, sync: str) -> torch.Tensor:
+    """The recovered symbols: on the device (``sync="events"``, kernel D,
+    only the symbols leave it) or on the host (native)."""
+    if sync == "events":
+        (vals, mask, _), _valid = symbol_sync_events(
+            nrz, sps, max_deviation, tuple(taps))
+        return compact(vals, mask)
+    return torch.from_numpy(recover_symbols(nrz, sps, max_deviation, taps))
+
+
+def _packets(bits, fix_bits: bool) -> list[Ax25Packet]:
+    packets, _ = hdlc.hdlc_deframe(bits, 10, 1500, fix_bits=fix_bits)
+    return [Ax25Packet(np.asarray(d), int(p)) for d, p in packets]
+
+
+def ax25_9600_rx(
+    iq,
+    samp_rate: float,
+    new_rate: float = 50_000.0,
+    baud: float = 9600.0,
+    symbol_taps=(0.0001, 0.99999999),
+    symbol_max_deviation: float = 0.1,
+    fix_bits: bool = False,
+    sync: str = "native",
+    device=None,
+) -> list[Ax25Packet]:
+    """AX.25 9600 bd G3RUH receiver, traditional symbol-sync path
+    (reference examples/ax25-9600-rx.rs:136-207): 12.5 kHz channel filter ->
+    resample to ``new_rate`` -> FM demod -> SymbolSync(zero-crossing TED,
+    clamped IIR clock filter) -> slicer -> NRZI -> G3RUH descramble -> HDLC.
+    ``sync`` as in :func:`ax25_1200_rx` (an unknown one raises before any
+    work).  ``iq`` is a tensor (it stays on its device) or a numpy array
+    with ``device=``."""
+    _check_modes("discriminator", sync)
+    nrz = _channel_fm(_stream(iq, torch.complex64, device), float(samp_rate),
+                      float(new_rate), 12_500.0, 100.0)
+    syms = _clock_recovery(nrz, float(new_rate) / baud, symbol_max_deviation,
+                           symbol_taps, sync)
+    bits = descramble(nrzi.nrzi_decode(binary_slicer(syms)))
+    return _packets(bits, fix_bits)
+
+
+def _burst_front(iq: torch.Tensor, samp_rate, new_rate, cutoff, iir_alpha):
+    """Burst front-end: channel filter + resample, emitting the power
+    envelope (for the burst gate) and the FM discriminator output."""
+    lp = tapgen.low_pass_complex(samp_rate, cutoff, 100.0, "hamming")
+    x = filter_complex(iq, lp)
+    x = resampler.rational_resampler(x, int(new_rate), int(samp_rate))
+    power = iir.single_pole_iir(complex_to_mag2(x), iir_alpha)
+    return power, demod_ops.quadrature_demod(x, 1.0)
+
+
+def _afsk_discriminator(fm: torch.Tensor, samp_rate, cutoff) -> torch.Tensor:
+    """FM floats -> AFSK tone discriminator output: Hilbert, a second
+    discriminator, low-pass (examples/ax25-1200-wpcr.rs:105-120)."""
+    analytic = hilbert.hilbert_transform(fm, 65, "hamming")
+    afsk = demod_ops.quadrature_demod(analytic, 1.0)
+    lp = tapgen.low_pass(samp_rate, cutoff, 100.0, "hamming")
+    return filter_float(afsk, lp)
+
+
+def _burst_bits(power, data, threshold, max_size, tail, descrambled):
+    """Gate ``data`` on ``power``, cut the bursts, recover each one's clock
+    (one ``wpcr_batch`` on the device) and return each found burst's bits
+    on the host: sliced, NRZI-decoded and, for G3RUH, descrambled."""
+    n = min(int(data.shape[0]), int(power.shape[0]))
+    start, end = burst_tagger(power[:n], threshold)
+    bursts = stream_to_pdu(data[:n], start, end, max_size, tail)
+    found = [syms for syms, info in wpcr_batch(bursts) if info["found"]]
+    if not found:
+        return []
+    # one slicer pass and one copy to the host for every burst's symbols
+    bits = binary_slicer(torch.cat(found)).cpu()
+    out = []
+    for b in torch.split(bits, [len(s) for s in found]):
+        b = nrzi.nrzi_decode(b)
+        out.append(descramble(b) if descrambled else b)
+    return out
+
+
+def ax25_1200_wpcr_rx(
+    iq,
+    samp_rate: float,
+    new_rate: float = 50_000.0,
+    iir_alpha: float = 0.01,
+    threshold: float = 0.0001,
+    tail: int = 50,
+    fix_bits: bool = False,
+    device=None,
+) -> list[Ax25Packet]:
+    """AX.25 1200 bd AFSK burst receiver with whole-packet clock recovery
+    (reference examples/ax25-1200-wpcr.rs:45-135): channel filter -> resample
+    -> FM demod -> Hilbert -> second FM demod (AFSK tone discriminator) ->
+    2.4 kHz low-pass -> power-gated burst capture -> Midpointer -> WPCR ->
+    slicer -> NRZI -> HDLC (no descrambler at 1200 bd).  ``iq`` is a tensor
+    (it stays on its device) or a numpy array with ``device=``."""
+    power, fm = _burst_front(_stream(iq, torch.complex64, device),
+                             float(samp_rate), float(new_rate), 20_000.0,
+                             float(iir_alpha))
+    nrz = _afsk_discriminator(fm, float(new_rate), 2400.0)
+    packets: list[Ax25Packet] = []
+    for bits in _burst_bits(power, nrz, threshold, int(new_rate), tail, False):
+        packets += _packets(bits, fix_bits)
+    return packets
+
+
+def ax25_9600_wpcr_rx(
+    iq,
+    samp_rate: float,
+    new_rate: float = 50_000.0,
+    iir_alpha: float = 0.01,
+    threshold: float = 0.0001,
+    max_burst: int = 50_000,
+    tail: int = 50,
+    fix_bits: bool = False,
+    device=None,
+) -> list[Ax25Packet]:
+    """AX.25 9600 bd G3RUH burst receiver with whole-packet clock recovery
+    (examples/ax25-9600-wpcr.rs:93-142): the burst front-end, then per
+    burst Midpointer -> WPCR -> slicer -> NRZI -> G3RUH descrambler ->
+    HDLC.  ``iq`` is a tensor (it stays on its device) or a numpy array with
+    ``device=``."""
+    power, demod = _burst_front(_stream(iq, torch.complex64, device),
+                                float(samp_rate), float(new_rate), 20_000.0,
+                                float(iir_alpha))
+    packets: list[Ax25Packet] = []
+    for bits in _burst_bits(power, demod, threshold, max_burst, tail, True):
+        packets += _packets(bits, fix_bits)
+    return packets
+
+
+def g3ruh_modulate(
+    frames,
+    sample_rate: float,
+    baud: float = 9600.0,
+    if_rate: float = 48_000.0,
+    deviation: float = 3000.0,
+    amplitude: float = 0.5,
+    device="cuda",
+) -> torch.Tensor:
+    """G3RUH FSK transmitter (the TX half of reference examples/g3ruh.rs:
+    246-289): HDLC frame -> G3RUH scramble -> NRZI -> upsample to IF rate ->
+    bits to +/-deviation -> VCO -> amplitude -> resample to RF rate ->
+    8.8 kHz channel low-pass.  Returns complex64 baseband on ``device``:
+    the card unless the caller names another (without a card the default
+    raises)."""
+    device = target_device(device, "g3ruh_modulate")
+    chunks = []
+    for frame in frames:
+        chunks.append(hdlc.hdlc_frame(hdlc.fcs_add(np.asarray(frame, np.uint8))))
+        # Inter-frame idle; also flushes the scrambler register (its output
+        # is the input delayed by length+1 = 17 clocks).
+        chunks.append(np.zeros(max(17, int(baud * 0.05)), np.uint8))
+    if not chunks:
+        return torch.zeros(0, dtype=torch.complex64, device=device)
+    bits = torch.from_numpy(np.concatenate(chunks)).to(device)
+    # one continuous LFSR over the whole stream, like the reference's
+    # streaming Scrambler block
+    scrambled, _ = scramble(bits)
+    line = nrzi.nrzi_encode(scrambled).to(torch.float32)
+    line = resampler.rational_resampler(line, int(if_rate), int(baud))
+    pn = torch.where(line > 0, float(deviation), -float(deviation))
+    return _g3ruh_shape(pn, float(sample_rate), float(if_rate), float(amplitude))
+
+
+def _g3ruh_shape(pn: torch.Tensor, sample_rate, if_rate, amplitude):
+    """VCO + gain + RF resample + 8.8 kHz channel filter."""
+    iq, _ = vco(pn, 2.0 * np.pi / if_rate)
+    iq = iq * float(np.float32(amplitude))
+    iq = resampler.rational_resampler(iq, int(sample_rate), int(if_rate))
+    lp = tapgen.low_pass_complex(sample_rate, 8_800.0, 1_000.0, "hamming")
+    return filter_complex(iq, lp)

@@ -5,10 +5,14 @@ hand-written CUDA kernels for CUDA tensors and run their plain PyTorch
 versions for CPU tensors.  The host-side ops (``hdlc``, ``symbol_sync``)
 run on numpy arrays and take tensors from any device; the device forms of
 the clock recovery (``symbol_sync``, ``symbol_sync_events``) run on their
-input's device through kernels D and E.
+input's device through kernels D and E.  As in the JAX package, the
+functions ``symbol_sync`` and ``wpcr`` shadow their modules here: import
+those modules by their full path.
 """
 
 from . import kernels
+from .burst import burst_tagger, pdu_average, stream_to_pdu
+from .delay import delay, head, skip
 from .demod import fast_atan2, fast_fm, quadrature_demod
 from .elementwise import (
     add,
@@ -43,7 +47,10 @@ from .kernels import (
 )
 from .nrzi import nrzi_decode, nrzi_encode
 from .resampler import rational_resampler, resampler_indices
+from .scramble import descramble, scramble
 from .symbol_sync import compact, recover_symbols, symbol_sync, symbol_sync_events
+from .vco import vco
+from .wpcr import midpoint, midpoint_batch, prewarm_buckets, wpcr, wpcr_batch
 
 
 def quad_demod_fast(x, gain: float = 1.0):
@@ -60,11 +67,14 @@ __all__ = [
     "add",
     "add_const",
     "binary_slicer",
+    "burst_tagger",
     "calc_crc",
     "compact",
     "complex_to_float",
     "complex_to_mag2",
     "complex_to_real",
+    "delay",
+    "descramble",
     "fast_atan2",
     "fast_fm",
     "fcs_add",
@@ -83,19 +93,30 @@ __all__ = [
     "fm_plane_pack",
     "hdlc_deframe",
     "hdlc_frame",
+    "head",
     "hilbert_transform",
+    "midpoint",
+    "midpoint_batch",
     "multiply",
     "multiply_const",
     "nrzi_decode",
     "nrzi_encode",
+    "pdu_average",
+    "prewarm_buckets",
     "quad_demod_fast",
     "quadrature_demod",
     "rational_resampler",
     "recover_symbols",
     "resampler_indices",
+    "scramble",
     "single_pole_iir",
+    "skip",
+    "stream_to_pdu",
     "symbol_sync",
     "symbol_sync_events",
+    "vco",
+    "wpcr",
+    "wpcr_batch",
     "xor",
     "xor_const",
 ]

@@ -7,7 +7,10 @@ plus the global sample offset.  Format, shared with the JAX package: a
 pickle of ``{"states", "offset", "extra", "version": 1}`` whose leaves are
 numpy arrays or host values (Python scalars, strings, lists, tags).  A
 checkpoint either package wrote loads in the other; on load the leaves go
-to the run's device through :func:`..convert.state_from_jax`.
+to the run's device through :func:`..convert.state_from_jax`.  The JAX
+package's stream tags and PDUs in a checkpoint (StreamToPdu's open burst)
+load as the port's own classes, so loading imports nothing of that
+package.
 """
 
 from __future__ import annotations
@@ -17,6 +20,17 @@ import pickle
 import torch
 
 from ..convert import state_from_jax
+from ..streams import Pdu, Tag
+
+_PORTED = {("rustradio_tpu.streams", "Tag"): Tag,
+           ("rustradio_tpu.streams", "Pdu"): Pdu}
+
+
+class _Unpickler(pickle.Unpickler):
+    """Maps the JAX package's stream classes onto the port's."""
+
+    def find_class(self, module, name):
+        return _PORTED.get((module, name)) or super().find_class(module, name)
 
 
 def _to_host(tree):
@@ -49,7 +63,7 @@ def load_checkpoint(path: str, template_states: dict | None = None,
     ``device``.  ``template_states`` (the graph's ``init_state()``s) only
     checks that the checkpoint has a state for every block."""
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        payload = _Unpickler(f).load()
     if payload.get("version") != 1:
         raise ValueError(f"unknown checkpoint version in {path}")
     states = payload["states"]

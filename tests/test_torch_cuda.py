@@ -660,3 +660,156 @@ def test_torch_cuda_device_loop_replays_far_offsets(cuda_device):
         want = next(iter(eager(offset0).values()))
         got = next(iter(replay(offset0).values()))
         assert torch.equal(got, want) and torch.equal(want, near)
+
+
+# ---- the G3RUH modem and the burst receivers (whole-packet clock recovery)
+
+def _hold_calls(monkeypatch, names):
+    """Record the arguments of the wrappers ``kernels.<name>`` (the calls
+    still launch)."""
+    calls = {n: [] for n in names}
+    for n in names:
+        real = getattr(kernels, n)
+        monkeypatch.setattr(kernels, n, lambda *a, real=real, got=calls[n]:
+                            got.append(a) or real(*a))
+    return calls
+
+
+def _held_fir(calls):
+    """Kernel A on each recorded call against its plain version, within
+    2e-5 of the call's max|y| (the recorded list grows as this runs)."""
+    assert calls
+    for args in list(calls):
+        got = kernels.fir_decimate(*args)
+        want = kernels.fir_decimate_plain(*args)
+        g, w = (torch.view_as_real(t) if t.is_complex() else t for t in (got, want))
+        assert float((g - w).abs().max()) <= 2e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("sync", ["native", "events"])
+def test_torch_cuda_g3ruh_modulate_and_9600_rx(cuda_device, monkeypatch, sync):
+    payloads = [b"G3RUH ON THE CARD ONE", b"G3RUH ON THE CARD, TWO"]
+    frames = [np.frombuffer(p, np.uint8) for p in payloads]
+    calls = _hold_calls(monkeypatch, ["fir_decimate", "symbol_sync_events_scan"])
+    iq = ax25.g3ruh_modulate(frames, 300_000.0, device=cuda_device)
+    assert iq.device.type == "cuda" and iq.dtype == torch.complex64
+    # the 723-tap channel filter on both planes: one kernel-A launch
+    assert len(calls["fir_decimate"]) == 1
+    _held_fir(calls["fir_decimate"])
+    cpu = ax25.g3ruh_modulate(frames, 300_000.0, device="cpu")
+    # the VCO's float64 phase sum is a parallel scan on the card, then sin
+    # and cos in f32: within 1e-4 of the CPU's
+    np.testing.assert_allclose(iq.cpu().numpy(), cpu.numpy(), atol=1e-4, rtol=0)
+    lead = torch.zeros(5000, dtype=torch.complex64, device=cuda_device)
+    iq = torch.cat([lead, iq, lead])
+    # one clock tap, the g3ruh modem's default (examples/g3ruh.rs:77-83):
+    # the ax25-9600-rx defaults (0.0001, 0.99999999) hardly move the clock
+    # and lose frames of a continuous stream in both packages
+    pkts = ax25.ax25_9600_rx(iq, 300_000.0, symbol_taps=(1.0,), sync=sync)
+    assert [bytes(p) for p in pkts] == payloads
+    if sync == "events":
+        assert calls["symbol_sync_events_scan"]
+        for args in list(calls["symbol_sync_events_scan"]):
+            for g, w in zip(kernels.symbol_sync_events_scan(*args),
+                            kernels.symbol_sync_events_scan_plain(*args)):
+                assert torch.equal(g, w)
+
+
+def _afsk_bursts_50k(payloads):
+    fs = 50_000.0
+    parts = [np.zeros(4000, np.complex64)]
+    for p in payloads:
+        bits = ops.hdlc_frame(ops.fcs_add(np.frombuffer(p, np.uint8)))
+        line = ops.nrzi_encode(torch.from_numpy(bits)).numpy()
+        sps = fs / 1200.0
+        at = np.minimum((np.arange(int(len(line) * sps)) / sps).astype(int),
+                        len(line) - 1)
+        audio = 0.5 * np.sin(np.cumsum(2 * np.pi * np.where(
+            line[at] == 1, 1200.0, 2200.0) / fs))
+        iq, _ = ops.vco(torch.from_numpy((audio * 0.3).astype(np.float32)),
+                        k=2 * np.pi * 3500.0 / fs)
+        parts += [np.conj(iq.numpy()), np.zeros(4000, np.complex64)]
+    return np.concatenate(parts)
+
+
+def test_torch_cuda_burst_receivers_on_the_card(cuda_device, monkeypatch):
+    payloads = [b"AFSK BURST ON THE CARD", b"SECOND AFSK BURST"]
+    iq = torch.from_numpy(_afsk_bursts_50k(payloads)).to(cuda_device)
+    calls = _hold_calls(monkeypatch, ["fir_decimate"])
+    pkts = ax25.ax25_1200_wpcr_rx(iq, 50_000.0, threshold=0.01)
+    assert [bytes(p) for p in pkts] == payloads
+    # the 1205-tap channel filter, the Hilbert and the 1205-tap low-pass
+    assert len(calls["fir_decimate"]) == 3
+    _held_fir(calls["fir_decimate"])
+    assert [bytes(p) for p in ax25.ax25_1200_wpcr_rx(
+        iq.cpu(), 50_000.0, threshold=0.01)] == payloads
+    g3 = [b"G3RUH BURST ONE", b"G3RUH BURST TWO"]
+    parts = [torch.zeros(20_000, dtype=torch.complex64, device=cuda_device)]
+    for p in g3:
+        parts += [ax25.g3ruh_modulate([np.frombuffer(p, np.uint8)], 50_000.0,
+                                      device=cuda_device), parts[0]]
+    pkts = ax25.ax25_9600_wpcr_rx(torch.cat(parts), 50_000.0)
+    assert [bytes(p) for p in pkts] == g3
+
+
+def test_torch_cuda_wpcr_batch_equals_the_cpu(cuda_device):
+    # bursts of many lengths (two buckets past the JAX package's chirp
+    # bound among them): the same found, bin, phase and symbols on the card
+    # as on the CPU, the symbols left on the card
+    rng = np.random.RandomState(9)
+    bursts = []
+    for i in range(40):
+        sps = [4, 5, 8, 10][i % 4]
+        bits = rng.randint(0, 2, rng.randint(20, 400 if i < 38 else 4000))
+        x = np.repeat(bits * 2.0 - 1.0, sps).astype(np.float32)
+        bursts.append(x + rng.randn(len(x)).astype(np.float32) * 0.2)
+    got = ops.wpcr_batch(bursts, device=cuda_device)
+    want = ops.wpcr_batch(bursts, device="cpu")
+    assert sum(i["found"] for _, i in want) >= 30
+    for (s, i), (ws, wi) in zip(got, want):
+        assert s.device.type == "cuda"
+        assert i == wi
+        assert torch.equal(s.cpu(), ws)
+    for (c, ok), (wc, wok) in zip(ops.midpoint_batch(bursts, device=cuda_device),
+                                  ops.midpoint_batch(bursts, device="cpu")):
+        assert ok == wok and torch.equal(c.cpu(), wc)
+
+
+def test_torch_cuda_scramble_and_streaming_blocks(cuda_device):
+    rng = np.random.RandomState(10)
+    x = torch.from_numpy(rng.randint(0, 2, 5 * 512 + 7).astype(np.uint8))
+    got, gs = ops.scramble(x.to(cuda_device))
+    want, ws = ops.scramble(x)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want) and torch.equal(gs.cpu(), ws)
+    assert torch.equal(ops.descramble(x.to(cuda_device)).cpu(), ops.descramble(x))
+    # the 9600 WPCR receiver's front half from blocks, streamed on the card
+    # and on the CPU: the same symbol PDUs (lengths and clocks), their
+    # values within 1e-5 (the discriminator's atan2 and complex product
+    # round differently on the card)
+    g3 = [b"BLOCKS ON THE CARD ONE", b"BLOCKS ON THE CARD TWO"]
+    parts = [np.zeros(20_000, np.complex64)]
+    for p in g3:
+        parts += [ax25.g3ruh_modulate([np.frombuffer(p, np.uint8)], 50_000.0,
+                                      device="cpu").numpy(), parts[0]]
+    iq = np.concatenate(parts)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        g, sink = Graph(), blocks.PduVectorSink()
+        src = g.add(blocks.VectorSource(iq))
+        x = g.add(blocks.RationalResampler(1, 1), src)
+        power = g.add(blocks.SinglePoleIirFilter(0.01),
+                      g.add(blocks.ComplexToMag2(), x))
+        demod = g.add(blocks.QuadratureDemod(1.0), x)
+        power = g.add(blocks.Skip(1), g.add(blocks.Delay(1), power))
+        tagged = g.add(blocks.BurstTagger(0.01), demod, power)
+        pdus = g.add(blocks.StreamToPdu("burst", 50_000, 50), tagged)
+        g.add(sink, g.add(blocks.Wpcr(), g.add(blocks.Midpointer(), pdus)))
+        g.run_stream(chunk_size=8192, device=dev)
+        outs.append(sink.pdus())
+    assert len(outs[0]) == len(outs[1]) == 2
+    for a, b in zip(*outs):
+        assert a.data.device.type == "cuda" and a.data.shape == b.data.shape
+        assert [(t.key, t.val) for t in a.tags if t.key == "sps"] == \
+            [(t.key, t.val) for t in b.tags if t.key == "sps"]
+        torch.testing.assert_close(a.data.cpu(), b.data, atol=1e-5, rtol=0)
