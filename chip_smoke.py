@@ -41,7 +41,17 @@ just after, so that each shows it went through its kernels:
   ``ax25_1200_wpcr``, ``ax25_9600_wpcr``, ``g3ruh`` (RX to KISS, TX from
   KISS) and ``burst_saver`` on the captures as files; and the 9600 WPCR
   front half built from blocks, offline, streamed in chunks of 2^16 and
-  paused at a checkpoint inside a burst and resumed.
+  paused at a checkpoint inside a burst and resumed;
+* the radio-facing receivers (``radio_phase``, phase 12): the apps
+  ``ax25_1200_rx`` on the corpus as .au (both clock recoveries) and on the
+  IQ capture as raw c32 and as SigMF written by ``capture``, each the
+  model call's list; ``bell202_tx`` into ``ax25_1200_rx`` at 44.1 kHz; a
+  50 kHz capture of 200 IL2P frames through ``il2p_1200_rx`` (model, plain
+  versions, app) and its bits through ``CorrelateAccessCodeTag`` and
+  ``Il2pDeframer``, offline and streamed with headers across chunk seams;
+  ``rtl_fm -r sim`` and ``soapy_fm -d sim`` at 2^24 samples and
+  ``scanner -r sim`` on the simulated SDR (``hw/``): kernels A, D and E,
+  each held against its plain version on the apps' own calls.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -71,14 +81,17 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.
+the last line is {"ok": true, "device": {...}}.  Phase 12 rehearses on
+the CPU at small sizes (``RadioSizes``; tests/test_torch_chip_smoke.py).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -333,6 +346,64 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def _kernels():
+    from rustradio_tpu_torch.ops import kernels
+    return kernels
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel call to its plain PyTorch version on the tensors'
+    device (same inputs, same surrounding code); asserts no kernel
+    launched."""
+    kernels = _kernels()
+    before = dict(kernels.LAUNCHES)
+    with mock.patch.object(kernels, "fir_decimate",
+                           kernels.fir_decimate_plain), \
+         mock.patch.object(kernels, "fm_chain_span",
+                           kernels.fm_chain_span_plain), \
+         mock.patch.object(kernels, "quad_demod_fast",
+                           kernels.quad_demod_fast_plain), \
+         mock.patch.object(kernels, "symbol_sync_scan",
+                           kernels.symbol_sync_scan_plain), \
+         mock.patch.object(kernels, "symbol_sync_events_scan",
+                           kernels.symbol_sync_events_scan_plain):
+        yield
+    if kernels.LAUNCHES != before:
+        raise SystemExit("chip_smoke: a plain run launched a kernel")
+
+
+def zero_counts():
+    kernels = _kernels()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def require(path: str, counts: dict, names) -> None:
+    """A failure for each kernel of ``names`` that ``counts`` shows never
+    launched on ``path``."""
+    for name in names:
+        if counts[name] == 0:
+            failures.append(f"kernel {name} never launched on the "
+                            f"{path} path")
+
+
+@contextlib.contextmanager
+def capturing(*names):
+    """Record the arguments of every call of the wrappers
+    ``kernels.<name>`` inside the block (the main path's own shapes);
+    the calls still go to the wrappers and count their launches."""
+    kernels = _kernels()
+    got = {name: [] for name in names}
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            real = getattr(kernels, name)
+            stack.enter_context(mock.patch.object(
+                kernels, name, lambda *a, real=real, calls=got[name]:
+                calls.append(a) or real(*a)))
+        yield got
+
+
 def rtl_fm_iq(n: int, device, gen: torch.Generator):
     """A wideband FM station as 8-bit rtl-sdr I/Q on the (u8-127)/128 grid:
     two audio tones at 75 kHz deviation, plus receiver noise.  Returns the
@@ -402,13 +473,14 @@ def afsk(line: np.ndarray, baud: float, amp: float, fs: float,
     return np.concatenate([z, a, z])
 
 
-def audio_corpus(hdlc) -> np.ndarray:
-    """The 1000 frames at 24 kHz: amplitude 0.05-1.0, clock drift
+def audio_corpus(hdlc, n_frames: int = N_FRAMES) -> np.ndarray:
+    """The first ``n_frames`` corpus frames (1000) at 24 kHz: amplitude
+    0.05-1.0, clock drift
     +-1.5%, noise up to 0.4x amplitude, numpy RandomState(0)."""
     noises = [0.0, 0.15, 0.3, 0.35, 0.4]
     rng = np.random.RandomState(SEED)
     parts = []
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         amp = 0.05 + 0.95 * (i % 10) / 9
         x = afsk(corpus_line(i, hdlc), 1200.0 * (1 + corpus_drift(i)), amp,
                  FS_AUDIO, 400)
@@ -417,13 +489,13 @@ def audio_corpus(hdlc) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def iq_capture(hdlc) -> np.ndarray:
-    """The first N_IQ_FRAMES corpus frames as an rtl-sdr capture: full-scale
+def iq_capture(hdlc, n_frames: int = N_IQ_FRAMES) -> np.ndarray:
+    """The first ``n_frames`` corpus frames as an rtl-sdr capture: full-scale
     Bell-202 audio frequency-modulates a carrier at IQ_DEV deviation,
     sampled at FS_IQ, plus complex receiver noise (numpy default_rng)."""
     lead = int(400 * FS_IQ / FS_AUDIO)  # the corpus' leads, in time
     chunks, ph0 = [], 0.0
-    for i in range(N_IQ_FRAMES):
+    for i in range(n_frames):
         a = afsk(corpus_line(i, hdlc), 1200.0 * (1 + corpus_drift(i)), 1.0,
                  FS_IQ, lead)
         ph = ph0 + np.cumsum(a, dtype=np.float64) * (2 * np.pi * IQ_DEV / FS_IQ)
@@ -486,15 +558,21 @@ def decode_bank(device, gen: torch.Generator) -> torch.Tensor:
                                            device=device)).contiguous()
 
 
+def sync() -> None:
+    """Wait for the card, where there is one (a CPU rehearsal has none)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def wall(fn, reps: int = 3):
     """Median host wall seconds of ``fn()`` between two synchronises, and
     its last result."""
     ts = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         ts.append(time.perf_counter() - t0)
     return statistics.median(ts), out
 
@@ -700,8 +778,98 @@ def hold_events_calls(phase: str, what: str, calls) -> float:
     return err
 
 
-def apps_phase(dev, card, i_main, q_main, audio, want_lists, plain_versions,
-               zero_counts, require, capturing):
+D_WINDOW = 1 << 14    # slots of each window where kernel D is held on the host
+E_WINDOW = 1 << 14    # samples of each window where kernel E is held there
+
+
+def _on_host(args):
+    return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def hold_events_windows(phase: str, what: str, calls,
+                        window: int = D_WINDOW) -> float:
+    """Kernel D on each of a path's captured ``symbol_sync_events_scan``
+    calls against its plain loop on the host (one slot a step) on two
+    windows of ``window`` slots: the first, from the call's own state, and
+    the last that holds a crossing, from the state the kernel reaches
+    there (the whole call where it has at most ``2 * window`` crossing
+    slots).  Every slot and the state after each window bit for bit, and
+    each window also against the whole call's kernel run, so the windows
+    stand for it.  The slots between them are held only through what the
+    path decodes.  Returns the largest |error| (tolerance 0; inf when
+    there is no call)."""
+    kernels = _kernels()
+    err, held, slots = (0.0 if calls else math.inf), 0, 0
+    for args in calls:
+        events, n, *consts, fs, ist = args[:7]
+        counts = args[7] if len(args) > 7 else None
+        whole = kernels.symbol_sync_events_scan(*args)
+        real = int((events < n).sum(1).max()) if events.numel() else 0
+        slots += int((events < n).sum())
+        if real <= 2 * window:
+            windows = [(args, slice(None), True)]
+        else:
+            a = real - window
+            cut = (lambda k: counts.clamp(max=k)) if counts is not None else None
+            _, _, fa, ia = kernels.symbol_sync_events_scan(
+                events[:, :a].contiguous(), n, *consts, fs, ist,
+                *([cut(a)] if cut else []))
+            windows = [
+                ((events[:, :window].contiguous(), n, *consts, fs, ist,
+                  *([cut(window)] if cut else [])), slice(0, window), False),
+                ((events[:, a:].contiguous(), n, *consts, fa, ia,
+                  *([(counts - a).clamp(min=0)] if cut else [])),
+                 slice(a, None), True)]
+        for wargs, sl, last in windows:
+            got = kernels.symbol_sync_events_scan(*wargs)
+            want = kernels.symbol_sync_events_scan_plain(*_on_host(wargs))
+            of_whole = (whole[0][:, sl], whole[1][:, sl]) + (
+                whole[2:] if last else ())
+            err = max([err] + [max_err(g.cpu(), w) for g, w in zip(got, want)]
+                      + [max_err(g, w) for g, w in zip(got, of_whole)])
+            held += int((wargs[0] < n).sum())
+    report(phase, f"{what}: kernel D on each of its {len(calls)} calls, "
+           f"{held} of its {slots} crossing slots (up to the first and the "
+           f"last {window} of each channel) vs the plain loop: every slot, "
+           "the state after them and the whole run there", err, 0.0)
+    return err
+
+
+def hold_scan_calls(phase: str, what: str, calls, window: int = E_WINDOW) -> float:
+    """Kernel E on each of a path's captured ``symbol_sync_scan`` calls
+    against its plain version on the host, as kernel D above: the first
+    and the last ``window`` samples of each channel (the whole call where
+    it has at most ``2 * window``), every output bit for bit and against
+    the whole kernel run.  Returns the largest |error| (tolerance 0; inf
+    when there is no call)."""
+    kernels = _kernels()
+    err, held, samples = (0.0 if calls else math.inf), 0, 0
+    for args in calls:
+        x, *consts, st = args
+        mask, clocks, st_out = kernels.symbol_sync_scan(*args)
+        samples += x.numel()
+        if x.shape[1] <= 2 * window:
+            windows = [(args, slice(None), True)]
+        else:
+            a = x.shape[1] - window
+            _, _, sa = kernels.symbol_sync_scan(x[:, :a].contiguous(), *consts, st)
+            windows = [((x[:, :window].contiguous(), *consts, st),
+                        slice(0, window), False),
+                       ((x[:, a:].contiguous(), *consts, sa), slice(a, None), True)]
+        for wargs, sl, last in windows:
+            got = kernels.symbol_sync_scan(*wargs)
+            want = kernels.symbol_sync_scan_plain(*_on_host(wargs))
+            of_whole = (mask[:, sl], clocks[:, sl]) + ((st_out,) if last else ())
+            err = max([err] + [max_err(g.cpu(), w) for g, w in zip(got, want)]
+                      + [max_err(g, w) for g, w in zip(got, of_whole)])
+            held += wargs[0].numel()
+    report(phase, f"{what}: kernel E on each of its {len(calls)} calls, "
+           f"{held} of its {samples} samples vs the plain version: every "
+           "output and the whole run there", err, 0.0)
+    return err
+
+
+def apps_phase(dev, card, i_main, q_main, audio, want_lists):
     """Phase 10: ``rtl_fm`` (c32, u8 w3, u8 i8) on the main path's capture,
     ``am_decode`` on an AM capture and ``wbfm_rx`` on the station, each at
     2^24 samples and held against the same call on the kernels' plain
@@ -1033,7 +1201,7 @@ def wpcr_moved(centred: np.ndarray, syms: np.ndarray, info: dict, want) -> int:
     return len(moved)
 
 
-def burst_phase(dev, card, plain_versions, zero_counts, require, capturing):
+def burst_phase(dev, card):
     """Phase 11: the G3RUH modem and the burst receivers on their captures
     (see the module docstring).  Returns the launch counts of each path and
     the largest |error| of each kernel held here."""
@@ -1108,34 +1276,21 @@ def burst_phase(dev, card, plain_versions, zero_counts, require, capturing):
            max_err(torch.view_as_real(clean), ref64), vco_tol)
     del refs
 
-    def plain_d_on_host(plain_calls):
-        """Kernel D's plain loop on CPU copies of its arguments (one slot a
-        step: ~10 times faster on the host than launched on the card, and
-        the same f32 operations), its outputs back on the card; each call's
-        arguments and outputs kept in ``plain_calls``."""
-        def run(*args):
-            out = kernels.symbol_sync_events_scan_plain(
-                *(a.cpu() if torch.is_tensor(a) else a for a in args))
-            plain_calls.append((args, tuple(o.to(dev) for o in out)))
-            return plain_calls[-1][1]
-        return run
-
-    def path(name, fn, gate, needs, plain_calls=None):
+    def path(name, fn, gate, needs, plain=None):
         """Decode with ``fn`` three times (launches counted) and once on the
-        plain versions: the same list, and at least ``gate`` frames.  With
-        ``plain_calls`` (a list), the plain kernel D's arguments and
-        outputs of that run are kept in it."""
+        plain versions (unless ``plain`` gives the list to match): the same
+        list, and at least ``gate`` frames."""
         zero_counts()
         secs, out = wall(fn)
         counts[name] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
         got = decoded(out, N_G3)
-        with plain_versions(), contextlib.ExitStack() as stack:
-            if plain_calls is not None:
-                stack.enter_context(mock.patch.object(
-                    kernels, "symbol_sync_events_scan", plain_d_on_host(plain_calls)))
-            plain = decoded(fn(), N_G3)
-        print(f"[11 {name}] {len(set(got))}/{N_G3} decoded, the plain versions' "
-              f"list: {got == plain}; {secs * 1e3:.1f} ms wall (median of 3); "
+        what = "the native form's list" if plain is not None else \
+            "the plain versions' list"
+        if plain is None:
+            with plain_versions():
+                plain = decoded(fn(), N_G3)
+        print(f"[11 {name}] {len(set(got))}/{N_G3} decoded, {what}: "
+              f"{got == plain}; {secs * 1e3:.1f} ms wall (median of 3); "
               f"launches {json.dumps(counts[name])}; card: {card} "
               f"({time.perf_counter() - T0:.1f} s since the start)")
         if len(set(got)) < gate or got != plain:
@@ -1145,34 +1300,27 @@ def burst_phase(dev, card, plain_versions, zero_counts, require, capturing):
         return [bytes(p) for p in out]
 
     # the 9600 bd receiver on the stream (the 7227-tap channel filter takes
-    # the FFT route; kernel D in the events form)
-    rx, plain_d = {}, []
+    # the FFT route: no kernel A; kernel D in the events form).  The events
+    # form's list is held to the native form's plain run: kernel D's plain
+    # loop over all 300,664 slots of its call took 30-39 s, so it runs on a
+    # prefix of them below
+    rx = {}
     for sync in ("native", "events"):
         rx[sync] = path(f"ax25_9600_rx {sync}", lambda: ax25.ax25_9600_rx(
             stream, FS_G3, symbol_max_deviation=G3_MAX_DEV, sync=sync), G3_GATE,
             ("symbol_sync_events",) if sync == "events" else (),
-            plain_d if sync == "events" else None)
+            decoded(rx["native"], N_G3) if sync == "events" else None)
         n_default = len(set(decoded(ax25.ax25_9600_rx(stream, FS_G3, sync=sync), N_G3)))
         print(f"[11 ax25_9600_rx {sync}] at the default clock bound 0.1 (taps "
               f"0.0001, 0.99999999 hold the clock at sps + 0.1): {n_default}/{N_G3}")
-    # kernel D on each of its calls against the plain loop's outputs of the
-    # plain run (one loop over ~300,000 slots, not two): the calls' inputs
-    # bit-equal, then every slot and the final state
+    # kernel D on each of its calls, on the first and last D_WINDOW slots
+    # of each channel, against the plain loop on the host
     with capturing("symbol_sync_events_scan") as calls:
         ax25.ax25_9600_rx(stream, FS_G3, symbol_max_deviation=G3_MAX_DEV,
                           sync="events")
-    calls = calls["symbol_sync_events_scan"]
-    err = 0.0 if len(calls) == len(plain_d) else math.inf
-    for args, (pargs, want) in zip(calls, plain_d):
-        same_in = all(torch.equal(a, b) if torch.is_tensor(a) else a == b
-                      for a, b in zip(args, pargs))
-        got = kernels.symbol_sync_events_scan(*args)
-        err = max([err] + [max_err(g, w) for g, w in zip(got, want)]
-                  + [0.0 if same_in else math.inf])
-    call_errs["symbol_sync_events"] = report(
-        "11 ax25_9600_rx", f"ax25_9600_rx events: kernel D on each of its "
-        f"{len(calls)} calls ({sum(a[0].numel() for a in calls)} slots) vs the "
-        "plain run's, the same inputs, every slot and the final state", err, 0.0)
+    call_errs["symbol_sync_events"] = hold_events_windows(
+        "11 ax25_9600_rx", "ax25_9600_rx events",
+        calls["symbol_sync_events_scan"])
     rx["wpcr 9600"] = path("ax25_9600_wpcr_rx", lambda: ax25.ax25_9600_wpcr_rx(
         g3_iq, FS_G3, threshold=BURST_THRESHOLD), G3_GATE, ())
     rx["wpcr 1200"] = path("ax25_1200_wpcr_rx", lambda: ax25.ax25_1200_wpcr_rx(
@@ -1407,6 +1555,419 @@ def burst_phase(dev, card, plain_versions, zero_counts, require, capturing):
     return counts, call_errs
 
 
+# ---- phase 12: the radio-facing receivers
+
+APP_TAPS = (0.5, 0.5)      # ax25_1200_rx's and il2p_1200_rx's clock taps
+FS_BELL = 44_100.0         # bell202_tx's default rate
+IL2P_FS = 50_000.0         # il2p_1200_rx's default rate
+IL2P_GAP = 800             # seeded random bits before each IL2P frame
+IL2P_NOISE = 0.05          # complex noise per component; carrier 1.0
+IL2P_CHUNK = 1 << 12       # run_stream's chunk for the IL2P blocks
+FS_SCAN = 2_048_000.0      # scanner -r sim: an rtl-sdr rate,
+SCAN_CHANNELS = 256        # 8 kHz channels
+SIM_TONE = 1_000.0         # the simulated carriers' audio tone
+# IL2P header types by frame: (ui, pid, control, hdrtype1) and describe()
+IL2P_TYPES = (((False, 1, 1 << 2, True), "SABM"), ((True, 15, 0, True), "UI"),
+              ((False, 1, 3 << 2, True), "DISC"),
+              ((False, 5, 0x55, False), "type0 IL2P"),
+              ((False, 6, 0x7F, True), "other PID"))
+
+
+@dataclasses.dataclass(frozen=True)
+class RadioSizes:
+    """Phase 12's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones."""
+
+    frames: int = N_FRAMES          # corpus frames of the audio given
+    frame_gate: int = FRAME_GATE
+    iq_frames: int = N_IQ_FRAMES    # corpus frames of the IQ capture given
+    iq_gate: int = IQ_FLOOR
+    bell_lines: int = 200
+    il2p_frames: int = 200          # ~8 M samples at 50 kHz
+    il2p_chunk: int = IL2P_CHUNK    # run_stream's chunk for the IL2P blocks
+    il2p_gap: int = IL2P_GAP        # random bits before each IL2P frame
+    sim_samples: int = 1 << 24      # rtl_fm -r sim, soapy_fm -d sim
+    scan_samples: int = 1 << 20     # scanner -r sim
+    reps: int = 3                   # runs of each timed path (median wall)
+
+
+def il2p_fields(i: int):
+    """Frame i's header: (dst, dst ssid, src, src ssid, ui, pid, control,
+    hdrtype1, payload size), and its ``describe()``."""
+    (ui, pid, control, t1), name = IL2P_TYPES[i % len(IL2P_TYPES)]
+    return (f"Q{i % 1000:03d}", i % 16, f"N{i % 10}X{i // 10 % 100:02d}",
+            (i // 16) % 16, ui, pid, control, t1, (37 * i) % 1024), name
+
+
+def il2p_header_bytes(dst, dssid, src, sssid, ui, pid, control, hdrtype1, size):
+    """The 13 bytes that ``ops.il2p.parse_header`` reads back as these
+    fields (FEC flag set): the inverse of the parse."""
+    d = [0] * 13
+    for k, c in enumerate(dst):
+        d[k] = (ord(c) - 0x20) & 63
+    for k, c in enumerate(src):
+        d[6 + k] = (ord(c) - 0x20) & 63
+    d[0] |= 0x80 | (0x40 if ui else 0)
+    d[1] |= 0x80 if hdrtype1 else 0
+    for k in range(4):
+        d[1 + k] |= ((pid >> (3 - k)) & 1) << 6
+    for k in range(7):
+        d[5 + k] |= ((control >> (6 - k)) & 1) << 6
+    for k in range(10):
+        d[2 + k] |= ((size >> (9 - k)) & 1) << 7
+    d[12] = (dssid << 4) | sssid
+    return np.asarray(d, np.uint8)
+
+
+def il2p_scramble(bits, mask: int = 0x108, seed: int = 0x1F0) -> np.ndarray:
+    """The inverse of ``ops.il2p.il2p_descramble``: i = o ^ (reg & 1), then
+    the descrambler's register update on i."""
+    reg, out = seed, np.empty(len(bits), np.uint8)
+    for n, o in enumerate(bits):
+        i = int(o) ^ (reg & 1)
+        out[n] = i
+        reg = (reg >> 1) ^ (mask * i)
+    return out
+
+
+def il2p_frame(fields, fec) -> np.ndarray:
+    """One IL2P frame's 144 bits: the sync word 0xF15E48, then the header
+    of ``fields`` (``il2p_header_bytes``'s arguments) and the two bytes
+    ``fec``, MSB first, scrambled."""
+    from rustradio_tpu_torch.ops.il2p import SYNC_WORD
+
+    raw = np.concatenate([il2p_header_bytes(*fields), np.asarray(fec, np.uint8)])
+    return np.concatenate([SYNC_WORD, il2p_scramble(np.unpackbits(raw))])
+
+
+def il2p_bits(n_frames: int, seed: int, gap: int = IL2P_GAP):
+    """``n_frames`` IL2P frames (``il2p_frame`` of ``il2p_fields``), each
+    after ``gap`` seeded random bits, and the gap again at the end.
+    Returns the bits, each sync word's last position and each header's
+    (src, dst, type)."""
+    from rustradio_tpu_torch.ops.il2p import SYNC_WORD
+
+    rng = np.random.RandomState(seed)
+    parts, ends, want, pos = [], [], [], 0
+    for i in range(n_frames):
+        fields, name = il2p_fields(i)
+        frame = il2p_frame(fields, (i % 256, 0xA5))
+        parts += [rng.randint(0, 2, gap).astype(np.uint8), frame]
+        ends.append(pos + gap + len(SYNC_WORD) - 1)
+        pos += gap + len(frame)
+        want.append((f"{fields[2]}-{fields[3]}", f"{fields[0]}-{fields[1]}", name))
+    parts.append(rng.randint(0, 2, gap).astype(np.uint8))
+    return np.concatenate(parts), ends, want
+
+
+def il2p_capture(bits: np.ndarray, seed: int, noise: float = IL2P_NOISE,
+                 fs: float = IL2P_FS) -> np.ndarray:
+    """The bits as Bell-202 AFSK at ``fs`` (bit 1 -> 1200 Hz: the receiver
+    slices and inverts), 0.3 of it frequency-modulating a carrier at 3.5
+    kHz a unit, as tests/test_models_extra.py:65-90; 2000 samples of
+    silence around it and complex noise of ``noise`` per component (numpy
+    RandomState of ``seed``)."""
+    sps = fs / 1200.0
+    n = int(len(bits) * sps)
+    at = np.minimum((np.arange(n) / sps).astype(np.int64), len(bits) - 1)
+    f = np.where(bits[at] == 1, 1200.0, 2200.0)
+    audio = 0.5 * np.sin(np.cumsum(2 * np.pi * f / fs))
+    audio = np.concatenate([np.zeros(2000), audio, np.zeros(2000)])
+    ph = np.cumsum(0.3 * audio * (2 * np.pi * 3500.0 / fs))
+    rnd = np.random.RandomState(seed).standard_normal((2, len(ph)))
+    return (np.exp(1j * ph) + noise * (rnd[0] + 1j * rnd[1])).astype(np.complex64)
+
+
+def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
+                iq_np: np.ndarray):
+    """Phase 12: the radio-facing receivers through their apps at full
+    width on ``dev``: ``ax25_1200_rx`` on the corpus as .au (both clock
+    recoveries) and on the IQ capture as raw c32 and as SigMF written by
+    ``capture``, each against the model call with the app's taps;
+    ``bell202_tx`` into ``ax25_1200_rx``; an IL2P capture through
+    ``il2p_1200_rx`` (model, plain versions, app) and its bits through the
+    blocks ``CorrelateAccessCodeTag`` and ``Il2pDeframer`` offline and
+    streamed with headers across chunk seams; ``rtl_fm -r sim`` and
+    ``soapy_fm -d sim`` (2^24 samples) and ``scanner -r sim`` on the
+    simulated SDR.  Kernel A is held against its plain version on each of
+    its calls, kernels D and E on each of the apps' calls (on windows of
+    them, ``hold_events_windows`` and ``hold_scan_calls``).  ``audio`` is
+    the corpus of ``sizes.frames`` frames at FS_AUDIO, ``iq_np`` the IQ
+    capture of ``sizes.iq_frames`` at FS_IQ.  Returns the launch counts of
+    each path and the largest |error| of each kernel here."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from rustradio_tpu_torch import blocks, ops, taps as tapgen
+    from rustradio_tpu_torch.apps import (ax25_1200_rx, bell202_tx, capture,
+                                          il2p_1200_rx, rtl_fm, scanner,
+                                          soapy_fm)
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.hw import SdrSource, SimDriver
+    from rustradio_tpu_torch.io import au
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import kernels
+    from rustradio_tpu_torch.ops.il2p import SYNC_WORD
+
+    counts = {}
+    errs = {"fir_decimate": 0.0, "symbol_sync_events": 0.0,
+            "symbol_sync_scan": 0.0}
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    wrappers = ("fir_decimate", "symbol_sync_events_scan", "symbol_sync_scan")
+
+    def hold(phase, what, calls):
+        """Each kernel on each of its captured calls ``calls``."""
+        for wrapper, key, fn in (
+                ("fir_decimate", "fir_decimate", hold_fir_calls),
+                ("symbol_sync_events_scan", "symbol_sync_events",
+                 hold_events_windows),
+                ("symbol_sync_scan", "symbol_sync_scan", hold_scan_calls)):
+            if calls.get(wrapper):
+                errs[key] = max(errs[key], fn(phase, what, calls[wrapper]))
+
+    def held(phase, what, fn):
+        """``fn()``, kernel A held on each of its calls there."""
+        with capturing("fir_decimate") as calls:
+            out = fn()
+        hold(phase, what, calls)
+        return out
+
+    def app(phase, name, main_fn, args, needs=(), stdin="", device=True,
+            out_dir=None):
+        """``main_fn(args)`` ``sizes.reps`` times (on ``dev`` unless
+        ``device`` is False; ``out_dir`` emptied before each run): the
+        first run's launches counted and each kernel held on each of its
+        calls.  Returns (the median wall in seconds, the last run's
+        standard output)."""
+        secs = []
+        for rep in range(sizes.reps):
+            if out_dir is not None:
+                shutil.rmtree(out_dir, ignore_errors=True)
+            zero_counts()
+            out = io.StringIO()
+            with (capturing(*wrappers) if rep == 0 else
+                  contextlib.nullcontext()) as calls, \
+                    contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()), \
+                    mock.patch("sys.stdin", io.StringIO(stdin)):
+                t0 = time.perf_counter()
+                rc = main_fn(args + (["--device", str(dev)] if device else []))
+                sync()
+                secs.append(time.perf_counter() - t0)
+            if rc != 0:
+                failures.append(f"app {name}: exit code {rc}")
+            if rep == 0:
+                counts[name] = dict(kernels.LAUNCHES)
+                require(name, counts[name], needs)
+                hold(phase, name, calls)
+        return statistics.median(secs), out.getvalue()
+
+    def written(out_dir):
+        return [p.read_bytes() for p in sorted(Path(out_dir).iterdir())]
+
+    def check(phase, what, ok, line):
+        print(f"[{phase}] {what}: {ok}; {line}; card: {card}")
+        if not ok:
+            failures.append(f"{phase} {what}")
+
+    # the corpus as .au, both clock recoveries, against the model's list
+    (d / "corpus.au").write_bytes(au.au_encode(audio, int(FS_AUDIO)))
+    pcm = torch.from_numpy(au.au_read(str(d / "corpus.au"))[0]).to(dev)
+    for sync_m in ("native", "events"):
+        name = f"ax25_1200_rx au {sync_m}"
+        want = decoded(held("12 ax25", f"ax25_1200_rx {sync_m}", lambda:
+                            ax25.ax25_1200_rx(pcm, FS_AUDIO, symbol_taps=APP_TAPS,
+                                              sync=sync_m)), sizes.frames)
+        secs, _ = app("12 ax25", name, ax25_1200_rx.main,
+                      ["-a", "-r", str(d / "corpus.au"), "-o", str(d / name),
+                       "--sync", sync_m],
+                      ("fir_decimate", "symbol_sync_events") if sync_m == "events"
+                      else ("fir_decimate",), out_dir=d / name)
+        got = decoded(written(d / name), sizes.frames)
+        check("12 ax25", f"{name}: {len(set(got))}/{sizes.frames} decoded (gate "
+              f"{sizes.frame_gate}), the model's list with taps {APP_TAPS}",
+              len(set(got)) >= sizes.frame_gate and got == want,
+              f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}, the file read "
+              f"included); launches {json.dumps(counts[name])}")
+    del pcm
+    end_phase("12 ax25 au")
+
+    # the IQ capture as raw c32, then as SigMF written by the capture app
+    iq_np.tofile(d / "iq.c32")
+    secs, _ = app("12 ax25", "capture", capture.main,
+                  ["-r", str(d / "iq.c32"), "--sample_rate", str(FS_IQ),
+                   "--frequency", "144.39m", "--out", str(d / "iq")], device=False)
+    print(f"[12 ax25] capture: {iq_np.shape[0]} samples to SigMF in "
+          f"{secs * 1e3:.1f} ms (median of {sizes.reps})")
+    want = decoded(held("12 ax25", "ax25_1200_rx_iq", lambda: ax25.ax25_1200_rx_iq(
+        iq_np, FS_IQ, device=dev, symbol_taps=APP_TAPS)), sizes.iq_frames)
+    lists = []
+    for form, args in (("c32", ["-r", str(d / "iq.c32"), "--sample_rate", "1.024m"]),
+                       ("SigMF", ["-r", str(d / "iq.sigmf-meta")])):
+        name = f"ax25_1200_rx {form}"
+        secs, _ = app("12 ax25", name, ax25_1200_rx.main,
+                      args + ["-o", str(d / name)], ("fir_decimate",),
+                      out_dir=d / name)
+        lists.append(decoded(written(d / name), sizes.iq_frames))
+        check("12 ax25", f"{name}: {len(set(lists[-1]))}/{sizes.iq_frames} "
+              f"decoded (gate {sizes.iq_gate}), the model's list",
+              len(set(lists[-1])) >= sizes.iq_gate and lists[-1] == want,
+              f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
+              f"{json.dumps(counts[name])}")
+    check("12 ax25", "raw c32 and SigMF give the same list", lists[0] == lists[1],
+          f"{len(lists[0])} frames")
+    (d / "iq.c32").unlink()
+    (d / "iq.sigmf-data").unlink()
+
+    # bell202_tx -> ax25_1200_rx at 44.1 kHz
+    lines = [f"CHIP SMOKE BELL-202 LINE {i:03d} {'z' * (i % 37)}"
+             for i in range(sizes.bell_lines)]
+    secs_tx, _ = app("12 bell202", "bell202_tx", bell202_tx.main,
+                     ["--src", "N0CALL-7", "--dst", "APRS", "--out",
+                      str(d / "bell.au")], stdin="\n".join(lines) + "\n")
+    secs, _ = app("12 bell202", "ax25_1200_rx bell202", ax25_1200_rx.main,
+                  ["-a", "-r", str(d / "bell.au"), "-o", str(d / "bell")],
+                  ("fir_decimate",), out_dir=d / "bell")
+    got = written(d / "bell")
+    sent = [bytes(bell202_tx.make_ax25_ui("APRS", "N0CALL-7", s.encode()))
+            for s in lines]
+    check("12 bell202", f"bell202_tx {len(lines)} lines at {FS_BELL:.0f} Hz -> "
+          f"ax25_1200_rx: {len(got)}/{len(lines)} decoded, the frames sent",
+          got == sent, f"{secs_tx * 1e3:.1f} ms tx, {secs * 1e3:.1f} ms rx (median "
+          f"of {sizes.reps} each); launches tx {json.dumps(counts['bell202_tx'])}, rx "
+          f"{json.dumps(counts['ax25_1200_rx bell202'])}")
+    end_phase("12 ax25 iq and bell202")
+
+    # IL2P: the capture through the model (kernels, plain versions), the app
+    t0 = time.perf_counter()
+    bits, ends, want = il2p_bits(sizes.il2p_frames, SEED + 12, sizes.il2p_gap)
+    il2p_iq = il2p_capture(bits, SEED + 12)
+    print(f"[12 il2p] {sizes.il2p_frames} IL2P frames, {len(bits)} bits, "
+          f"{il2p_iq.shape[0]} samples at {IL2P_FS:.0f} Hz (noise {IL2P_NOISE}), "
+          f"made on the host in {time.perf_counter() - t0:.1f} s")
+    x = torch.from_numpy(il2p_iq).to(dev)
+
+    def headers(hs):
+        return [(h.src, h.dst, h.describe()) for h in hs]
+
+    zero_counts()
+    secs, got = wall(lambda: headers(ax25.il2p_1200_rx(x, IL2P_FS)), sizes.reps)
+    counts["il2p_1200_rx"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+    require("il2p_1200_rx", counts["il2p_1200_rx"], ("fir_decimate",))
+    held("12 il2p", "il2p_1200_rx", lambda: ax25.il2p_1200_rx(x, IL2P_FS))
+    with plain_versions():
+        plain = headers(ax25.il2p_1200_rx(x, IL2P_FS))
+    check("12 il2p", f"il2p_1200_rx: {len(got)}/{len(want)} headers (src, dst, "
+          "type) as sent, the plain versions' list", got == want and plain == got,
+          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
+          f"{json.dumps(counts['il2p_1200_rx'])}")
+    il2p_iq.tofile(d / "il2p.c32")
+    del x, il2p_iq
+    secs, out = app("12 il2p", "il2p_1200_rx app", il2p_1200_rx.main,
+                    ["-r", str(d / "il2p.c32")], ("fir_decimate",))
+    check("12 il2p", "il2p_1200_rx app: the types of the headers sent",
+          out.splitlines() == [t for _, _, t in want],
+          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
+          f"{json.dumps(counts['il2p_1200_rx app'])}")
+
+    # the IL2P bits through the blocks, offline and streamed in chunks of
+    # IL2P_CHUNK: the sync tags and the headers equal the op's, seams or not
+    bits_dev = torch.from_numpy(bits).to(dev)
+
+    def il2p_graph(chunk):
+        g, tags, pdus = Graph(), blocks.VectorSink(), blocks.PduVectorSink()
+        tagged = g.add(blocks.CorrelateAccessCodeTag(SYNC_WORD),
+                       g.add(blocks.VectorSource(bits_dev)))
+        g.add(tags, tagged)
+        dfr = blocks.Il2pDeframer()
+        g.add(pdus, g.add(dfr, tagged))
+        if chunk:
+            g.run_stream(chunk_size=chunk, device=dev)
+        else:
+            g.run(device=dev)
+        return ([t.pos for t in tags.tags() if t.key == "sync"], headers(dfr.headers),
+                [[t.val for t in p.tags] for p in pdus.pdus()])
+
+    op = np.flatnonzero(ops.correlate_access_code(bits_dev, SYNC_WORD).cpu().numpy())
+    chunk_n = sizes.il2p_chunk
+    seams = sum((e - 23) // chunk_n != (e + 120) // chunk_n for e in ends)
+    runs = {}
+    for label, chunk in (("offline", None), (f"streamed ({chunk_n})", chunk_n)):
+        secs, runs[label] = wall(lambda: il2p_graph(chunk), sizes.reps)
+        pos, hs, pdu_tags = runs[label]
+        check("12 il2p blocks", f"{label}: {len(pos)} sync tags at the op's "
+              f"positions, {len(hs)} headers as sent, one PDU each",
+              list(pos) == list(op) == ends and hs == want and seams > 0
+              and pdu_tags == [list(h) for h in want], f"{seams} headers across "
+              f"a seam; {secs * 1e3:.1f} ms wall (median of {sizes.reps})")
+    end_phase("12 il2p")
+
+    # rtl_fm -r sim: the simulated carrier (0.8, 1 kHz at 37.5 kHz deviation)
+    # at 1.024 Msps, against the same main() on the plain versions
+    secs_arg = repr(sizes.sim_samples / FS_RTL)
+    n = int(float(secs_arg) * FS_RTL)
+    gain = FS_RTL / (2 * np.pi * 75_000.0)
+    lp = tapgen.low_pass_complex(FS_RTL, 100_000.0, 50_000.0, "hamming")
+    sim = SdrSource(SimDriver(frequency=100e6, sample_rate=FS_RTL, gain=1.0,
+                              fm_tones=[(100e6, 0.8, SIM_TONE, 37_500.0)]))
+    with plain_versions():
+        y_ratio = envelope_ratio(ops.filter_complex(sim.emit(0, n, dev), lp), len(lp))
+    args = ["-r", "sim", "--seconds", secs_arg]
+    secs, _ = app("12 sdr", "rtl_fm sim", rtl_fm.main,
+                  args + ["--out", str(d / "sim.au")], ("fir_decimate",))
+    with plain_versions(), contextlib.redirect_stderr(io.StringIO()):
+        rtl_fm.main(args + ["--out", str(d / "sim_plain.au"), "--device", str(dev)])
+    got, want_a = (au.au_read(str(d / f))[0] for f in ("sim.au", "sim_plain.au"))
+    err = (float(np.abs(got[3:] - want_a[3:]).max()) if got.shape == want_a.shape
+           else math.inf)
+    report("12 sdr", f"rtl_fm -r sim {n} samples: .au audio vs the plain versions",
+           err, 2 * 2e-5 * y_ratio * gain + 2 * PCM)
+    amps, resid = tone_fit(got, AUDIO_RATE, ((SIM_TONE, 0.5),))
+    check("12 sdr", f"rtl_fm -r sim: the {SIM_TONE:.0f} Hz tone at "
+          f"{amps[0]:.4f} (sent 0.5), residual {resid:.4f}",
+          len(got) == -(-n * 3 // 64) and abs(amps[0] / 0.5 - 1) < 0.05
+          and resid < 0.25, f"{secs:.3f} s wall (median of {sizes.reps}); "
+          f"launches {json.dumps(counts['rtl_fm sim'])}")
+
+    # soapy_fm -d sim: a carrier at 75 kHz deviation through wbfm_rx
+    secs, _ = app("12 sdr", "soapy_fm sim", soapy_fm.main,
+                  ["-d", "sim", "--seconds", secs_arg, "-o", str(d / "soapy.au")],
+                  ("fir_decimate",))
+    got = au.au_read(str(d / "soapy.au"))[0]
+    sent = deemphasis_gain(SIM_TONE, AUDIO_RATE)
+    amps, resid = tone_fit(got, AUDIO_RATE, ((SIM_TONE, sent),))
+    check("12 sdr", f"soapy_fm -d sim: the {SIM_TONE:.0f} Hz tone at "
+          f"{amps[0]:.4f} (sent, de-emphasized {sent:.4f}), residual {resid:.4f}",
+          abs(amps[0] / sent - 1) < 0.05 and resid < 0.25,
+          f"{secs:.3f} s wall (median of {sizes.reps}); launches "
+          f"{json.dumps(counts['soapy_fm sim'])}")
+
+    # scanner -r sim: its two default tones, +0.2 and -0.35 MHz; and the
+    # decode bank over the same band (CW carries no packet)
+    scan_args = ["-r", "sim", "--sample_rate", str(FS_SCAN), "--seconds",
+                 repr(sizes.scan_samples / FS_SCAN)]
+    secs, out = app("12 sdr", "scanner sim", scanner.main,
+                    scan_args + ["-n", str(SCAN_CHANNELS), "--top", "2"])
+    rows = [r.split()[:2] for r in out.splitlines()[1:]]
+    width = FS_SCAN / SCAN_CHANNELS
+    want_rows = [[str(round(f / width) % SCAN_CHANNELS),
+                  f"{round(f / width) * width / 1e3:.1f}k"] for f in (0.2e6, -0.35e6)]
+    check("12 sdr", f"scanner -r sim: the strongest channels {rows} at the tones' "
+          f"offsets {want_rows}", rows == want_rows,
+          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps})")
+    secs, _ = app("12 sdr", "scanner sim decode", scanner.main,
+                  scan_args + ["-n", "64", "--decode"],
+                  ("fir_decimate", "symbol_sync_scan"))
+    print(f"[12 sdr] scanner -r sim --decode (64 channels): {secs * 1e3:.1f} ms "
+          f"wall (median of {sizes.reps}); launches "
+          f"{json.dumps(counts['scanner sim decode'])}; card: {card}")
+    tmp.cleanup()
+    end_phase("12 sdr")
+    return counts, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1416,29 +1977,6 @@ def main() -> int:
     from rustradio_tpu_torch.graph import Graph
     from rustradio_tpu_torch.models import ax25, fm
     from rustradio_tpu_torch.ops import cuda_lib, hdlc, kernels
-
-    @contextlib.contextmanager
-    def plain_versions():
-        """Route every kernel call to its plain PyTorch version on the card
-        (same inputs, same surrounding code); asserts no kernel launched."""
-        before = dict(kernels.LAUNCHES)
-        with mock.patch.object(kernels, "fir_decimate",
-                               kernels.fir_decimate_plain), \
-             mock.patch.object(kernels, "fm_chain_span",
-                               kernels.fm_chain_span_plain), \
-             mock.patch.object(kernels, "quad_demod_fast",
-                               kernels.quad_demod_fast_plain), \
-             mock.patch.object(kernels, "symbol_sync_scan",
-                               kernels.symbol_sync_scan_plain), \
-             mock.patch.object(kernels, "symbol_sync_events_scan",
-                               kernels.symbol_sync_events_scan_plain):
-            yield
-        if kernels.LAUNCHES != before:
-            raise SystemExit("chip_smoke: a plain run launched a kernel")
-
-    def zero_counts():
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
 
     def stage_err(what: str, fn, x: torch.Tensor) -> torch.Tensor:
         """``fn(x)`` on the kernels against ``fn(x)`` on the plain versions
@@ -1474,12 +2012,6 @@ def main() -> int:
             avg = np.ones(w, np.float32) / w
             stage_err(f"{what}: tone moving average {w} taps",
                       lambda a: ops.fir_filter_full(a, avg), audio)
-
-    def require(path: str, counts: dict, names) -> None:
-        for name in names:
-            if counts[name] == 0:
-                failures.append(f"kernel {name} never launched on the "
-                                f"{path} path")
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1839,7 +2371,7 @@ def main() -> int:
     # kernel: one IQ front-end output feeds the stages at 50 kHz
     fm_audio = ax25.iq_front_end(iq_np, FS_IQ, device=dev)
     front_end_errs("IQ capture at 50 kHz", fm_audio, 50_000.0, tones=False)
-    del iq_np, iq_rx, iq_plain_rx, fm_audio
+    del iq_rx, iq_plain_rx, fm_audio  # iq_np comes back in phase 12
     end_phase("6")
 
     # ---- 7. the discriminator op path, counted
@@ -1909,6 +2441,27 @@ def main() -> int:
             b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
                 pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=N_MAIN)))
         del copies
+    # the flat planes that rtl_fm --rtl_u8 gives kernel B (deci 1): the
+    # kernel alone on planes cast once (three copies, past L2), beside the
+    # wrapper with its cast in a stream
+    for precision in ("w3", "i8"):
+        flat = [tuple(kernels.plane_cast(p.roll(k), precision)
+                      for p in (i_main, q_main)) for k in range(3)]
+
+        def span(k=0, flat=flat, precision=precision):
+            a, b = flat[k % len(flat)]
+            kernels.fm_chain_span(a, b, lpr, 1, first=0, count=N_MAIN,
+                                  shift=1 - len(lpr), precision=precision)
+
+        def whole(precision=precision):
+            kernels.fm_chain(i_main, q_main, lpr, 1, precision=precision)
+
+        name = f"fm_chain flat {precision} deci 1 n=2^24"
+        timed(name, N_MAIN, whole, whole)
+        device_row(name, span, bound(
+            2 * N_MAIN * flat[0][0].element_size() + 4 * N_MAIN,
+            2 * 2 * N_MAIN * len(lpr)))
+        del flat
     xgs = [xg] + [xg.clone() for _ in range(3)]
     for taps, deci in [(lpr, 4), (lp1205, 1)]:
         def run(k=0, taps=taps, deci=deci):
@@ -1979,20 +2532,6 @@ def main() -> int:
     from rustradio_tpu_torch import native
     from rustradio_tpu_torch.models import multichannel
     from rustradio_tpu_torch.parallel import channelizer
-
-    @contextlib.contextmanager
-    def capturing(*names):
-        """Record the arguments of every call of the wrappers
-        ``kernels.<name>`` inside the block (the main path's own shapes);
-        the calls still go to the wrappers and count their launches."""
-        got = {name: [] for name in names}
-        with contextlib.ExitStack() as stack:
-            for name in names:
-                real = getattr(kernels, name)
-                stack.enter_context(mock.patch.object(
-                    kernels, name, lambda *a, real=real, calls=got[name]:
-                    calls.append(a) or real(*a)))
-            yield got
 
     def captured(name: str, fn):
         """Run ``fn()`` and return the arguments of its first call of the
@@ -2370,18 +2909,22 @@ def main() -> int:
 
     # ---- 10. the FM family's apps and the streaming Graph, counted
     apps, call_errs = apps_phase(dev, card, i_main, q_main, audio,
-                                 {"native": got, "events": ev_got},
-                                 plain_versions, zero_counts, require,
-                                 capturing)
+                                 {"native": got, "events": ev_got})
     for name, err in call_errs.items():
         errs[name] = max(errs[name], err)
 
     # ---- 11. the G3RUH modem and the burst receivers, counted
-    g3_counts, call_errs = burst_phase(dev, card, plain_versions, zero_counts,
-                                       require, capturing)
+    g3_counts, call_errs = burst_phase(dev, card)
     for name, err in call_errs.items():
         errs[name] = max(errs[name], err)
     apps.update({f"11 {k}": v for k, v in g3_counts.items()})
+
+    # ---- 12. the radio-facing receivers, counted
+    radio_counts, call_errs = radio_phase(dev, card, RadioSizes(),
+                                          audio.cpu().numpy(), iq_np)
+    for name, err in call_errs.items():
+        errs[name] = max(errs[name], err)
+    apps.update({f"12 {k}": v for k, v in radio_counts.items()})
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))
@@ -2428,7 +2971,8 @@ def main() -> int:
               + total("symbol_sync_events"), d_name),
         entry("symbol_sync_scan", "symbol_sync.cu",
               "rustradio_tpu/ops/symbol_sync.py:145",
-              wb_counts["scan"]["symbol_sync_scan"], e_name),
+              wb_counts["scan"]["symbol_sync_scan"] + total("symbol_sync_scan"),
+              e_name),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,13 @@ Usage:
         --demod 37 --out ch37.f32
     python -m rustradio_tpu_torch.apps.scanner -r x.c32 --sample_rate 2.048m \
         -n 64 --decode --sync events
+    python -m rustradio_tpu_torch.apps.scanner -r sim --sample_rate 2.048m
 
-The capture is processed on ``--device`` (default ``cuda``); without a
-card, pass ``--device cpu`` (the kernels' plain versions).
+``-r sim`` reads ``--seconds`` from the loopback ``hw.SimDriver`` (two CW
+tones, 0.2 MHz above and 0.35 MHz below the tuned frequency, unless
+``--sim_tone`` names others).  The samples are processed on ``--device``
+(default ``cuda``); without a card, pass ``--device cpu`` (the kernels'
+plain versions).
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from ..parallel.channelizer import channelizer_taps, pfb_channelize
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("-r", "--read", required=True, help="complex64 IQ capture")
+    p.add_argument("-r", "--read", required=True,
+                   help="complex64 IQ capture, or 'sim' for the loopback driver")
     p.add_argument("--sample_rate", type=parse_frequency, required=True)
     p.add_argument("-n", "--channels", type=int, default=256)
     p.add_argument("--top", type=int, default=10, help="channels to report")
@@ -44,6 +49,12 @@ def main(argv=None) -> int:
                         "per-sample recurrence, 'events' = event-driven "
                         "(~sps-times shorter sequential chain)")
     p.add_argument("-o", "--out", help="write demodulated channel audio (.f32)")
+    p.add_argument("--frequency", type=parse_frequency, default=100_000_000.0,
+                   help="sim mode: tuner center frequency")
+    p.add_argument("--sim_tone", action="append", default=[],
+                   help="sim mode: FREQ:AMP[:AUDIO:DEV] RF tone (repeatable)")
+    p.add_argument("--seconds", type=float, default=0.5,
+                   help="sim mode: capture length")
     add_device_arg(p)
     opt = p.parse_args(argv)
     if opt.demod is not None:
@@ -51,12 +62,18 @@ def main(argv=None) -> int:
             p.error(f"--demod must be in [0, {opt.channels})")
         if not opt.out:
             p.error("--demod requires --out")
-    if opt.read == "sim":
-        p.error("-r sim needs the simulated SDR source (hw/), which is not "
-                "ported yet; read a complex64 capture file")
     device = parse_device(p, opt.device)
 
-    iq = torch.from_numpy(rawfile.read_samples(opt.read, "c32")).to(device)
+    if opt.read == "sim":
+        from ..hw import SdrSource
+        from ..hw.driver import sim_driver
+
+        drv = sim_driver(opt.frequency, opt.sample_rate, opt.sim_tone,
+                         [(opt.frequency + 0.2e6, 0.5),
+                          (opt.frequency - 0.35e6, 0.3)])
+        iq = SdrSource(drv).emit(0, int(opt.seconds * opt.sample_rate), device)
+    else:
+        iq = torch.from_numpy(rawfile.read_samples(opt.read, "c32")).to(device)
 
     if opt.decode:
         from ..models.multichannel import decode_band_ax25

@@ -1,9 +1,19 @@
 """Blocks of the port (port of ``rustradio_tpu/blocks``): the FM receive
-chain, the AX.25 receivers, the G3RUH modem and the burst receivers."""
+chain, the AX.25 and IL2P receivers, the G3RUH modem and the burst
+receivers."""
 
 from .base import Block, SourceBlock
 from .demod import FastFM, QuadratureDemod, Vco
-from .digital import Descrambler, NrziDecode, NrziEncode, Scrambler, SymbolSync
+from .digital import (
+    CorrelateAccessCode,
+    CorrelateAccessCodeTag,
+    Descrambler,
+    NrziDecode,
+    NrziEncode,
+    Scrambler,
+    SymbolSync,
+    ZeroCrossing,
+)
 from .elementwise import (
     AddConst,
     BinarySlicer,
@@ -24,6 +34,7 @@ from .packets import (
     FcsAdder,
     HdlcDeframer,
     HdlcFramer,
+    Il2pDeframer,
     KissDecode,
     KissEncode,
     KissFrame,
@@ -42,6 +53,8 @@ __all__ = [
     "Block",
     "BurstTagger",
     "ComplexToMag2",
+    "CorrelateAccessCode",
+    "CorrelateAccessCodeTag",
     "Delay",
     "Descrambler",
     "DeviceFoldSink",
@@ -55,6 +68,7 @@ __all__ = [
     "HdlcFramer",
     "Head",
     "Hilbert",
+    "Il2pDeframer",
     "IqBalance",
     "KissDecode",
     "KissEncode",
@@ -79,4 +93,5 @@ __all__ = [
     "VectorSource",
     "Vco",
     "Wpcr",
+    "ZeroCrossing",
 ]

@@ -1,6 +1,5 @@
-"""Bit-level digital blocks: NRZI, G3RUH scrambling and clock recovery
-(port of ``NrziDecode``, ``NrziEncode``, ``Descrambler``, ``Scrambler`` and
-``SymbolSync`` from ``rustradio_tpu/blocks/digital.py``).
+"""Bit-level digital blocks: NRZI, G3RUH scrambling, access-code
+correlation and clock recovery (port of ``rustradio_tpu/blocks/digital.py``).
 """
 
 from __future__ import annotations
@@ -9,6 +8,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..ops.correlate import correlate_access_code
 from ..ops.nrzi import nrzi_decode, nrzi_encode
 from ..ops.scramble import descramble, scramble
 from ..ops.symbol_sync import (
@@ -17,6 +17,7 @@ from ..ops.symbol_sync import (
     recover_symbols,
     symbol_sync_events,
 )
+from ..streams import Tag
 from .base import Block
 
 
@@ -167,3 +168,102 @@ class SymbolSync(Block):
             x.detach().cpu().numpy(), self.sps, self.max_deviation,
             np.asarray(self.clock_taps), state=prev)
         return {"sync": new}, torch.from_numpy(vals)
+
+
+class CorrelateAccessCode(Block):
+    """1 on access-code match (reference src/correlate_access_code.rs), on
+    the stream's device.
+
+    Streaming state: the last ``len(code) - 1`` input bits (a uint8
+    tensor), empty at stream start so that the first windows are not full
+    there, as offline.  (The JAX package starts from ``len(code) - 1``
+    zeros, which can match a code that begins with zeros before the window
+    is full; a JAX tail resumed here is taken as it is.)"""
+
+    def __init__(self, code, allowed_diffs: int = 0):
+        self.code = np.asarray(code, np.uint8)
+        if self.code.size == 0:
+            raise ValueError("access code must be nonempty")
+        self.allowed_diffs = allowed_diffs
+
+    def apply(self, x):
+        return correlate_access_code(x, self.code, self.allowed_diffs)
+
+    def init_state(self):
+        return torch.zeros(0, dtype=torch.uint8)
+
+    def apply_chunk(self, state, x):
+        x = x.to(torch.uint8)
+        state = torch.as_tensor(state).to(x.device, torch.uint8)
+        ext = torch.cat([state, x])
+        y = correlate_access_code(ext, self.code, self.allowed_diffs)
+        keep = len(self.code) - 1
+        return ext[max(ext.shape[0] - keep, 0):].clone(), y[state.shape[0]:]
+
+
+class CorrelateAccessCodeTag(CorrelateAccessCode):
+    """Passes the data through and tags each access-code match's position
+    (its last bit) with ``tag`` (reference CorrelateAccessCodeTag).
+
+    Streamed it carries the same tail as :class:`CorrelateAccessCode` and
+    tags each match in the chunk where its last bit arrives, at its
+    position in that chunk, the runner's convention (a sink adds the
+    samples it took before), so a sink sees the offline run's tags.  The
+    JAX package's block inherits the stream form of the correlator, which
+    returns the match stream in place of the data and sets no matches
+    (``AttributeError`` in ``process_tags``, ``rustradio_tpu/blocks/
+    digital.py:157``)."""
+
+    domain = "host"
+
+    def __init__(self, code, tag: str = "sync", allowed_diffs: int = 0):
+        super().__init__(code, allowed_diffs)
+        self.tag = tag
+        self._match = np.zeros(0, np.int64)
+
+    def apply(self, x):
+        self._match = np.flatnonzero(super().apply(x).cpu().numpy())
+        return x
+
+    def apply_chunk(self, state, x):
+        state, y = super().apply_chunk(state, x)
+        self._match = np.flatnonzero(y.cpu().numpy())
+        return state, x
+
+    def process_tags(self, in_tags, out_lens):
+        base = list(in_tags[0]) if in_tags else []
+        base += [Tag(int(pos), self.tag, 0) for pos in self._match]
+        return [sorted(base)]
+
+
+class ZeroCrossing(Block):
+    """Fixed-clock zero-crossing recovery (reference src/zero_crossing.rs)
+    on the native recurrence (``native.zero_crossing_f32``); host-domain,
+    its symbols a CPU tensor.
+
+    Streaming state: ``{"sync": None}`` at stream start, then ``{"sync":
+    {"last_sign": bool, "last_cross": f32, "counter": u32}}``, the JAX
+    package's layout (a JAX state resumes here)."""
+
+    domain = "host"
+
+    def __init__(self, sps: float, max_deviation: float = 0.5):
+        if not sps > 1.0:
+            raise ValueError("sps must be > 1")
+        self.sps = sps
+        self.max_deviation = max_deviation
+
+    def init_state(self):
+        return {"sync": None}
+
+    def _run(self, x, state):
+        vals, new = native.zero_crossing_f32(x.detach().cpu().numpy(), self.sps,
+                                             state=state)
+        return torch.from_numpy(vals), new
+
+    def apply(self, x):
+        return self._run(x, None)[0]
+
+    def apply_chunk(self, state, x):
+        syms, new = self._run(x, state["sync"] if state else None)
+        return {"sync": new}, syms

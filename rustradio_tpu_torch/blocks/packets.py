@@ -1,7 +1,7 @@
 """Packet and PDU blocks (port of ``rustradio_tpu/blocks/packets.py``:
-HDLC framing and deframing, the burst blocks ``BurstTagger`` /
-``StreamToPdu`` / ``PduToStream``, whole-packet clock recovery
-``Midpointer`` / ``Wpcr``, and the KISS framing).  PDU streams flow between
+HDLC framing and deframing, the IL2P header deframer, the burst blocks
+``BurstTagger`` / ``StreamToPdu`` / ``PduToStream``, whole-packet clock
+recovery ``Midpointer`` / ``Wpcr``, and the KISS framing).  PDU streams flow between
 host blocks as lists of :class:`~rustradio_tpu_torch.streams.Pdu`; a PDU
 cut from a device stream keeps its samples on that device.
 """
@@ -14,6 +14,7 @@ import torch
 from ..ops import hdlc
 from ..ops.burst import burst_tagger
 from ..ops.hdlc import HdlcStateMachine
+from ..ops.il2p import HEADER_BITS, SYNC_WORD, il2p_deframe
 from ..ops.wpcr import midpoint_batch, wpcr_batch
 from ..streams import Pdu, Tag
 from .base import Block
@@ -496,3 +497,45 @@ class KissDecode(Block):
                 )
             )
         return out
+
+
+class Il2pDeframer(Block):
+    """IL2P header deframer (reference src/il2p_deframer.rs): consumes a bit
+    stream, emits one empty PDU per parsed header, tagged ``il2p:src``,
+    ``il2p:dst`` and ``il2p:type`` (the reference also delivers only
+    headers).  ``decoded`` and ``headers`` count and keep what it found.
+
+    Streaming state: the last ``len(SYNC_WORD) - 1 + HEADER_BITS`` (143)
+    input bits, a uint8 tensor.  A sync word whose header is not complete
+    at the end of a chunk lies wholly in that tail, so the next chunk finds
+    it; one whose header is complete starts before the tail, so no header
+    is found twice: the streamed output is the offline one.  The JAX
+    package's block keeps no state and loses a header across a seam."""
+
+    domain = "host"
+    _TAIL = len(SYNC_WORD) - 1 + HEADER_BITS
+
+    def __init__(self):
+        self.decoded = 0
+        self.headers = []
+
+    def _emit(self, bits):
+        hdrs = il2p_deframe(bits)
+        self.decoded += len(hdrs)
+        self.headers.extend(hdrs)
+        return [Pdu(np.zeros(0, np.uint8),
+                    [Tag(0, "il2p:src", h.src), Tag(0, "il2p:dst", h.dst),
+                     Tag(0, "il2p:type", h.describe())]) for h in hdrs]
+
+    def apply(self, x):
+        return self._emit(_host_bytes(x))
+
+    def init_state(self):
+        return torch.zeros(0, dtype=torch.uint8)
+
+    def apply_chunk(self, state, x):
+        # None: a JAX package's state (its block carries none)
+        prev = np.zeros(0, np.uint8) if state is None else _host_bytes(state)
+        ext = np.concatenate([prev, _host_bytes(x)])
+        tail = torch.from_numpy(ext[max(len(ext) - self._TAIL, 0):].copy())
+        return tail, self._emit(ext)

@@ -78,13 +78,16 @@ def state_from_jax(states, device="cuda"):
     Walks dicts, lists and tuples (e.g. a checkpoint's ``{node: state}``,
     FirFilter's ``{"buf", "out_off"}``, SymbolSync's ``{"sync": {...}}``,
     the HDLC snapshot, StreamToPdu's ``{"mode", "buf", "tail_left",
-    "tags"}``).  numpy arrays and scalars become tensors on ``device``
+    "tags"}``, ZeroCrossing's ``{"sync": {"last_sign", "last_cross",
+    "counter"}}``).  numpy arrays and scalars become tensors on ``device``
     (the Scrambler's and Descrambler's uint8 registers, Vco's phase,
-    SinglePoleIirFilter's y0, Delay's carried tail, an open burst), except
-    integer scalars (``out_off``, NrziDecode's bit), which become Python
-    ints; the JAX package's stream tags become the port's ``Tag``;
-    host-side leaves — Python ints, floats, bools and strings, such as the
-    HDLC snapshot's ``state``, ``cur`` and ``stats``, BurstTagger's
-    ``last`` or RationalResampler's offsets — stay as they are.
+    SinglePoleIirFilter's y0, Delay's carried tail, an open burst,
+    CorrelateAccessCode's tail of ``len(code) - 1`` bits, ZeroCrossing's
+    ``last_cross``), except integer scalars (``out_off``, NrziDecode's bit,
+    ZeroCrossing's ``counter``), which become Python ints; the JAX
+    package's stream tags become the port's ``Tag``; host-side leaves —
+    Python ints, floats, bools and strings, such as the HDLC snapshot's
+    ``state``, ``cur`` and ``stats``, BurstTagger's ``last`` or
+    RationalResampler's offsets — stay as they are.
     """
     return _to_port(states, target_device(device, "state_from_jax"))

@@ -11,6 +11,7 @@ from .ax25 import (
     bell202_demod,
     bell202_tone_demod,
     g3ruh_modulate,
+    il2p_1200_rx,
     iq_front_end,
     parse_ax25,
 )
@@ -40,6 +41,7 @@ __all__ = [
     "fm_demod_chain_planar",
     "fm_pack_planes",
     "g3ruh_modulate",
+    "il2p_1200_rx",
     "iq_front_end",
     "parse_ax25",
     "recover_symbols_batch",

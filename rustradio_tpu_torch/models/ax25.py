@@ -1,6 +1,6 @@
 """AX.25 receivers: 1200 bd Bell 202 AFSK and 9600 bd G3RUH, with the
-burst receivers on whole-packet clock recovery and the G3RUH transmitter
-(port of ``rustradio_tpu/models/ax25.py``, IL2P aside).
+burst receivers on whole-packet clock recovery, the G3RUH transmitter and
+the IL2P 1200 bd receiver (port of ``rustradio_tpu/models/ax25.py``).
 
 ``ax25_1200_rx`` mirrors the reference's flagship app,
 examples/ax25-1200-rx.rs:229-315:
@@ -27,7 +27,9 @@ receivers ``ax25_1200_wpcr_rx`` and ``ax25_9600_wpcr_rx``
 (examples/ax25-{1200,9600}-wpcr.rs) gate the stream on its power, cut the
 bursts (``ops.stream_to_pdu``) and recover each burst's clock with one
 batched ``ops.wpcr_batch`` on the device.  ``g3ruh_modulate`` is the TX
-half of examples/g3ruh.rs.
+half of examples/g3ruh.rs.  ``il2p_1200_rx`` (examples/il2p-1200-rx.rs)
+takes the IQ front-end and the Bell-202 demod of ``ax25_1200_rx``, the
+native clock recovery, the slicer inverted, and the IL2P header hunt.
 
 Inputs: a tensor stays on its device; a numpy array goes to the ``device``
 the caller names (there is no default device).
@@ -49,6 +51,7 @@ from ..ops import fir, hdlc, hilbert, iir, nrzi, resampler
 from ..ops.burst import burst_tagger, stream_to_pdu
 from ..ops.elementwise import add_const, binary_slicer, complex_to_mag2
 from ..ops.fft_filter import filter_complex, filter_float
+from ..ops.il2p import Il2pHeader, il2p_deframe
 from ..ops.scramble import descramble, scramble
 from ..ops.symbol_sync import compact, recover_symbols, symbol_sync_events
 from ..ops.vco import vco
@@ -308,6 +311,23 @@ def ax25_1200_rx_iq(iq, samp_rate: float, device=None,
     _check_modes(kw.get("demod", "discriminator"), kw.get("sync", "native"))
     audio = iq_front_end(iq, samp_rate, device=device)
     return ax25_1200_rx(audio, 50_000.0, **kw)
+
+
+def il2p_1200_rx(iq, samp_rate: float, symbol_taps=(0.5, 0.5),
+                 symbol_max_deviation: float = 0.5,
+                 device=None) -> list[Il2pHeader]:
+    """IL2P 1200 bd AFSK receiver (reference examples/il2p-1200-rx.rs:57-146):
+    the IQ front-end to 50 kHz (kernel A on the card), the Bell-202 demod
+    (kernel A), native clock recovery on the host, the slicer inverted
+    (examples/il2p-1200-rx.rs:122), then the IL2P sync hunt and header
+    decode.  ``iq`` is a tensor (it stays on its device) or a numpy array
+    with ``device=``.  Returns a list of ``Il2pHeader``."""
+    new_rate = 50_000.0
+    fm = iq_front_end(iq, samp_rate, new_rate, device=device)
+    nrz = bell202_demod(fm, new_rate)
+    syms = recover_symbols(nrz, new_rate / 1200.0, symbol_max_deviation,
+                           symbol_taps)
+    return il2p_deframe(binary_slicer(torch.from_numpy(syms)) ^ 1)
 
 
 def _clock_recovery(nrz: torch.Tensor, sps: float, max_deviation: float,

@@ -11,7 +11,8 @@ are the JAX package's (``rustradio_tpu/native.py``), so ``symbol_sync_f32``
 is bit-identical to the one it calls.
 
 Bound here: ``rr_symbol_sync`` (clock recovery, with its state carried in
-and out) and ``rr_hdlc_*`` (the resumable HDLC deframer).
+and out), ``rr_zero_crossing`` (fixed-clock recovery, likewise) and
+``rr_hdlc_*`` (the resumable HDLC deframer).
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ def _bind(lib):
     p, sz, i, f = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_float
     lib.rr_symbol_sync.restype = sz
     lib.rr_symbol_sync.argtypes = [p, sz, f, f, p, sz, p, p, p]
+    lib.rr_zero_crossing.restype = sz
+    lib.rr_zero_crossing.argtypes = [p, sz, f, p, p]
     lib.rr_hdlc_create.restype = p
     lib.rr_hdlc_create.argtypes = [i] * 4
     lib.rr_hdlc_destroy.argtypes = [p]
@@ -149,6 +152,29 @@ def symbol_sync_f32(x: np.ndarray, sps: float, max_deviation: float,
     """The emitted symbols of :func:`symbol_sync_f32_state` alone, as an f32
     numpy array (from a fresh stream unless ``state`` is given)."""
     return symbol_sync_f32_state(x, sps, max_deviation, clock_taps, state)[0]
+
+
+def zero_crossing_f32(x: np.ndarray, sps: float, state: dict | None = None):
+    """Native fixed-clock zero-crossing recovery (``rr_zero_crossing``) from
+    ``state`` (None: a fresh stream): the exact u32/f32 recurrence of the
+    JAX package's ``ops.zero_crossing_sync`` (reference
+    src/zero_crossing.rs).  Returns ``(symbols, final_state)``: an f32
+    numpy array and a dict with the scan's keys (``last_sign`` bool,
+    ``last_cross`` f32, ``counter`` u32), as ``rustradio_tpu/native.py:
+    350`` returns it, so a stream resumes across the two packages."""
+    lib = load()
+    x = np.ascontiguousarray(x, np.float32)
+    st = np.zeros(3, np.float32)
+    if state is not None:
+        st[0] = 1.0 if bool(state["last_sign"]) else 0.0
+        st[1] = _f32(state["last_cross"])
+        st[2] = np.float32(int(state["counter"]))
+    vals = np.empty(len(x), np.float32)
+    k = lib.rr_zero_crossing(_ptr(x), len(x), ctypes.c_float(np.float32(sps)),
+                             _ptr(st), _ptr(vals))
+    final = dict(last_sign=bool(st[0] != 0.0), last_cross=np.float32(st[1]),
+                 counter=np.uint32(st[2]))
+    return vals[:k].copy(), final
 
 
 class HdlcDeframer:

@@ -2,16 +2,18 @@
 
 Ops run on their inputs' device.  The kernel wrappers (``kernels``) launch
 hand-written CUDA kernels for CUDA tensors and run their plain PyTorch
-versions for CPU tensors.  The host-side ops (``hdlc``, ``symbol_sync``)
-run on numpy arrays and take tensors from any device; the device forms of
-the clock recovery (``symbol_sync``, ``symbol_sync_events``) run on their
-input's device through kernels D and E.  As in the JAX package, the
+versions for CPU tensors.  The host-side ops (``hdlc``, ``il2p``,
+``symbol_sync``) run on numpy arrays and take tensors from any device; the
+device forms of the clock recovery (``symbol_sync``,
+``symbol_sync_events``) run on their input's device through kernels D and
+E.  As in the JAX package, the
 functions ``symbol_sync`` and ``wpcr`` shadow their modules here: import
 those modules by their full path.
 """
 
 from . import kernels
 from .burst import burst_tagger, pdu_average, stream_to_pdu
+from .correlate import correlate_access_code
 from .delay import delay, head, skip
 from .demod import fast_atan2, fast_fm, quadrature_demod
 from .elementwise import (
@@ -48,7 +50,13 @@ from .kernels import (
 from .nrzi import nrzi_decode, nrzi_encode
 from .resampler import rational_resampler, resampler_indices
 from .scramble import descramble, scramble
-from .symbol_sync import compact, recover_symbols, symbol_sync, symbol_sync_events
+from .symbol_sync import (
+    compact,
+    recover_symbols,
+    symbol_sync,
+    symbol_sync_events,
+    zero_crossing_sync,
+)
 from .vco import vco
 from .wpcr import midpoint, midpoint_batch, prewarm_buckets, wpcr, wpcr_batch
 
@@ -73,6 +81,7 @@ __all__ = [
     "complex_to_float",
     "complex_to_mag2",
     "complex_to_real",
+    "correlate_access_code",
     "delay",
     "descramble",
     "fast_atan2",
@@ -119,4 +128,5 @@ __all__ = [
     "wpcr_batch",
     "xor",
     "xor_const",
+    "zero_crossing_sync",
 ]

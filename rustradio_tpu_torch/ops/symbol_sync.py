@@ -16,6 +16,9 @@ src/symbol_sync.rs:115-218), in three forms:
   clocks by an ulp.
 * :func:`recover_symbols`, the native C++ recurrence on the host.
 
+:func:`zero_crossing_sync` is the fixed-clock recovery of
+src/zero_crossing.rs, on the native recurrence.
+
 Both device forms take one stream ``(N,)`` or a bank ``(C, N)``, and
 return ``(values, mask, clocks)`` arrays of the input's shape (``values``
 is the input itself); :func:`compact` gathers the emitted symbols on the
@@ -241,3 +244,40 @@ def recover_symbols(x, sps: float, max_deviation: float = 0.5,
         x = x.detach().cpu().numpy()
     return native.symbol_sync_f32(np.asarray(x, np.float32), sps,
                                   max_deviation, np.asarray(clock_taps))
+
+
+# the largest count of consecutive integers from 1 an f32 holds exactly
+_ZC_SEGMENT = 1 << 24
+
+
+def zero_crossing_sync(x, sps: float, max_deviation: float = 0.5, state=None,
+                       device=None):
+    """Fixed-clock zero-crossing recovery (src/zero_crossing.rs:26-150):
+    emits the sample at sps/2 past each zero crossing, then every sps.
+
+    Runs the native recurrence (``native.zero_crossing_f32``, the exact
+    replication of the JAX package's scan) on the host and returns
+    ``((values, mask), final_state)`` on ``x``'s device, as the JAX op
+    does: ``values`` is ``x`` itself, ``mask`` marks the emitted samples.
+    The recurrence reads only the sign of each sample, so the host feeds it
+    ``±(i + 1)`` in place of sample i (exact in f32 up to 2^24, so longer
+    streams go in segments, the state carried) and reads each emission's
+    position off its magnitude.  ``max_deviation`` is accepted for the
+    reference's signature and unused there too.  ``state`` is the dict of
+    ``native.zero_crossing_f32`` (None: a fresh stream).  A tensor stays on
+    its device; a numpy input needs ``device=``.
+    """
+    if not sps > 1.0:
+        raise ValueError("sps must be > 1")
+    x = _as_bank(x, device)[0].reshape(-1)
+    pos_sign = (x > 0).cpu().numpy()
+    mask = np.zeros(x.shape[0], bool)
+    for lo in range(0, x.shape[0], _ZC_SEGMENT):
+        sign = pos_sign[lo:lo + _ZC_SEGMENT]
+        idx = np.arange(1, len(sign) + 1, dtype=np.float32)
+        vals, state = native.zero_crossing_f32(np.where(sign, idx, -idx), sps,
+                                               state)
+        mask[lo + np.abs(vals).astype(np.int64) - 1] = True
+    if x.shape[0] == 0:
+        state = native.zero_crossing_f32(np.zeros(0, np.float32), sps, state)[1]
+    return (x, torch.from_numpy(mask).to(x.device)), state

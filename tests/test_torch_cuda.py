@@ -813,3 +813,93 @@ def test_torch_cuda_scramble_and_streaming_blocks(cuda_device):
         assert [(t.key, t.val) for t in a.tags if t.key == "sps"] == \
             [(t.key, t.val) for t in b.tags if t.key == "sps"]
         torch.testing.assert_close(a.data.cpu(), b.data, atol=1e-5, rtol=0)
+
+
+def _chip_smoke(monkeypatch):
+    """chip_smoke.py of the repository root (its IL2P frame builder)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", mod)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_torch_cuda_correlator_blocks_and_zero_crossing(cuda_device, monkeypatch):
+    from rustradio_tpu_torch.ops.il2p import SYNC_WORD
+
+    cs = _chip_smoke(monkeypatch)
+    bits, ends, want = cs.il2p_bits(6, 1)
+    x = torch.from_numpy(bits)
+    got = ops.correlate_access_code(x.to(cuda_device), SYNC_WORD, 2)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), ops.correlate_access_code(x, SYNC_WORD, 2))
+    # the tag block and the deframer streamed on the card, headers across
+    # seams: the offline CPU run's tags and headers
+    runs = []
+    for dev, chunk in ((cuda_device, 700), ("cpu", None)):
+        g, tags, pdus = Graph(), blocks.VectorSink(), blocks.PduVectorSink()
+        tagged = g.add(blocks.CorrelateAccessCodeTag(SYNC_WORD),
+                       g.add(blocks.VectorSource(x)))
+        g.add(tags, tagged)
+        dfr = blocks.Il2pDeframer()
+        g.add(pdus, g.add(dfr, tagged))
+        if chunk:
+            g.run_stream(chunk_size=chunk, device=dev)
+        else:
+            g.run(device=dev)
+        runs.append(([t.pos for t in tags.tags() if t.key == "sync"],
+                     [(h.src, h.dst, h.describe()) for h in dfr.headers]))
+    assert runs[0] == runs[1] == (ends, want)
+    # the zero-crossing op: its mask on the card, native's symbols
+    nrz = torch.from_numpy(np.repeat(bits * 2.0 - 1.0, 21).astype(np.float32))
+    (v, m), st = ops.zero_crossing_sync(nrz.to(cuda_device), 20.8333)
+    (_, cm), cst = ops.zero_crossing_sync(nrz, 20.8333)
+    assert m.device.type == "cuda" and torch.equal(m.cpu(), cm) and st == cst
+
+
+def test_torch_cuda_il2p_1200_rx_on_the_card(cuda_device, monkeypatch):
+    cs = _chip_smoke(monkeypatch)
+    bits, _, want = cs.il2p_bits(5, 2)
+    iq = torch.from_numpy(cs.il2p_capture(bits, 2)).to(cuda_device)
+    calls = _hold_calls(monkeypatch, ["fir_decimate"])
+    got = ax25.il2p_1200_rx(iq, 50_000.0)
+    # the channel filter (both planes), the band-pass, the Hilbert, the
+    # low-pass: kernel A, each call held against its plain version
+    assert len(calls["fir_decimate"]) == 4
+    _held_fir(calls["fir_decimate"])
+    assert [(h.src, h.dst, h.describe()) for h in got] == want
+    assert [(h.src, h.dst, h.describe())
+            for h in ax25.il2p_1200_rx(iq.cpu(), 50_000.0)] == want
+
+
+def test_torch_cuda_sdr_apps_default_to_the_card(cuda_device, tmp_path,
+                                                 monkeypatch, capsys):
+    from rustradio_tpu_torch.apps import rtl_fm, scanner, soapy_fm
+    from rustradio_tpu_torch.hw import SdrSource, SimDriver
+    from rustradio_tpu_torch.io import au
+
+    src = SdrSource(SimDriver(1e8, 1.024e6, tones=[(1e8 + 1e4, 0.5)]))
+    assert src.emit(0, 1000, cuda_device).device.type == "cuda"
+    calls = _hold_calls(monkeypatch, ["fir_decimate"])
+    args = ["-r", "sim", "--seconds", "0.25"]
+    assert rtl_fm.main(args + ["--out", str(tmp_path / "g.au")]) == 0  # the card
+    assert calls["fir_decimate"] and calls["fir_decimate"][0][0].is_cuda
+    _held_fir(calls["fir_decimate"])
+    assert rtl_fm.main(args + ["--out", str(tmp_path / "c.au"), "--device",
+                               "cpu"]) == 0
+    got, want = (au.au_read(str(tmp_path / f))[0] for f in ("g.au", "c.au"))
+    # kernel A's 2e-5 of max|y| through the discriminator at gain 2.17 on a
+    # constant envelope, plus two PCM steps
+    np.testing.assert_allclose(got[3:], want[3:], atol=2 * 2e-5 * 2.2 + 2 / 32767,
+                               rtol=0)
+    assert soapy_fm.main(["-d", "sim", "--seconds", "0.25", "-o",
+                          str(tmp_path / "s.au")]) == 0
+    capsys.readouterr()
+    assert scanner.main(["-r", "sim", "--sample_rate", "2.048m", "--top", "2"]) == 0
+    rows = [r.split()[:2] for r in capsys.readouterr().out.splitlines()[1:]]
+    assert rows == [["25", "200.0k"], ["212", "-352.0k"]]

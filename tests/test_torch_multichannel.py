@@ -204,10 +204,13 @@ def test_torch_scanner_decodes(one_station, capsys, sync):
     assert "decoded 1 packets on 1 channels" in cap.err
 
 
-def test_torch_scanner_refuses_sim_and_missing_card(one_station):
+def test_torch_scanner_refuses_sim_and_missing_card(one_station, capsys):
     path, _ = one_station
-    with pytest.raises(SystemExit):
-        scanner.main(["-r", "sim", "--sample_rate", "512k", "--device", "cpu"])
+    # -r sim reads the simulated driver (hw/): its tone 0.2 MHz up is the
+    # strongest channel
+    assert scanner.main(["-r", "sim", "--sample_rate", "512k", "-n", "16",
+                         "--seconds", "0.01", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines()[1].split()[:2] == ["6", "192.0k"]
     if not torch.cuda.is_available():
         # no silent move to the CPU
         with pytest.raises(SystemExit):

@@ -113,6 +113,29 @@ for p in two:
                                   device="cpu"), parts[0]]
 got = [bytes(p) for p in ax25.ax25_9600_wpcr_rx(torch.cat(parts), 50000.0)]
 assert got == two, got
+# the IL2P receiver: one SABM header M0THC-1 -> 2E0QQQ-1 (the header bytes
+# as parse_header reads them, scrambled as il2p_descramble unscrambles),
+# AFSK at 50 kHz on an FM carrier, through il2p_1200_rx and its app
+from rustradio_tpu_torch.ops import il2p
+hdr = [(ord(c) - 0x20) & 63 for c in "2E0QQQ"] + [(ord(c) - 0x20) & 63 for c in "M0THC"] + [0] * 2
+hdr[0] |= 0x80; hdr[1] |= 0x80; hdr[4] |= 0x40; hdr[9] |= 0x40; hdr[12] = 0x11
+raw = np.unpackbits(np.asarray(hdr + [0, 0], np.uint8))
+reg, scr = 0x1F0, []
+for o in raw:
+    i = int(o) ^ (reg & 1); scr.append(i); reg = (reg >> 1) ^ (0x108 * i)
+bits = np.concatenate([np.random.RandomState(0).randint(0, 2, 100), il2p.SYNC_WORD,
+                       scr, np.random.RandomState(1).randint(0, 2, 100)])
+at = np.minimum((np.arange(int(len(bits) * 125 / 3)) * 3 / 125).astype(int), len(bits) - 1)
+a50 = 0.5 * np.sin(np.cumsum(2 * np.pi * np.where(bits[at] == 1, 1200.0, 2200.0) / 50000.0))
+iq = np.exp(1j * np.cumsum(0.3 * a50 * 2 * np.pi * 3500.0 / 50000.0)).astype(np.complex64)
+got = [(h.src, h.dst, h.describe()) for h in ax25.il2p_1200_rx(iq, 50000.0, device="cpu")]
+assert got == [("M0THC-1", "2E0QQQ-1", "SABM")], got
+from rustradio_tpu_torch.apps import il2p_1200_rx
+rawfile.write_samples(os.path.join(d, "il2p.c32"), iq)
+assert il2p_1200_rx.main(["-r", os.path.join(d, "il2p.c32"), "--device", "cpu"]) == 0
+# rtl_fm from the simulated SDR (hw/)
+assert rtl_fm.main(["-r", "sim", "--seconds", "0.01", "--out",
+                    os.path.join(d, "s.au"), "--device", "cpu"]) == 0
 print("ok")
 """
 
@@ -127,7 +150,7 @@ def _run(code: str) -> str:
 
 def test_torch_port_never_imports_jax():
     out = _run(_PROBE).split()
-    assert int(out[0]) >= 60  # every module of the package was imported
+    assert int(out[0]) >= 76  # every module of the package was imported
     for name in ("models.ax25", "native", "ops.fft_filter", "ops.hdlc",
                  "ops.hilbert", "ops.resampler", "ops.symbol_sync",
                  "ops.elementwise", "ops.nrzi", "parallel.channelizer",
@@ -138,7 +161,11 @@ def test_torch_port_never_imports_jax():
                  "ops.scramble", "ops.vco", "ops.delay", "ops.burst",
                  "ops.wpcr", "blocks.rate", "blocks.demod", "blocks.filters",
                  "apps.ax25_9600_rx", "apps.ax25_1200_wpcr",
-                 "apps.ax25_9600_wpcr", "apps.g3ruh", "apps.burst_saver"):
+                 "apps.ax25_9600_wpcr", "apps.g3ruh", "apps.burst_saver",
+                 "ops.correlate", "ops.il2p", "io.sigmf", "hw", "hw.driver",
+                 "hw.source", "hw.sink", "hw.rtl", "hw.soapy", "hw.pipewire",
+                 "apps.ax25_1200_rx", "apps.il2p_1200_rx", "apps.bell202_tx",
+                 "apps.capture", "apps.soapy_fm"):
         assert f"rustradio_tpu_torch.{name}" in out
 
 
