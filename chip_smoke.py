@@ -51,7 +51,19 @@ just after, so that each shows it went through its kernels:
   ``Il2pDeframer``, offline and streamed with headers across chunk seams;
   ``rtl_fm -r sim`` and ``soapy_fm -d sim`` at 2^24 samples and
   ``scanner -r sim`` on the simulated SDR (``hw/``): kernels A, D and E,
-  each held against its plain version on the apps' own calls.
+  each held against its plain version on the apps' own calls;
+* the batched streaming runner (``scan_phase``, phase 13): the FM chain
+  (kernel B) over 64 chunks of 2^20 of an ``rtl_fm_iq`` capture through
+  ``Graph.run_stream`` per chunk and with ``scan_chunks`` 64 and 24, to a
+  ``VectorSink`` and device-resident (``emit_batch`` / ``accept_batch``):
+  each batch one CUDA-graph replay, kernel B once a chunk, the output
+  bit-equal to the per-chunk card run and within kernel B's budget of the
+  plain versions, walls, the device's busy share from ``profile_dir``
+  traces and ``generate_stats()``; ``ax25_1200_rx_graph`` on the corpus
+  with ``scan_chunks=16``, both syncs (kernel A on the segment's outputs,
+  kernel D on its calls); every capturable block class alone over three
+  batches; and the generator apps ``tone``, ``fm_tx`` into ``rtl_fm``,
+  ``spectrum``, ``morse_beacon`` and ``pw_tone`` at full width.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -81,8 +93,9 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phase 12 rehearses on
-the CPU at small sizes (``RadioSizes``; tests/test_torch_chip_smoke.py).
+the last line is {"ok": true, "device": {...}}.  Phases 12 and 13
+rehearse on the CPU at small sizes (``RadioSizes``, ``ScanSizes``;
+tests/test_torch_chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -135,10 +148,10 @@ WB_DEV = 3_000.0          # FM at 3 kHz deviation,
 WB_NOISE = 0.05           # complex noise per component
 WB_FLOOR = 196            # frames of 200 decoded per sync method
 PFB_CH, N_PFB = 256, 1 << 22  # bench.py's channelizer row (bench.py:194-209)
-# the card's peaks (NVIDIA H100 SXM data sheet): device memory, and f32
-# outside the tensor cores
-HBM_BPS = 3.35e12
-F32_FLOPS = 67e12
+# The kernels' bounds divide their work (bytes and f32 operations,
+# kernels.*_work, the count Graph.costs() reads) by the card's peaks from
+# rustradio_tpu_torch/utils/stats.py (NVIDIA data sheets: device memory,
+# and f32 outside the tensor cores).
 # The bound of kernels D and E is the longest chain of operations that each
 # need the one before: the recurrences of csrc/sync_core.cuh read as a
 # dataflow graph, whatever could run beside the chain left out of it.  A
@@ -184,8 +197,9 @@ F32_FLOPS = 67e12
 # lone lane needs to run the samples' tests, which no chain holds.
 #
 # The kernels' operations in their bytes-and-operations bound are all they
-# do, on a chain or not: D_SLOT_WORK a real slot of kernel D; kernel E one
-# a sample, two an emission, E_CROSSING_WORK a crossing.
+# do, on a chain or not: kernels.d_slot_work a real slot of kernel D;
+# kernel E one a sample, two an emission, kernels.e_crossing_work a
+# crossing (kernels.events_work, kernels.scan_work).
 
 
 def d_applied_ops(order: int, steps):
@@ -203,14 +217,6 @@ def e_crossing_ops(order: int) -> tuple[int, int, int]:
     """(operations, divisions, compares) of kernel E's clock-to-clock chain
     at an applied crossing (no reduction step counted)."""
     return 6 + order, 0, 2
-
-
-def d_slot_work(order: int) -> int:
-    return 30 + order
-
-
-def e_crossing_work(order: int) -> int:
-    return 15 + order
 
 
 def chain_cycles(ops, divisions: int, compares: int, cal: dict):
@@ -657,18 +663,18 @@ def host_us(fn, calls: int = 200) -> float:
     return dt / calls * 1e6
 
 
-def bound(nbytes: float, flops: float):
-    """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of the bytes over its memory rate and the f32 operations
-    over its peak."""
-    tb, tf = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+def bound(work):
+    """(ms, "bytes" or "operations"): the least time this card could take
+    for ``work`` (bytes, f32 operations; ``kernels.*_work``), the larger of
+    the bytes over its memory rate and the operations over its peak
+    (``utils.stats``)."""
+    from rustradio_tpu_torch.utils import stats
 
-
-def fir_bound(n: int, ntaps: int, deci: int, rows: int = 1):
-    """Kernel A: n f32 in and ceil(n/deci) out per row, ntaps FMA each."""
-    m = -(-n // deci)
-    return bound(rows * 4 * (n + m), rows * 2 * m * ntaps)
+    peaks = stats.card_peaks(torch.cuda.get_device_name(0))
+    if peaks is None:
+        raise SystemExit(f"chip_smoke: no peaks known for "
+                         f"{torch.cuda.get_device_name(0)} (utils/stats.py)")
+    return stats.bound_ms(*work, *peaks)
 
 
 # ---- phase 10: the FM family's apps and the streaming Graph
@@ -1968,6 +1974,451 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
     return counts, errs
 
 
+# ---- phase 13: the batched streaming runner, the Graph's trace and costs,
+# and the generators
+
+SCAN_TAPS_DECI = 4        # the FM chain's FirFilter decimation (kernel B)
+SCAN_GAIN = 0.5           # its MultiplyConst
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanSizes:
+    """Phase 13's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones."""
+
+    chunk: int = 1 << 20            # the FM chain stream (benches/bench_kernels.py:331-420)
+    chunks: int = 64
+    scans: tuple = (64, 24)         # scan_chunks: one batch, and a remainder
+    reps: int = 5                   # runs of each timed stream (median wall)
+    ax_chunk: int = 1 << 18         # ax25_1200_rx_graph's stream
+    ax_scan: int = 16
+    frames: int = N_FRAMES          # corpus frames of the audio given
+    frame_gate: int = FRAME_GATE
+    block_chunk: int = 1 << 16      # each capturable block alone: 1 + 3 x 4 chunks
+    tone_n: int = 1 << 24           # tone's samples
+    fm_seconds: float = 10.0        # fm_tx's audio
+    app_reps: int = 3               # runs of each generator app (median wall)
+
+
+def capturable_cases(blocks, rng):
+    """Every block class that declares ``graph_capturable``, as
+    (name, block factory, its inputs as numpy arrays of ``n`` samples,
+    outputs): the cases ``scan_phase`` and tests/test_torch_cuda.py run
+    alone over three batches."""
+    lp = np.real(np.asarray(_low_pass_49())).astype(np.float32)
+
+    def f32(n):
+        return [rng.randn(n).astype(np.float32)]
+
+    def c64(n):
+        return [(rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64)]
+
+    def u8(n):
+        return [rng.randint(0, 256, n).astype(np.uint8)]
+
+    return [
+        ("Add", lambda: blocks.Add(), lambda n: f32(n) + f32(n), 1),
+        ("AddConst", lambda: blocks.AddConst(0.25), f32, 1),
+        ("BinarySlicer", lambda: blocks.BinarySlicer(), f32, 1),
+        ("ComplexToFloat", lambda: blocks.ComplexToFloat(), c64, 2),
+        ("ComplexToMag2", lambda: blocks.ComplexToMag2(), c64, 1),
+        ("ComplexToReal", lambda: blocks.ComplexToReal(), c64, 1),
+        ("FastFM", lambda: blocks.FastFM(), c64, 1),
+        ("FftFilter", lambda: blocks.FftFilter(lp.astype(np.complex64)), c64, 1),
+        ("FftFilterFloat", lambda: blocks.FftFilterFloat(lp), f32, 1),
+        ("FftStream", lambda: blocks.FftStream(1024), c64, 1),
+        ("FirFilter", lambda: blocks.FirFilter(lp, deci=4), c64, 1),
+        ("FloatToComplex", lambda: blocks.FloatToComplex(),
+         lambda n: f32(n) + f32(n), 1),
+        ("Hilbert", lambda: blocks.Hilbert(65), f32, 1),
+        ("MultiplyConst", lambda: blocks.MultiplyConst(0.5), c64, 1),
+        ("QuadratureDemod", lambda: blocks.QuadratureDemod(0.7), c64, 1),
+        ("Tee", lambda: blocks.Tee(), f32, 2),
+        ("Vco", lambda: blocks.Vco(0.1), f32, 1),
+        ("Xor", lambda: blocks.Xor(), lambda n: u8(n) + u8(n), 1),
+        ("XorConst", lambda: blocks.XorConst(0x5A), u8, 1),
+    ]
+
+
+def _low_pass_49():
+    from rustradio_tpu_torch import taps as tapgen
+    return tapgen.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0, "hamming")
+
+
+def run_capturable_case(dev, make, inputs, n_out, chunk, scan):
+    """One capturable block alone between vector sources and sinks,
+    streamed on ``dev`` in chunks of ``chunk`` (``scan_chunks=scan``).
+    Returns (each output's samples, the graph)."""
+    from rustradio_tpu_torch import blocks
+    from rustradio_tpu_torch.graph import Graph
+
+    g = Graph()
+    srcs = [g.add(blocks.VectorSource(torch.from_numpy(x).to(dev))) for x in inputs]
+    node = g.add(make(), *srcs)
+    sinks = [g.add(blocks.VectorSink(), node[k]) for k in range(n_out)]
+    g.run_stream(chunk_size=chunk, device=dev, scan_chunks=scan)
+    return [s.block.data() for s in sinks], g
+
+
+def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
+               audio: np.ndarray, want_lists):
+    """Phase 13: ``Graph.run_stream(scan_chunks=)`` at full width on
+    ``dev``.  The FM chain (VectorSource -> FirFilter 49 taps deci 4 ->
+    QuadratureDemod -> MultiplyConst -> sink, the FM pair on kernel B) over
+    ``sizes.chunks`` chunks of ``sizes.chunk`` of an ``rtl_fm_iq`` capture,
+    with a VectorSink and in a device-resident form (``emit_batch`` and
+    ``accept_batch``), per chunk and batched: each batch one replay,
+    kernel B's launches the chunks, the output bit-equal to the per-chunk
+    run and within kernel B's budget of the plain versions, the walls, the
+    device's busy share from ``profile_dir`` traces, ``generate_stats()``;
+    ``ax25_1200_rx_graph`` on the corpus batched, both sync methods, with
+    kernel A held on the segment's outputs and kernel D on its calls; every
+    capturable block class alone over three batches; and the generator
+    apps (``tone``, ``fm_tx`` into ``rtl_fm``, ``spectrum``,
+    ``morse_beacon``, ``pw_tone``).  Returns the launch counts of each path
+    and the largest |error| of each kernel held here."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from rustradio_tpu_torch import blocks
+    from rustradio_tpu_torch.apps import (fm_tx, morse_beacon, pw_tone, rtl_fm,
+                                          spectrum, tone)
+    from rustradio_tpu_torch.blocks.base import Block
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.io import au, rawfile
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import kernels
+    from rustradio_tpu_torch.utils import stats
+    from rustradio_tpu_torch.utils.waterfall import spectrogram
+
+    on_card = dev.type == "cuda"
+    counts = {}
+    errs = {"fm_chain": 0.0, "fir_decimate": 0.0, "symbol_sync_events": 0.0}
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+
+    class BatchSink(Block):
+        """Keeps every chunk on the device; a batch in one call."""
+
+        graph_capturable = False  # a sink
+        n_out = 0
+        domain = "device"
+
+        def __init__(self):
+            self.parts = []
+
+        def apply(self, x):
+            self.parts.append(x)
+            return ()
+
+        def accept_batch(self, stacked):
+            self.parts.append(stacked.reshape(-1))
+
+        def data(self):
+            return torch.cat(self.parts)
+
+    # ---- the FM chain stream
+    n = sizes.chunk * sizes.chunks
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    si, sq, _ = rtl_fm_iq(n, dev, gen)
+    x_dev = torch.complex(si, sq)
+    x_host = x_dev.cpu().numpy()
+    del si, sq
+    lpr = np.real(np.asarray(_low_pass_49())).astype(np.float32)
+
+    def fm_graph(form):
+        g = Graph()
+        sink = blocks.VectorSink() if form == "host" else BatchSink()
+        g.chain(blocks.VectorSource(x_host if form == "host" else x_dev),
+                blocks.FirFilter(lpr, deci=SCAN_TAPS_DECI),
+                blocks.QuadratureDemod(1.0), blocks.MultiplyConst(SCAN_GAIN), sink)
+        return g, sink
+
+    def out_of(sink):
+        return (torch.from_numpy(sink.data()).to(dev) if isinstance(sink, blocks.VectorSink)
+                else sink.data())
+
+    def batches(scan):
+        """The batch sizes the runner takes after the first chunk."""
+        left, out = sizes.chunks - 1, []
+        while scan and left >= 2:
+            out.append(min(scan, left))
+            left -= out[-1]
+        return out
+
+    ref = None
+    for form in ("host", "device"):
+        for scan in (None,) + tuple(sizes.scans):
+            label = f"fm chain {form} scan_chunks={scan}"
+            g, sink = fm_graph(form)
+            zero_counts()
+            t0 = time.perf_counter()
+            g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan)
+            sync()
+            first_s = time.perf_counter() - t0
+            counts[label] = dict(kernels.LAUNCHES)
+            got = out_of(sink)
+            if ref is None:
+                ref = got
+                with plain_versions():
+                    pg, psink = fm_graph(form)
+                    pg.run_stream(chunk_size=sizes.chunk, device=dev)
+                plain = out_of(psink)
+                errs["fm_chain"] = max(errs["fm_chain"], report(
+                    "13 fm stream", f"{label} vs the plain versions per chunk",
+                    max_err(got, plain), BUDGET["highest"]))
+                del plain, pg, psink
+            equal = got.shape == ref.shape and bool(torch.equal(got, ref))
+            walls = []
+            for _ in range(sizes.reps):
+                sink.__init__()
+                secs, _ = wall(lambda: g.run_stream(chunk_size=sizes.chunk,
+                                                    device=dev, scan_chunks=scan),
+                               reps=1)
+                walls.append(secs)
+            caps = [(e["unit"], e["nb"], e["replays"], e["warm_up"], e["recorded"])
+                    for e in g.capture_log]
+            print(f"[13 fm stream] {label}: {sizes.chunks} chunks of {sizes.chunk}, "
+                  f"bit-equal to the per-chunk card run: {equal}; launches "
+                  f"{json.dumps(counts[label])}; wall {statistics.median(walls) * 1e3:.2f} "
+                  f"ms (median of {sizes.reps}; first run with its captures "
+                  f"{first_s * 1e3:.1f} ms), {n / statistics.median(walls) / 1e6:.1f} "
+                  f"Msps; captured (unit, nb, replays over the {1 + sizes.reps} "
+                  f"runs, warm-up launches, recorded launches): {caps}; card: {card}")
+            if not equal:
+                failures.append(f"{label}: not the per-chunk card run")
+            nbs = batches(scan)
+            if on_card:
+                if counts[label]["fm_chain"] != sizes.chunks:
+                    failures.append(f"{label}: kernel B launched "
+                                    f"{counts[label]['fm_chain']} times for "
+                                    f"{sizes.chunks} chunks")
+                want_caps = sorted({(nb, nbs.count(nb) * (1 + sizes.reps))
+                                    for nb in nbs})
+                if sorted((c[1], c[2]) for c in caps) != want_caps:
+                    failures.append(f"{label}: captures {caps}, want (nb, "
+                                    f"replays) {want_caps}")
+            require(label, counts[label], ("fm_chain",))
+            del g, sink, got
+    # the device's busy share in a traced run of each, and the stats table
+    for scan in (None,) + tuple(sizes.scans):
+        g, sink = fm_graph("device")  # one warm run (and its captures), then
+        g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan)
+        sink.__init__()  # the traced one
+        g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan,
+                     profile_dir=str(d / f"trace_{scan}"))
+        busy, span, n_dev = stats.device_busy_share(g.trace_path)
+        share = (f"device busy {busy * 1e3:.2f} ms of {span * 1e3:.2f} ms "
+                 f"traced, share {busy / max(span, 1e-12):.3f} ({n_dev} device "
+                 f"events)" if n_dev else "the trace held no device events: "
+                 "busy share not measured")
+        print(f"[13 fm stream] traced run, device form, scan_chunks={scan}: "
+              f"{share}; card: {card}")
+        print(f"[13 fm stream] generate_stats() over the warm run and the "
+              f"traced one, scan_chunks={scan} (costs: kernel B's work from "
+              f"its launches and replays, bytes in and out elsewhere; roof% "
+              f"against {stats.device_hbm_gbps(dev)} GB/s):\n{g.generate_stats()}")
+        del g, sink
+    del ref, x_dev, x_host
+    end_phase("13 fm stream")
+
+    # ---- the AX.25 receiver built from blocks, batched
+    audio = torch.as_tensor(audio).to(dev)
+    real_run = Graph.run_stream
+    real_apply = blocks.SymbolSync.apply_chunk
+    inputs = {}
+
+    def keep(label):
+        """SymbolSync's chunk form, keeping each chunk it is given: the
+        front-end segment's outputs."""
+        def apply_chunk(self, state, x):
+            inputs.setdefault(label, []).append(x.clone())
+            return real_apply(self, state, x)
+        return apply_chunk
+
+    def receive(label, scan, sync_method):
+        with mock.patch.object(blocks.SymbolSync, "apply_chunk", keep(label)):
+            return ax25.ax25_1200_rx_graph(
+                audio, FS_AUDIO, chunk_size=sizes.ax_chunk, scan_chunks=scan,
+                sync=sync_method)
+
+    # the plain versions' front-end, once: the segment is the same for both
+    # sync methods (a plain kernel D would loop over every slot in Python)
+    with plain_versions():
+        receive("plain", None, "native")
+    for sync_method, want in want_lists.items():
+        graphs = []
+
+        def run_stream(self, *a, **kw):
+            graphs.append(self)
+            return real_run(self, *a, **kw)
+
+        label = f"ax25 graph {sync_method} scan_chunks={sizes.ax_scan}"
+        zero_counts()
+        with mock.patch.object(Graph, "run_stream", run_stream), \
+                capturing("symbol_sync_events_scan") as calls:
+            t0 = time.perf_counter()
+            out = receive(label, sizes.ax_scan, sync_method)
+            sync()
+            secs = time.perf_counter() - t0
+        counts[label] = dict(kernels.LAUNCHES)
+        got = decoded(out, sizes.frames)
+        caps = [(e["unit"], e["nb"], e["replays"]) for e in graphs[0].capture_log]
+        per_chunk_s, _ = wall(lambda: receive(f"{label} per chunk", None,
+                                              sync_method), reps=1)
+        print(f"[13 ax25 graph] ax25_1200_rx_graph sync={sync_method} chunks of "
+              f"{sizes.ax_chunk}, scan_chunks={sizes.ax_scan}: "
+              f"{len(set(got))}/{sizes.frames} decoded, the per-chunk run's "
+              f"list: {got == want}; {secs * 1e3:.1f} ms wall (first run, with "
+              f"its captures), per chunk {per_chunk_s * 1e3:.1f} ms; captured "
+              f"(unit, nb, replays): {caps}; launches "
+              f"{json.dumps(counts[label])}; card: {card}")
+        if len(set(got)) < sizes.frame_gate or got != want:
+            failures.append(f"{label}: {len(set(got))} frames, or not the "
+                            "per-chunk run's list")
+        if on_card and not caps:
+            failures.append(f"{label}: no segment was captured")
+        # kernel A on the segment's outputs: bit-equal to the per-chunk card
+        # run's, and against the plain versions' at 2e-5 * max|y| a chunk
+        mine, theirs = inputs.pop(label), inputs.pop(f"{label} per chunk")
+        equal = len(mine) == len(theirs) and all(
+            torch.equal(a, b) for a, b in zip(mine, theirs))
+        print(f"[13 ax25 graph] {label}: the front-end segment's outputs on its "
+              f"{len(mine)} chunks bit-equal to the per-chunk card run's: {equal}")
+        if not equal or len(mine) != len(inputs["plain"]):
+            failures.append(f"{label}: the segment's outputs differ from the "
+                            "per-chunk run's, or their count from the plain run's")
+        rel = max((max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(mine, inputs["plain"])), default=0.0)
+        report("13 ax25 graph", f"{label}: kernel A on the front-end segment's "
+               f"outputs (3 launches a chunk) vs the plain versions' run, |error| "
+               f"/ max|y| of a chunk", rel, 2e-5)
+        errs["fir_decimate"] = max(errs["fir_decimate"], max(
+            max_err(a, b) for a, b in zip(mine, inputs["plain"])))
+        if calls["symbol_sync_events_scan"]:
+            errs["symbol_sync_events"] = max(errs["symbol_sync_events"], hold_events_calls(
+                "13 ax25 graph", label, calls["symbol_sync_events_scan"]))
+        require(label, counts[label], ("fir_decimate", "symbol_sync_events")
+                if sync_method == "events" else ("fir_decimate",))
+        del calls, graphs, mine, theirs
+    del inputs
+    end_phase("13 ax25 graph")
+
+    # ---- every capturable block class alone, three batches
+    rng = np.random.RandomState(13)
+    m = sizes.block_chunk * 13
+    for name, make, ins, n_out in capturable_cases(blocks, rng):
+        inputs = ins(m)
+        want, _ = run_capturable_case(dev, make, inputs, n_out, sizes.block_chunk, None)
+        got, g = run_capturable_case(dev, make, inputs, n_out, sizes.block_chunk, 4)
+        caps = [(e["nb"], e["replays"]) for e in g.capture_log]
+        equal = all(a.shape == b.shape and np.array_equal(a, b)
+                    for a, b in zip(got, want))
+        print(f"[13 blocks] {name} alone, 13 chunks of {sizes.block_chunk}, "
+              f"scan_chunks=4: replays {caps}, every output equal to the "
+              f"per-chunk run: {equal}")
+        if not equal or (on_card and caps != [(4, 3)]):
+            failures.append(f"capturable {name}: {caps}, equal {equal}")
+    end_phase("13 blocks")
+
+    # ---- the generators at full width
+    def app(name, main_fn, args, needs=()):
+        """``main_fn(args + --device)`` ``sizes.app_reps`` times; the first
+        run's launches counted.  Returns (median wall s, stdout)."""
+        secs = []
+        for rep in range(sizes.app_reps):
+            zero_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = main_fn(args + ["--device", str(dev)])
+                sync()
+                secs.append(time.perf_counter() - t0)
+            if rc != 0:
+                failures.append(f"app {name}: exit code {rc}")
+            if rep == 0:
+                counts[name] = dict(kernels.LAUNCHES)
+                require(name, counts[name], needs)
+        return statistics.median(secs), out.getvalue()
+
+    def check(what, ok, line):
+        print(f"[13 generators] {what}: {ok}; {line}; card: {card}")
+        if not ok:
+            failures.append(f"13 generators {what}")
+
+    # tone: 2^24 samples against a float64 sine
+    fs_t, f_t, a_t = float(sizes.tone_n), 1_234_567.0, 0.5
+    secs, _ = app("tone", tone.main, ["--freq", str(f_t), "--sample_rate", str(fs_t),
+                                      "--seconds", "1", "--amplitude", str(a_t),
+                                      "--out", str(d / "tone.c32")])
+    y = rawfile.read_samples(str(d / "tone.c32"), "c32")
+    t = np.mod(np.arange(1, sizes.tone_n + 1) * (2 * np.pi * f_t / fs_t), 2 * np.pi)
+    err = float(np.abs(y - a_t * (np.sin(t) - 1j * np.cos(t))).max()) \
+        if len(y) == sizes.tone_n else math.inf
+    report("13 generators", f"tone {sizes.tone_n} samples vs a float64 sine",
+           err, 1e-6)
+    print(f"[13 generators] tone: {len(y)} samples, {secs * 1e3:.1f} ms wall "
+          f"(median of {sizes.app_reps}); card: {card}")
+    del y, t
+    # fm_tx: a 10 s tone as .au -> FM at 240 kHz -> rtl_fm back
+    ar, tone_f, tone_a = 48_000, 1000.0, 0.5
+    k = np.arange(int(sizes.fm_seconds * ar))
+    (d / "tx.au").write_bytes(au.au_encode(
+        (tone_a * np.sin(2 * np.pi * tone_f / ar * k)).astype(np.float32), ar))
+    secs, _ = app("fm_tx", fm_tx.main, ["-r", str(d / "tx.au"), "--out",
+                                        str(d / "tx.c32")])
+    iq = rawfile.read_samples(str(d / "tx.c32"), "c32")
+    rx_s, _ = app("rtl_fm fm_tx", rtl_fm.main, ["-r", str(d / "tx.c32"),
+                                                 "--sample_rate", "240k", "--out",
+                                                 str(d / "rx.au")], ("fir_decimate",))
+    rx = au.au_read(str(d / "rx.au"))[0]
+    amps, resid = tone_fit(rx, float(ar), ((tone_f, tone_a),))
+    check("fm_tx into rtl_fm: the tone back within 1%",
+          len(iq) == len(k) * 5 and abs(amps[0] / tone_a - 1) < 0.01 and resid < 0.01,
+          f"{len(iq)} IQ samples, tone {amps[0]:.5f} (sent {tone_a}), residual "
+          f"{resid:.5f}; fm_tx {secs * 1e3:.1f} ms, rtl_fm {rx_s * 1e3:.1f} ms wall "
+          f"(median of {sizes.app_reps})")
+    del iq, rx
+    # spectrum: the main path's capture peaks at the station's bin
+    cap = torch.complex(i_main, q_main)
+    rawfile.write_samples(str(d / "main.c32"), cap.cpu().numpy())
+    secs, text = app("spectrum", spectrum.main, ["-r", str(d / "main.c32"),
+                                                 "--sample_rate", "1.024m"])
+    db = spectrogram(cap, 1024)
+    mean = (10 ** (db / 10)).mean(0)
+    peak = int(mean.argmax())
+    # the station sits at the centre, its deviation 75 kHz either side
+    half = int(75_000 / FS_RTL * 1024)
+    check("spectrum peaks at the station", abs(peak - 512) <= half and "span:" in text,
+          f"{db.shape[0]} frames of 1024, the mean power's peak at bin {peak} "
+          f"(the station: 512 +- {half}); {secs * 1e3:.1f} ms wall (median of "
+          f"{sizes.app_reps})")
+    del cap, db
+    # morse_beacon: its envelope is its keying
+    secs, _ = app("morse_beacon", morse_beacon.main,
+                  ["--msg", "CQ CQ DE N0CALL", "--out", str(d / "cw.c32")])
+    cw = rawfile.read_samples(str(d / "cw.c32"), "c32")
+    key = np.repeat(blocks.morse_encode_bits("CQ CQ DE N0CALL"), int(48_000 * 1.2 / 20))
+    check("morse_beacon envelope equals its keying bits",
+          len(cw) == len(key) and np.array_equal(np.abs(cw) > 0.5, key == 1),
+          f"{len(cw)} samples; {secs * 1e3:.1f} ms wall (median of {sizes.app_reps})")
+    # pw_tone through run_stream into the file backend
+    secs, _ = app("pw_tone", pw_tone.main, ["--freq", "1k", "--seconds", "2",
+                                            "--volume", "0.3", "--backend", "file",
+                                            "--out", str(d / "pw.f32")])
+    pw = np.fromfile(d / "pw.f32", "<f4")
+    t = np.arange(1, 96_001) * (2 * np.pi * 1000.0 / 48_000.0)
+    err = float(np.abs(pw - 0.3 * np.sin(t)).max()) if len(pw) == 96_000 else math.inf
+    report("13 generators", "pw_tone --backend file vs a float64 sine", err, 1e-6)
+    print(f"[13 generators] pw_tone: {len(pw)} samples, {secs * 1e3:.1f} ms wall "
+          f"(median of {sizes.app_reps}); card: {card}")
+    tmp.cleanup()
+    end_phase("13 generators")
+    return counts, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2247,8 +2698,9 @@ def main() -> int:
         return g.compile_device_loop(N_MAIN, N_CHUNKS, device=dev,
                                      cuda_graph=cuda_graph)
 
-    # the device loop's first call runs the loop once eagerly (its warm-up),
-    # captures it into a CUDA graph and replays it; later calls only replay
+    # the device loop's first call runs the loop once eagerly (its warm-up,
+    # whose launches count apart), captures it into a CUDA graph and
+    # replays it; later calls only replay
     loop = build_graph()
     fold_t = next(iter(loop(0).values()))
     fold = float(fold_t)
@@ -2258,12 +2710,13 @@ def main() -> int:
     replay_launches = kernels.LAUNCHES["fm_chain"] - launches["fm_chain"]
     print(f"[4+5 main path] launches {json.dumps(launches)}; models "
           f"{json.dumps(after_models)}; graph fm_chain launches "
-          f"{graph_launches} for {N_CHUNKS} chunks (warm-up and first replay), "
+          f"{graph_launches} for {N_CHUNKS} chunks (first replay; its warm-up "
+          f"and capture counted apart), "
           f"{replay_launches} for a replay alone")
     require("FM", launches, ("fir_decimate", "fm_chain"))
     if after_models["fir_decimate"] < 1 or after_models["fm_chain"] < 2:
         failures.append("the models path launched fewer kernels than it calls")
-    if graph_launches != 2 * N_CHUNKS or replay_launches != N_CHUNKS:
+    if graph_launches != N_CHUNKS or replay_launches != N_CHUNKS:
         failures.append(f"graph launched fm_chain {graph_launches} then "
                         f"{replay_launches} times")
 
@@ -2434,9 +2887,8 @@ def main() -> int:
 
         name = f"fm_chain packed {precision} n=2^24"
         timed(name, N_MAIN, run, run)
-        device_row(name, run, bound(
-            2 * N_MAIN * pr.element_size() + 4 * (N_MAIN // DECI),
-            2 * 2 * (N_MAIN // DECI) * len(lpr)))
+        device_row(name, run, bound(kernels.fm_chain_work(
+            N_MAIN // DECI, len(lpr), DECI, pr.element_size())))
         if precision == "w3":
             b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
                 pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=N_MAIN)))
@@ -2458,9 +2910,8 @@ def main() -> int:
 
         name = f"fm_chain flat {precision} deci 1 n=2^24"
         timed(name, N_MAIN, whole, whole)
-        device_row(name, span, bound(
-            2 * N_MAIN * flat[0][0].element_size() + 4 * N_MAIN,
-            2 * 2 * N_MAIN * len(lpr)))
+        device_row(name, span, bound(kernels.fm_chain_work(
+            N_MAIN, len(lpr), 1, flat[0][0].element_size())))
         del flat
     xgs = [xg] + [xg.clone() for _ in range(3)]
     for taps, deci in [(lpr, 4), (lp1205, 1)]:
@@ -2474,7 +2925,7 @@ def main() -> int:
         padded = torch.nn.functional.pad(
             xg, (len(taps) - 1, m * deci - N_FIR))[None, None]
         w = kernels.tapset(taps).trev("highest", dev)[None, None]
-        device_row(name, run, fir_bound(N_FIR, len(taps), deci),
+        device_row(name, run, bound(kernels.fir_work(N_FIR, len(taps), deci)),
                    library=lambda padded=padded, w=w, deci=deci:
                    torch.nn.functional.conv1d(padded, w, stride=deci))
     a_host = (host_us(lambda: kernels.fir_decimate(xg, lpr, DECI)),
@@ -2493,7 +2944,8 @@ def main() -> int:
     name = f"graph device loop w3 {N_CHUNKS} x 2^24"
     timed(name, N_CHUNKS * N_MAIN, lambda: loop(0), lambda: plain_loop(0))
     eager_ms = time_one(lambda: eager_loop(0))
-    loop_bound = bound(N_CHUNKS * (2 * N_MAIN * 2 + 4 * (N_MAIN // DECI)), 0.0)
+    loop_bound = bound([N_CHUNKS * w for w in kernels.fm_chain_work(
+        N_MAIN // DECI, len(lpr), DECI, 2)])
     print(f"[8 times] {name}: CUDA-graph replay {rows[name][0]:.4f} ms, eager "
           f"loop {eager_ms:.4f} ms per loop (each with its final "
           f"synchronise); kernel B's bound for the {N_CHUNKS} chunks "
@@ -2501,7 +2953,7 @@ def main() -> int:
     timed("quad_demod n=2^24", N_MAIN, lambda: ops.quad_demod_fast(xc, GAIN_C),
           lambda: kernels.quad_demod_fast_plain(xc, GAIN_C))
     device_row("quad_demod n=2^24", lambda k: ops.quad_demod_fast(xc, GAIN_C),
-               bound(8 * N_MAIN + 4 * (N_MAIN - 1), 0.0))
+               bound(kernels.quad_work(N_MAIN)))
     # the AX.25 decode of the corpus: wall time of the whole call, and of
     # its device front-end alone (synchronised); the rest is the host tail
     # (NRZ copy-back, native symbol sync, slicer, NRZI, HDLC)
@@ -2522,7 +2974,7 @@ def main() -> int:
             ("Hilbert", tapgen.hilbert(65, "hamming")),
             ("low-pass", tapgen.low_pass(FS_AUDIO, 1100.0, 200.0, "hamming"))):
         ms = graph_ms(lambda k, taps=taps: kernels.fir_decimate(audio, taps, 1))
-        b_ms, by = fir_bound(audio.shape[0], len(taps), 1)
+        b_ms, by = bound(kernels.fir_work(audio.shape[0], len(taps), 1))
         parts.append(f"{label} {len(taps)} taps {ms:.4f} ms (bound {b_ms:.4f} "
                      f"ms, {by})")
     print(f"[8 times] the AX.25 front-end's kernel-A launches alone on the "
@@ -2794,25 +3246,26 @@ def main() -> int:
             args, kernels.symbol_sync_events_scan(*args)[1], cal)
         return cycles / cal["sm_hz"] * 1e3, what
 
-    def ops_d(args) -> float:
-        """Kernel D's f32 operations on these arguments: every channel's
-        real slots times the operations of one."""
+    def work_d(args):
+        """Kernel D's work on these arguments: the slots' bytes, and every
+        channel's real slots times the operations of one."""
         events, n, _, _, clock_taps = args[:5]
-        return float(int((events < n).sum()) * d_slot_work(len(clock_taps) - 1))
+        return kernels.events_work(events.numel(), int((events < n).sum()),
+                                   len(clock_taps) - 1)
 
     def chain_e(args):
         """Kernel E's dependent-chain bound on these arguments, (ms, what)."""
         cycles, what = e_chain(args, kernels.symbol_sync_scan(*args)[1], cal)
         return cycles / cal["sm_hz"] * 1e3, what
 
-    def ops_e(args) -> float:
-        """Kernel E's f32 operations: one a sample, two an emission (one a
+    def work_e(args):
+        """Kernel E's work: one operation a sample, two an emission (one a
         symbol), and every sign change as an applied crossing."""
         x, sps, _, clock_taps = args[:4]
         sign = x > 0
-        return float(x.numel() + 2 * x.numel() / sps
-                     + int((sign[:, 1:] != sign[:, :-1]).sum())
-                     * e_crossing_work(len(clock_taps) - 1))
+        return kernels.scan_work(x.numel(), float(sps),
+                                 int((sign[:, 1:] != sign[:, :-1]).sum()),
+                                 len(clock_taps) - 1)
 
     chains = {}  # row -> (ms, what): kernels D and E, beside their bound
 
@@ -2830,8 +3283,8 @@ def main() -> int:
         lambda: kernels.symbol_sync_events_scan_plain(*d_args),
         contextlib.nullcontext, plain_calls=1))
     # events in, both per-slot outputs out; the counted operations
-    device_row(d_name, lambda k: kernels.symbol_sync_events_scan(*d_args), bound(
-        12 * d_args[0].numel(), ops_d(d_args)))
+    device_row(d_name, lambda k: kernels.symbol_sync_events_scan(*d_args),
+               bound(work_d(d_args)))
     chain_line(d_name, dev_ms[d_name], chain_d(d_args))
     op_ms, op_pms = time_pair(
         lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
@@ -2860,8 +3313,8 @@ def main() -> int:
         lambda: kernels.symbol_sync_scan_plain(*p_args),
         contextlib.nullcontext, plain_calls=1))
     # samples in, a mask byte and a clock out; the counted operations
-    device_row(e_name, lambda k: kernels.symbol_sync_scan(*p_args), bound(
-        9 * p_args[0].numel(), ops_e(p_args)))
+    device_row(e_name, lambda k: kernels.symbol_sync_scan(*p_args),
+               bound(work_e(p_args)))
     chain_line(e_name, dev_ms[e_name], chain_e(p_args))
     for name, args in path_args.items():
         is_d = name.startswith("kernel D")
@@ -2925,6 +3378,14 @@ def main() -> int:
     for name, err in call_errs.items():
         errs[name] = max(errs[name], err)
     apps.update({f"12 {k}": v for k, v in radio_counts.items()})
+
+    # ---- 13. the batched streaming runner, the Graph's trace and costs,
+    # and the generators, counted
+    scan_counts, call_errs = scan_phase(dev, card, ScanSizes(), i_main, q_main,
+                                        audio, {"native": got, "events": ev_got})
+    for name, err in call_errs.items():
+        errs[name] = max(errs[name], err)
+    apps.update({f"13 {k}": v for k, v in scan_counts.items()})
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))

@@ -2,7 +2,9 @@
 scanner, the narrow-band FM receiver ``rtl_fm``, the AM receiver
 ``am_decode``, the 9600 bd receivers ``ax25_9600_rx`` and
 ``ax25_9600_wpcr``, the 1200 bd burst receiver ``ax25_1200_wpcr``, the
-G3RUH KISS modem ``g3ruh`` and ``burst_saver``."""
+G3RUH KISS modem ``g3ruh``, ``burst_saver``, the radio-facing receivers,
+and the generators ``tone``, ``fm_tx``, ``morse_beacon``, ``pw_tone`` and
+the spectrum viewer ``spectrum``."""
 
 from __future__ import annotations
 

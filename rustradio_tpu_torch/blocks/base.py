@@ -6,6 +6,13 @@ holding its parameters: a function over whole streams (offline mode) plus
 a chunk form with carried state (streaming mode).  Stream values are
 tensors; a block runs on its inputs' device.  Shard hooks come with the
 multi-device slice.
+
+The batch protocol of ``Graph.run_stream(scan_chunks=)``: a source may
+define ``emit_batch(offset, chunk_size, nb, device)``, which gives a whole
+batch as one stacked ``(nb, chunk)`` tensor, and an ``n_out == 0`` block
+may define ``accept_batch(*stacked)`` to take one (it then owns any
+per-chunk handling; a block with ``accept_tags`` gets the chunks one at a
+time).
 """
 
 from __future__ import annotations
@@ -21,6 +28,16 @@ class Block:
     * ``n_in`` / ``n_out`` — port counts.
     * ``domain`` — "device" (may be fused by the graph's lowering) or "host".
     * ``interp`` / ``deci`` — nominal rate ratio, used for tag rescaling.
+    * ``graph_capturable`` — the JAX package's ``jit_chunk``
+      (``rustradio_tpu/blocks/base.py:79-82``) read for CUDA graphs: True
+      when the chunk form can be recorded once into a CUDA graph and
+      replayed, i.e. it only enqueues device work whose launches depend on
+      nothing but the shapes of its inputs and state: it reads nothing
+      back from the card (``.item()``, ``.cpu()``, ``int()`` of a tensor),
+      runs no numpy on the chunk's data and copies nothing from pageable
+      host memory, and a number in its state is a counter that no output
+      reads.  Every block class sets it (False here); a block whose
+      answer depends on its parameters sets it per instance.
     """
 
     n_in = 1
@@ -28,6 +45,7 @@ class Block:
     domain = "device"
     interp = 1
     deci = 1
+    graph_capturable = False
 
     def name(self) -> str:
         return type(self).__name__

@@ -18,6 +18,8 @@ class QuadratureDemod(Block):
     first chunk every chunk yields len(x) outputs.
     """
 
+    graph_capturable = True
+
     def __init__(self, gain: float = 1.0):
         self.gain = gain
 
@@ -37,6 +39,8 @@ class FastFM(Block):
     """Lyons fast FM (reference src/quadrature_demod.rs:144-165); carries
     the last two samples (zeros at stream start)."""
 
+    graph_capturable = True
+
     def apply(self, x):
         return fast_fm(x)
 
@@ -51,6 +55,8 @@ class FastFM(Block):
 class Vco(Block):
     """FM modulator (reference src/vco.rs); carries its phase (a 0-d f32
     tensor after the first chunk)."""
+
+    graph_capturable = True  # the phase is a 0-d tensor after the first chunk
 
     def __init__(self, k: float):
         self.k = k

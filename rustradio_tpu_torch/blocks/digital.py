@@ -25,6 +25,8 @@ class NrziDecode(Block):
     """NRZI-S decode (reference src/nrzi.rs:37-42); carries the previous
     bit (0 at stream start, a Python int or a 0-d tensor)."""
 
+    graph_capturable = False  # int() of the carried bit reads the card
+
     def apply(self, x):
         return nrzi_decode(x)
 
@@ -43,6 +45,8 @@ class NrziEncode(Block):
     """NRZI-S encode (reference src/nrzi.rs:64-69); carries the current
     line state (0 at stream start, a Python int or a 1-element tensor)."""
 
+    graph_capturable = False  # int() of the carried bit reads the card
+
     def apply(self, x):
         return nrzi_encode(x)
 
@@ -57,6 +61,8 @@ class NrziEncode(Block):
 class Descrambler(Block):
     """Feed-forward LFSR descramble (reference src/descrambler.rs); the
     streaming state is the last length+1 input bits (uint8)."""
+
+    graph_capturable = False  # uploads its block matrices from numpy per call
 
     def __init__(self, mask: int = 0x21, seed: int = 0, length: int = 16):
         # the seed affects only the first length+1 outputs; the reference
@@ -84,6 +90,8 @@ class Descrambler(Block):
 class Scrambler(Block):
     """LFSR scramble (reference src/descrambler.rs:39-45); the streaming
     state is the length+1 register bits (uint8)."""
+
+    graph_capturable = False  # runs the register on the host
 
     def __init__(self, mask: int = 0x21, seed: int = 0, length: int = 16):
         self.mask, self.seed, self.length = mask, seed, length
@@ -123,6 +131,7 @@ class SymbolSync(Block):
       budget, not wrong output.
     """
 
+    graph_capturable = False  # host: native, or events with its budget retry
     domain = "host"
 
     def __init__(self, sps: float, max_deviation: float = 0.5,
@@ -180,6 +189,8 @@ class CorrelateAccessCode(Block):
     zeros, which can match a code that begins with zeros before the window
     is full; a JAX tail resumed here is taken as it is.)"""
 
+    graph_capturable = False  # uploads the code from numpy per call
+
     def __init__(self, code, allowed_diffs: int = 0):
         self.code = np.asarray(code, np.uint8)
         if self.code.size == 0:
@@ -214,6 +225,7 @@ class CorrelateAccessCodeTag(CorrelateAccessCode):
     (``AttributeError`` in ``process_tags``, ``rustradio_tpu/blocks/
     digital.py:157``)."""
 
+    graph_capturable = False  # reads the matches back for its tags
     domain = "host"
 
     def __init__(self, code, tag: str = "sync", allowed_diffs: int = 0):
@@ -245,6 +257,7 @@ class ZeroCrossing(Block):
     {"last_sign": bool, "last_cross": f32, "counter": u32}}``, the JAX
     package's layout (a JAX state resumes here)."""
 
+    graph_capturable = False  # host: native on the host
     domain = "host"
 
     def __init__(self, sps: float, max_deviation: float = 0.5):

@@ -29,7 +29,11 @@ class FirFilter(Block):
     ``precision`` is the kernel-B mode used when the graph lowering fuses
     this filter with a following QuadratureDemod ("w3"/"i8" are exact only
     for 8-bit-sourced wire grids); the unfused path always runs true f32.
+    Capturable into a CUDA graph without ``translate`` (whose rotator phase
+    is computed on the host from the carried output count).
     """
+
+    graph_capturable = True
 
     def __init__(self, taps, deci: int = 1,
                  translate: tuple[float, float] | None = None,
@@ -37,6 +41,7 @@ class FirFilter(Block):
         self.taps = np.asarray(taps)
         self.deci = deci
         self.translate = translate
+        self.graph_capturable = translate is None
         kernels.plane_dtype(precision)
         self.precision = precision
         # real taps: the record the kernels' wrappers derive everything
@@ -83,11 +88,16 @@ class FftFilter(Block):
     """Fast-convolution filter, full-conv alignment (reference
     src/fft_filter.rs:289-354): ``ops.filter_complex``, kernel A for real
     taps up to ``kernels.MAX_TAPS``, overlap-save otherwise.  Streaming
-    state: the last ntaps-1 inputs."""
+    state: the last ntaps-1 inputs.  Capturable into a CUDA graph on kernel
+    A (overlap-save uploads the tap spectrum per call)."""
+
+    graph_capturable = True
 
     def __init__(self, taps, fft_size: int | None = None):
         self.taps = np.asarray(taps)
         self.fft_size = fft_size
+        self.graph_capturable = bool(len(self.taps) <= kernels.MAX_TAPS
+                                     and not np.any(np.imag(self.taps)))
 
     def apply(self, x):
         return filter_complex(x, self.taps, self.fft_size)
@@ -106,11 +116,15 @@ class FftFilter(Block):
 class FftFilterFloat(Block):
     """Float fast-convolution (reference src/fft_filter.rs:357-491):
     ``ops.filter_float``, kernel A up to ``kernels.MAX_TAPS`` taps.
-    Streaming state: the last ntaps-1 inputs."""
+    Streaming state: the last ntaps-1 inputs.  Capturable into a CUDA
+    graph on kernel A (overlap-save uploads the tap spectrum per call)."""
+
+    graph_capturable = True
 
     def __init__(self, taps, fft_size: int | None = None):
         self.taps = np.asarray(taps, np.float32)
         self.fft_size = fft_size
+        self.graph_capturable = len(self.taps) <= kernels.MAX_TAPS
         self._taps = (kernels.tapset(self.taps)
                       if len(self.taps) <= kernels.MAX_TAPS else self.taps)
 
@@ -132,6 +146,8 @@ class Hilbert(Block):
     -> analytic complex64 stream, ``ops.hilbert_transform`` (its FIR on
     kernel A).  Streaming state: the last ntaps inputs, as the reference
     keeps; chunked output is the offline stream."""
+
+    graph_capturable = True
 
     def __init__(self, ntaps: int = 65, window: str = "hamming"):
         if ntaps % 2 != 1:
@@ -162,6 +178,8 @@ class SinglePoleIirFilter(Block):
     ``ops.single_pole_iir``; carries the last output y0 (None at stream
     start)."""
 
+    graph_capturable = False  # uploads its block matrix from numpy per call
+
     def __init__(self, alpha: float):
         if not 0.0 <= alpha <= 1.0:
             raise ValueError("alpha out of range")
@@ -184,6 +202,8 @@ class IqBalance(Block):
     """DC offset removal: out = x - running_mean(x)
     (reference src/iq_balance.rs:50-78: mean = mean*(1-a) + x*a,
     out = x - mean); carries the running mean."""
+
+    graph_capturable = False  # uploads its block matrix from numpy per call
 
     def __init__(self, alpha: float | None = None,
                  sample_rate: float | None = None, tau: float = 0.2):

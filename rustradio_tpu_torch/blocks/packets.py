@@ -1,18 +1,25 @@
 """Packet and PDU blocks (port of ``rustradio_tpu/blocks/packets.py``:
 HDLC framing and deframing, the IL2P header deframer, the burst blocks
 ``BurstTagger`` / ``StreamToPdu`` / ``PduToStream``, whole-packet clock
-recovery ``Midpointer`` / ``Wpcr``, and the KISS framing).  PDU streams flow between
-host blocks as lists of :class:`~rustradio_tpu_torch.streams.Pdu`; a PDU
-cut from a device stream keeps its samples on that device.
+recovery ``Midpointer`` / ``Wpcr``, the KISS framing, the FFT blocks
+``Fft`` / ``FftStream``, ``PduWriter``, ``MorseEncode``, ``Hasher``,
+``ToText`` and ``Canary``).  PDU streams flow between host blocks as lists
+of :class:`~rustradio_tpu_torch.streams.Pdu`; a PDU cut from a device
+stream keeps its samples on that device.
 """
 
 from __future__ import annotations
+
+import hashlib
+import os
+import time
 
 import numpy as np
 import torch
 
 from ..ops import hdlc
 from ..ops.burst import burst_tagger
+from ..ops.fft import fft_pdu, fft_stream
 from ..ops.hdlc import HdlcStateMachine
 from ..ops.il2p import HEADER_BITS, SYNC_WORD, il2p_deframe
 from ..ops.wpcr import midpoint_batch, wpcr_batch
@@ -35,6 +42,7 @@ class HdlcDeframer(Block):
     state machine carries frames across chunk boundaries; its snapshot is
     the streaming (and checkpointed) state."""
 
+    graph_capturable = False  # host: bits read back for the deframer
     domain = "host"
 
     def __init__(self, min_size: int = 10, max_size: int = 1500,
@@ -71,6 +79,7 @@ class HdlcDeframer(Block):
 class HdlcFramer(Block):
     """Packet PDU -> stuffed bit PDU (reference src/hdlc_framer.rs)."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def __init__(self, sync_bytes: int = 20):
@@ -84,6 +93,7 @@ class HdlcFramer(Block):
 class FcsAdder(Block):
     """Append CRC-16 (reference src/hdlc_framer.rs:28-42)."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def apply(self, pdus):
@@ -96,6 +106,7 @@ class BurstTagger(Block):
     compare runs on the trigger's device, the edges' positions come to the
     host as tags; carries the last comparison."""
 
+    graph_capturable = False  # host: the burst edges read back
     n_in = 2
     domain = "host"
 
@@ -147,6 +158,7 @@ class StreamToPdu(Block):
     carried state ``{"mode", "buf", "tail_left", "tags"}``).
     """
 
+    graph_capturable = False  # host: bursts cut at tags
     domain = "host"
 
     UNSYNC, PACKET, TAIL = 0, 1, 2
@@ -303,6 +315,7 @@ class PduToStream(Block):
     """PDU -> stream with start/end tags (reference src/pdu_to_stream.rs),
     on the PDUs' device."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def __init__(self):
@@ -329,6 +342,7 @@ class Midpointer(Block):
     in one batched call per length bucket (``ops.midpoint_batch``), on
     their device; a burst with an empty side is dropped."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def apply(self, pdus):
@@ -346,6 +360,7 @@ class Wpcr(Block):
     Each found burst's symbols carry ``sps`` and ``phase`` tags (and
     ``frequency`` given ``samp_rate``)."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def __init__(self, samp_rate: float | None = None):
@@ -377,6 +392,7 @@ def _samples(data) -> torch.Tensor:
 class KissEncode(Block):
     """Packet PDU -> KISS-framed PDU (reference src/kiss.rs escape())."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def apply(self, pdus):
@@ -409,6 +425,7 @@ class KissFrame(Block):
     followed by :class:`KissDecode`.
     """
 
+    graph_capturable = False  # host: bytes
     domain = "host"
 
     def __init__(self, max_len: int = 10_000):
@@ -451,6 +468,7 @@ class KissFrame(Block):
 class KissDecode(Block):
     """KISS frame -> packet PDU (reference src/kiss.rs unescape())."""
 
+    graph_capturable = False  # host: PDUs
     domain = "host"
 
     def apply(self, pdus):
@@ -512,6 +530,7 @@ class Il2pDeframer(Block):
     is found twice: the streamed output is the offline one.  The JAX
     package's block keeps no state and loses a header across a seam."""
 
+    graph_capturable = False  # host: bits read back
     domain = "host"
     _TAIL = len(SYNC_WORD) - 1 + HEADER_BITS
 
@@ -539,3 +558,183 @@ class Il2pDeframer(Block):
         ext = np.concatenate([prev, _host_bytes(x)])
         tail = torch.from_numpy(ext[max(len(ext) - self._TAIL, 0):].copy())
         return tail, self._emit(ext)
+
+
+class Fft(Block):
+    """FFT per PDU (reference src/fft.rs), on the PDU's device: a tensor
+    PDU stays where it is, a numpy one goes to ``device`` (which it then
+    needs)."""
+
+    graph_capturable = False  # host: PDUs
+    domain = "host"
+
+    def __init__(self, size: int | None = None, window=None, shift: bool = False,
+                 device=None):
+        self.size, self.window, self.shift = size, window, shift
+        self.device = device
+
+    def apply(self, pdus):
+        out = []
+        for p in pdus:
+            if self.size is not None and len(p.data) != self.size:
+                raise ValueError(f"FFT expected {self.size} samples, got {len(p.data)}")
+            out.append(Pdu(fft_pdu(p.data, self.window, self.shift,
+                                   device=None if torch.is_tensor(p.data)
+                                   else self.device), p.tags))
+        return out
+
+
+class FftStream(Block):
+    """Streaming framed FFT (reference src/fft_stream.rs); carries the
+    samples short of a whole frame."""
+
+    graph_capturable = True
+
+    def __init__(self, size: int):
+        if size <= 0:
+            raise ValueError("FFT size must be nonzero")
+        self.size = size
+
+    def apply(self, x):
+        out, _, _ = fft_stream(x, self.size)
+        return out
+
+    def init_state(self):
+        return torch.zeros(0, dtype=torch.complex64)
+
+    def apply_chunk(self, state, x):
+        ext = torch.cat([state.to(x.device), x.to(torch.complex64)])
+        out, _, leftover = fft_stream(ext, self.size)
+        return leftover.clone(), out
+
+
+class PduWriter(Block):
+    """Write each PDU to a file named by receive time
+    (reference src/pdu_writer.rs)."""
+
+    graph_capturable = False  # host: PDUs
+    n_out = 0
+    domain = "host"
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._count = 0
+
+    def apply(self, pdus):
+        for p in pdus:
+            name = f"{time.strftime('%Y-%m-%dT%H:%M:%S')}.{self._count:06d}"
+            with open(os.path.join(self.directory, name), "wb") as f:
+                f.write(_host_bytes(p.data).tobytes())
+            self._count += 1
+        return ()
+
+
+MORSE_TABLE = {
+    **{
+        chr(ord("a") + i): code
+        for i, code in enumerate(
+            [".-", "-...", "-.-.", "-..", ".", "..-.", "--.", "....", "..",
+             ".---", "-.-", ".-..", "--", "-.", "---", ".--.", "--.-", ".-.",
+             "...", "-", "..-", "...-", ".--", "-..-", "-.--", "--.."]
+        )
+    },
+    **{
+        str(d): code
+        for d, code in enumerate(
+            ["-----", ".----", "..---", "...--", "....-", ".....", "-....",
+             "--...", "---..", "----."]
+        )
+    },
+}
+
+
+def morse_encode_bits(msg: str) -> np.ndarray:
+    """String -> on/off keying bits (reference src/morse_encode.rs:32-79)."""
+    out: list[int] = []
+    chars = list(msg)
+    for i, c in enumerate(chars):
+        lc = c.lower()
+        if lc in MORSE_TABLE:
+            for sym in MORSE_TABLE[lc]:
+                out.extend([1, 0] if sym == "." else [1, 1, 1, 0])
+            nxt = chars[i + 1] if i + 1 < len(chars) else None
+            if nxt is not None and nxt != " ":
+                out.extend([0, 0])
+        elif c == " ":
+            out.extend([0, 0, 0, 0, 0, 0])
+    out.extend([0, 0, 0, 0, 0, 0])
+    return np.asarray(out, np.uint8)
+
+
+class MorseEncode(Block):
+    """String PDUs -> on/off keying PDUs (reference src/morse_encode.rs)."""
+
+    graph_capturable = False  # host: PDUs
+    domain = "host"
+
+    def apply(self, pdus):
+        return [Pdu(morse_encode_bits(str(p.data)), p.tags) for p in pdus]
+
+
+class Hasher(Block):
+    """SHA-512 of the whole stream -> ONE PDU at end of stream
+    (reference src/hasher.rs: the digest is pushed on EOF/Drop, :41-49).
+
+    ``apply``/``apply_chunk`` only accumulate; the digest PDU comes from
+    ``flush()`` in the graph's end-of-stream drain."""
+
+    graph_capturable = False  # host: hashes the bytes on the host
+    domain = "host"
+
+    def __init__(self, kind: str = "sha512"):
+        self._h = hashlib.new(kind)
+        self._done = False
+
+    def apply(self, x):
+        self._h.update(_host_bytes(x).tobytes())
+        return []
+
+    def flush(self):
+        if self._done:  # idempotent, like the reference's `done` guard
+            return None
+        self._done = True
+        return [Pdu(np.frombuffer(self._h.digest(), np.uint8))]
+
+    def hexdigest(self) -> str:
+        return self._h.hexdigest()
+
+
+class ToText(Block):
+    """Streams -> text lines, one per sample, the streams' values side by
+    side (reference src/to_text.rs): a host uint8 tensor of the text."""
+
+    graph_capturable = False  # host: formats numbers
+    domain = "host"
+
+    def __init__(self, n_in: int = 1):
+        self.n_in = n_in
+
+    def apply(self, *xs):
+        arrs = [x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+                for x in xs]
+        lines = [" ".join(str(v) for v in row) for row in zip(*arrs)]
+        text = ("\n".join(lines) + "\n") if lines else ""
+        return torch.from_numpy(np.frombuffer(text.encode(), np.uint8).copy())
+
+
+class Canary(Block):
+    """Runs a lambda when the stream ends (reference src/canary.rs): the
+    runners call ``finish()`` at the end of every run."""
+
+    graph_capturable = False  # host: a lambda at the end
+    domain = "host"
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def apply(self, x):
+        return x
+
+    def finish(self):
+        self.fn()

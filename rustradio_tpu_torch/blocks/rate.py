@@ -24,6 +24,8 @@ class RationalResampler(Block):
     package carries them.
     """
 
+    graph_capturable = False  # its host offsets pick the gathered indices
+
     def __init__(self, interp: int, deci: int):
         if interp <= 0 or deci <= 0:
             raise ValueError("RationalResampler interp/deci must be > 0")
@@ -63,6 +65,8 @@ class Delay(Block):
       ``current_delay``/``skip`` arithmetic, src/delay.rs:42-53, 58-105).
       The output length varies per chunk, so this mode is a host block.
     """
+
+    graph_capturable = False  # host counters decide what each chunk emits
 
     def __init__(self, n: int, dynamic: bool = False):
         if n < 0:
@@ -168,6 +172,8 @@ class Delay(Block):
 class Skip(Block):
     """Drop the first n samples (reference src/skip.rs)."""
 
+    graph_capturable = False  # a host counter decides what each chunk drops
+
     def __init__(self, n: int):
         self.n = n
 
@@ -184,6 +190,8 @@ class Skip(Block):
 
 class Head(Block):
     """Pass the first n samples, then nothing (reference src/head.rs)."""
+
+    graph_capturable = False  # a host counter decides what each chunk keeps
 
     def __init__(self, n: int):
         self.n = n

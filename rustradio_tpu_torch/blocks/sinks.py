@@ -1,19 +1,27 @@
-"""Sink blocks (port of ``VectorSink``, ``NullSink``, ``DeviceFoldSink`` and
-``PduVectorSink`` from ``rustradio_tpu/blocks/sinks.py``)."""
+"""Sink blocks (port of ``rustradio_tpu/blocks/sinks.py``: ``VectorSink``,
+``NullSink``, ``DeviceFoldSink``, ``DebugSink``, ``FileSink``,
+``DebugFilter``, ``PduVectorSink`` and ``PduFileSink``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..io import rawfile
 from ..streams import Tag
 from .base import Block
+
+
+def _host(x) -> np.ndarray:
+    """A chunk (a tensor on any device, or numpy) as host numpy."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 class VectorSink(Block):
     """Collects samples (copied to host numpy) + tags; the main test sink
     (reference src/vector_sink.rs:18-58)."""
 
+    graph_capturable = False  # host: copies each chunk to numpy
     n_out = 0
     domain = "host"
 
@@ -38,6 +46,7 @@ class VectorSink(Block):
 
 
 class NullSink(Block):
+    graph_capturable = False  # a sink
     n_out = 0
     domain = "host"
 
@@ -55,6 +64,7 @@ class DeviceFoldSink(Block):
     (``total()``), so a graph using it stays runnable everywhere.
     """
 
+    graph_capturable = False  # a sink (folds inside the device loop)
     n_out = 0
     domain = "host"
 
@@ -87,6 +97,7 @@ class DeviceFoldSink(Block):
 class PduVectorSink(Block):
     """Collects PDUs, the PDU-domain test sink."""
 
+    graph_capturable = False  # host: PDUs
     n_out = 0
     domain = "host"
 
@@ -99,3 +110,84 @@ class PduVectorSink(Block):
 
     def pdus(self):
         return list(self._pdus)
+
+
+def _debug_print(x, limit: int, tag: str) -> None:
+    arr = _host(x)
+    for v in arr[:limit]:
+        print(f"{tag}: {v}")
+    if len(arr) > limit:
+        print(f"{tag}: ... {len(arr) - limit} more")
+
+
+class DebugSink(Block):
+    """Prints samples (reference src/debug_sink.rs)."""
+
+    graph_capturable = False  # host: prints
+    n_out = 0
+    domain = "host"
+
+    def __init__(self, limit: int = 32):
+        self.limit = limit
+
+    def apply(self, x):
+        _debug_print(x, self.limit, "debug")
+        return ()
+
+
+class FileSink(Block):
+    """Raw sample file sink (reference src/file_sink.rs; Mode::{Create,
+    Overwrite,Append} maps to 'xb'/'wb'/'ab')."""
+
+    graph_capturable = False  # host: writes the file
+    n_out = 0
+    domain = "host"
+
+    def __init__(self, path: str, mode: str = "overwrite"):
+        self.path = path
+        self.mode = {"create": "xb", "overwrite": "wb", "append": "ab"}[mode]
+        self._first = True
+
+    def apply(self, x):
+        m = self.mode if self._first else "ab"
+        rawfile.write_samples(self.path, _host(x), mode=m)
+        self._first = False
+        return ()
+
+
+class DebugFilter(Block):
+    """Pass-through that prints samples (reference src/debug_sink.rs
+    DebugFilter): DebugSink in the middle of a chain."""
+
+    graph_capturable = False  # host: prints
+    domain = "host"
+
+    def __init__(self, limit: int = 32, tag: str = "debug"):
+        self.limit = limit
+        self.tag = tag
+
+    def apply(self, x):
+        _debug_print(x, self.limit, self.tag)
+        return x
+
+
+class PduFileSink(Block):
+    """Append every PDU's bytes to one file (reference src/file_sink.rs
+    NoCopyFileSink :207); closed by ``finish()`` at the end of a run."""
+
+    graph_capturable = False  # host: PDUs
+    n_out = 0
+    domain = "host"
+
+    def __init__(self, path: str, mode: str = "overwrite"):
+        modes = {"create": "xb", "overwrite": "wb", "append": "ab"}
+        self._f = open(path, modes[mode])
+
+    def apply(self, pdus):
+        for p in pdus:
+            self._f.write(np.asarray(_host(p.data), np.uint8).tobytes())
+        self._f.flush()
+        return ()
+
+    def finish(self):
+        self._f.close()

@@ -1,14 +1,20 @@
-"""Source blocks (port of ``VectorSource`` and ``PackedIqRingSource`` from
-``rustradio_tpu/blocks/sources.py``).  A source emits on the device its
-caller names; it keeps one copy of its data per device it has emitted on.
+"""Source blocks (port of ``rustradio_tpu/blocks/sources.py``:
+``VectorSource``, ``ConstantSource``, ``SignalSourceComplex``,
+``SignalSourceFloat``, ``NoiseSource``, ``FileSource`` and
+``PackedIqRingSource``).  A source emits on the device its caller names;
+``VectorSource`` keeps one copy of its data per device it has emitted on.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ..io import rawfile
 from ..ops import kernels
+from ..ops.signal import signal_source_c, signal_source_f
 from ..streams import Tag
 from .base import SourceBlock
 
@@ -35,6 +41,8 @@ class VectorSource(SourceBlock):
 
     ``data`` is a numpy array or a tensor (kept on its device, and copied
     to another only when asked to emit there)."""
+
+    graph_capturable = False  # a source: emits outside the graphs
 
     def __init__(self, data, repeat: int = 1, tags: list[Tag] | None = None):
         self._resident: dict[str, torch.Tensor] = {}
@@ -74,6 +82,17 @@ class VectorSource(SourceBlock):
             return data[start : start + n]
         return data[torch.arange(offset, offset + n, device=data.device) % m]
 
+    def emit_batch(self, offset, chunk_size, nb, device):
+        """``nb`` chunks from ``offset`` as one (nb, chunk) tensor: a view
+        of the resident data where the batch lies inside one period."""
+        data = self._on(device)
+        start = offset % len(self.data)
+        if offset + nb * chunk_size > self.total_len():
+            raise ValueError("emit past end of VectorSource")
+        if start + nb * chunk_size <= len(self.data):
+            return data[start : start + nb * chunk_size].view(nb, chunk_size)
+        return self.emit(offset, nb * chunk_size, device).view(nb, chunk_size)
+
     def emit_tags(self, offset, n):
         out = []
         m = len(self.data)
@@ -91,6 +110,124 @@ class VectorSource(SourceBlock):
         return out
 
 
+class ConstantSource(SourceBlock):
+    """Constant generator; unbounded unless ``n`` is given (reference
+    src/constant_source.rs)."""
+
+    graph_capturable = False  # a source: emits outside the graphs
+
+    def __init__(self, value, n: int | None = None):
+        self.value = value
+        self.n = n
+        self._dtype = torch.from_numpy(_canonical(np.full(1, value))).dtype
+
+    def total_len(self):
+        return self.n
+
+    def emit(self, offset, n, device):
+        return torch.full((n,), self.value, dtype=self._dtype, device=device)
+
+
+class SignalSourceComplex(SourceBlock):
+    """Complex sine (reference src/signal_source.rs:21-62), made on the
+    run's device (``ops.signal_source_c``)."""
+
+    graph_capturable = False  # a source: emits outside the graphs
+
+    def __init__(self, samp_rate, freq, amplitude=1.0, n: int | None = None):
+        self.samp_rate, self.freq, self.amplitude, self.n = (
+            samp_rate, freq, amplitude, n)
+
+    def total_len(self):
+        return self.n
+
+    def emit(self, offset, n, device):
+        return signal_source_c(n, self.samp_rate, self.freq, self.amplitude,
+                               offset, device=device)
+
+
+class SignalSourceFloat(SourceBlock):
+    """Real sine, made on the run's device (``ops.signal_source_f``)."""
+
+    graph_capturable = False  # a source: emits outside the graphs
+
+    def __init__(self, samp_rate, freq, amplitude=1.0, n: int | None = None):
+        self.samp_rate, self.freq, self.amplitude, self.n = (
+            samp_rate, freq, amplitude, n)
+
+    def total_len(self):
+        return self.n
+
+    def emit(self, offset, n, device):
+        return signal_source_f(n, self.samp_rate, self.freq, self.amplitude,
+                               offset, device=device)
+
+
+class NoiseSource(SourceBlock):
+    """Gaussian noise (no reference equivalent; handy for tests): the JAX
+    package's numpy stream, ``RandomState(seed + offset % 2^31)`` per
+    emit, bit for bit, then moved to the run's device."""
+
+    graph_capturable = False  # a source: emits outside the graphs
+
+    def __init__(self, scale=1.0, seed=0, n: int | None = None, complex=False):
+        self.scale, self.seed, self.n, self.complex = scale, seed, n, complex
+
+    def total_len(self):
+        return self.n
+
+    def emit(self, offset, n, device):
+        rng = np.random.RandomState(self.seed + offset % (2**31))
+        if self.complex:
+            x = ((rng.randn(n) + 1j * rng.randn(n)) * self.scale).astype(np.complex64)
+        else:
+            x = (rng.randn(n) * self.scale).astype(np.float32)
+        return torch.from_numpy(x).to(device)
+
+
+class FileSource(SourceBlock):
+    """Raw sample file source (reference src/file_source.rs): ``emit``
+    seeks and reads only the requested window, so files larger than RAM
+    stream; ``repeat`` replays the file.  Host domain: the samples are
+    read on the host and moved to the run's device."""
+
+    graph_capturable = False  # a source: reads the file
+    domain = "host"
+
+    def __init__(self, path: str, dtype="c32", repeat: int = 1):
+        self.path, self.dtype, self.repeat = path, dtype, repeat
+        self._dt = rawfile._resolve(dtype).newbyteorder("<")
+        self._f = None
+        self._file_samples = None
+
+    def _open(self):
+        if self._f is None:
+            self._f = open(self.path, "rb")
+            self._file_samples = os.path.getsize(self.path) // self._dt.itemsize
+            if self._file_samples == 0:
+                raise ValueError(f"{self.path}: no complete samples")
+        return self._f
+
+    def total_len(self):
+        self._open()
+        return self._file_samples * self.repeat
+
+    def emit(self, offset, n, device):
+        f = self._open()
+        m = self._file_samples
+        out = np.empty(n, self._dt)
+        got = 0
+        while got < n:
+            pos = (offset + got) % m
+            k = min(n - got, m - pos)
+            f.seek(pos * self._dt.itemsize)
+            buf = f.read(k * self._dt.itemsize)
+            out[got : got + k] = np.frombuffer(buf, dtype=self._dt, count=k)
+            got += k
+        return torch.from_numpy(_canonical(out.astype(out.dtype.newbyteorder("=")))
+                                ).to(device)
+
+
 class PackedIqRingSource(SourceBlock):
     """Zero-copy ingest ring for the lowered FM chain.
 
@@ -106,6 +243,8 @@ class PackedIqRingSource(SourceBlock):
     coincide), chunk % (deci*128*tile_rows) == 0, ring length a multiple
     of the chunk.
     """
+
+    graph_capturable = False  # a source: emits outside the graphs
 
     def __init__(self, i_plane, q_plane, taps, deci: int,
                  precision: str = "w3", tile_rows: int = 1024):

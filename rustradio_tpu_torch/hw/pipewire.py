@@ -26,6 +26,7 @@ def _pw_cat_available() -> bool:
 class PipewireSource(SourceBlock):
     """f32 mono audio capture via a subprocess pipe."""
 
+    graph_capturable = False  # a source: reads the recorder
     domain = "host"
 
     def __init__(self, sample_rate: int, n: int | None = None,
@@ -72,6 +73,7 @@ class PipewireSource(SourceBlock):
 class PipewireSink(Block):
     """f32 mono audio playback via a subprocess pipe."""
 
+    graph_capturable = False  # host: writes to the player
     n_out = 0
     domain = "host"
 

@@ -32,6 +32,7 @@ def _host(x, dtype) -> np.ndarray:
 class SdrSink(Block):
     """Transmit a complex stream through an SdrDriver."""
 
+    graph_capturable = False  # host: writes to the driver
     n_out = 0
     domain = "host"
 
@@ -75,6 +76,7 @@ class AudioSink(Block):
     * ``None`` — auto-detect (first available real backend, else null).
     """
 
+    graph_capturable = False  # host: writes to the player
     n_out = 0
     domain = "host"
 

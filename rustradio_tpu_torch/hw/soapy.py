@@ -175,6 +175,8 @@ def SoapySdrSource(dev, freq: float, samp_rate: float) -> SoapySdrSourceBuilder:
 class SoapySdrSink(SdrSink):
     """TX counterpart (reference src/soapysdr_sink.rs:19)."""
 
+    graph_capturable = False  # host: writes to the driver
+
     def __init__(self, dev, freq: float, samp_rate: float, ogain: float = 0.5):
         dev.set_frequency(freq)
         dev.set_sample_rate(samp_rate)

@@ -80,6 +80,7 @@ class SdrSource(SourceBlock):
     * after a driver overflow: ``<prefix>::overflow`` with the count.
     """
 
+    graph_capturable = False  # a source: reads the driver
     domain = "host"
 
     def __init__(
@@ -194,6 +195,8 @@ class RtlSdrSource(SdrSource):
 
     ``n`` and chunk sizes are in BYTES (2 bytes per complex sample).
     """
+
+    graph_capturable = False  # a source: reads the driver
 
     def __init__(self, driver, n: int | None = None, **kw):
         kw.setdefault("prefix", "RtlSdrSource")

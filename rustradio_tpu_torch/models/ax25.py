@@ -237,6 +237,7 @@ def ax25_1200_rx_graph(
     band: tuple | None = (400.0, 2700.0),
     sync: str = "native",
     device=None,
+    scan_chunks: int | None = None,
 ) -> list[bytes]:
     """The receiver of :func:`ax25_1200_rx` as a BLOCK flowgraph, run by
     the Graph runners: the reference's own structure
@@ -246,8 +247,9 @@ def ax25_1200_rx_graph(
     -> FftFilterFloat low-pass -> AddConst (the dense front-end, one device
     segment: kernel A) -> SymbolSync (``sync``: "native" on the host,
     "events" on kernel D) -> BinarySlicer -> NrziDecode -> HdlcDeframer ->
-    PduVectorSink.  ``chunk_size`` selects ``Graph.run_stream``, else
-    ``Graph.run``.  ``audio`` is a tensor (the graph runs on its device) or
+    PduVectorSink.  ``chunk_size`` selects ``Graph.run_stream`` (batched
+    with ``scan_chunks``: the front-end segment one CUDA-graph replay a
+    batch on the card), else ``Graph.run``.  ``audio`` is a tensor (the graph runs on its device) or
     a numpy array with ``device=``.  An unknown ``sync`` raises.  Returns
     the decoded payloads as bytes.
     """
@@ -278,7 +280,8 @@ def ax25_1200_rx_graph(
     ]
     g.chain(*chain)
     if chunk_size:
-        g.run_stream(chunk_size=chunk_size, device=audio.device)
+        g.run_stream(chunk_size=chunk_size, device=audio.device,
+                     scan_chunks=scan_chunks)
     else:
         g.run(device=audio.device)
     return [bytes(np.asarray(p.data)) for p in sink.pdus()]

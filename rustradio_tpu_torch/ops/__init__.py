@@ -36,6 +36,7 @@ from .fft_filter import (
     filter_complex,
     filter_float,
 )
+from .fft import fft_pdu, fft_stream
 from .fir import fir_filter, fir_filter_full, fir_filter_translating
 from .hdlc import calc_crc, fcs_add, hdlc_deframe, hdlc_frame
 from .hilbert import hilbert_transform
@@ -50,6 +51,7 @@ from .kernels import (
 from .nrzi import nrzi_decode, nrzi_encode
 from .resampler import rational_resampler, resampler_indices
 from .scramble import descramble, scramble
+from .signal import signal_source_c, signal_source_f
 from .symbol_sync import (
     compact,
     recover_symbols,
@@ -90,6 +92,8 @@ __all__ = [
     "fft_filter",
     "fft_filter_decimate",
     "fft_filter_float",
+    "fft_pdu",
+    "fft_stream",
     "filter_complex",
     "filter_float",
     "fir_decimate",
@@ -118,6 +122,8 @@ __all__ = [
     "recover_symbols",
     "resampler_indices",
     "scramble",
+    "signal_source_c",
+    "signal_source_f",
     "single_pole_iir",
     "skip",
     "stream_to_pdu",

@@ -21,8 +21,9 @@ def multiply_const(x, val):
 
 
 def xor_const(x, val):
-    """x ^ val (reference src/xor_const.rs)."""
-    return torch.bitwise_xor(x, torch.tensor(val, dtype=x.dtype, device=x.device))
+    """x ^ val (reference src/xor_const.rs); ``val`` stays a host scalar,
+    so nothing is copied to the device per call."""
+    return torch.bitwise_xor(x, int(val))
 
 
 def add(a, b):

@@ -42,11 +42,13 @@ Routing: a wrapper runs the plain version only because its tensor lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
 falls back.  ``*_plain`` are the plain versions themselves, callable on
 any device (the chip smoke test holds each kernel against them on the
-card).  Every kernel launch adds one to ``LAUNCHES[name]``.  Inside
-``recording()`` (the region a CUDA graph captures, where a wrapper's call
-is recorded and nothing runs) the counts go to a :class:`LaunchRecord`
-instead, and ``replayed(record)`` adds them after each replay of the graph
-(``Graph.compile_device_loop`` on the card).
+card).  Every kernel launch adds one to ``LAUNCHES[name]``, and every
+wrapper call its work (bytes and operations, ``*_work``) to ``WORK``.
+Inside ``recording()`` (the region a CUDA graph captures, where a
+wrapper's call is recorded and nothing runs, and the warm-up before it)
+both go to a :class:`LaunchRecord` instead, and ``replayed(record)`` adds
+them after each replay of the graph (``Graph.compile_device_loop`` and
+``Graph.run_stream(scan_chunks=)`` on the card).
 
 Taps: every wrapper takes an array or a :class:`TapSet`, the record of a
 real tap set with what is derived from it (device copies of the effective
@@ -102,18 +104,40 @@ LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0,
 
 class LaunchRecord(typing.NamedTuple):
     """What the wrappers did inside one ``recording()``: the launches per
-    kernel, and the TapSets of those launches, whose device taps the
-    recorded launches point into and which live as long as the record."""
+    kernel, the TapSets of those launches, whose device taps the recorded
+    launches point into and which live as long as the record, and the
+    launches' work (``{"bytes", "flops"}``, as :data:`WORK` counts it)."""
     counts: dict
     tapsets: list
+    work: dict
 
+
+#: The work of the kernels' calls so far: bytes each call must move and
+#: its f32 operations, from the call's shapes (``*_work`` below).  A
+#: wrapper adds its call's work on both routes (the plain version does the
+#: kernel's work on the CPU); ``LAUNCHES`` counts launches on the card only.
+WORK = {"bytes": 0.0, "flops": 0.0}
 
 _record: LaunchRecord | None = None
 
 
-def _launched(name: str, taps: "TapSet | None" = None) -> None:
+def active_work() -> dict:
+    """The work accumulator that a wrapper's call adds to now: the open
+    ``recording()``'s, else :data:`WORK`."""
+    return WORK if _record is None else _record.work
+
+
+def _worked(work) -> None:
+    acc = active_work()
+    acc["bytes"] += work[0]
+    acc["flops"] += work[1]
+
+
+def _launched(name: str, taps: "TapSet | None" = None, work=(0.0, 0.0)) -> None:
     """Count one launch of kernel ``name``, made with ``taps`` on the
-    device: into ``LAUNCHES``, or into the open ``recording()``."""
+    device, and its ``work`` (bytes, operations): into ``LAUNCHES`` and
+    :data:`WORK`, or into the open ``recording()``."""
+    _worked(work)
     if _record is None:
         LAUNCHES[name] += 1
         return
@@ -124,15 +148,17 @@ def _launched(name: str, taps: "TapSet | None" = None) -> None:
 
 @contextlib.contextmanager
 def recording():
-    """Around the region that a CUDA graph captures.  A wrapper's call
-    there records its launch into the graph and runs nothing, so it counts
-    into the yielded :class:`LaunchRecord` and not into ``LAUNCHES``; hold
-    the record with the graph and call ``replayed(record)`` after each
-    replay."""
+    """Counts apart.  Around the region that a CUDA graph captures, a
+    wrapper's call records its launch into the graph and runs nothing, so
+    it counts into the yielded :class:`LaunchRecord` and not into
+    ``LAUNCHES``; hold the record with the graph and call
+    ``replayed(record)`` after each replay.  Around a capture's warm-up the
+    launches run, but they belong to the capture, not to the stream, and
+    are counted apart the same way."""
     global _record
     if _record is not None:
         raise RuntimeError("kernels.recording() does not nest")
-    record = _record = LaunchRecord({}, [])
+    record = _record = LaunchRecord({}, [], {"bytes": 0.0, "flops": 0.0})
     try:
         yield record
     finally:
@@ -140,9 +166,63 @@ def recording():
 
 
 def replayed(record: LaunchRecord) -> None:
-    """Add the launches of one replay of ``record``'s graph to ``LAUNCHES``."""
+    """Add the launches and the work of one replay of ``record``'s graph to
+    ``LAUNCHES`` and :data:`WORK`."""
     for name, count in record.counts.items():
         LAUNCHES[name] += count
+    WORK["bytes"] += record.work["bytes"]
+    WORK["flops"] += record.work["flops"]
+
+
+# ---------------------------------------------------------- work counts
+# One count of each kernel's work, read by Graph.costs() (through the
+# wrappers, per call) and by chip_smoke.py's bounds (at its own shapes and
+# with its data's counts): (bytes, f32 operations).  Each input is read once
+# and each output written once; the taps are left out.
+
+def fir_work(n: int, ntaps: int, deci: int, rows: int = 1):
+    """Kernel A: n f32 in and ceil(n/deci) out per row, ntaps FMA each."""
+    m = -(-n // deci)
+    return float(rows * 4 * (n + m)), float(rows * 2 * m * ntaps)
+
+
+def fm_chain_work(count: int, ntaps: int, deci: int, plane_bytes: int):
+    """Kernel B: count * deci samples of each of two planes in (at
+    ``plane_bytes`` a sample), count f32 out, ntaps FMA per plane and
+    output."""
+    return (float(2 * count * deci * plane_bytes + 4 * count),
+            float(2 * 2 * count * ntaps))
+
+
+def quad_work(n: int):
+    """Kernel C: n complex64 in, n - 1 f32 out (its operations are not
+    counted: the bytes bound it)."""
+    return float(8 * n + 4 * max(n - 1, 0)), 0.0
+
+
+def d_slot_work(order: int) -> int:
+    """Kernel D's f32 operations at one real slot (a crossing), clock
+    filter of ``order`` + 1 taps."""
+    return 30 + order
+
+
+def e_crossing_work(order: int) -> int:
+    """Kernel E's f32 operations at one crossing."""
+    return 15 + order
+
+
+def events_work(slots: int, real_slots: int, order: int):
+    """Kernel D: the slots' int32 positions in, the mid offset and the
+    clock of each slot out; ``real_slots`` of them hold a crossing."""
+    return float(12 * slots), float(real_slots * d_slot_work(order))
+
+
+def scan_work(samples: int, sps: float, crossings: int, order: int):
+    """Kernel E: f32 samples in, a mask byte and a clock out; one
+    operation a sample, two an emission (one a symbol), and
+    ``e_crossing_work`` a crossing."""
+    return (float(9 * samples),
+            float(samples + 2 * samples / sps + crossings * e_crossing_work(order)))
 
 
 PRECISIONS = ("highest", "split3", "w3", "w2", "i8")
@@ -436,10 +516,12 @@ def _fir_planes(x: torch.Tensor, taps: TapSet, deci: int):
     ``x`` (rows, n) -> (rows, m): one kernel A launch on CUDA tensors, the
     plain version on CPU ones."""
     _check_fir(x, taps, deci)
-    if not _route(x):
-        return _fir_planes_plain(x, taps, deci)
     n = x.shape[-1]
     rows = x.shape[0] if x.dim() == 2 else 1
+    work = fir_work(n, len(taps), deci, rows)
+    if not _route(x):
+        _worked(work)
+        return _fir_planes_plain(x, taps, deci)
     m = -(-n // deci)
     y = torch.empty((*x.shape[:-1], m), dtype=torch.float32, device=x.device)
     if m == 0 or rows == 0:
@@ -449,7 +531,7 @@ def _fir_planes(x: torch.Tensor, taps: TapSet, deci: int):
     cuda_lib.check(lib.rr_fir_decimate(
         x.data_ptr(), rows, n, trev.data_ptr(), len(taps), deci, y.data_ptr(),
         m, _stream(x.device)), "fir_decimate")
-    _launched("fir_decimate", taps)
+    _launched("fir_decimate", taps, work)
     return y
 
 
@@ -572,7 +654,9 @@ def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
     """
     taps = tapset(taps)
     _check_span(xr, xi, taps, deci, count, precision)
+    work = fm_chain_work(count, len(taps), deci, xr.element_size())
     if not _route(xr):
+        _worked(work)
         return fm_chain_span_plain(xr, xi, taps, deci, gain, first=first,
                                    count=count, shift=shift,
                                    precision=precision, offset=offset,
@@ -597,7 +681,7 @@ def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
         len(taps), deci, first, count, scale, dc, float(gain),
         None if seed is None else seed.data_ptr(),
         out.data_ptr(), last.data_ptr(), _stream(dev)), "fm_chain")
-    _launched("fm_chain", taps)
+    _launched("fm_chain", taps, work)
     return out, last
 
 
@@ -683,9 +767,10 @@ def quad_demod_fast(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     ``pallas_quad_demod``).  Kernel C on CUDA tensors; the plain version
     on CPU tensors."""
     _check_quad(x)
-    if not _route(x):
-        return quad_demod_fast_plain(x, gain)
     n = x.shape[0]
+    if not _route(x):
+        _worked(quad_work(n))
+        return quad_demod_fast_plain(x, gain)
     out = torch.empty(max(n - 1, 0), dtype=torch.float32, device=x.device)
     if n < 2:
         return out
@@ -696,7 +781,7 @@ def quad_demod_fast(x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
     cuda_lib.check(lib.rr_quad_demod(planes.data_ptr(), n, float(gain),
                                      out.data_ptr(), _stream(x.device)),
                    "quad_demod")
-    _launched("quad_demod")
+    _launched("quad_demod", None, quad_work(n))
     return out
 
 
@@ -849,7 +934,10 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
     tensors."""
     k = sync_consts(sps, max_deviation, clock_taps)
     _check_sync(x, torch.float32, state, 5 + k.nf, "symbol_sync_scan")
+    # from the shapes: the most the call could need, every sample a crossing
+    work = scan_work(x.numel(), k.sps, x.numel(), len(k.taps) - 1)
     if not _route(x):
+        _worked(work)
         return symbol_sync_scan_plain(x, sps, max_deviation, clock_taps, state)
     c, n = x.shape
     mask = torch.empty((c, n), dtype=torch.bool, device=x.device)
@@ -864,7 +952,7 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
         taps.ctypes.data, len(taps), out.data_ptr(), out.shape[1],
         mask.data_ptr(), clocks.data_ptr(), _stream(x.device)),
         "symbol_sync_scan")
-    _launched("symbol_sync_scan")
+    _launched("symbol_sync_scan", None, work)
     return mask, clocks, out
 
 
@@ -960,7 +1048,10 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
     on CPU tensors."""
     k = sync_consts(sps, max_deviation, clock_taps)
     _check_events(events, n, fstate, istate, k, counts)
+    # from the shapes: the most the call could need, every slot real
+    work = events_work(events.numel(), events.numel(), len(k.taps) - 1)
     if not _route(events):
+        _worked(work)
         return symbol_sync_events_scan_plain(events, n, sps, max_deviation,
                                              clock_taps, fstate, istate, counts)
     c, n_ev = events.shape
@@ -977,5 +1068,5 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
         taps.ctypes.data, len(taps), fout.data_ptr(), fout.shape[1],
         iout.data_ptr(), ev_mid.data_ptr(), ev_clock.data_ptr(),
         _stream(events.device)), "symbol_sync_events")
-    _launched("symbol_sync_events")
+    _launched("symbol_sync_events", None, work)
     return ev_mid, ev_clock, fout, iout

@@ -1,5 +1,6 @@
 """Utilities (port of ``rustradio_tpu/utils``): checkpoint/resume of the
-streaming runner."""
+streaming runner, throughput and roofline accounting (``stats``), and
+the spectrogram and its ASCII waterfall (``waterfall``)."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
 

@@ -903,3 +903,51 @@ def test_torch_cuda_sdr_apps_default_to_the_card(cuda_device, tmp_path,
     assert scanner.main(["-r", "sim", "--sample_rate", "2.048m", "--top", "2"]) == 0
     rows = [r.split()[:2] for r in capsys.readouterr().out.splitlines()[1:]]
     assert rows == [["25", "200.0k"], ["212", "-352.0k"]]
+
+
+def test_torch_cuda_capturable_blocks_replay_their_chunks(cuda_device, monkeypatch):
+    # every capturable block class alone (chip_smoke.py's cases, the ones
+    # its phase 13 runs) over three batches of four chunks (13 chunks: the
+    # first alone): one capture, three replays, each output equal to the
+    # block's eager per-chunk output
+    cs = _chip_smoke(monkeypatch)
+    cases = cs.capturable_cases(blocks, np.random.RandomState(31))
+    assert len(cases) == 19
+    for case, make, ins, n_out in cases:
+        inputs = ins(13 * 4096)
+        want, _ = cs.run_capturable_case(cuda_device, make, inputs, n_out, 4096, None)
+        got, g = cs.run_capturable_case(cuda_device, make, inputs, n_out, 4096, 4)
+        assert [(e["nb"], e["replays"]) for e in g.capture_log] == [(4, 3)], case
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and np.array_equal(a, b), case
+
+
+@pytest.mark.parametrize("scan", [4, 5])
+def test_torch_cuda_batched_fm_chain_equals_per_chunk(cuda_device, tmp_path, scan):
+    # the FM chain batched: each batch one replay, kernel B launched once a
+    # chunk (the captures' warm-ups and recordings apart), the output bit
+    # for bit the per-chunk run's; a run paused at a checkpoint and resumed
+    # (the resumed states copied into the capture's) gives it too
+    rng = np.random.RandomState(32)
+    a, b = _fm_iq(rng, 4096 * 14 + 100, cuda_device)
+    x = torch.complex(a, b)
+
+    def run(scan, **kw):
+        g, sink = Graph(), blocks.VectorSink()
+        g.chain(blocks.VectorSource(x), blocks.FirFilter(_lp49(), deci=4),
+                blocks.QuadratureDemod(1.0), blocks.MultiplyConst(0.5), sink)
+        before = kernels.LAUNCHES["fm_chain"]
+        g.run_stream(chunk_size=4096, device=cuda_device, scan_chunks=scan, **kw)
+        return sink.data(), g, kernels.LAUNCHES["fm_chain"] - before
+
+    want, _, n_want = run(None)
+    got, g, n_got = run(scan)
+    assert n_want == n_got == 15 and np.array_equal(got, want)
+    # 14 full chunks: the first alone, then 4 + 4 + 4 and one alone, or
+    # 5 + 5 + 3; the ragged tail alone
+    caps = {(e["nb"], e["replays"]) for e in g.capture_log}
+    assert caps == ({(4, 3)} if scan == 4 else {(5, 2), (3, 1)})
+    ck = str(tmp_path / "c.ckpt")
+    head, _, _ = run(scan, max_chunks=6, checkpoint_path=ck, checkpoint_every=3)
+    tail, _, _ = run(scan, resume_from=ck)
+    assert np.array_equal(np.concatenate([head, tail]), want)

@@ -136,6 +136,22 @@ assert il2p_1200_rx.main(["-r", os.path.join(d, "il2p.c32"), "--device", "cpu"])
 # rtl_fm from the simulated SDR (hw/)
 assert rtl_fm.main(["-r", "sim", "--seconds", "0.01", "--out",
                     os.path.join(d, "s.au"), "--device", "cpu"]) == 0
+# the batched streaming runner with its trace, and the generator and
+# spectrum apps
+g = Graph()
+s = blocks.VectorSink()
+g.chain(blocks.SignalSourceComplex(48000.0, 1000.0, 0.5, n=1 << 14),
+        blocks.FirFilter(np.ones(9, np.float32) / 9, deci=4),
+        blocks.QuadratureDemod(1.0), blocks.MultiplyConst(0.5), s)
+g.run_stream(chunk_size=1024, scan_chunks=4, device="cpu",
+             profile_dir=os.path.join(d, "trace"))
+assert len(s.data()) == (1 << 12) - 3 and "GFLOP" in g.generate_stats()
+assert "rr::segment:" in open(g.trace_path).read()
+from rustradio_tpu_torch.apps import spectrum, tone
+assert tone.main(["--out", os.path.join(d, "t.c32"), "--seconds", "0.1",
+                  "--device", "cpu"]) == 0
+assert spectrum.main(["-r", os.path.join(d, "t.c32"), "--sample_rate", "48k",
+                      "--fft_size", "256", "--device", "cpu"]) == 0
 print("ok")
 """
 
@@ -150,7 +166,7 @@ def _run(code: str) -> str:
 
 def test_torch_port_never_imports_jax():
     out = _run(_PROBE).split()
-    assert int(out[0]) >= 76  # every module of the package was imported
+    assert int(out[0]) >= 85  # every module of the package was imported
     for name in ("models.ax25", "native", "ops.fft_filter", "ops.hdlc",
                  "ops.hilbert", "ops.resampler", "ops.symbol_sync",
                  "ops.elementwise", "ops.nrzi", "parallel.channelizer",
@@ -165,7 +181,9 @@ def test_torch_port_never_imports_jax():
                  "ops.correlate", "ops.il2p", "io.sigmf", "hw", "hw.driver",
                  "hw.source", "hw.sink", "hw.rtl", "hw.soapy", "hw.pipewire",
                  "apps.ax25_1200_rx", "apps.il2p_1200_rx", "apps.bell202_tx",
-                 "apps.capture", "apps.soapy_fm"):
+                 "apps.capture", "apps.soapy_fm", "ops.signal", "ops.fft",
+                 "utils.stats", "utils.waterfall", "apps.tone", "apps.fm_tx",
+                 "apps.morse_beacon", "apps.spectrum", "apps.pw_tone"):
         assert f"rustradio_tpu_torch.{name}" in out
 
 
