@@ -2,7 +2,7 @@
 """Smoke test of rustradio_tpu_torch on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from this checkout, holds each kernel
-against its plain PyTorch version on the card, and drives three paths at
+against its plain PyTorch version on the card, and drives its paths at
 full width, each with the launch counts set to 0 just before it and read
 just after, so that each shows it went through its kernels:
 
@@ -63,7 +63,24 @@ just after, so that each shows it went through its kernels:
   with ``scan_chunks=16``, both syncs (kernel A on the segment's outputs,
   kernel D on its calls); every capturable block class alone over three
   batches; and the generator apps ``tone``, ``fm_tx`` into ``rtl_fm``,
-  ``spectrum``, ``morse_beacon`` and ``pw_tone`` at full width.
+  ``spectrum``, ``morse_beacon`` and ``pw_tone`` at full width;
+* the recurrences and the live feeds (``live_phase``, phase 14): kernel F
+  (``ops.cma_equalize`` and the ``CmaEqualizer`` block streamed in chunks
+  of 2^18) on 2^22 samples of the main path's station at unit modulus
+  through a pre-echo channel, kernel G (``ops.iir_filter`` at orders 2 and
+  8) on 2^24 samples of noise, each bit-equal to its plain version on its
+  first and last 2^14 outputs (the last from the kernel's own state
+  there), the equalizer's output bit-equal streamed and in one call, its
+  modulus dispersion at most half the input's, the IIR outputs within
+  1e-5 of a float64 model; ``rtl_data_stream`` on 2^24 samples of an FM
+  station at 250 kHz (``downsample_u8`` with kernel A held on its calls
+  and within one LSB of the plain versions' bytes, the app's stdin/stdout
+  protocol in a process of its own, 4 concurrent TCP clients);
+  ``DeviceFeeder`` on a 512 MiB c32 and a 128 MiB u8iq file (every chunk
+  exact, the host-to-card rate beside one pinned copy); and
+  ``ui_server``'s ``SpectrumFeed`` and ``UiServer`` on the main capture
+  (rows within 0.1 dB of a float64 spectrogram, the peak at the station,
+  one HTTP and one websocket fetch).
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -93,9 +110,9 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 12 and 13
-rehearse on the CPU at small sizes (``RadioSizes``, ``ScanSizes``;
-tests/test_torch_chip_smoke.py).
+the last line is {"ok": true, "device": {...}}.  Phases 12, 13 and 14
+rehearse on the CPU at small sizes (``RadioSizes``, ``ScanSizes``,
+``LiveSizes``; tests/test_torch_chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -109,6 +126,8 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.request
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -373,7 +392,9 @@ def plain_versions():
          mock.patch.object(kernels, "symbol_sync_scan",
                            kernels.symbol_sync_scan_plain), \
          mock.patch.object(kernels, "symbol_sync_events_scan",
-                           kernels.symbol_sync_events_scan_plain):
+                           kernels.symbol_sync_events_scan_plain), \
+         mock.patch.object(kernels, "cma_scan", kernels.cma_scan_plain), \
+         mock.patch.object(kernels, "iir_scan", kernels.iir_scan_plain):
         yield
     if kernels.LAUNCHES != before:
         raise SystemExit("chip_smoke: a plain run launched a kernel")
@@ -2033,6 +2054,8 @@ def capturable_cases(blocks, rng):
         ("Hilbert", lambda: blocks.Hilbert(65), f32, 1),
         ("MultiplyConst", lambda: blocks.MultiplyConst(0.5), c64, 1),
         ("QuadratureDemod", lambda: blocks.QuadratureDemod(0.7), c64, 1),
+        ("RtlSdrDecode", lambda: blocks.RtlSdrDecode(), u8, 1),
+        ("RtlSdrEncode", lambda: blocks.RtlSdrEncode(), c64, 1),
         ("Tee", lambda: blocks.Tee(), f32, 2),
         ("Vco", lambda: blocks.Vco(0.1), f32, 1),
         ("Xor", lambda: blocks.Xor(), lambda n: u8(n) + u8(n), 1),
@@ -2417,6 +2440,496 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
     tmp.cleanup()
     end_phase("13 generators")
     return counts, errs
+
+
+# ---- phase 14: the recurrences (kernels F and G) and the live feeds
+
+CMA_TAPS, CMA_MU = 16, 1e-3     # CmaEqualizer(16, 1.0, 1e-3)
+CMA_ECHO = complex(0.3 * np.exp(0.7j))  # a pre-echo two samples ahead
+CMA_NOISE = 0.01                # complex noise, per component
+IIR_TAPS = {
+    "order 2": (0.05, 1.6, -0.65),  # poles 0.8 +- 0.1j
+    # poles 0.95 e^{+-0.3j}, 0.9 e^{+-0.9j}, 0.85 e^{+-1.6j}, 0.8 e^{+-2.4j},
+    # unit gain at DC (also tests/test_torch_recurrences.py)
+    "order 8": (0.3017025, 1.7045681, -1.5572132, 1.1628689, -0.8696898,
+                0.672317, -0.5769415, 0.500414, -0.33802596),
+}
+IIR_TOL = 1e-5          # of max|y|, against the float64 model (iir_f64)
+FS_RDS, DS_RDS = 250_000.0, 50_000.0  # rtl_data_stream's default rates
+RDS_DEV = 5_000.0       # the station's deviation, Hz
+UI_DB_TOL = 0.1         # dB, where the float64 power is within 60 dB of its row's peak
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveSizes:
+    """Phase 14's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones."""
+
+    cma_n: int = 1 << 22        # 4.1 s of the main path's station at 1.024 Msps
+    cma_chunk: int = 1 << 18    # CmaEqualizer's run_stream chunk
+    window: int = 1 << 14       # outputs held against the plain versions
+    iir_n: int = 1 << 24        # 5.8 min of 48 kHz audio
+    rds_n: int = 1 << 24        # rtl_data_stream's capture: 32 MiB of u8 IQ
+    clients: int = 4            # rtl_data_stream --tcp's clients
+    feed_c32: int = 1 << 26     # DeviceFeeder's c32 file: 512 MiB
+    feed_u8: int = 1 << 26      # and its u8iq file: 128 MiB
+    feed_chunk: int = 1 << 20
+    ui_fft: int = 2048
+    reps: int = 3               # runs of each timed wall (median)
+
+
+def start_app(module: str, args: list, stdin, stdout) -> subprocess.Popen:
+    """``python -m module args`` from the repository root, in a process of
+    its own, with the given files as its stdin and stdout."""
+    return subprocess.Popen([sys.executable, "-m", module, *args], stdin=stdin,
+                            stdout=stdout, stderr=subprocess.PIPE,
+                            cwd=Path(__file__).resolve().parent)
+
+
+def recurrence_entry(name, source, replaces, n_launches, err, t):
+    """The kernels line's entry of kernel F or G: its times at phase 14's
+    held window (``live_phase``'s ``times``), the bound of its bytes and
+    operations, and ``chain_bound_ms``, its dependent chain at the
+    latencies this run calibrated.  No PyTorch call computes either
+    recurrence: ``library_ms`` is None."""
+    return {"name": name, "route": "cuda",
+            "source": f"rustradio_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": n_launches, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None, "chain_bound_ms": t["chain"][0],
+            "chain": t["chain"][1], "shape": t["shape"]}
+
+
+def iir_f64(x: torch.Tensor, taps, length: int = 2048) -> torch.Tensor:
+    """Float64 model of ``iir_filter(x, taps)`` from a zero history: ``x``
+    convolved (float64 FFTs, on its device) with the filter's impulse
+    response, its first ``length`` samples computed by the recurrence in
+    float64.  The filters of phase 14 have their poles inside radius 0.95,
+    so what is left out is below 0.95^2048 (1e-45) of the response's
+    peak."""
+    t = np.asarray(taps, np.float32).astype(np.float64)
+    h, hist = np.zeros(length), np.zeros(len(t) - 1)
+    for k in range(length):
+        h[k] = (t[0] if k == 0 else 0.0) + hist @ t[1:]
+        hist = np.concatenate([[h[k]], hist[:-1]])
+    n = x.shape[0]
+    m = 1 << (n + length - 1).bit_length()
+    spec = (torch.fft.rfft(x.double(), m)
+            * torch.fft.rfft(torch.from_numpy(h).to(x.device), m))
+    return torch.fft.irfft(spec, m)[:n]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return (torch.view_as_real(t) if t.is_complex() else t).cpu()
+
+
+def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
+               cal=None):
+    """Phase 14 on ``dev``: kernel F (``ops.cma_equalize``, the
+    ``CmaEqualizer`` block streamed) on the main path's station at unit
+    modulus through a pre-echo channel, kernel G (``ops.iir_filter`` at
+    orders 2 and 8) on noise, each held bit-equal to its plain version on
+    its first and last ``sizes.window`` outputs (the last from the kernel's
+    own state there); ``rtl_data_stream`` (``downsample_u8`` with kernel A
+    held on its calls, the plain versions' bytes within one LSB, the app's
+    stdin/stdout protocol in a process of its own, ``sizes.clients`` TCP
+    clients); ``DeviceFeeder`` on a c32 and a u8iq file; ``ui_server``'s
+    ``SpectrumFeed`` and ``UiServer`` on the main capture.  ``cal`` (the
+    card's latencies, ``time_sync.calibrate``) gives F's and G's chain
+    bounds.  Returns the launch counts of each path, the largest |error| of
+    each kernel held here, and F's and G's times at ``sizes.window``
+    outputs (on the card; empty on the CPU)."""
+    import asyncio
+    import io
+    import tempfile
+
+    from rustradio_tpu_torch import blocks, ops, runtime
+    from rustradio_tpu_torch.apps import rtl_data_stream as rds
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.io import data_stream, rawfile
+    from rustradio_tpu_torch.io import websocket as ws
+    from rustradio_tpu_torch.ops import kernels
+    from rustradio_tpu_torch.ui import SpectrumFeed, UiServer
+
+    on_card = dev.type == "cuda"
+    counts, times = {}, {}
+    errs = {"cma": 0.0, "iir": 0.0, "fir_decimate": 0.0}
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    win = sizes.window
+
+    def same(ph, what, got, want) -> None:
+        ok = got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+        print(f"[{ph}] {what}: bit-equal {ok}")
+        if not ok:
+            failures.append(f"{ph} {what}")
+
+    def check(ph, what, ok, line):
+        print(f"[{ph}] {what}: {ok}; {line}; card: {card}")
+        if not ok:
+            failures.append(f"{ph} {what}")
+
+    # ---- rtl_data_stream: an FM station at 250 kHz as rtl-sdr u8 IQ
+    n = sizes.rds_n
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    audio = (0.6 * torch.sin(2 * math.pi * 1000.0 / FS_RDS * t)
+             + 0.3 * torch.sin(2 * math.pi * 3100.0 / FS_RDS * t + 0.5))
+    ph = torch.cumsum(audio, 0) * (2 * math.pi * RDS_DEV / FS_RDS)
+    noise = torch.randn((2, n), generator=gen, device=dev, dtype=torch.float64)
+    iq = torch.complex(0.45 * torch.cos(ph) + 0.02 * noise[0],
+                       0.45 * torch.sin(ph) + 0.02 * noise[1]).to(torch.complex64)
+    raw = rawfile.rtlsdr_encode(iq)
+    del t, audio, ph, noise, iq
+    raw.cpu().numpy().tofile(d / "rds.u8")
+    ctl = data_stream.encode_version() + data_stream.encode_request_data(
+        "rtl-sdr", 0xFFFFFFFF)
+    (d / "ctl.bin").write_bytes(ctl)
+    # the app itself, from its command line, in a process of its own
+    with open(d / "ctl.bin", "rb") as fin, open(d / "out.bin", "wb") as fout:
+        app = start_app("rustradio_tpu_torch.apps.rtl_data_stream",
+                        ["-r", str(d / "rds.u8"), "--device", str(dev)], fin, fout)
+    zero_counts()
+    with capturing("fir_decimate") as calls:
+        payload = rds.downsample_u8(raw, FS_RDS, DS_RDS)
+    sync()
+    counts["rtl_data_stream"] = dict(kernels.LAUNCHES)
+    require("rtl_data_stream", counts["rtl_data_stream"], ("fir_decimate",))
+    errs["fir_decimate"] = hold_fir_calls(
+        "14 rtl_data_stream", "downsample_u8", calls["fir_decimate"])
+    with plain_versions():
+        plain = rds.downsample_u8(raw, FS_RDS, DS_RDS)
+    a = np.frombuffer(payload, np.uint8).astype(np.int16)
+    b = np.frombuffer(plain, np.uint8).astype(np.int16)
+    lsb = int(np.abs(a - b).max()) if a.shape == b.shape else 256
+    report("14 rtl_data_stream", f"downsample_u8 of {n} samples vs the plain "
+           f"versions' run, largest byte difference (LSB; {int((a != b).sum())} "
+           f"of {len(a)} bytes differ)", lsb, 1)
+    secs, _ = wall(lambda: rds.downsample_u8(raw, FS_RDS, DS_RDS), reps=sizes.reps)
+    print(f"[14 rtl_data_stream] downsample_u8 {n} samples ({2 * n} bytes) "
+          f"250k -> 50k: {secs * 1e3:.1f} ms wall (median of {sizes.reps}), "
+          f"{n / secs / 1e6:.1f} Msps, {len(payload)} bytes out; card: {card}")
+    out = io.BytesIO()
+    rds.serve_stdio(payload, io.BytesIO(ctl), out)
+    events = data_stream.BytesReader().feed(out.getvalue())
+    check("14 rtl_data_stream", "serve_stdio's Data packets carry the payload",
+          b"".join(e[2] for e in events if e[0] == "data") == payload,
+          f"{len(events)} packets")
+
+    async def tcp_clients():
+        srv = data_stream.DataStreamServer(rds.payload_reader(payload, False),
+                                           "rtl-sdr", 16_384)
+        _, port = await srv.serve()
+
+        async def client():
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            r, w = data_stream.AsyncReader(reader), data_stream.AsyncWriter(writer)
+            await w.write_version()
+            await r.read_version()
+            await w.write_request_data("rtl-sdr", len(payload))
+            buf = bytearray()
+            while len(buf) < len(payload):
+                pkt = await asyncio.wait_for(r.read_packet(), timeout=30)
+                if pkt is None:
+                    break
+                buf += pkt[2]
+            writer.close()
+            return bytes(buf)
+
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[client() for _ in range(sizes.clients)])
+        secs = time.perf_counter() - t0
+        await srv.close()
+        return got, secs
+
+    got, secs = asyncio.run(asyncio.wait_for(tcp_clients(), timeout=300))
+    check("14 rtl_data_stream", f"--tcp: {sizes.clients} concurrent clients on "
+          "loopback each receive the whole payload",
+          all(g == payload for g in got),
+          f"{[len(g) for g in got]} bytes in {secs * 1e3:.1f} ms")
+    end_phase("14 rtl_data_stream")
+
+    # ---- kernel F: the CMA equalizer on the station at unit modulus
+    n = sizes.cma_n
+    s = torch.polar(torch.ones(n + 2, dtype=torch.float64, device=dev),
+                    phase_f64[: n + 2])
+    noise = torch.randn((2, n), generator=gen, device=dev, dtype=torch.float64)
+    x = (s[:n] + CMA_ECHO * s[2:] + CMA_NOISE * torch.complex(noise[0], noise[1])
+         ).to(torch.complex64)
+    del s, noise
+    zero_counts()
+    y, taps_end = ops.cma_equalize(x, CMA_TAPS, 1.0, CMA_MU)
+    g = Graph()
+    sink = g.add(blocks.VectorSink(), g.add(blocks.CmaEqualizer(CMA_TAPS, 1.0, CMA_MU),
+                                            g.add(blocks.VectorSource(x))))
+    g.run_stream(chunk_size=sizes.cma_chunk, device=dev)
+    sync()
+    counts["cma"] = dict(kernels.LAUNCHES)
+    require("cma_equalize and CmaEqualizer", counts["cma"], ("cma",))
+    same("14 cma", f"CmaEqualizer streamed in chunks of {sizes.cma_chunk} vs "
+         f"one cma_equalize call ({n - CMA_TAPS + 1} outputs)",
+         torch.from_numpy(np.asarray(sink.block.data(), np.complex64)), y)
+    quarter = y.shape[0] // 4
+
+    def dispersion(v):
+        return float(((v.abs() ** 2 - 1) ** 2).mean())
+
+    dy, dx = dispersion(y[-quarter:]), dispersion(x[-quarter:])
+    check("14 cma", "modulus dispersion of the last quarter at most half the "
+          "input's", dy <= 0.5 * dx,
+          f"mean((|y|^2-1)^2) {dy:.3e}, input's {dx:.3e}, final |taps| "
+          f"{np.round(taps_end.abs().cpu().numpy(), 3).tolist()}")
+    cut = y.shape[0] - win
+    y1, t1 = ops.cma_equalize(x[: cut + CMA_TAPS - 1], CMA_TAPS, 1.0, CMA_MU)
+    y2, t2 = ops.cma_equalize(x[cut:], CMA_TAPS, 1.0, CMA_MU, taps=t1)
+    same("14 cma", "two calls split at the last window, the taps carried, vs "
+         "one call", torch.cat([y1, y2]), y)
+    same("14 cma", "the split's final taps vs one call's", t2, taps_end)
+    t0 = torch.zeros(CMA_TAPS, dtype=torch.complex64)
+    t0[0] = 1.0
+    py, _ = kernels.cma_scan_plain(x[: win + CMA_TAPS - 1].cpu(), t0, 1.0, CMA_MU)
+    same("14 cma", f"kernel F vs plain, the first {win} outputs", y[:win], py)
+    py, pt = kernels.cma_scan_plain(x[cut:].cpu(), t1.cpu(), 1.0, CMA_MU)
+    same("14 cma", f"kernel F vs plain, the last {win} outputs from the "
+         "kernel's taps there", y2, py)
+    same("14 cma", "kernel F vs plain, the final taps", t2, pt)
+    end_phase("14 cma")
+
+    # ---- kernel G: the IIR filter on noise
+    n = sizes.iir_n
+    xi = torch.randn(n, generator=gen, device=dev)
+    zero_counts()
+    outs = {}
+    for name, taps in IIR_TAPS.items():
+        outs[name] = ops.iir_filter(xi, taps)
+    sync()
+    counts["iir"] = dict(kernels.LAUNCHES)
+    require("iir_filter", counts["iir"], ("iir",))
+    for name, taps in IIR_TAPS.items():
+        yi, order = outs[name], len(taps) - 1
+        same("14 iir", f"{name}: kernel G vs plain, the first {win} samples",
+             yi[:win], kernels.iir_scan_plain(xi[:win].cpu(), taps,
+                                              torch.zeros(order)))
+        hist = yi[n - win - order : n - win].flip(0).cpu()
+        same("14 iir", f"{name}: kernel G vs plain, the last {win} samples "
+             "from the kernel's own history", yi[n - win:],
+             kernels.iir_scan_plain(xi[n - win:].cpu(), taps, hist))
+        y64 = iir_f64(xi, taps)
+        report("14 iir", f"{name}: {n} samples vs the float64 model, "
+               "|error| / max|y|",
+               float((yi.double() - y64).abs().max() / y64.abs().max()), IIR_TOL)
+        del y64
+    del outs
+    end_phase("14 iir")
+
+    # the app's process: its stdout's Data packets are the payload
+    try:
+        _, err = app.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        app.kill()
+        _, err = app.communicate()
+    events = data_stream.BytesReader().feed((d / "out.bin").read_bytes())
+    check("14 rtl_data_stream", "the app's stdin/stdout protocol: the bytes "
+          "served equal downsample_u8's",
+          app.returncode == 0 and events[:1] == [("version", 0)]
+          and b"".join(e[2] for e in events if e[0] == "data") == payload,
+          f"exit code {app.returncode}, {len(events)} packets"
+          + (f"; stderr: {err.decode()[-500:]}" if app.returncode else ""))
+    end_phase("14 rtl_data_stream app")
+
+    # ---- F's and G's times at the held windows, beside their bounds
+    if on_card:
+        xw = x[: win + CMA_TAPS - 1].contiguous()
+        tw = t0.to(dev)
+        slots = -(-CMA_TAPS // 32)
+
+        def f_call(k=0):
+            kernels.cma_scan(xw, tw, 1.0, CMA_MU)
+
+        ms = time_one(f_call)
+        event_ms(lambda: kernels.cma_scan_plain(xw[:64 + CMA_TAPS - 1], tw, 1.0,
+                                                CMA_MU), contextlib.nullcontext, 1)
+        pms = event_ms(lambda: kernels.cma_scan_plain(xw, tw, 1.0, CMA_MU),
+                       contextlib.nullcontext, 1)
+        # a window's chain: the products (2), the lane's sum (one a slot),
+        # the butterfly (5 shuffle-add links), e (3), mu * e (1), c (1), the
+        # update (2) and the tap's sum (1)
+        link = (10 + slots) * cal["fadd_cycles"] + 5 * cal["shfl_add_cycles"]
+        times["cma"] = dict(
+            ms=ms, plain_ms=pms, device_ms=graph_ms(f_call),
+            bound=bound(kernels.cma_work(xw.shape[0], CMA_TAPS)),
+            chain=(win * link / cal["sm_hz"] * 1e3,
+                   f"{win} windows x ({10 + slots} f32 links at "
+                   f"{cal['fadd_cycles']:.2f} + 5 shuffle-add links at "
+                   f"{cal['shfl_add_cycles']:.2f} cycles)"),
+            shape=f"{CMA_TAPS} taps, {win} windows")
+        full = statistics.median(event_ms(
+            lambda: kernels.cma_scan(x, tw, 1.0, CMA_MU), contextlib.nullcontext, 1)
+            for _ in range(sizes.reps))
+        nwin = x.shape[0] - CMA_TAPS + 1
+        times["cma"]["full"] = (full, nwin)
+        xg = xi[:win].contiguous()
+        taps2 = IIR_TAPS["order 2"]
+        hz = torch.zeros(2, device=dev)
+
+        def g_call(k=0):
+            kernels.iir_scan(xg, taps2, hz)
+
+        ms = time_one(g_call)
+        pms = event_ms(lambda: kernels.iir_scan_plain(xg, taps2, hz),
+                       contextlib.nullcontext, 1)
+        times["iir"] = dict(
+            ms=ms, plain_ms=pms, device_ms=graph_ms(g_call),
+            bound=bound(kernels.iir_work(win, 2)),
+            # a sample's chain: taps[1] * y[n-1] and the addition after it
+            chain=(win * 2 * cal["fadd_cycles"] / cal["sm_hz"] * 1e3,
+                   f"{win} samples x 2 f32 links at {cal['fadd_cycles']:.2f} cycles"),
+            shape=f"order 2, {win} samples")
+        times["iir"]["full"] = {}
+        for name, taps in IIR_TAPS.items():
+            hist = torch.zeros(len(taps) - 1, device=dev)
+            times["iir"]["full"][name] = statistics.median(event_ms(
+                lambda: kernels.iir_scan(xi, taps, hist), contextlib.nullcontext, 1)
+                for _ in range(sizes.reps))
+        for key in ("cma", "iir"):
+            r = times[key]
+            print(f"[14 times] kernel {'F' if key == 'cma' else 'G'} ({r['shape']}): "
+                  f"in a stream {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} "
+                  f"ms, plain version {r['plain_ms']:.1f} ms, bound "
+                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), dependent-chain bound "
+                  f"{r['chain'][0]:.4f} ms ({r['chain'][1]} at "
+                  f"{cal['sm_hz'] / 1e9:.3f} GHz), share of it "
+                  f"{r['chain'][0] / r['device_ms']:.1%}, "
+                  f"{r['device_ms'] * 1e-3 * cal['sm_hz'] / win:.1f} cycles an "
+                  f"output; card: {card}")
+        full, nwin = times["cma"]["full"]
+        print(f"[14 times] kernel F, the main path's call ({nwin} windows): "
+              f"{full:.1f} ms (median of {sizes.reps}), "
+              f"{full * 1e-3 * cal['sm_hz'] / nwin:.1f} cycles a window; card: {card}")
+        for name, ms in times["iir"]["full"].items():
+            print(f"[14 times] kernel G {name}, the main path's call ({xi.shape[0]} "
+                  f"samples): {ms:.1f} ms (median of {sizes.reps}), "
+                  f"{ms * 1e-3 * cal['sm_hz'] / xi.shape[0]:.1f} cycles a sample; "
+                  f"card: {card}")
+        del xw, xg
+    del x, y, y1, y2, xi
+    end_phase("14 times")
+
+    # ---- DeviceFeeder: a c32 and a u8iq file to the card
+    c32 = torch.complex(torch.randn(sizes.feed_c32, generator=gen, device=dev),
+                        torch.randn(sizes.feed_c32, generator=gen, device=dev))
+    c32.cpu().numpy().tofile(d / "feed.c32")
+    del c32
+    torch.randint(0, 256, (2 * sizes.feed_u8,), generator=gen, device=dev,
+                  dtype=torch.uint8).cpu().numpy().tofile(d / "feed.u8")
+    for fmt, fname in (("c32", "feed.c32"), ("u8iq", "feed.u8")):
+        path = d / fname
+        nbytes = path.stat().st_size
+        sync()
+        t_start = time.perf_counter()
+        with runtime.DeviceFeeder(str(path), fmt, sizes.feed_chunk, device=dev) as feed:
+            chunks = list(feed)
+        sync()
+        secs = time.perf_counter() - t_start
+        raw_np = np.fromfile(path, np.uint8)
+        if fmt == "c32":
+            v = raw_np.view(np.complex64)
+            want = (v.real.copy(), v.imag.copy())
+        else:
+            f = raw_np.astype(np.float32) - np.float32(127.0)
+            want = (f[0::2] * np.float32(0.008), f[1::2] * np.float32(0.008))
+        del raw_np
+        ok = all(c[0].shape[0] == sizes.feed_chunk for c in chunks)
+        for k in (0, 1):
+            ok = ok and torch.equal(torch.cat([c[k] for c in chunks]),
+                                    torch.from_numpy(want[k]).to(dev))
+        line = (f"{len(chunks)} chunks of {sizes.feed_chunk} samples, "
+                f"{nbytes / 2**20:.0f} MiB in {secs * 1e3:.1f} ms: "
+                f"{nbytes / secs / 1e9:.2f} GB/s")
+        if on_card:
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            copies = []
+            for _ in range(sizes.reps):
+                sync()
+                t_copy = time.perf_counter()
+                host.to(dev, non_blocking=True)
+                sync()
+                copies.append(time.perf_counter() - t_copy)
+            line += (f"; one pinned copy of the same {nbytes / 2**20:.0f} MiB: "
+                     f"{nbytes / statistics.median(copies) / 1e9:.2f} GB/s "
+                     f"(median of {sizes.reps})")
+            del host
+        check("14 feeder", f"DeviceFeeder {fmt}: every chunk kept equals "
+              "np.fromfile's planes after the last copy", ok, line)
+        del chunks, want
+    end_phase("14 feeder")
+
+    # ---- ui_server: SpectrumFeed and UiServer on the main capture
+    cap = torch.complex(i_main, q_main)
+    fft = sizes.ui_fft
+    chunk = max(int(FS_RTL / 4), fft)  # ui_server's chunk
+    parts = [cap[k : k + chunk] for k in range(0, cap.shape[0], chunk)]
+    feed = SpectrumFeed(iter(parts), FS_RTL, fft_size=fft, realtime=False,
+                        device=dev, history=4096)
+    srv = UiServer(feed).start()
+    t_start = time.perf_counter()
+    feed.join(timeout=600)
+    secs = time.perf_counter() - t_start
+    try:
+        start, nxt, rows = feed.frames_since(0, limit=1 << 20)
+        hop = max(int(FS_RTL / feed.fps), fft)
+        win64 = np.hanning(fft)
+        want = []
+        for part in parts:
+            v = part.cpu().numpy().astype(np.complex128)
+            nf = max((len(v) - fft) // hop + 1, 0)
+            for k in range(nf):
+                spec = np.fft.fftshift(np.fft.fft(v[k * hop : k * hop + fft] * win64))
+                want.append(10 * np.log10(np.abs(spec) ** 2 + 1e-20))
+        got, want = np.asarray(rows), np.asarray(want)
+        ok = feed.done and feed.error is None and got.shape == want.shape
+        err = math.inf
+        if ok:
+            near = want >= want.max(axis=1, keepdims=True) - 60.0
+            err = float(np.abs(got - want)[near].max())
+        report("14 ui", f"SpectrumFeed {len(rows)} rows of {fft} vs a float64 numpy "
+               "spectrogram, |dB error| where within 60 dB of the row's peak",
+               err, UI_DB_TOL)
+        peak = int((10 ** (want / 10)).mean(0).argmax()) if ok else -1
+        half = int(75_000 / FS_RTL * fft)
+        check("14 ui", "the mean power peaks at the station",
+              abs(peak - fft // 2) <= half,
+              f"bin {peak} (the station: {fft // 2} +- {half}); {len(rows)} rows "
+              f"in {secs * 1e3:.1f} ms: {len(rows) / secs:.1f} rows/s, "
+              f"{cap.shape[0] / secs / 1e6:.1f} Msps")
+        with urllib.request.urlopen(srv.address + "/api/frames?since=0",
+                                    timeout=30) as r:
+            body = json.loads(r.read())
+        host, port = srv.httpd.server_address[:2]
+
+        async def ws_rows():
+            reader, writer = await asyncio.open_connection(host, port)
+            await ws.client_handshake(reader, writer, f"{host}:{port}", "/ws?since=0")
+            got = []
+            while not got:
+                op, data = await asyncio.wait_for(ws.read_frame(reader), timeout=30)
+                if op == ws.OP_BINARY:
+                    got = json.loads(data.decode()).get("rows", [])
+            writer.close()
+            return got
+
+        pushed = asyncio.run(asyncio.wait_for(ws_rows(), timeout=60))
+        check("14 ui", "one HTTP fetch and one websocket fetch of rows",
+              len(body["rows"]) > 0 and len(pushed) > 0
+              and len(bytes.fromhex(body["rows"][0])) == fft
+              and pushed[0] == body["rows"][0],
+              f"{len(body['rows'])} rows over HTTP, {len(pushed)} over the websocket")
+    finally:
+        srv.stop()
+    tmp.cleanup()
+    end_phase("14 ui")
+    return counts, errs, times
 
 
 def main() -> int:
@@ -3387,6 +3900,13 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     apps.update({f"13 {k}": v for k, v in scan_counts.items()})
 
+    # ---- 14. the recurrences (kernels F and G) and the live feeds, counted
+    live_counts, call_errs, live_times = live_phase(
+        dev, card, LiveSizes(), phase, i_main, q_main, cal)
+    for name, err in call_errs.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    apps.update({f"14 {k}": v for k, v in live_counts.items()})
+
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))
 
@@ -3434,6 +3954,10 @@ def main() -> int:
               "rustradio_tpu/ops/symbol_sync.py:145",
               wb_counts["scan"]["symbol_sync_scan"] + total("symbol_sync_scan"),
               e_name),
+        recurrence_entry("cma", "cma.cu", "rustradio_tpu/ops/cma.py:45",
+                         total("cma"), errs["cma"], live_times["cma"]),
+        recurrence_entry("iir", "iir.cu", "rustradio_tpu/ops/iir.py:68",
+                         total("iir"), errs["iir"], live_times["iir"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ scanner, the narrow-band FM receiver ``rtl_fm``, the AM receiver
 ``am_decode``, the 9600 bd receivers ``ax25_9600_rx`` and
 ``ax25_9600_wpcr``, the 1200 bd burst receiver ``ax25_1200_wpcr``, the
 G3RUH KISS modem ``g3ruh``, ``burst_saver``, the radio-facing receivers,
-and the generators ``tone``, ``fm_tx``, ``morse_beacon``, ``pw_tone`` and
-the spectrum viewer ``spectrum``."""
+the generators ``tone``, ``fm_tx``, ``morse_beacon``, ``pw_tone`` and
+the spectrum viewer ``spectrum``, and the live feeds: the DATA_STREAM
+server ``rtl_data_stream`` and the browser dashboard ``ui_server``."""
 
 from __future__ import annotations
 

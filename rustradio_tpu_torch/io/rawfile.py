@@ -9,6 +9,7 @@ the reference's Sample serialization (src/lib.rs:680-800).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _DTYPES = {
     "c32": np.complex64,
@@ -42,15 +43,26 @@ def write_samples(path: str, samples, dtype=None, mode: str = "wb") -> None:
         arr.tofile(f)
 
 
-def rtlsdr_decode(raw: np.ndarray) -> np.ndarray:
-    """u8 offset-127 IQ -> complex64, scale 0.008 (src/rtlsdr_decode.rs)."""
+def rtlsdr_decode(raw):
+    """u8 offset-127 IQ -> complex64, scale 0.008 (src/rtlsdr_decode.rs):
+    a numpy array on the host, a tensor on its device (the same f32
+    values: (v - 127) * 0.008 on each plane)."""
+    if torch.is_tensor(raw):
+        iq = (raw.to(torch.float32) - 127.0).view(-1, 2)
+        return torch.complex(iq[:, 0] * 0.008, iq[:, 1] * 0.008)
     raw = np.asarray(raw, np.uint8).astype(np.float32) - 127.0
     iq = raw.reshape(-1, 2)
     return ((iq[:, 0] + 1j * iq[:, 1]) * 0.008).astype(np.complex64)
 
 
-def rtlsdr_encode(samples: np.ndarray) -> np.ndarray:
-    """complex64 -> u8 offset-127 IQ (src/rtlsdr_encode.rs)."""
+def rtlsdr_encode(samples):
+    """complex64 -> u8 offset-127 IQ (src/rtlsdr_encode.rs): each plane /
+    0.008 + 127, rounded half to even, clipped to 0..255; a numpy array on
+    the host, a tensor on its device."""
+    if torch.is_tensor(samples):
+        planes = torch.view_as_real(samples.to(torch.complex64)) / 0.008
+        return torch.clamp(torch.round(planes.reshape(-1) + 127.0), 0, 255
+                           ).to(torch.uint8)
     s = np.asarray(samples, np.complex64) / 0.008
     out = np.empty(2 * len(s), np.uint8)
     out[0::2] = np.clip(np.round(s.real + 127.0), 0, 255).astype(np.uint8)

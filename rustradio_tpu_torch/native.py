@@ -11,8 +11,11 @@ are the JAX package's (``rustradio_tpu/native.py``), so ``symbol_sync_f32``
 is bit-identical to the one it calls.
 
 Bound here: ``rr_symbol_sync`` (clock recovery, with its state carried in
-and out), ``rr_zero_crossing`` (fixed-clock recovery, likewise) and
-``rr_hdlc_*`` (the resumable HDLC deframer).
+and out), ``rr_zero_crossing`` (fixed-clock recovery, likewise),
+``rr_hdlc_*`` (the resumable HDLC deframer), and the host runtime of
+``runtime.DeviceFeeder``: the SPSC ring ``rr_ring_*``, the background file
+reader ``rr_reader_*`` and the sample converters (copied from
+``rustradio_tpu/native.py:121-240``).
 """
 
 from __future__ import annotations
@@ -83,6 +86,32 @@ def _bind(lib):
     lib.rr_hdlc_drain.argtypes = [p, p, p, p, sz]
     lib.rr_hdlc_stats.argtypes = [p, ctypes.POINTER(ctypes.c_uint64)]
     lib.rr_hdlc_stats.restype = None
+    lib.rr_ring_create.restype = p
+    lib.rr_ring_create.argtypes = [sz]
+    lib.rr_ring_destroy.argtypes = [p]
+    lib.rr_ring_destroy.restype = None
+    for name in ("rr_ring_capacity", "rr_ring_readable"):
+        getattr(lib, name).restype = sz
+        getattr(lib, name).argtypes = [p]
+    for name in ("rr_ring_write", "rr_ring_read"):
+        getattr(lib, name).restype = sz
+        getattr(lib, name).argtypes = [p, p, sz]
+    for name in ("rr_ring_eof", "rr_ring_error"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [p]
+    lib.rr_ring_set_eof.argtypes = [p]
+    lib.rr_ring_set_eof.restype = None
+    lib.rr_reader_start.restype = p
+    lib.rr_reader_start.argtypes = [p, ctypes.c_char_p, i]
+    lib.rr_reader_stop.argtypes = [p]
+    lib.rr_reader_stop.restype = None
+    for name in ("rr_convert_i16be_f32", "rr_convert_f32_i16be"):
+        getattr(lib, name).argtypes = [p, p, sz]
+        getattr(lib, name).restype = None
+    lib.rr_convert_u8iq_f32_planar.argtypes = [p, p, p, sz, f]
+    lib.rr_convert_u8iq_f32_planar.restype = None
+    lib.rr_deinterleave_c64.argtypes = [p, p, p, sz]
+    lib.rr_deinterleave_c64.restype = None
     return lib
 
 
@@ -93,6 +122,15 @@ def load():
     """The native library, built on first call; raises if it cannot be
     built (the failure is remembered, so later calls raise at once)."""
     return _LIBRARY.load()
+
+
+def available() -> bool:
+    """True when the native library builds and loads here."""
+    try:
+        load()
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray):
@@ -218,3 +256,111 @@ class HdlcDeframer:
         self._lib.rr_hdlc_stats(self._ptr, buf)
         return {"decoded": int(buf[0]), "crc_error": int(buf[1]),
                 "bitfixed": int(buf[2])}
+
+
+class Ring:
+    """SPSC ring buffer backed by the native double-mapped region."""
+
+    def __init__(self, min_size: int = 1 << 22):
+        self._lib = load()
+        self._ptr = self._lib.rr_ring_create(min_size)
+        if not self._ptr:
+            raise RuntimeError("rr_ring_create failed")
+
+    def __del__(self):
+        if getattr(self, "_ptr", None):
+            self._lib.rr_ring_destroy(self._ptr)
+            self._ptr = None
+
+    @property
+    def capacity(self) -> int:
+        return self._lib.rr_ring_capacity(self._ptr)
+
+    def readable(self) -> int:
+        return self._lib.rr_ring_readable(self._ptr)
+
+    def write(self, data) -> int:
+        """Blocks until every byte of ``data`` (bytes or a numpy array) is
+        in the ring; returns the count."""
+        arr = np.ascontiguousarray(
+            np.frombuffer(bytes(data), np.uint8)
+            if isinstance(data, (bytes, bytearray)) else data)
+        return self._lib.rr_ring_write(self._ptr, _ptr(arr), arr.nbytes)
+
+    def read(self, n: int) -> bytes:
+        """Blocks until ``n`` bytes are read or the writer's EOF; fewer
+        only at EOF."""
+        out = np.empty(n, np.uint8)
+        got = self._lib.rr_ring_read(self._ptr, _ptr(out), n)
+        return out[:got].tobytes()
+
+    def read_into(self, out: np.ndarray) -> int:
+        """``read`` into a contiguous uint8 array; returns the count."""
+        return self._lib.rr_ring_read(self._ptr, _ptr(out), out.nbytes)
+
+    def set_eof(self):
+        self._lib.rr_ring_set_eof(self._ptr)
+
+    def eof(self) -> bool:
+        return bool(self._lib.rr_ring_eof(self._ptr))
+
+    def error(self) -> int:
+        return self._lib.rr_ring_error(self._ptr)
+
+
+class FileReader:
+    """Background native reader thread filling a Ring from a file,
+    ``repeat`` times over."""
+
+    def __init__(self, ring: Ring, path: str, repeat: int = 1):
+        self._lib = ring._lib
+        self._ptr = self._lib.rr_reader_start(ring._ptr, path.encode(), repeat)
+        self._ring = ring  # keep alive
+
+    def stop(self):
+        if self._ptr:
+            self._lib.rr_reader_stop(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        self.stop()
+
+
+def convert_i16be_f32(raw: np.ndarray) -> np.ndarray:
+    """Big-endian PCM16 bytes -> f32 (v / 32767)."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    n = len(raw) // 2
+    out = np.empty(n, np.float32)
+    load().rr_convert_i16be_f32(_ptr(raw), _ptr(out), n)
+    return out
+
+
+def convert_f32_i16be(x: np.ndarray) -> np.ndarray:
+    """f32 -> big-endian PCM16 bytes, x * 32767 clipped and truncated
+    toward zero (reference src/au.rs:147-149)."""
+    x = np.ascontiguousarray(x, np.float32)
+    out = np.empty(2 * len(x), np.uint8)
+    load().rr_convert_f32_i16be(_ptr(x), _ptr(out), len(x))
+    return out
+
+
+def convert_u8iq_planar(raw: np.ndarray, scale: float = 0.008, out=None):
+    """rtl-sdr u8 offset-127 interleaved I/Q -> f32 planes (x - 127) *
+    scale; into ``out`` (two f32 arrays) where given."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    n = len(raw) // 2
+    i, q = out if out is not None else (np.empty(n, np.float32),
+                                        np.empty(n, np.float32))
+    load().rr_convert_u8iq_f32_planar(_ptr(raw), _ptr(i), _ptr(q), n,
+                                      ctypes.c_float(scale))
+    return i, q
+
+
+def deinterleave_c64(x: np.ndarray, out=None):
+    """complex64 -> f32 I and Q planes; into ``out`` where given."""
+    x = np.ascontiguousarray(x, np.complex64)
+    n = len(x)
+    i, q = out if out is not None else (np.empty(n, np.float32),
+                                        np.empty(n, np.float32))
+    load().rr_deinterleave_c64(_ptr(x.view(np.float32)), _ptr(i), _ptr(q), n)
+    return i, q

@@ -6,13 +6,15 @@ versions for CPU tensors.  The host-side ops (``hdlc``, ``il2p``,
 ``symbol_sync``) run on numpy arrays and take tensors from any device; the
 device forms of the clock recovery (``symbol_sync``,
 ``symbol_sync_events``) run on their input's device through kernels D and
-E.  As in the JAX package, the
+E, and the recurrences ``cma_equalize`` and ``iir_filter`` through kernels
+F and G.  As in the JAX package, the
 functions ``symbol_sync`` and ``wpcr`` shadow their modules here: import
 those modules by their full path.
 """
 
 from . import kernels
 from .burst import burst_tagger, pdu_average, stream_to_pdu
+from .cma import cma_equalize
 from .correlate import correlate_access_code
 from .delay import delay, head, skip
 from .demod import fast_atan2, fast_fm, quadrature_demod
@@ -40,7 +42,7 @@ from .fft import fft_pdu, fft_stream
 from .fir import fir_filter, fir_filter_full, fir_filter_translating
 from .hdlc import calc_crc, fcs_add, hdlc_deframe, hdlc_frame
 from .hilbert import hilbert_transform
-from .iir import single_pole_iir
+from .iir import iir_filter, single_pole_iir
 from .kernels import (
     LAUNCHES,
     fir_decimate,
@@ -79,6 +81,7 @@ __all__ = [
     "binary_slicer",
     "burst_tagger",
     "calc_crc",
+    "cma_equalize",
     "compact",
     "complex_to_float",
     "complex_to_mag2",
@@ -108,6 +111,7 @@ __all__ = [
     "hdlc_frame",
     "head",
     "hilbert_transform",
+    "iir_filter",
     "midpoint",
     "midpoint_batch",
     "multiply",

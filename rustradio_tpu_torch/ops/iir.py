@@ -1,5 +1,4 @@
-"""IIR filters (port of ``single_pole_iir`` from
-``rustradio_tpu/ops/iir.py``; ``iir_filter`` comes in a later slice).
+"""IIR filters (port of ``rustradio_tpu/ops/iir.py``).
 
 ``single_pole_iir``: y[n] = alpha*x[n] + (1-alpha)*y[n-1], y[-1] = 0
 (reference src/single_pole_iir_filter.rs:31-44).  The JAX package runs the
@@ -10,6 +9,12 @@ with the lower-triangular matrix of powers of (1-alpha), and the carries
 between blocks are the same recurrence over the blocks' last values, at
 multiplier (1-alpha)^_BLOCK, solved the same way (log_BLOCK(n) levels).
 Plain torch on the input's device; no kernel.
+
+``iir_filter``: the reference's "IIR" (src/iir_filter.rs:84-101), y[n] =
+taps[0]*x[n] + sum_{i>=1} taps[i]*y[n-i], any order up to
+``kernels.MAX_IIR_ORDER``.  The JAX package runs it as a ``lax.scan``;
+here it is kernel G (``kernels.iir_scan``) on the card and its plain
+version on the CPU.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .fft import as_stream
 
 _BLOCK = 128
 
@@ -69,3 +75,21 @@ def single_pole_iir(x, alpha: float, y0=None) -> torch.Tensor:
         return y
     grow = torch.from_numpy(_powers(c, x.shape[0] + 1)[1:]).to(x.device, real)
     return torch.as_tensor(y0, device=x.device).to(y.dtype) * grow + y
+
+
+def iir_filter(x, taps, history=None, device=None) -> torch.Tensor:
+    """Reference IirFilter (src/iir_filter.rs:84-101), order len(taps)-1:
+    y[n] = taps[0]*x[n] + sum_{i>=1} taps[i]*y[n-i].  ``history`` (the last
+    outputs, most recent first) carries a stream on; zeros by default.
+    Order 0 is ``x * taps[0]`` and launches nothing.  f32 on ``x``'s
+    device: a tensor, or a numpy array with ``device=``."""
+    taps = np.asarray(taps, np.float32).reshape(-1)
+    order = len(taps) - 1
+    x = as_stream(x, device, "iir_filter", torch.float32).contiguous()
+    if order == 0:
+        return x * float(taps[0])
+    if history is None:
+        h = torch.zeros(order, dtype=torch.float32, device=x.device)
+    else:
+        h = torch.as_tensor(history, dtype=torch.float32).to(x.device).reshape(-1)
+    return kernels.iir_scan(x, taps, h)

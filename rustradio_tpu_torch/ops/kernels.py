@@ -33,7 +33,16 @@ out (``csrc/symbol_sync.cu`` on ``csrc/sync_core.cuh``):
 * ``symbol_sync_scan`` (kernel E) runs the per-sample recurrence (the scan
   at symbol_sync.py:145, and native ``rr_symbol_sync``).
 
-``tools/csrc/symbol_sync_lone.cu`` keeps both as one thread per channel,
+Two more replace the other per-sample ``lax.scan``s, one block per call
+(a walker and a loader warp, the same roles):
+
+* ``cma_scan`` (``csrc/cma.cu``, kernel F) runs the CMA equalizer's
+  recurrence (``rustradio_tpu/ops/cma.py:45``), the taps on a warp's
+  lanes and the sum over them a shuffle butterfly;
+* ``iir_scan`` (``csrc/iir.cu``, kernel G) runs the reference's IIR
+  filter (``rustradio_tpu/ops/iir.py:68``) on one lane.
+
+``tools/csrc/symbol_sync_lone.cu`` keeps D and E as one thread per channel,
 and ``tools/csrc/chain_calib.cu`` measures a lone lane's latencies:
 yardsticks that ``tools/time_sync.py`` builds into a library of its own
 (for itself and ``chip_smoke.py``); the package's library holds neither.
@@ -98,7 +107,8 @@ from . import cuda_lib
 from .demod import demod_pairs
 
 LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0,
-            "symbol_sync_events": 0, "symbol_sync_scan": 0}
+            "symbol_sync_events": 0, "symbol_sync_scan": 0, "cma": 0,
+            "iir": 0}
 
 
 
@@ -1070,3 +1080,181 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
         _stream(events.device)), "symbol_sync_events")
     _launched("symbol_sync_events", None, work)
     return ev_mid, ev_clock, fout, iout
+
+
+# ------------------------------------- kernels F and G: the recurrences
+
+MAX_CMA_TAPS = 128   # kernel F's bound (csrc/cma.cu, four taps a lane)
+MAX_IIR_ORDER = 32   # kernel G's bound (csrc/iir.cu)
+
+
+def cma_work(n: int, ntaps: int):
+    """Kernel F: n complex64 in, n - ntaps + 1 out, the taps in and out; a
+    window's 16 * ntaps + 4 f32 operations (the products, their sum, e, the
+    update)."""
+    nwin = max(n - ntaps + 1, 0)
+    return (float(8 * (n + nwin) + 16 * ntaps),
+            float(nwin * (16 * ntaps + 4)))
+
+
+def iir_work(n: int, order: int):
+    """Kernel G: n f32 in and out, the history in; 2 * order + 1 f32
+    operations a sample."""
+    return float(8 * n + 4 * order), float(n * (2 * order + 1))
+
+
+def _f32(v: float) -> float:
+    """A Python float holding the f32 value of ``v`` (what the kernels
+    receive), so that a tensor op with it rounds as an f32 op."""
+    return float(np.float32(v))
+
+
+def _check_cma(x: torch.Tensor, taps: torch.Tensor) -> None:
+    if x.dim() != 1 or x.dtype != torch.complex64 or not x.is_contiguous():
+        raise ValueError(f"cma_scan needs a contiguous 1-D complex64 stream, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if (taps.dim() != 1 or taps.dtype != torch.complex64
+            or taps.device != x.device):
+        raise ValueError(f"cma_scan needs 1-D complex64 taps on {x.device}, "
+                         f"got {tuple(taps.shape)} {taps.dtype} on {taps.device}")
+    if not 1 <= taps.shape[0] <= MAX_CMA_TAPS:
+        raise ValueError(f"cma_scan takes 1..{MAX_CMA_TAPS} taps, "
+                         f"got {taps.shape[0]}")
+    if x.shape[0] < taps.shape[0]:
+        raise ValueError(f"input {x.shape[0]} shorter than taps {taps.shape[0]}")
+
+
+def cma_scan_plain(x: torch.Tensor, taps: torch.Tensor,
+                   desired_modulus: float, step_size: float):
+    """Plain PyTorch version of :func:`cma_scan` (any device): a Python loop
+    over the windows, on the kernel's 32 lanes written out as a (2, 32)
+    tensor of real and imaginary planes.  Lane l holds taps l, l + 32, ...;
+    its partial sum starts at +0.0 and adds its taps' products in that
+    order (a slot past the last tap holds a zero tap and a zero sample,
+    whose product +0.0 leaves the sum as it is); the lanes then fold in
+    halves (16, 8, 4, 2, 1), which is the value the kernel's
+    ``__shfl_xor_sync`` butterfly leaves in lane 0."""
+    _check_cma(x, taps)
+    r, mu = _f32(desired_modulus), _f32(step_size)
+    ntaps = taps.shape[0]
+    n = x.shape[0]
+    nwin = n - ntaps + 1
+    slots = -(-ntaps // 32)
+    width = 32 * slots
+    xv = torch.view_as_real(x)
+    # windows of width samples, zeroed past the last tap: (nwin, 2, width)
+    xp = F.pad(xv.t(), (0, width - ntaps))
+    wins = xp.unfold(1, width, 1)[:, :nwin].permute(1, 0, 2)
+    live = torch.arange(width, device=x.device) < ntaps
+    wins = torch.where(live, wins, torch.zeros((), device=x.device))
+    t = F.pad(torch.view_as_real(taps).t(), (0, width - ntaps))  # (2, width)
+    tr, ti = t[0], t[1]
+    ys = []
+    for i in range(nwin):
+        wr, wi = wins[i, 0], wins[i, 1]
+        pr = tr * wr - ti * wi
+        pi = tr * wi + ti * wr
+        p = torch.stack([pr, pi]).view(2, slots, 32)
+        acc = p[:, 0] + 0.0
+        for j in range(1, slots):
+            acc = acc + p[:, j]
+        for half in (16, 8, 4, 2, 1):
+            acc = acc[:, :half] + acc[:, half : 2 * half]
+        yr, yi = acc[0, 0], acc[1, 0]
+        e = r - (yr * yr + yi * yi)
+        me = mu * e
+        cr, ci = me * yr, me * yi
+        tr = tr + (cr * wr + ci * wi)
+        ti = ti + (ci * wr - cr * wi)
+        ys.append(acc[:, 0])
+    y = (torch.stack(ys) if ys else
+         torch.zeros((0, 2), dtype=torch.float32, device=x.device))
+    final = torch.complex(tr[:ntaps], ti[:ntaps])
+    return torch.view_as_complex(y.contiguous()), final
+
+
+def cma_scan(x: torch.Tensor, taps: torch.Tensor, desired_modulus: float,
+             step_size: float):
+    """The CMA recurrence over ``x`` (1-D complex64) from ``taps`` (1-D
+    complex64 on its device, 1..``MAX_CMA_TAPS``): for each window w =
+    x[i : i + ntaps], y = sum(taps * w), e = R - |y|^2, taps += ((mu * e)
+    * y) * conj(w).  Returns ``(y, final_taps)``, y of n - ntaps + 1
+    samples.  Every product and sum rounded in f32 in a fixed order
+    (:func:`cma_scan_plain`).  Kernel F on CUDA tensors; the plain version
+    on CPU tensors."""
+    _check_cma(x, taps)
+    work = cma_work(x.shape[0], taps.shape[0])
+    if not _route(x):
+        _worked(work)
+        return cma_scan_plain(x, taps, desired_modulus, step_size)
+    nwin = x.shape[0] - taps.shape[0] + 1
+    y = torch.empty(nwin, dtype=torch.complex64, device=x.device)
+    final = taps.clone()
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_cma_equalize(
+        x.data_ptr(), x.shape[0], taps.shape[0], _f32(desired_modulus),
+        _f32(step_size), final.data_ptr(), y.data_ptr(), _stream(x.device)),
+        "cma_equalize")
+    _launched("cma", None, work)
+    return y, final
+
+
+def _check_iir(x: torch.Tensor, taps: np.ndarray, history: torch.Tensor) -> None:
+    if x.dim() != 1 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"iir_scan needs a contiguous 1-D float32 stream, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    order = len(taps) - 1
+    if not 1 <= order <= MAX_IIR_ORDER:
+        raise ValueError(f"iir_scan takes orders 1..{MAX_IIR_ORDER}, got {order}")
+    if (tuple(history.shape) != (order,) or history.dtype != torch.float32
+            or history.device != x.device):
+        raise ValueError(f"iir_scan needs a ({order},) float32 history on "
+                         f"{x.device}, got {tuple(history.shape)} "
+                         f"{history.dtype} on {history.device}")
+
+
+def iir_scan_plain(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`iir_scan` (any device): a Python loop
+    over the samples in the kernel's order, taps[0] * x[n] (one elementwise
+    product for the whole stream), then the terms from the oldest output
+    down to taps[2] * y[n - 2], then taps[1] * y[n - 1] last."""
+    taps = np.asarray(taps, np.float32).reshape(-1)
+    _check_iir(x, taps, history)
+    t = [float(v) for v in taps]
+    order = len(t) - 1
+    tx = x * t[0]
+    h = list(history.unbind(0))
+    ys = []
+    for n in range(x.shape[0]):
+        acc = tx[n]
+        for i in range(order, 1, -1):
+            acc = acc + t[i] * h[i - 1]
+        y = acc + t[1] * h[0]
+        h = [y] + h[:-1]
+        ys.append(y)
+    return torch.stack(ys) if ys else x.new_zeros(0)
+
+
+def iir_scan(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
+    """The reference's IIR recurrence over ``x`` (1-D f32), order
+    len(taps) - 1 in 1..``MAX_IIR_ORDER``: y[n] = taps[0] * x[n] +
+    sum_{i>=1} taps[i] * y[n - i], from ``history`` (order f32 on x's
+    device, the last outputs, most recent first).  Summed in f32 from the
+    oldest term down, taps[1] * y[n - 1] last (:func:`iir_scan_plain`).
+    Kernel G on CUDA tensors; the plain version on CPU tensors."""
+    taps = np.ascontiguousarray(taps, np.float32).reshape(-1)
+    _check_iir(x, taps, history)
+    work = iir_work(x.shape[0], len(taps) - 1)
+    if not _route(x):
+        _worked(work)
+        return iir_scan_plain(x, taps, history)
+    y = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return y
+    hist = history.contiguous()
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_iir_filter(
+        x.data_ptr(), x.shape[0], taps.ctypes.data, len(taps), hist.data_ptr(),
+        y.data_ptr(), _stream(x.device)), "iir_filter")
+    _launched("iir", None, work)
+    return y

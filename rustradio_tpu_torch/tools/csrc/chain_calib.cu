@@ -1,5 +1,6 @@
 // Calibration of the card's latency between dependent operations, for the
-// chain bounds of kernels D and E (sync_core.cuh): one lane runs `iters`
+// chain bounds of kernels D and E (sync_core.cuh) and F (cma.cu, whose sum
+// over the taps is a butterfly of warp shuffles): one lane runs `iters`
 // operations, each needing the result of the one before, between two reads
 // of the SM's cycle counter.  cycles / iters is what one link of such a
 // chain costs a lone lane; cycles over the launch's device time is the SM
@@ -18,9 +19,14 @@ constexpr int kUnroll = 16;
 //         subtract: the shape of kernel E's per-sample step)
 // kind 3: v = v + b, one addition per turn of a loop that is not unrolled
 //         (an addition and a taken branch)
+// kind 4: v = shfl_xor(v, 1) + b, the whole warp (a link of kernel F's
+//         butterfly: a shuffle and the addition that waits for it)
 __global__ void chain_kernel(int kind, int iters, float a, float b, float c,
                              float* out, long long* cycles) {
-  float v = a;
+  if (kind != 4 && threadIdx.x != 0) return;
+  // kind 4: a value that differs from lane to lane, so that no shuffle
+  // can be proven to return the lane's own value
+  float v = kind == 4 ? a + (float)threadIdx.x : a;
   const long long t0 = clock64();
   if (kind == 0) {
 #pragma unroll 1
@@ -43,11 +49,19 @@ __global__ void chain_kernel(int kind, int iters, float a, float b, float c,
         if (v > c) v = __fsub_rn(v, c);
       }
     }
-  } else {
+  } else if (kind == 3) {
 #pragma unroll 1
     for (int i = 0; i < iters; ++i) v = __fadd_rn(v, b);
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < iters; i += kUnroll) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        v = __fadd_rn(__shfl_xor_sync(0xffffffffu, v, 1), b);
+    }
   }
   const long long t1 = clock64();
+  if (threadIdx.x != 0) return;
   *out = v;
   *cycles = t1 - t0;
 }
@@ -55,12 +69,13 @@ __global__ void chain_kernel(int kind, int iters, float a, float b, float c,
 }  // namespace
 
 // out: one f32 (the chain's result, so that nothing is optimised away);
-// cycles: one int64.  iters is rounded up to a multiple of 16 (kinds 0-2).
+// cycles: one int64.  iters is rounded up to a multiple of 16 (kinds 0-2,
+// 4).
 // Returns the cudaError_t of the launch.
 extern "C" int rr_chain_calib(int kind, int iters, float a, float b, float c,
                               void* out, void* cycles, void* stream) {
-  if (kind < 0 || kind > 3 || iters <= 0) return (int)cudaErrorInvalidValue;
-  chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(kind, iters, a, b, c,
+  if (kind < 0 || kind > 4 || iters <= 0) return (int)cudaErrorInvalidValue;
+  chain_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(kind, iters, a, b, c,
                                                   (float*)out,
                                                   (long long*)cycles);
   return (int)cudaGetLastError();

@@ -110,9 +110,9 @@ def events_lone(events, n, sps, max_deviation, clock_taps, fstate, istate,
 
 def calibrate(device, iters: int = CALIB_ITERS) -> dict:
     """Cycles per link of a lone lane's dependent chain (f32 addition, IEEE
-    division, add-compare-subtract step, an addition with a taken branch)
-    and the SM clock in Hz under that load: the median of 5 launches
-    each."""
+    division, add-compare-subtract step, an addition with a taken branch,
+    and a warp's shuffle followed by an addition) and the SM clock in Hz
+    under that load: the median of 5 launches each."""
     lib = _YARDSTICKS.load()
     out = torch.zeros(1, device=device)
     cycles = torch.zeros(1, dtype=torch.int64, device=device)
@@ -121,7 +121,8 @@ def calibrate(device, iters: int = CALIB_ITERS) -> dict:
             (0, "fadd_cycles", (0.0, 1.0, 0.0)),
             (1, "fdiv_cycles", (1.0, 1.0 + 2.0 ** -23, 0.0)),
             (2, "step_cycles", (0.0, 1.0, 367.5)),
-            (3, "loop_cycles", (0.0, 1.0, 0.0))):
+            (3, "loop_cycles", (0.0, 1.0, 0.0)),
+            (4, "shfl_add_cycles", (0.0, 1.0, 0.0))):
         per = []
         for _ in range(6):
             s = torch.cuda.Event(enable_timing=True)

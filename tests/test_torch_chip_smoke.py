@@ -96,3 +96,48 @@ def test_torch_chip_smoke_scan_phase_rehearses_on_the_cpu(monkeypatch, capsys):
                     "symbol_sync_events": 0.0}
     assert {"tone", "fm_tx", "spectrum", "morse_beacon", "pw_tone",
             "fm chain device scan_chunks=4"} <= set(counts)
+
+
+def test_torch_chip_smoke_live_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 14 at small sizes on the kernels' plain versions: the CMA and
+    # IIR checks, rtl_data_stream (the app's own process included), the
+    # feeder and the dashboard; the launch checks and the times need the card
+    import numpy as np
+
+    from rustradio_tpu_torch.apps import rtl_data_stream as rds
+
+    class AppInProcess:
+        """Stands in for the app's own process (a second interpreter and
+        torch import, ~3 s here; tests/test_torch_live_feed.py runs the real
+        one): the app's body, ``downsample_u8`` and ``serve_stdio``, on the
+        same files."""
+
+        returncode = 0
+
+        def __init__(self, module, args, stdin, stdout):
+            assert module == "rustradio_tpu_torch.apps.rtl_data_stream"
+            raw = np.fromfile(args[args.index("-r") + 1], np.uint8)
+            rds.serve_stdio(rds.downsample_u8(raw, 250e3, 50e3, device="cpu"),
+                            stdin, stdout)
+
+        def communicate(self, timeout=None):
+            return b"", b""
+
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(cs, "require", lambda *a: None)
+    monkeypatch.setattr(cs, "start_app", AppInProcess)
+    cpu = torch.device("cpu")
+    i_main, q_main, phase = cs.rtl_fm_iq(1 << 18, cpu, torch.Generator().manual_seed(0))
+    sizes = cs.LiveSizes(cma_n=1 << 10, cma_chunk=300, window=128, iir_n=1 << 11,
+                         rds_n=1 << 15, clients=4, feed_c32=1 << 14, feed_u8=1 << 14,
+                         feed_chunk=1 << 12, ui_fft=1024, reps=1)
+    counts, errs, times = cs.live_phase(cpu, "cpu rehearsal", sizes, phase, i_main,
+                                        q_main)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    for ph in ("14 rtl_data_stream", "14 cma", "14 iir", "14 rtl_data_stream app",
+               "14 times", "14 feeder", "14 ui"):
+        assert f"[{ph}] passed" in out
+    assert errs == {"cma": 0.0, "iir": 0.0, "fir_decimate": 0.0}
+    assert set(counts) == {"rtl_data_stream", "cma", "iir"} and times == {}
+    assert "bit-equal False" not in out and out.count("bit-equal True") == 10

@@ -912,7 +912,7 @@ def test_torch_cuda_capturable_blocks_replay_their_chunks(cuda_device, monkeypat
     # block's eager per-chunk output
     cs = _chip_smoke(monkeypatch)
     cases = cs.capturable_cases(blocks, np.random.RandomState(31))
-    assert len(cases) == 19
+    assert len(cases) == 21
     for case, make, ins, n_out in cases:
         inputs = ins(13 * 4096)
         want, _ = cs.run_capturable_case(cuda_device, make, inputs, n_out, 4096, None)
@@ -951,3 +951,128 @@ def test_torch_cuda_batched_fm_chain_equals_per_chunk(cuda_device, tmp_path, sca
     head, _, _ = run(scan, max_chunks=6, checkpoint_path=ck, checkpoint_every=3)
     tail, _, _ = run(scan, resume_from=ck)
     assert np.array_equal(np.concatenate([head, tail]), want)
+
+
+# ---- kernels F and G: the recurrences, bit-equal to their plain versions
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, every element (the kernels and the plain versions do
+    the same f32 operations in the same order)."""
+    a, b = (torch.view_as_real(t) if t.is_complex() else t for t in (a, b))
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def _cma_input(rng, n):
+    s = np.exp(2j * np.pi * rng.randint(0, 4, n + 2) / 4)
+    x = 0.5 * s[:n] + 0.2 * np.exp(0.7j) * s[2:] + 0.01 * (rng.randn(n) + 1j * rng.randn(n))
+    return torch.from_numpy(x.astype(np.complex64))
+
+
+@pytest.mark.parametrize("ntaps", [1, 2, 16, 31, 32, 33, 40, 64, 65, 100, 128])
+@pytest.mark.parametrize("mu", [0.0, 1e-2])
+def test_torch_cuda_cma_kernel_equals_plain(cuda_device, ntaps, mu):
+    # three tiles of 1024 windows and a ragged one; taps past every lane
+    # count (1..4 a lane), and given complex taps
+    rng = np.random.RandomState(ntaps)
+    x = _cma_input(rng, 3100 + ntaps - 1)
+    taps0 = torch.from_numpy(((rng.randn(ntaps) + 1j * rng.randn(ntaps))
+                              / (2 * ntaps)).astype(np.complex64))
+    taps0[0] += 1.0
+    for t in (None, taps0):
+        tdev = None if t is None else t.to(cuda_device)
+        before = kernels.LAUNCHES["cma"]
+        y, fin = ops.cma_equalize(x.to(cuda_device), ntaps, 1.0, mu, taps=tdev)
+        assert kernels.LAUNCHES["cma"] == before + 1
+        wy, wfin = ops.cma_equalize(x, ntaps, 1.0, mu, taps=t)
+        assert _same(y, wy) and _same(fin, wfin)
+        assert torch.isfinite(torch.view_as_real(y)).all()
+
+
+@pytest.mark.parametrize("ntaps", [1, 5, 128])
+def test_torch_cuda_cma_one_window_and_passthrough(cuda_device, ntaps):
+    rng = np.random.RandomState(7)
+    x = _cma_input(rng, ntaps)
+    y, fin = ops.cma_equalize(x.to(cuda_device), ntaps, 1.0, 1e-2)
+    wy, wfin = ops.cma_equalize(x, ntaps, 1.0, 1e-2)
+    assert y.shape == (1,) and _same(y, wy) and _same(fin, wfin)
+    # mu = 0 with the default taps is an exact passthrough (tests/test_graph.py:268)
+    x = _cma_input(rng, 5000)
+    y, fin = ops.cma_equalize(x.to(cuda_device), ntaps, 1.0, 0.0)
+    assert _same(y, x[: 5000 - ntaps + 1])
+    assert _same(fin, torch.eye(1, ntaps, dtype=torch.complex64)[0])
+
+
+def test_torch_cuda_cma_over_limit_raises(cuda_device):
+    x = torch.ones(300, dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="1..128 taps"):
+        ops.cma_equalize(x, kernels.MAX_CMA_TAPS + 1)
+
+
+def test_torch_cuda_cma_equalizer_streams_on_the_card(cuda_device):
+    x = _cma_input(np.random.RandomState(3), 20_000)
+
+    def run(chunk):
+        g, s = Graph(), blocks.VectorSink()
+        g.chain(blocks.VectorSource(x), blocks.CmaEqualizer(16, 1.0, 1e-3), s)
+        if chunk is None:
+            g.run(device=cuda_device)
+        else:
+            g.run_stream(chunk_size=chunk, device=cuda_device)
+        return s.data()
+
+    whole = run(None)
+    assert len(whole) == 20_000 - 15
+    for chunk in (7, 1024, 4096):
+        assert np.array_equal(run(chunk), whole), chunk
+
+
+_IIR_TAPS = {
+    1: [0.1, 0.9],
+    2: [0.05, 1.6, -0.65],
+    # poles 0.95 e^{+-0.3j}, 0.9 e^{+-0.9j}, 0.85 e^{+-1.6j}, 0.8 e^{+-2.4j}
+    8: [0.3017025, 1.7045681, -1.5572132, 1.1628689, -0.8696898, 0.672317,
+        -0.5769415, 0.500414, -0.33802596],
+}
+
+
+def _iir_taps(order, rng):
+    if order in _IIR_TAPS:
+        return np.asarray(_IIR_TAPS[order], np.float32)
+    # a stable filter of any order: taps[i] small enough that sum |taps| < 1
+    t = rng.uniform(-1, 1, order + 1)
+    t[1:] *= 0.95 / np.abs(t[1:]).sum()
+    return t.astype(np.float32)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 31, 32])
+def test_torch_cuda_iir_kernel_equals_plain(cuda_device, order):
+    # two tiles of 2048 and a tail past the last group of four samples
+    rng = np.random.RandomState(order)
+    taps = _iir_taps(order, rng)
+    x = torch.from_numpy(rng.randn(2 * 2048 + 7).astype(np.float32))
+    hist = torch.from_numpy(rng.randn(order).astype(np.float32))
+    for h in (None, hist):
+        before = kernels.LAUNCHES["iir"]
+        got = ops.iir_filter(x.to(cuda_device), taps,
+                             None if h is None else h.to(cuda_device))
+        assert kernels.LAUNCHES["iir"] == before + 1
+        assert _same(got, ops.iir_filter(x, taps, h))
+    for n in (1, 3, 4, 2048, 2049):
+        got = ops.iir_filter(x[:n].to(cuda_device), taps, hist.to(cuda_device))
+        assert _same(got, ops.iir_filter(x[:n], taps, hist)), n
+
+
+def test_torch_cuda_iir_goldens_order_zero_and_limit(cuda_device):
+    # reference src/iir_filter.rs:171-194
+    got = ops.iir_filter(torch.full((4,), 100.0, device=cuda_device), [1.0, 0.9, 0.1])
+    assert got.cpu().tolist() == np.float32([100.0, 190.0, 281.0, 371.9]).tolist()
+    got = ops.iir_filter(torch.tensor([100.0, 100.0, 200.0], device=cuda_device),
+                         [1.0, 0.9, 0.1], history=[100.0, 100.0])
+    assert got.cpu().tolist() == [200.0, 290.0, 481.0]
+    before = dict(kernels.LAUNCHES)
+    x = torch.randn(100, device=cuda_device)
+    assert torch.equal(ops.iir_filter(x, [0.7]), x * np.float32(0.7))
+    assert kernels.LAUNCHES == before  # order 0 launches nothing
+    assert ops.iir_filter(x[:0], [0.5, 0.5]).shape == (0,)
+    with pytest.raises(ValueError, match="orders 1..32"):
+        ops.iir_filter(x, np.full(kernels.MAX_IIR_ORDER + 2, 0.01))

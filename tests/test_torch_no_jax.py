@@ -152,6 +152,28 @@ assert tone.main(["--out", os.path.join(d, "t.c32"), "--seconds", "0.1",
                   "--device", "cpu"]) == 0
 assert spectrum.main(["-r", os.path.join(d, "t.c32"), "--sample_rate", "48k",
                       "--fft_size", "256", "--device", "cpu"]) == 0
+# the recurrences: a CMA equalizer streamed against its offline run, and
+# the IIR filter's golden values
+q = np.exp(2j * np.pi * np.random.RandomState(0).randint(0, 4, 3000) / 4)
+def cma(chunk):
+    g, s = Graph(), blocks.VectorSink()
+    g.chain(blocks.VectorSource((0.5 * q).astype(np.complex64)),
+            blocks.CmaEqualizer(4, 1.0, 1e-2), s)
+    g.run(device="cpu") if chunk is None else g.run_stream(chunk_size=chunk, device="cpu")
+    return s.data()
+assert np.array_equal(cma(None), cma(333)) and abs(abs(cma(None)[-1]) - 1) < 1e-2
+assert ops.iir_filter(torch.full((4,), 100.0), [1.0, 0.9, 0.1]).tolist()[:3] == [100.0, 190.0, 281.0]
+# the live feed: downsample_u8 into the stdio DATA_STREAM loop
+import io
+from rustradio_tpu_torch.apps import rtl_data_stream as rds
+from rustradio_tpu_torch.io import data_stream
+raw = rawfile.rtlsdr_encode(0.5 * np.exp(1j * np.arange(20000) * 0.1))
+payload = rds.downsample_u8(raw, 250e3, 50e3, device="cpu")
+out = io.BytesIO()
+rds.serve_stdio(payload, io.BytesIO(data_stream.encode_version()
+                + data_stream.encode_request_data("rtl-sdr", 10 ** 6)), out)
+ev = data_stream.BytesReader().feed(out.getvalue())
+assert b"".join(e[2] for e in ev if e[0] == "data") == payload and len(payload) == 8000
 print("ok")
 """
 
@@ -166,7 +188,7 @@ def _run(code: str) -> str:
 
 def test_torch_port_never_imports_jax():
     out = _run(_PROBE).split()
-    assert int(out[0]) >= 85  # every module of the package was imported
+    assert int(out[0]) >= 95  # every module of the package was imported
     for name in ("models.ax25", "native", "ops.fft_filter", "ops.hdlc",
                  "ops.hilbert", "ops.resampler", "ops.symbol_sync",
                  "ops.elementwise", "ops.nrzi", "parallel.channelizer",
@@ -183,7 +205,10 @@ def test_torch_port_never_imports_jax():
                  "apps.ax25_1200_rx", "apps.il2p_1200_rx", "apps.bell202_tx",
                  "apps.capture", "apps.soapy_fm", "ops.signal", "ops.fft",
                  "utils.stats", "utils.waterfall", "apps.tone", "apps.fm_tx",
-                 "apps.morse_beacon", "apps.spectrum", "apps.pw_tone"):
+                 "apps.morse_beacon", "apps.spectrum", "apps.pw_tone",
+                 "ops.cma", "blocks.io_blocks", "runtime", "io.data_stream",
+                 "io.websocket", "ui", "ui.server", "apps.rtl_data_stream",
+                 "apps.ui_server"):
         assert f"rustradio_tpu_torch.{name}" in out
 
 

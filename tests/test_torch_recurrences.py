@@ -1,0 +1,239 @@
+"""The recurrences of the port against the JAX package and float64 models:
+``ops.cma_equalize`` (kernel F) and ``ops.iir_filter`` (kernel G), on the
+kernels' plain versions (the CPU route).
+
+Tolerances.  XLA's CPU backend contracts a*b+c into FMAs and sums in its
+own order, and the port rounds every f32 operation on its own in a fixed
+order, so the two packages are not held bit for bit: a float64 model of
+the same recurrence is the arbiter.  The port's y and final taps are held
+within 1e-5 of max|y| (max|taps|) of the float64 model and of the JAX
+package (both measured at <= 3.4e-6 on these inputs, n = 4096), the IIR
+filter within 5e-6 of max|y| (<= 7e-7 measured); the reference's IIR
+goldens exactly.  The plain versions are held bit for bit to a numpy f32
+restatement of the kernels' order of operations: what the card holds the
+kernels to (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rustradio_tpu import ops as jops
+from rustradio_tpu_torch import ops
+from rustradio_tpu_torch.ops import kernels
+
+CPU = "cpu"
+N = 4096
+CMA_TOL = 1e-5
+IIR_TOL = 5e-6
+
+
+def cma_input(rng, n):
+    """Unit-modulus QPSK through a two-path channel (gain 0.5, an echo two
+    samples ahead at 0.2) plus complex noise of 0.01."""
+    s = np.exp(2j * np.pi * rng.randint(0, 4, n + 2) / 4)
+    x = 0.5 * s[:n] + 0.2 * np.exp(0.7j) * s[2:] + 0.01 * (
+        rng.randn(n) + 1j * rng.randn(n))
+    return x.astype(np.complex64)
+
+
+def cma_f64(x, ntaps, r, mu, taps=None):
+    x = x.astype(np.complex128)
+    t = np.zeros(ntaps, np.complex128)
+    t[0] = 1.0
+    if taps is not None:
+        t = np.asarray(taps, np.complex128)
+    ys = []
+    for i in range(len(x) - ntaps + 1):
+        w = x[i : i + ntaps]
+        y = np.sum(t * w)
+        e = r - abs(y) ** 2
+        t = t + (mu * e) * y * np.conj(w)
+        ys.append(y)
+    return np.asarray(ys), t
+
+
+def iir_f64(x, taps, history=None):
+    taps = np.asarray(taps, np.float64)
+    order = len(taps) - 1
+    if order == 0:
+        return taps[0] * np.asarray(x, np.float64)
+    h = np.zeros(order) if history is None else np.asarray(history, np.float64)
+    ys = []
+    for v in x:
+        y = taps[0] * v + np.dot(taps[1:], h)
+        h = np.concatenate([[y], h[:-1]])
+        ys.append(y)
+    return np.asarray(ys)
+
+
+def rel(a, b, scale):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()) / scale
+
+
+@pytest.mark.parametrize("ntaps", [1, 2, 4, 16, 40])
+@pytest.mark.parametrize("mu", [0.0, 1e-3, 1e-2])
+@pytest.mark.parametrize("given", [False, True], ids=["default_taps", "taps"])
+def test_torch_cma_equalize_matches_jax_and_float64(ntaps, mu, given):
+    rng = np.random.RandomState(ntaps + int(mu * 1e4))
+    x = cma_input(rng, N)
+    taps = None
+    if given:
+        taps = ((0.5 * rng.randn(ntaps) + 0.5j * rng.randn(ntaps))
+                / np.sqrt(ntaps)).astype(np.complex64)
+    y, fin = ops.cma_equalize(x, ntaps, 1.0, mu, taps=taps, device=CPU)
+    assert y.shape == (N - ntaps + 1,) and y.dtype == torch.complex64
+    jy, jfin = jops.cma_equalize(x, ntaps, 1.0, mu, taps=taps)
+    fy, ffin = cma_f64(x, ntaps, 1.0, mu, taps)
+    sy, st = np.abs(fy).max(), np.abs(ffin).max()
+    assert rel(y.numpy(), fy, sy) <= CMA_TOL
+    assert rel(fin.numpy(), ffin, st) <= CMA_TOL
+    assert rel(y.numpy(), np.asarray(jy), sy) <= CMA_TOL
+    assert rel(fin.numpy(), np.asarray(jfin), st) <= CMA_TOL
+
+
+def test_torch_cma_equalize_passthrough_and_errors():
+    x = cma_input(np.random.RandomState(0), 1000)
+    y, fin = ops.cma_equalize(x, 4, 1.0, 0.0, device=CPU)
+    assert np.array_equal(y.numpy(), x[:997])  # exact at mu = 0
+    assert np.array_equal(fin.numpy(), np.eye(1, 4)[0])
+    with pytest.raises(ValueError, match="nonzero"):
+        ops.cma_equalize(x, 0, device=CPU)
+    with pytest.raises(ValueError, match="shorter than taps"):
+        ops.cma_equalize(x[:3], 4, device=CPU)
+    with pytest.raises(ValueError, match="device="):
+        ops.cma_equalize(x, 4)  # a numpy input names its device
+    with pytest.raises(ValueError, match="1..128 taps"):
+        ops.cma_equalize(np.zeros(300, np.complex64), 129, device=CPU)
+    with pytest.raises(ValueError, match="taps of shape"):
+        ops.cma_equalize(x, 4, taps=np.ones(3, np.complex64), device=CPU)
+
+
+def cma_kernel_order(x, taps, r, mu):
+    """numpy f32 restatement of csrc/cma.cu, lane by lane: lane l's taps
+    l, l + 32, ...; its sum from +0.0 over its taps in that order; the
+    __shfl_xor_sync butterfly (16, 8, 4, 2, 1) in every lane; then e, mu *
+    e * y and each tap's update."""
+    f = np.float32
+    r, mu = f(r), f(mu)
+    ntaps = len(taps)
+    tr = [f(t.real) for t in taps]
+    ti = [f(t.imag) for t in taps]
+    ys = []
+    for i in range(len(x) - ntaps + 1):
+        w = x[i : i + ntaps]
+        wr = [f(v.real) for v in w]
+        wi = [f(v.imag) for v in w]
+        ar, ai = [f(0.0)] * 32, [f(0.0)] * 32
+        for k in range(ntaps):
+            lane = k % 32
+            ar[lane] = ar[lane] + (tr[k] * wr[k] - ti[k] * wi[k])
+            ai[lane] = ai[lane] + (tr[k] * wi[k] + ti[k] * wr[k])
+        for off in (16, 8, 4, 2, 1):
+            ar = [ar[l] + ar[l ^ off] for l in range(32)]
+            ai = [ai[l] + ai[l ^ off] for l in range(32)]
+        yr, yi = ar[0], ai[0]
+        e = r - (yr * yr + yi * yi)
+        me = mu * e
+        cr, ci = me * yr, me * yi
+        for k in range(ntaps):
+            tr[k] = tr[k] + (cr * wr[k] + ci * wi[k])
+            ti[k] = ti[k] + (ci * wr[k] - cr * wi[k])
+        ys.append(complex(yr, yi))
+    return (np.asarray(ys, np.complex64),
+            (np.asarray(tr, np.float32) + 1j * np.asarray(ti, np.float32)
+             ).astype(np.complex64))
+
+
+@pytest.mark.parametrize("ntaps", [1, 16, 40, 70])
+def test_torch_cma_plain_version_is_the_kernels_order(ntaps):
+    # the plain version (the CPU route) against the kernel's arithmetic
+    # restated in numpy f32, bit for bit
+    rng = np.random.RandomState(ntaps)
+    x = cma_input(rng, ntaps + 299)
+    taps = (np.eye(1, ntaps)[0] + 0.1 * (rng.randn(ntaps) + 1j * rng.randn(ntaps))
+            / ntaps).astype(np.complex64)
+    y, fin = kernels.cma_scan_plain(torch.from_numpy(x), torch.from_numpy(taps),
+                                    1.0, 1e-2)
+    wy, wfin = cma_kernel_order(x, taps, 1.0, 1e-2)
+    assert np.array_equal(y.numpy(), wy) and np.array_equal(fin.numpy(), wfin)
+
+
+IIR_TAPS = {
+    0: [0.7],
+    1: [0.1, 0.9],
+    2: [0.05, 1.6, -0.65],  # poles 0.8 +- 0.1j
+    # poles 0.95 e^{+-0.3j}, 0.9 e^{+-0.9j}, 0.85 e^{+-1.6j}, 0.8 e^{+-2.4j},
+    # unit gain at DC
+    8: [0.3017025, 1.7045681, -1.5572132, 1.1628689, -0.8696898, 0.672317,
+        -0.5769415, 0.500414, -0.33802596],
+}
+
+
+@pytest.mark.parametrize("order,with_history", [
+    (0, False), (1, False), (1, True), (2, False), (2, True), (8, False),
+    (8, True)])
+def test_torch_iir_filter_matches_jax_and_float64(order, with_history):
+    rng = np.random.RandomState(order)
+    taps = np.asarray(IIR_TAPS[order], np.float32)
+    x = rng.randn(N).astype(np.float32)
+    hist = rng.randn(order).astype(np.float32) if with_history else None
+    y = ops.iir_filter(x, taps, hist, device=CPU)
+    assert y.shape == (N,) and y.dtype == torch.float32
+    jy = np.asarray(jops.iir_filter(x, taps, hist))
+    fy = iir_f64(x, taps, hist)
+    scale = np.abs(fy).max()
+    assert rel(y.numpy(), fy, scale) <= IIR_TOL
+    assert rel(y.numpy(), jy, scale) <= IIR_TOL
+    if order == 0:  # x * taps[0] in both packages
+        assert np.array_equal(y.numpy(), jy)
+
+
+def test_torch_iir_filter_goldens_exactly():
+    # reference src/iir_filter.rs:171-194
+    got = ops.iir_filter(np.full(4, 100.0, np.float32), [1.0, 0.9, 0.1], device=CPU)
+    assert np.array_equal(got.numpy(), np.float32([100.0, 190.0, 281.0, 371.9]))
+    got = ops.iir_filter(np.asarray([100.0, 100.0, 200.0], np.float32),
+                         [1.0, 0.9, 0.1], history=[100.0, 100.0], device=CPU)
+    assert np.array_equal(got.numpy(), np.float32([200.0, 290.0, 481.0]))
+    with pytest.raises(ValueError, match="orders 1..32"):
+        ops.iir_filter(torch.zeros(8), np.full(34, 0.01))
+
+
+def iir_kernel_order(x, taps, hist):
+    """numpy f32 restatement of csrc/iir.cu: taps[0] * x[n], then the
+    terms from the oldest output down to taps[2] * y[n - 2], then
+    taps[1] * y[n - 1] last."""
+    t = [np.float32(v) for v in taps]
+    h = [np.float32(v) for v in hist]
+    ys = []
+    for v in x:
+        acc = t[0] * np.float32(v)
+        for i in range(len(t) - 1, 1, -1):
+            acc = acc + t[i] * h[i - 1]
+        y = acc + t[1] * h[0]
+        h = [y] + h[:-1]
+        ys.append(y)
+    return np.asarray(ys, np.float32)
+
+
+@pytest.mark.parametrize("order", [1, 2, 8, 32])
+def test_torch_iir_plain_version_is_the_kernels_order(order):
+    rng = np.random.RandomState(order)
+    taps = (np.asarray(IIR_TAPS[order], np.float32) if order in IIR_TAPS else
+            np.concatenate([[1.0], 0.9 / order * rng.uniform(-1, 1, order)]
+                           ).astype(np.float32))
+    x = rng.randn(500).astype(np.float32)
+    hist = rng.randn(order).astype(np.float32)
+    got = kernels.iir_scan_plain(torch.from_numpy(x), taps, torch.from_numpy(hist))
+    assert np.array_equal(got.numpy(), iir_kernel_order(x, taps, hist))
+
+
+def test_torch_recurrences_count_their_work():
+    before = dict(kernels.WORK)
+    ops.iir_filter(torch.zeros(100), IIR_TAPS[2])
+    ops.cma_equalize(torch.zeros(100, dtype=torch.complex64), 4)
+    want_b = kernels.iir_work(100, 2)[0] + kernels.cma_work(100, 4)[0]
+    want_f = kernels.iir_work(100, 2)[1] + kernels.cma_work(100, 4)[1]
+    assert kernels.WORK["bytes"] - before["bytes"] == want_b
+    assert kernels.WORK["flops"] - before["flops"] == want_f

@@ -503,10 +503,12 @@ CAPTURABLE = {
     "Add", "AddConst", "BinarySlicer", "ComplexToFloat", "ComplexToMag2",
     "ComplexToReal", "FastFM", "FftFilter", "FftFilterFloat", "FftStream",
     "FirFilter", "FloatToComplex", "Hilbert", "MultiplyConst",
-    "QuadratureDemod", "Tee", "Vco", "Xor", "XorConst",
+    "QuadratureDemod", "RtlSdrDecode", "RtlSdrEncode", "Tee", "Vco", "Xor",
+    "XorConst",
 }
 NOT_CAPTURABLE = {
-    "AudioSink", "BurstTagger", "Canary", "ConstantSource",
+    "AuDecode", "AuEncode", "AudioSink", "BurstTagger", "Canary",
+    "CmaEqualizer", "ConstantSource",
     "CorrelateAccessCode", "CorrelateAccessCodeTag", "DebugFilter", "DebugSink",
     "Delay", "Descrambler", "DeviceFoldSink", "FcsAdder", "Fft", "FileSink",
     "FileSource", "Hasher", "HdlcDeframer", "HdlcFramer", "Head",
@@ -514,11 +516,11 @@ NOT_CAPTURABLE = {
     "KissFrame", "Map", "Midpointer", "MorseEncode", "NoiseSource",
     "NrziDecode", "NrziEncode", "NullSink", "PackedIqRingSource", "PduFileSink",
     "PduMap", "PduToStream", "PduVectorSink", "PduWriter", "PipewireSink",
-    "PipewireSource", "RationalResampler", "RtlSdrSource", "Scrambler",
-    "SdrSink", "SdrSource", "SignalSourceComplex", "SignalSourceFloat",
-    "SinglePoleIirFilter", "Skip", "SoapySdrSink", "StreamToPdu",
-    "SymbolSync", "ToText", "VectorSink", "VectorSource", "Wpcr",
-    "ZeroCrossing",
+    "PipewireSource", "RationalResampler", "ReaderSource", "RtlSdrSource",
+    "Scrambler", "SdrSink", "SdrSource", "SignalSourceComplex",
+    "SignalSourceFloat", "SinglePoleIirFilter", "Skip", "SoapySdrSink",
+    "StreamToPdu", "Strobe", "SymbolSync", "TcpSource", "ToText", "VectorSink",
+    "VectorSource", "Wpcr", "WriterSink", "ZeroCrossing",
 }
 
 
