@@ -107,13 +107,18 @@ class Xor(Block):
 
 class Map(Block):
     """1:1 lambda block (reference src/convert.rs:121-172); ``fn`` runs on
-    each chunk's tensor."""
+    each chunk's tensor.  ``elementwise=True`` declares ``fn`` pointwise
+    (no cross-sample dependence) and sets ``shard_halo`` to 0, as the JAX
+    block does; nothing in the port reads it yet."""
 
     graph_capturable = False  # fn may read the card back or work on the host
+    shard_halo: int | None = None  # None = not time-shardable
 
-    def __init__(self, fn, name: str = "Map"):
+    def __init__(self, fn, name: str = "Map", elementwise: bool = False):
         self.fn = fn
         self._name = name
+        if elementwise:
+            self.shard_halo = 0
 
     def name(self):
         return self._name

@@ -103,8 +103,10 @@ def _bind(lib):
     lib.rr_symbol_sync_events.restype = i
     lib.rr_cma_equalize.argtypes = [p, ll, i, f, f, p, p, p]
     lib.rr_cma_equalize.restype = i
-    lib.rr_iir_filter.argtypes = [p, ll, p, i, p, p, p]
+    lib.rr_iir_filter.argtypes = [p, ll, p, i, p, p, p, p, p]
     lib.rr_iir_filter.restype = i
+    lib.rr_iir_layout.argtypes = [p]
+    lib.rr_iir_layout.restype = None
     lib.rr_cuda_error_string.argtypes = [i]
     lib.rr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -70,6 +70,8 @@ def fft_filter(x, taps, fft_size: int | None = None) -> torch.Tensor:
     src/fft_filter.rs:289-354), to float32 FFT accuracy."""
     x = torch.as_tensor(x).to(torch.complex64)
     n, ntaps = x.shape[0], len(taps)
+    if n == 0:  # no frames (an FFT of none fails)
+        return x
     overlap = ntaps - 1
     if fft_size is None:
         fft_size = _pick_fft_size(ntaps, n)
@@ -92,6 +94,8 @@ def fft_filter_decimate(x, taps, deci: int,
         return fft_filter(x, taps, fft_size)
     x = torch.as_tensor(x).to(torch.complex64)
     n, ntaps = x.shape[0], len(taps)
+    if n == 0:
+        return x
     overlap = ntaps - 1
     if fft_size is None:
         fft_size = max(_pick_fft_size(ntaps, n), 4 * deci)
@@ -121,6 +125,8 @@ def fft_filter_float(x, taps, fft_size: int | None = None) -> torch.Tensor:
         return fft_filter(torch.as_tensor(x).float(), taps, fft_size).real
     x = torch.as_tensor(x).to(torch.float32)
     n, ntaps = x.shape[0], len(taps)
+    if n == 0:
+        return x
     overlap = ntaps - 1
     if fft_size is None:
         fft_size = _pick_fft_size(ntaps, n)

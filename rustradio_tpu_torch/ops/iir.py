@@ -14,7 +14,10 @@ Plain torch on the input's device; no kernel.
 taps[0]*x[n] + sum_{i>=1} taps[i]*y[n-i], any order up to
 ``kernels.MAX_IIR_ORDER``.  The JAX package runs it as a ``lax.scan``;
 here it is kernel G (``kernels.iir_scan``) on the card and its plain
-version on the CPU.
+version on the CPU: the same linear recurrence cut into chunks of
+``kernels.IIR_CHUNK`` samples that walk at once, each from the state a
+fixed scan of the chunks' affine maps gives it (the first chunk from
+``history``, so it is the sequential form itself).
 """
 
 from __future__ import annotations

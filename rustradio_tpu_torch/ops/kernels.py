@@ -33,14 +33,16 @@ out (``csrc/symbol_sync.cu`` on ``csrc/sync_core.cuh``):
 * ``symbol_sync_scan`` (kernel E) runs the per-sample recurrence (the scan
   at symbol_sync.py:145, and native ``rr_symbol_sync``).
 
-Two more replace the other per-sample ``lax.scan``s, one block per call
-(a walker and a loader warp, the same roles):
+Two more replace the other per-sample ``lax.scan``s:
 
 * ``cma_scan`` (``csrc/cma.cu``, kernel F) runs the CMA equalizer's
-  recurrence (``rustradio_tpu/ops/cma.py:45``), the taps on a warp's
-  lanes and the sum over them a shuffle butterfly;
+  recurrence (``rustradio_tpu/ops/cma.py:45``) in one block (a walker
+  and a loader warp), the taps on a warp's lanes and the sum over them a
+  shuffle butterfly;
 * ``iir_scan`` (``csrc/iir.cu``, kernel G) runs the reference's IIR
-  filter (``rustradio_tpu/ops/iir.py:68``) on one lane.
+  filter (``rustradio_tpu/ops/iir.py:68``) as a chunked scan over every
+  SM: chunks of ``IIR_CHUNK`` samples walk at once, their starting states
+  from a scan of the chunks' affine maps.
 
 ``tools/csrc/symbol_sync_lone.cu`` keeps D and E as one thread per channel,
 and ``tools/csrc/chain_calib.cu`` measures a lone lane's latencies:
@@ -97,6 +99,7 @@ the working dtype, written once at ingest.
 from __future__ import annotations
 
 import contextlib
+import functools
 import typing
 
 import numpy as np
@@ -1086,6 +1089,12 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
 
 MAX_CMA_TAPS = 128   # kernel F's bound (csrc/cma.cu, four taps a lane)
 MAX_IIR_ORDER = 32   # kernel G's bound (csrc/iir.cu)
+# kernel G's layout (csrc/iir.cu, kChunk, kBlock, kLevels): samples a
+# chunk, chunks a block, and the powers M^(2^j) of M = A^IIR_CHUNK it reads
+IIR_CHUNK = 128
+IIR_BLOCK = 128
+_IIR_LOG_BLOCK = IIR_BLOCK.bit_length() - 1
+IIR_LEVELS = 2 * _IIR_LOG_BLOCK + 1
 
 
 def cma_work(n: int, ntaps: int):
@@ -1213,44 +1222,186 @@ def _check_iir(x: torch.Tensor, taps: np.ndarray, history: torch.Tensor) -> None
                          f"{history.dtype} on {history.device}")
 
 
-def iir_scan_plain(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`iir_scan` (any device): a Python loop
-    over the samples in the kernel's order, taps[0] * x[n] (one elementwise
-    product for the whole stream), then the terms from the oldest output
-    down to taps[2] * y[n - 2], then taps[1] * y[n - 1] last."""
-    taps = np.asarray(taps, np.float32).reshape(-1)
-    _check_iir(x, taps, history)
-    t = [float(v) for v in taps]
-    order = len(t) - 1
-    tx = x * t[0]
-    h = list(history.unbind(0))
+@functools.lru_cache(maxsize=64)
+def _iir_powers(taps_bytes: bytes) -> np.ndarray:
+    taps = np.frombuffer(taps_bytes, np.float32).astype(np.float64)
+    p = len(taps) - 1
+    a = np.zeros((p, p))
+    a[0] = taps[1:]
+    a[np.arange(1, p), np.arange(p - 1)] = 1.0
+    out = np.empty((IIR_LEVELS, p, p), np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        m = a
+        for _ in range(IIR_CHUNK.bit_length() - 1):
+            m = m @ m
+        for j in range(IIR_LEVELS):
+            out[j] = m
+            m = m @ m
+    out.setflags(write=False)
+    return out
+
+
+def iir_powers(taps) -> np.ndarray:
+    """Kernel G's powers: (IIR_LEVELS, p, p) f32, level j = M^(2^j) with M
+    = A^IIR_CHUNK, A the companion matrix of the order-p filter ``taps``
+    (state most recent output first: A[0] = taps[1:], ones below the
+    diagonal).  Squared in float64 from the f32 taps, each level rounded to
+    f32 once; cached per taps (read-only)."""
+    return _iir_powers(np.ascontiguousarray(taps, np.float32).tobytes())
+
+
+@functools.lru_cache(maxsize=64)
+def _iir_powers_on(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_iir_powers(taps_bytes).copy()).to(device)
+
+
+def _iir_layout(n: int) -> tuple[int, int]:
+    """(chunks, blocks) of an n-sample call."""
+    chunks = -(-n // IIR_CHUNK)
+    return chunks, -(-chunks // IIR_BLOCK)
+
+
+def _iir_walk(tx: torch.Tensor, t: list, h: list, out: bool):
+    """Every chunk's walk at once: ``tx`` (chunks, IIR_CHUNK) holds taps[0]
+    * x, ``h`` the p states (chunks,), most recent first.  Returns the end
+    states and, with ``out``, the outputs (chunks, IIR_CHUNK)."""
+    p = len(t) - 1
     ys = []
-    for n in range(x.shape[0]):
-        acc = tx[n]
-        for i in range(order, 1, -1):
+    for j in range(tx.shape[1]):
+        acc = tx[:, j]
+        for i in range(p, 1, -1):
             acc = acc + t[i] * h[i - 1]
         y = acc + t[1] * h[0]
         h = [y] + h[:-1]
-        ys.append(y)
-    return torch.stack(ys) if ys else x.new_zeros(0)
+        if out:
+            ys.append(y)
+    return h, (torch.stack(ys, 1) if out else None)
+
+
+def _iir_matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m (p, p) times the columns of v (p, N), each row summed from column 0
+    up, every product and sum an f32 op of its own."""
+    acc = m[:, :1] * v[:1]
+    for c in range(1, m.shape[0]):
+        acc = acc + m[:, c : c + 1] * v[c : c + 1]
+    return acc
+
+
+def _iir_scan_blocks(u: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
+    """Hillis-Steele over the last axis of u (p, blocks, IIR_BLOCK), each
+    block alone: level j adds pw[j] u[i - 2^j] where i >= 2^j."""
+    p, nb, b = u.shape
+    for j in range(_IIR_LOG_BLOCK):
+        d = 1 << j
+        add = _iir_matvec(pw[j], u[:, :, : b - d].reshape(p, -1))
+        u = torch.cat([u[:, :, :d], u[:, :, d:] + add.view(p, nb, b - d)], 2)
+    return u
+
+
+def _iir_power(v: torch.Tensor, e: torch.Tensor, pw: torch.Tensor,
+               nbits: int) -> torch.Tensor:
+    """Each column v[:, i] times pw[j] for the set bits j of e[i], lowest
+    first."""
+    for j in range(nbits):
+        v = torch.where(((e >> j) & 1).bool(), _iir_matvec(pw[j], v), v)
+    return v
+
+
+def iir_scan_plain(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`iir_scan` (any device), kernel G's
+    arithmetic in its order: the stream in chunks of ``IIR_CHUNK`` samples
+    (zeros past n), blocks of ``IIR_BLOCK`` chunks.
+
+    1. Every chunk walks from a zero state (chunk 0 from ``history``): a
+       Python loop over a chunk's positions, vectorised over the chunks;
+       each step taps[0] * x[n], then the terms from the oldest output down
+       to taps[2] * y[n - 2], then taps[1] * y[n - 1] last.  Each block
+       scans its end states (:func:`_iir_scan_blocks`, powers 0..6).
+    2. The blocks' last states, but the last block's, are scanned the same
+       way in tiles of IIR_BLOCK (powers 7..13), tile by tile, each tile's
+       carry from the one before applied to its i-th entry as
+       (M^IIR_BLOCK)^(i + 1) (:func:`_iir_power`, powers 7..14).
+    3. Each chunk's starting state: the history (chunk 0); its
+       predecessor's end (block 0); the carry into its block (a block's
+       first chunk); else its predecessor's end plus M^i times the carry;
+       then every chunk walks again from it.
+
+    Every matrix product is :func:`_iir_matvec`, with the f32 powers of
+    :func:`iir_powers`."""
+    taps = np.asarray(taps, np.float32).reshape(-1)
+    _check_iir(x, taps, history)
+    t = [float(v) for v in taps]
+    p, n = len(t) - 1, x.shape[0]
+    if n == 0:
+        return x.new_zeros(0)
+    chunks, blocks = _iir_layout(n)
+    tx = F.pad(x * t[0], (0, chunks * IIR_CHUNK - n)).view(chunks, IIR_CHUNK)
+    start = torch.zeros((p, chunks), dtype=torch.float32, device=x.device)
+    start[:, 0] = history
+    if chunks > 1:
+        pw = _iir_powers_on(taps.tobytes(), x.device)
+        width = blocks * IIR_BLOCK
+        ends, _ = _iir_walk(tx, t, list(start.unbind(0)), False)
+        u = F.pad(torch.stack(ends), (0, width - chunks))
+        u = _iir_scan_blocks(u.view(p, blocks, IIR_BLOCK), pw).reshape(p, width)
+        carry = torch.zeros((p, blocks), dtype=torch.float32, device=x.device)
+        q = blocks - 1
+        if q:
+            tiles = -(-q // IIR_BLOCK)
+            last = F.pad(u[:, IIR_BLOCK - 1 :: IIR_BLOCK][:, :q],
+                         (0, tiles * IIR_BLOCK - q))
+            z = _iir_scan_blocks(last.view(p, tiles, IIR_BLOCK),
+                                 pw[_IIR_LOG_BLOCK:])
+            e = torch.arange(1, IIR_BLOCK + 1, device=x.device)
+            out = [z[:, 0]]
+            for tile in range(1, tiles):
+                c = out[-1][:, -1:].expand(p, IIR_BLOCK)
+                out.append(z[:, tile] + _iir_power(c, e, pw[_IIR_LOG_BLOCK:],
+                                                   _IIR_LOG_BLOCK + 1))
+            carry[:, 1:] = torch.cat(out, 1)[:, :q]
+        k = torch.arange(1, chunks, device=x.device)
+        i = k % IIR_BLOCK
+        prev = u[:, :chunks - 1]
+        c = carry[:, k // IIR_BLOCK]
+        moved = prev + _iir_power(c, i, pw, _IIR_LOG_BLOCK)
+        start[:, 1:] = torch.where(k < IIR_BLOCK, prev,
+                                   torch.where(i == 0, c, moved))
+    _, y = _iir_walk(tx, t, list(start.unbind(0)), True)
+    return y.reshape(-1)[:n]
 
 
 def iir_scan(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
     """The reference's IIR recurrence over ``x`` (1-D f32), order
     len(taps) - 1 in 1..``MAX_IIR_ORDER``: y[n] = taps[0] * x[n] +
     sum_{i>=1} taps[i] * y[n - i], from ``history`` (order f32 on x's
-    device, the last outputs, most recent first).  Summed in f32 from the
-    oldest term down, taps[1] * y[n - 1] last (:func:`iir_scan_plain`).
-    Kernel G on CUDA tensors; the plain version on CPU tensors."""
+    device, the last outputs, most recent first).  In chunks of
+    ``IIR_CHUNK`` samples, their starting states from a fixed scan
+    (:func:`iir_scan_plain`); the first chunk is the sequential form,
+    summed in f32 from the oldest term down, taps[1] * y[n - 1] last.
+    Kernel G on CUDA tensors (one to three launches: one for a single
+    chunk, two for a single block); the plain version on CPU tensors."""
     taps = np.ascontiguousarray(taps, np.float32).reshape(-1)
     _check_iir(x, taps, history)
-    work = iir_work(x.shape[0], len(taps) - 1)
+    n, p = x.shape[0], len(taps) - 1
+    work = iir_work(n, p)
     if not _route(x):
         _worked(work)
         return iir_scan_plain(x, taps, history)
     y = torch.empty_like(x)
-    if x.shape[0] == 0:
+    if n == 0:
         return y
+    _, blocks = _iir_layout(n)
+    scratch = torch.empty(p * blocks * (IIR_BLOCK + 1), dtype=torch.float32,
+                          device=x.device)
+    pw = _iir_powers_on(taps.tobytes(), x.device)
+    hist = history.contiguous()
+    lib = cuda_lib.load()
+    cuda_lib.check(lib.rr_iir_filter(
+        x.data_ptr(), n, taps.ctypes.data, len(taps), hist.data_ptr(),
+        pw.data_ptr(), scratch.data_ptr(), y.data_ptr(), _stream(x.device)),
+        "iir_filter")
+    _launched("iir", None, work)
+    return y
     hist = history.contiguous()
     lib = cuda_lib.load()
     cuda_lib.check(lib.rr_iir_filter(

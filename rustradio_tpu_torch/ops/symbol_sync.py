@@ -251,7 +251,7 @@ _ZC_SEGMENT = 1 << 24
 
 
 def zero_crossing_sync(x, sps: float, max_deviation: float = 0.5, state=None,
-                       device=None):
+                       unroll: int = 1, device=None):
     """Fixed-clock zero-crossing recovery (src/zero_crossing.rs:26-150):
     emits the sample at sps/2 past each zero crossing, then every sps.
 
@@ -265,8 +265,10 @@ def zero_crossing_sync(x, sps: float, max_deviation: float = 0.5, state=None,
     position off its magnitude.  ``max_deviation`` is accepted for the
     reference's signature and unused there too.  ``state`` is the dict of
     ``native.zero_crossing_f32`` (None: a fresh stream).  A tensor stays on
-    its device; a numpy input needs ``device=``.
+    its device; a numpy input needs ``device=``.  ``unroll`` is accepted
+    for the JAX signature and changes nothing.
     """
+    del unroll
     if not sps > 1.0:
         raise ValueError("sps must be > 1")
     x = _as_bank(x, device)[0].reshape(-1)

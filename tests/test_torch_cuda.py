@@ -1044,22 +1044,82 @@ def _iir_taps(order, rng):
     return t.astype(np.float32)
 
 
+_L, _B = kernels.IIR_CHUNK, kernels.IIR_BLOCK
+# one sample; a chunk less one, a chunk, a chunk and one; more chunks than
+# one with a tail; 300 chunks (three blocks); 2^16; 131 blocks (two tiles
+# of the carries' scan); 2^20
+_IIR_NS = [1, _L - 1, _L, _L + 1, 3 * _L + 5, 300 * _L - 17, 1 << 16,
+           (_B + 2) * _B * _L + 77, 1 << 20]
+
+
 @pytest.mark.parametrize("order", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 31, 32])
 def test_torch_cuda_iir_kernel_equals_plain(cuda_device, order):
-    # two tiles of 2048 and a tail past the last group of four samples
+    # kernel G against its plain version run on the card, bit for bit,
+    # with and without history; one count a call
     rng = np.random.RandomState(order)
     taps = _iir_taps(order, rng)
-    x = torch.from_numpy(rng.randn(2 * 2048 + 7).astype(np.float32))
-    hist = torch.from_numpy(rng.randn(order).astype(np.float32))
-    for h in (None, hist):
-        before = kernels.LAUNCHES["iir"]
-        got = ops.iir_filter(x.to(cuda_device), taps,
-                             None if h is None else h.to(cuda_device))
-        assert kernels.LAUNCHES["iir"] == before + 1
-        assert _same(got, ops.iir_filter(x, taps, h))
-    for n in (1, 3, 4, 2048, 2049):
-        got = ops.iir_filter(x[:n].to(cuda_device), taps, hist.to(cuda_device))
-        assert _same(got, ops.iir_filter(x[:n], taps, hist)), n
+    x = torch.from_numpy(rng.randn(max(_IIR_NS) + 3).astype(np.float32)).to(cuda_device)
+    hist = torch.from_numpy(rng.randn(order).astype(np.float32)).to(cuda_device)
+    zeros = torch.zeros(order, device=cuda_device)
+    for n in _IIR_NS:
+        for h in (None, hist):
+            before = kernels.LAUNCHES["iir"]
+            got = ops.iir_filter(x[:n], taps, h)
+            assert kernels.LAUNCHES["iir"] == before + 1
+            want = kernels.iir_scan_plain(x[:n], taps, zeros if h is None else h)
+            assert _same(got, want), (n, h is None)
+    # x off a 16-byte boundary: the staging's one-word path at full blocks
+    n = 300 * _L - 17
+    got = kernels.iir_scan(x[3 : 3 + n], taps, hist)
+    assert _same(got, kernels.iir_scan_plain(x[3 : 3 + n], taps, hist))
+
+
+@pytest.mark.parametrize("kind", ["marginal", "outside"])
+def test_torch_cuda_iir_growing_filters_equal_plain(cuda_device, kind):
+    # the goldens' marginal filter (a pole at z = 1) and a pole pair just
+    # outside the unit circle (radius 1.0002, finite over these lengths):
+    # their carries do not fade, so every pass's order shows in the outputs
+    taps = np.asarray([1.0, 0.9, 0.1] if kind == "marginal" else
+                      [1.0, 2 * 1.0002 * np.cos(0.3), -1.0002 ** 2], np.float32)
+    rng = np.random.RandomState(len(kind))
+    ns = ([300 * _L - 17, (_B + 2) * _B * _L + 77, 1 << 20] if kind == "marginal"
+          else [300 * _L - 17, 1 << 16])
+    x = torch.from_numpy(rng.randn(max(ns)).astype(np.float32)).to(cuda_device)
+    for n in ns:
+        for h in (torch.zeros(2), torch.from_numpy(rng.randn(2).astype(np.float32))):
+            h = h.to(cuda_device)
+            got = kernels.iir_scan(x[:n], taps, h)
+            want = kernels.iir_scan_plain(x[:n], taps, h)
+            assert bool(torch.isfinite(want).all()) and _same(got, want), n
+
+
+def test_torch_cuda_iir_layout_and_graph_capture(cuda_device):
+    # the wrapper's mirror of the kernel's layout; a call captured in a
+    # CUDA graph (no host sync, no allocation in the kernel) replays
+    # bit-equal to the eager call
+    from rustradio_tpu_torch.ops import cuda_lib
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    cuda_lib.load().rr_iir_layout(out)
+    assert list(out) == [kernels.IIR_CHUNK, kernels.IIR_BLOCK, kernels.IIR_LEVELS]
+    taps = np.asarray(_IIR_TAPS[8], np.float32)
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(1 << 20).astype(np.float32)).to(cuda_device)
+    hist = torch.zeros(8, device=cuda_device)
+    eager = kernels.iir_scan(x, taps, hist)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kernels.iir_scan(x, taps, hist)  # warm-up on the side stream
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out_g = kernels.iir_scan(x, taps, hist)
+    x.copy_(torch.from_numpy(rng.randn(1 << 20).astype(np.float32)))
+    g.replay()
+    torch.cuda.synchronize()
+    assert _same(out_g, kernels.iir_scan(x, taps, hist))
+    assert not _same(out_g, eager)
 
 
 def test_torch_cuda_iir_goldens_order_zero_and_limit(cuda_device):

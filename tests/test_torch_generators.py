@@ -309,3 +309,20 @@ def test_torch_packet_blocks_equal_jax(tmp_path):
                                     Pdu(torch.arange(3, dtype=torch.uint8))])
     files = sorted(d.iterdir())
     assert [f.read_bytes() for f in files] == [bytes([0, 1, 2, 3]), bytes([0, 1, 2])]
+
+
+@pytest.mark.parametrize("elementwise", [False, True])
+def test_torch_map_takes_jax_elementwise_flag(elementwise):
+    # blocks.Map(fn, name, elementwise=) as the JAX block takes it: the flag
+    # sets shard_halo to 0 (pointwise, time-shardable), else it stays None
+    m = blocks.Map(lambda v: v * 3, "Triple", elementwise=elementwise)
+    jm = jblocks.Map(lambda v: v * 3, "Triple", elementwise=elementwise)
+    assert m.shard_halo == jm.shard_halo == (0 if elementwise else None)
+    assert m.name() == jm.name() == "Triple"
+    x = np.random.RandomState(7).randn(300).astype(np.float32)
+    for chunk in (None, 64):
+        got = _graph_out(blocks, Graph, blocks.VectorSource(x), chunk=chunk,
+                         block=m)
+        want = _graph_out(jblocks, JGraph, jblocks.VectorSource(x), chunk=chunk,
+                          block=jm)
+        assert np.array_equal(got, want)

@@ -181,3 +181,27 @@ def test_torch_cpu_tensors_take_the_plain_version():
                        kernels.fir_decimate_plain(x, taps, 4))
     kernels.fm_chain(x, x, taps, 4)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("op,cplx,ntaps", [
+    ("fft_filter", True, 3), ("fft_filter_float", False, 3),
+    ("filter_float", False, kernels.MAX_TAPS + 1),
+    ("filter_complex", True, kernels.MAX_TAPS + 1)])
+def test_torch_fft_route_empty_input_gives_empty_output(op, cplx, ntaps):
+    # the overlap-save route of each op, on a stream of no samples: an empty
+    # output of the op's dtype on the input's device.  The JAX package's
+    # overlap-save raises TypeError there (a reshape of zero frames).
+    dtype = torch.complex64 if cplx else torch.float32
+    taps = np.random.RandomState(ntaps).randn(ntaps).astype(np.float32)
+    got = getattr(ops, op)(torch.zeros(0, dtype=dtype), taps)
+    assert got.shape == (0,) and got.dtype == dtype and got.device.type == "cpu"
+    x = np.zeros(0, np.complex64 if cplx else np.float32)
+    with pytest.raises(TypeError):
+        getattr(jops, op)(x, taps)
+    if op == "fft_filter":  # its decimating form too
+        assert ops.fft_filter_decimate(torch.zeros(0, dtype=dtype), taps,
+                                       2).shape == (0,)
+    # and the first sample after it is the filter's first output
+    one = getattr(ops, op)(torch.ones(1, dtype=dtype), taps)
+    np.testing.assert_allclose(one.numpy(), np.asarray(taps[:1], one.numpy().dtype),
+                               rtol=1e-5)

@@ -17,6 +17,7 @@ kernels to (tests/test_torch_cuda.py, chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+from scipy import signal
 
 from rustradio_tpu import ops as jops
 from rustradio_tpu_torch import ops
@@ -217,8 +218,120 @@ def iir_kernel_order(x, taps, hist):
     return np.asarray(ys, np.float32)
 
 
+L = kernels.IIR_CHUNK
+B = kernels.IIR_BLOCK
+
+
+def iir_blocked_numpy(x, taps, hist):
+    """numpy f32 restatement of csrc/iir.cu's three passes (chunks of L
+    samples, blocks of B chunks, the f32 powers of kernels.iir_powers):
+
+    1. each chunk's walk from zeros (chunk 0 from the history), in
+       iir_kernel_order's order, vectorised over the chunks; within each
+       block, for j = 0..6, u[i] += P[j] @ u[i - 2^j] where i >= 2^j;
+    2. the blocks' last u (but the last block's) scanned the same way in
+       tiles of B with P[7 + j], and from the second tile on each entry i
+       plus (P[7 + j] for the set bits j of i + 1, lowest first) applied
+       to the previous tile's last entry;
+    3. each chunk's start: the history; u[k - 1] in block 0; the carry into
+       its block at i = 0; else u[k - 1] + (P[j] for the bits of i) carry;
+       then the walk again.
+
+    A matrix row sums its products from column 0 up."""
+    f = np.float32
+    t = np.asarray(taps, f)
+    p, n = len(t) - 1, len(x)
+    pw = kernels.iir_powers(t)
+
+    def mv(m, v):  # (p, p) @ (p, N) in the kernel's order
+        # the zero pads past the last chunk (block, tile) are scanned too,
+        # and an overflowed power of a growing filter makes them NaN; no
+        # real entry reads a pad
+        with np.errstate(invalid="ignore", over="ignore"):
+            acc = m[:, :1] * v[:1]
+            for c in range(1, p):
+                acc = acc + m[:, c : c + 1] * v[c : c + 1]
+        return acc
+
+    def walk(xc, h, keep):
+        ys = []
+        for j in range(L):
+            acc = t[0] * xc[:, j]
+            for i in range(p, 1, -1):
+                acc = acc + t[i] * h[i - 1]
+            y = acc + t[1] * h[0]
+            h = np.concatenate([y[None], h[:-1]])
+            ys.append(y)
+        return h, (np.stack(ys, 1) if keep else None)
+
+    def block_scan(u, first):  # u: (p, rows, B), each row alone
+        for j in range(7):
+            d = 1 << j
+            new = u.copy()
+            for i in range(d, B):
+                new[:, :, i] = u[:, :, i] + mv(pw[first + j], u[:, :, i - d])
+            u = new
+        return u
+
+    def bits(v, e, first, nbits):
+        for j in range(nbits):
+            if (e >> j) & 1:
+                v = mv(pw[first + j], v)
+        return v
+
+    k_n = -(-n // L)
+    nb = -(-k_n // B)
+    xc = np.zeros(k_n * L, f)
+    xc[:n] = x
+    xc = xc.reshape(k_n, L)
+    h0 = np.zeros((p, k_n), f)
+    h0[:, 0] = hist
+    if k_n > 1:
+        ends, _ = walk(xc, h0, False)
+        u = np.zeros((p, nb * B), f)
+        u[:, :k_n] = ends
+        u = block_scan(u.reshape(p, nb, B), 0).reshape(p, nb * B)
+        carry = np.zeros((p, nb), f)
+        q = nb - 1
+        tiles = -(-q // B)
+        last = np.zeros((p, tiles * B), f)
+        last[:, :q] = u[:, B - 1 :: B][:, :q]
+        z = block_scan(last.reshape(p, tiles, B), 7)
+        prev = None
+        for tile in range(tiles):
+            for i in range(B):
+                if tile * B + i >= q:
+                    break
+                v = z[:, tile, i : i + 1]
+                if prev is not None:
+                    v = v + bits(prev, i + 1, 7, 8)
+                carry[:, tile * B + i + 1] = v[:, 0]
+            prev = carry[:, tile * B + B : tile * B + B + 1]
+        for k in range(1, k_n):
+            b, i = divmod(k, B)
+            if b == 0:
+                h0[:, k] = u[:, k - 1]
+            elif i == 0:
+                h0[:, k] = carry[:, b]
+            else:
+                h0[:, k] = u[:, k - 1] + bits(carry[:, b : b + 1], i, 0, 7)[:, 0]
+    _, y = walk(xc, h0, True)
+    return y.reshape(-1)[:n]
+
+
+def iir_taps(order, rng):
+    """The filters of IIR_TAPS, else a stable one: sum |taps[1:]| = 0.95."""
+    if order in IIR_TAPS:
+        return np.asarray(IIR_TAPS[order], np.float32)
+    t = rng.uniform(-1, 1, order + 1)
+    t[1:] *= 0.95 / np.abs(t[1:]).sum()
+    return t.astype(np.float32)
+
+
 @pytest.mark.parametrize("order", [1, 2, 8, 32])
 def test_torch_iir_plain_version_is_the_kernels_order(order):
+    # the first chunk is the sequential form bit for bit, and the whole
+    # stream is the numpy restatement of the kernel's three passes
     rng = np.random.RandomState(order)
     taps = (np.asarray(IIR_TAPS[order], np.float32) if order in IIR_TAPS else
             np.concatenate([[1.0], 0.9 / order * rng.uniform(-1, 1, order)]
@@ -226,7 +339,119 @@ def test_torch_iir_plain_version_is_the_kernels_order(order):
     x = rng.randn(500).astype(np.float32)
     hist = rng.randn(order).astype(np.float32)
     got = kernels.iir_scan_plain(torch.from_numpy(x), taps, torch.from_numpy(hist))
-    assert np.array_equal(got.numpy(), iir_kernel_order(x, taps, hist))
+    assert np.array_equal(got.numpy()[:L], iir_kernel_order(x[:L], taps, hist))
+    assert np.array_equal(got.numpy(), iir_blocked_numpy(x, taps, hist))
+
+
+def iir_f64_fast(x, taps, hist=None):
+    """iir_f64 by scipy's lfilter (the history as its initial state)."""
+    t = np.asarray(taps, np.float32).astype(np.float64)
+    a = np.concatenate([[1.0], -t[1:]])
+    zi = signal.lfiltic([t[0]], a, np.zeros(len(t) - 1) if hist is None
+                        else np.asarray(hist, np.float64))
+    return signal.lfilter([t[0]], a, np.asarray(x, np.float64), zi=zi)[0]
+
+
+# n: one sample; a chunk less one, a chunk, a chunk and one; more chunks
+# than one with a tail; 300 chunks (three blocks, no power of two); 2^16
+IIR_NS = [1, L - 1, L, L + 1, 3 * L + 5, 300 * L - 17, 1 << 16]
+
+
+@pytest.mark.parametrize("n", IIR_NS)
+@pytest.mark.parametrize("order", [1, 2, 8, 16, 32])
+@pytest.mark.parametrize("with_history", [False, True], ids=["zeros", "history"])
+def test_torch_iir_plain_blocked_vs_float64_and_sequential(n, order, with_history):
+    rng = np.random.RandomState(1000 * order + n % 997)
+    taps = iir_taps(order, rng)
+    x = rng.randn(n).astype(np.float32)
+    hist = (rng.randn(order) if with_history else np.zeros(order)).astype(np.float32)
+    y = kernels.iir_scan_plain(torch.from_numpy(x), taps,
+                               torch.from_numpy(hist)).numpy()
+    assert y.shape == (n,) and y.dtype == np.float32
+    f = iir_f64_fast(x, taps, hist)
+    assert rel(y, f, np.abs(f).max()) <= IIR_TOL
+    head = min(n, L)
+    seq = iir_kernel_order(x[:head], taps, hist)
+    assert np.array_equal(y[:head], seq)
+    if n <= 3 * L + 5:  # the whole stream sequentially too
+        seq = iir_kernel_order(x, taps, hist)
+        assert rel(y, seq, np.abs(f).max()) <= IIR_TOL
+
+
+# the goldens' marginal filter (a pole at z = 1) and a pole pair just
+# outside the unit circle: there the carries and the powers applied to
+# them do not fade, so their order of operations shows in every output
+MARGINAL = [1.0, 0.9, 0.1]
+OUTSIDE = [1.0, 2 * 1.0002 * np.cos(0.3), -1.0002 ** 2]
+
+
+@pytest.mark.parametrize("n", [3 * L + 5, 300 * L - 17])
+@pytest.mark.parametrize("order", [1, 2, 8, 16, 32, "marginal", "outside"])
+def test_torch_iir_plain_is_the_numpy_restatement(n, order):
+    rng = np.random.RandomState(len(str(order)) + n)
+    taps = (np.asarray(MARGINAL if order == "marginal" else OUTSIDE, np.float32)
+            if isinstance(order, str) else iir_taps(order, rng))
+    order = len(taps) - 1
+    x = rng.randn(n).astype(np.float32)
+    hist = rng.randn(order).astype(np.float32)
+    got = kernels.iir_scan_plain(torch.from_numpy(x), taps, torch.from_numpy(hist))
+    assert np.array_equal(got.numpy(), iir_blocked_numpy(x, taps, hist))
+
+
+def test_torch_iir_plain_carry_tiles():
+    # more blocks than one tile of the carries' scan (129 blocks and more:
+    # n > B * B * L), at order 2: the numpy restatement bit for bit and
+    # float64; and the marginal filter of the goldens (a pole at z = 1)
+    # over as many chunks
+    n = (B + 2) * B * L + 77  # 131 blocks: two tiles of carries
+    rng = np.random.RandomState(11)
+    x = rng.randn(n).astype(np.float32)
+    for taps in (IIR_TAPS[2], MARGINAL):
+        taps = np.asarray(taps, np.float32)
+        hist = rng.randn(2).astype(np.float32)
+        got = kernels.iir_scan_plain(torch.from_numpy(x), taps,
+                                     torch.from_numpy(hist)).numpy()
+        f = iir_f64_fast(x, taps, hist)
+        assert rel(got, f, np.abs(f).max()) <= IIR_TOL
+        assert np.array_equal(got, iir_blocked_numpy(x, taps, hist))
+
+
+@pytest.mark.parametrize("n", [1 << 16, 300 * L - 17])
+def test_torch_iir_plain_marginal_and_unstable_filters(n):
+    # the goldens' marginal filter [1.0, 0.9, 0.1] (poles 1 and -0.1):
+    # within IIR_TOL of float64.  A pole pair just outside the unit circle
+    # (radius 1.0002: 5e5-fold growth over 2^16 samples), where f32
+    # rounding grows with the signal in any order of summation (the
+    # sequential form's error is 2e-5 - 3.4e-5 of max|y| here): finite
+    # where the sequential form is, and no further from float64 than it
+    rng = np.random.RandomState(n)
+    x = rng.randn(n).astype(np.float32)
+    for taps in (MARGINAL, OUTSIDE):
+        taps = np.asarray(taps, np.float32)
+        for hist in (np.zeros(2, np.float32), rng.randn(2).astype(np.float32)):
+            got = kernels.iir_scan_plain(torch.from_numpy(x), taps,
+                                         torch.from_numpy(hist)).numpy()
+            seq = iir_kernel_order(x, taps, hist)
+            f = iir_f64_fast(x, taps, hist)
+            scale = np.abs(f).max()
+            assert np.isfinite(seq).all() and np.isfinite(got).all()
+            assert np.array_equal(got[:L], seq[:L])
+            if taps[1] == np.float32(0.9):
+                assert rel(got, f, scale) <= IIR_TOL
+            else:
+                assert rel(got, f, scale) <= rel(seq, f, scale)
+
+
+def test_torch_iir_powers_are_the_companion_matrix_powers():
+    # level j is A^(L 2^j) rounded once to f32, cached per taps
+    taps = np.asarray(IIR_TAPS[2], np.float32)
+    pw = kernels.iir_powers(taps)
+    assert pw.shape == (kernels.IIR_LEVELS, 2, 2) and pw.dtype == np.float32
+    assert kernels.iir_powers(taps.copy()) is pw
+    a = np.array([[taps[1], taps[2]], [1.0, 0.0]], np.float64)
+    for j in (0, 3):
+        want = np.linalg.matrix_power(a, L << j)
+        np.testing.assert_allclose(pw[j], want, rtol=1e-6, atol=1e-30)
 
 
 def test_torch_recurrences_count_their_work():

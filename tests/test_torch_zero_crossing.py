@@ -147,3 +147,15 @@ def test_torch_zero_crossing_resumes_a_jax_state(tmp_path):
     g.run_stream(chunk_size=3000, resume_from=ck, device="cpu")
     assert np.array_equal(np.concatenate([np.asarray(jsink.data()), sink.data()]),
                           nat)
+
+
+@pytest.mark.parametrize("unroll", [1, 4])
+def test_torch_zero_crossing_takes_jax_unroll(unroll):
+    # ops.zero_crossing_sync(..., unroll=) as the JAX op takes it: accepted
+    # and ignored (JAX: bit-identical for any unroll), the same mask
+    x, sps = CASES["sps 8 noisy"], 8.0
+    (_, mask), state = ops.zero_crossing_sync(torch.from_numpy(x), sps,
+                                              unroll=unroll)
+    (_, jm), jstate = jops.zero_crossing_sync(x, sps, unroll=unroll)
+    assert np.array_equal(np.asarray(jm), mask.numpy())
+    assert _state_equal(state, jstate)
