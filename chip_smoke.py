@@ -69,11 +69,16 @@ just after, so that each shows it went through its kernels:
   of 2^18) on 2^22 samples of the main path's station at unit modulus
   through a pre-echo channel, kernel G (``ops.iir_filter`` at orders 2 and
   8) on 2^24 samples of noise, F bit-equal to its plain version on its
-  first and last 2^14 outputs (the last from the kernel's own state
-  there), G over the whole stream (its plain version as torch ops on the
-  card) and its first chunk to the sequential form, the equalizer's
-  output bit-equal streamed and in one call, its modulus dispersion at
-  most half the input's, the IIR outputs within 5e-6 of a float64 model;
+  first 2^14 outputs and on a second call over the last 2^14 windows from
+  the first call's taps (with its final taps), G over the whole stream
+  (its plain version as torch ops on the card) and its first chunk to the
+  sequential form, the equalizer's output streamed, and the split call,
+  within 1e-5 of max|y| of one call (F's blocks of windows count from
+  each call's start; the streamed gap printed over 2^18, 2^20 and 2^22
+  windows), the one call within 1e-5 of a float64 model over 2^14
+  windows and of the sequential f32 recurrence over 2^18 (numpy on the
+  host), its modulus dispersion at most half the input's,
+  the IIR outputs within 5e-6 of a float64 model;
   ``rtl_data_stream`` on 2^24 samples of an FM station at 250 kHz
   (``downsample_u8`` with kernel A held on its calls and within one LSB
   of the plain versions' bytes, the app's stdin/stdout protocol in a
@@ -436,12 +441,15 @@ def capturing(*names):
 def rtl_fm_iq(n: int, device, gen: torch.Generator):
     """A wideband FM station as 8-bit rtl-sdr I/Q on the (u8-127)/128 grid:
     two audio tones at 75 kHz deviation, plus receiver noise.  Returns the
-    f32 I and Q planes and the f64 phase."""
+    f32 I and Q planes and the f64 phase.  The phase's running sum is taken
+    on the host: the card's float64 scan adds its tiles in an order that
+    varies from run to run, and the CMA checks of phase 14 follow its last
+    bits."""
     fs, dev = 1_024_000.0, 75_000.0
     t = torch.arange(n, dtype=torch.float64, device=device)
     audio = (0.6 * torch.sin(2 * math.pi * 1000.0 / fs * t)
              + 0.3 * torch.sin(2 * math.pi * 3100.0 / fs * t + 0.5))
-    phase = torch.cumsum(audio, 0) * (2 * math.pi * dev / fs)
+    phase = torch.cumsum(audio.cpu(), 0).to(device) * (2 * math.pi * dev / fs)
     del t, audio
 
     def grid(v):
@@ -2449,6 +2457,8 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
 CMA_TAPS, CMA_MU = 16, 1e-3     # CmaEqualizer(16, 1.0, 1e-3)
 CMA_ECHO = complex(0.3 * np.exp(0.7j))  # a pre-echo two samples ahead
 CMA_NOISE = 0.01                # complex noise, per component
+CMA_TOL = 1e-5          # of max|y| (max|taps|): calls split elsewhere than at
+                        # a block of windows (tests/test_torch_recurrences.py)
 IIR_TAPS = {
     "order 2": (0.05, 1.6, -0.65),  # poles 0.8 +- 0.1j
     # poles 0.95 e^{+-0.3j}, 0.9 e^{+-0.9j}, 0.85 e^{+-1.6j}, 0.8 e^{+-2.4j},
@@ -2470,6 +2480,7 @@ class LiveSizes:
     cma_n: int = 1 << 22        # 4.1 s of the main path's station at 1.024 Msps
     cma_chunk: int = 1 << 18    # CmaEqualizer's run_stream chunk
     window: int = 1 << 14       # outputs held against the plain versions
+    cma_f64: int = 1 << 18      # kernel F's windows held against float64
     iir_n: int = 1 << 24        # 5.8 min of 48 kHz audio
     rds_n: int = 1 << 24        # rtl_data_stream's capture: 32 MiB of u8 IQ
     clients: int = 4            # rtl_data_stream --tcp's clients
@@ -2492,9 +2503,9 @@ def recurrence_entry(name, source, replaces, n_launches, err, t):
     """The kernels line's entry of kernel F or G: its times at phase 14's
     held window (``live_phase``'s ``times``), the bound of its bytes and
     operations, and ``chain_bound_ms``, its longest dependent chain at the
-    latencies this run calibrated (F: the window's recurrence; G: the
-    chunked scan's, ``iir_chain_links``).  No PyTorch call computes either
-    recurrence: ``library_ms`` is None."""
+    latencies this run calibrated (``kernels.cma_chain_links`` and
+    ``kernels.iir_chain_links``).  No PyTorch call computes either recurrence:
+    ``library_ms`` is None."""
     return {"name": name, "route": "cuda",
             "source": f"rustradio_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": n_launches, "max_abs_err": err, "ms": t["ms"],
@@ -2502,6 +2513,25 @@ def recurrence_entry(name, source, replaces, n_launches, err, t):
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None, "chain_bound_ms": t["chain"][0],
             "chain": t["chain"][1], "shape": t["shape"]}
+
+
+def cma_sequential(x: np.ndarray, ntaps: int, r: float, mu: float,
+                   dtype=np.complex128) -> np.ndarray:
+    """``cma_equalize(x, ntaps, r, mu)`` from the default taps, window after
+    window on the host (numpy): in float64 (complex128) the model, in f32
+    (complex64) the sequential recurrence, each step rounded as the JAX
+    reference's ``lax.scan`` rounds it (the sum's order aside)."""
+    real = np.float64 if dtype == np.complex128 else np.float32
+    r, mu = real(r), real(mu)
+    w = np.lib.stride_tricks.sliding_window_view(x.astype(dtype), ntaps)
+    t = np.zeros(ntaps, dtype)
+    t[0] = 1.0
+    ys = np.empty(len(w), dtype)
+    for i, wi in enumerate(w):
+        y = (t * wi).sum()
+        ys[i] = y
+        t = t + (mu * (r - (y.real * y.real + y.imag * y.imag))) * y * wi.conj()
+    return ys
 
 
 def iir_f64(x: torch.Tensor, taps, length: int = 2048) -> torch.Tensor:
@@ -2541,27 +2571,6 @@ def iir_sequential(x: torch.Tensor, taps, hist: torch.Tensor) -> torch.Tensor:
     return torch.stack(ys)
 
 
-def iir_chain_links(n: int, order: int) -> int:
-    """The longest chain of dependent f32 operations in kernel G's call on
-    n samples: the walks (two links a sample, as the most recent term is
-    added last), and where there is more than one chunk the first walk, a
-    block's scan (seven levels of a row sum, order links, and the addition
-    into the state) and the powers applied to a carry (at most seven
-    matrix rows); where there is more than one block, the carries' scan
-    over its tiles (seven levels and eight powers a tile)."""
-    from rustradio_tpu_torch.ops import kernels
-
-    chunk, blk = kernels.IIR_CHUNK, kernels.IIR_BLOCK
-    chunks = -(-n // chunk)
-    blocks = -(-chunks // blk)
-    links = 2 * chunk
-    if chunks > 1:
-        links += 2 * chunk + 2 * 7 * (order + 1)
-    if blocks > 1:
-        links += -(-(blocks - 1) // blk) * (7 * (order + 1) + 8 * order + 1)
-    return links
-
-
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return (torch.view_as_real(t) if t.is_complex() else t).cpu()
 
@@ -2571,8 +2580,11 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     """Phase 14 on ``dev``: kernel F (``ops.cma_equalize``, the
     ``CmaEqualizer`` block streamed) on the main path's station at unit
     modulus through a pre-echo channel, held bit-equal to its plain
-    version on its first and last ``sizes.window`` outputs (the last from
-    the kernel's own state there); kernel G (``ops.iir_filter`` at orders 2
+    version on its first ``sizes.window`` outputs and on a second call over
+    the last ``sizes.window`` windows from the first call's taps, the
+    streamed and split runs within ``CMA_TOL`` of one call, and the one
+    call within ``CMA_TOL`` of ``cma_sequential`` in float64 over
+    ``sizes.window`` windows and in f32 over ``sizes.cma_f64``; kernel G (``ops.iir_filter`` at orders 2
     and 8) on noise, held bit-equal to its plain version over the whole
     stream and, on its first chunk, to the sequential form
     (``iir_sequential``); ``rtl_data_stream`` (``downsample_u8`` with kernel A
@@ -2583,8 +2595,8 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     card's latencies, ``time_sync.calibrate``) gives F's and G's chain
     bounds.  Returns the launch counts of each path, the largest |error| of
     each kernel held here, and F's and G's times at ``sizes.window``
-    outputs, G's also at ``sizes.iir_n`` (on the card; empty on the
-    CPU)."""
+    outputs, both also at the main path's size, F at ``sizes.cma_n``
+    samples and G at ``sizes.iir_n`` (on the card; empty on the CPU)."""
     import asyncio
     import io
     import tempfile
@@ -2712,9 +2724,47 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     sync()
     counts["cma"] = dict(kernels.LAUNCHES)
     require("cma_equalize and CmaEqualizer", counts["cma"], ("cma",))
-    same("14 cma", f"CmaEqualizer streamed in chunks of {sizes.cma_chunk} vs "
-         f"one cma_equalize call ({n - CMA_TAPS + 1} outputs)",
-         torch.from_numpy(np.asarray(sink.block.data(), np.complex64)), y)
+
+    def near(what, got, want, of="y"):
+        err = (float((got.to(want.device) - want).abs().max() / want.abs().max())
+               if got.shape == want.shape else math.inf)
+        report("14 cma", f"{what}, |error| / max|{of}|", err, CMA_TOL)
+
+    # blocks of windows count from each call's start, so calls cut
+    # elsewhere than at a block round in another order
+    streamed = torch.from_numpy(np.asarray(sink.block.data(), np.complex64))
+    near(f"CmaEqualizer streamed in chunks of {sizes.cma_chunk} vs one "
+         f"cma_equalize call ({n - CMA_TAPS + 1} outputs)", streamed, y)
+    if streamed.shape == y.shape:
+        # how the seams' gap grows with the stream: one seam a chunk
+        gaps = [(k, float((streamed[:k] - y[:k].cpu()).abs().max()
+                          / y[:k].abs().max()))
+                for k in sorted({min(sizes.cma_chunk << 2 * i, y.shape[0])
+                                 for i in range(3)})]
+        print("[14 cma] streamed vs one call, |error| / max|y| over the first "
+              + ", ".join(f"{k} windows {g:.3e}" for k, g in gaps))
+    # f32 itself drifts from float64 along CMA's free phase: the one call
+    # is held to float64 over the held window, and over sizes.cma_f64
+    # windows to the sequential f32 recurrence, both errors against
+    # float64 printed
+    k64 = min(sizes.cma_f64, y.shape[0])
+    xh = x[: k64 + CMA_TAPS - 1].cpu().numpy()
+    y64 = cma_sequential(xh, CMA_TAPS, 1.0, CMA_MU)
+    y32 = cma_sequential(xh, CMA_TAPS, 1.0, CMA_MU, np.complex64)
+    yh = y[:k64].cpu().numpy()
+
+    def rel(a, b, k):
+        return float(np.abs(a[:k] - b[:k]).max() / np.abs(b[:k]).max())
+
+    kw = min(win, k64)
+    report("14 cma", f"one call's first {kw} outputs vs the float64 model, "
+           "|error| / max|y|", rel(yh, y64, kw), CMA_TOL)
+    report("14 cma", f"one call's first {k64} outputs vs the sequential f32 "
+           "recurrence, |error| / max|y|", rel(yh, y32, k64), CMA_TOL)
+    print(f"[14 cma] against the float64 model over the first {k64} windows, "
+          f"|error| / max|y|: the one call {rel(yh, y64, k64):.3e}, the "
+          f"sequential f32 recurrence {rel(y32, y64, k64):.3e}")
+    del streamed, xh, y64, y32, yh
     quarter = y.shape[0] // 4
 
     def dispersion(v):
@@ -2728,16 +2778,16 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     cut = y.shape[0] - win
     y1, t1 = ops.cma_equalize(x[: cut + CMA_TAPS - 1], CMA_TAPS, 1.0, CMA_MU)
     y2, t2 = ops.cma_equalize(x[cut:], CMA_TAPS, 1.0, CMA_MU, taps=t1)
-    same("14 cma", "two calls split at the last window, the taps carried, vs "
-         "one call", torch.cat([y1, y2]), y)
-    same("14 cma", "the split's final taps vs one call's", t2, taps_end)
+    near(f"two calls split at the last {win} windows, the taps carried, vs one "
+         "call", torch.cat([y1, y2]), y)
+    near("the split's final taps vs one call's", t2, taps_end, "taps")
     t0 = torch.zeros(CMA_TAPS, dtype=torch.complex64)
     t0[0] = 1.0
     py, _ = kernels.cma_scan_plain(x[: win + CMA_TAPS - 1].cpu(), t0, 1.0, CMA_MU)
     same("14 cma", f"kernel F vs plain, the first {win} outputs", y[:win], py)
     py, pt = kernels.cma_scan_plain(x[cut:].cpu(), t1.cpu(), 1.0, CMA_MU)
-    same("14 cma", f"kernel F vs plain, the last {win} outputs from the "
-         "kernel's taps there", y2, py)
+    same("14 cma", f"kernel F vs plain, the split's second call ({win} "
+         "windows from the first call's taps)", y2, py)
     same("14 cma", "kernel F vs plain, the final taps", t2, pt)
     end_phase("14 cma")
 
@@ -2788,48 +2838,55 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
 
     # ---- F's and G's times at the held windows, beside their bounds
     if on_card:
-        xw = x[: win + CMA_TAPS - 1].contiguous()
         tw = t0.to(dev)
-        slots = -(-CMA_TAPS // 32)
+
+        def f_times(xf, reps):
+            """Kernel F on xf from the default taps: the call's device time
+            (one launch; median of ``reps``), its bound and its longest
+            chain at this run's latencies."""
+            nwin = xf.shape[0] - CMA_TAPS + 1
+            links, shuffles = kernels.cma_chain_links(nwin, CMA_TAPS)
+            cycles = links * cal["fadd_cycles"] + shuffles * cal["shfl_add_cycles"]
+            return dict(
+                device_ms=statistics.median(event_ms(
+                    lambda: kernels.cma_scan(xf, tw, 1.0, CMA_MU),
+                    contextlib.nullcontext, 1) for _ in range(reps)),
+                bound=bound(kernels.cma_work(xf.shape[0], CMA_TAPS)),
+                chain=(cycles / cal["sm_hz"] * 1e3,
+                       f"{links} f32 links at {cal['fadd_cycles']:.2f} + "
+                       f"{shuffles} shuffle-add links at "
+                       f"{cal['shfl_add_cycles']:.2f} cycles"),
+                n=nwin, shape=f"{CMA_TAPS} taps, {nwin} windows")
+
+        xw = x[: win + CMA_TAPS - 1].contiguous()
 
         def f_call(k=0):
             kernels.cma_scan(xw, tw, 1.0, CMA_MU)
 
-        ms = time_one(f_call)
+        times["cma"] = f_times(xw, 5)
+        times["cma"].update(ms=time_one(f_call), device_ms=graph_ms(f_call),
+                            host_us=host_us(f_call))
         event_ms(lambda: kernels.cma_scan_plain(xw[:64 + CMA_TAPS - 1], tw, 1.0,
                                                 CMA_MU), contextlib.nullcontext, 1)
-        pms = event_ms(lambda: kernels.cma_scan_plain(xw, tw, 1.0, CMA_MU),
-                       contextlib.nullcontext, 1)
-        # a window's chain: the products (2), the lane's sum (one a slot),
-        # the butterfly (5 shuffle-add links), e (3), mu * e (1), c (1), the
-        # update (2) and the tap's sum (1)
-        link = (10 + slots) * cal["fadd_cycles"] + 5 * cal["shfl_add_cycles"]
-        times["cma"] = dict(
-            ms=ms, plain_ms=pms, device_ms=graph_ms(f_call),
-            bound=bound(kernels.cma_work(xw.shape[0], CMA_TAPS)),
-            chain=(win * link / cal["sm_hz"] * 1e3,
-                   f"{win} windows x ({10 + slots} f32 links at "
-                   f"{cal['fadd_cycles']:.2f} + 5 shuffle-add links at "
-                   f"{cal['shfl_add_cycles']:.2f} cycles)"),
-            shape=f"{CMA_TAPS} taps, {win} windows")
-        full = statistics.median(event_ms(
-            lambda: kernels.cma_scan(x, tw, 1.0, CMA_MU), contextlib.nullcontext, 1)
-            for _ in range(sizes.reps))
-        nwin = x.shape[0] - CMA_TAPS + 1
-        times["cma"]["full"] = (full, nwin)
-        r = times["cma"]
-        print(f"[14 times] kernel F ({r['shape']}): in a stream {r['ms']:.4f} ms, "
-              f"device alone {r['device_ms']:.4f} ms, plain version "
-              f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]}), dependent-chain bound {r['chain'][0]:.4f} ms "
-              f"({r['chain'][1]} at {cal['sm_hz'] / 1e9:.3f} GHz), share of it "
-              f"{r['chain'][0] / r['device_ms']:.1%}, "
-              f"{r['device_ms'] * 1e-3 * cal['sm_hz'] / win:.1f} cycles an "
-              f"output; card: {card}")
-        full, nwin = times["cma"]["full"]
-        print(f"[14 times] kernel F, the main path's call ({nwin} windows): "
-              f"{full:.1f} ms (median of {sizes.reps}), "
-              f"{full * 1e-3 * cal['sm_hz'] / nwin:.1f} cycles a window; card: {card}")
+        times["cma"]["plain_ms"] = event_ms(
+            lambda: kernels.cma_scan_plain(xw, tw, 1.0, CMA_MU),
+            contextlib.nullcontext, 1)
+        times["cma"]["full"] = f_times(x, sizes.reps)
+        for name, r in (("", times["cma"]), (", the main path's call",
+                                             times["cma"]["full"])):
+            extra = (f"in a stream {r['ms']:.4f} ms, device alone (a CUDA graph) "
+                     f"{r['device_ms']:.4f} ms, the wrapper's host "
+                     f"{r['host_us']:.1f} us a call, plain version "
+                     f"{r['plain_ms']:.1f} ms" if "ms" in r else
+                     f"device {r['device_ms']:.3f} ms (one launch, median of "
+                     f"{sizes.reps})")
+            print(f"[14 times] kernel F{name} ({r['shape']}): {extra}, "
+                  f"{r['device_ms'] * 1e-3 * cal['sm_hz'] / r['n']:.1f} cycles a "
+                  f"window at {cal['sm_hz'] / 1e9:.3f} GHz, bound "
+                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), share of it "
+                  f"{r['bound'][0] / r['device_ms']:.4%}, dependent-chain bound "
+                  f"{r['chain'][0]:.4f} ms ({r['chain'][1]}), share of it "
+                  f"{r['chain'][0] / r['device_ms']:.1%}; card: {card}")
 
         def g_times(xg, taps):
             """Kernel G on xg: in a stream, on the device alone, the
@@ -2841,7 +2898,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
                 kernels.iir_scan(xg, taps, hz)
 
             n_g = xg.shape[0]
-            links = iir_chain_links(n_g, order)
+            links = kernels.iir_chain_links(n_g, order)
             return dict(
                 ms=time_one(g_call), device_ms=graph_ms(g_call),
                 host_us=host_us(g_call), bound=bound(kernels.iir_work(n_g, order)),

@@ -153,7 +153,13 @@ class CmaEqualizer(Block):
 
     Streaming state ``{"taps", "carry"}``: the taps the last window left,
     and the last ntaps - 1 samples, which start the next chunk's windows.
-    A stream shorter than one window gives no output yet."""
+    A stream shorter than one window gives no output yet.  Kernel F's
+    blocks of 32 windows count from each call's start, so a stream cut
+    into chunks rounds in another order than one call over the same
+    samples (bit for bit the same where every cut falls after a multiple
+    of 32 windows).  The gap grows with the stream's length, as the f32
+    recurrence's rounding drifts along CMA's free phase: about 1e-6 of
+    max|y| over 2^14 windows, a few 1e-6 over 2^22 (PERF.md)."""
 
     graph_capturable = False  # the output is shorter than the input
     domain = "host"  # as in the JAX package: the output length varies

@@ -36,9 +36,10 @@ out (``csrc/symbol_sync.cu`` on ``csrc/sync_core.cuh``):
 Two more replace the other per-sample ``lax.scan``s:
 
 * ``cma_scan`` (``csrc/cma.cu``, kernel F) runs the CMA equalizer's
-  recurrence (``rustradio_tpu/ops/cma.py:45``) in one block (a walker
-  and a loader warp), the taps on a warp's lanes and the sum over them a
-  shuffle butterfly;
+  recurrence (``rustradio_tpu/ops/cma.py:45``) in its delayed-update form
+  in one block: over blocks of ``CMA_BLOCK`` windows, producer warps
+  compute the windows' lag sums and a walker warp walks window i on lane
+  i, a window's chain one shuffle and eight f32 operations;
 * ``iir_scan`` (``csrc/iir.cu``, kernel G) runs the reference's IIR
   filter (``rustradio_tpu/ops/iir.py:68``) as a chunked scan over every
   SM: chunks of ``IIR_CHUNK`` samples walk at once, their starting states
@@ -1088,6 +1089,7 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
 # ------------------------------------- kernels F and G: the recurrences
 
 MAX_CMA_TAPS = 128   # kernel F's bound (csrc/cma.cu, four taps a lane)
+CMA_BLOCK = 32       # kernel F's block of windows (csrc/cma.cu, kBlock)
 MAX_IIR_ORDER = 32   # kernel G's bound (csrc/iir.cu)
 # kernel G's layout (csrc/iir.cu, kChunk, kBlock, kLevels): samples a
 # chunk, chunks a block, and the powers M^(2^j) of M = A^IIR_CHUNK it reads
@@ -1112,6 +1114,42 @@ def iir_work(n: int, order: int):
     return float(8 * n + 4 * order), float(n * (2 * order + 1))
 
 
+def cma_chain_links(nwin: int, ntaps: int) -> tuple[int, int]:
+    """(f32 links, shuffle-add links) of the longest dependent chain in
+    kernel F's call on nwin windows (csrc/cma.cu), blocks of ``CMA_BLOCK``
+    windows.  Every window's c goes to every lane by a shuffle, whose
+    first dependent operation (a multiplication) makes a shuffle-add link.
+    A window takes its partial as y (|y|^2 2 links, e 1, mu * e 1, c 1);
+    a block's later windows first add the newest term (the product's
+    subtraction 1 after its shuffle-add link, the addition 1); after a
+    block's last window the taps' update (2 after its shuffle-add link),
+    and before every block its bases (the product 2, the lane sums one a
+    slot of 32 taps, the fold 5).  The shared-memory store and load of the
+    taps between the update and the bases are not counted."""
+    blocks = -(-nwin // CMA_BLOCK)
+    bases = 7 + -(-ntaps // 32)
+    links = 5 * nwin + 2 * (nwin - blocks) + 2 * blocks + bases * blocks
+    return links, nwin
+
+
+def iir_chain_links(n: int, order: int) -> int:
+    """The longest chain of dependent f32 operations in kernel G's call on
+    n samples (csrc/iir.cu): the walks (two links a sample, as the most
+    recent term is added last), and where there is more than one chunk the
+    first walk, a block's scan (seven levels of a row sum, order links, and
+    the addition into the state) and the powers applied to a carry (at
+    most seven matrix rows); where there is more than one block, the
+    carries' scan over its tiles (seven levels and eight powers a tile)."""
+    chunks = -(-n // IIR_CHUNK)
+    blocks = -(-chunks // IIR_BLOCK)
+    links = 2 * IIR_CHUNK
+    if chunks > 1:
+        links += 2 * IIR_CHUNK + 2 * 7 * (order + 1)
+    if blocks > 1:
+        links += -(-(blocks - 1) // IIR_BLOCK) * (7 * (order + 1) + 8 * order + 1)
+    return links
+
+
 def _f32(v: float) -> float:
     """A Python float holding the f32 value of ``v`` (what the kernels
     receive), so that a tensor op with it rounds as an f32 op."""
@@ -1133,21 +1171,65 @@ def _check_cma(x: torch.Tensor, taps: torch.Tensor) -> None:
         raise ValueError(f"input {x.shape[0]} shorter than taps {taps.shape[0]}")
 
 
+def _cma_bases(t: torch.Tensor, wins: torch.Tensor, slots: int) -> torch.Tensor:
+    """(2, rows): the taps ``t`` (2, width; zero past the last tap) against
+    ``wins`` (rows, 2, width; zero past the last tap) in kernel F's order:
+    32 lane sums, lane l from +0.0 over taps l, l + 32, ... (a slot past the
+    last tap adds the +0.0 product of a zero tap and a zero sample, which
+    leaves the sum as it is), then the lanes folded in halves (16, 8, 4, 2,
+    1)."""
+    tr, ti = t[0], t[1]
+    wr, wi = wins[:, 0], wins[:, 1]
+    p = torch.stack([tr * wr - ti * wi, tr * wi + ti * wr])
+    p = p.view(2, wins.shape[0], slots, 32)
+    acc = p[:, :, 0] + 0.0
+    for j in range(1, slots):
+        acc = acc + p[:, :, j]
+    for half in (16, 8, 4, 2, 1):
+        acc = acc[..., :half] + acc[..., half : 2 * half]
+    return acc[..., 0]
+
+
+def _cma_lags(xv: torch.Tensor, nblocks: int, ntaps: int) -> torch.Tensor:
+    """(2, nblocks, K, K), K = ``CMA_BLOCK``: entry [:, b, m, j] = sum over
+    k < ntaps of conj(x[bK + m + k]) x[bK + j + k], from k = 0 up, each
+    product conj(a) b = (ar br + ai bi, ar bi - ai br); x zero past its
+    end.  Kernel F computes and reads the entries with m < j."""
+    k_ = CMA_BLOCK
+    span = (nblocks + 1) * k_ + ntaps
+    xp = F.pad(xv.t(), (0, span - xv.shape[0]))  # (2, span)
+    acc = None
+    for k in range(ntaps):
+        seg = xp[:, k : k + nblocks * k_].reshape(2, nblocks, k_)
+        ar, ai = seg[0].unsqueeze(2), seg[1].unsqueeze(2)  # row m
+        br, bi = seg[0].unsqueeze(1), seg[1].unsqueeze(1)  # column j
+        c = torch.stack([ar * br + ai * bi, ar * bi - ai * br])
+        acc = c if acc is None else acc + c
+    return acc
+
+
 def cma_scan_plain(x: torch.Tensor, taps: torch.Tensor,
                    desired_modulus: float, step_size: float):
-    """Plain PyTorch version of :func:`cma_scan` (any device): a Python loop
-    over the windows, on the kernel's 32 lanes written out as a (2, 32)
-    tensor of real and imaginary planes.  Lane l holds taps l, l + 32, ...;
-    its partial sum starts at +0.0 and adds its taps' products in that
-    order (a slot past the last tap holds a zero tap and a zero sample,
-    whose product +0.0 leaves the sum as it is); the lanes then fold in
-    halves (16, 8, 4, 2, 1), which is the value the kernel's
-    ``__shfl_xor_sync`` butterfly leaves in lane 0."""
+    """Plain PyTorch version of :func:`cma_scan` (any device), in kernel F's
+    order: the windows in blocks of ``CMA_BLOCK`` counted from the call's
+    start.  For the block from window B, with the taps t_B that the windows
+    before it left:
+
+    1. the bases a_n = t_B . w_n of its windows (:func:`_cma_bases`);
+    2. the lag sums G[m, n] = conj(w_m) . w_n, m < n in the block
+       (:func:`_cma_lags`, every block at once: they read x alone);
+    3. the walk: y_n = a_n + c_B G[B, n] + ... + c_{n-1} G[n-1, n], the
+       terms added from the oldest up, each c_m G[m, n] = (cr Gr - ci Gi,
+       cr Gi + ci Gr); e = R - (yr^2 + yi^2), c_n = (mu * e) * y_n;
+    4. the taps, updated after each window as the sequential recurrence
+       updates them: t += (cr wr + ci wi, ci wr - cr wi).
+
+    In exact arithmetic y_n = t_n . w_n, t_n = t_B + sum_{m<n} c_m conj(w_m):
+    the sequential recurrence's function, rounded in another order."""
     _check_cma(x, taps)
     r, mu = _f32(desired_modulus), _f32(step_size)
     ntaps = taps.shape[0]
-    n = x.shape[0]
-    nwin = n - ntaps + 1
+    nwin = x.shape[0] - ntaps + 1
     slots = -(-ntaps // 32)
     width = 32 * slots
     xv = torch.view_as_real(x)
@@ -1157,29 +1239,29 @@ def cma_scan_plain(x: torch.Tensor, taps: torch.Tensor,
     live = torch.arange(width, device=x.device) < ntaps
     wins = torch.where(live, wins, torch.zeros((), device=x.device))
     t = F.pad(torch.view_as_real(taps).t(), (0, width - ntaps))  # (2, width)
-    tr, ti = t[0], t[1]
-    ys = []
-    for i in range(nwin):
-        wr, wi = wins[i, 0], wins[i, 1]
-        pr = tr * wr - ti * wi
-        pi = tr * wi + ti * wr
-        p = torch.stack([pr, pi]).view(2, slots, 32)
-        acc = p[:, 0] + 0.0
-        for j in range(1, slots):
-            acc = acc + p[:, j]
-        for half in (16, 8, 4, 2, 1):
-            acc = acc[:, :half] + acc[:, half : 2 * half]
-        yr, yi = acc[0, 0], acc[1, 0]
-        e = r - (yr * yr + yi * yi)
-        me = mu * e
-        cr, ci = me * yr, me * yi
-        tr = tr + (cr * wr + ci * wi)
-        ti = ti + (ci * wr - cr * wi)
-        ys.append(acc[:, 0])
-    y = (torch.stack(ys) if ys else
-         torch.zeros((0, 2), dtype=torch.float32, device=x.device))
-    final = torch.complex(tr[:ntaps], ti[:ntaps])
-    return torch.view_as_complex(y.contiguous()), final
+    nblocks = -(-nwin // CMA_BLOCK)
+    lags = _cma_lags(xv, nblocks, ntaps)
+    y = torch.empty((2, nwin), dtype=torch.float32, device=x.device)
+    for b in range(nblocks):
+        n0 = b * CMA_BLOCK
+        cnt = min(CMA_BLOCK, nwin - n0)
+        p = _cma_bases(t, wins[n0 : n0 + cnt], slots)  # (2, cnt)
+        for i in range(cnt):
+            yv = p[:, i]
+            sq = yv * yv
+            c = (mu * (r - (sq[0] + sq[1]))) * yv  # (cr, ci)
+            if i + 1 < cnt:
+                gm = lags[:, b, i, i + 1 : cnt]  # (Gr, Gi) to the later windows
+                a = c.view(2, 1) * gm            # (cr Gr, ci Gi)
+                d = c.view(2, 1) * gm.flip(0)    # (cr Gi, ci Gr)
+                p[:, i + 1 :] = p[:, i + 1 :] + torch.stack([a[0] - a[1], d[0] + d[1]])
+            w = wins[n0 + i]
+            a = c.view(2, 1) * w                 # (cr wr, ci wi)
+            d = c.flip(0).view(2, 1) * w         # (ci wr, cr wi)
+            t = t + torch.stack([a[0] + a[1], d[0] - d[1]])
+            y[:, n0 + i] = yv
+    final = torch.complex(t[0, :ntaps], t[1, :ntaps])
+    return torch.view_as_complex(y.t().contiguous()), final
 
 
 def cma_scan(x: torch.Tensor, taps: torch.Tensor, desired_modulus: float,
@@ -1188,9 +1270,12 @@ def cma_scan(x: torch.Tensor, taps: torch.Tensor, desired_modulus: float,
     complex64 on its device, 1..``MAX_CMA_TAPS``): for each window w =
     x[i : i + ntaps], y = sum(taps * w), e = R - |y|^2, taps += ((mu * e)
     * y) * conj(w).  Returns ``(y, final_taps)``, y of n - ntaps + 1
-    samples.  Every product and sum rounded in f32 in a fixed order
-    (:func:`cma_scan_plain`).  Kernel F on CUDA tensors; the plain version
-    on CPU tensors."""
+    samples.  Every product and sum rounded in f32 in a fixed order, the
+    delayed-update form over blocks of ``CMA_BLOCK`` windows from the
+    call's start (:func:`cma_scan_plain`): a call split after a multiple
+    of ``CMA_BLOCK`` windows, the taps carried, gives the same bits, one
+    split elsewhere the same values within rounding.  Kernel F (one
+    launch) on CUDA tensors; the plain version on CPU tensors."""
     _check_cma(x, taps)
     work = cma_work(x.shape[0], taps.shape[0])
     if not _route(x):

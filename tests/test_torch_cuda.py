@@ -968,24 +968,68 @@ def _cma_input(rng, n):
     return torch.from_numpy(x.astype(np.complex64))
 
 
+_CMA_K = kernels.CMA_BLOCK
+# windows of a call: one, a block less one, a block, a block and one, and
+# three tiles of 256 windows, five blocks and a ragged one
+_CMA_NWIN = (1, _CMA_K - 1, _CMA_K, _CMA_K + 1, 3 * 256 + 5 * _CMA_K + 7)
+
+
 @pytest.mark.parametrize("ntaps", [1, 2, 16, 31, 32, 33, 40, 64, 65, 100, 128])
 @pytest.mark.parametrize("mu", [0.0, 1e-2])
 def test_torch_cuda_cma_kernel_equals_plain(cuda_device, ntaps, mu):
-    # three tiles of 1024 windows and a ragged one; taps past every lane
-    # count (1..4 a lane), and given complex taps
+    # kernel F against its plain version run on the card, from the default
+    # and from given complex taps: taps past every lane count (1..4 a
+    # lane), calls of one window to several tiles
     rng = np.random.RandomState(ntaps)
-    x = _cma_input(rng, 3100 + ntaps - 1)
     taps0 = torch.from_numpy(((rng.randn(ntaps) + 1j * rng.randn(ntaps))
                               / (2 * ntaps)).astype(np.complex64))
     taps0[0] += 1.0
-    for t in (None, taps0):
-        tdev = None if t is None else t.to(cuda_device)
-        before = kernels.LAUNCHES["cma"]
-        y, fin = ops.cma_equalize(x.to(cuda_device), ntaps, 1.0, mu, taps=tdev)
-        assert kernels.LAUNCHES["cma"] == before + 1
-        wy, wfin = ops.cma_equalize(x, ntaps, 1.0, mu, taps=t)
-        assert _same(y, wy) and _same(fin, wfin)
-        assert torch.isfinite(torch.view_as_real(y)).all()
+    for nwin in _CMA_NWIN:
+        x = _cma_input(rng, nwin + ntaps - 1).to(cuda_device)
+        for t in (None, taps0.to(cuda_device)):
+            before = kernels.LAUNCHES["cma"]
+            y, fin = ops.cma_equalize(x, ntaps, 1.0, mu, taps=t)
+            assert kernels.LAUNCHES["cma"] == before + 1
+            t0 = torch.eye(1, ntaps, dtype=torch.complex64, device=cuda_device)[0]
+            wy, wfin = kernels.cma_scan_plain(x, t0 if t is None else t, 1.0, mu)
+            assert y.shape == (nwin,)
+            assert _same(y, wy) and _same(fin, wfin), nwin
+            assert torch.isfinite(torch.view_as_real(y)).all()
+
+
+def test_torch_cuda_cma_long_call_and_block_edges(cuda_device):
+    # 2^20 windows: the first 2^14 outputs are the plain version's; a call
+    # split after a multiple of the block, the taps carried, is the one
+    # call bit for bit, and its second part the plain version's
+    nwin, win, ntaps = 1 << 20, 1 << 14, 16
+    x = _cma_input(np.random.RandomState(11), nwin + ntaps - 1).to(cuda_device)
+    y, fin = ops.cma_equalize(x, ntaps, 1.0, 1e-3)
+    t0 = torch.eye(1, ntaps, dtype=torch.complex64, device=cuda_device)[0]
+    wy, _ = kernels.cma_scan_plain(x[: win + ntaps - 1], t0, 1.0, 1e-3)
+    assert _same(y[:win], wy)
+    cut = nwin - win
+    assert cut % _CMA_K == 0
+    y1, t1 = ops.cma_equalize(x[: cut + ntaps - 1], ntaps, 1.0, 1e-3)
+    y2, t2 = ops.cma_equalize(x[cut:], ntaps, 1.0, 1e-3, taps=t1)
+    assert _same(torch.cat([y1, y2]), y) and _same(t2, fin)
+    wy, wfin = kernels.cma_scan_plain(x[cut:], t1, 1.0, 1e-3)
+    assert _same(y2, wy) and _same(t2, wfin)
+    assert torch.isfinite(torch.view_as_real(y)).all()
+
+
+@pytest.mark.parametrize("nwin", [_CMA_K + 1, 3 * 256 + 5 * _CMA_K + 7])
+def test_torch_cuda_cma_unaligned_input(cuda_device, nwin):
+    # x off a 16-byte boundary: kernel F stages it in 8-byte copies
+    ntaps = 16
+    base = _cma_input(np.random.RandomState(nwin), nwin + ntaps).to(cuda_device)
+    x = base[1:]
+    assert x.data_ptr() % 16 == 8
+    y, fin = ops.cma_equalize(x, ntaps, 1.0, 1e-2)
+    t0 = torch.eye(1, ntaps, dtype=torch.complex64, device=cuda_device)[0]
+    wy, wfin = kernels.cma_scan_plain(x, t0, 1.0, 1e-2)
+    assert _same(y, wy) and _same(fin, wfin)
+    ya, fa = ops.cma_equalize(x.clone(), ntaps, 1.0, 1e-2)
+    assert _same(y, ya) and _same(fin, fa)
 
 
 @pytest.mark.parametrize("ntaps", [1, 5, 128])
@@ -1023,7 +1067,19 @@ def test_torch_cuda_cma_equalizer_streams_on_the_card(cuda_device):
     whole = run(None)
     assert len(whole) == 20_000 - 15
     for chunk in (7, 1024, 4096):
-        assert np.array_equal(run(chunk), whole), chunk
+        # the calls the block makes, one a chunk, the taps and the last 15
+        # samples carried, bit for bit; the one call within 1e-5 of max|y|
+        # (kernel F's blocks of windows count from each call's start)
+        got = run(chunk)
+        taps, buf, want = torch.eye(1, 16, dtype=torch.complex64)[0], x[:0], []
+        for lo in range(0, len(x), chunk):
+            buf = torch.cat([buf, x[lo : lo + chunk]])
+            if buf.shape[0] >= 16:
+                y, taps = kernels.cma_scan_plain(buf, taps, 1.0, 1e-3)
+                want.append(y.numpy())
+                buf = buf[-15:]
+        assert np.array_equal(got, np.concatenate(want)), chunk
+        assert np.abs(got - whole).max() <= 1e-5 * np.abs(whole).max(), chunk
 
 
 _IIR_TAPS = {

@@ -3,10 +3,13 @@ package's, on the same seeded inputs, on the CPU.
 
 ``CmaEqualizer`` mirrors tests/test_graph.py:268-300: the window slides
 (mu = 0 is an exact passthrough), it converges on a gain error, and its
-streamed output equals its offline output bit for bit within the port
-over chunk sizes from 1 to 2048; against the JAX block it is held within
-1e-5 of max|y| (the recurrence in another rounding order,
-tests/test_torch_recurrences.py), and a JAX state resumes in the port.
+streamed output is, bit for bit, the calls it makes (one a chunk, the
+last ntaps - 1 samples and the taps carried) over chunk sizes from 1 to
+2048, and within 1e-5 of max|y| of its offline output: kernel F's blocks
+of windows count from each call's start, so a call's seams round in
+another order (tests/test_torch_recurrences.py).  Against the JAX block
+it is held within 1e-5 of max|y| (the recurrence in another rounding
+order), and a JAX state resumes in the port.
 The byte blocks (the .au and rtl-sdr codecs, the reader, writer and TCP
 source, the strobe) give the JAX blocks' bytes and samples exactly.
 Every socket and queue wait here has its own timeout.
@@ -27,6 +30,7 @@ from rustradio_tpu_torch import blocks
 from rustradio_tpu_torch.convert import state_from_jax
 from rustradio_tpu_torch.graph import Graph
 from rustradio_tpu_torch.io import au
+from rustradio_tpu_torch.ops import kernels
 
 CPU = "cpu"
 CMA_TOL = 1e-5
@@ -42,6 +46,27 @@ def _run(g, sink, chunk=None):
     else:
         g.run_stream(chunk_size=chunk, device=CPU)
     return np.asarray(sink.data())
+
+
+def _chunk_calls(x, ntaps, mu, chunk, taps=None, carry=None):
+    """The CMA recurrence over ``x`` fed ``chunk`` samples a call, as a
+    streamed ``CmaEqualizer`` feeds it: each call on the carried samples
+    and the chunk, from the carried taps (kernels.cma_scan_plain)."""
+    if taps is None:
+        taps = torch.eye(1, ntaps, dtype=torch.complex64)[0]
+    buf = torch.zeros(0, dtype=torch.complex64) if carry is None else carry
+    out = []
+    for lo in range(0, len(x), chunk):
+        buf = torch.cat([buf, torch.from_numpy(x[lo : lo + chunk])])
+        if buf.shape[0] >= ntaps:
+            y, taps = kernels.cma_scan_plain(buf, taps, 1.0, mu)
+            out.append(y.numpy())
+            buf = buf[buf.shape[0] - (ntaps - 1):]
+    return np.concatenate(out), taps
+
+
+def _near(a, b):
+    return np.abs(a - b).max() <= CMA_TOL * np.abs(b).max()
 
 
 def _jrun(g, sink, chunk=None):
@@ -91,7 +116,9 @@ def test_torch_cma_equalizer_streams_as_offline(chunk):
 
     offline = _run(*build(blocks, Graph))
     assert len(offline) == n - 15
-    assert np.array_equal(_run(*build(blocks, Graph), chunk=chunk), offline)
+    streamed = _run(*build(blocks, Graph), chunk=chunk)
+    assert np.array_equal(streamed, _chunk_calls(x[:n], 16, 1e-3, chunk)[0])
+    assert _near(streamed, offline)
     if chunk in (173, 2048):  # the JAX block streamed the same way
         want = _jrun(*build(jblocks, JGraph), chunk=chunk)
         assert np.abs(offline - want).max() <= CMA_TOL * np.abs(want).max()
@@ -105,7 +132,12 @@ def test_torch_cma_equalizer_short_chunks_carry_the_window():
         state, y = blk.apply_chunk(state, torch.from_numpy(x[lo:hi]))
         out.append(y.numpy())
     assert [len(o) for o in out] == [0, 0, 5, 31]  # no window before 5 samples
-    assert np.array_equal(np.concatenate(out), blk.apply(torch.from_numpy(x)).numpy())
+    taps = torch.eye(1, 5, dtype=torch.complex64)[0]
+    y1, taps = kernels.cma_scan_plain(torch.from_numpy(x[:9]), taps, 1.0, 1e-2)
+    y2, taps = kernels.cma_scan_plain(torch.from_numpy(x[5:]), taps, 1.0, 1e-2)
+    assert np.array_equal(out[2], y1.numpy()) and np.array_equal(out[3], y2.numpy())
+    assert torch.equal(state["taps"], taps)
+    assert _near(np.concatenate(out), blk.apply(torch.from_numpy(x)).numpy())
     assert state["carry"].shape == (4,) and state["taps"].shape == (5,)
 
 
@@ -125,11 +157,16 @@ def test_torch_cma_equalizer_resumes_a_jax_state():
     assert np.abs(tail.numpy() - np.asarray(jtail)).max() <= CMA_TOL * scale
     assert (np.abs(state2["taps"].numpy() - np.asarray(jstate2["taps"])).max()
             <= CMA_TOL * np.abs(np.asarray(jstate2["taps"])).max())
-    # and the port carries its own state the same way: head + tail == offline
+    # and the port carries its own state the same way: the tail is the
+    # call on the carried samples and taps, head + tail the offline run
+    # within CMA_TOL
     own, head = blk.apply_chunk(blk.init_state(), torch.from_numpy(x[:cut]))
     _, tail = blk.apply_chunk(own, torch.from_numpy(x[cut:]))
+    want, _ = kernels.cma_scan_plain(torch.cat([own["carry"], torch.from_numpy(x[cut:])]),
+                                     own["taps"], 1.0, 1e-2)
+    assert torch.equal(tail, want)
     whole = blk.apply(torch.from_numpy(x))
-    assert np.array_equal(np.concatenate([head.numpy(), tail.numpy()]), whole.numpy())
+    assert _near(np.concatenate([head.numpy(), tail.numpy()]), whole.numpy())
 
 
 # ---- the rtl-sdr codec (tests/test_graph.py:255-265)

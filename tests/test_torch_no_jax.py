@@ -152,8 +152,12 @@ assert tone.main(["--out", os.path.join(d, "t.c32"), "--seconds", "0.1",
                   "--device", "cpu"]) == 0
 assert spectrum.main(["-r", os.path.join(d, "t.c32"), "--sample_rate", "48k",
                       "--fft_size", "256", "--device", "cpu"]) == 0
-# the recurrences: a CMA equalizer streamed against its offline run, and
-# the IIR filter's golden values
+# the recurrences: a CMA equalizer streamed against its offline run (within
+# 1e-5 of max|y|: kernel F's blocks count from each call's start) and bit
+# for bit against the plain recurrence called chunk by chunk as the block
+# calls it (333 samples, the last 3 samples and the taps carried), and the
+# IIR filter's golden values
+from rustradio_tpu_torch.ops import kernels
 q = np.exp(2j * np.pi * np.random.RandomState(0).randint(0, 4, 3000) / 4)
 def cma(chunk):
     g, s = Graph(), blocks.VectorSink()
@@ -161,7 +165,17 @@ def cma(chunk):
             blocks.CmaEqualizer(4, 1.0, 1e-2), s)
     g.run(device="cpu") if chunk is None else g.run_stream(chunk_size=chunk, device="cpu")
     return s.data()
-assert np.array_equal(cma(None), cma(333)) and abs(abs(cma(None)[-1]) - 1) < 1e-2
+whole, streamed = cma(None), cma(333)
+assert np.abs(whole - streamed).max() <= 1e-5 * np.abs(whole).max()
+xq = torch.from_numpy((0.5 * q).astype(np.complex64))
+taps, buf, calls = torch.eye(1, 4, dtype=torch.complex64)[0], xq[:0], []
+for lo in range(0, len(xq), 333):
+    buf = torch.cat([buf, xq[lo : lo + 333]])
+    yc, taps = kernels.cma_scan_plain(buf, taps, 1.0, 1e-2)
+    calls.append(yc.numpy())
+    buf = buf[-3:]
+assert np.array_equal(streamed, np.concatenate(calls))
+assert abs(abs(whole[-1]) - 1) < 1e-2
 assert ops.iir_filter(torch.full((4,), 100.0), [1.0, 0.9, 0.1]).tolist()[:3] == [100.0, 190.0, 281.0]
 # the live feed: downsample_u8 into the stdio DATA_STREAM loop
 import io

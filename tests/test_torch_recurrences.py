@@ -11,7 +11,10 @@ package (both measured at <= 3.4e-6 on these inputs, n = 4096), the IIR
 filter within 5e-6 of max|y| (<= 7e-7 measured); the reference's IIR
 goldens exactly.  The plain versions are held bit for bit to a numpy f32
 restatement of the kernels' order of operations: what the card holds the
-kernels to (tests/test_torch_cuda.py, chip_smoke.py).
+kernels to (tests/test_torch_cuda.py, chip_smoke.py).  Both kernels
+compute a blocked form of their recurrence, so the sequential f32 forms
+(``cma_kernel_order``, ``iir_kernel_order``) hold only their first window
+or chunk bit for bit, and the rest within the tolerances above.
 """
 
 import numpy as np
@@ -111,10 +114,11 @@ def test_torch_cma_equalize_passthrough_and_errors():
 
 
 def cma_kernel_order(x, taps, r, mu):
-    """numpy f32 restatement of csrc/cma.cu, lane by lane: lane l's taps
-    l, l + 32, ...; its sum from +0.0 over its taps in that order; the
-    __shfl_xor_sync butterfly (16, 8, 4, 2, 1) in every lane; then e, mu *
-    e * y and each tap's update."""
+    """numpy f32 restatement of the sequential recurrence in 32 lanes,
+    window after window: lane l's taps l, l + 32, ...; its sum from +0.0
+    over its taps in that order; the lanes folded by a butterfly (16, 8,
+    4, 2, 1); then e, mu * e * y and each tap's update.  Kernel F's first
+    window of a call (a base) is this form's."""
     f = np.float32
     r, mu = f(r), f(mu)
     ntaps = len(taps)
@@ -146,18 +150,135 @@ def cma_kernel_order(x, taps, r, mu):
              ).astype(np.complex64))
 
 
+K = kernels.CMA_BLOCK
+
+
+def cma_blocked_numpy(x, taps, r, mu):
+    """numpy f32 restatement of csrc/cma.cu's delayed-update form: blocks of
+    K windows from the call's start; for each, with the taps t_B it starts
+    from,
+
+    1. the bases a_n = t_B . w_n: 32 lane sums, lane l from +0.0 over the
+       products of taps l, l + 32, ... (only taps < ntaps), then the lanes
+       folded in halves (16, 8, 4, 2, 1);
+    2. G[m, j] = sum_k conj(x[m + k]) x[j + k] for m < j in the block, from
+       the k = 0 product up;
+    3. y_n = a_n + c_B G[B, n] + ... + c_{n-1} G[n-1, n], from the oldest
+       term up, c = (mu * (R - |y|^2)) * y;
+    4. the taps updated after each window, t += c conj(w)."""
+    f = np.float32
+    r, mu = f(r), f(mu)
+    ntaps = len(taps)
+    nwin = len(x) - ntaps + 1
+    pad = np.zeros(len(x) + 2 * K + ntaps, np.complex64)
+    pad[: len(x)] = x
+    xr, xi = pad.real.astype(f), pad.imag.astype(f)
+    tr, ti = taps.real.astype(f), taps.imag.astype(f)
+    ys = np.empty(nwin, np.complex64)
+    for b0 in range(0, nwin, K):
+        cnt = min(K, nwin - b0)
+        n = b0 + np.arange(cnt)
+        lr, li = np.zeros((32, cnt), f), np.zeros((32, cnt), f)
+        for k in range(ntaps):
+            wr, wi = xr[n + k], xi[n + k]
+            lr[k % 32] = lr[k % 32] + (tr[k] * wr - ti[k] * wi)
+            li[k % 32] = li[k % 32] + (tr[k] * wi + ti[k] * wr)
+        for off in (16, 8, 4, 2, 1):
+            lr, li = lr[:off] + lr[off : 2 * off], li[:off] + li[off : 2 * off]
+        pr, pi = lr[0], li[0]
+        m, j = np.triu_indices(cnt, 1)
+        m, j = b0 + m, b0 + j
+        gr = xr[m] * xr[j] + xi[m] * xi[j]
+        gi = xr[m] * xi[j] - xi[m] * xr[j]
+        for k in range(1, ntaps):
+            ar, ai, br, bi = xr[m + k], xi[m + k], xr[j + k], xi[j + k]
+            gr = gr + (ar * br + ai * bi)
+            gi = gi + (ar * bi - ai * br)
+        g_r, g_i = np.zeros((cnt, cnt), f), np.zeros((cnt, cnt), f)
+        g_r[m - b0, j - b0], g_i[m - b0, j - b0] = gr, gi
+        for i in range(cnt):
+            yr, yi = pr[i], pi[i]
+            me = mu * (r - (yr * yr + yi * yi))
+            cr, ci = me * yr, me * yi
+            later = slice(i + 1, cnt)
+            pr[later] = pr[later] + (cr * g_r[i, later] - ci * g_i[i, later])
+            pi[later] = pi[later] + (cr * g_i[i, later] + ci * g_r[i, later])
+            wr, wi = xr[b0 + i : b0 + i + ntaps], xi[b0 + i : b0 + i + ntaps]
+            tr = tr + (cr * wr + ci * wi)
+            ti = ti + (ci * wr - cr * wi)
+            ys[b0 + i] = complex(yr, yi)
+    return ys, (tr + 1j * ti).astype(np.complex64)
+
+
+def cma_given_taps(rng, ntaps):
+    return (np.eye(1, ntaps)[0] + 0.1 * (rng.randn(ntaps) + 1j * rng.randn(ntaps))
+            / ntaps).astype(np.complex64)
+
+
 @pytest.mark.parametrize("ntaps", [1, 16, 40, 70])
 def test_torch_cma_plain_version_is_the_kernels_order(ntaps):
     # the plain version (the CPU route) against the kernel's arithmetic
-    # restated in numpy f32, bit for bit
+    # restated in numpy f32 (the blocked form), bit for bit; its first
+    # window, a base, against the sequential lane-by-lane form
     rng = np.random.RandomState(ntaps)
     x = cma_input(rng, ntaps + 299)
-    taps = (np.eye(1, ntaps)[0] + 0.1 * (rng.randn(ntaps) + 1j * rng.randn(ntaps))
-            / ntaps).astype(np.complex64)
+    taps = cma_given_taps(rng, ntaps)
     y, fin = kernels.cma_scan_plain(torch.from_numpy(x), torch.from_numpy(taps),
                                     1.0, 1e-2)
-    wy, wfin = cma_kernel_order(x, taps, 1.0, 1e-2)
+    wy, wfin = cma_blocked_numpy(x, taps, 1.0, 1e-2)
     assert np.array_equal(y.numpy(), wy) and np.array_equal(fin.numpy(), wfin)
+    sy, _ = cma_kernel_order(x[:ntaps], taps, 1.0, 1e-2)
+    assert np.array_equal(y.numpy()[:1], sy)
+
+
+@pytest.mark.parametrize("nwin", [1, K - 1, K, K + 1, 5 * K + 7])
+@pytest.mark.parametrize("ntaps", [1, 16, 40, 70, 128])
+@pytest.mark.parametrize("given", [False, True], ids=["default_taps", "taps"])
+def test_torch_cma_plain_is_the_numpy_restatement(nwin, ntaps, given):
+    rng = np.random.RandomState(ntaps + nwin)
+    x = cma_input(rng, nwin + ntaps - 1)
+    taps = (cma_given_taps(rng, ntaps) if given
+            else np.eye(1, ntaps)[0].astype(np.complex64))
+    y, fin = kernels.cma_scan_plain(torch.from_numpy(x), torch.from_numpy(taps),
+                                    1.0, 1e-2)
+    wy, wfin = cma_blocked_numpy(x, taps, 1.0, 1e-2)
+    assert y.shape == (nwin,)
+    assert np.array_equal(y.numpy(), wy) and np.array_equal(fin.numpy(), wfin)
+
+
+@pytest.mark.parametrize("ntaps", [1, 16, 40, 128])
+@pytest.mark.parametrize("mu", [1e-3, 1e-2])
+def test_torch_cma_plain_blocked_vs_float64_and_sequential(ntaps, mu):
+    # the blocked form is the sequential recurrence's function rounded in
+    # another order: within CMA_TOL of float64 and of the sequential f32
+    # form, and its first window (a base) is the sequential form's
+    rng = np.random.RandomState(ntaps)
+    x = cma_input(rng, 6 * K + 11 + ntaps - 1)
+    taps = cma_given_taps(rng, ntaps)
+    y, fin = kernels.cma_scan_plain(torch.from_numpy(x), torch.from_numpy(taps),
+                                    1.0, mu)
+    fy, ffin = cma_f64(x, ntaps, 1.0, mu, taps)
+    sy, sfin = cma_kernel_order(x, taps, 1.0, mu)
+    scale, tscale = np.abs(fy).max(), np.abs(ffin).max()
+    assert rel(y.numpy(), fy, scale) <= CMA_TOL
+    assert rel(fin.numpy(), ffin, tscale) <= CMA_TOL
+    assert rel(y.numpy(), sy, scale) <= CMA_TOL
+    assert rel(fin.numpy(), sfin, tscale) <= CMA_TOL
+    assert y.numpy()[0] == sy[0]
+
+
+@pytest.mark.parametrize("ntaps", [1, 16, 40])
+def test_torch_cma_plain_splits_at_a_block_edge_exactly(ntaps):
+    # blocks count from a call's start: a call split after a multiple of K
+    # windows, the taps carried, gives the one call's outputs bit for bit
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(cma_input(rng, 7 * K + 3 + ntaps - 1))
+    t0 = torch.from_numpy(cma_given_taps(rng, ntaps))
+    y, fin = kernels.cma_scan_plain(x, t0, 1.0, 1e-2)
+    cut = 4 * K
+    y1, t1 = kernels.cma_scan_plain(x[: cut + ntaps - 1], t0, 1.0, 1e-2)
+    y2, t2 = kernels.cma_scan_plain(x[cut:], t1, 1.0, 1e-2)
+    assert torch.equal(torch.cat([y1, y2]), y) and torch.equal(t2, fin)
 
 
 IIR_TAPS = {
