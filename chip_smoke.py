@@ -87,7 +87,18 @@ just after, so that each shows it went through its kernels:
   exact, the host-to-card rate beside one pinned copy); and
   ``ui_server``'s ``SpectrumFeed`` and ``UiServer`` on the main capture
   (rows within 0.1 dB of a float64 spectrogram, the peak at the station,
-  one HTTP and one websocket fetch).
+  one HTTP and one websocket fetch);
+* the multi-device layer, one shot (``mesh_phase``, phase 15): a mesh of
+  four shards on the card (``make_mesh(4, device="cuda:0")``): the
+  sharded FM chain (kernel A once a shard), ``sharded_fir_filter`` and
+  ``sharded_fft_filter`` at 49 taps / deci 4 and
+  ``sharded_quadrature_demod`` on the main capture against their offline
+  ops; the decode bank with its channels sharded (kernels E and D once a
+  shard), bit-equal to the unsharded call; the 256-channel
+  ``sharded_channelizer_fm`` against ``channelizer_fm_bank``; the AX.25
+  front-end sharded over the corpus with the native tail, the offline
+  receiver's list; and ``tools.dryrun.dryrun_multichip(4)``; each sharded
+  call timed beside its unsharded counterpart.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -117,9 +128,11 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 12, 13 and 14
-rehearse on the CPU at small sizes (``RadioSizes``, ``ScanSizes``,
-``LiveSizes``; tests/test_torch_chip_smoke.py).
+the last line is {"ok": true, "device": {...}}.  Phases 10 to 15 rehearse
+on the CPU at small sizes (``AppsSizes``, ``BurstSizes``, ``RadioSizes``,
+``ScanSizes``, ``LiveSizes``, ``MeshSizes``;
+tests/test_torch_chip_smoke.py); phases 1-9 compare kernels with their
+plain versions, which only the card can do.
 """
 
 from __future__ import annotations
@@ -584,13 +597,14 @@ def wideband_capture(hdlc, device, gen: torch.Generator) -> torch.Tensor:
     return iq + torch.complex(noise[0], noise[1])
 
 
-def decode_bank(device, gen: torch.Generator) -> torch.Tensor:
+def decode_bank(device, gen: torch.Generator, channels: int = BANK_CH,
+                n: int = BANK_N) -> torch.Tensor:
     """bench.py's decode-bank input: random bits held for round(sps)
     samples, plus Gaussian noise, (BANK_CH, BANK_N) f32 on the card."""
     rep = int(round(BANK_SPS))
-    bits = torch.randint(0, 2, (BANK_CH, BANK_N // rep + 1), generator=gen,
+    bits = torch.randint(0, 2, (channels, n // rep + 1), generator=gen,
                          device=device) * 2.0 - 1.0
-    nrz = torch.repeat_interleave(bits, rep, dim=1)[:, :BANK_N]
+    nrz = torch.repeat_interleave(bits, rep, dim=1)[:, :n]
     return (nrz + BANK_NOISE * torch.randn(nrz.shape, generator=gen,
                                            device=device)).contiguous()
 
@@ -717,6 +731,19 @@ AM_TONE, AM_DEPTH = 1000.0, 0.6
 PCM = 1 / 32767           # one step of the .au encoding
 STREAM_CHUNK = 1 << 18    # run_stream's default chunk
 RESUME_AFTER = 20         # chunks before the checkpointed pause
+
+
+@dataclasses.dataclass(frozen=True)
+class AppsSizes:
+    """Phase 10's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones.  The FM apps
+    run on the whole main capture given."""
+
+    frames: int = N_FRAMES            # corpus frames of the audio given
+    frame_gate: int = FRAME_GATE
+    stream_chunk: int = STREAM_CHUNK  # run_stream's chunk
+    resume_after: int = RESUME_AFTER  # chunks before the checkpointed pause
+    reps: int = 3                     # runs of each timed path (median wall)
 
 
 def tone_fit(audio: np.ndarray, rate: float, tones, skip: int = 256):
@@ -906,15 +933,16 @@ def hold_scan_calls(phase: str, what: str, calls, window: int = E_WINDOW) -> flo
     return err
 
 
-def apps_phase(dev, card, i_main, q_main, audio, want_lists):
+def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
     """Phase 10: ``rtl_fm`` (c32, u8 w3, u8 i8) on the main path's capture,
     ``am_decode`` on an AM capture and ``wbfm_rx`` on the station, each at
     2^24 samples and held against the same call on the kernels' plain
     versions; then ``ax25_1200_rx_graph`` on the corpus with both sync
     methods, offline and streamed, a streamed run paused at a checkpoint
     and resumed, and kernels A and D on the streamed path's own calls
-    against their plain versions.  Returns the launch counts of each path
-    and the largest |error| of each kernel held here."""
+    against their plain versions, at ``sizes`` (a CPU rehearsal takes
+    small ones).  Returns the launch counts of each path and the largest
+    |error| of each kernel held here."""
     import tempfile
     from pathlib import Path
 
@@ -950,8 +978,8 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
         out, plain_out = d / f"{mode}.au", d / f"{mode}_plain.au"
         zero_counts()
         args = args + ["--device", str(dev)]
-        secs, _ = wall(lambda: rtl_fm.main(args + ["--out", str(out)]))
-        counts[f"rtl_fm {mode}"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        secs, _ = wall(lambda: rtl_fm.main(args + ["--out", str(out)]), sizes.reps)
+        counts[f"rtl_fm {mode}"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
         with plain_versions():
             plain_s, _ = wall(lambda: rtl_fm.main(args + ["--out", str(plain_out)]),
                               reps=1)
@@ -986,8 +1014,8 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
     with plain_versions():
         w_ratio = envelope_ratio(ops.filter_complex(x, lpw), len(lpw))
     zero_counts()
-    secs, got_w = wall(lambda: fm.wbfm_rx(x, FS_RTL))
-    counts["wbfm_rx"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    secs, got_w = wall(lambda: fm.wbfm_rx(x, FS_RTL), sizes.reps)
+    counts["wbfm_rx"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
     with plain_versions():
         want_w = fm.wbfm_rx(x, FS_RTL)
     # as rtl_fm c32 (the de-emphasis has gain <= 1)
@@ -997,7 +1025,7 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
     sent = [a * deemphasis_gain(f, AUDIO_RATE) for f, a in APP_TONES]
     print(f"[10 wbfm] wbfm_rx: tones {[round(a, 4) for a in amps]} (sent, "
           f"de-emphasized {[round(a, 4) for a in sent]}), residual {resid:.4f}; "
-          f"{secs:.3f} s wall (median of 3); launches "
+          f"{secs:.3f} s wall (median of {sizes.reps}); launches "
           f"{json.dumps(counts['wbfm_rx'])}; card: {card}")
     if not (all(abs(a / s - 1) < 0.05 for a, s in zip(amps, sent)) and resid < 0.25):
         failures.append("wbfm_rx: the tones did not come out")
@@ -1020,8 +1048,9 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
     args = ["-r", str(d / "am.c32"), "--sample_rate", "1.024m", "--device",
             str(dev)]
     zero_counts()
-    secs, _ = wall(lambda: am_decode.main(args + ["-o", str(d / "am.f32")]))
-    counts["am_decode"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    secs, _ = wall(lambda: am_decode.main(args + ["-o", str(d / "am.f32")]),
+                   sizes.reps)
+    counts["am_decode"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
     with plain_versions():
         am_decode.main(args + ["-o", str(d / "am_plain.f32")])
     got_a = np.fromfile(d / "am.f32", "<f4")
@@ -1035,7 +1064,7 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
            else math.inf, tol)
     amps, resid = tone_fit(got_a, AUDIO_RATE, ((AM_TONE, 0.0),))
     print(f"[10 am] am_decode: tone {amps[0]:.4f} (sent {0.5 * AM_DEPTH}), "
-          f"residual {resid:.4f}; {secs:.3f} s wall (median of 3); launches "
+          f"residual {resid:.4f}; {secs:.3f} s wall (median of {sizes.reps}); launches "
           f"{json.dumps(counts['am_decode'])}; card: {card}")
     if not (abs(amps[0] / (0.5 * AM_DEPTH) - 1) < 0.05 and resid < 0.1):
         failures.append("am_decode: the tone did not come out")
@@ -1063,7 +1092,7 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
         g.chain(*chain[:upto], sink)
         return g, sink
 
-    n_chunks = -(-audio.shape[0] // STREAM_CHUNK)
+    n_chunks = -(-audio.shape[0] // sizes.stream_chunk)
     for sync in want_lists:
         # the streaming runner's host time a chunk, the chain cut after the
         # dense front-end (one device segment: 3 kernel-A launches a
@@ -1072,26 +1101,26 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
         for upto, label in ((6, "front-end"), (9, "+ clock recovery, slicer, "
                             "NRZI"), (None, "+ HDLC")):
             secs, _ = wall(lambda: receiver(sync, upto)[0].run_stream(
-                chunk_size=STREAM_CHUNK, device=dev))
+                chunk_size=sizes.stream_chunk, device=dev), sizes.reps)
             parts.append(f"{label} {secs * 1e3 / n_chunks:.3f}")
         print(f"[10 ax25 graph] run_stream sync={sync}, host ms a chunk of "
-              f"{STREAM_CHUNK} ({n_chunks} chunks, wall / chunks, median of 3): "
+              f"{sizes.stream_chunk} ({n_chunks} chunks, wall / chunks, median of {sizes.reps}): "
               f"{'; '.join(parts)}; card: {card}")
 
     for sync, want in want_lists.items():
-        for chunk in (None, STREAM_CHUNK):
+        for chunk in (None, sizes.stream_chunk):
             label = f"{sync} {'streamed' if chunk else 'offline'}"
             zero_counts()
             secs, out = wall(lambda: ax25.ax25_1200_rx_graph(
-                audio, FS_AUDIO, chunk_size=chunk, sync=sync))
-            counts[f"graph {label}"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
-            got = decoded(out, N_FRAMES)
+                audio, FS_AUDIO, chunk_size=chunk, sync=sync, device=dev), sizes.reps)
+            counts[f"graph {label}"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+            got = decoded(out, sizes.frames)
             print(f"[10 ax25 graph] ax25_1200_rx_graph sync={label} (chunks of "
-                  f"{chunk or audio.shape[0]}): {len(set(got))}/{N_FRAMES} "
+                  f"{chunk or audio.shape[0]}): {len(set(got))}/{sizes.frames} "
                   f"decoded, same list as ax25_1200_rx: {got == want}; "
-                  f"{secs * 1e3:.1f} ms wall (median of 3); launches "
+                  f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
                   f"{json.dumps(counts[f'graph {label}'])}; card: {card}")
-            if len(set(got)) < FRAME_GATE or got != want:
+            if len(set(got)) < sizes.frame_gate or got != want:
                 failures.append(f"ax25_1200_rx_graph {label}: {len(set(got))} "
                                 "frames, or not ax25_1200_rx's list")
             require(f"ax25 graph {label}", counts[f"graph {label}"],
@@ -1101,15 +1130,15 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
         ck = str(Path(ck_dir) / "events.pkl")
         zero_counts()
         g, first = receiver("events")
-        g.run_stream(chunk_size=STREAM_CHUNK, max_chunks=RESUME_AFTER,
-                     checkpoint_path=ck, checkpoint_every=RESUME_AFTER, device=dev)
+        g.run_stream(chunk_size=sizes.stream_chunk, max_chunks=sizes.resume_after,
+                     checkpoint_path=ck, checkpoint_every=sizes.resume_after, device=dev)
         g, rest = receiver("events")
-        secs, _ = wall(lambda: g.run_stream(chunk_size=STREAM_CHUNK,
+        secs, _ = wall(lambda: g.run_stream(chunk_size=sizes.stream_chunk,
                                             resume_from=ck, device=dev), reps=1)
         counts["graph events resumed"] = dict(kernels.LAUNCHES)
-    a = decoded([bytes(np.asarray(p.data)) for p in first.pdus()], N_FRAMES)
-    b = decoded([bytes(np.asarray(p.data)) for p in rest.pdus()], N_FRAMES)
-    print(f"[10 ax25 graph] events streamed, paused after {RESUME_AFTER} chunks "
+    a = decoded([bytes(np.asarray(p.data)) for p in first.pdus()], sizes.frames)
+    b = decoded([bytes(np.asarray(p.data)) for p in rest.pdus()], sizes.frames)
+    print(f"[10 ax25 graph] events streamed, paused after {sizes.resume_after} chunks "
           f"at a checkpoint ({len(a)} frames), resumed ({len(b)} frames, "
           f"{secs * 1e3:.1f} ms wall): the uninterrupted list "
           f"{a + b == want_lists['events']}; launches "
@@ -1123,11 +1152,11 @@ def apps_phase(dev, card, i_main, q_main, audio, want_lists):
     # history) and D (the state carried in from the chunk before), once
     # more outside the counted runs, each held against its plain version
     with capturing("fir_decimate", "symbol_sync_events_scan") as calls:
-        out = ax25.ax25_1200_rx_graph(audio, FS_AUDIO, chunk_size=STREAM_CHUNK,
-                                      sync="events")
-    if decoded(out, N_FRAMES) != want_lists["events"]:
+        out = ax25.ax25_1200_rx_graph(audio, FS_AUDIO, chunk_size=sizes.stream_chunk,
+                                      sync="events", device=dev)
+    if decoded(out, sizes.frames) != want_lists["events"]:
         failures.append("ax25 graph: the captured streamed run differs")
-    what = f"ax25_1200_rx_graph events streamed (chunks of {STREAM_CHUNK})"
+    what = f"ax25_1200_rx_graph events streamed (chunks of {sizes.stream_chunk})"
     call_errs = {
         "fir_decimate": hold_fir_calls("10 ax25 graph", what,
                                        calls["fir_decimate"]),
@@ -1151,6 +1180,19 @@ AFSK_GAP, AFSK_GAP_NOISE = 0.1, 0.01   # and between the AFSK bursts
 BURST_THRESHOLD = 0.01
 WPCR_GATE = 100           # the JAX package's gate on its WPCR corpus
 BURST_CHUNK = 1 << 16     # run_stream's chunk for the block-built front half
+
+
+@dataclasses.dataclass(frozen=True)
+class BurstSizes:
+    """Phase 11's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones."""
+
+    frames: int = N_G3                # corpus frames on each capture
+    gate: int = G3_GATE
+    wpcr_bursts: int = 200            # bursts of the WPCR corpus
+    wpcr_gate: int = WPCR_GATE
+    burst_chunk: int = BURST_CHUNK
+    reps: int = 3                     # runs of each timed path (median wall)
 
 
 def noisy(iq: torch.Tensor, sigma: float, gen: torch.Generator) -> torch.Tensor:
@@ -1181,13 +1223,13 @@ def afsk_burst(i: int, hdlc, ops, dev) -> torch.Tensor:
     return iq.conj().resolve_conj()
 
 
-def wpcr_corpus(hdlc):
+def wpcr_corpus(hdlc, n: int = 200):
     """tests/test_decode_rate.py:203-228: 200 NRZ bursts at 10 samples a
     symbol with clock drift of +-1% and noise 0 to 0.55, numpy
-    RandomState(5)."""
+    RandomState(5) (its first ``n``)."""
     rng = np.random.RandomState(5)
     bursts, payloads = [], []
-    for i in range(200):
+    for i in range(n):
         p = f"W#{i:03d} wpcr corpus".encode()
         framed = hdlc.hdlc_frame(hdlc.fcs_add(np.frombuffer(p, np.uint8)))
         line = ((1 + np.cumsum(1 - np.asarray(framed))) % 2) * 2.0 - 1.0
@@ -1238,10 +1280,11 @@ def wpcr_moved(centred: np.ndarray, syms: np.ndarray, info: dict, want) -> int:
     return len(moved)
 
 
-def burst_phase(dev, card):
+def burst_phase(dev, card, sizes: BurstSizes):
     """Phase 11: the G3RUH modem and the burst receivers on their captures
-    (see the module docstring).  Returns the launch counts of each path and
-    the largest |error| of each kernel held here."""
+    (see the module docstring), at ``sizes`` (a CPU rehearsal takes small
+    ones).  Returns the launch counts of each path and the largest |error|
+    of each kernel held here."""
     import io
     import tempfile
     from pathlib import Path
@@ -1257,7 +1300,7 @@ def burst_phase(dev, card):
 
     counts, call_errs = {}, {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    frames = [np.frombuffer(corpus_payload(i), np.uint8) for i in range(N_G3)]
+    frames = [np.frombuffer(corpus_payload(i), np.uint8) for i in range(sizes.frames)]
 
     # the captures; the transmitter's kernel-A calls (the 723-tap channel
     # filter at 300 kHz, both planes) each held against the plain version
@@ -1273,16 +1316,16 @@ def burst_phase(dev, card):
     del calls
     stream = noisy(clean, G3_NOISE, gen)
     g3_iq = burst_capture(g3_one, int(G3_GAP * FS_G3), G3_GAP_NOISE, gen)
-    afsk_iq = burst_capture([afsk_burst(i, hdlc, ops, dev) for i in range(N_G3)],
+    afsk_iq = burst_capture([afsk_burst(i, hdlc, ops, dev) for i in range(sizes.frames)],
                             int(AFSK_GAP * FS_AFSK), AFSK_GAP_NOISE, gen)
-    torch.cuda.synchronize()
+    sync()
     print(f"[11 captures] G3RUH stream {clean.shape[0]} samples at {FS_G3:.0f} Hz "
           f"(noise {G3_NOISE}), G3RUH bursts {g3_iq.shape[0]}, AFSK bursts "
-          f"{afsk_iq.shape[0]} at {FS_AFSK:.0f} Hz, {N_G3} corpus frames each, "
+          f"{afsk_iq.shape[0]} at {FS_AFSK:.0f} Hz, {sizes.frames} corpus frames each, "
           f"made on the card in {time.perf_counter() - t0:.1f} s")
-    secs, _ = wall(lambda: ax25.g3ruh_modulate(frames, FS_G3, device=dev))
-    print(f"[11 g3ruh] g3ruh_modulate {N_G3} frames -> {clean.shape[0]} samples: "
-          f"{secs * 1e3:.1f} ms wall (median of 3); card: {card}")
+    secs, _ = wall(lambda: ax25.g3ruh_modulate(frames, FS_G3, device=dev), sizes.reps)
+    print(f"[11 g3ruh] g3ruh_modulate {sizes.frames} frames -> {clean.shape[0]} samples: "
+          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); card: {card}")
 
     # the VCO's phase reaches ~1500 rad here (an f32 step of 1.2e-4): each
     # stream the card makes is held against the same stream with its
@@ -1308,7 +1351,7 @@ def burst_phase(dev, card):
                 frames, FS_G3, device=dev))
     ref64 = refs[False]
     vco_tol = 2 * max_err(refs[True], ref64)
-    report("11 g3ruh", f"g3ruh_modulate {N_G3} frames vs its phase in float64 "
+    report("11 g3ruh", f"g3ruh_modulate {sizes.frames} frames vs its phase in float64 "
            "(tolerance: twice the error of an f32 sum on the host)",
            max_err(torch.view_as_real(clean), ref64), vco_tol)
     del refs
@@ -1318,16 +1361,16 @@ def burst_phase(dev, card):
         plain versions (unless ``plain`` gives the list to match): the same
         list, and at least ``gate`` frames."""
         zero_counts()
-        secs, out = wall(fn)
-        counts[name] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
-        got = decoded(out, N_G3)
+        secs, out = wall(fn, sizes.reps)
+        counts[name] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+        got = decoded(out, sizes.frames)
         what = "the native form's list" if plain is not None else \
             "the plain versions' list"
         if plain is None:
             with plain_versions():
-                plain = decoded(fn(), N_G3)
-        print(f"[11 {name}] {len(set(got))}/{N_G3} decoded, {what}: "
-              f"{got == plain}; {secs * 1e3:.1f} ms wall (median of 3); "
+                plain = decoded(fn(), sizes.frames)
+        print(f"[11 {name}] {len(set(got))}/{sizes.frames} decoded, {what}: "
+              f"{got == plain}; {secs * 1e3:.1f} ms wall (median of {sizes.reps}); "
               f"launches {json.dumps(counts[name])}; card: {card} "
               f"({time.perf_counter() - T0:.1f} s since the start)")
         if len(set(got)) < gate or got != plain:
@@ -1342,14 +1385,15 @@ def burst_phase(dev, card):
     # loop over all 300,664 slots of its call took 30-39 s, so it runs on a
     # prefix of them below
     rx = {}
-    for sync in ("native", "events"):
-        rx[sync] = path(f"ax25_9600_rx {sync}", lambda: ax25.ax25_9600_rx(
-            stream, FS_G3, symbol_max_deviation=G3_MAX_DEV, sync=sync), G3_GATE,
-            ("symbol_sync_events",) if sync == "events" else (),
-            decoded(rx["native"], N_G3) if sync == "events" else None)
-        n_default = len(set(decoded(ax25.ax25_9600_rx(stream, FS_G3, sync=sync), N_G3)))
-        print(f"[11 ax25_9600_rx {sync}] at the default clock bound 0.1 (taps "
-              f"0.0001, 0.99999999 hold the clock at sps + 0.1): {n_default}/{N_G3}")
+    for method in ("native", "events"):
+        rx[method] = path(f"ax25_9600_rx {method}", lambda: ax25.ax25_9600_rx(
+            stream, FS_G3, symbol_max_deviation=G3_MAX_DEV, sync=method), sizes.gate,
+            ("symbol_sync_events",) if method == "events" else (),
+            decoded(rx["native"], sizes.frames) if method == "events" else None)
+        n_default = len(set(decoded(ax25.ax25_9600_rx(stream, FS_G3, sync=method),
+                                    sizes.frames)))
+        print(f"[11 ax25_9600_rx {method}] at the default clock bound 0.1 (taps "
+              f"0.0001, 0.99999999 hold the clock at sps + 0.1): {n_default}/{sizes.frames}")
     # kernel D on each of its calls, on the first and last D_WINDOW slots
     # of each channel, against the plain loop on the host
     with capturing("symbol_sync_events_scan") as calls:
@@ -1359,9 +1403,9 @@ def burst_phase(dev, card):
         "11 ax25_9600_rx", "ax25_9600_rx events",
         calls["symbol_sync_events_scan"])
     rx["wpcr 9600"] = path("ax25_9600_wpcr_rx", lambda: ax25.ax25_9600_wpcr_rx(
-        g3_iq, FS_G3, threshold=BURST_THRESHOLD), G3_GATE, ())
+        g3_iq, FS_G3, threshold=BURST_THRESHOLD), sizes.gate, ())
     rx["wpcr 1200"] = path("ax25_1200_wpcr_rx", lambda: ax25.ax25_1200_wpcr_rx(
-        afsk_iq, FS_AFSK, threshold=BURST_THRESHOLD), G3_GATE, ("fir_decimate",))
+        afsk_iq, FS_AFSK, threshold=BURST_THRESHOLD), sizes.gate, ("fir_decimate",))
     # the 50 kHz front-end's calls: the 1205-tap channel filter (both
     # planes), the Hilbert and the 1205-tap low-pass
     with capturing("fir_decimate") as calls:
@@ -1373,11 +1417,11 @@ def burst_phase(dev, card):
 
     # WPCR on the JAX package's corpus: the card against the CPU and the
     # numpy golden model, burst by burst
-    bursts, payloads = wpcr_corpus(hdlc)
+    bursts, payloads = wpcr_corpus(hdlc, sizes.wpcr_bursts)
     on_card = [torch.from_numpy(b).to(dev) for b in bursts]
     zero_counts()
-    secs, res = wall(lambda: ops.wpcr_batch(on_card))
-    counts["wpcr_batch"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    secs, res = wall(lambda: ops.wpcr_batch(on_card), sizes.reps)
+    counts["wpcr_batch"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
     res_cpu = ops.wpcr_batch(bursts, device="cpu")
     centred = [ops.midpoint(torch.from_numpy(b))[0].numpy() for b in bursts]
     t0 = time.perf_counter()
@@ -1396,14 +1440,15 @@ def burst_phase(dev, card):
             pkts, _ = ops.hdlc_deframe(bits, 5, 1500)
             n_dec += any(bytes(np.asarray(d)) == payloads[i] for d, _ in pkts)
     ties = sum(info["near_tie"] for _, info in res)
-    print(f"[11 wpcr] wpcr_batch on the WPCR corpus: {n_dec}/200 decoded, "
+    print(f"[11 wpcr] wpcr_batch on the WPCR corpus: {n_dec}/{len(bursts)} decoded, "
           f"{sum(i['found'] for _, i in res)} found; bursts unlike the CPU run "
           f"{unequal}, unlike wpcr_numpy {disagree} ({moved} symbols a sample "
           f"away at a phase within 1e-4 of an integer); near-ties {ties}; "
-          f"{secs * 1e3 / 200:.4f} ms a burst on the card (median of 3), "
-          f"wpcr_numpy {numpy_s * 1e3 / 200:.4f} ms a burst on the host; launches "
+          f"{secs * 1e3 / len(bursts):.4f} ms a burst on the card (median of "
+          f"{sizes.reps}), "
+          f"wpcr_numpy {numpy_s * 1e3 / len(bursts):.4f} ms a burst on the host; launches "
           f"{json.dumps(counts['wpcr_batch'])}; card: {card}")
-    if n_dec < WPCR_GATE or unequal or disagree:
+    if n_dec < sizes.wpcr_gate or unequal or disagree:
         failures.append(f"wpcr corpus: {n_dec} decoded, unequal {unequal}, "
                         f"unlike numpy {disagree}")
     end_phase("11 wpcr")
@@ -1423,7 +1468,7 @@ def burst_phase(dev, card):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
             rc = main(args + dev_arg)
-        torch.cuda.synchronize()
+        sync()
         secs = time.perf_counter() - t0
         counts[f"app {name}"] = dict(kernels.LAUNCHES)
         if rc != 0:
@@ -1464,7 +1509,7 @@ def burst_phase(dev, card):
     tx = torch.from_numpy(np.fromfile(d / "tx.c32", np.complex64))
     err = (max_err(torch.view_as_real(tx).to(dev), ref64)
            if tx.shape == clean.shape else math.inf)
-    app_line("g3ruh tx", secs, err <= vco_tol, f"--tx_in {N_G3} KISS frames -> "
+    app_line("g3ruh tx", secs, err <= vco_tol, f"--tx_in {sizes.frames} KISS frames -> "
              f"--tx_out the G3RUH stream, max |error| {err:.3e} against its phase "
              f"in float64 (tol {vco_tol:.3e})")
     # the burst gate's tail (5000 samples by default) would outlast the
@@ -1473,8 +1518,8 @@ def burst_phase(dev, card):
                   ["-r", str(d / "g3b.c32"), "-o", str(d / "bursts"), "--threshold",
                    str(BURST_THRESHOLD), "--delay", "500", "--tail", "500"])
     n_saved = len(list((d / "bursts").iterdir()))
-    app_line("burst_saver", secs, n_saved == N_G3,
-             f"cut {n_saved} bursts of the {N_G3} G3RUH bursts")
+    app_line("burst_saver", secs, n_saved == sizes.frames,
+             f"cut {n_saved} bursts of the {sizes.frames} G3RUH bursts")
     tmp.cleanup()
     end_phase("11 apps")
 
@@ -1515,8 +1560,8 @@ def burst_phase(dev, card):
     edges = list(zip(torch.nonzero(start)[:, 0].tolist(),
                      torch.nonzero(end)[:, 0].tolist()))
     # the first chunk boundary (in the discriminator's samples) inside a burst
-    pause = next(k for k in range(1, g3_iq.shape[0] // BURST_CHUNK)
-                 if any(s + 100 < k * BURST_CHUNK // 6 - 1 < e - 100 for s, e in edges))
+    pause = next(k for k in range(1, g3_iq.shape[0] // sizes.burst_chunk)
+                 if any(s + 100 < k * sizes.burst_chunk // 6 - 1 < e - 100 for s, e in edges))
 
     def frames_of(syms):
         out = []
@@ -1562,22 +1607,22 @@ def burst_phase(dev, card):
                 exact and not (cut_err == 0.0 and model_equal)):
             failures.append(f"block graph {label}: not the model's bursts and PDUs")
 
-    for label, chunk in (("offline", None), (f"streamed (chunks of {BURST_CHUNK})",
-                                             BURST_CHUNK)):
+    for label, chunk in (("offline", None), (f"streamed (chunks of {sizes.burst_chunk})",
+                                             sizes.burst_chunk)):
         zero_counts()
-        secs, (pdus, cuts) = wall(lambda: run_front(chunk))
-        counts[f"graph {label}"] = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        secs, (pdus, cuts) = wall(lambda: run_front(chunk), sizes.reps)
+        counts[f"graph {label}"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
         held(label, pdus, cuts, chunk is None)
-        print(f"[11 block graph] {label}: {secs * 1e3:.1f} ms wall (median of 3); "
+        print(f"[11 block graph] {label}: {secs * 1e3:.1f} ms wall (median of {sizes.reps}); "
               f"launches {json.dumps(counts[f'graph {label}'])}; card: {card}")
     with tempfile.TemporaryDirectory() as ck_dir:
         ck = str(Path(ck_dir) / "burst.pkl")
-        first, first_cuts = run_front(BURST_CHUNK, max_chunks=pause,
+        first, first_cuts = run_front(sizes.burst_chunk, max_chunks=pause,
                                       checkpoint_path=ck, checkpoint_every=pause)
         states = load_checkpoint(ck, device=dev)[0]
         modes = [s["mode"] for s in states.values()
                  if isinstance(s, dict) and "mode" in s]
-        rest, rest_cuts = run_front(BURST_CHUNK, resume_from=ck)
+        rest, rest_cuts = run_front(sizes.burst_chunk, resume_from=ck)
     resumed_equal = (len(first) + len(rest) == len(pdus) and all(
         torch.equal(p.data, q.data) for p, q in zip(first + rest, pdus)))
     print(f"[11 block graph] paused after {pause} chunks with a burst open "
@@ -3046,6 +3091,273 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     return counts, errs, times
 
 
+# ---- phase 15: the multi-device layer, one shot
+
+MESH_SHARDS = 4           # shards of the mesh, all on the one card
+MESH_CHANNELS = 256       # the channelizer bank of the dry run
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSizes:
+    """Phase 15's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones.  The FM ops run
+    on the whole main capture given, the AX.25 front-end on the whole
+    corpus given."""
+
+    shards: int = MESH_SHARDS
+    bank_ch: int = BANK_CH            # the decode bank: 4 shards of 16 channels
+    bank_n: int = BANK_N
+    bank_events: int = BANK_EVENTS
+    channels: int = MESH_CHANNELS
+    chan_n: int = 1 << 22             # the channelizer's input samples
+    frames: int = N_FRAMES            # corpus frames of the audio given
+    frame_gate: int = FRAME_GATE
+
+
+def chain_halo_bytes(chain, mesh, dtype) -> int:
+    """Bytes a shard boundary carries for a shard chain of ``chain`` on an
+    input of ``dtype``: every member's halo of its own input."""
+    from rustradio_tpu_torch.parallel.graph_mesh import chain_segment
+
+    carries = chain_segment(chain, mesh).init_carries(torch.zeros(0, dtype=dtype))
+    return sum(c.numel() * c.element_size() for c in carries.values())
+
+
+def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
+    """Phase 15: the multi-device layer's one-shot half on a mesh of
+    ``sizes.shards`` shards, all on ``dev`` (the one card): the sharded FM
+    chain, ``sharded_fir_filter`` and ``sharded_fft_filter`` at 49 taps /
+    deci 4 and ``sharded_quadrature_demod`` on the main capture, each held
+    against its offline op; the channel-sharded clock recovery (kernels E
+    and D) on the decode bank, bit-equal to the unsharded call; the
+    channel-sharded channelizer bank against ``channelizer_fm_bank``; the
+    AX.25 front-end sharded over the corpus ``audio`` and the native tail,
+    its list ``want`` (the offline receiver's); and
+    ``tools.dryrun.dryrun_multichip``.  Each sharded call is counted apart
+    (the kernels launched once a shard).  On the card it times each
+    sharded call beside its unsharded counterpart: four shards on one card
+    time the halos and the per-shard launches, not multi-GPU scaling.
+    Returns the launch counts of each path, the largest |error| of each
+    kernel held here, and the times (empty off the card)."""
+    from rustradio_tpu_torch import blocks, ops, parallel, taps as tapgen
+    from rustradio_tpu_torch.models.ax25 import bell202_demod
+    from rustradio_tpu_torch.models.multichannel import recover_symbols_batch
+    from rustradio_tpu_torch.ops import kernels
+    from rustradio_tpu_torch.parallel.sharded import bell202_chain
+    from rustradio_tpu_torch.tools.dryrun import dryrun_multichip
+
+    on_card = dev.type == "cuda"
+    mdev = torch.device("cuda", 0) if on_card else dev
+    n_sh = sizes.shards
+    mesh = parallel.make_mesh(n_sh, device=mdev)
+    cmesh = parallel.make_mesh(n_sh, axis="chan", device=mdev)
+    counts, errs, times, halos = {}, {}, {}, {}
+
+    def counted(name, fn, needs):
+        """``fn()`` with the counts set to 0 just before and read just
+        after; on the card each kernel of ``needs`` launched exactly its
+        count (once a shard)."""
+        zero_counts()
+        out = fn()
+        sync()
+        counts[name] = dict(kernels.LAUNCHES)
+        for k, times_n in needs.items():
+            if on_card and counts[name][k] != times_n:
+                failures.append(f"{name}: kernel {k} launched {counts[name][k]} "
+                                f"times, not {times_n}")
+        print(f"[15 mesh] {name}: launches {json.dumps(counts[name])}; card: {card}")
+        return out
+
+    iq = torch.complex(i_main, q_main)
+    n = iq.shape[0]
+    lp = tapgen.low_pass_complex(FS_RTL, 100_000.0, 50_000.0, "hamming")
+    if len(lp) != 49:
+        raise SystemExit(f"chip_smoke: the FM taps are {len(lp)}, not 49")
+    what = f"{n_sh} shards, 2^{n.bit_length() - 1} samples"
+
+    # the FM chain: FirFilter(49, deci 4) -> QuadratureDemod, kernel A once
+    # a shard; the offline chain over its own length.  Bit-equal where
+    # kernel A's sum for an output does not depend on where its tile
+    # starts; else within kernel A's 2e-5 * max|y| on each filtered sample
+    # of a pair, through the exact discriminator (2 * 2e-5 * max|y|/min|y|)
+    y = counted("sharded_fm_demod", lambda: parallel.sharded_fm_demod(
+        iq, lp, mesh, deci=DECI), {"fir_decimate": n_sh})
+    y2 = counted("sharded_fm_demod again", lambda: parallel.sharded_fm_demod(
+        iq, lp, mesh, deci=DECI), {"fir_decimate": n_sh})
+    filt = ops.fir_filter(iq, lp, DECI)
+    want_fm = ops.quadrature_demod(filt, 1.0)
+    m = min(y.shape[0], want_fm.shape[0])
+    if m < want_fm.shape[0] - 1 or not torch.equal(y, y2):
+        failures.append("sharded_fm_demod: short of the offline chain, or two "
+                        "calls differ")
+    unequal = int((y[:m] != want_fm[:m]).sum())
+    report(
+        "15 mesh", f"sharded_fm_demod {what}, 49 taps deci 4: {m} outputs vs the "
+        f"offline chain ({unequal} not bit-equal)", wrapped_err(y[:m], want_fm[:m], 1.0),
+        2 * 2e-5 * envelope_ratio(filt, 0))
+    halos["sharded_fm_demod"] = chain_halo_bytes(
+        [blocks.FirFilter(lp, DECI), blocks.QuadratureDemod(1.0)], mesh,
+        torch.complex64)
+    del y2
+    # kernel A on the sharded chain's own calls (each shard's window and its
+    # halo) against its plain version
+    with capturing("fir_decimate") as calls:
+        parallel.sharded_fm_demod(iq, lp, mesh, deci=DECI)
+    errs["fir_decimate"] = hold_fir_calls("15 mesh", f"sharded_fm_demod {what}",
+                                          calls["fir_decimate"])
+    del calls
+
+    # the FIR alone (full convolution) and the overlap-save FFT filter
+    got = counted("sharded_fir_filter", lambda: parallel.sharded_fir_filter(
+        iq, lp, mesh, deci=DECI), {"fir_decimate": n_sh})
+    want_f = ops.fir_filter_full(iq, lp, DECI)
+    unequal = int((got != want_f).sum()) if got.shape == want_f.shape else -1
+    report("15 mesh", f"sharded_fir_filter {what}, 49 taps deci 4 vs "
+           f"fir_filter_full ({unequal} not bit-equal)", max_err(
+               torch.view_as_real(got), torch.view_as_real(want_f)),
+           2e-5 * float(want_f.abs().max()))
+    halos["sharded_fir_filter"] = (len(lp) - 1) * 8
+    got = counted("sharded_fft_filter", lambda: parallel.sharded_fft_filter(
+        iq, lp, mesh), {})
+    want_f = ops.fft_filter(iq, lp)
+    # other FFT frames than the offline op's: f32 FFT rounding of each
+    report("15 mesh", f"sharded_fft_filter {what}, 49 taps vs fft_filter",
+           max_err(torch.view_as_real(got), torch.view_as_real(want_f)),
+           1e-5 * float(want_f.abs().max()))
+    halos["sharded_fft_filter"] = (len(lp) - 1) * 8
+    del got, want_f
+
+    # the discriminator alone: a right halo of one sample; the last global
+    # output is 0
+    got = counted("sharded_quadrature_demod",
+                  lambda: parallel.sharded_quadrature_demod(iq, GAIN_C, mesh), {})
+    want_q = ops.quadrature_demod(iq, GAIN_C)
+    unequal = int((got[:-1] != want_q).sum())
+    report("15 mesh", f"sharded_quadrature_demod {what} vs quadrature_demod "
+           f"({unequal} not bit-equal; the last output {float(got[-1])})",
+           wrapped_err(got[:-1], want_q, GAIN_C), 1e-6 * GAIN_C)
+    if float(got[-1]) != 0.0:
+        failures.append("sharded_quadrature_demod: the last output is not 0")
+    halos["sharded_quadrature_demod"] = 8
+    del got, want_q
+    end_phase("15 mesh fm")
+
+    # the clock recovery with the channel axis sharded: bit-equal to the
+    # unsharded call, kernel E (scan) and kernel D (events) once a shard
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    bank = decode_bank(dev, gen, sizes.bank_ch, sizes.bank_n)
+    for method, kernel in (("scan", "symbol_sync_scan"),
+                           ("events", "symbol_sync_events")):
+        kw = dict(method=method, max_events=sizes.bank_events, return_valid=True)
+        name = f"sharded_symbol_sync_bank {method}"
+        got = counted(name, lambda: parallel.sharded_symbol_sync_bank(
+            bank, BANK_SPS, cmesh, **kw), {kernel: n_sh})
+        one = recover_symbols_batch(bank, BANK_SPS, **kw)
+        err = max(max_err(a.float(), b.float()) for a, b in zip(got, one))
+        report("15 bank", f"{name}: {sizes.bank_ch} x {sizes.bank_n} over {n_sh} "
+               f"shards of {sizes.bank_ch // n_sh} channels vs the unsharded call "
+               f"(values, mask, clocks, valid; {int(got[3].sum())} valid)", err, 0.0)
+        halos[name] = 0
+    # kernels E and D on the shards' own calls against their plain versions
+    with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
+        for method in ("scan", "events"):
+            parallel.sharded_symbol_sync_bank(bank, BANK_SPS, cmesh, method=method,
+                                              max_events=sizes.bank_events)
+    errs["symbol_sync_scan"] = hold_scan_calls(
+        "15 bank", "sharded_symbol_sync_bank scan", calls["symbol_sync_scan"],
+        window=1 << 12)
+    errs["symbol_sync_events"] = hold_events_calls(
+        "15 bank", "sharded_symbol_sync_bank events", calls["symbol_sync_events_scan"])
+    del bank, got, one, calls
+
+    # the channelizer bank with the channel axis sharded
+    ctaps = parallel.channelizer_taps(sizes.channels)
+    xw = iq[: sizes.chan_n]
+    got = counted("sharded_channelizer_fm", lambda: parallel.sharded_channelizer_fm(
+        xw, ctaps, sizes.channels, cmesh), {})
+    want_c = parallel.channelizer_fm_bank(xw, ctaps, sizes.channels)
+    report("15 bank", f"sharded_channelizer_fm {sizes.channels} channels of "
+           f"{sizes.chan_n} samples over {n_sh} shards vs channelizer_fm_bank "
+           f"({int((got != want_c).sum()) if got.shape == want_c.shape else -1} "
+           "not bit-equal)", max_err(got, want_c), 1e-5)
+    halos["sharded_channelizer_fm"] = 0
+    del got, want_c
+    end_phase("15 bank")
+
+    # the AX.25 front-end sharded over the corpus (padded with zeros to the
+    # mesh's multiple), then the native tail: the offline receiver's list
+    n_a = audio.shape[0]
+    pad = (-n_a) % n_sh
+    audio_p = torch.cat([audio, audio.new_zeros(pad)])
+    nrz = counted("sharded_bell202_demod", lambda: parallel.sharded_bell202_demod(
+        audio_p, FS_AUDIO, mesh), {"fir_decimate": 3 * n_sh})[: n_a - 1]
+    off = bell202_demod(audio, FS_AUDIO)
+    near = int(((nrz - off).abs() > 1e-3).sum())
+    syms = ops.recover_symbols(nrz, FS_AUDIO / 1200.0, 0.5, (1 / 6,) * 6)
+    bits = ops.nrzi_decode(ops.binary_slicer(torch.from_numpy(syms)))
+    pkts, _ = ops.hdlc_deframe(bits, 10, 1500)
+    got_l = decoded([bytes(np.asarray(d)) for d, _ in pkts], sizes.frames)
+    print(f"[15 ax25] sharded_bell202_demod on the corpus ({n_a} samples, padded "
+          f"by {pad}) over {n_sh} shards, then the native tail: "
+          f"{len(set(got_l))}/{sizes.frames} decoded, the offline receiver's list: "
+          f"{got_l == want}; NRZ samples more than 1e-3 from the offline "
+          f"front-end's: {near} of {nrz.shape[0]} (the exact discriminator turns "
+          f"a last-ulp FIR difference at a near-zero analytic sample into "
+          f"another angle); card: {card}")
+    if len(set(got_l)) < sizes.frame_gate or got_l != want:
+        failures.append(f"sharded_bell202_demod: {len(set(got_l))} frames, or not "
+                        "the offline receiver's list")
+    halos["sharded_bell202_demod"] = chain_halo_bytes(
+        bell202_chain(FS_AUDIO), mesh, torch.float32)
+    end_phase("15 ax25")
+
+    res = dryrun_multichip(sizes.shards, device=mdev)
+    if not res.get("ok"):
+        failures.append(f"dryrun_multichip: {res}")
+    end_phase("15 dryrun")
+
+    if on_card:
+        pairs = (
+            ("sharded_fm_demod",
+             lambda: parallel.sharded_fm_demod(iq, lp, mesh, deci=DECI),
+             lambda: ops.quadrature_demod(ops.fir_filter(iq, lp, DECI), 1.0)),
+            ("sharded_fir_filter",
+             lambda: parallel.sharded_fir_filter(iq, lp, mesh, deci=DECI),
+             lambda: ops.fir_filter_full(iq, lp, DECI)),
+            ("sharded_fft_filter", lambda: parallel.sharded_fft_filter(iq, lp, mesh),
+             lambda: ops.fft_filter(iq, lp)),
+            ("sharded_quadrature_demod",
+             lambda: parallel.sharded_quadrature_demod(iq, GAIN_C, mesh),
+             lambda: ops.quadrature_demod(iq, GAIN_C)),
+            ("sharded_channelizer_fm",
+             lambda: parallel.sharded_channelizer_fm(xw, ctaps, sizes.channels, cmesh),
+             lambda: parallel.channelizer_fm_bank(xw, ctaps, sizes.channels)),
+            ("sharded_bell202_demod",
+             lambda: parallel.sharded_bell202_demod(audio_p, FS_AUDIO, mesh),
+             lambda: bell202_demod(audio_p, FS_AUDIO)),
+        )
+        bank = decode_bank(dev, gen, sizes.bank_ch, sizes.bank_n)
+        pairs += tuple(
+            (f"sharded_symbol_sync_bank {method}",
+             lambda method=method: parallel.sharded_symbol_sync_bank(
+                 bank, BANK_SPS, cmesh, method=method, max_events=sizes.bank_events),
+             lambda method=method: recover_symbols_batch(
+                 bank, BANK_SPS, method=method, max_events=sizes.bank_events))
+            for method in ("scan", "events"))
+        for name, sharded, single in pairs:
+            t_sh, t_one = time_one(sharded), time_one(single)
+            h_sh, h_one = host_us(sharded, 20), host_us(single, 20)
+            times[name] = {"ms": t_sh, "unsharded_ms": t_one, "host_us": h_sh,
+                           "unsharded_host_us": h_one, "halo_bytes": halos[name]}
+            print(f"[15 times] {name}: {t_sh:.4f} ms over {n_sh} shards on one "
+                  f"card, {t_one:.4f} ms unsharded (CUDA events, median of "
+                  f"5 timings of 10 calls); host {h_sh:.1f} / "
+                  f"{h_one:.1f} us a call; halo {halos[name]} B a shard boundary; "
+                  f"card: {card}")
+        end_phase("15 times")
+    return counts, errs, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -3988,13 +4300,13 @@ def main() -> int:
               f"{wb_first[method] * 1e3:.1f} ms); card: {card}")
 
     # ---- 10. the FM family's apps and the streaming Graph, counted
-    apps, call_errs = apps_phase(dev, card, i_main, q_main, audio,
+    apps, call_errs = apps_phase(dev, card, AppsSizes(), i_main, q_main, audio,
                                  {"native": got, "events": ev_got})
     for name, err in call_errs.items():
         errs[name] = max(errs[name], err)
 
     # ---- 11. the G3RUH modem and the burst receivers, counted
-    g3_counts, call_errs = burst_phase(dev, card)
+    g3_counts, call_errs = burst_phase(dev, card, BurstSizes())
     for name, err in call_errs.items():
         errs[name] = max(errs[name], err)
     apps.update({f"11 {k}": v for k, v in g3_counts.items()})
@@ -4020,6 +4332,13 @@ def main() -> int:
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"14 {k}": v for k, v in live_counts.items()})
+
+    # ---- 15. the multi-device layer, one shot: 4 shards on the card, counted
+    mesh_counts, call_errs, _ = mesh_phase(dev, card, MeshSizes(), i_main, q_main,
+                                           audio, got)
+    for name, err in call_errs.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    apps.update({f"15 {k}": v for k, v in mesh_counts.items()})
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))

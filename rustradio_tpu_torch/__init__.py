@@ -10,18 +10,27 @@ first use on a CUDA tensor; on CPU tensors every kernel wrapper runs its
 plain PyTorch version.
 """
 
-from . import blocks, convert, lowering, models, ops, taps, windows
-from .graph import Graph
-from .streams import Tag
+from . import blocks, convert, dtypes, lowering, models, ops, taps, windows
+from .dtypes import Complex, Float, parse_frequency, parse_verbosity
+from .graph import CancellationToken, Graph
+from .streams import Pdu, StreamValue, Tag
 
 __all__ = [
+    "CancellationToken",
+    "Complex",
+    "Float",
     "Graph",
+    "Pdu",
+    "StreamValue",
     "Tag",
     "blocks",
     "convert",
+    "dtypes",
     "lowering",
     "models",
     "ops",
+    "parse_frequency",
+    "parse_verbosity",
     "taps",
     "windows",
 ]

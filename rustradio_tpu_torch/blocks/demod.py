@@ -19,6 +19,10 @@ class QuadratureDemod(Block):
     """
 
     graph_capturable = True
+    # mesh execution: 1-sample halo; the stream-start output the halo
+    # form emits but streaming never does (arg(conj(0)*x0)) is dropped
+    shard_halo = 1
+    shard_extra_drop = 1
 
     def __init__(self, gain: float = 1.0):
         self.gain = gain
@@ -40,6 +44,7 @@ class FastFM(Block):
     the last two samples (zeros at stream start)."""
 
     graph_capturable = True
+    shard_halo = 2  # zero-history 2-sample lookback
 
     def apply(self, x):
         return fast_fm(x)

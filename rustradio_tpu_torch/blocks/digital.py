@@ -18,7 +18,7 @@ from ..ops.symbol_sync import (
     symbol_sync_events,
 )
 from ..streams import Tag
-from .base import Block
+from .base import Block, ShardFn
 
 
 class NrziDecode(Block):
@@ -26,9 +26,19 @@ class NrziDecode(Block):
     bit (0 at stream start, a Python int or a 0-d tensor)."""
 
     graph_capturable = False  # int() of the carried bit reads the card
+    shard_halo = 1  # the carried previous bit (0 at stream start)
 
     def apply(self, x):
         return nrzi_decode(x)
+
+    def state_from_tail(self, tail):
+        return tail[:1].to(torch.uint8)
+
+    def apply_ext(self, ext, n_local, in0, out0):
+        # out[n] = 1 ^ x[n] ^ x[n-1] with the halo bit as x[-1], on the
+        # card (the chunk form's int() of the carried bit would read it)
+        ext = ext.to(torch.uint8)
+        return 1 ^ ext[1:] ^ ext[:-1]
 
     def init_state(self):
         return 0
@@ -68,6 +78,10 @@ class Descrambler(Block):
         # the seed affects only the first length+1 outputs; the reference
         # notes it is irrelevant in practice (src/descrambler.rs:3-5): 0
         self.mask, self.length = mask, length
+
+    @property
+    def shard_halo(self):
+        return self.length + 1  # feed-forward: state == input tail
 
     @classmethod
     def g3ruh(cls):
@@ -197,6 +211,30 @@ class CorrelateAccessCode(Block):
             raise ValueError("access code must be nonempty")
         self.allowed_diffs = allowed_diffs
 
+    @property
+    def shard_halo(self):
+        return len(self.code) - 1
+
+    def shard_fn(self, di):
+        """The tail plan of :class:`Block`, with the windows that reach
+        before the true stream start (its first ``len(code) - 1``
+        positions, past the ``di`` masked ones) set to 0, as offline: the
+        zero halo at stream start could match a code that begins with
+        zeros."""
+        plan = super().shard_fn(di)
+        if plan is None:
+            return None
+        start = di + len(self.code) - 1  # the first full window's mesh index
+
+        def fn(ext, n_local, ctx):
+            y = plan.fn(ext, n_local, ctx)
+            if ctx.g_out < start:
+                y = torch.cat([y.new_zeros(min(start - ctx.g_out, y.shape[0])),
+                               y[start - ctx.g_out:]])
+            return y
+
+        return ShardFn(halo=plan.halo, d_out=plan.d_out, div=plan.div, fn=fn)
+
     def apply(self, x):
         return correlate_access_code(x, self.code, self.allowed_diffs)
 
@@ -227,6 +265,7 @@ class CorrelateAccessCodeTag(CorrelateAccessCode):
 
     graph_capturable = False  # reads the matches back for its tags
     domain = "host"
+    shard_halo = None  # its tags come from the host: no mesh plan
 
     def __init__(self, code, tag: str = "sync", allowed_diffs: int = 0):
         super().__init__(code, allowed_diffs)

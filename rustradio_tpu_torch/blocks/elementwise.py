@@ -25,6 +25,7 @@ class FloatToComplex(Block):
     src/convert.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
     n_in = 2
 
     def apply(self, re, im):
@@ -35,6 +36,7 @@ class AddConst(Block):
     """x + val (reference src/add_const.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
 
     def __init__(self, val):
         self.val = val
@@ -47,6 +49,7 @@ class MultiplyConst(Block):
     """x * val (reference src/multiply_const.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
 
     def __init__(self, val):
         self.val = val
@@ -59,6 +62,7 @@ class ComplexToMag2(Block):
     """|x|^2 (reference src/complex_to_mag2.rs): the burst gate's power."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
 
     def apply(self, x):
         return complex_to_mag2(x)
@@ -68,6 +72,7 @@ class BinarySlicer(Block):
     """float > 0 -> 1u8 else 0u8 (reference src/binary_slicer.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
 
     def apply(self, x):
         return binary_slicer(x)
@@ -77,6 +82,7 @@ class XorConst(Block):
     """x ^ val (reference src/xor_const.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
 
     def __init__(self, val):
         self.val = val
@@ -89,6 +95,7 @@ class Add(Block):
     """a + b, two streams (reference src/add.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
     n_in = 2
 
     def apply(self, a, b):
@@ -99,6 +106,7 @@ class Xor(Block):
     """a ^ b (reference src/xor.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
     n_in = 2
 
     def apply(self, a, b):
@@ -109,10 +117,9 @@ class Map(Block):
     """1:1 lambda block (reference src/convert.rs:121-172); ``fn`` runs on
     each chunk's tensor.  ``elementwise=True`` declares ``fn`` pointwise
     (no cross-sample dependence) and sets ``shard_halo`` to 0, as the JAX
-    block does; nothing in the port reads it yet."""
+    block does, so that a mesh runs it with no halo."""
 
     graph_capturable = False  # fn may read the card back or work on the host
-    shard_halo: int | None = None  # None = not time-shardable
 
     def __init__(self, fn, name: str = "Map", elementwise: bool = False):
         self.fn = fn
@@ -150,6 +157,7 @@ class Tee(Block):
     """1 -> 2 copy with tags on both (reference src/tee.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
     n_out = 2
 
     def apply(self, x):
@@ -164,6 +172,7 @@ class ComplexToFloat(Block):
     """complex -> (re, im) streams (reference src/convert.rs:290)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
     n_out = 2
 
     def apply(self, x):
@@ -174,6 +183,7 @@ class ComplexToReal(Block):
     """complex -> its real part (reference src/convert.rs)."""
 
     graph_capturable = True
+    shard_halo = 0  # elementwise: time-shardable with no halo
 
     def apply(self, x):
         return complex_to_real(x)

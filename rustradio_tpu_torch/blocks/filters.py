@@ -8,6 +8,8 @@ on the host moves to the chunk's device at the first chunk.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -17,7 +19,7 @@ from ..ops.fft_filter import filter_complex, filter_float
 from ..ops.fir import fir_filter, fir_filter_translating
 from ..ops.hilbert import hilbert_transform
 from ..ops.iir import single_pole_iir
-from .base import Block
+from .base import Block, ShardFn
 
 
 class FirFilter(Block):
@@ -54,6 +56,63 @@ class FirFilter(Block):
             sr, fq = self.translate
             return fir_filter_translating(x, self.taps, sr, fq, self.deci)
         return fir_filter(x, self._taps, self.deci)
+
+    def shard_fn(self, di):
+        """Mesh plan: valid-conv windows realigned to the global stream.
+
+        With ``di`` zero samples prepended at stream start, the streaming
+        output grid (windows starting at multiples of ``deci`` in true
+        stream coordinates) sits at mesh positions ``≡ di (mod deci)``;
+        ``q0`` places the halo-extended window on that grid and the
+        first ``(di + ntaps - 1) // deci`` outputs (windows touching the
+        zero prefix) are masked by the runner."""
+        ntaps, d = len(self.taps), self.deci
+        h = ntaps - 1
+        q0 = (di + h) % d
+
+        if self.translate is not None:
+            sr, fq = self.translate
+            step = 2.0 * np.pi * float(fq) / float(sr)
+            taps = self.taps
+
+            def prep(in0: int) -> float:
+                # fir_filter_translating on the local window phases its
+                # rotator for the window END at local index ntaps-1 +
+                # deci*p; the true stream window end is in0 + k*L + q0 +
+                # deci*p - di + ntaps - 1, so the correction phase is
+                # -step*(in0 + k*L + q0 - di - (ntaps-1)).  This is the
+                # chunk part, reduced mod 2π in float64.
+                return float(np.mod(-step * (in0 + q0 - di - h), 2.0 * np.pi))
+
+            def fn(ext, n_local, ctx):
+                y = fir_filter_translating(ext[q0:], taps, sr, fq, d)
+                y = y[: n_local // d]
+                # the shard's part, k * (-step * L), added in float64 (the
+                # shard index is a host int here) and reduced mod 2π
+                phase = np.mod(ctx.aux + ctx.k * math.fmod(-step * n_local,
+                                                           2.0 * math.pi),
+                               2.0 * np.pi)
+                return y * complex(np.exp(1j * np.float32(phase)).astype(np.complex64))
+        else:
+            prep = None
+            taps = self._taps
+
+            def fn(ext, n_local, ctx):
+                return fir_filter(ext[q0:], taps, d)[: n_local // d]
+
+        return ShardFn(halo=h, d_out=(di + h) // d, div=d, fn=fn, prep=prep)
+
+    def shard_total_out(self, n):
+        return max(0, (n - len(self.taps)) // self.deci + 1)
+
+    def shard_state(self, tail, consumed):
+        """apply_chunk's state (unconsumed raw buffer + output offset)
+        after ``consumed`` samples: emitted windows cover w*deci inputs."""
+        w = self.shard_total_out(consumed)
+        buf_len = consumed - w * self.deci
+        h = len(self.taps) - 1
+        buf = tail[h - buf_len:].clone() if buf_len else torch.zeros(0)
+        return {"buf": buf, "out_off": w}
 
     def init_state(self):
         return {"buf": torch.zeros(0), "out_off": 0}
@@ -99,6 +158,10 @@ class FftFilter(Block):
         self.graph_capturable = bool(len(self.taps) <= kernels.MAX_TAPS
                                      and not np.any(np.imag(self.taps)))
 
+    @property
+    def shard_halo(self):
+        return len(self.taps) - 1  # zero-history full conv: state == tail
+
     def apply(self, x):
         return filter_complex(x, self.taps, self.fft_size)
 
@@ -128,6 +191,10 @@ class FftFilterFloat(Block):
         self._taps = (kernels.tapset(self.taps)
                       if len(self.taps) <= kernels.MAX_TAPS else self.taps)
 
+    @property
+    def shard_halo(self):
+        return len(self.taps) - 1  # zero-history full conv: state == tail
+
     def apply(self, x):
         return filter_float(x, self._taps, self.fft_size)
 
@@ -154,6 +221,10 @@ class Hilbert(Block):
             raise ValueError("hilbert filter len must be odd")
         self.ntaps = ntaps
         self.taps = kernels.tapset(tapgen.hilbert(ntaps, window))
+
+    @property
+    def shard_halo(self):
+        return self.ntaps  # the reference keeps ntaps history (src/hilbert.rs)
 
     def apply(self, x):
         return hilbert_transform(x, self.ntaps, taps=self.taps)

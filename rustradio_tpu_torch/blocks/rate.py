@@ -11,7 +11,7 @@ import torch
 from ..ops.delay import head, skip
 from ..ops.resampler import rational_resampler
 from ..streams import Tag
-from .base import Block
+from .base import Block, ShardFn
 
 
 class RationalResampler(Block):
@@ -35,6 +35,49 @@ class RationalResampler(Block):
 
     def apply(self, x):
         return rational_resampler(x, self.interp, self.deci)
+
+    def shard_fn(self, di):
+        """Mesh plan: the counter algorithm's output position is a pure
+        function of the global input offset (reference
+        src/rational_resampler.rs:183-198 — the counter evolves
+        linearly), so a shard's outputs are one gather.
+
+        With the local input length divisible by ``deci`` (div), the
+        output count is exactly ``L*interp/deci`` regardless of offset.
+        For TRUE-stream input offset a, output k maps to input
+        floor(k*deci/interp); the shard's first output is
+        k0 = ceil(a*interp/deci).  The ``di`` garbage samples upstream
+        blocks prepend at stream start shift the mesh coordinates off
+        the true stream, so the gather anchors at a = g_in - di, folded
+        into a nonnegative offset mod interp*deci: it sets the grid's
+        PHASE, which is wrong whenever di*interp % deci != 0 without it.
+        The leading floor(di*interp/deci) outputs read the garbage
+        prefix and are masked by the runner.  (The positions are int64
+        host values here, so the mod only keeps the JAX form's anchor.)"""
+        interp, deci = self.interp, self.deci
+        period = interp * deci
+        off = (-di) % period  # g_in + off == g_in - di (mod period), >= 0
+
+        def fn(ext, n_local, ctx):
+            rem = (ctx.g_in + off) % period
+            r0 = (rem * interp + (deci - 1)) // deci  # ceil(rem*I/D)
+            j = torch.arange(n_local * interp // deci, dtype=torch.int64,
+                             device=ext.device)
+            idx = (r0 + j) * deci // interp - rem
+            return ext[idx]
+
+        return ShardFn(halo=0, d_out=di * interp // deci, div=deci, fn=fn)
+
+    def shard_total_out(self, n):
+        return -(-n * self.interp // self.deci)
+
+    def shard_state(self, tail, consumed):
+        # position-dependent host state: the offsets from the global
+        # consumed count
+        return {
+            "in_off": int(consumed),
+            "out_off": -(-int(consumed) * self.interp // self.deci),
+        }
 
     def init_state(self):
         return {"in_off": 0, "out_off": 0}

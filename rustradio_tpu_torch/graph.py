@@ -30,7 +30,9 @@ per segment call and ``rr::scan:`` per replayed batch.  Every run keeps
 per-block seconds (CUDA events around each block on the card, read once
 at the end of the run; the host's clock elsewhere) and per-block costs
 for ``generate_stats()`` and ``costs()``.  The JAX package's ``mesh=``
-comes in a later slice.
+(``run`` / ``run_stream(mesh=, shard_axis=)``, the streaming half of the
+multi-device layer) comes in the next slice; a chain of blocks already runs
+on a mesh in one shot through ``parallel.graph_mesh.shard_chain``.
 """
 
 from __future__ import annotations

@@ -40,7 +40,7 @@ from .fft_filter import (
 )
 from .fft import fft_pdu, fft_stream
 from .fir import fir_filter, fir_filter_full, fir_filter_translating
-from .hdlc import calc_crc, fcs_add, hdlc_deframe, hdlc_frame
+from .hdlc import calc_crc, fcs_add, hdlc_bit_hunt, hdlc_deframe, hdlc_frame
 from .hilbert import hilbert_transform
 from .iir import iir_filter, single_pole_iir
 from .kernels import (
@@ -107,6 +107,7 @@ __all__ = [
     "fm_chain",
     "fm_chain_window",
     "fm_plane_pack",
+    "hdlc_bit_hunt",
     "hdlc_deframe",
     "hdlc_frame",
     "head",

@@ -203,6 +203,29 @@ def hdlc_deframe(bits, min_size: int = 1, max_size: int = 1500,
     return packets, sm.stats
 
 
+def hdlc_bit_hunt(bits):
+    """Device-side helpers for fast deframing: flag positions + run info.
+
+    Returns (flag_mask, ones_run) on the input's device: flag_mask[n]
+    (bool) marks n as the last bit of a 0x7E flag and ones_run[n] (int64)
+    is the length of the run of ones ending at n.  A compare over 8
+    shifted views, and ``cummax`` for the distance to the last zero.
+    """
+    b = torch.as_tensor(bits).to(torch.uint8)
+    n = b.shape[0]
+    # flag: bits[n-7..n] == 0,1,1,1,1,1,1,0 (LSB-first window value 0x7e);
+    # an unsynced shift register starts 0xff
+    bp = torch.cat([b.new_ones(7), b])
+    flag = torch.ones(n, dtype=torch.bool, device=b.device)
+    for i, want in enumerate((0, 1, 1, 1, 1, 1, 1, 0)):
+        flag &= bp[i : i + n] == want
+    idx = torch.arange(n, device=b.device)
+    last_zero = torch.where(b == 0, idx, torch.full_like(idx, -1))
+    if n:
+        last_zero = torch.cummax(last_zero, 0).values
+    return flag, idx - last_zero
+
+
 def hdlc_frame(data, sync_bytes: int = 20) -> np.ndarray:
     """Byte packet -> stuffed bit packet with flag runs (host side).
 

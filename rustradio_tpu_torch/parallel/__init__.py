@@ -1,7 +1,51 @@
-"""Channel-parallel processing (port of ``rustradio_tpu/parallel``): so
-far the polyphase channelizer.  The mesh layer (``mesh``, ``halo``,
-``sharded``, ``sharded_channelizer_fm``) is not ported yet."""
+"""Multi-device execution (port of ``rustradio_tpu/parallel``): mesh
+construction, halo exchange, the sharded ops, the blocks' shard chains
+(``graph_mesh.shard_chain``) and the polyphase channelizer.
 
-from .channelizer import channelizer_fm_bank, channelizer_taps, pfb_channelize
+The reference's only inter-worker transport is an mmap'd SPSC ring buffer
+plus TCP (SURVEY §2.7).  Here the *time axis* of a stream is sharded over
+a :class:`Mesh` of devices (several shards may share one device), and
+filter history becomes a left-halo exchange between neighbouring shards:
+a peer or device-local copy, and ``torch.distributed`` point-to-point
+between processes.  Ported so far: the one-shot half.  The streaming half
+(``MeshSegment``'s carries across chunks, ``Graph.run`` /
+``run_stream(mesh=)``, ``ax25_1200_rx_graph(mesh=)``) and ``pipeline``
+(``pipeline_chain``, ``pipeline_run``, ``pipeline_run_rates``) come with
+the next slice; ``make_mesh_2d`` is not ported (nothing uses it).
+"""
 
-__all__ = ["channelizer_fm_bank", "channelizer_taps", "pfb_channelize"]
+from .channelizer import (
+    channelizer_fm_bank,
+    channelizer_taps,
+    pfb_channelize,
+    sharded_channelizer_fm,
+)
+from .halo import halo_exchange_left, halo_exchange_right
+from .mesh import Mesh, init_distributed, make_mesh, time_axis_spec
+from .sharded import (
+    sharded_bell202_demod,
+    sharded_fft_filter,
+    sharded_fir_filter,
+    sharded_fm_demod,
+    sharded_quadrature_demod,
+    sharded_symbol_sync_bank,
+)
+
+__all__ = [
+    "Mesh",
+    "channelizer_fm_bank",
+    "channelizer_taps",
+    "halo_exchange_left",
+    "halo_exchange_right",
+    "init_distributed",
+    "make_mesh",
+    "pfb_channelize",
+    "sharded_bell202_demod",
+    "sharded_channelizer_fm",
+    "sharded_fft_filter",
+    "sharded_fir_filter",
+    "sharded_fm_demod",
+    "sharded_quadrature_demod",
+    "sharded_symbol_sync_bank",
+    "time_axis_spec",
+]

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .mesh import on_device
+
 
 def channelizer_taps(n_channels: int, taps_per_branch: int = 8,
                      atten_frac: float = 0.4) -> np.ndarray:
@@ -76,3 +78,25 @@ def channelizer_fm_bank(x, taps, n_channels: int, gain: float = 1.0,
     ch = pfb_channelize(x, taps, n_channels, device)
     d = torch.conj(ch[:-1, :]) * ch[1:, :]
     return float(np.float32(gain)) * torch.atan2(d.imag, d.real)
+
+
+def sharded_channelizer_fm(x, taps, n_channels: int, mesh, gain: float = 1.0,
+                           axis: str = "chan") -> torch.Tensor:
+    """Channel-sharded FM bank: the PFB front half runs once on the mesh's
+    first device; the channelized matrix's columns are split over the
+    shards, each shard demodulates its channels on its device, and the
+    (nframes - 1, n_channels) result is gathered on the first device."""
+    n_sh = mesh.shape[axis]
+    if n_channels % n_sh or mesh.world > 1:
+        raise ValueError(f"{n_channels} channels over {n_sh} shards of one "
+                         "process")
+    ch = pfb_channelize(x, taps, n_channels, mesh.devices[0])
+    w = n_channels // n_sh
+    g = float(np.float32(gain))
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        block = ch[:, k * w:(k + 1) * w].to(dev)
+        with on_device(dev):
+            d = torch.conj(block[:-1]) * block[1:]
+            out.append(g * torch.atan2(d.imag, d.real))
+    return torch.cat([o.to(mesh.devices[0]) for o in out], 1)

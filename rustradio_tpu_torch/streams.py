@@ -1,6 +1,6 @@
-"""Stream tags and PDUs (a copy of the part of ``rustradio_tpu/streams.py``
-the blocks use; importing that module would pull in jax through the
-``rustradio_tpu`` package ``__init__``).
+"""Stream tags and PDUs (a copy of ``rustradio_tpu/streams.py``; importing
+that module would pull in jax through the ``rustradio_tpu`` package
+``__init__``).
 
 A stream value is a whole chunk (or whole offline signal) as a tensor;
 tags ride beside it as a host-side sorted list of (pos, key, value) —
@@ -21,6 +21,30 @@ class Tag:
     pos: int
     key: str = dataclasses.field(compare=False)
     val: Any = dataclasses.field(compare=False)
+
+
+def scale_tags(tags: list[Tag], interp: int = 1, deci: int = 1) -> list[Tag]:
+    """Rescale tag positions across a rate change (reference FirFilter
+    rescales tag.pos/deci, src/fir.rs:533-541)."""
+    if interp == 1 and deci == 1:
+        return list(tags)
+    return [Tag(t.pos * interp // deci, t.key, t.val) for t in tags]
+
+
+def shift_tags(tags: list[Tag], offset: int) -> list[Tag]:
+    return [Tag(t.pos + offset, t.key, t.val) for t in tags]
+
+
+def filter_tags(tags: list[Tag], lo: int, hi: int) -> list[Tag]:
+    return [t for t in tags if lo <= t.pos < hi]
+
+
+@dataclasses.dataclass
+class StreamValue:
+    """One evaluated stream: data tensor + tags."""
+
+    data: Any  # a 1-D tensor
+    tags: list[Tag] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass

@@ -1,9 +1,8 @@
 """FIR tap generators (host-side numpy, computed once at graph build).
 
-A copy of ``rustradio_tpu/taps.py`` (all but ``multiband``), not an import
-of it: importing any ``rustradio_tpu`` submodule runs that package's
-``__init__``, which imports jax.  The port carries the generators its
-slices need; ``multiband`` comes with the slice that uses it.
+A copy of ``rustradio_tpu/taps.py``, not an import of it: importing any
+``rustradio_tpu`` submodule runs that package's ``__init__``, which
+imports jax.
 
 Numerically equivalent to the reference's generators:
 * ``low_pass`` — windowed sinc, DC-gain normalized (src/fir.rs:614-650)
@@ -12,6 +11,7 @@ Numerically equivalent to the reference's generators:
 * ``hilbert`` — odd antisymmetric 1/n taps (src/fir.rs:654-674)
 * ``band_pass`` — difference of two windowed sincs (no reference
   counterpart; the AFSK front-end's input filter)
+* ``multiband`` — IFFT of an ideal multiband response (src/fir.rs:554-587)
 
 All math is done in float32 like the reference's ``Float``.
 """
@@ -109,3 +109,31 @@ def hilbert(ntaps: int, window: str = "hamming") -> np.ndarray:
             gain = taps[mid + i] - gain
     gain = np.float32(1.0) / (np.float32(2.0) * np.abs(gain))
     return (taps * gain).astype(np.float32)
+
+
+def multiband(
+    bands: list[tuple[float, float]], ntaps: int, window: np.ndarray
+) -> np.ndarray:
+    """Multiband filter taps via IFFT of an ideal response (src/fir.rs:554-587).
+
+    ``bands`` are (low, high) in normalized [0, 1] frequency.  Returns
+    complex64 taps of length ``ntaps``.
+    """
+    if ntaps == 0 or ntaps != len(window):
+        raise ValueError("taps must be nonzero and match window length")
+    ideal = np.zeros(ntaps, np.complex64)
+    scale = np.float32(ntaps) / 2.0
+    for low, high in bands:
+        a = int(np.floor(low * scale))
+        b = int(np.ceil(high * scale))
+        if a > ntaps or b > ntaps:
+            raise ValueError("band out of range")
+        for n in range(a, b):
+            ideal[n] = 1.0
+            ideal[ntaps - n - 1] = 1.0
+    # The reference uses rustfft's unnormalized inverse FFT, then rotates
+    # right by ntaps//2 and divides by sqrt(ntaps).
+    t = np.fft.ifft(ideal) * ntaps  # unnormalized inverse
+    t = np.roll(t, ntaps // 2)
+    t = t / np.sqrt(np.float32(ntaps))
+    return (t * window).astype(np.complex64)

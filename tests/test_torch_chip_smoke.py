@@ -141,3 +141,78 @@ def test_torch_chip_smoke_live_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     assert errs == {"cma": 0.0, "iir": 0.0, "fir_decimate": 0.0}
     assert set(counts) == {"rtl_data_stream", "cma", "iir"} and times == {}
     assert "bit-equal False" not in out and out.count("bit-equal True") == 7
+
+
+def test_torch_chip_smoke_apps_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 10 at small sizes on the plain versions: the FM apps on a 2^16
+    # capture, the AX.25 receiver built from blocks offline, streamed and
+    # resumed from a checkpoint, and the streamed calls held again
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import hdlc
+
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(cs, "require", lambda *a: None)
+    sizes = cs.AppsSizes(frames=3, frame_gate=3, stream_chunk=1 << 13,
+                         resume_after=3, reps=1)
+    cpu = torch.device("cpu")
+    audio = torch.from_numpy(cs.audio_corpus(hdlc, sizes.frames))
+    want = {s: cs.decoded(ax25.ax25_1200_rx(audio, cs.FS_AUDIO, sync=s), sizes.frames)
+            for s in ("native", "events")}
+    i_main, q_main, _ = cs.rtl_fm_iq(1 << 16, cpu, torch.Generator().manual_seed(0))
+    counts, errs = cs.apps_phase(cpu, "cpu rehearsal", sizes, i_main, q_main, audio,
+                                 want)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    for phase in ("10 apps", "10 ax25 graph"):
+        assert f"[{phase}] passed" in out
+    assert errs == {"fir_decimate": 0.0, "symbol_sync_events": 0.0}
+    assert {"rtl_fm c32", "rtl_fm w3", "rtl_fm i8", "wbfm_rx", "am_decode",
+            "graph events resumed"} <= set(counts)
+
+
+def test_torch_chip_smoke_burst_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 11 at a few frames on the plain versions: the G3RUH modem, the
+    # burst receivers, the WPCR corpus' first bursts, the packet apps on the
+    # captures as files, and the block-built front half paused in a burst
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(cs, "require", lambda *a: None)
+    sizes = cs.BurstSizes(frames=1, gate=1, wpcr_bursts=4, wpcr_gate=2,
+                          burst_chunk=1 << 13, reps=1)
+    counts, errs = cs.burst_phase(torch.device("cpu"), "cpu rehearsal", sizes)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    for phase in ("11 receivers", "11 wpcr", "11 apps", "11 block graph"):
+        assert f"[{phase}] passed" in out
+    assert errs == {"fir_decimate": 0.0, "symbol_sync_events": 0.0}
+    assert {"g3ruh_modulate", "ax25_9600_rx native", "ax25_9600_rx events",
+            "wpcr_batch", "app burst_saver"} <= set(counts)
+
+
+def test_torch_chip_smoke_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 15 at small sizes on 8 shards on the CPU, the plain versions:
+    # the sharded FM ops against the offline ops, the channel-sharded banks,
+    # the AX.25 front-end sharded with the native tail, and the dry run;
+    # the exact launch counts and the times need the card
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import hdlc
+
+    cs = _chip_smoke(monkeypatch)
+    sizes = cs.MeshSizes(shards=8, bank_ch=8, bank_n=512, bank_events=56,
+                         channels=32, chan_n=1 << 12, frames=2, frame_gate=2)
+    cpu = torch.device("cpu")
+    audio = torch.from_numpy(cs.audio_corpus(hdlc, sizes.frames))
+    want = cs.decoded(ax25.ax25_1200_rx(audio, cs.FS_AUDIO), sizes.frames)
+    i_main, q_main, _ = cs.rtl_fm_iq(1 << 16, cpu, torch.Generator().manual_seed(0))
+    counts, errs, times = cs.mesh_phase(cpu, "cpu rehearsal", sizes, i_main, q_main,
+                                        audio, want)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    for phase in ("15 mesh fm", "15 bank", "15 ax25", "15 dryrun"):
+        assert f"[{phase}] passed" in out
+    assert errs == {"fir_decimate": 0.0, "symbol_sync_scan": 0.0,
+                    "symbol_sync_events": 0.0}
+    assert times == {} and "dryrun_multichip(8): OK" in out
+    assert {"sharded_fm_demod", "sharded_fir_filter", "sharded_fft_filter",
+            "sharded_quadrature_demod", "sharded_symbol_sync_bank scan",
+            "sharded_symbol_sync_bank events", "sharded_channelizer_fm",
+            "sharded_bell202_demod"} <= set(counts)

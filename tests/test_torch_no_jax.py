@@ -188,6 +188,34 @@ rds.serve_stdio(payload, io.BytesIO(data_stream.encode_version()
                 + data_stream.encode_request_data("rtl-sdr", 10 ** 6)), out)
 ev = data_stream.BytesReader().feed(out.getvalue())
 assert b"".join(e[2] for e in ev if e[0] == "data") == payload and len(payload) == 8000
+# the multi-device layer and the small public names: a sharded FM chain over
+# 4 CPU shards against the offline chain, a shard chain of blocks, the
+# channel-sharded bank, and the names of the package's top level
+import numpy as np, torch
+import rustradio_tpu_torch as rr
+from rustradio_tpu_torch import ops, taps, windows
+from rustradio_tpu_torch.parallel import (make_mesh, sharded_fm_demod,
+                                          sharded_channelizer_fm, channelizer_taps)
+from rustradio_tpu_torch.parallel.graph_mesh import shard_chain
+from rustradio_tpu_torch.tools import dryrun
+from rustradio_tpu_torch.streams import StreamValue, scale_tags, shift_tags, filter_tags
+from rustradio_tpu_torch.utils import RateMeter, roofline_report
+mesh = make_mesh(4, device="cpu")
+lp = taps.low_pass_complex(1.024e6, 100e3, 50e3)
+x = torch.polar(torch.ones(4096), torch.arange(4096) * 0.05).to(torch.complex64)
+got = sharded_fm_demod(x, lp, mesh, deci=4)
+want = ops.quadrature_demod(ops.fir_filter(x, lp, 4), 1.0)
+m = min(len(got), len(want))
+assert m >= len(want) - 1 and float((got[:m] - want[:m]).abs().max()) < 1e-5
+from rustradio_tpu_torch import blocks
+y = shard_chain([blocks.Hilbert(65), blocks.QuadratureDemod(1.0)], mesh)(x.real.contiguous())
+assert y.shape == (4095,)
+assert sharded_channelizer_fm(x, channelizer_taps(16, 4), 16,
+                              make_mesh(4, axis="chan", device="cpu")).shape == (255, 16)
+assert rr.parse_verbosity("info") == 2 and rr.Complex is torch.complex64
+assert taps.multiband([(0.0, 0.2)], 64, windows.hamming(64)).dtype == np.complex64
+f, r = ops.hdlc_bit_hunt(torch.tensor([0, 1, 1, 1, 1, 1, 1, 0], dtype=torch.uint8))
+assert f.tolist()[-1] and r.tolist()[-2] == 6
 print("ok")
 """
 
@@ -222,7 +250,8 @@ def test_torch_port_never_imports_jax():
                  "apps.morse_beacon", "apps.spectrum", "apps.pw_tone",
                  "ops.cma", "blocks.io_blocks", "runtime", "io.data_stream",
                  "io.websocket", "ui", "ui.server", "apps.rtl_data_stream",
-                 "apps.ui_server"):
+                 "apps.ui_server", "parallel", "parallel.mesh", "parallel.halo",
+                 "parallel.sharded", "parallel.graph_mesh", "tools.dryrun"):
         assert f"rustradio_tpu_torch.{name}" in out
 
 
