@@ -98,7 +98,16 @@ just after, so that each shows it went through its kernels:
   ``sharded_channelizer_fm`` against ``channelizer_fm_bank``; the AX.25
   front-end sharded over the corpus with the native tail, the offline
   receiver's list; and ``tools.dryrun.dryrun_multichip(4)``; each sharded
-  call timed beside its unsharded counterpart.
+  call timed beside its unsharded counterpart;
+* the multi-device layer, streamed (``mesh_stream_phase``, phase 16), 4
+  shards on the card: the AX.25 corpus through ``ax25_1200_rx_graph(mesh=,
+  chunk_size=2**18)`` with both syncs, per chunk and with
+  ``scan_chunks=16``, and 20 + 35 chunks around a checkpoint, each the
+  unsharded graph's list (>= 980), the ragged last chunk demoted once and
+  no other, kernel A and D held on the events run's own calls; phase 13's
+  FM chain streamed on the mesh per chunk and batched, bit-equal to
+  ``shard_chain`` over the whole stream and within kernel B's budget of
+  the unsharded stream; walls beside the unsharded runs.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -128,9 +137,9 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 10 to 15 rehearse
+the last line is {"ok": true, "device": {...}}.  Phases 10 to 16 rehearse
 on the CPU at small sizes (``AppsSizes``, ``BurstSizes``, ``RadioSizes``,
-``ScanSizes``, ``LiveSizes``, ``MeshSizes``;
+``ScanSizes``, ``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``;
 tests/test_torch_chip_smoke.py); phases 1-9 compare kernels with their
 plain versions, which only the card can do.
 """
@@ -776,6 +785,56 @@ def envelope_ratio(y: torch.Tensor, skip: int) -> float:
     return float(m.max() / m.min())
 
 
+def ax25_receiver(audio, sync: str, upto=None):
+    """The chain of ``ax25_1200_rx_graph`` as a Graph of its own (for a
+    checkpointed run), or its first ``upto`` blocks into a NullSink:
+    (graph, sink)."""
+    from rustradio_tpu_torch import blocks, taps as tapgen
+    from rustradio_tpu_torch.graph import Graph
+
+    chain = [blocks.VectorSource(audio),
+             blocks.FftFilterFloat(tapgen.band_pass(FS_AUDIO, 400.0, 2700.0,
+                                                    65, "hamming")),
+             blocks.Hilbert(65), blocks.QuadratureDemod(1.0),
+             blocks.FftFilterFloat(tapgen.low_pass(FS_AUDIO, 1100.0, 200.0,
+                                                   "hamming")),
+             blocks.AddConst(-float(np.float32(2.0 * np.pi * 1700.0 / FS_AUDIO))),
+             blocks.SymbolSync(FS_AUDIO / 1200.0, 0.5, (1 / 6,) * 6,
+                               method=sync),
+             blocks.BinarySlicer(), blocks.NrziDecode(),
+             blocks.HdlcDeframer(10, 1500)]
+    sink = blocks.PduVectorSink() if upto is None else blocks.NullSink()
+    g = Graph()
+    g.chain(*chain[:upto], sink)
+    return g, sink
+
+
+def batch_sink():
+    """A sink that keeps every chunk on the device and takes a batch of
+    ``run_stream(scan_chunks=)`` in one call; ``data()`` is the stream."""
+    from rustradio_tpu_torch.blocks.base import Block
+
+    class BatchSink(Block):
+        graph_capturable = False  # a sink
+        n_out = 0
+        domain = "device"
+
+        def __init__(self):
+            self.parts = []
+
+        def apply(self, x):
+            self.parts.append(x)
+            return ()
+
+        def accept_batch(self, stacked):
+            self.parts.append(stacked.reshape(-1))
+
+        def data(self):
+            return torch.cat(self.parts)
+
+    return BatchSink()
+
+
 def hold_fir_calls(phase: str, what: str, calls) -> float:
     """Kernel A on each of a path's captured ``fir_decimate`` calls against
     its plain version on the same arguments, at the FIR budget: the worst
@@ -946,9 +1005,8 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
     import tempfile
     from pathlib import Path
 
-    from rustradio_tpu_torch import blocks, ops, taps as tapgen
+    from rustradio_tpu_torch import ops, taps as tapgen
     from rustradio_tpu_torch.apps import am_decode, rtl_fm
-    from rustradio_tpu_torch.graph import Graph
     from rustradio_tpu_torch.io import au, rawfile
     from rustradio_tpu_torch.models import ax25, fm
     from rustradio_tpu_torch.ops import kernels
@@ -1074,23 +1132,7 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
 
     # the AX.25 receiver built from blocks, offline and streamed
     def receiver(sync, upto=None):
-        """The chain of ax25_1200_rx_graph (for a checkpointed run), or its
-        first ``upto`` blocks into a NullSink."""
-        chain = [blocks.VectorSource(audio),
-                 blocks.FftFilterFloat(tapgen.band_pass(FS_AUDIO, 400.0, 2700.0,
-                                                        65, "hamming")),
-                 blocks.Hilbert(65), blocks.QuadratureDemod(1.0),
-                 blocks.FftFilterFloat(tapgen.low_pass(FS_AUDIO, 1100.0, 200.0,
-                                                       "hamming")),
-                 blocks.AddConst(-float(np.float32(2.0 * np.pi * 1700.0 / FS_AUDIO))),
-                 blocks.SymbolSync(FS_AUDIO / 1200.0, 0.5, (1 / 6,) * 6,
-                                   method=sync),
-                 blocks.BinarySlicer(), blocks.NrziDecode(),
-                 blocks.HdlcDeframer(10, 1500)]
-        sink = blocks.PduVectorSink() if upto is None else blocks.NullSink()
-        g = Graph()
-        g.chain(*chain[:upto], sink)
-        return g, sink
+        return ax25_receiver(audio, sync, upto)
 
     n_chunks = -(-audio.shape[0] // sizes.stream_chunk)
     for sync in want_lists:
@@ -2162,7 +2204,6 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
     from rustradio_tpu_torch import blocks
     from rustradio_tpu_torch.apps import (fm_tx, morse_beacon, pw_tone, rtl_fm,
                                           spectrum, tone)
-    from rustradio_tpu_torch.blocks.base import Block
     from rustradio_tpu_torch.graph import Graph
     from rustradio_tpu_torch.io import au, rawfile
     from rustradio_tpu_torch.models import ax25
@@ -2176,26 +2217,6 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
     tmp = tempfile.TemporaryDirectory()
     d = Path(tmp.name)
 
-    class BatchSink(Block):
-        """Keeps every chunk on the device; a batch in one call."""
-
-        graph_capturable = False  # a sink
-        n_out = 0
-        domain = "device"
-
-        def __init__(self):
-            self.parts = []
-
-        def apply(self, x):
-            self.parts.append(x)
-            return ()
-
-        def accept_batch(self, stacked):
-            self.parts.append(stacked.reshape(-1))
-
-        def data(self):
-            return torch.cat(self.parts)
-
     # ---- the FM chain stream
     n = sizes.chunk * sizes.chunks
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
@@ -2207,7 +2228,7 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
 
     def fm_graph(form):
         g = Graph()
-        sink = blocks.VectorSink() if form == "host" else BatchSink()
+        sink = blocks.VectorSink() if form == "host" else batch_sink()
         g.chain(blocks.VectorSource(x_host if form == "host" else x_dev),
                 blocks.FirFilter(lpr, deci=SCAN_TAPS_DECI),
                 blocks.QuadratureDemod(1.0), blocks.MultiplyConst(SCAN_GAIN), sink)
@@ -3358,6 +3379,256 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
     return counts, errs, times
 
 
+# ---- phase 16: the multi-device layer, streamed
+
+@dataclasses.dataclass(frozen=True)
+class MeshStreamSizes:
+    """Phase 16's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones.  The corpus
+    runs on the whole audio given."""
+
+    shards: int = MESH_SHARDS
+    chunk: int = 1 << 18              # the corpus stream: 55 chunks, the last ragged
+    scan: int = 16
+    resume_after: int = RESUME_AFTER  # chunks before the checkpointed pause
+    frames: int = N_FRAMES
+    frame_gate: int = FRAME_GATE
+    fm_chunk: int = 1 << 20           # phase 13's FM stream on the mesh
+    fm_chunks: int = 64
+    fm_scan: int = 64
+    reps: int = 3                     # runs of each timed stream (median wall)
+
+
+def graph_of(fn):
+    """(``fn()``, the Graph whose ``run_stream`` or ``run`` it called last):
+    the graph a model function builds inside, for its ``demotions``."""
+    from rustradio_tpu_torch.graph import Graph
+
+    seen = []
+
+    def spy(real):
+        def method(g, *a, **k):
+            seen.append(g)
+            return real(g, *a, **k)
+        return method
+
+    with mock.patch.object(Graph, "run_stream", spy(Graph.run_stream)), \
+         mock.patch.object(Graph, "run", spy(Graph.run)):
+        out = fn()
+    return out, seen[-1]
+
+
+def mesh_stream_phase(dev, card: str, sizes: MeshStreamSizes, audio):
+    """Phase 16: the multi-device layer's streaming half on a mesh of
+    ``sizes.shards`` shards, all on ``dev`` (the one card).
+
+    The AX.25 corpus ``audio`` through ``ax25_1200_rx_graph(mesh=,
+    chunk_size=)`` with both syncs, per chunk and with ``scan_chunks``,
+    and paused at a checkpoint and resumed: each >= the gate and the
+    unsharded graph's list, the front-end's ragged last chunk demoted once
+    and no other, kernel A 3 launches a shard a chunk (the demoted chunk
+    3), kernels A and D held against their plain versions on the events
+    run's own calls.  Phase 13's FM chain (FIR 49 taps deci 4 ->
+    QuadratureDemod -> gain) streamed on the mesh per chunk and batched:
+    bit-equal to ``shard_chain`` of the same blocks over the whole stream
+    on the card (kernel A's sum for an output does not depend on where its
+    call starts; the discriminator is exact), the batched run bit-equal to
+    the per-chunk one, within kernel B's budget of the unsharded stream
+    (which lowers the pair to kernel B), never demoted.  Walls beside the
+    unsharded runs, host ms a chunk.  Returns the launch counts of each
+    path and the largest |error| of each kernel held here."""
+    import tempfile
+
+    from rustradio_tpu_torch import blocks, ops, parallel
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import kernels
+    from rustradio_tpu_torch.parallel.graph_mesh import chain_segment, shard_chain
+
+    on_card = dev.type == "cuda"
+    mdev = torch.device("cuda", 0) if on_card else dev
+    n_sh = sizes.shards
+    mesh = parallel.make_mesh(n_sh, device=mdev)
+    counts = {}
+    audio = torch.as_tensor(audio).to(mdev)
+    n_a = audio.shape[0]
+    chunks = -(-n_a // sizes.chunk)
+    front_nodes = ax25_receiver(audio, "native", 6)[0].nodes[1:6]
+    front = chain_segment([nd.block for nd in front_nodes], mesh)  # its plan
+    front_name = Graph._unit_name(front_nodes)
+    last = n_a - (chunks - 1) * sizes.chunk
+    want_dem = ([chunks - 1] if last % (n_sh * front.div) or last < front.min_chunk
+                else [])
+    # kernel A a run: the 3 FIR stages once a shard a sharded chunk, once a
+    # demoted chunk
+    want_a = 3 * n_sh * (chunks - len(want_dem)) + 3 * len(want_dem)
+
+    def check_run(label, got, want, demotions):
+        """The list, the front-end's demotions (``want_dem``) and the other
+        mesh segment's (BinarySlicer + NrziDecode, fed the symbols: a chunk
+        of no fixed length, so it demotes at the stream's first chunk, as
+        in the JAX package), and kernel A's launches."""
+        c = counts[label]
+        fronts = [d["chunk"] for d in demotions if d["segment"] == front_name]
+        others = [(d["segment"], d["chunk"]) for d in demotions
+                  if d["segment"] != front_name]
+        ok = (len(set(got)) >= sizes.frame_gate and got == want
+              and fronts == want_dem and all(k == 0 for _, k in others))
+        print(f"[16 mesh ax25] {label}: {len(set(got))}/{sizes.frames} decoded, "
+              f"the unsharded graph's list: {got == want}; the front-end demoted "
+              f"at chunks {fronts} (want {want_dem}), the other segments at "
+              f"{others}; launches {json.dumps(c)}; card: {card}")
+        if not ok:
+            failures.append(f"{label}: {len(set(got))} frames, not the unsharded "
+                            f"list, or demotions {fronts} {others}")
+        if on_card and c["fir_decimate"] != want_a:
+            failures.append(f"{label}: kernel A launched {c['fir_decimate']} "
+                            f"times, not {want_a}")
+
+    walls = {}
+    for method in ("native", "events"):
+        needs = ("fir_decimate", "symbol_sync_events") if method == "events" else (
+            "fir_decimate",)
+        secs, want = wall(lambda: decoded(ax25.ax25_1200_rx_graph(
+            audio, FS_AUDIO, chunk_size=sizes.chunk, sync=method), sizes.frames),
+            sizes.reps)
+        walls[f"{method} unsharded"] = secs
+        for scan in (None, sizes.scan):
+            label = f"ax25_1200_rx_graph mesh sync={method} scan_chunks={scan}"
+            zero_counts()
+            (got, g) = graph_of(lambda: decoded(ax25.ax25_1200_rx_graph(
+                audio, FS_AUDIO, mesh, chunk_size=sizes.chunk, sync=method,
+                scan_chunks=scan), sizes.frames))
+            counts[label] = dict(kernels.LAUNCHES)
+            check_run(label, got, want, g.demotions)
+            require(label, counts[label], needs)
+            walls[label], _ = wall(lambda: ax25.ax25_1200_rx_graph(
+                audio, FS_AUDIO, mesh, chunk_size=sizes.chunk, sync=method,
+                scan_chunks=scan), sizes.reps)
+        if method == "events":
+            want_events = want
+    # the dense front-end alone (the chain cut after AddConst), a chunk's
+    # host time on the mesh and unsharded: wall / chunks
+    for m, label in ((mesh, "mesh"), (None, "unsharded")):
+        secs, _ = wall(lambda: ax25_receiver(audio, "native", 6)[0].run_stream(
+            chunk_size=sizes.chunk, device=mdev, mesh=m), sizes.reps)
+        walls[f"front-end {label}"] = secs
+    print(f"[16 mesh ax25] walls, ms a run of {chunks} chunks of {sizes.chunk} "
+          f"(median of {sizes.reps}): "
+          + "; ".join(f"{k} {v * 1e3:.1f}" for k, v in walls.items())
+          + f"; the front-end alone {walls['front-end mesh'] * 1e6 / chunks:.0f} us "
+          f"a chunk on {n_sh} shards against "
+          f"{walls['front-end unsharded'] * 1e6 / chunks:.0f} unsharded; card: {card}")
+
+    # 20 + 35 chunks around a checkpoint of the mesh run
+    with tempfile.TemporaryDirectory() as ck_dir:
+        ck = str(Path(ck_dir) / "mesh.pkl")
+        zero_counts()
+        g1, first = ax25_receiver(audio, "events")
+        g1.run_stream(chunk_size=sizes.chunk, max_chunks=sizes.resume_after,
+                      checkpoint_path=ck, checkpoint_every=sizes.resume_after,
+                      device=mdev, mesh=mesh)
+        g2, rest = ax25_receiver(audio, "events")
+        g2.run_stream(chunk_size=sizes.chunk, resume_from=ck, device=mdev, mesh=mesh)
+        counts["mesh resumed"] = dict(kernels.LAUNCHES)
+    got = decoded([bytes(np.asarray(p.data)) for p in first.pdus()]
+                  + [bytes(np.asarray(p.data)) for p in rest.pdus()], sizes.frames)
+    label = (f"events on the mesh, {sizes.resume_after} chunks, a checkpoint, "
+             "then the rest")
+    counts[label] = counts.pop("mesh resumed")
+    # the demotions of both calls, counted in chunks of the stream
+    check_run(label, got, want_events, g1.demotions + [
+        dict(d, chunk=d["chunk"] + sizes.resume_after) for d in g2.demotions])
+    require(label, counts[label], ("fir_decimate", "symbol_sync_events"))
+
+    # kernels A and D on the events run's own calls
+    with capturing("fir_decimate", "symbol_sync_events_scan") as calls:
+        out = ax25.ax25_1200_rx_graph(audio, FS_AUDIO, mesh, chunk_size=sizes.chunk,
+                                      sync="events")
+    if decoded(out, sizes.frames) != want_events:
+        failures.append("mesh ax25: the captured run differs")
+    what = f"ax25_1200_rx_graph events on {n_sh} shards, chunks of {sizes.chunk}"
+    errs = {"fir_decimate": hold_fir_calls("16 mesh ax25", what, calls["fir_decimate"]),
+            "symbol_sync_events": hold_events_calls(
+                "16 mesh ax25", what, calls["symbol_sync_events_scan"])}
+    del calls
+    end_phase("16 mesh ax25")
+
+    # ---- phase 13's FM chain streamed on the mesh
+    n = sizes.fm_chunk * sizes.fm_chunks
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    si, sq, _ = rtl_fm_iq(n, dev, gen)
+    x = torch.complex(si, sq).to(mdev)
+    del si, sq
+    lpr = np.real(np.asarray(_low_pass_49())).astype(np.float32)
+
+    def fm_blocks():
+        return [blocks.FirFilter(lpr, deci=SCAN_TAPS_DECI), blocks.QuadratureDemod(1.0),
+                blocks.MultiplyConst(SCAN_GAIN)]
+
+    def fm_graph():
+        g, sink = Graph(), batch_sink()
+        g.chain(blocks.VectorSource(x), *fm_blocks(), sink)
+        return g, sink
+
+    def fm_run(g, sink, m, scan):
+        sink.__init__()
+        g.run_stream(chunk_size=sizes.fm_chunk, device=mdev, scan_chunks=scan, mesh=m)
+        return sink.data()
+
+    zero_counts()
+    whole = shard_chain(fm_blocks(), mesh)(x)
+    counts["fm shard_chain"] = dict(kernels.LAUNCHES)
+    outs, fm_walls = {}, {}
+    for m, scan, label in ((mesh, None, "mesh"), (mesh, sizes.fm_scan, "mesh batched"),
+                           (None, None, "unsharded"),
+                           (None, sizes.fm_scan, "unsharded batched")):
+        g, sink = fm_graph()
+        zero_counts()
+        outs[label] = fm_run(g, sink, m, scan)
+        sync()
+        counts[f"fm {label}"] = c = dict(kernels.LAUNCHES)
+        # the same graph again (the unsharded batches replay their captures)
+        fm_walls[label], _ = wall(lambda: fm_run(g, sink, m, scan), sizes.reps)
+        print(f"[16 mesh fm] {label} (scan_chunks={scan}): {sizes.fm_chunks} chunks "
+              f"of {sizes.fm_chunk}; demotions {g.demotions}; launches "
+              f"{json.dumps(c)}; wall {fm_walls[label] * 1e3:.2f} ms (median of "
+              f"{sizes.reps} runs after the first), "
+              f"{fm_walls[label] * 1e6 / sizes.fm_chunks:.0f} us a chunk; card: {card}")
+        if g.demotions:
+            failures.append(f"fm {label}: demoted {g.demotions}")
+        if on_card and m is not None and (c["fir_decimate"] != n_sh * sizes.fm_chunks
+                                          or c["fm_chain"]):
+            failures.append(f"fm {label}: launches {c}, want kernel A "
+                            f"{n_sh * sizes.fm_chunks} and no kernel B")
+        if on_card and m is None and c["fm_chain"] != sizes.fm_chunks:
+            failures.append(f"fm {label}: kernel B launched {c['fm_chain']} times")
+        require(f"fm {label}", c, ("fir_decimate",) if m is not None else ("fm_chain",))
+    got = outs["mesh"]
+    k = min(got.shape[0], whole.shape[0])
+    unequal = int((got[:k] != whole[:k]).sum())
+    print(f"[16 mesh fm] the mesh stream vs shard_chain over the whole stream "
+          f"({whole.shape[0]} outputs; launches {json.dumps(counts['fm shard_chain'])}): "
+          f"{k} compared, {unequal} not bit-equal; the batched mesh run bit-equal "
+          f"to the per-chunk one: {torch.equal(outs['mesh batched'], got)}; "
+          f"card: {card}")
+    if k < whole.shape[0] - 1 or not torch.equal(outs["mesh batched"], got):
+        failures.append("fm mesh: short of shard_chain, or batched != per chunk")
+    if on_card and unequal:
+        failures.append(f"fm mesh: {unequal} outputs differ from shard_chain")
+    elif not on_card:  # the CPU's conv1d rounds a shard apart from the whole
+        filt = ops.fir_filter(x, lpr, SCAN_TAPS_DECI)
+        report("16 mesh fm", "the mesh stream vs shard_chain (CPU: kernel A's "
+               "plain conv1d)", wrapped_err(got[:k], whole[:k], SCAN_GAIN),
+               2 * 2e-5 * SCAN_GAIN * envelope_ratio(filt, 0))
+    report("16 mesh fm", "the mesh stream (kernel A, exact discriminator) vs the "
+           "unsharded stream (kernel B, highest)",
+           wrapped_err(got, outs["unsharded"], SCAN_GAIN), BUDGET["highest"])
+    del x, whole, outs, got
+    end_phase("16 mesh fm")
+    return counts, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -4339,6 +4610,12 @@ def main() -> int:
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"15 {k}": v for k, v in mesh_counts.items()})
+
+    # ---- 16. the multi-device layer, streamed: 4 shards on the card, counted
+    stream_counts, call_errs = mesh_stream_phase(dev, card, MeshStreamSizes(), audio)
+    for name, err in call_errs.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    apps.update({f"16 {k}": v for k, v in stream_counts.items()})
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))

@@ -88,6 +88,11 @@ def state_from_jax(states, device="cuda"):
     package's stream tags become the port's ``Tag``; host-side leaves —
     Python ints, floats, bools and strings, such as the HDLC snapshot's
     ``state``, ``cur`` and ``stats``, BurstTagger's ``last`` or
-    RationalResampler's offsets — stay as they are.
+    RationalResampler's offsets — stay as they are.  A mesh run's
+    checkpoint holds, under ``"mesh:<first idx>"`` of each mesh segment,
+    ``{"tails": {idx: array}, "consumed": int}`` or ``{"demoted": True}``:
+    the tails become tensors on ``device`` (the mesh's first device, which
+    ``Graph.run_stream`` requires to be its own), ``consumed`` and
+    ``demoted`` stay host values.
     """
     return _to_port(states, target_device(device, "state_from_jax"))

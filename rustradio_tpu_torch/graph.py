@@ -29,10 +29,18 @@ Chrome trace, with one ``rr::<name>`` region per block, ``rr::segment:``
 per segment call and ``rr::scan:`` per replayed batch.  Every run keeps
 per-block seconds (CUDA events around each block on the card, read once
 at the end of the run; the host's clock elsewhere) and per-block costs
-for ``generate_stats()`` and ``costs()``.  The JAX package's ``mesh=``
-(``run`` / ``run_stream(mesh=, shard_axis=)``, the streaming half of the
-multi-device layer) comes in the next slice; a chain of blocks already runs
-on a mesh in one shot through ``parallel.graph_mesh.shard_chain``.
+for ``generate_stats()`` and ``costs()``.
+
+``run`` and ``run_stream`` take ``mesh=`` (a ``parallel.Mesh`` of this
+process's devices, its first one ``device``): every maximal run of device
+blocks that declare a shard plan runs as one ``parallel.graph_mesh.
+MeshSegment`` with the sample axis sharded over ``shard_axis``, the
+filter histories crossing shards as halos and chunks as carried tails, so
+the outputs are the unsharded runner's (the reference swaps ``Graph`` for
+``MTGraph``, src/mtgraph.rs:73-149).  A chunk that does not fit the mesh
+(a ragged last chunk, one shorter than the halos) demotes its segment to
+the unsharded path for the rest of the stream, its carried tails turned
+into the members' states; ``demotions`` lists each one.
 """
 
 from __future__ import annotations
@@ -52,6 +60,8 @@ from .blocks.base import Block, SourceBlock
 from .ops import kernels
 from .streams import Tag
 from .utils.checkpoint import load_checkpoint, save_checkpoint
+
+_MESH = "mesh:"  # the state key of a mesh segment: "mesh:<first member>"
 
 _MAX_CAPTURES = 8  # captured CUDA graphs kept per device loop / per graph
 
@@ -320,6 +330,19 @@ class CancellationToken:
         return self._cancelled
 
 
+def _same_device(a, b) -> bool:
+    """Whether two devices name the same one (``cuda`` is the current
+    card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device() if torch.cuda.is_available() else 0
+    return (cur if a.index is None else a.index) == (cur if b.index is None
+                                                      else b.index)
+
+
 class Graph:
     def __init__(self):
         self.nodes: list[Node] = []
@@ -346,6 +369,12 @@ class Graph:
         #: ``nb``, the launches of its warm-up and of its recording (both
         #: counted apart from ``kernels.LAUNCHES``) and its replays so far
         self.capture_log: list[dict] = []
+        self._mesh_segcache: dict = {}
+        self._mesh_mode = False
+        #: the last run's demotions of mesh segments to the unsharded path:
+        #: ``{"segment", "chunk", "offset", "reason"}`` each (``chunk`` is
+        #: None offline)
+        self.demotions: list[dict] = []
 
     def cancel_token(self) -> CancellationToken:
         return self._token
@@ -367,6 +396,7 @@ class Graph:
         node.inputs = ins
         self.nodes.append(node)
         self._segs = None
+        self._mesh_segcache = {}
         return node
 
     def chain(self, *blocks) -> Node:
@@ -558,6 +588,114 @@ class Graph:
             self._plans = {}
         return self._segs
 
+    def _mesh_eligible(self, n: Node) -> bool:
+        """Can this block join a mesh segment?  A device block with a
+        shard plan (``Block.shard_fn``) and no end-of-stream flush hook
+        (the sharded form cannot reproduce a drain through padding)."""
+        b = n.block
+        return (self._fusable(n)
+                and not hasattr(b, "flush")
+                and not hasattr(b, "flush_with_state")
+                and b.shard_fn(0) is not None)
+
+    def _segments_mesh(self, mesh, shard_axis: str):
+        """Mesh-mode segmentation (``rustradio_tpu/graph.py:261-331``): runs
+        of device nodes split where shardability changes; a maximal run
+        of mesh-eligible nodes (length >= 1) becomes a sharded segment
+        with its :class:`~.parallel.graph_mesh.MeshSegment`, unless the
+        plan raises ``NotShardable`` (then, like every other run of length
+        >= 2, an ordinary segment).  Returns (segs, seg_member, plans),
+        ``plans`` keyed by a sharded segment's first idx; cached per
+        (mesh, axis)."""
+        from .parallel.graph_mesh import MeshSegment, NotShardable
+
+        key = (mesh, shard_axis)
+        if key in self._mesh_segcache:
+            return self._mesh_segcache[key]
+        segs: dict[int, list[Node]] = {}
+        plans: dict[int, Any] = {}
+
+        def close(cur, cur_mesh):
+            if cur_mesh:
+                try:
+                    ext_in, ext_out = self._segment_io(cur)
+                    plans[cur[0].idx] = MeshSegment(cur, ext_in, ext_out, mesh,
+                                                    shard_axis)
+                    segs[cur[0].idx] = cur
+                    return
+                except NotShardable:
+                    pass
+            if len(cur) > 1:
+                segs[cur[0].idx] = cur
+
+        cur: list[Node] = []
+        cur_mesh = False
+        for n in self._topo():
+            if not self._fusable(n):
+                if cur:
+                    close(cur, cur_mesh)
+                cur = []
+                continue
+            m = self._mesh_eligible(n)
+            if cur and m != cur_mesh:
+                close(cur, cur_mesh)
+                cur = []
+            cur.append(n)
+            cur_mesh = m
+        if cur:
+            close(cur, cur_mesh)
+        seg_member = {m.idx: s[0].idx for s in segs.values() for m in s}
+        self._mesh_segcache[key] = (segs, seg_member, plans)
+        return self._mesh_segcache[key]
+
+    def _layout(self, mesh, shard_axis: str, device):
+        """(segs, seg_member, mesh plans) of a run: the mesh segmentation
+        when ``mesh`` is given, else the plain one with no plans.  A mesh
+        must be this process's and start at ``device``."""
+        if mesh is None:
+            return self._segments(), self._seg_member, {}
+        if mesh.world > 1:
+            raise ValueError("the Graph runners take a mesh of one process's "
+                             "devices; a mesh across processes runs "
+                             "parallel.graph_mesh.MeshSegment directly")
+        if not _same_device(mesh.devices[0], device):
+            raise ValueError(f"the mesh starts on {mesh.devices[0]}, the run is "
+                             f"on {device}: pass device= the mesh's first device")
+        return self._segments_mesh(mesh, shard_axis)
+
+    def _demote(self, seg, chunk, offset: int, reason: str) -> None:
+        self.demotions.append({"segment": self._unit_name(seg), "chunk": chunk,
+                               "offset": offset, "reason": reason})
+
+    def _run_segment_mesh(self, ms, seg, values, tags, mesh_state=None,
+                          true_len=None) -> dict:
+        """One chunk of a mesh segment (``rustradio_tpu/graph.py:596-636``),
+        timed, traced (``rr::mesh:<name>``) and costed like a segment.
+
+        ``mesh_state`` — ``{"tails": carries, "consumed": int}`` carried
+        across chunks; None offline (zero history, the whole stream one
+        chunk).  ``true_len`` — the unpadded input length when this call
+        ends the stream (its end trims); None mid-stream.  Returns the new
+        mesh state."""
+        x = values[ms.ext_in]
+        n = _length(x)
+        if mesh_state is None or mesh_state.get("tails") is None:
+            mesh_state = {"tails": ms.init_carries(x), "consumed": 0}
+        consumed = int(mesh_state["consumed"])
+        w0 = dict(kernels.WORK)
+        with self._accounted(seg[0].idx) as other, \
+                self._timed([m.idx for m in seg], seg[0].idx), \
+                self._annotate(f"mesh:{self._unit_name(seg)}"):
+            tails, outs, _ = ms.run_chunk(mesh_state["tails"], x, consumed,
+                                          true_len=true_len)
+            if kernels.WORK == w0:  # no kernel: the bytes in and out
+                other.append((float(_nbytes(x) + _nbytes(outs)), 0.0))
+        for k, o in zip(ms.ext_out, outs):
+            values[k] = o
+        n_true = true_len if true_len is not None else n
+        self._segment_tags(seg, tags, ms.member_lens(consumed, n_true))
+        return {"tails": tails, "consumed": consumed + n_true}
+
     @staticmethod
     def _unit_name(unit) -> str:
         return "+".join(n.block.name() for n in unit[:3]) + (
@@ -584,7 +722,7 @@ class Graph:
     def _segment_plan(self, seg: list[Node]):
         """(ext_in, ext_out, fm plans, consumed idxs) of a segment (or of
         one device block, the batched runner's unit of one), cached."""
-        key = seg[0].idx
+        key = tuple(n.idx for n in seg)
         if key not in self._plans:
             ext_in, ext_out = self._segment_io(seg)
             plans, consumed = lowering.find_fm_pairs(seg, set(ext_out))
@@ -732,26 +870,46 @@ class Graph:
                 node.block.finish()
 
     # ---- offline ----
-    def run(self, device="cuda", profile_dir: str | None = None) -> None:
+    def run(self, device="cuda", profile_dir: str | None = None, mesh=None,
+            shard_axis: str = "time") -> None:
         """Offline mode: evaluate every block once over whole streams,
         sources emitting on ``device``: the card unless the caller names
         another.  Without a card the default raises; it never moves to the
         CPU by itself (pass ``device="cpu"`` for the kernels' plain
         versions).  Blocks with ``flush()`` drain at the end, unless the
         run was cancelled; then every block's ``finish()`` runs.
-        ``profile_dir`` writes a ``torch.profiler`` trace there."""
+        ``profile_dir`` writes a ``torch.profiler`` trace there.
+
+        ``mesh``: a 1-D ``parallel.Mesh`` whose first device is ``device``
+        (else ValueError) — each run of device blocks that declare shard
+        plans executes as one mesh segment with the sample axis sharded
+        over ``shard_axis``; the outputs are the single-device run's.  A
+        stream shorter than a segment's halos runs that segment unsharded
+        (recorded in ``demotions``)."""
         device = target_device(device, "Graph.run")
+        segs, seg_member, plans = self._layout(mesh, shard_axis, device)
+        self.demotions = []
         with self._run_ctx(device, profile_dir):
             values: dict[tuple[int, int], Any] = {}
             tags: dict[tuple[int, int], list[Tag]] = {}
-            segs = self._segments()
             for node in self._topo():
                 if self._token.is_cancelled():
                     break
-                first = self._seg_member.get(node.idx)
+                first = seg_member.get(node.idx)
                 if first is not None:
-                    if first == node.idx:
-                        self._exec_unit(segs[first], values, tags)
+                    if first != node.idx:
+                        continue
+                    ms = plans.get(first)
+                    if ms is not None:
+                        n_in = _length(values[ms.ext_in])
+                        if n_in >= ms.min_chunk:
+                            self._run_segment_mesh(ms, segs[first], values, tags,
+                                                   true_len=n_in)
+                            continue
+                        self._demote(segs[first], None, 0,
+                                     f"stream of {n_in} shorter than the "
+                                     f"halos' {ms.min_chunk}")
+                    self._exec_unit(segs[first], values, tags)
                     continue
                 self._run_node(node, values, tags, device)
             if not self._token.is_cancelled():
@@ -766,9 +924,11 @@ class Graph:
                    resume_from: str | None = None,
                    device="cuda",
                    profile_dir: str | None = None,
-                   scan_chunks: int | None = None) -> None:
+                   scan_chunks: int | None = None,
+                   mesh=None,
+                   shard_axis: str = "time") -> None:
         """Streaming mode: fixed-size chunks with carried block state
-        (``rustradio_tpu/graph.py:846-1105`` less its mesh option).
+        (``rustradio_tpu/graph.py:846-1105``).
 
         Sources emit each chunk on ``device`` (the card unless the caller
         names another; without a card the default raises).  Device
@@ -808,17 +968,33 @@ class Graph:
         state, so a resumed run emits it once.  Every block's ``finish()``
         runs at the end.  ``profile_dir`` writes a ``torch.profiler``
         trace there.
+
+        ``mesh=`` shards every mesh segment's sample axis over
+        ``shard_axis`` (see :meth:`run`); its tails carry from chunk to
+        chunk (``MeshSegment.run_chunk``), and under ``scan_chunks`` a
+        batch advances through ``MeshSegment.run_batch``.  A chunk that
+        does not fit the mesh (length not a multiple of ``n_sh * div``, or
+        shorter than the halos: a ragged last chunk) demotes its segment
+        one way: the carried tails become the members' streaming states
+        and the unsharded path runs it from then on, outputs exact; each
+        demotion is recorded in ``demotions``.  A checkpoint of a mesh run
+        holds each segment's tails and count (``"mesh:<first idx>"``, the
+        JAX package's keys) and resumes only with a mesh; a plain one only
+        without.
         """
         device = target_device(device, "Graph.run_stream")
+        layout = self._layout(mesh, shard_axis, device)
+        self.demotions = []
+        self._mesh_mode = mesh is not None
         with self._run_ctx(device, profile_dir):
             self._run_stream_inner(chunk_size, max_chunks, checkpoint_path,
                                    checkpoint_every, resume_from, device,
-                                   scan_chunks)
+                                   scan_chunks, layout)
         self._finish()
 
     def _run_stream_inner(self, chunk_size, max_chunks, checkpoint_path,
                           checkpoint_every, resume_from, device,
-                          scan_chunks) -> None:
+                          scan_chunks, layout) -> None:
         sources = [n for n in self.nodes if isinstance(n.block, SourceBlock)]
         if not sources:
             raise ValueError("graph has no sources")
@@ -830,7 +1006,7 @@ class Graph:
         else:
             total = min(totals)
         states = {n.idx: n.block.init_state() for n in self.nodes}
-        segs = self._segments()
+        segs, seg_member, plans = layout
         offset = 0
         if resume_from is not None:
             states, offset, extra = load_checkpoint(resume_from, states, device)
@@ -838,9 +1014,10 @@ class Graph:
             if extra.get("blocks") is not None and extra["blocks"] != names:
                 raise ValueError(f"checkpoint was taken on a different graph: "
                                  f"{extra['blocks']} vs {names}")
-            if extra.get("mesh"):
-                raise ValueError("checkpoint of a mesh run: it carries shard "
-                                 "halos, not block state")
+            if bool(extra.get("mesh", False)) != self._mesh_mode:
+                raise ValueError(
+                    "checkpoint mesh mode differs from this run's: a mesh "
+                    "checkpoint carries shard halos, not block state")
             for n in self.nodes:
                 hs = extra.get("host", {}).get(n.idx)
                 if hs is not None and hasattr(n.block, "restore_host_state"):
@@ -868,7 +1045,7 @@ class Graph:
                     nb = min(nb, max_chunks - chunk_count)
             if nb >= 2:
                 self._run_batch(nb, chunk_size, offset, states, sink_offsets,
-                                device)
+                                device, layout, chunk_count)
                 before = chunk_count
                 offset += nb * chunk_size
                 chunk_count += nb
@@ -882,11 +1059,17 @@ class Graph:
             values: dict[tuple[int, int], Any] = {}
             tags: dict[tuple[int, int], list[Tag]] = {}
             for node in self._topo():
-                first = self._seg_member.get(node.idx)
+                first = seg_member.get(node.idx)
                 if first is not None:
-                    if first == node.idx:
-                        states.update(self._exec_unit(segs[first], values,
-                                                      tags, states))
+                    if first != node.idx:
+                        continue
+                    ms = plans.get(first)
+                    if ms is not None and self._mesh_chunk(
+                            ms, segs[first], values, tags, states, chunk_count,
+                            offset):
+                        continue
+                    states.update(self._exec_unit(segs[first], values, tags,
+                                                  states))
                     continue
                 self._run_node(node, values, tags, device, stream)
             offset += n_chunk
@@ -895,26 +1078,69 @@ class Graph:
                     and chunk_count % checkpoint_every == 0):
                 self._save_checkpoint(checkpoint_path, states, offset)
         if ended:
+            # mesh segments: carried tails -> the members' streaming states,
+            # so that drained values pass through them exactly
+            for first, ms in plans.items():
+                mst = states.get(f"{_MESH}{first}")
+                if mst and mst.get("tails") is not None:
+                    states.update(ms.carries_to_states(mst["tails"],
+                                                       int(mst["consumed"])))
             self._flush_pass(states)
+
+    def _mesh_chunk(self, ms, seg, values, tags, states, chunk: int,
+                    offset: int) -> bool:
+        """One chunk of a mesh segment on the mesh, if it still runs there
+        and the chunk fits (a multiple of ``n_sh * div``, no shorter than
+        the halos); else demote it — its tails to the members' states, for
+        good — and return False for the unsharded path."""
+        key = f"{_MESH}{seg[0].idx}"
+        mst = states.get(key)
+        if isinstance(mst, dict) and mst.get("demoted"):
+            return False
+        n_in = _length(values[ms.ext_in])
+        if n_in % (ms.n_sh * ms.div) == 0 and n_in >= ms.min_chunk:
+            states[key] = self._run_segment_mesh(ms, seg, values, tags,
+                                                 mesh_state=mst)
+            return True
+        self._demote_states(ms, seg, states, chunk, offset,
+                            f"chunk of {n_in} does not fit the mesh "
+                            f"(multiple of {ms.n_sh * ms.div}, at least "
+                            f"{ms.min_chunk})")
+        return False
+
+    def _demote_states(self, ms, seg, states, chunk, offset, reason) -> None:
+        """One-way demotion of a mesh segment in a stream: its carried
+        tails become the members' streaming states."""
+        key = f"{_MESH}{seg[0].idx}"
+        mst = states.get(key)
+        if mst and mst.get("tails") is not None:
+            states.update(ms.carries_to_states(mst["tails"], int(mst["consumed"])))
+        states[key] = {"demoted": True}
+        self._demote(seg, chunk, offset, reason)
 
     # ---- the batched runner ----
     def _run_batch(self, nb: int, chunk_size: int, offset: int, states: dict,
-                   sink_offsets: dict, device) -> None:
+                   sink_offsets: dict, device, layout, chunk: int) -> None:
         """Advance the whole graph by ``nb`` full chunks
         (``rustradio_tpu/graph.py:1176-1523``): each device unit as one
-        (``_run_unit_batch``), every other block one chunk at a time in
-        stream order.  A value is a stacked ``(nb, ...)`` tensor or a list
-        of the chunks' values; tags are lists of the chunks' tags."""
+        (``_run_unit_batch``; a mesh segment through ``_mesh_batch``),
+        every other block one chunk at a time in stream order.  A value is
+        a stacked ``(nb, ...)`` tensor or a list of the chunks' values;
+        tags are lists of the chunks' tags."""
         values: dict[tuple[int, int], Any] = {}
         tags: dict[tuple[int, int], list] = {}
-        segs = self._segments()
+        segs, seg_member, plans = layout
         for node in self._topo():
             b = node.block
-            first = self._seg_member.get(node.idx)
+            first = seg_member.get(node.idx)
             if first is not None and first != node.idx:
                 continue
             if first is not None or self._fusable(node):
                 unit = segs[first] if first is not None else [node]
+                ms = plans.get(first)
+                if ms is not None and self._mesh_batch(
+                        ms, unit, nb, values, tags, states, chunk, offset):
+                    continue
                 self._run_unit_batch(unit, nb, values, tags, states, device)
                 continue
             keys = [(p.node.idx, p.index) for p in node.inputs]
@@ -952,6 +1178,48 @@ class Graph:
                     out_tags[k].append(tg.get(k, []))
             values.update(outs)
             tags.update(out_tags)
+
+    def _mesh_batch(self, ms, seg, nb, values, tags, states, chunk: int,
+                    offset: int) -> bool:
+        """A batch of a mesh segment through ``MeshSegment.run_batch``
+        (timed, traced and costed as one), with each chunk's tags mapped
+        on its own member lens.  A segment that is demoted, or not warm,
+        returns False for the unsharded path; ``NotShardable`` (chunks
+        that do not fit the mesh) demotes it first."""
+        from .parallel.graph_mesh import NotShardable
+
+        key = f"{_MESH}{seg[0].idx}"
+        mst = states.get(key)
+        if (not isinstance(mst, dict) or mst.get("demoted")
+                or mst.get("tails") is None):
+            return False
+        xs = values[ms.ext_in]
+        consumed = int(mst["consumed"])
+        w0 = dict(kernels.WORK)
+        try:
+            if not _stackable(xs):
+                raise NotShardable("batch chunks of different shapes")
+            with self._accounted(seg[0].idx) as other, \
+                    self._timed([m.idx for m in seg], seg[0].idx), \
+                    self._annotate(f"mesh:{self._unit_name(seg)}"):
+                tails, outs, _ = ms.run_batch(mst["tails"], xs, consumed)
+                if kernels.WORK == w0:
+                    other.append((float(_nbytes(xs) + _nbytes(outs)), 0.0))
+        except NotShardable as e:
+            self._demote_states(ms, seg, states, chunk, offset, f"batch: {e}")
+            return False
+        n = _length(xs[0])
+        states[key] = {"tails": tails, "consumed": consumed + nb * n}
+        for k, o in zip(ms.ext_out, outs):
+            values[k] = o
+        member_tags = {(m.idx, k): [] for m in seg for k in range(m.block.n_out)}
+        for bi in range(nb):
+            tg = {ms.ext_in: tags[ms.ext_in][bi]} if ms.ext_in in tags else {}
+            self._segment_tags(seg, tg, ms.member_lens(consumed + bi * n, n))
+            for k in member_tags:
+                member_tags[k].append(tg.get(k, []))
+        tags.update(member_tags)
+        return True
 
     def _run_unit_batch(self, unit, nb, values, tags, states, device) -> None:
         ext_in, ext_out, _, _ = self._segment_plan(unit)
@@ -1003,8 +1271,8 @@ class Graph:
                 return None
             chunk_in[k] = (tuple(v[0].shape), v[0].dtype)
         st = {m.idx: states[m.idx] for m in unit}
-        key = (unit[0].idx, nb, tuple(sorted(chunk_in.items(), key=str)),
-               _signature(st))
+        key = (tuple(m.idx for m in unit), nb,
+               tuple(sorted(chunk_in.items(), key=str)), _signature(st))
         hit = self._unit_caps.get(key)
         if hit is _NOT_CAPTURABLE:
             return None
@@ -1040,7 +1308,7 @@ class Graph:
         (``host_state()``)."""
         save_checkpoint(path, states, offset, extra={
             "blocks": [n.block.name() for n in self.nodes],
-            "mesh": False,
+            "mesh": self._mesh_mode,
             "host": {n.idx: n.block.host_state() for n in self.nodes
                      if hasattr(n.block, "host_state")},
         })

@@ -229,6 +229,7 @@ def ax25_1200_rx(
 def ax25_1200_rx_graph(
     audio,
     samp_rate: float,
+    mesh=None,
     chunk_size: int | None = None,
     fix_bits: bool = False,
     symbol_taps=(1 / 6,) * 6,
@@ -249,9 +250,15 @@ def ax25_1200_rx_graph(
     "events" on kernel D) -> BinarySlicer -> NrziDecode -> HdlcDeframer ->
     PduVectorSink.  ``chunk_size`` selects ``Graph.run_stream`` (batched
     with ``scan_chunks``: the front-end segment one CUDA-graph replay a
-    batch on the card), else ``Graph.run``.  ``audio`` is a tensor (the graph runs on its device) or
-    a numpy array with ``device=``.  An unknown ``sync`` raises.  Returns
-    the decoded payloads as bytes.
+    batch on the card), else ``Graph.run``.  ``mesh=`` (a
+    ``parallel.Mesh`` starting on the audio's device) is the reference's
+    ``MTGraph`` flag (examples/ax25-1200-rx.rs:209-213): the dense
+    front-end runs as one mesh segment with the sample axis sharded,
+    offline or streamed (a ragged last chunk demotes it), under
+    ``scan_chunks`` too; the clock recovery and the tail run unsharded.
+    ``audio`` is a tensor (the graph runs on its device) or a numpy array
+    with ``device=``.  An unknown ``sync`` raises.  Returns the decoded
+    payloads as bytes.
     """
     from .. import blocks
     from ..graph import Graph
@@ -281,9 +288,9 @@ def ax25_1200_rx_graph(
     g.chain(*chain)
     if chunk_size:
         g.run_stream(chunk_size=chunk_size, device=audio.device,
-                     scan_chunks=scan_chunks)
+                     scan_chunks=scan_chunks, mesh=mesh)
     else:
-        g.run(device=audio.device)
+        g.run(device=audio.device, mesh=mesh)
     return [bytes(np.asarray(p.data)) for p in sink.pdus()]
 
 

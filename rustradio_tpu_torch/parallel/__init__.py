@@ -1,17 +1,16 @@
 """Multi-device execution (port of ``rustradio_tpu/parallel``): mesh
-construction, halo exchange, the sharded ops, the blocks' shard chains
-(``graph_mesh.shard_chain``) and the polyphase channelizer.
+construction, halo exchange, the sharded ops, the blocks' mesh segments
+(``graph_mesh``: ``shard_chain`` in one shot, ``MeshSegment`` streamed by
+``Graph.run`` / ``Graph.run_stream(mesh=)``), the stage pipeline
+(``pipeline_run``, ``pipeline_run_rates``, ``pipeline_chain``) and the
+polyphase channelizer.
 
 The reference's only inter-worker transport is an mmap'd SPSC ring buffer
 plus TCP (SURVEY §2.7).  Here the *time axis* of a stream is sharded over
 a :class:`Mesh` of devices (several shards may share one device), and
 filter history becomes a left-halo exchange between neighbouring shards:
 a peer or device-local copy, and ``torch.distributed`` point-to-point
-between processes.  Ported so far: the one-shot half.  The streaming half
-(``MeshSegment``'s carries across chunks, ``Graph.run`` /
-``run_stream(mesh=)``, ``ax25_1200_rx_graph(mesh=)``) and ``pipeline``
-(``pipeline_chain``, ``pipeline_run``, ``pipeline_run_rates``) come with
-the next slice; ``make_mesh_2d`` is not ported (nothing uses it).
+between processes.  ``make_mesh_2d`` is not ported (nothing uses it).
 """
 
 from .channelizer import (
@@ -22,6 +21,7 @@ from .channelizer import (
 )
 from .halo import halo_exchange_left, halo_exchange_right
 from .mesh import Mesh, init_distributed, make_mesh, time_axis_spec
+from .pipeline import pipeline_chain, pipeline_run, pipeline_run_rates
 from .sharded import (
     sharded_bell202_demod,
     sharded_fft_filter,
@@ -40,6 +40,9 @@ __all__ = [
     "init_distributed",
     "make_mesh",
     "pfb_channelize",
+    "pipeline_chain",
+    "pipeline_run",
+    "pipeline_run_rates",
     "sharded_bell202_demod",
     "sharded_channelizer_fm",
     "sharded_fft_filter",

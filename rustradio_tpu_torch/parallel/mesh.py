@@ -84,11 +84,13 @@ def make_mesh(n_devices: int | None = None, axis: str = "time",
     By default each process takes its first CUDA devices, one shard each
     (on one host, process r its r-th group of them); ``device="cpu"`` or
     ``device="cuda:0"`` puts all of a process's shards on that one device.
-    Without CUDA and without ``device=`` it raises: a mesh never lands on
-    the CPU unasked.
+    Without CUDA, without ``device=`` or with a CUDA ``device=``, it
+    raises: a mesh never lands on the CPU unasked.
     """
     world, rank = _world()
     if device is not None:
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise ValueError(f"make_mesh(device={device!r}): no CUDA device here")
         n = world if n_devices is None else n_devices
         if n % world:
             raise ValueError(f"{n} shards do not divide over {world} processes")

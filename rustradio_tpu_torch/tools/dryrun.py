@@ -4,13 +4,15 @@
 ``dryrun_multichip(n, device=None)`` runs the sharded ops on an n-shard
 mesh and holds each against the single-device offline chain: the sharded
 FM chain, the 256-channel channelizer bank, the AX.25 1200 bd front-end
-with its decode, the IQ front-end through a rate changer in one shard
-chain, and the channel-sharded clock recovery (scan and events).
+with its decode, a rate-changing two-stage pipeline, the channel-sharded
+clock recovery (scan and events), the AX.25 receiver built from blocks on
+the mesh (``Graph.run`` and ``run_stream(mesh=)``), and the IQ front-end
+through a rate changer as one mesh segment of a Graph.
 ``dryrun_multihost(n_processes, devices_per_process)`` starts gloo CPU
 processes with ``subprocess`` (CUDA hidden from them, so gloo) and runs
 the sharded FM chain and quadrature demod on one mesh across them, halos
-crossing the process boundaries.  The JAX form's stage
-pipeline and Graph-on-a-mesh checks come with those modules.
+crossing the process boundaries, and a ``pipeline_run_rates`` of one
+stage a process, the chunks handed across the boundaries.
 
     python -m rustradio_tpu_torch.tools.dryrun [n_devices] [--device cpu]
     python -m rustradio_tpu_torch.tools.dryrun --multihost
@@ -75,17 +77,18 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     a line a check and returns ``{"ok": True, ...}``; a failed check
     raises AssertionError."""
     from rustradio_tpu_torch import blocks, ops, taps as tg
-    from rustradio_tpu_torch.models.ax25 import ax25_1200_rx
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.models.ax25 import ax25_1200_rx, ax25_1200_rx_graph
     from rustradio_tpu_torch.models.multichannel import recover_symbols_batch
     from rustradio_tpu_torch.parallel import (
         channelizer_taps,
         make_mesh,
+        pipeline_run_rates,
         sharded_bell202_demod,
         sharded_channelizer_fm,
         sharded_fm_demod,
         sharded_symbol_sync_bank,
     )
-    from rustradio_tpu_torch.parallel.graph_mesh import shard_chain
 
     mesh = make_mesh(n_devices, device=device)
     dev = mesh.devices[0]
@@ -130,33 +133,25 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     print(f"dryrun_multichip({n_devices}): AX.25 receiver OK, {len(got)} packets "
           "decoded on the mesh == single-device")
 
-    # the IQ front-end THROUGH a rate changer as one shard chain:
-    # FftFilter -> RationalResampler -> QuadratureDemod (reference
-    # examples/ax25-1200-rx.rs:163-188)
-    fs_iq, new_rate = 96_000.0, 48_000.0
-    up = np.repeat(np.concatenate([_afsk(p, fs) for p in payloads]), int(fs_iq / fs))
-    phase = np.cumsum(2 * np.pi * 3000.0 * up / fs_iq)
-    iq = (np.cos(phase) + 1j * np.sin(phase)).astype(np.complex64)
-    iq = np.concatenate([iq, np.zeros((-len(iq)) % (n_devices * 1024), np.complex64)])
-    iq_t = torch.from_numpy(iq).to(dev)
+    # a stage-per-device pipeline with rate-changing stages: decimating
+    # filter -> FM demod on 2 shards (the reference's thread-per-block
+    # MTGraph)
+    pmesh = make_mesh(2, axis="stage", device=device)
 
-    def front():
-        return [blocks.FftFilter(tg.low_pass_complex(fs_iq, 8_000.0, 2_000.0,
-                                                     "hamming")),
-                blocks.RationalResampler(int(new_rate), int(fs_iq)),
-                blocks.QuadratureDemod(float(fs_iq / (2 * np.pi * 3000.0)))]
+    def filt_deci(v):
+        return v.reshape(-1, 4).mean(1)
 
-    fm_mesh = shard_chain(front(), mesh)(iq_t)
-    y = iq_t
-    for b in front():
-        y = b.apply(y)
-    m = min(fm_mesh.shape[0], y.shape[0])
-    assert m >= y.shape[0] - 1, (fm_mesh.shape, y.shape)
-    pk_mesh = [bytes(p) for p in ax25_1200_rx(fm_mesh[:m], new_rate)]
-    pk_single = [bytes(p) for p in ax25_1200_rx(y[:m], new_rate)]
-    assert pk_mesh == payloads and pk_single == payloads, (pk_mesh, pk_single)
-    print(f"dryrun_multichip({n_devices}): IQ front-end with rate changer "
-          f"sharded as one chain, {len(pk_mesh)} packets == single-device")
+    def pdemod(v):
+        return ops.quadrature_demod(v, 1.0).to(torch.complex64)
+
+    pchunks = torch.from_numpy((rng.randn(4, 2048) + 1j * rng.randn(4, 2048))
+                               .astype(np.complex64)).to(dev)
+    pout = pipeline_run_rates([(filt_deci, 2048, 512), (pdemod, 512, 511)],
+                              pchunks, pmesh)
+    for i in range(4):
+        _close(pout[i], pdemod(filt_deci(pchunks[i])), 1e-5, f"pipeline chunk {i}")
+    print(f"dryrun_multichip({n_devices}): rate-changing stage pipeline OK, "
+          f"{tuple(pout.shape)} chunks through 2 stages")
 
     # the channel-sharded clock recovery == the single-device bank
     c, nbits, spsb = 2 * n_devices, 40, 10
@@ -175,6 +170,51 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
         _close(ve[k][me[k]], vs[k][ms[k]], 1e-5, f"events bank channel {k}")
     print(f"dryrun_multichip({n_devices}): channel-sharded EVENTS bank OK, "
           f"{c} channels == scan method")
+
+    # the receiver built from blocks on the mesh: the dense front-end one
+    # mesh segment, the clock recovery and the tail unsharded, offline and
+    # streamed in halves
+    gp = ax25_1200_rx_graph(audio_t, fs, mesh)
+    assert gp == payloads, gp
+    gs = ax25_1200_rx_graph(audio_t, fs, mesh, chunk_size=len(audio) // 2)
+    assert gs == payloads, gs
+    print(f"dryrun_multichip({n_devices}): Graph-built AX.25 receiver OK, "
+          f"{len(gp)} packets on the mesh == single-device (offline + streaming)")
+
+    # the IQ front-end THROUGH a rate changer as ONE mesh segment of a
+    # Graph: FftFilter -> RationalResampler -> QuadratureDemod (reference
+    # examples/ax25-1200-rx.rs:163-188), no split at the rate changer
+    fs_iq, new_rate = 96_000.0, 48_000.0
+    up = np.repeat(np.concatenate([_afsk(p, fs) for p in payloads]), int(fs_iq / fs))
+    phase = np.cumsum(2 * np.pi * 3000.0 * up / fs_iq)
+    iq = (np.cos(phase) + 1j * np.sin(phase)).astype(np.complex64)
+    iq = np.concatenate([iq, np.zeros((-len(iq)) % (n_devices * 1024), np.complex64)])
+    iq_t = torch.from_numpy(iq).to(dev)
+
+    def front(mesh_):
+        g = Graph()
+        s = blocks.VectorSink()
+        g.chain(blocks.VectorSource(iq_t),
+                blocks.FftFilter(tg.low_pass_complex(fs_iq, 8_000.0, 2_000.0,
+                                                     "hamming")),
+                blocks.RationalResampler(int(new_rate), int(fs_iq)),
+                blocks.QuadratureDemod(float(fs_iq / (2 * np.pi * 3000.0))), s)
+        if mesh_ is not None:
+            segs, _, plans = g._segments_mesh(mesh_, "time")
+            assert len(plans) == 1 and len(segs[next(iter(plans))]) == 3, (
+                "IQ front-end did not shard as one segment")
+        g.run(device=dev, mesh=mesh_)
+        assert g.demotions == [], g.demotions
+        return torch.from_numpy(s.data())
+
+    fm_mesh, fm_single = front(mesh), front(None)
+    assert fm_mesh.shape == fm_single.shape, (fm_mesh.shape, fm_single.shape)
+    pk_mesh = [bytes(p) for p in ax25_1200_rx(fm_mesh.to(dev), new_rate)]
+    pk_single = [bytes(p) for p in ax25_1200_rx(fm_single.to(dev), new_rate)]
+    assert pk_mesh == payloads and pk_single == payloads, (pk_mesh, pk_single)
+    print(f"dryrun_multichip({n_devices}): IQ front-end with rate changer "
+          f"sharded as ONE mesh segment, {len(pk_mesh)} packets == single-device")
+
     return {"ok": True, "devices": n_devices, "fm_outputs": int(out.shape[0]),
             "packets": len(got)}
 
@@ -185,9 +225,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from rustradio_tpu_torch import ops
+from rustradio_tpu_torch import blocks, ops
+from rustradio_tpu_torch.parallel.graph_mesh import chain_segment
 from rustradio_tpu_torch.parallel import (
-    init_distributed, make_mesh, sharded_fm_demod, sharded_quadrature_demod)
+    init_distributed, make_mesh, pipeline_run_rates, sharded_fm_demod,
+    sharded_quadrature_demod)
 from rustradio_tpu_torch.tools.dryrun import DECI, _fm_taps
 
 coord, nproc, pid, per = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
@@ -201,19 +243,48 @@ n = mesh.shape["time"] * 4096
 rng = np.random.RandomState(0)
 host_x = torch.from_numpy((rng.randn(n) + 1j * rng.randn(n)).astype(np.complex64))
 out = sharded_fm_demod(host_x, lp, mesh, deci=DECI, gain=1.0)
-# every process's part, tiled (process_allgather(tiled=True)); the parts
-# differ in length (the stream-start drop is on process 0's)
-lens = [torch.zeros(1, dtype=torch.int64) for _ in range(nproc)]
-dist.all_gather(lens, torch.tensor([out.shape[0]]))
-size = max(int(v) for v in lens)
-parts = [torch.zeros(size) for _ in range(nproc)]
-dist.all_gather(parts, torch.cat([out, out.new_zeros(size - out.shape[0])]))
-got = torch.cat([p[: int(v)] for p, v in zip(parts, lens)])
+
+
+def gathered(part):
+    # every process's part, tiled (process_allgather(tiled=True)); the
+    # parts may differ in length (the stream-start drop is on process 0's)
+    lens = [torch.zeros(1, dtype=torch.int64) for _ in range(nproc)]
+    dist.all_gather(lens, torch.tensor([part.shape[0]]))
+    size = max(int(v) for v in lens)
+    parts = [torch.zeros(size) for _ in range(nproc)]
+    dist.all_gather(parts, torch.cat([part, part.new_zeros(size - part.shape[0])]))
+    return torch.cat([p[: int(v)] for p, v in zip(parts, lens)])
+
+
+got = gathered(out)
+# the same chain streamed in two chunks through MeshSegment.run_chunk: the
+# tails the last process holds carry to the next chunk's global shard 0
+ms = chain_segment([blocks.FirFilter(lp, DECI), blocks.QuadratureDemod(1.0)], mesh)
+carries = ms.init_carries(host_x)
+streamed = []
+for c in (0, n // 2):
+    carries, (o,), _ = ms.run_chunk(carries, host_x[c:c + n // 2], c)
+    streamed.append(gathered(o))
+assert torch.equal(torch.cat(streamed), got[: sum(t.shape[0] for t in streamed)])
 # the right-hand halo: every process's parts are of one length
 q = sharded_quadrature_demod(host_x, 1.0, mesh)
 q_parts = [torch.zeros_like(q) for _ in range(nproc)]
 dist.all_gather(q_parts, q)
 q_got = torch.cat(q_parts)
+# a stage-per-process pipeline: decimate by 4, the demod, then gains; the
+# chunks cross every process boundary, and every process gets the outputs
+stages = [(lambda v: v.reshape(-1, 4).mean(1), 2048, 512),
+          (lambda v: ops.quadrature_demod(v, 1.0).to(torch.complex64), 512, 511)]
+stages += [(lambda v: v * 0.5, 511, 511)] * (nproc - 2)
+chunks = torch.from_numpy((rng.randn(4, 2048) + 1j * rng.randn(4, 2048))
+                          .astype(np.complex64))
+p_got = pipeline_run_rates(stages, chunks, make_mesh(nproc, axis="stage",
+                                                     device="cpu"))
+for i in range(4):
+    y = chunks[i]
+    for fn, _, _ in stages:
+        y = fn(y)
+    assert p_got.shape == (4, 511) and float((p_got[i] - y).abs().max()) <= 1e-5
 if pid == 0:
     want = ops.quadrature_demod(ops.fir_filter(host_x, lp, DECI), 1.0)
     m = min(want.shape[0], got.shape[0])
@@ -230,12 +301,15 @@ dist.destroy_process_group()
 def dryrun_multihost(n_processes: int = 2, devices_per_process: int = 4,
                      port: int = 29511) -> dict:
     """``n_processes`` gloo CPU processes × ``devices_per_process`` shards
-    each: the sharded FM chain (left halos) and the sharded quadrature
-    demod (right halos) run over one mesh spanning (process, shard) with
-    the time axis crossing the process boundaries, validated without a
-    second host; with three processes or more a middle process both sends
-    and receives.  Returns {"ok": bool, "processes", "devices",
-    "halo_bytes"} (or "error")."""
+    each: the sharded FM chain (left halos; also streamed in two chunks
+    through ``MeshSegment.run_chunk``, its carries sent from the last
+    process) and the sharded quadrature demod (right halos) run over one
+    mesh spanning (process, shard) with the time axis crossing the
+    process boundaries, validated without a second host; with three processes or more a middle process both sends
+    and receives; and ``pipeline_run_rates`` with one stage a process
+    (decimate by 4, the demod, then gains), every process holding the
+    outputs against the composition.  Returns {"ok": bool, "processes",
+    "devices", "halo_bytes"} (or "error")."""
     coord = f"127.0.0.1:{port}"
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.pathsep.join(
@@ -274,7 +348,8 @@ def dryrun_multihost(n_processes: int = 2, devices_per_process: int = 4,
     nproc, ndev, halo = line.strip().split()[-3:]
     print(f"dryrun_multihost: OK — {nproc} processes x "
           f"{int(ndev)//int(nproc)} devices, sharded FM chain == "
-          f"single-device, {halo} halo bytes/boundary")
+          f"single-device, {halo} halo bytes/boundary; a {nproc}-stage "
+          f"pipeline across the processes == the composition")
     return {"ok": True, "processes": int(nproc), "devices": int(ndev),
             "halo_bytes": int(halo)}
 

@@ -216,3 +216,28 @@ def test_torch_chip_smoke_mesh_phase_rehearses_on_the_cpu(monkeypatch, capsys):
             "sharded_quadrature_demod", "sharded_symbol_sync_bank scan",
             "sharded_symbol_sync_bank events", "sharded_channelizer_fm",
             "sharded_bell202_demod"} <= set(counts)
+
+
+def test_torch_chip_smoke_mesh_stream_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 16 at small sizes on 8 shards on the CPU, the plain versions:
+    # the corpus through ax25_1200_rx_graph on the mesh (both syncs, per
+    # chunk, batched, across a checkpoint; the ragged last chunk demoted
+    # once), the holds, and the FM chain streamed on the mesh; the exact
+    # launch counts and the bit equality with shard_chain need the card
+    from rustradio_tpu_torch.ops import hdlc
+
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(cs, "require", lambda *a: None)
+    sizes = cs.MeshStreamSizes(shards=8, chunk=1 << 13, scan=3, resume_after=2,
+                               frames=2, frame_gate=2, fm_chunk=1 << 12,
+                               fm_chunks=5, fm_scan=4, reps=1)
+    audio = torch.from_numpy(cs.audio_corpus(hdlc, sizes.frames))
+    assert audio.shape[0] % sizes.chunk % 8  # a ragged last chunk
+    counts, errs = cs.mesh_stream_phase(torch.device("cpu"), "cpu rehearsal",
+                                        sizes, audio)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    for phase in ("16 mesh ax25", "16 mesh fm"):
+        assert f"[{phase}] passed" in out
+    assert errs == {"fir_decimate": 0.0, "symbol_sync_events": 0.0}
+    assert "the front-end demoted at chunks [" in out and "fm mesh batched" in set(counts)

@@ -216,6 +216,22 @@ assert rr.parse_verbosity("info") == 2 and rr.Complex is torch.complex64
 assert taps.multiband([(0.0, 0.2)], 64, windows.hamming(64)).dtype == np.complex64
 f, r = ops.hdlc_bit_hunt(torch.tensor([0, 1, 1, 1, 1, 1, 1, 0], dtype=torch.uint8))
 assert f.tolist()[-1] and r.tolist()[-2] == 6
+# the streaming half: a Graph streamed on the mesh (a ragged last chunk
+# demotes its segment) against the unsharded stream, and a stage pipeline
+from rustradio_tpu_torch.graph import Graph
+from rustradio_tpu_torch.parallel import pipeline_run_rates
+def stream(mesh_):
+    g, s = Graph(), blocks.VectorSink()
+    g.chain(blocks.VectorSource(x), blocks.FirFilter(lp, 4),
+            blocks.QuadratureDemod(1.0), s)
+    g.run_stream(chunk_size=1024, device="cpu", mesh=mesh_)
+    return s.data(), g.demotions
+(a, d), (b, _) = stream(mesh), stream(None)
+assert a.shape == b.shape and np.abs(a - b).max() < 1e-5 and d == []
+p = pipeline_run_rates([(lambda v: v.reshape(-1, 4).mean(1), 64, 16),
+                        (lambda v: v * 2, 16, 16)],
+                       x[:256].reshape(4, 64), make_mesh(2, axis="stage", device="cpu"))
+assert torch.equal(p, x[:256].reshape(64, 4).mean(1).reshape(4, 16) * 2)
 print("ok")
 """
 
@@ -251,7 +267,8 @@ def test_torch_port_never_imports_jax():
                  "ops.cma", "blocks.io_blocks", "runtime", "io.data_stream",
                  "io.websocket", "ui", "ui.server", "apps.rtl_data_stream",
                  "apps.ui_server", "parallel", "parallel.mesh", "parallel.halo",
-                 "parallel.sharded", "parallel.graph_mesh", "tools.dryrun"):
+                 "parallel.sharded", "parallel.graph_mesh", "parallel.pipeline",
+                 "tools.dryrun"):
         assert f"rustradio_tpu_torch.{name}" in out
 
 

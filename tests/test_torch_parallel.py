@@ -366,4 +366,4 @@ def test_torch_dryrun_multichip_on_cpu_shards(capsys):
     res = dryrun_multichip(4, device="cpu")
     assert res == {"ok": True, "devices": 4, "fm_outputs": 4083, "packets": 2}
     out = capsys.readouterr().out
-    assert out.count("dryrun_multichip(4)") == 6
+    assert out.count("dryrun_multichip(4)") == 8
