@@ -107,7 +107,15 @@ just after, so that each shows it went through its kernels:
   no other, kernel A and D held on the events run's own calls; phase 13's
   FM chain streamed on the mesh per chunk and batched, bit-equal to
   ``shard_chain`` over the whole stream and within kernel B's budget of
-  the unsharded stream; walls beside the unsharded runs.
+  the unsharded stream; walls beside the unsharded runs;
+* 2-D meshes (``mesh2d_phase``, phase 17): ``make_mesh_2d(2, 2)`` on the
+  card at phases 15-16's widths: the sharded FM chain over ``time``, the
+  channelizer and the decode bank (both syncs) over ``chan``, the corpus
+  streamed through the front-end and ``ax25_1200_rx_graph(mesh=)`` over
+  ``time`` (the offline list, demoted once at the ragged end); each path
+  counted, its replica lines and its 1-D mesh of the axis's size
+  bit-equal, kernels A, D and E held on its calls; walls beside the 1-D
+  meshes of 2 and 4 shards and the unsharded calls.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -137,9 +145,10 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 10 to 16 rehearse
+the last line is {"ok": true, "device": {...}}.  Phases 10 to 17 rehearse
 on the CPU at small sizes (``AppsSizes``, ``BurstSizes``, ``RadioSizes``,
-``ScanSizes``, ``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``;
+``ScanSizes``, ``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``,
+``Mesh2dSizes``;
 tests/test_torch_chip_smoke.py); phases 1-9 compare kernels with their
 plain versions, which only the card can do.
 """
@@ -785,10 +794,10 @@ def envelope_ratio(y: torch.Tensor, skip: int) -> float:
     return float(m.max() / m.min())
 
 
-def ax25_receiver(audio, sync: str, upto=None):
+def ax25_receiver(audio, sync: str, upto=None, sink=None):
     """The chain of ``ax25_1200_rx_graph`` as a Graph of its own (for a
-    checkpointed run), or its first ``upto`` blocks into a NullSink:
-    (graph, sink)."""
+    checkpointed run), or its first ``upto`` blocks into ``sink`` (a
+    NullSink by default): (graph, sink)."""
     from rustradio_tpu_torch import blocks, taps as tapgen
     from rustradio_tpu_torch.graph import Graph
 
@@ -803,7 +812,8 @@ def ax25_receiver(audio, sync: str, upto=None):
                                method=sync),
              blocks.BinarySlicer(), blocks.NrziDecode(),
              blocks.HdlcDeframer(10, 1500)]
-    sink = blocks.PduVectorSink() if upto is None else blocks.NullSink()
+    if sink is None:
+        sink = blocks.PduVectorSink() if upto is None else blocks.NullSink()
     g = Graph()
     g.chain(*chain[:upto], sink)
     return g, sink
@@ -3629,6 +3639,249 @@ def mesh_stream_phase(dev, card: str, sizes: MeshStreamSizes, audio):
     return counts, errs
 
 
+# ---- phase 17: 2-D meshes
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2dSizes:
+    """Phase 17's sizes: the defaults on the card (phases 15-16's widths);
+    a CPU rehearsal (``tests/test_torch_chip_smoke.py``) takes small ones.
+    The FM chain runs on the whole main capture given, the receiver on the
+    whole corpus given."""
+
+    n_time: int = 2
+    n_chan: int = 2
+    bank_ch: int = BANK_CH
+    bank_n: int = BANK_N
+    bank_events: int = BANK_EVENTS
+    channels: int = MESH_CHANNELS
+    chan_n: int = 1 << 22
+    chunk: int = 1 << 18
+    frames: int = N_FRAMES
+    frame_gate: int = N_FRAMES        # 1000/1000, as the unsharded graph
+    reps: int = 3
+
+
+def same(a, b) -> bool:
+    """Bit equality of two tensors, or of two sequences of them (or of
+    payloads)."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if isinstance(a, bytes):
+        return a == b
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def mesh2d_phase(dev, card: str, sizes: Mesh2dSizes, i_main, q_main, audio, want):
+    """Phase 17: a (chan, time) mesh of ``sizes.n_chan`` x ``sizes.n_time``
+    shards, all on ``dev`` (the one card), at phases 15-16's widths: the
+    main capture through the sharded FM chain over ``time``; the
+    channelizer bank and the decode bank (both syncs) over ``chan``; the
+    corpus ``audio`` streamed through the dense front-end and through
+    ``ax25_1200_rx_graph(mesh=)`` over ``time`` (native sync), the latter
+    >= the gate and the offline receiver's list ``want``, the front-end
+    demoted once at the ragged end.  Each path runs with the counts set to
+    0 just before and read just after (on the card kernels A, D and E once
+    a shard of every line: every replica line runs), every replica line's
+    output equal to the others bit for bit (``Mesh.replicas``),
+    and the output equal bit for bit to the same call on a 1-D mesh of
+    the axis's size.  Kernels A, D and E are held against their plain
+    versions on the 2-D calls' captured arguments.  On the card it times
+    each path on the 2-D mesh beside the 1-D meshes of 2 and 4 shards and
+    the unsharded call: on one card a 2-D mesh times the host loop over
+    its shards and replicas, not scaling.  Returns the launch counts of
+    each path, the largest |error| of each kernel held here, and the
+    times (empty off the card)."""
+    from rustradio_tpu_torch import ops, parallel, taps as tapgen
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.models.multichannel import recover_symbols_batch
+    from rustradio_tpu_torch.ops import kernels
+    from rustradio_tpu_torch.parallel.graph_mesh import chain_segment
+
+    on_card = dev.type == "cuda"
+    mdev = torch.device("cuda", 0) if on_card else dev
+    m2 = parallel.make_mesh_2d(sizes.n_time, sizes.n_chan, device=mdev)
+    n_sh = sizes.n_time * sizes.n_chan
+    one = {a: parallel.make_mesh(m2.shape[a], axis=a, device=mdev)
+           for a in ("time", "chan")}
+    grid = f"make_mesh_2d({sizes.n_time}, {sizes.n_chan})"
+    counts, errs, times = {}, {}, {}
+
+    def run(name, axis, fn, needs):
+        """``fn(m2)`` with the counts set to 0 just before and read just
+        after (on the card each kernel of ``needs`` launched exactly its
+        count); every replica line along ``axis`` equal bit for bit; then
+        ``fn`` on the 1-D mesh of the axis's size, equal bit for bit.
+        Returns the 2-D output."""
+        zero_counts()
+        with m2.replicas() as seen:
+            out = fn(m2)
+        sync()
+        counts[name] = c = dict(kernels.LAUNCHES)
+        require(name, c, needs)
+        for k, n in needs.items():
+            if on_card and c[k] != n:
+                failures.append(f"{name}: kernel {k} launched {c[k]} times, not {n}")
+        n_lines = n_sh // m2.shape[axis]
+        agree = bool(seen) and all(len(e) == n_lines and all(same(t, e[0]) for t in e)
+                                   for e in seen)
+        equal = same(out, fn(one[axis]))
+        print(f"[17 mesh2d] {name} over {axis} of {grid}: launches {json.dumps(c)}; "
+              f"{len(seen)} records of {n_lines} replica lines, all lines bit-equal: "
+              f"{agree}; bit-equal to the 1-D mesh of {m2.shape[axis]} shards: "
+              f"{equal}; card: {card}")
+        if not (agree and equal):
+            failures.append(f"{name}: replica lines differ, or not the 1-D mesh's")
+        return out
+
+    # the FM chain over time: kernel A once a shard of both lines
+    iq = torch.complex(i_main, q_main)
+    n = iq.shape[0]
+    lp = tapgen.low_pass_complex(FS_RTL, 100_000.0, 50_000.0, "hamming")
+    y = run("sharded_fm_demod", "time",
+            lambda m: parallel.sharded_fm_demod(iq, lp, m, deci=DECI),
+            {"fir_decimate": n_sh})
+    filt = ops.fir_filter(iq, lp, DECI)
+    want_fm = ops.quadrature_demod(filt, 1.0)
+    k = min(y.shape[0], want_fm.shape[0])
+    if k < want_fm.shape[0] - 1:
+        failures.append("mesh2d sharded_fm_demod: short of the offline chain")
+    report("17 mesh2d", f"sharded_fm_demod over time of {grid}, 2^{n.bit_length() - 1} "
+           f"samples, 49 taps deci 4: {k} outputs vs the offline chain",
+           wrapped_err(y[:k], want_fm[:k], 1.0), 2 * 2e-5 * envelope_ratio(filt, 0))
+    del y, filt, want_fm
+    with capturing("fir_decimate") as calls:
+        parallel.sharded_fm_demod(iq, lp, m2, deci=DECI)
+    errs["fir_decimate"] = hold_fir_calls(
+        "17 mesh2d", f"sharded_fm_demod over time of {grid}", calls["fir_decimate"])
+    del calls
+
+    # the channelizer bank over chan: each line's front half, its channels split
+    ctaps = parallel.channelizer_taps(sizes.channels)
+    xw = iq[: sizes.chan_n]
+    got = run("sharded_channelizer_fm", "chan", lambda m: parallel.sharded_channelizer_fm(
+        xw, ctaps, sizes.channels, m), {})
+    report("17 mesh2d", f"sharded_channelizer_fm over chan of {grid}, {sizes.channels} "
+           f"channels of {sizes.chan_n} samples vs channelizer_fm_bank",
+           max_err(got, parallel.channelizer_fm_bank(xw, ctaps, sizes.channels)), 1e-5)
+    del got
+
+    # the decode bank over chan: kernels E and D once a shard of both lines
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    bank = decode_bank(dev, gen, sizes.bank_ch, sizes.bank_n)
+    for method, kernel in (("scan", "symbol_sync_scan"),
+                           ("events", "symbol_sync_events")):
+        kw = dict(method=method, max_events=sizes.bank_events, return_valid=True)
+        got = run(f"sharded_symbol_sync_bank {method}", "chan",
+                  lambda m: parallel.sharded_symbol_sync_bank(bank, BANK_SPS, m, **kw),
+                  {kernel: n_sh})
+        err = max(max_err(a.float(), b.float()) for a, b in zip(
+            got, recover_symbols_batch(bank, BANK_SPS, **kw)))
+        report("17 mesh2d", f"sharded_symbol_sync_bank {method} over chan of {grid}, "
+               f"{sizes.bank_ch} x {sizes.bank_n} vs the unsharded call", err, 0.0)
+    with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
+        for method in ("scan", "events"):
+            parallel.sharded_symbol_sync_bank(bank, BANK_SPS, m2, method=method,
+                                              max_events=sizes.bank_events)
+    errs["symbol_sync_scan"] = hold_scan_calls(
+        "17 mesh2d", f"sharded_symbol_sync_bank scan over chan of {grid}",
+        calls["symbol_sync_scan"], window=1 << 12)
+    errs["symbol_sync_events"] = hold_events_calls(
+        "17 mesh2d", f"sharded_symbol_sync_bank events over chan of {grid}",
+        calls["symbol_sync_events_scan"])
+    del got, calls
+    end_phase("17 mesh2d one shot")
+
+    # the corpus streamed over time: the dense front-end's stream, then the
+    # whole receiver (native sync)
+    audio = torch.as_tensor(audio).to(mdev)
+    n_a = audio.shape[0]
+    chunks = -(-n_a // sizes.chunk)
+    front_nodes = ax25_receiver(audio, "native", 6)[0].nodes[1:6]
+    front = chain_segment([nd.block for nd in front_nodes], m2)
+    last = n_a - (chunks - 1) * sizes.chunk
+    want_dem = ([chunks - 1] if last % (m2.shape["time"] * front.div)
+                or last < front.min_chunk else [])
+    want_a = 3 * n_sh * (chunks - len(want_dem)) + 3 * len(want_dem)
+
+    def front_stream(m):
+        g, sink = ax25_receiver(audio, "native", 6, batch_sink())
+        g.run_stream(chunk_size=sizes.chunk, device=mdev, mesh=m)
+        return sink.data(), [d["chunk"] for d in g.demotions]
+
+    dem = {}
+
+    def front_data(m):
+        data, dem[m.grid] = front_stream(m)
+        return data
+
+    front_out = run("ax25 front-end streamed", "time", front_data, {"fir_decimate": want_a})
+    if dem[m2.grid] != want_dem or dem[(m2.shape["time"],)] != want_dem:
+        failures.append(f"mesh2d front-end: demoted at {dem}, want {want_dem}")
+    plain = front_stream(None)[0]
+    unequal = int((front_out != plain).sum()) if front_out.shape == plain.shape else -1
+    print(f"[17 mesh2d] the front-end over time of {grid}: {front_out.shape[0]} outputs "
+          f"in {chunks} chunks of {sizes.chunk}, demoted at chunks {dem[m2.grid]} "
+          f"(want {want_dem}); {unequal} not bit-equal to the unsharded stream; "
+          f"card: {card}")
+    del plain
+
+    def receiver(m):
+        got_l, g = graph_of(lambda: decoded(ax25.ax25_1200_rx_graph(
+            audio, FS_AUDIO, m, chunk_size=sizes.chunk), sizes.frames))
+        dem[m.grid] = [d["chunk"] for d in g.demotions
+                       if d["segment"] == Graph._unit_name(front_nodes)]
+        return got_l
+
+    got_l = run("ax25_1200_rx_graph", "time", receiver, {"fir_decimate": want_a})
+    print(f"[17 mesh2d] ax25_1200_rx_graph over time of {grid}, chunks of {sizes.chunk}: "
+          f"{len(set(got_l))}/{sizes.frames} decoded, the offline receiver's list: "
+          f"{got_l == want}; the front-end demoted at chunks {dem[m2.grid]}; card: {card}")
+    if len(set(got_l)) < sizes.frame_gate or got_l != want or dem[m2.grid] != want_dem:
+        failures.append(f"mesh2d receiver: {len(set(got_l))} frames, another list, or "
+                        f"demoted at {dem[m2.grid]}")
+    end_phase("17 mesh2d streamed")
+
+    if on_card:
+        wide = {a: parallel.make_mesh(MESH_SHARDS, axis=a, device=mdev)
+                for a in ("time", "chan")}
+        cases = (
+            ("sharded_fm_demod", "time",
+             lambda m: parallel.sharded_fm_demod(iq, lp, m, deci=DECI),
+             lambda: ops.quadrature_demod(ops.fir_filter(iq, lp, DECI), 1.0)),
+            ("sharded_channelizer_fm", "chan",
+             lambda m: parallel.sharded_channelizer_fm(xw, ctaps, sizes.channels, m),
+             lambda: parallel.channelizer_fm_bank(xw, ctaps, sizes.channels)),
+        ) + tuple(
+            (f"sharded_symbol_sync_bank {method}", "chan",
+             lambda m, method=method: parallel.sharded_symbol_sync_bank(
+                 bank, BANK_SPS, m, method=method, max_events=sizes.bank_events),
+             lambda method=method: recover_symbols_batch(
+                 bank, BANK_SPS, method=method, max_events=sizes.bank_events))
+            for method in ("scan", "events"))
+        for name, axis, sharded, single in cases:
+            t = {"2-D": time_one(lambda: sharded(m2)),
+                 f"1-D {m2.shape[axis]}": time_one(lambda: sharded(one[axis])),
+                 f"1-D {MESH_SHARDS}": time_one(lambda: sharded(wide[axis])),
+                 "unsharded": time_one(single)}
+            times[name] = t
+            print(f"[17 times] {name} over {axis}: ms a call (CUDA events, median of 5 "
+                  "timings of 10 calls): " + "; ".join(f"{k} {v:.4f}" for k, v in t.items())
+                  + f"; card: {card}")
+        t = {}
+        for label, m in (("2-D", m2), ("1-D 2", one["time"]),
+                         (f"1-D {MESH_SHARDS}", wide["time"]), ("unsharded", None)):
+            secs, _ = wall(lambda: ax25_receiver(audio, "native", 6)[0].run_stream(
+                chunk_size=sizes.chunk, device=mdev, mesh=m), sizes.reps)
+            t[label] = secs * 1e6 / chunks
+        times["ax25 front-end streamed, us a chunk"] = t
+        print(f"[17 times] the AX.25 front-end streamed in {chunks} chunks of "
+              f"{sizes.chunk}, us a chunk (wall, median of {sizes.reps}): "
+              + "; ".join(f"{k} {v:.0f}" for k, v in t.items()) + f"; card: {card}")
+        end_phase("17 times")
+    return counts, errs, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -4616,6 +4869,13 @@ def main() -> int:
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"16 {k}": v for k, v in stream_counts.items()})
+
+    # ---- 17. 2-D meshes: a (chan, time) mesh of 2 x 2 shards on the card, counted
+    mesh2d_counts, call_errs, _ = mesh2d_phase(dev, card, Mesh2dSizes(), i_main,
+                                               q_main, audio, got)
+    for name, err in call_errs.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    apps.update({f"17 {k}": v for k, v in mesh2d_counts.items()})
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))

@@ -28,8 +28,10 @@ class ShardCtx:
     """Position context the mesh runner hands a block's shard fn.
 
     ``g_in``/``g_out`` — global input/output index of the local window's
-    first sample; ``k`` — the shard's global index along the mesh axis
-    (Python ints: the shards are driven from one host loop, so the
+    first sample; ``k`` — the shard's coordinate along the sharded mesh
+    axis, the same on every line of a mesh of several axes, so a block
+    sees on a line of a (chan, time) mesh the positions of a 1-D mesh of
+    that axis's size (Python ints: the shards are driven from one host loop, so the
     positions are exact int64 values, not traced int32 scalars);
     ``aux`` — this chunk's host-computed scalar from ``ShardFn.prep``,
     None when the block declares no prep.

@@ -34,8 +34,8 @@ for ``generate_stats()`` and ``costs()``.
 ``run`` and ``run_stream`` take ``mesh=`` (a ``parallel.Mesh`` of this
 process's devices, its first one ``device``): every maximal run of device
 blocks that declare a shard plan runs as one ``parallel.graph_mesh.
-MeshSegment`` with the sample axis sharded over ``shard_axis``, the
-filter histories crossing shards as halos and chunks as carried tails, so
+MeshSegment`` with the sample axis sharded over ``shard_axis`` (one named
+axis of a 1-D or a (chan, time) mesh), the filter histories crossing shards as halos and chunks as carried tails, so
 the outputs are the unsharded runner's (the reference swaps ``Graph`` for
 ``MTGraph``, src/mtgraph.rs:73-149).  A chunk that does not fit the mesh
 (a ragged last chunk, one shorter than the halos) demotes its segment to
@@ -651,9 +651,11 @@ class Graph:
     def _layout(self, mesh, shard_axis: str, device):
         """(segs, seg_member, mesh plans) of a run: the mesh segmentation
         when ``mesh`` is given, else the plain one with no plans.  A mesh
-        must be this process's and start at ``device``."""
+        must be this process's, have an axis ``shard_axis`` and start (its
+        first device in grid order) at ``device``."""
         if mesh is None:
             return self._segments(), self._seg_member, {}
+        mesh.axis_index(shard_axis)
         if mesh.world > 1:
             raise ValueError("the Graph runners take a mesh of one process's "
                              "devices; a mesh across processes runs "
@@ -880,10 +882,13 @@ class Graph:
         run was cancelled; then every block's ``finish()`` runs.
         ``profile_dir`` writes a ``torch.profiler`` trace there.
 
-        ``mesh``: a 1-D ``parallel.Mesh`` whose first device is ``device``
+        ``mesh``: a ``parallel.Mesh`` whose first device is ``device``
         (else ValueError) — each run of device blocks that declare shard
         plans executes as one mesh segment with the sample axis sharded
-        over ``shard_axis``; the outputs are the single-device run's.  A
+        over ``shard_axis`` (on a (chan, time) mesh, on every line along
+        that axis, replicated along the other: the run on a 1-D mesh of
+        ``mesh.shape[shard_axis]`` shards; an axis the mesh lacks raises);
+        the outputs are the single-device run's.  A
         stream shorter than a segment's halos runs that segment unsharded
         (recorded in ``demotions``)."""
         device = target_device(device, "Graph.run")

@@ -251,7 +251,8 @@ def ax25_1200_rx_graph(
     PduVectorSink.  ``chunk_size`` selects ``Graph.run_stream`` (batched
     with ``scan_chunks``: the front-end segment one CUDA-graph replay a
     batch on the card), else ``Graph.run``.  ``mesh=`` (a
-    ``parallel.Mesh`` starting on the audio's device) is the reference's
+    ``parallel.Mesh`` starting on the audio's device; on a (chan, time)
+    mesh the front-end shards over ``time``) is the reference's
     ``MTGraph`` flag (examples/ax25-1200-rx.rs:209-213): the dense
     front-end runs as one mesh segment with the sample axis sharded,
     offline or streamed (a ragged last chunk demotes it), under

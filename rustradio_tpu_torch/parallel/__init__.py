@@ -10,7 +10,9 @@ plus TCP (SURVEY §2.7).  Here the *time axis* of a stream is sharded over
 a :class:`Mesh` of devices (several shards may share one device), and
 filter history becomes a left-halo exchange between neighbouring shards:
 a peer or device-local copy, and ``torch.distributed`` point-to-point
-between processes.  ``make_mesh_2d`` is not ported (nothing uses it).
+between processes.  ``make_mesh_2d`` builds a (chan, time) mesh: every
+function that takes a mesh takes one of its axis names and runs on each
+line of the mesh along that axis, replicated along the other.
 """
 
 from .channelizer import (
@@ -20,7 +22,13 @@ from .channelizer import (
     sharded_channelizer_fm,
 )
 from .halo import halo_exchange_left, halo_exchange_right
-from .mesh import Mesh, init_distributed, make_mesh, time_axis_spec
+from .mesh import (
+    Mesh,
+    init_distributed,
+    make_mesh,
+    make_mesh_2d,
+    time_axis_spec,
+)
 from .pipeline import pipeline_chain, pipeline_run, pipeline_run_rates
 from .sharded import (
     sharded_bell202_demod,
@@ -39,6 +47,7 @@ __all__ = [
     "halo_exchange_right",
     "init_distributed",
     "make_mesh",
+    "make_mesh_2d",
     "pfb_channelize",
     "pipeline_chain",
     "pipeline_run",

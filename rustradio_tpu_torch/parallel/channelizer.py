@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .mesh import on_device
+from .mesh import gather_lines, on_device
 
 
 def channelizer_taps(n_channels: int, taps_per_branch: int = 8,
@@ -82,21 +82,28 @@ def channelizer_fm_bank(x, taps, n_channels: int, gain: float = 1.0,
 
 def sharded_channelizer_fm(x, taps, n_channels: int, mesh, gain: float = 1.0,
                            axis: str = "chan") -> torch.Tensor:
-    """Channel-sharded FM bank: the PFB front half runs once on the mesh's
-    first device; the channelized matrix's columns are split over the
-    shards, each shard demodulates its channels on its device, and the
-    (nframes - 1, n_channels) result is gathered on the first device."""
+    """Channel-sharded FM bank: on each line of the mesh along ``axis``
+    (one line on a 1-D mesh; on a (chan, time) mesh one per time index,
+    the front half replicated over ``time``) the PFB front half runs once
+    on the line's first device; the channelized matrix's columns are
+    split over the line's shards, each shard demodulates its channels on
+    its device, and the (nframes - 1, n_channels) result of the line
+    through the mesh's first device is gathered there."""
     n_sh = mesh.shape[axis]
     if n_channels % n_sh or mesh.world > 1:
         raise ValueError(f"{n_channels} channels over {n_sh} shards of one "
                          "process")
-    ch = pfb_channelize(x, taps, n_channels, mesh.devices[0])
     w = n_channels // n_sh
     g = float(np.float32(gain))
-    out = []
-    for k, dev in enumerate(mesh.devices):
-        block = ch[:, k * w:(k + 1) * w].to(dev)
-        with on_device(dev):
-            d = torch.conj(block[:-1]) * block[1:]
-            out.append(g * torch.atan2(d.imag, d.real))
-    return torch.cat([o.to(mesh.devices[0]) for o in out], 1)
+    parts = [None] * mesh.local
+    for line in mesh.lines(axis):
+        d0 = mesh.devices[line.local[0]]
+        ch = pfb_channelize(x.to(d0) if torch.is_tensor(x) else x, taps,
+                            n_channels, d0)
+        for j, k in zip(line.local, line.ks):
+            dev = mesh.devices[j]
+            block = ch[:, k * w:(k + 1) * w].to(dev)
+            with on_device(dev):
+                d = torch.conj(block[:-1]) * block[1:]
+                parts[j] = g * torch.atan2(d.imag, d.real)
+    return gather_lines(parts, mesh, axis, 1)

@@ -11,7 +11,13 @@ global shard 0), the block's plan computes each shard's outputs, and the
 outputs whose global index lies in the stream-start region the streaming
 path never emits are set to 0, so that downstream zero-history blocks
 compose exactly.  One host loop drives every shard, each on its own
-device's current stream.  Each block's filter history crosses
+device's current stream.  On a mesh of several axes the segment runs
+along its one named axis on every line of the mesh along it
+(``Mesh.lines``), replicated along the others as ``shard_map(..,
+in_specs=P(axis))`` is: a shard's positions are those of its coordinate
+along the axis, each line ends with the same carries, and the outputs are
+those of the line through the mesh's first device.  Each block's filter
+history crosses
 
 * shard boundaries as a halo (a copy of the neighbour's tail), and
 * chunk boundaries as a carried global tail (``run_chunk``, ``run_batch``),
@@ -91,7 +97,7 @@ def shard_chain(block_seq, mesh, axis: str = "time"):
     aux = {i: p.prep(0) for i, p in ms.plans.items() if p.prep is not None}
 
     def f(x):
-        n = global_len(x, ms.mesh)
+        n = global_len(x, ms.mesh, ms.axis)
         if n % (ms.n_sh * ms.div):
             raise ValueError(
                 f"stream length {n} must divide mesh*div = {ms.n_sh * ms.div}"
@@ -111,7 +117,7 @@ def _lcm(a: int, b: int) -> int:
 
 
 class MeshSegment:
-    """A chain or DAG of blocks planned onto a 1-D mesh axis.
+    """A chain or DAG of blocks planned onto one named axis of a mesh.
 
     ``nodes`` — topo-ordered nodes; ``ext_in``/``ext_out`` — the
     segment's external ports as (node_idx, port) keys.  Raises
@@ -247,12 +253,18 @@ class MeshSegment:
     # ---- the shard body ----
     def _body(self, carries, aux, shards, in0: int = 0):
         """Every member over this process's ``shards`` of the external
-        input, the chunk starting at the global input position ``in0``;
-        returns (the external outputs as per-shard lists, each halo
-        member's input tail on the last shard: its next carry)."""
+        input (one per mesh device), the chunk starting at the global
+        input position ``in0``, on every line along the segment's axis;
+        returns (the external outputs as per-shard lists, and for each
+        line the halo members' input tails on this process's last shard
+        of it, by line index: on the line's last shard, the next
+        carries)."""
         mesh = self.mesh
+        a = mesh.axis_index(self.axis)
+        ks = [mesh.coords(j)[a] for j in range(mesh.local)]
+        lines = mesh.lines(self.axis)
         vals = {self.ext_in: shards}
-        tails = {}
+        tails = {ln.index: {} for ln in lines}
         for n in self.nodes:
             key = (n.inputs[0].node.idx, n.inputs[0].index)
             xin = vals[key]
@@ -262,7 +274,8 @@ class MeshSegment:
                 # elementwise combiner: all inputs, no halo
                 exts = list(zip(*(vals[(q.node.idx, q.index)] for q in n.inputs)))
             elif p.halo:
-                tails[n.idx] = xin[-1][L - p.halo:]
+                for ln in lines:
+                    tails[ln.index][n.idx] = xin[ln.local[-1]][L - p.halo:]
                 exts = halo_exchange_left(xin, p.halo, mesh, self.axis,
                                           first=carries.get(n.idx))
             else:
@@ -274,7 +287,7 @@ class MeshSegment:
             d = self.drops[(n.idx, 0)]
             outs = [[] for _ in range(n.block.n_out)]
             for j, ext in enumerate(exts):
-                k = mesh.first + j
+                k = ks[j]
                 g_in, g_out = base_in + k * L, base_out + k * L_out
                 ctx = ShardCtx(g_in=g_in, g_out=g_out, k=k, aux=aux.get(n.idx))
                 with on_device(mesh.devices[j]):
@@ -301,18 +314,26 @@ class MeshSegment:
         return time_axis_spec(self.mesh, self.axis).shard(x)
 
     def _share_tails(self, tails: dict) -> dict:
-        """The next carries: the last global shard's input tails.  Within
-        one process they are its own; across processes the last process
-        holds them and sends them to every other (a broadcast, in the
-        members' order, so every process calls it alike)."""
+        """The next carries: the input tails on the last shard of a line.
+        Where every line lies within one process they are the home line's
+        own; where the axis crosses processes, the process holding line
+        0's last shard sends them to every other (a broadcast, in the
+        members' order, so every process calls it alike; the others' own
+        tails serve as the buffers).  Under ``Mesh.replicas()`` each member's
+        tail on every line ending here is recorded."""
         mesh = self.mesh
-        if mesh.world == 1:
-            return tails
+        ends = [ln for ln in mesh.lines(self.axis) if ln.next is None]
+        for i in sorted(self._carry_halos):
+            mesh.record(tails[ln.index][i] for ln in ends)
+        if not mesh.crosses(self.axis):
+            return tails[mesh.home(self.axis).index]
+        src = mesh.end_owner(self.axis)
+        mine = tails[0] if mesh.rank == src else tails[mesh.home(self.axis).index]
         out = {}
-        for i in sorted(tails):
-            buf = _wire(tails[i].clone())
-            dist.broadcast(buf, src=mesh.world - 1)
-            out[i] = torch.view_as_complex(buf) if tails[i].is_complex() else buf
+        for i in sorted(mine):
+            buf = _wire(mine[i].clone())
+            dist.broadcast(buf, src=src)
+            out[i] = torch.view_as_complex(buf) if mine[i].is_complex() else buf
         return out
 
     def _aux(self, consumed: int) -> dict:
@@ -337,19 +358,26 @@ class MeshSegment:
         one tensor on the mesh's first device, its leading drop trimmed
         when ``first`` and cut to ``keeps`` (global counts after that
         trim) when given — in a mesh across processes, this process's
-        part of each.  Returns (the new carries, the outputs)."""
+        part of each; the home line's, every line's recorded under
+        ``Mesh.replicas()``.  Returns (the new carries, the outputs)."""
         outs, tails = self._body(carries, aux, self._shards(x), in0)
         dev = self.mesh.devices[0]
         trimmed = []
         for j, (o, kk) in enumerate(zip(outs, self.ext_out)):
             per = int(o[0].shape[0])
-            o = torch.cat([s.to(dev) for s in o])
             lo = self.drops[kk] if first else 0
             hi = None if keeps is None else lo + keeps[j]
-            a = self.mesh.first * per  # this process's first global output
-            start = min(max(lo - a, 0), o.shape[0])
-            stop = o.shape[0] if hi is None else min(max(hi - a, start), o.shape[0])
-            trimmed.append(o[start:stop])
+
+            def cut(line, o=o, per=per, lo=lo, hi=hi):
+                t = torch.cat([o[i].to(dev) for i in line.local])
+                a = line.ks[0] * per  # this part's first global output
+                start = min(max(lo - a, 0), t.shape[0])
+                stop = t.shape[0] if hi is None else min(max(hi - a, start),
+                                                         t.shape[0])
+                return t[start:stop]
+
+            self.mesh.record(cut(ln) for ln in self.mesh.lines(self.axis))
+            trimmed.append(cut(self.mesh.home(self.axis)))
         return self._share_tails(tails), tuple(trimmed)
 
     def run(self, carries, aux, x):
@@ -377,7 +405,7 @@ class MeshSegment:
         Returns (new_carries, outputs tuple, output lens list: the global
         lens, also in a mesh across processes).
         """
-        n = global_len(x, self.mesh)
+        n = global_len(x, self.mesh, self.axis)
         first = consumed == 0
         fulls = [self._out_len(kk, n) - (self.drops[kk] if first else 0)
                  for kk in self.ext_out]

@@ -10,11 +10,15 @@ round r-1 (stage 0 on chunk r), each on its own device's current stream,
 so on several cards the stages' work overlaps.  A hand-off is a ``.to()``
 within a process; where the next stage lives in another process of a
 mesh across processes (``init_distributed``), a ``send`` and a ``recv``
-ordered as the halo exchange orders them (even ranks first).  The JAX
-form's ``lax.scan`` over rounds is this loop, not a kernel.
+ordered as the halo exchange orders them (even runs along the line
+first).  The JAX form's ``lax.scan`` over rounds is this loop, not a
+kernel.
 
 Throughput approaches one chunk per round once the pipe fills; latency is
-``n_stages`` rounds.
+``n_stages`` rounds.  On a mesh of several axes the stages run along the
+named axis on every line of the mesh along it (``Mesh.lines``), the
+chunks replicated along the other axes, and the call returns the line
+through the mesh's first device.
 """
 
 from __future__ import annotations
@@ -41,18 +45,20 @@ def _as_chunks(chunks) -> torch.Tensor:
     return t
 
 
-def _pipe(stages, chunks: torch.Tensor, mesh, width: int) -> torch.Tensor:
+def _pipe(stages, chunks: torch.Tensor, mesh, axis: str,
+          width: int) -> torch.Tensor:
     """The rounds of the pipeline over ``stages`` ((fn, in_len, out_len)
-    each) on a wire of ``width`` samples of ``chunks``' dtype; returns the
-    last stage's outputs, (n_chunks, out_len of the last stage), on the
-    last stage's device (on every process of a mesh across processes:
-    the last process sends them to the others)."""
+    each) on a wire of ``width`` samples of ``chunks``' dtype, on every
+    line of the mesh along ``axis`` (stage d on the line's shard d);
+    returns the last stage's outputs, (n_chunks, out_len of the last
+    stage), on the home line's last device (on every process of a mesh
+    whose axis crosses processes: the process holding line 0's last stage
+    sends them to the others)."""
     n_stages = len(stages)
     n_chunks = chunks.shape[0]
     dtype = chunks.dtype
     devs = mesh.devices
-    first = mesh.first  # this process's first stage
-    last_here = first + mesh.local - 1
+    lines = mesh.lines(axis)
     out_last = stages[-1][2]
 
     def run_stage(d, buf):
@@ -65,41 +71,45 @@ def _pipe(stages, chunks: torch.Tensor, mesh, width: int) -> torch.Tensor:
 
     # what each local stage was handed in the round before
     carry = [torch.zeros(width, dtype=dtype, device=dv) for dv in devs]
-    outs = []
+    outs = {ln.index: [] for ln in lines if ln.next is None}
     for r in range(n_chunks + n_stages - 1):
-        ys = []
-        for j, dv in enumerate(devs):
-            d = first + j
-            with on_device(dv):
-                if d == 0:
-                    cur = (chunks[r] if r < n_chunks
-                           else chunks.new_zeros(chunks.shape[1])).to(dv)
-                    cur = torch.cat([cur, cur.new_zeros(width - cur.shape[0])])
-                else:
-                    cur = carry[j]
-                ys.append(run_stage(d, cur))
-        for j in range(len(devs) - 1):
-            carry[j + 1] = ys[j].to(devs[j + 1], non_blocking=True)
-        if mesh.world > 1:
-            got = _exchange(ys[-1] if last_here < n_stages - 1 else None,
-                            mesh.rank + 1, carry[0] if first else None,
-                            mesh.rank - 1, mesh.rank)
-            if first:
-                carry[0] = got.to(devs[0])
-        if last_here == n_stages - 1 and r >= n_stages - 1:
-            outs.append(ys[-1][:out_last])
-    if mesh.world == 1:
-        return torch.stack(outs)
-    res = (torch.stack(outs) if last_here == n_stages - 1 else
-           torch.zeros((n_chunks, out_last), dtype=dtype, device=devs[-1]))
+        for ln in lines:
+            ys = []
+            for j, d in zip(ln.local, ln.ks):
+                dv = devs[j]
+                with on_device(dv):
+                    if d == 0:
+                        cur = (chunks[r] if r < n_chunks
+                               else chunks.new_zeros(chunks.shape[1])).to(dv)
+                        cur = torch.cat([cur, cur.new_zeros(width - cur.shape[0])])
+                    else:
+                        cur = carry[j]
+                    ys.append(run_stage(d, cur))
+            for y, j in zip(ys[:-1], ln.local[1:]):
+                carry[j] = y.to(devs[j], non_blocking=True)
+            if ln.prev is not None or ln.next is not None:
+                got = _exchange(None if ln.next is None else ys[-1], ln.next,
+                                None if ln.prev is None else carry[ln.local[0]],
+                                ln.prev, ln.seg)
+                if ln.prev is not None:
+                    carry[ln.local[0]] = got.to(devs[ln.local[0]])
+            if ln.next is None and r >= n_stages - 1:
+                outs[ln.index].append(ys[-1][:out_last])
+    mesh.record(torch.stack(o).to(devs[0]) for o in outs.values())
+    if not mesh.crosses(axis):
+        return torch.stack(outs[mesh.home(axis).index])
+    src = mesh.end_owner(axis)
+    res = (torch.stack(outs[0]) if mesh.rank == src else
+           torch.zeros((n_chunks, out_last), dtype=dtype,
+                       device=devs[mesh.home(axis).local[-1]]))
     buf = _wire(res)
-    dist.broadcast(buf, src=mesh.world - 1)
+    dist.broadcast(buf, src=src)
     return torch.view_as_complex(buf) if dtype.is_complex else buf
 
 
 def pipeline_run(stage_fns, chunks, mesh, axis: str = "stage") -> torch.Tensor:
     """Run ``chunks`` through ``stage_fns`` with stage d on the mesh's
-    device d.
+    shard d along ``axis``.
 
     ``stage_fns``: D functions, each (chunk,) -> (chunk,) of the same
     dtype.  ``chunks``: (n_chunks, chunk_len), a tensor or numpy array.
@@ -109,7 +119,7 @@ def pipeline_run(stage_fns, chunks, mesh, axis: str = "stage") -> torch.Tensor:
     _stages_check(len(stage_fns), mesh, axis)
     chunks = _as_chunks(chunks)
     m = chunks.shape[1]
-    return _pipe([(fn, m, m) for fn in stage_fns], chunks, mesh, m)
+    return _pipe([(fn, m, m) for fn in stage_fns], chunks, mesh, axis, m)
 
 
 def pipeline_run_rates(stages, chunks, mesh, axis: str = "stage") -> torch.Tensor:
@@ -140,7 +150,7 @@ def pipeline_run_rates(stages, chunks, mesh, axis: str = "stage") -> torch.Tenso
     if chunks.shape[1] != stages[0][1]:
         raise ValueError("chunks must be (n, in_len of stage 0)")
     width = max(max(i, o) for _, i, o in stages)
-    return _pipe(list(stages), chunks, mesh, width)
+    return _pipe(list(stages), chunks, mesh, axis, width)
 
 
 def pipeline_chain(stage_fns, x, mesh, chunk_len: int,

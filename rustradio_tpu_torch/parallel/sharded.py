@@ -9,9 +9,13 @@ recovery, on the card), with the filter halos exchanged between
 neighbouring shards (``halo``) instead of host-side state.
 
 Each takes the global tensor (or numpy array) or this process's shards as
-a list, and returns the global output as one tensor on the mesh's first
-device, the value of JAX's global array; in a mesh across processes, this
-process's shards concatenated.
+a list (one per mesh device), and returns the global output as one tensor
+on the mesh's first device, the value of JAX's global array; in a mesh
+across processes, this process's shards concatenated.  On a mesh of
+several axes an op sharded over ``axis`` runs on every line of the mesh
+along it (``Mesh.lines``), replicated along the other axes as
+``shard_map(.., in_specs=P(axis))`` is, and returns the line through the
+mesh's first device: the op on a 1-D mesh of ``mesh.shape[axis]`` shards.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from ..ops.fft_filter import fft_filter as _fft_filter
 from ..ops.fir import fir_filter as _fir_filter
 from .graph_mesh import shard_chain
 from .halo import halo_exchange_left, halo_exchange_right
-from .mesh import global_len, on_device, time_axis_spec
+from .mesh import gather_lines, global_len, on_device, time_axis_spec
 
 
 def _shards(x, mesh, axis: str, dtype=None) -> list[torch.Tensor]:
@@ -34,10 +38,6 @@ def _shards(x, mesh, axis: str, dtype=None) -> list[torch.Tensor]:
     return shards if dtype is None else [s.to(dtype) for s in shards]
 
 
-def _gather(parts, mesh, dim: int = 0) -> torch.Tensor:
-    return torch.cat([p.to(mesh.devices[0]) for p in parts], dim)
-
-
 def sharded_fir_filter(x, taps, mesh, deci: int = 1, axis: str = "time"):
     """fir_filter_full semantics (y[m] = sum_j taps[j] x[m*deci-j]) with the
     time axis sharded: each shard takes a left halo of ntaps-1 samples and
@@ -46,7 +46,7 @@ def sharded_fir_filter(x, taps, mesh, deci: int = 1, axis: str = "time"):
     taps = np.asarray(taps)
     ntaps = len(taps)
     n_sh = mesh.shape[axis]
-    n = global_len(x, mesh)
+    n = global_len(x, mesh, axis)
     if n % (n_sh * deci):
         raise ValueError(f"stream length {n} not divisible by shards*deci")
     shards = _shards(x, mesh, axis)
@@ -56,7 +56,7 @@ def sharded_fir_filter(x, taps, mesh, deci: int = 1, axis: str = "time"):
         with on_device(d):
             # y[m] = sum taps[j] ext[(ntaps-1) + m*deci - j]
             out.append(_fir_filter(ext, taps, deci)[: s.shape[0] // deci])
-    return _gather(out, mesh)
+    return gather_lines(out, mesh, axis)
 
 
 def sharded_fft_filter(x, taps, mesh, axis: str = "time",
@@ -66,7 +66,7 @@ def sharded_fft_filter(x, taps, mesh, axis: str = "time",
     taps = np.asarray(taps)
     ntaps = len(taps)
     n_sh = mesh.shape[axis]
-    n = global_len(x, mesh)
+    n = global_len(x, mesh, axis)
     if n % n_sh:
         raise ValueError(f"stream length {n} not divisible by {n_sh} shards")
     shards = _shards(x, mesh, axis, torch.complex64)
@@ -75,7 +75,7 @@ def sharded_fft_filter(x, taps, mesh, axis: str = "time",
     for s, ext, d in zip(shards, exts, mesh.devices):
         with on_device(d):
             out.append(_fft_filter(ext, taps, fft_size)[ntaps - 1:][: s.shape[0]])
-    return _gather(out, mesh)
+    return gather_lines(out, mesh, axis)
 
 
 def sharded_quadrature_demod(x, gain, mesh, axis: str = "time"):
@@ -85,7 +85,7 @@ def sharded_quadrature_demod(x, gain, mesh, axis: str = "time"):
     is 0 (the offline op emits N-1 samples — callers drop the last one).
     """
     n_sh = mesh.shape[axis]
-    n = global_len(x, mesh)
+    n = global_len(x, mesh, axis)
     if n % n_sh:
         raise ValueError(f"stream length {n} not divisible by {n_sh} shards")
     shards = _shards(x, mesh, axis, torch.complex64)
@@ -96,7 +96,7 @@ def sharded_quadrature_demod(x, gain, mesh, axis: str = "time"):
         with on_device(dv):
             d = torch.conj(ext[:-1]) * ext[1:]
             out.append(g * torch.atan2(d.imag, d.real))
-    return _gather(out, mesh)
+    return gather_lines(out, mesh, axis)
 
 
 def bell202_chain(samp_rate: float, band: tuple | None = (400.0, 2700.0)):
@@ -161,7 +161,7 @@ def sharded_symbol_sync_bank(xs, sps: float, mesh, axis: str = "chan",
     n_sh = mesh.shape[axis]
     if method not in ("scan", "events"):
         raise ValueError(f"unknown method {method!r}; use 'scan' or 'events'")
-    c = global_len(xs, mesh)
+    c = global_len(xs, mesh, axis)
     if c % n_sh:
         raise ValueError(f"channel count {c} must be divisible by {n_sh} shards")
     parts = []
@@ -170,7 +170,7 @@ def sharded_symbol_sync_bank(xs, sps: float, mesh, axis: str = "chan",
             parts.append(recover_symbols_batch(
                 s, sps, max_deviation, clock_taps, unroll=unroll, method=method,
                 max_events=max_events, return_valid=True))
-    vals, mask, clks, valid = (_gather(p, mesh) for p in zip(*parts))
+    vals, mask, clks, valid = (gather_lines(p, mesh, axis) for p in zip(*parts))
     if return_valid:
         return vals, mask, clks, valid
     return vals, mask, clks

@@ -241,3 +241,38 @@ def test_torch_chip_smoke_mesh_stream_phase_rehearses_on_the_cpu(monkeypatch, ca
         assert f"[{phase}] passed" in out
     assert errs == {"fir_decimate": 0.0, "symbol_sync_events": 0.0}
     assert "the front-end demoted at chunks [" in out and "fm mesh batched" in set(counts)
+
+
+def test_torch_chip_smoke_mesh2d_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 17 at small sizes on a 2 x 2 mesh on the CPU, the plain
+    # versions: every path's replica lines and its 1-D mesh of the axis's
+    # size bit-equal, the FM chain and the banks against the offline ops,
+    # the corpus streamed (its ragged last chunk demoted once) and decoded;
+    # the exact launch counts and the times need the card
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import hdlc
+
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(cs, "require", lambda *a: None)
+    sizes = cs.Mesh2dSizes(bank_ch=8, bank_n=512, bank_events=56, channels=32,
+                           chan_n=1 << 12, chunk=1 << 13, frames=2, frame_gate=2,
+                           reps=1)
+    cpu = torch.device("cpu")
+    audio = torch.from_numpy(cs.audio_corpus(hdlc, sizes.frames))
+    assert audio.shape[0] % sizes.chunk % 2  # a ragged last chunk
+    want = cs.decoded(ax25.ax25_1200_rx(audio, cs.FS_AUDIO), sizes.frames)
+    i_main, q_main, _ = cs.rtl_fm_iq(1 << 16, cpu, torch.Generator().manual_seed(0))
+    counts, errs, times = cs.mesh2d_phase(cpu, "cpu rehearsal", sizes, i_main, q_main,
+                                          audio, want)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    for phase in ("17 mesh2d one shot", "17 mesh2d streamed"):
+        assert f"[{phase}] passed" in out
+    assert errs == {"fir_decimate": 0.0, "symbol_sync_scan": 0.0,
+                    "symbol_sync_events": 0.0}
+    assert times == {} and "2/2 decoded, the offline receiver's list: True" in out
+    assert out.count("all lines bit-equal: True") == 6
+    assert out.count("bit-equal to the 1-D mesh of 2 shards: True") == 6
+    assert {"sharded_fm_demod", "sharded_channelizer_fm", "sharded_symbol_sync_bank scan",
+            "sharded_symbol_sync_bank events", "ax25 front-end streamed",
+            "ax25_1200_rx_graph"} == set(counts)

@@ -232,6 +232,15 @@ p = pipeline_run_rates([(lambda v: v.reshape(-1, 4).mean(1), 64, 16),
                         (lambda v: v * 2, 16, 16)],
                        x[:256].reshape(4, 64), make_mesh(2, axis="stage", device="cpu"))
 assert torch.equal(p, x[:256].reshape(64, 4).mean(1).reshape(4, 16) * 2)
+# a (chan, time) mesh: the FM chain over time, the stream on the mesh and a
+# pipeline along chan, each the run on the 1-D mesh of the axis's size
+from rustradio_tpu_torch.parallel import make_mesh_2d, pipeline_run
+m2, m1 = make_mesh_2d(2, 2, device="cpu"), make_mesh(2, device="cpu")
+assert torch.equal(sharded_fm_demod(x, lp, m2, deci=4), sharded_fm_demod(x, lp, m1, deci=4))
+assert np.array_equal(stream(m2)[0], stream(m1)[0])
+c = x.real[:256].reshape(4, 64).contiguous()
+assert torch.equal(pipeline_run([lambda v: v * 2, lambda v: v + 1], c, m2, axis="chan"),
+                   c * 2 + 1)
 print("ok")
 """
 
