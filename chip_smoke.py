@@ -145,12 +145,15 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 10 to 17 rehearse
-on the CPU at small sizes (``AppsSizes``, ``BurstSizes``, ``RadioSizes``,
-``ScanSizes``, ``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``,
-``Mesh2dSizes``;
-tests/test_torch_chip_smoke.py); phases 1-9 compare kernels with their
-plain versions, which only the card can do.
+the last line is {"ok": true, "device": {...}}.  Phases 3 to 17 are
+functions of (device, card, sizes, ...) and rehearse on the CPU at small
+sizes on the plain versions, what only the card has stood in for
+(``CoreSizes`` for phases 3-9: ``kernels_phase``, ``fm_phase``,
+``ax25_phase``, ``op_phase``, ``times_phase``, ``sync_phase``; then
+``AppsSizes``, ``BurstSizes``, ``RadioSizes``, ``ScanSizes``,
+``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``, ``Mesh2dSizes``;
+tests/test_torch_chip_smoke.py).  Phases 1-2 (the environment, the build)
+need the card.
 """
 
 from __future__ import annotations
@@ -338,15 +341,16 @@ def d_chain(args, ev_clock: torch.Tensor, cal: dict):
         f"{float(mid_end[c]):.0f} of {float(path[c]):.0f} cycles")
 
 
-def jump_mismatches(device) -> int:
+def jump_mismatches(device, binades: int = 17, step: int = 1) -> int:
     """Kernel E's jump over a quiet run (ScanWalker::add_ones), checked
-    exhaustively: for every f32 position in [1, 2^17) and every run of 1
-    to 32 samples that ends at or under the top of the position's binade,
-    position + run in one addition against run additions of 1, each
-    rounded.  Returns the number of pairs that differ."""
+    exhaustively: for every f32 position in [1, 2^binades) (every
+    ``step``-th mantissa; 1: all) and every run of 1 to 32 samples that
+    ends at or under the top of the position's binade, position + run in
+    one addition against run additions of 1, each rounded.  Returns the
+    number of pairs that differ."""
     bad = torch.zeros((), dtype=torch.int64, device=device)
-    mantissas = torch.arange(1 << 23, dtype=torch.int32, device=device)
-    for e in range(17):
+    mantissas = torch.arange(0, 1 << 23, step, dtype=torch.int32, device=device)
+    for e in range(binades):
         base = (mantissas + ((127 + e) << 23)).view(torch.float32)
         chain = base.clone()
         for run in range(1, 33):
@@ -583,18 +587,19 @@ def decoded(packets, n: int) -> list[bytes]:
     return [bytes(p) for p in packets if bytes(p) in want]
 
 
-def wideband_capture(hdlc, device, gen: torch.Generator) -> torch.Tensor:
-    """WB_FRAMES corpus frames per station, station s carrying frames
-    s*WB_FRAMES.., each Bell-202 at its corpus clock drift and full scale
+def wideband_capture(hdlc, device, gen: torch.Generator, stations=WB_STATIONS,
+                     frames: int = WB_FRAMES) -> torch.Tensor:
+    """``frames`` corpus frames per station, station s carrying frames
+    s*frames.., each Bell-202 at its corpus clock drift and full scale
     between the corpus' leads, frequency-modulating a carrier at the center
-    of channel WB_STATIONS[s]; summed at FS_WB, plus complex noise.  Made
-    on the card (float64 phases)."""
+    of channel stations[s] of WB_CHANNELS; summed at FS_WB, plus complex
+    noise.  Made on the card (float64 phases)."""
     lead = int(400 * FS_WB / FS_AUDIO)  # the corpus' leads, in time
     z = torch.zeros(lead, dtype=torch.float64, device=device)
     tones = []
-    for s in range(len(WB_STATIONS)):
+    for s in range(len(stations)):
         parts = []
-        for i in range(s * WB_FRAMES, (s + 1) * WB_FRAMES):
+        for i in range(s * frames, (s + 1) * frames):
             line = torch.from_numpy(corpus_line(i, hdlc).astype(np.int64)).to(device)
             sps = FS_WB / (1200.0 * (1 + corpus_drift(i)))
             t = torch.arange(int(len(line) * sps), dtype=torch.float64,
@@ -606,7 +611,7 @@ def wideband_capture(hdlc, device, gen: torch.Generator) -> torch.Tensor:
     n = max(len(a) for a in tones)
     t = torch.arange(n, dtype=torch.float64, device=device)
     iq = torch.zeros(n, dtype=torch.complex64, device=device)
-    for k, a in zip(WB_STATIONS, tones):
+    for k, a in zip(stations, tones):
         fc = (k if k < WB_CHANNELS / 2 else k - WB_CHANNELS) * FS_WB / WB_CHANNELS
         ph = (torch.cumsum(torch.nn.functional.pad(a, (0, n - len(a))), 0)
               * (2 * math.pi * WB_DEV / FS_WB) + (2 * math.pi * fc / FS_WB) * t)
@@ -738,6 +743,1101 @@ def bound(work):
         raise SystemExit(f"chip_smoke: no peaks known for "
                          f"{torch.cuda.get_device_name(0)} (utils/stats.py)")
     return stats.bound_ms(*work, *peaks)
+
+
+# ---- phases 3-9: the kernels against their plain versions, the FM and
+# AX.25 paths, the discriminator op, the times, the clock recovery
+
+
+@dataclasses.dataclass(frozen=True)
+class CoreSizes:
+    """Phases 3-9's sizes: the defaults on the card; a CPU rehearsal
+    (``tests/test_torch_chip_smoke.py``) takes small ones."""
+
+    fir_n: int = N_FIR            # kernel A's noise, held and timed
+    main_n: int = N_MAIN          # the main path's capture (>= 2^20: two
+                                  # fm_chain_window tiles)
+    prefix: int = N_PREFIX        # held against the float64 models
+    wide: int = WIDE              # the edge cases again, this many outputs more
+    edge_ns: tuple = (1, 1023 * 4, 1025 * 4 + 1, (1 << 16) + 3)  # kernel A's
+    loop_n: int = N_MAIN          # the Graph device loop's chunk,
+    chunks: int = N_CHUNKS        # its chunks (a ring of 4 chunks)
+    frames: int = N_FRAMES        # the AX.25 corpus
+    frame_gate: int = FRAME_GATE
+    tones_gate: int = TONES_GATE
+    iq_frames: int = N_IQ_FRAMES  # the IQ capture
+    iq_floor: int = IQ_FLOOR
+    bank_ch: int = BANK_CH        # the decode bank
+    bank_n: int = BANK_N
+    bank_events: int = BANK_EVENTS
+    sync_prefix: int = N_SYNC_PREFIX
+    sync_window: int = N_SYNC_WINDOW
+    edge_cases: tuple | None = None  # tools/sync_cases.py's, by name (None: all)
+    jump_binades: int = 17        # kernel E's jump check over [1, 2^binades),
+    jump_step: int = 1            # every jump_step-th mantissa
+    wb_stations: tuple = WB_STATIONS  # the wideband capture
+    wb_frames: int = WB_FRAMES
+    wb_floor: int = WB_FLOOR
+    wb_methods: tuple = ("scan", "events")  # its sync methods
+    pfb_n: int = N_PFB            # the channelizer's timed row
+    reps: int = 3                 # runs of each timed wall (median)
+
+
+def size_label(n: int) -> str:
+    """``2^k`` for a power of two, else the number."""
+    return f"2^{n.bit_length() - 1}" if n > 0 and n & (n - 1) == 0 else str(n)
+
+
+@dataclasses.dataclass
+class Timings:
+    """Phases 8 and 9's times by row name: (stream ms, plain ms), the
+    device ms alone, the bound, the library call's ms, the dependent-chain
+    bounds and the one-thread forms' device ms; ``record`` names the row
+    of each kernel in the kernels line."""
+
+    card: str
+    rows: dict = dataclasses.field(default_factory=dict)
+    dev_ms: dict = dataclasses.field(default_factory=dict)
+    bounds: dict = dataclasses.field(default_factory=dict)
+    lib_ms: dict = dataclasses.field(default_factory=dict)
+    chains: dict = dataclasses.field(default_factory=dict)
+    lone_ms: dict = dataclasses.field(default_factory=dict)
+    record: dict = dataclasses.field(default_factory=dict)
+
+    def timed(self, name, n_in, kernel_fn, plain_fn):
+        ms, pms = time_pair(kernel_fn, plain_fn, plain_versions)
+        self.rows[name] = (ms, pms)
+        print(f"[8 times] {name}: kernel {ms:.4f} ms ({n_in / ms / 1e3:.1f} "
+              f"Msps), plain {pms:.4f} ms ({n_in / pms / 1e3:.1f} Msps); "
+              f"card: {self.card}")
+
+    def device_row(self, name, fn_k, bound_pair, library=None):
+        """The device time of ``fn_k(k)`` alone (a replayed CUDA graph of
+        ten calls, ``k`` rotating the inputs so that L2 starts cold)
+        beside the stream time, the bound and the library call."""
+        kernels = _kernels()
+        self.dev_ms[name], self.bounds[name] = graph_ms(fn_k), bound_pair
+        self.lib_ms[name] = None
+        lib = ""
+        if library is not None:
+            event_ms(library, kernels._true_f32, 10)
+            self.lib_ms[name] = statistics.median(
+                event_ms(library, kernels._true_f32, 10) for _ in range(5))
+            lib = f"; library call {self.lib_ms[name]:.4f} ms"
+        stream = (f"in a stream {self.rows[name][0]:.4f} ms; "
+                  if name in self.rows else "")
+        print(f"[8 times] {name}: device alone {self.dev_ms[name]:.4f} ms (10 calls "
+              f"replayed from a CUDA graph, median of 5), {stream}bound "
+              f"{bound_pair[0]:.4f} ms ({bound_pair[1]}), share of bound "
+              f"{bound_pair[0] / self.dev_ms[name]:.1%}{lib}; card: {self.card}")
+
+
+def kernels_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator):
+    """Phases 3 and 3e on ``dev``: kernel A on ``sizes.fir_n`` samples of
+    noise (49 taps / deci 4 and 1205 / 1), kernel B on the main capture
+    (``rtl_fm_iq`` of ``sizes.main_n`` samples: flat at every precision,
+    packed w3 and i8, chained windows) and against the float64 model over
+    ``sizes.prefix`` samples, kernel C on the capture as complex64, each
+    against its plain version; then kernels A and B where the
+    register-blocked core can break, at each case's own count and with
+    ``sizes.wide`` outputs more.  Returns the largest |error| of A, B and
+    C, and the capture with what later phases reuse: ``lpr``, ``lp1205``,
+    ``xg``, ``i_main``, ``q_main``, ``phase``, ``packed`` (the w3 and i8
+    planes) and ``xc``."""
+    from rustradio_tpu_torch import taps as tapgen
+    from rustradio_tpu_torch.models import fm
+    from rustradio_tpu_torch.ops import kernels
+
+    # ---- 3. kernels against their plain versions on the card
+    lpr = np.real(tapgen.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0,
+                                          "hamming")).astype(np.float32)
+    lp1205 = tapgen.low_pass(1_024_000.0, 100_000.0, 2048.0)
+    if (len(lpr), len(lp1205)) != (49, 1205):
+        raise SystemExit(f"chip_smoke: tap sets of {len(lpr)}, {len(lp1205)}")
+    errs = {"fir_decimate": 0.0, "fm_chain": 0.0, "quad_demod": 0.0}
+    xg = torch.randn(sizes.fir_n, generator=gen, device=dev)
+    n_fir, n_main = size_label(sizes.fir_n), size_label(sizes.main_n)
+    for taps, deci in [(lpr, 4), (lp1205, 1)]:
+        got = kernels.fir_decimate(xg, taps, deci)
+        want = kernels.fir_decimate_plain(xg, taps, deci)
+        tol = 2e-5 * float(want.abs().max())
+        errs["fir_decimate"] = max(errs["fir_decimate"], report(
+            "3 kernels", f"fir_decimate {len(taps)} taps deci {deci} n={n_fir} f32",
+            max_err(got, want), tol))
+
+    i_main, q_main, phase = rtl_fm_iq(sizes.main_n, dev, gen)
+    pre_want = fm_chain_f64(i_main[: sizes.prefix].cpu().numpy(),
+                            q_main[: sizes.prefix].cpu().numpy(), lpr)
+    n_pre = size_label(sizes.prefix)
+    for precision in ("highest", "w3", "i8", "w2"):
+        got = kernels.fm_chain(i_main, q_main, lpr, DECI, precision=precision)
+        with plain_versions():
+            want = kernels.fm_chain(i_main, q_main, lpr, DECI,
+                                    precision=precision)
+        errs["fm_chain"] = max(errs["fm_chain"], report(
+            "3 kernels", f"fm_chain flat {precision} n={n_main}",
+            max_err(got, want), BUDGET[precision]))
+        report("3 kernels", f"fm_chain flat {precision} vs float64 model, "
+               f"{n_pre}-sample prefix",
+               float(np.abs(got[: len(pre_want)].cpu().numpy() - pre_want).max()),
+               BUDGET[precision])
+    packed = {}
+    for precision in ("w3", "i8"):
+        pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
+        packed[precision] = (pr, pi)
+        got = kernels.fm_chain(pr, pi, lpr, DECI, precision=precision, n=n)
+        with plain_versions():
+            want = kernels.fm_chain(pr, pi, lpr, DECI, precision=precision, n=n)
+        errs["fm_chain"] = max(errs["fm_chain"], report(
+            "3 kernels", f"fm_chain packed {precision} n={n_main}",
+            max_err(got, want), BUDGET[precision]))
+    pr, pi = packed["w3"]
+    half = sizes.main_n // DECI // 128 // 1024 // 2  # tiles of 1024 rows per window
+    a1, last1 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=0, g=half)
+    a2, last2 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=half * 1024,
+                                        g=half, seed=last1)
+    both, last12 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=0, g=2 * half)
+    # identical arithmetic per sample: the chained windows must reproduce
+    # the one-call stream bit for bit, up to 1e-6 stated
+    report("3 kernels", "fm_chain_window two chained windows == one call",
+           max(max_err(torch.cat([a1, a2]), both), max_err(last2, last12)), 1e-6)
+    with plain_versions():
+        pa1, plast1 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=0, g=half)
+    errs["fm_chain"] = max(errs["fm_chain"], report(
+        "3 kernels", "fm_chain_window w3 vs plain (audio, last)",
+        max(max_err(a1, pa1), max_err(last1, plast1)), BUDGET["w3"]))
+    xc = torch.complex(i_main, q_main)  # the station, complex64
+    got_c = kernels.quad_demod_fast(xc, GAIN_C)
+    want_c = kernels.quad_demod_fast_plain(xc, GAIN_C)
+    # unfused conjugate product in both; the polynomial's FMA contraction
+    # moves a few ulps; a +-pi branch flip is no error (wrapped)
+    errs["quad_demod"] = report(
+        "3 kernels", f"quad_demod gain {GAIN_C} n={n_main} vs plain (wrapped)",
+        wrapped_err(got_c, want_c, GAIN_C), 1e-6 * GAIN_C)
+    pre = xc[: sizes.prefix].cpu().numpy().astype(np.complex128)
+    pre_want = GAIN_C * np.angle(np.conj(pre[:-1]) * pre[1:])
+    report("3 kernels", f"quad_demod vs float64 model, {n_pre}-sample prefix "
+           "(wrapped)", wrapped_err(got_c[: sizes.prefix - 1].cpu(),
+                                    torch.from_numpy(pre_want), GAIN_C),
+           2e-4 * GAIN_C)
+    del got_c, want_c
+    end_phase("3")
+
+    # ---- 3e. kernels A and B where the register-blocked design can break:
+    # one line per group, the case nearest its tolerance
+    def worst(what: str, cases) -> float:
+        cases = list(cases)
+        err, tol = max(cases, key=lambda c: c[0] / c[1])
+        report("3 edges", f"{what} ({len(cases)} cases)", err, tol)
+        return err
+
+    def slow_planes(n: int, ntaps: int, deci: int, precision: str):
+        """Wire-grid I/Q planes of an FM signal slow enough to pass a
+        unit-gain ``ntaps`` low-pass at full amplitude, and to turn by at
+        most 1 rad per output at ``deci``: no angle comes near +-pi, where
+        the last bit of the conjugate product picks the branch."""
+        d = min(0.9, 2.0 / ntaps, 1.0 / deci)
+        t = torch.arange(n, dtype=torch.float64, device=dev)
+        ph = torch.cumsum(d * torch.sin(t * (2e-3 * d)), 0)
+        out = []
+        for f in (torch.cos, torch.sin):
+            v = 0.45 * f(ph) + 0.02 * torch.randn(n, generator=gen, device=dev,
+                                                  dtype=torch.float64)
+            out.append(kernels.plane_cast(
+                (torch.round(torch.clamp(v * 128, -127, 128)) / 128).float(),
+                precision))
+        return out
+
+    def unit_lp(ntaps: int) -> np.ndarray:
+        w = np.hamming(ntaps) if ntaps > 1 else np.ones(1)
+        return (w / w.sum()).astype(np.float32)
+
+    def span_case(precision, ntaps, deci, first, count, shift, length):
+        """(err, tol) of kernel B's audio and of its last filtered sample
+        against the plain version on one span."""
+        a, b = slow_planes(length, ntaps, deci, precision)
+        kw = dict(first=first, count=count, shift=shift, precision=precision,
+                  offset=0.01, seed=(0.3, -0.2))
+        got, last = kernels.fm_chain_span(a, b, unit_lp(ntaps), deci, 0.9, **kw)
+        want, wlast = kernels.fm_chain_span_plain(a, b, unit_lp(ntaps), deci,
+                                                  0.9, **kw)
+        return [(max_err(got, want), BUDGET[precision]),
+                (max_err(last, wlast), 2e-5)]
+
+    # an input this small gets small tiles of 4 outputs a thread from the
+    # launcher; from WIDE outputs on it takes its widest shape (8 outputs a
+    # thread, tiles of 1024, and for deci 1, 2 and 4 the staging compiled
+    # with deci known), the shape of every full-size call: each case runs at
+    # its own count and again with WIDE outputs more
+    for extra in dict.fromkeys((0, sizes.wide)):
+        size = f"+{extra} outputs"
+        tap_deci = [(1, 1), (7, 1), (9, 1), (3, 4), (5, 4), (49, 4), (49, 3),
+                    (1205, 1), (4096, 1), (4096, 50), (1, 50), (49, 50)]
+        errs["fm_chain"] = max(
+            errs["fm_chain"],
+            worst(f"{size}: fm_chain_span: the span starts at every "
+                  "residue of the 16-byte grid (f32, bf16, s8)",
+                  (c for prec, v in (("highest", 4), ("w3", 8), ("i8", 16))
+                   for r in range(v)
+                   for c in span_case(prec, 49, DECI, 3, 2500 + extra, -48 + r,
+                                      (1 << 15) + DECI * extra))),
+            worst(f"{size}: fm_chain_span: taps 1..4096, deci 1, 3, 4, "
+                  "50, spans past both ends of the plane (pad 0, -1 for "
+                  "s8)",
+                  (c for nt, d in tap_deci for prec in ("w3", "i8")
+                   for c in span_case(prec, nt, d, 0, 1500 + extra, 1 - nt,
+                                      (1500 + extra) * d + nt - 7))),
+            worst(f"{size}: fm_chain_span: counts 1, 2 and around a tile "
+                  "of 1024 and 2048",
+                  (c for cnt in (1, 2, 1023, 1024, 1025, 2047, 2049)
+                   for prec in ("w3", "i8")
+                   for c in span_case(prec, 49, DECI, 7, cnt + extra, -48,
+                                      (1 << 14) + DECI * extra))),
+            worst(f"{size}: fm_chain_span: a window that ends at the "
+                  "plane's last sample",
+                  (c for prec in ("w3", "i8")
+                   for c in span_case(prec, 49, DECI, 4096, 4096 + extra, 0,
+                                      (4096 + 4096 + extra - 1) * DECI + 49))))
+
+        def fir_cases():
+            for nt, d in [(1, 1), (3, 1), (5, 1), (7, 1), (9, 1), (49, 4), (49, 3),
+                          (65, 2), (1205, 1), (4096, 1), (4096, 50), (1, 50)]:
+                taps = np.random.RandomState(nt + d).randn(nt).astype(np.float32)
+                for n in sizes.edge_ns:
+                    n += extra * d
+                    base = torch.randn(n + 3, generator=gen, device=dev)
+                    for off in range(4):  # every residue of the 16-byte grid
+                        x = base[off : off + n]
+                        want = kernels.fir_decimate_plain(x, taps, d)
+                        yield (max_err(kernels.fir_decimate(x, taps, d), want),
+                               2e-5 * max(float(want.abs().max()), 1e-3))
+
+        errs["fir_decimate"] = max(errs["fir_decimate"], worst(
+            f"{size}: fir_decimate: taps 1..4096, deci 1..50, 1 to 2^16+3 "
+            "samples and up, every start residue", fir_cases()))
+    xc_edge = torch.complex(torch.randn((1 << 16) + 5, generator=gen, device=dev),
+                            torch.randn((1 << 16) + 5, generator=gen, device=dev))
+    before_edge = kernels.LAUNCHES["fir_decimate"]
+    both_planes = kernels.fir_decimate(xc_edge, lpr, DECI)
+    one_launch = kernels.LAUNCHES["fir_decimate"] - before_edge
+    each_plane = torch.complex(
+        kernels.fir_decimate(xc_edge.real.contiguous(), lpr, DECI),
+        kernels.fir_decimate(xc_edge.imag.contiguous(), lpr, DECI))
+    report("3 edges", f"fir_decimate complex input, real taps: {one_launch} "
+           "launch, against two 1-plane launches",
+           max_err(torch.view_as_real(both_planes),
+                   torch.view_as_real(each_plane)), 0.0)
+    if dev.type == "cuda" and one_launch != 1:
+        failures.append(f"complex input took {one_launch} kernel-A launches")
+    null_seed = kernels.fm_chain_span(*packed["w3"], lpr, DECI, first=0,
+                                      count=4096, shift=3, precision="w3")
+    zero_seed = kernels.fm_chain_span(*packed["w3"], lpr, DECI, first=0,
+                                      count=4096, shift=3, precision="w3",
+                                      seed=(0.0, 0.0))
+    report("3 edges", "fm_chain_span without a seed == with the zero seed",
+           max(max_err(null_seed[0], zero_seed[0]),
+               max_err(null_seed[1], zero_seed[1])), 0.0)
+    del xc_edge, both_planes, each_plane
+    end_phase("3 edges")
+    return errs, dict(lpr=lpr, lp1205=lp1205, xg=xg, i_main=i_main,
+                      q_main=q_main, phase=phase, packed=packed, xc=xc)
+
+
+def fm_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator, cap: dict):
+    """Phases 4 and 5 on ``dev``: the FM path counted, the models on the
+    main capture ``cap`` (``fm_pack_planes`` + ``fm_demod_chain_planar``
+    w3 and i8; ``fm_demod_chain`` on its first ``sizes.fir_n`` samples) and
+    the Graph device loop (``sizes.chunks`` chunks of ``sizes.loop_n``
+    over a packed ring of four chunks, captured into a CUDA graph on the
+    card); then the models against the plain versions and the transmitted
+    frequency, and the captured loop against the eager loop at five
+    offsets and against the plain versions.  Returns the launch counts
+    after the loop's first replay and the loops, captured, eager and on
+    the plain versions (phase 8 times them)."""
+    from rustradio_tpu_torch import blocks
+    from rustradio_tpu_torch.graph import Graph
+    from rustradio_tpu_torch.models import fm
+    from rustradio_tpu_torch.ops import kernels
+
+    on_card = dev.type == "cuda"
+    lpr, i_main, q_main, phase = (cap[k] for k in ("lpr", "i_main", "q_main", "phase"))
+    n_main, chunk, n_chunks = i_main.shape[0], sizes.loop_n, sizes.chunks
+
+    # ---- 4 + 5. the FM path, counted
+    zero_counts()
+    outs = {}
+    for precision in ("w3", "i8"):
+        pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
+        outs[precision] = fm.fm_demod_chain_planar(pr, pi, precision=precision,
+                                                   n=n)
+    iq = torch.complex(i_main[: sizes.fir_n], q_main[: sizes.fir_n])
+    outs["complex"] = fm.fm_demod_chain(iq)
+    after_models = dict(kernels.LAUNCHES)
+
+    ring_i, ring_q, _ = rtl_fm_iq(4 * chunk, dev, gen)
+
+    def build_graph(cuda_graph=True):
+        g = Graph()
+        src = g.add(blocks.PackedIqRingSource(ring_i, ring_q, lpr, DECI,
+                                              precision="w3"))
+        fir = g.add(blocks.FirFilter(lpr, deci=DECI, precision="w3"), src)
+        qd = g.add(blocks.QuadratureDemod(1.0), fir)
+        g.add(blocks.DeviceFoldSink(fn=lambda c, x: c + x.sum() + (x * x).sum()),
+              qd)
+        return g.compile_device_loop(chunk, n_chunks, device=dev,
+                                     cuda_graph=cuda_graph)
+
+    # the device loop's first call runs the loop once eagerly (its warm-up,
+    # whose launches count apart), captures it into a CUDA graph and
+    # replays it; later calls only replay
+    loop = build_graph()
+    fold_t = next(iter(loop(0).values()))
+    fold = float(fold_t)
+    launches = dict(kernels.LAUNCHES)
+    graph_launches = launches["fm_chain"] - after_models["fm_chain"]
+    fold_again = next(iter(loop(0).values()))
+    replay_launches = kernels.LAUNCHES["fm_chain"] - launches["fm_chain"]
+    print(f"[4+5 main path] launches {json.dumps(launches)}; models "
+          f"{json.dumps(after_models)}; graph fm_chain launches "
+          f"{graph_launches} for {n_chunks} chunks (first replay; its warm-up "
+          f"and capture counted apart), "
+          f"{replay_launches} for a replay alone")
+    require("FM", launches, ("fir_decimate", "fm_chain"))
+    if on_card and (after_models["fir_decimate"] < 1
+                    or after_models["fm_chain"] < 2):
+        failures.append("the models path launched fewer kernels than it calls")
+    if on_card and (graph_launches != n_chunks or replay_launches != n_chunks):
+        failures.append(f"graph launched fm_chain {graph_launches} then "
+                        f"{replay_launches} times")
+
+    # ---- 4. checks of the models path
+    with plain_versions():
+        for precision in ("w3", "i8"):
+            pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
+            want = fm.fm_demod_chain_planar(pr, pi, precision=precision, n=n)
+            report("4 models", f"fm_pack_planes + fm_demod_chain_planar "
+                   f"{precision} n={size_label(n_main)} vs plain",
+                   max_err(outs[precision], want), BUDGET[precision])
+        want = fm.fm_demod_chain(iq)
+    # exact atan2 on the filtered stream: f32 rounding amplified at small
+    # filtered samples, the chain budget of tests/test_pallas.py (1e-3 rad)
+    report("4 models", f"fm_demod_chain n={size_label(sizes.fir_n)} complex vs "
+           "plain", max_err(outs["complex"], want), 1e-3)
+    # the demodulated audio is the station's: output k spans input samples
+    # 4k-24 .. 4k+4-24 (the 49-tap filter's 24-sample delay)
+    out = outs["w3"]
+    k = torch.arange(64, out.shape[0] - 64, device=dev)
+    truth = phase[DECI * (k + 1) - 24] - phase[DECI * k - 24]
+    corr = float(torch.corrcoef(torch.stack([out[k].double(), truth]))[0, 1])
+    finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
+    print(f"[4 models] w3 audio vs transmitted frequency: corr={corr:.6f} "
+          f"finite={finite} shape={tuple(out.shape)}")
+    if not (finite and corr > 0.99 and out.shape[0] == n_main // DECI - 1):
+        failures.append("models output")
+    end_phase("4")
+
+    # ---- 5. the captured loop against the eager loop (bit-equal folds, at
+    # two offsets), then against the same graph on the plain versions
+    eager_loop = build_graph(cuda_graph=False)
+    # (offsets one chunk under and over 2^31 wrap the ring from its last
+    # chunk: the captures of other offsets)
+    far = [(o, next(iter(loop(o).values())))
+           for o in ((1 << 31) - chunk, (1 << 31) + chunk)]
+    for offset0, got_fold in [(0, fold_t), (0, fold_again),
+                              (2 * chunk, next(iter(loop(2 * chunk).values())))] + far:
+        want_fold = next(iter(eager_loop(offset0).values()))
+        report("5 graph", f"CUDA-graph replay == eager loop at offset0 "
+               f"{offset0} (fold {float(got_fold)!r})",
+               max_err(got_fold, want_fold), 0.0)
+    with plain_versions():
+        plain_loop = build_graph(cuda_graph=False)
+        plain_fold = float(next(iter(plain_loop(0).values())))
+    rel = abs(fold - plain_fold) / abs(plain_fold)
+    print(f"[5 graph] fold={fold!r} plain_fold={plain_fold!r} rel_err={rel:.3e}")
+    # f32 folds of 8 x 4M outputs (sum + sum of squares): rtol 1e-4
+    if not (math.isfinite(fold) and rel <= 1e-4):
+        failures.append("graph fold")
+    end_phase("5")
+    return launches, (loop, eager_loop, plain_loop)
+
+
+def ax25_phase(dev, card: str, sizes: CoreSizes):
+    """Phase 6 on ``dev``: the AX.25 1200 bd receiver counted, on the
+    corpus of ``sizes.frames`` frames at 24 kHz (on the kernels, with the
+    tones demod, and on the plain versions) and on an IQ capture of
+    ``sizes.iq_frames`` frames at 1.024 Msps, each FIR stage of the
+    receiver held against its plain version at both rates.  Returns the
+    corpus (on ``dev``), the IQ capture (numpy), the frames decoded on the
+    kernels, and the launch counts of the corpus and IQ paths."""
+    from rustradio_tpu_torch import ops, taps as tapgen
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import hdlc, kernels
+
+    def stage_err(what: str, fn, x: torch.Tensor) -> torch.Tensor:
+        """``fn(x)`` on the kernels against ``fn(x)`` on the plain versions
+        at the FIR budget 2e-5 * max|y|; returns the kernels' output."""
+        got = fn(x)
+        with plain_versions():
+            want = fn(x)
+        g, w = (torch.view_as_real(t) if t.is_complex() else t
+                for t in (got, want))
+        report("6 ax25", f"{what} ({x.shape[0]} samples) vs plain",
+               max_err(g, w), 2e-5 * float(w.abs().max()))
+        return got
+
+    def front_end_errs(what: str, audio: torch.Tensor, fs: float,
+                       tones: bool) -> None:
+        """kernel A at the AX.25 receiver's own shapes, on its own data:
+        each FIR stage of ``bell202_demod`` (and of the tone demod's
+        one-symbol moving average), fed the kernels' input of that stage.
+        The stages are held one by one because the exact discriminator
+        between them turns a last-ulp difference at a near-zero analytic
+        sample into an arbitrary angle."""
+        bp = tapgen.band_pass(fs, 400.0, 2700.0, 65, "hamming")
+        lp = tapgen.low_pass(fs, 1100.0, 200.0, "hamming")
+        x = stage_err(f"{what}: band-pass {len(bp)} taps",
+                      lambda a: ops.filter_float(a, bp), audio)
+        x = stage_err(f"{what}: Hilbert 65 taps",
+                      lambda a: ops.hilbert_transform(a, 65, "hamming"), x)
+        stage_err(f"{what}: low-pass {len(lp)} taps",
+                  lambda a: ops.filter_float(a, lp),
+                  ops.quadrature_demod(x, 1.0))
+        if tones:
+            w = int(fs / 1200.0)
+            avg = np.ones(w, np.float32) / w
+            stage_err(f"{what}: tone moving average {w} taps",
+                      lambda a: ops.fir_filter_full(a, avg), audio)
+
+    # ---- 6. the AX.25 1200 bd path, counted: the corpus at 24 kHz, then an
+    # IQ capture at 1.024 Msps
+    n_frames, n_iq = sizes.frames, sizes.iq_frames
+    t0 = time.perf_counter()
+    audio = torch.from_numpy(audio_corpus(hdlc, n_frames)).to(dev)
+    print(f"[6 ax25] corpus: {n_frames} frames, {audio.shape[0]} samples at "
+          f"{FS_AUDIO:.0f} Hz, synthesized in {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    rx_s, rx = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO), reps=1)
+    got = decoded(rx, n_frames)
+    ax_counts = dict(kernels.LAUNCHES)
+    tones = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO, demod="tones"), n_frames)
+    tone_counts = dict(kernels.LAUNCHES)
+    with plain_versions():
+        plain_got = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO), n_frames)
+    print(f"[6 ax25] ax25_1200_rx decoded {len(set(got))}/{n_frames} on the "
+          f"kernels (first call {rx_s:.3f} s, native build included), "
+          f"{len(set(plain_got))}/{n_frames} on the "
+          f"plain versions; tones {len(set(tones))}/{n_frames}; launches "
+          f"{json.dumps(ax_counts)}, with tones {json.dumps(tone_counts)}")
+    require("AX.25", ax_counts, ("fir_decimate",))
+    front_end_errs("corpus at 24 kHz", audio, FS_AUDIO, tones=True)
+    for what, n, gate in (("kernels", got, sizes.frame_gate),
+                          ("plain versions", plain_got, sizes.frame_gate),
+                          ("tones", tones, sizes.tones_gate)):
+        if len(set(n)) < gate:
+            failures.append(f"ax25_1200_rx on the {what}: {len(set(n))} < {gate}")
+
+    t0 = time.perf_counter()
+    iq_np = iq_capture(hdlc, n_iq)
+    print(f"[6 ax25] IQ capture: {n_iq} frames, {len(iq_np)} samples at "
+          f"{FS_IQ:.0f} Hz, {IQ_DEV:.0f} Hz deviation, noise {IQ_NOISE} per "
+          f"component, synthesized in {time.perf_counter() - t0:.1f} s")
+    zero_counts()
+    iq_s, iq_rx = wall(lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev),
+                       reps=1)
+    iq_got = decoded(iq_rx, n_iq)
+    iq_counts = dict(kernels.LAUNCHES)
+    with plain_versions():
+        iq_plain_s, iq_plain_rx = wall(
+            lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev), reps=1)
+    iq_plain = decoded(iq_plain_rx, n_iq)
+    print(f"[6 ax25] ax25_1200_rx_iq decoded {len(set(iq_got))}/{n_iq} "
+          f"on the kernels ({iq_s:.3f} s), {len(set(iq_plain))}/{n_iq} "
+          f"on the plain versions ({iq_plain_s:.3f} s); same list: "
+          f"{iq_got == iq_plain}; launches {json.dumps(iq_counts)}; card: {card}")
+    require("AX.25 IQ", iq_counts, ("fir_decimate",))
+    if iq_got != iq_plain:
+        failures.append("ax25_1200_rx_iq: kernels and plain versions decode "
+                        "different frames")
+    if len(set(iq_got)) < sizes.iq_floor:
+        failures.append(f"ax25_1200_rx_iq: {len(set(iq_got))} < {sizes.iq_floor}")
+    # the channel filter (FFT route), resampler and discriminator launch no
+    # kernel: one IQ front-end output feeds the stages at 50 kHz
+    fm_audio = ax25.iq_front_end(iq_np, FS_IQ, device=dev)
+    front_end_errs("IQ capture at 50 kHz", fm_audio, 50_000.0, tones=False)
+    del iq_rx, iq_plain_rx, fm_audio  # iq_np comes back in phase 12
+    end_phase("6")
+    return audio, iq_np, got, ax_counts, iq_counts
+
+
+def op_phase(dev, card: str, cap: dict) -> dict:
+    """Phase 7 on ``dev``: the discriminator op (``ops.quad_demod_fast``)
+    on the main capture as complex64, counted, against the transmitted
+    frequency.  Returns the launch counts."""
+    from rustradio_tpu_torch import ops
+    from rustradio_tpu_torch.ops import kernels
+
+    xc, phase = cap["xc"], cap["phase"]
+    # ---- 7. the discriminator op path, counted
+    zero_counts()
+    out_c = ops.quad_demod_fast(xc, GAIN_C)
+    op_counts = dict(kernels.LAUNCHES)
+    require("op", op_counts, ("quad_demod",))
+    # per-sample receiver noise caps the raw correlation near 0.96; over the
+    # FM chain's 4-sample decimation it is the station's audio
+    m = (out_c.shape[0] // DECI) * DECI
+    mean4 = (out_c[:m].double() / GAIN_C).reshape(-1, DECI).mean(1)
+    truth = (phase[1 : m + 1] - phase[:m]).reshape(-1, DECI).mean(1)
+    corr = float(torch.corrcoef(torch.stack([mean4, truth]))[0, 1])
+    finite = bool(torch.isfinite(out_c).all())
+    print(f"[7 op] quad_demod_fast n={size_label(xc.shape[0])}: launches "
+          f"{json.dumps(op_counts)}; "
+          f"vs transmitted frequency (4-sample means) corr={corr:.6f} "
+          f"finite={finite} shape={tuple(out_c.shape)}")
+    if not (finite and corr > 0.99 and out_c.shape[0] == xc.shape[0] - 1):
+        failures.append("quad_demod_fast output")
+    del out_c
+    end_phase("7")
+    return op_counts
+
+
+def times_phase(dev, card: str, sizes: CoreSizes, cap: dict, loops, audio):
+    """Phase 8 on ``dev``: kernels A, B and C timed beside their plain
+    versions (per call in a stream of calls, median of 5), alone on the
+    device (a replayed CUDA graph), beside their bounds and, for A,
+    ``F.conv1d``; the wrappers' host cost, the FFT route, the Graph loops
+    of ``fm_phase`` (captured, eager, plain), and the AX.25 decode of the
+    corpus ``audio`` split into its device front-end and host tail.
+    Returns the :class:`Timings`."""
+    from rustradio_tpu_torch import ops, taps as tapgen
+    from rustradio_tpu_torch.models import ax25
+    from rustradio_tpu_torch.ops import kernels
+
+    lpr, lp1205, xg, i_main, q_main, packed, xc = (
+        cap[k] for k in ("lpr", "lp1205", "xg", "i_main", "q_main", "packed", "xc"))
+    loop, eager_loop, plain_loop = loops
+    n_main, n_fir = i_main.shape[0], xg.shape[0]
+    t = Timings(card)
+    timed, device_row, rows = t.timed, t.device_row, t.rows
+
+    # ---- 8. times: kernel beside plain version, median of 5 (ms per call)
+    for precision in ("w3", "i8"):
+        pr, pi = packed[precision]
+        copies = [(pr, pi)] + [(pr.clone(), pi.clone()) for _ in range(2)]
+
+        def run(k=0, copies=copies, precision=precision):
+            a, b = copies[k % len(copies)]
+            kernels.fm_chain(a, b, lpr, DECI, precision=precision, n=n_main)
+
+        name = f"fm_chain packed {precision} n={size_label(n_main)}"
+        timed(name, n_main, run, run)
+        device_row(name, run, bound(kernels.fm_chain_work(
+            n_main // DECI, len(lpr), DECI, pr.element_size())))
+        if precision == "w3":
+            t.record["fm_chain"] = name
+            b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
+                pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=n_main)))
+        del copies
+    # the flat planes that rtl_fm --rtl_u8 gives kernel B (deci 1): the
+    # kernel alone on planes cast once (three copies, past L2), beside the
+    # wrapper with its cast in a stream
+    for precision in ("w3", "i8"):
+        flat = [tuple(kernels.plane_cast(p.roll(k), precision)
+                      for p in (i_main, q_main)) for k in range(3)]
+
+        def span(k=0, flat=flat, precision=precision):
+            a, b = flat[k % len(flat)]
+            kernels.fm_chain_span(a, b, lpr, 1, first=0, count=n_main,
+                                  shift=1 - len(lpr), precision=precision)
+
+        def whole(precision=precision):
+            kernels.fm_chain(i_main, q_main, lpr, 1, precision=precision)
+
+        name = f"fm_chain flat {precision} deci 1 n={size_label(n_main)}"
+        timed(name, n_main, whole, whole)
+        device_row(name, span, bound(kernels.fm_chain_work(
+            n_main, len(lpr), 1, flat[0][0].element_size())))
+        del flat
+    xgs = [xg] + [xg.clone() for _ in range(3)]
+    for taps, deci in [(lpr, 4), (lp1205, 1)]:
+        def run(k=0, taps=taps, deci=deci):
+            kernels.fir_decimate(xgs[k % len(xgs)], taps, deci)
+
+        name = f"fir_decimate {len(taps)} taps deci {deci} n={size_label(n_fir)}"
+        if deci == DECI:  # the FM chain's filter: kernel A's row of the record
+            t.record["fir_decimate"] = name
+        timed(name, n_fir, run, lambda taps=taps, deci=deci:
+              kernels.fir_decimate_plain(xg, taps, deci))
+        m = -(-n_fir // deci)
+        padded = torch.nn.functional.pad(
+            xg, (len(taps) - 1, m * deci - n_fir))[None, None]
+        w = kernels.tapset(taps).trev("highest", dev)[None, None]
+        device_row(name, run, bound(kernels.fir_work(n_fir, len(taps), deci)),
+                   library=lambda padded=padded, w=w, deci=deci:
+                   torch.nn.functional.conv1d(padded, w, stride=deci))
+    a_host = (host_us(lambda: kernels.fir_decimate(xg, lpr, DECI)),
+              host_us(lambda: kernels.fir_decimate(xg, kernels.tapset(lpr), DECI)))
+    print(f"[8 times] host cost per call, no synchronise between 200 calls: "
+          f"kernels.fm_chain packed w3 {b_host[0]:.1f} us with array taps, "
+          f"{b_host[1]:.1f} us with a TapSet; kernels.fir_decimate 49 taps "
+          f"{a_host[0]:.1f} us with array taps, {a_host[1]:.1f} us with a "
+          f"TapSet; card: {card}")
+    fft_ms = time_one(lambda: ops.fft_filter_float(xg, lp1205))
+    long_row = f"fir_decimate 1205 taps deci 1 n={size_label(n_fir)}"
+    print(f"[8 times] the FFT route at 1205 taps n={size_label(n_fir)} "
+          f"(ops.fft_filter_float, torch.fft, no kernel): {fft_ms:.4f} ms beside "
+          f"kernel A's {rows[long_row][0]:.4f} ms; card: {card}")
+    del xgs
+    name = f"graph device loop w3 {sizes.chunks} x {size_label(sizes.loop_n)}"
+    timed(name, sizes.chunks * sizes.loop_n, lambda: loop(0), lambda: plain_loop(0))
+    eager_ms = time_one(lambda: eager_loop(0))
+    loop_bound = bound([sizes.chunks * w for w in kernels.fm_chain_work(
+        sizes.loop_n // DECI, len(lpr), DECI, 2)])
+    print(f"[8 times] {name}: CUDA-graph replay {rows[name][0]:.4f} ms, eager "
+          f"loop {eager_ms:.4f} ms per loop (each with its final "
+          f"synchronise); kernel B's bound for the {sizes.chunks} chunks "
+          f"{loop_bound[0]:.4f} ms; card: {card}")
+    name = f"quad_demod n={size_label(xc.shape[0])}"
+    t.record["quad_demod"] = name
+    timed(name, xc.shape[0], lambda: ops.quad_demod_fast(xc, GAIN_C),
+          lambda: kernels.quad_demod_fast_plain(xc, GAIN_C))
+    device_row(name, lambda k: ops.quad_demod_fast(xc, GAIN_C),
+               bound(kernels.quad_work(xc.shape[0])))
+    # the AX.25 decode of the corpus: wall time of the whole call, and of
+    # its device front-end alone (synchronised); the rest is the host tail
+    # (NRZ copy-back, native symbol sync, slicer, NRZI, HDLC)
+    for label, ctx in (("kernels", contextlib.nullcontext),
+                       ("plain", plain_versions)):
+        with ctx():
+            total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO), sizes.reps)
+            front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO), sizes.reps)
+        print(f"[8 times] ax25_1200_rx {sizes.frames} frames ({audio.shape[0]} "
+              f"samples) on the {label}: {total_s * 1e3:.1f} ms wall, device "
+              f"front-end {front_s * 1e3:.1f} ms, host tail "
+              f"{(total_s - front_s) * 1e3:.1f} ms (median of {sizes.reps}); "
+              f"card: {card}")
+
+    # the front-end's three kernel-A launches alone, at the corpus' shape
+    parts = []
+    for label, taps in (
+            ("band-pass", tapgen.band_pass(FS_AUDIO, 400.0, 2700.0, 65, "hamming")),
+            ("Hilbert", tapgen.hilbert(65, "hamming")),
+            ("low-pass", tapgen.low_pass(FS_AUDIO, 1100.0, 200.0, "hamming"))):
+        ms = graph_ms(lambda k, taps=taps: kernels.fir_decimate(audio, taps, 1))
+        b_ms, by = bound(kernels.fir_work(audio.shape[0], len(taps), 1))
+        parts.append(f"{label} {len(taps)} taps {ms:.4f} ms (bound {b_ms:.4f} "
+                     f"ms, {by})")
+    print(f"[8 times] the AX.25 front-end's kernel-A launches alone on the "
+          f"device, {audio.shape[0]} samples: {'; '.join(parts)}; card: {card}")
+    return t
+
+
+def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
+               t: Timings, audio, got):
+    """Phase 9 on ``dev``: kernels D and E at the decode bank's shape
+    (``sizes.bank_ch`` x ``sizes.bank_n``) against their plain versions
+    (E also against native ``rr_symbol_sync``) and on the edge inputs of
+    ``tools/sync_cases.py``; the AX.25 receiver on the corpus ``audio``
+    with ``sync="events"`` (``got``: its frames with the native sync), and
+    the wideband receiver on a capture of ``sizes.wb_stations`` with each
+    sync method of ``sizes.wb_methods``, counted, with D and E held again on the arguments these paths
+    gave them; then the times (added to ``t``): the card's latencies for
+    a lone lane (``time_sync.calibrate``), the channelizer, D and E beside
+    their plain versions, bounds, dependent chains and one-thread forms,
+    and the paths' walls.  Returns the largest |error| of D and E, the
+    events receiver's frames, the launch counts of the events path and of
+    the wideband receiver by method, the calibration, and ``t``'s rows of
+    D and E (in ``t.record``)."""
+    from rustradio_tpu_torch import native, ops
+    from rustradio_tpu_torch.models import ax25, multichannel
+    from rustradio_tpu_torch.ops import hdlc, kernels
+    from rustradio_tpu_torch.parallel import channelizer
+    from rustradio_tpu_torch.tools import sync_cases, time_sync
+
+    errs = {}
+    rows, device_row = t.rows, t.device_row
+    bank_label = f"{sizes.bank_ch} x {size_label(sizes.bank_n)}"
+
+    def captured(name: str, fn):
+        """Run ``fn()`` and return the arguments of its first call of the
+        wrapper ``kernels.<name>``."""
+        with capturing(name) as got:
+            fn()
+        return got[name][0]
+
+    def outputs_equal(what, got, want) -> float:
+        """Bit-equality of two wrapper results (tuples of tensors); returns
+        the largest |difference| of the f32 outputs (tolerance 0)."""
+        err = max(max_err(g, w) for g, w in zip(got, want))
+        report("9 sync", what, err, 0.0)
+        return err
+
+    def events_check(what, args, window: int | None = None) -> float:
+        """Kernel D on a path's own captured arguments against its plain
+        version: every output (ev_mid, ev_clock, final fstate and istate).
+        The whole call when ``window`` is None (the plain loop stops at the
+        last slot holding a crossing); else the first ``window`` slots and
+        the slots from ``window`` before the last crossing (of the channel
+        with the most) to the end, each run from the state the kernel
+        reaches there, and each also held against the whole kernel run
+        (so the windows stand for it, positions near n and the padding
+        tail included)."""
+        events, n, *consts, fs, ist = args[:7]  # the windows run without
+        full = kernels.symbol_sync_events_scan(*args)  # the path's counts
+        real = int((events < n).sum(1).max())
+        print(f"[9 sync] {what}: {events.shape[0]} ch x {events.shape[1]} "
+              f"slots, n={n}, at most {real} crossings per channel")
+        if window is None or real <= 2 * window:
+            return outputs_equal(f"{what}: kernel D whole vs plain", full,
+                                 kernels.symbol_sync_events_scan_plain(*args))
+        a = real - window
+        _, _, fa, ia = kernels.symbol_sync_events_scan(
+            events[:, :a].contiguous(), n, *consts, fs, ist)
+        errs_ = []
+        for label, ev, f0, i0, sl in (
+                ("first", events[:, :window], fs, ist, slice(0, window)),
+                ("last", events[:, a:], fa, ia, slice(a, None))):
+            ev = ev.contiguous()
+            got = kernels.symbol_sync_events_scan(ev, n, *consts, f0, i0)
+            want = kernels.symbol_sync_events_scan_plain(ev, n, *consts, f0, i0)
+            errs_.append(outputs_equal(
+                f"{what}: kernel D {label} {window} crossings vs plain", got,
+                want))
+            whole = (full[0][:, sl], full[1][:, sl])
+            if label == "last":
+                whole += full[2:]
+            errs_.append(outputs_equal(
+                f"{what}: kernel D {label} window vs the whole run",
+                got[: len(whole)], whole))
+        return max(errs_)
+
+    def scan_check(what, args, window: int) -> float:
+        """Kernel E on a path's own captured arguments: each channel's
+        symbols over the whole call bit-equal to native ``rr_symbol_sync``
+        (the path starts from the fresh state native starts from), and the
+        first and last ``window`` samples against the plain version, each
+        run from the state the kernel reaches there and held against the
+        whole kernel run."""
+        x, sps, max_dev, taps, st = args
+        mask, clocks, st_out = kernels.symbol_sync_scan(*args)
+        x_np = x.cpu().numpy()
+        unequal = [c for c in range(x.shape[0]) if not np.array_equal(
+            x[c][mask[c]].cpu().numpy(),
+            native.symbol_sync_f32(x_np[c], sps, max_dev, taps))]
+        print(f"[9 sync] {what}: kernel E {x.shape[0]} ch x {x.shape[1]} "
+              f"samples vs native: {x.shape[0] - len(unequal)}/{x.shape[0]} "
+              f"channels emit the same symbols bit for bit")
+        if unequal:
+            failures.append(f"{what}: kernel E differs from native on "
+                            f"channels {unequal}")
+        a = x.shape[1] - window
+        _, _, sa = kernels.symbol_sync_scan(x[:, :a].contiguous(), sps,
+                                            max_dev, taps, st)
+        errs_ = []
+        for label, xs, s0, sl in (("first", x[:, :window], st, slice(0, window)),
+                                  ("last", x[:, a:], sa, slice(a, None))):
+            xs = xs.contiguous()
+            got = kernels.symbol_sync_scan(xs, sps, max_dev, taps, s0)
+            want = kernels.symbol_sync_scan_plain(xs, sps, max_dev, taps, s0)
+            errs_.append(outputs_equal(
+                f"{what}: kernel E {label} {window} samples vs plain", got, want))
+            whole = (mask[:, sl], clocks[:, sl]) + ((st_out,) if label == "last"
+                                                   else ())
+            errs_.append(outputs_equal(
+                f"{what}: kernel E {label} window vs the whole run",
+                got[: len(whole)], whole))
+        return max(errs_)
+
+    def sync_equal(what, got, want):
+        """Bit-equality of (mask, clocks[, valid]) outputs: report the
+        clocks' max |error| (tolerance 0) and count unequal masks."""
+        err = max_err(got[1], want[1])
+        report("9 sync", f"{what} clocks", err, 0.0)
+        for name, a, b in zip(("mask", "valid"), (got[0], *got[2:]),
+                              (want[0], *want[2:])):
+            if not torch.equal(a, b):
+                failures.append(f"{what}: {name} differs from the plain version")
+        return err
+
+    # ---- 9. clock recovery (kernels D and E) and the wideband receiver
+    bank = decode_bank(dev, gen, sizes.bank_ch, sizes.bank_n)
+    ev_out, ev_valid = ops.symbol_sync_events(bank, BANK_SPS,
+                                              max_events=sizes.bank_events)
+    with plain_versions():
+        ev_plain, ev_pvalid = ops.symbol_sync_events(bank, BANK_SPS,
+                                                     max_events=sizes.bank_events)
+    errs["symbol_sync_events"] = sync_equal(
+        f"kernel D {bank_label} sps {BANK_SPS} max_events {sizes.bank_events}",
+        (ev_out[1], ev_out[2], ev_valid), (ev_plain[1], ev_plain[2], ev_pvalid))
+    if not bool(ev_valid.all()):
+        failures.append("decode bank: a channel overflowed its slot budget")
+    (sc_v, sc_m, _), _ = ops.symbol_sync(bank, BANK_SPS)
+    bank_np = bank.cpu().numpy()
+    unequal = [c for c in range(sizes.bank_ch) if not np.array_equal(
+        ops.compact(sc_v[c], sc_m[c]).cpu().numpy(),
+        native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5)))]
+    print(f"[9 sync] kernel E {bank_label} vs native rr_symbol_sync: "
+          f"{sizes.bank_ch - len(unequal)}/{sizes.bank_ch} channels emit the "
+          f"same symbols bit for bit ({int(sc_m.sum())} symbols)")
+    if unequal:
+        failures.append(f"kernel E differs from native on channels {unequal}")
+    prefix = bank[:, : sizes.sync_prefix].contiguous()
+    (_, pm, pc), pst = ops.symbol_sync(prefix, BANK_SPS)
+    with plain_versions():
+        (_, qm, qc), qst = ops.symbol_sync(prefix, BANK_SPS)
+    n_prefix = size_label(sizes.sync_prefix)
+    errs["symbol_sync_scan"] = sync_equal(
+        f"kernel E {sizes.bank_ch} x {n_prefix} prefix", (pm, pc), (qm, qc))
+    report("9 sync", f"kernel E {n_prefix} prefix final state",
+           max(max_err(pst[k].float(), qst[k].float()) for k in pst), 0.0)
+    end_phase("9 sync")
+
+    # kernels D and E where their tiled, block-per-channel design can break
+    # (tools/sync_cases.py: sizes around a tile and the two in flight,
+    # misaligned rows, silence, chatter, crossings on a tile's edges, sps
+    # 2.5 to 100, 1 to 16 taps, cut streams): every output of the kernels
+    # on the card against the plain versions on CPU tensors, the chained
+    # runs against the whole ones
+    edge_cases = [c for c in sync_cases.cases(SEED)
+                  if sizes.edge_cases is None or c.name in sizes.edge_cases]
+    unequal, compared = [], 0
+    for case in edge_cases:
+        got_e = sync_cases.run_case(case, dev)
+        compared += len(got_e)
+        unequal += [f"{case.name}: {k}" for k in
+                    sync_cases.mismatches(got_e, sync_cases.run_case(case, "cpu"))
+                    + sync_cases.self_mismatches(got_e)]
+    print(f"[9 edges] kernels D and E on {len(edge_cases)} edge cases "
+          f"({', '.join(c.name for c in edge_cases)}): {compared} outputs "
+          f"against the plain versions, bit for bit; unequal: {unequal}")
+    report("9 edges", "kernels D and E vs plain, unequal outputs",
+           float(len(unequal)), 0.0)
+    report("9 edges", "kernel E's jump over a quiet run: every f32 position "
+           f"in [1, 2^{sizes.jump_binades}) x runs of 1..32 inside its binade, "
+           "pairs where pos + run differs from run additions of 1",
+           float(jump_mismatches(dev, sizes.jump_binades, sizes.jump_step)), 0.0)
+    end_phase("9 edges")
+
+    # the AX.25 receiver on the corpus with the device clock recovery
+    n_frames = sizes.frames
+    zero_counts()
+    with capturing("symbol_sync_events_scan") as ax_calls:
+        ev_s, ev_rx = wall(
+            lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync="events"), reps=1)
+    ev_got = decoded(ev_rx, n_frames)
+    ev_counts = dict(kernels.LAUNCHES)
+    print(f"[9 ax25 events] ax25_1200_rx(sync='events') decoded "
+          f"{len(set(ev_got))}/{n_frames} ({ev_s:.3f} s, first call); "
+          f"native sync decoded {len(set(got))}; launches "
+          f"{json.dumps(ev_counts)}")
+    require("AX.25 events", ev_counts, ("fir_decimate", "symbol_sync_events"))
+    if len(set(ev_got)) < sizes.frame_gate:
+        failures.append(f"ax25_1200_rx(sync='events'): {len(set(ev_got))} < "
+                        f"{sizes.frame_gate}")
+    # the kernels' arguments on each path, checked here and timed below
+    path_args = {"kernel D, AX.25 events path":
+                 ax_calls["symbol_sync_events_scan"][0]}
+    errs["symbol_sync_events"] = max(errs["symbol_sync_events"], events_check(
+        "AX.25 events path", path_args["kernel D, AX.25 events path"],
+        window=sizes.sync_window))
+    del ax_calls
+    end_phase("9 ax25 events")
+
+    # the wideband receiver at full width, both sync methods
+    stations, wb_frames = sizes.wb_stations, sizes.wb_frames
+    t0 = time.perf_counter()
+    wide = wideband_capture(hdlc, dev, gen, stations, wb_frames)
+    sync()
+    print(f"[9 wideband] capture: {len(stations)} stations on channels "
+          f"{list(stations)} of {WB_CHANNELS}, {len(stations) * wb_frames} "
+          f"frames, {wide.shape[0]} samples at {FS_WB:.0f} Hz "
+          f"({wide.shape[0] / FS_WB:.1f} s), noise {WB_NOISE} per component, "
+          f"synthesized on the card in {time.perf_counter() - t0:.1f} s")
+    want_wb = {(stations[i // wb_frames], corpus_payload(i))
+               for i in range(len(stations) * wb_frames)}
+    wb_counts, wb_first = {}, {}
+
+    def wideband(method):
+        return multichannel.decode_band_ax25(
+            wide, FS_WB, n_channels=WB_CHANNELS, max_active=len(stations),
+            sync_method=method)
+
+    for method in sizes.wb_methods:
+        zero_counts()
+        with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
+            wb_first[method], res = wall(lambda: wideband(method), reps=1)
+        wb_counts[method] = dict(kernels.LAUNCHES)
+        found = {(r.channel, bytes(p)) for r in res for p in r.packets}
+        ok = len(found & want_wb)
+        chans = sorted(r.channel for r in res)
+        print(f"[9 wideband] decode_band_ax25 sync {method}: {ok}/{len(want_wb)} "
+              f"frames on their channels, channels decoded {chans}, "
+              f"{sum(len(r.packets) for r in res)} packets "
+              f"({wb_first[method]:.3f} s, first call); launches "
+              f"{json.dumps(wb_counts[method])}")
+        require(f"wideband {method}", wb_counts[method],
+                ("fir_decimate", f"symbol_sync_{method}"))
+        if chans != sorted(stations):
+            failures.append(f"wideband {method}: channels {chans} decoded")
+        if ok < sizes.wb_floor:
+            failures.append(f"wideband {method}: {ok} < {sizes.wb_floor} frames")
+        # the kernels at the shapes this path gave them (E also re-runs
+        # the channels that overflowed their event budget)
+        for args in calls["symbol_sync_events_scan"][:1]:
+            path_args[f"kernel D, wideband {method}"] = args
+            errs["symbol_sync_events"] = max(errs["symbol_sync_events"],
+                                             events_check(f"wideband {method}",
+                                                          args))
+        for args in calls["symbol_sync_scan"][:1]:
+            path_args[f"kernel E, wideband {method}"] = args
+            errs["symbol_sync_scan"] = max(errs["symbol_sync_scan"], scan_check(
+                f"wideband {method}", args, sizes.sync_window))
+        del calls
+    end_phase("9 wideband")
+
+    cal = time_sync.calibrate(dev)
+    print(f"[9 times] a lone lane's dependent chain on this card "
+          f"(tools/csrc/chain_calib.cu, 2^20 links, median of 5): f32 addition "
+          f"{cal['fadd_cycles']:.2f} cycles, IEEE division "
+          f"{cal['fdiv_cycles']:.2f}, add-compare-subtract step "
+          f"{cal['step_cycles']:.2f}; SM clock {cal['sm_hz'] / 1e9:.3f} GHz; "
+          f"card: {card}")
+
+    # times, median of 5 (ms per call); the card beside each
+    def timed9(name, ms, pms, other="plain"):
+        rows[name] = (ms, pms)
+        print(f"[9 times] {name}: kernel {ms:.4f} ms, {other} {pms:.4f} ms; "
+              f"card: {card}")
+
+    pfb_x = torch.complex(torch.randn(sizes.pfb_n, generator=gen, device=dev),
+                          torch.randn(sizes.pfb_n, generator=gen, device=dev))
+    pfb_taps = channelizer.channelizer_taps(PFB_CH)
+    pfb_ms = time_one(lambda: channelizer.pfb_channelize(pfb_x, pfb_taps, PFB_CH))
+    print(f"[9 times] pfb_channelize {PFB_CH} channels x "
+          f"{size_label(sizes.pfb_n)} (plain torch + cuFFT, no kernel): "
+          f"{pfb_ms:.4f} ms ({sizes.pfb_n / pfb_ms / 1e3:.1f} Msps); card: {card}")
+    del pfb_x
+
+    def chain_d(args):
+        """Kernel D's dependent-chain bound on these arguments, (ms, what)."""
+        cycles, what = d_chain(
+            args, kernels.symbol_sync_events_scan(*args)[1], cal)
+        return cycles / cal["sm_hz"] * 1e3, what
+
+    def work_d(args):
+        """Kernel D's work on these arguments: the slots' bytes, and every
+        channel's real slots times the operations of one."""
+        events, n, _, _, clock_taps = args[:5]
+        return kernels.events_work(events.numel(), int((events < n).sum()),
+                                   len(clock_taps) - 1)
+
+    def chain_e(args):
+        """Kernel E's dependent-chain bound on these arguments, (ms, what)."""
+        cycles, what = e_chain(args, kernels.symbol_sync_scan(*args)[1], cal)
+        return cycles / cal["sm_hz"] * 1e3, what
+
+    def work_e(args):
+        """Kernel E's work: one operation a sample, two an emission (one a
+        symbol), and every sign change as an applied crossing."""
+        x, sps, _, clock_taps = args[:4]
+        sign = x > 0
+        return kernels.scan_work(x.numel(), float(sps),
+                                 int((sign[:, 1:] != sign[:, :-1]).sum()),
+                                 len(clock_taps) - 1)
+
+    def chain_line(name, ms, chain):
+        t.chains[name] = chain
+        print(f"[9 times] {name}: dependent-chain bound {chain[0]:.4f} ms "
+              f"({chain[1]} at {cal['sm_hz'] / 1e9:.3f} GHz), share of it "
+              f"{chain[0] / ms:.1%}; card: {card}")
+
+    d_args = captured("symbol_sync_events_scan", lambda: ops.symbol_sync_events(
+        bank, BANK_SPS, max_events=sizes.bank_events))
+    d_name = f"kernel D {sizes.bank_ch} x {sizes.bank_events} slots"
+    timed9(d_name, *time_pair(
+        lambda: kernels.symbol_sync_events_scan(*d_args),
+        lambda: kernels.symbol_sync_events_scan_plain(*d_args),
+        contextlib.nullcontext, plain_calls=1))
+    # events in, both per-slot outputs out; the counted operations
+    device_row(d_name, lambda k: kernels.symbol_sync_events_scan(*d_args),
+               bound(work_d(d_args)))
+    chain_line(d_name, t.dev_ms[d_name], chain_d(d_args))
+    op_ms, op_pms = time_pair(
+        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=sizes.bank_events),
+        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=sizes.bank_events),
+        plain_versions, plain_calls=1)
+    print(f"[9 times] symbol_sync_events op {bank_label} (crossing list, "
+          f"kernel D, mask pass): {op_ms:.4f} ms "
+          f"({sizes.bank_ch * sizes.bank_n / op_ms / 1e3:.1f} Msps), on the "
+          f"plain versions {op_pms:.4f} ms; card: {card}")
+    e_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(bank, BANK_SPS))
+
+    def native_bank():
+        for c in range(sizes.bank_ch):
+            native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5))
+
+    nat_s = statistics.median(
+        [wall(native_bank, reps=1)[0] for _ in range(5)])
+    e_ms = time_one(lambda: kernels.symbol_sync_scan(*e_args), calls=3)
+    e_bank = f"kernel E {bank_label}"
+    timed9(e_bank, e_ms, nat_s * 1e3,
+           f"native rr_symbol_sync on the host, {sizes.bank_ch} channels in turn,")
+    chain_line(e_bank, e_ms, chain_e(e_args))
+    p_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(prefix, BANK_SPS))
+    e_name = f"kernel E {sizes.bank_ch} x {n_prefix} prefix"
+    timed9(e_name, *time_pair(
+        lambda: kernels.symbol_sync_scan(*p_args),
+        lambda: kernels.symbol_sync_scan_plain(*p_args),
+        contextlib.nullcontext, plain_calls=1))
+    # samples in, a mask byte and a clock out; the counted operations
+    device_row(e_name, lambda k: kernels.symbol_sync_scan(*p_args),
+               bound(work_e(p_args)))
+    chain_line(e_name, t.dev_ms[e_name], chain_e(p_args))
+    for name, args in path_args.items():
+        is_d = name.startswith("kernel D")
+        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
+        ms = time_one(lambda: fn(*args), calls=3)
+        print(f"[9 times] {name}, the path's own arguments "
+              f"({args[0].shape[0]} x {args[0].shape[1]}): kernel {ms:.4f} ms; "
+              f"card: {card}")
+        chain_line(name, ms, (chain_d if is_d else chain_e)(args))
+    # each kernel beside its one-thread-per-channel form
+    # (tools/csrc/symbol_sync_lone.cu) on the same arguments: every output equal
+    # bit for bit, then the device times alone, in turns
+    path_args[d_name] = d_args
+    path_args[e_bank] = e_args
+    path_args[e_name] = p_args
+    for name, args in path_args.items():
+        is_d = name.startswith("kernel D")
+        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
+        lone = time_sync.events_lone if is_d else time_sync.scan_lone
+        outputs_equal(f"{name}: block per channel vs one thread per channel",
+                      fn(*args), lone(*args))
+        calls = 2 if args[0].numel() > 1 << 21 else 5
+        new_ms = [graph_ms(lambda k: fn(*args), calls=calls)]
+        old_ms = [graph_ms(lambda k: lone(*args), calls=calls) for _ in "12"]
+        new_ms.append(graph_ms(lambda k: fn(*args), calls=calls))
+        t.lone_ms[name] = min(old_ms)
+        print(f"[9 times] {name} ({args[0].shape[0]} x {args[0].shape[1]}), "
+              f"device alone: block per channel {min(new_ms):.4f} ms, one "
+              f"thread per channel {min(old_ms):.4f} ms "
+              f"({min(old_ms) / min(new_ms):.2f}x); card: {card}")
+    end_phase("9 times")
+    front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO), sizes.reps)
+    for sync_kind in ("native", "events"):
+        total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync=sync_kind),
+                          sizes.reps)
+        print(f"[9 times] ax25_1200_rx sync={sync_kind} {n_frames} frames: "
+              f"{total_s * 1e3:.1f} ms wall, device front-end "
+              f"{front_s * 1e3:.1f} ms, clock recovery and tail "
+              f"{(total_s - front_s) * 1e3:.1f} ms (median of {sizes.reps}); "
+              f"card: {card}")
+    for method in sizes.wb_methods:
+        wb_s, _ = wall(lambda: wideband(method), sizes.reps)
+        print(f"[9 times] decode_band_ax25 sync {method}, {wide.shape[0]} "
+              f"samples: {wb_s * 1e3:.1f} ms wall (median of {sizes.reps}; first "
+              f"call {wb_first[method] * 1e3:.1f} ms); card: {card}")
+    t.record["symbol_sync_events"], t.record["symbol_sync_scan"] = d_name, e_name
+    return errs, ev_got, ev_counts, wb_counts, cal
 
 
 # ---- phase 10: the FM family's apps and the streaming Graph
@@ -2543,6 +3643,9 @@ IIR_TAPS = {
                 0.672317, -0.5769415, 0.500414, -0.33802596),
 }
 IIR_TOL = 5e-6          # of max|y|, against the float64 model (iir_f64)
+# growing filters whose f32 powers overflow: a pole at 1.001 and one at
+# 1 + 1/sqrt(2) (also tests/test_torch_recurrences.py)
+IIR_GROWING = {"slow pole": (1.0, 1.001), "fast poles": (1.0, 2.0, -0.5)}
 FS_RDS, DS_RDS = 250_000.0, 50_000.0  # rtl_data_stream's default rates
 RDS_DEV = 5_000.0       # the station's deviation, Hz
 UI_DB_TOL = 0.1         # dB, where the float64 power is within 60 dB of its row's peak
@@ -2558,6 +3661,7 @@ class LiveSizes:
     window: int = 1 << 14       # outputs held against the plain versions
     cma_f64: int = 1 << 18      # kernel F's windows held against float64
     iir_n: int = 1 << 24        # 5.8 min of 48 kHz audio
+    iir_growing: int = 1 << 18  # each stream through a growing filter
     rds_n: int = 1 << 24        # rtl_data_stream's capture: 32 MiB of u8 IQ
     clients: int = 4            # rtl_data_stream --tcp's clients
     feed_c32: int = 1 << 26     # DeviceFeeder's c32 file: 512 MiB
@@ -2630,21 +3734,49 @@ def iir_f64(x: torch.Tensor, taps, length: int = 2048) -> torch.Tensor:
 
 
 def iir_sequential(x: torch.Tensor, taps, hist: torch.Tensor) -> torch.Tensor:
-    """The IIR recurrence sample after sample in f32 (torch ops, any
-    device): taps[0] * x[n], then the terms from the oldest output down to
-    taps[2] * y[n - 2], then taps[1] * y[n - 1]; what kernel G's first
-    chunk computes."""
-    t = [float(v) for v in np.asarray(taps, np.float32)]
-    h = list(hist.unbind(0))
-    ys = []
-    for v in x * t[0]:
-        acc = v
-        for i in range(len(t) - 1, 1, -1):
-            acc = acc + t[i] * h[i - 1]
-        y = acc + t[1] * h[0]
-        h = [y] + h[:-1]
-        ys.append(y)
-    return torch.stack(ys)
+    """The IIR recurrence sample after sample in f32 (numpy scalars on the
+    host, each operation rounded to f32): taps[0] * x[n], then the terms
+    from the oldest output down to taps[2] * y[n - 2], then taps[1] *
+    y[n - 1]; what kernel G's first chunk computes.  A CPU tensor out."""
+    t = np.asarray(taps, np.float32)
+    h = list(hist.cpu().numpy().astype(np.float32))
+    ys = np.empty(x.shape[0], np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):  # past f32's largest
+        for n, v in enumerate(x.cpu().numpy()):
+            acc = t[0] * v
+            for i in range(len(t) - 1, 1, -1):
+                acc = acc + t[i] * h[i - 1]
+            y = acc + t[1] * h[0]
+            h = [y] + h[:-1]
+            ys[n] = y
+    return torch.from_numpy(ys)
+
+
+def iir_growing_streams(n: int):
+    """(what, taps, x, history) of the streams on which a growing filter's
+    f32 powers overflow, n samples each as CPU tensors: zeros, and a unit
+    impulse 2000 samples before the end, through both ``IIR_GROWING``
+    filters; an impulse of 1e-30 at sample 0, and a history of 1e-30,
+    through the slow pole."""
+    out = []
+    for name, taps in IIR_GROWING.items():
+        hz = torch.zeros(len(taps) - 1)
+        late = torch.zeros(n)
+        late[n - 2000] = 1.0
+        out += [(f"zeros, {name}", taps, torch.zeros(n), hz),
+                (f"an impulse 2000 samples before the end, {name}", taps, late, hz)]
+    taps = IIR_GROWING["slow pole"]
+    tiny = torch.zeros(n)
+    tiny[0] = 1e-30
+    out += [("an impulse of 1e-30 at sample 0, slow pole", taps, tiny, torch.zeros(1)),
+            ("a history of 1e-30, slow pole", taps, torch.zeros(n),
+             torch.full((1,), 1e-30))]
+    return out
+
+
+def first_non_finite(y: torch.Tensor) -> int | None:
+    bad = torch.nonzero(~torch.isfinite(y))
+    return int(bad[0, 0]) if bad.shape[0] else None
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -2895,6 +4027,29 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
                float((yi.double() - y64).abs().max() / y64.abs().max()), IIR_TOL)
         del y64
     del outs
+    # growing filters, whose f32 powers overflow: the kernel bit-equal to
+    # its plain version (NaN where it is NaN), both finite wherever the
+    # sequential f32 recurrence is, to within 4 samples of its first
+    # non-finite output
+    for what, taps, xs, hs in iir_growing_streams(sizes.iir_growing):
+        yk = ops.iir_filter(xs.to(dev), taps, hs.to(dev))
+        yp = kernels.iir_scan_plain(xs.to(dev), taps, hs.to(dev))
+        nk, np_ = yk.isnan(), yp.isnan()
+        ok = (yk.shape == yp.shape and torch.equal(nk, np_)
+              and torch.equal(yk[~nk].cpu(), yp[~np_].cpu()))
+        seq = first_non_finite(iir_sequential(xs, taps, hs))
+        ends = [first_non_finite(v) for v in (yk, yp)]
+        finite = all((e is None) == (seq is None)
+                     and (seq is None or abs(e - seq) <= 4) for e in ends)
+        print(f"[14 iir] {what}: kernel G vs plain over {sizes.iir_growing} "
+              f"samples, bit-equal {ok} (NaN where NaN); first non-finite "
+              f"output: kernel {ends[0]}, plain {ends[1]}, sequential f32 {seq}; "
+              f"last output {float(yk[-1])!r}")
+        if not ok:
+            failures.append(f"14 iir {what}: kernel G vs plain")
+        if not finite:
+            failures.append(f"14 iir {what}: non-finite where the sequential "
+                            "form is finite")
     end_phase("14 iir")
 
     # the app's process: its stdout's Data packets are the payload
@@ -2974,7 +4129,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
                 kernels.iir_scan(xg, taps, hz)
 
             n_g = xg.shape[0]
-            links = kernels.iir_chain_links(n_g, order)
+            links = kernels.iir_chain_links(n_g, taps)
             return dict(
                 ms=time_one(g_call), device_ms=graph_ms(g_call),
                 host_us=host_us(g_call), bound=bound(kernels.iir_work(n_g, order)),
@@ -3887,45 +5042,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels need an NVIDIA GPU", file=sys.stderr)
         return 1
-    from rustradio_tpu_torch import blocks, ops, taps as tapgen
-    from rustradio_tpu_torch.graph import Graph
-    from rustradio_tpu_torch.models import ax25, fm
-    from rustradio_tpu_torch.ops import cuda_lib, hdlc, kernels
-
-    def stage_err(what: str, fn, x: torch.Tensor) -> torch.Tensor:
-        """``fn(x)`` on the kernels against ``fn(x)`` on the plain versions
-        at the FIR budget 2e-5 * max|y|; returns the kernels' output."""
-        got = fn(x)
-        with plain_versions():
-            want = fn(x)
-        g, w = (torch.view_as_real(t) if t.is_complex() else t
-                for t in (got, want))
-        report("6 ax25", f"{what} ({x.shape[0]} samples) vs plain",
-               max_err(g, w), 2e-5 * float(w.abs().max()))
-        return got
-
-    def front_end_errs(what: str, audio: torch.Tensor, fs: float,
-                       tones: bool) -> None:
-        """kernel A at the AX.25 receiver's own shapes, on its own data:
-        each FIR stage of ``bell202_demod`` (and of the tone demod's
-        one-symbol moving average), fed the kernels' input of that stage.
-        The stages are held one by one because the exact discriminator
-        between them turns a last-ulp difference at a near-zero analytic
-        sample into an arbitrary angle."""
-        bp = tapgen.band_pass(fs, 400.0, 2700.0, 65, "hamming")
-        lp = tapgen.low_pass(fs, 1100.0, 200.0, "hamming")
-        x = stage_err(f"{what}: band-pass {len(bp)} taps",
-                      lambda a: ops.filter_float(a, bp), audio)
-        x = stage_err(f"{what}: Hilbert 65 taps",
-                      lambda a: ops.hilbert_transform(a, 65, "hamming"), x)
-        stage_err(f"{what}: low-pass {len(lp)} taps",
-                  lambda a: ops.filter_float(a, lp),
-                  ops.quadrature_demod(x, 1.0))
-        if tones:
-            w = int(fs / 1200.0)
-            avg = np.ones(w, np.float32) / w
-            stage_err(f"{what}: tone moving average {w} taps",
-                      lambda a: ops.fir_filter_full(a, avg), audio)
+    from rustradio_tpu_torch.ops import cuda_lib
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3947,881 +5064,28 @@ def main() -> int:
     print(f"[2 build] {info['path']} cached={info['cached']} "
           f"nvcc_s={info['seconds']:.1f} load_s={time.perf_counter() - t0:.1f}")
 
-    # ---- 3. kernels against their plain versions on the card
-    lpr = np.real(tapgen.low_pass_complex(1_024_000.0, 100_000.0, 50_000.0,
-                                          "hamming")).astype(np.float32)
-    lp1205 = tapgen.low_pass(1_024_000.0, 100_000.0, 2048.0)
-    if (len(lpr), len(lp1205)) != (49, 1205):
-        raise SystemExit(f"chip_smoke: tap sets of {len(lpr)}, {len(lp1205)}")
-    errs = {"fir_decimate": 0.0, "fm_chain": 0.0, "quad_demod": 0.0}
-    xg = torch.randn(N_FIR, generator=gen, device=dev)
-    for taps, deci in [(lpr, 4), (lp1205, 1)]:
-        got = kernels.fir_decimate(xg, taps, deci)
-        want = kernels.fir_decimate_plain(xg, taps, deci)
-        tol = 2e-5 * float(want.abs().max())
-        errs["fir_decimate"] = max(errs["fir_decimate"], report(
-            "3 kernels", f"fir_decimate {len(taps)} taps deci {deci} n=2^22 f32",
-            max_err(got, want), tol))
+    sizes = CoreSizes()
+    # ---- 3 and 3e. kernels A, B and C against their plain versions
+    errs, cap = kernels_phase(dev, card, sizes, gen)
+    i_main, q_main, phase = cap["i_main"], cap["q_main"], cap["phase"]
 
-    i_main, q_main, phase = rtl_fm_iq(N_MAIN, dev, gen)
-    pre_want = fm_chain_f64(i_main[:N_PREFIX].cpu().numpy(),
-                            q_main[:N_PREFIX].cpu().numpy(), lpr)
-    for precision in ("highest", "w3", "i8", "w2"):
-        got = kernels.fm_chain(i_main, q_main, lpr, DECI, precision=precision)
-        with plain_versions():
-            want = kernels.fm_chain(i_main, q_main, lpr, DECI,
-                                    precision=precision)
-        errs["fm_chain"] = max(errs["fm_chain"], report(
-            "3 kernels", f"fm_chain flat {precision} n=2^24",
-            max_err(got, want), BUDGET[precision]))
-        report("3 kernels", f"fm_chain flat {precision} vs float64 model, "
-               "2^18-sample prefix",
-               float(np.abs(got[: len(pre_want)].cpu().numpy() - pre_want).max()),
-               BUDGET[precision])
-    packed = {}
-    for precision in ("w3", "i8"):
-        pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
-        packed[precision] = (pr, pi)
-        got = kernels.fm_chain(pr, pi, lpr, DECI, precision=precision, n=n)
-        with plain_versions():
-            want = kernels.fm_chain(pr, pi, lpr, DECI, precision=precision, n=n)
-        errs["fm_chain"] = max(errs["fm_chain"], report(
-            "3 kernels", f"fm_chain packed {precision} n=2^24",
-            max_err(got, want), BUDGET[precision]))
-    pr, pi = packed["w3"]
-    half = N_MAIN // DECI // 128 // 1024 // 2  # tiles of 1024 rows per window
-    a1, last1 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=0, g=half)
-    a2, last2 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=half * 1024,
-                                        g=half, seed=last1)
-    both, last12 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=0, g=2 * half)
-    # identical arithmetic per sample: the chained windows must reproduce
-    # the one-call stream bit for bit, up to 1e-6 stated
-    report("3 kernels", "fm_chain_window two chained windows == one call",
-           max(max_err(torch.cat([a1, a2]), both), max_err(last2, last12)), 1e-6)
-    with plain_versions():
-        pa1, plast1 = kernels.fm_chain_window(pr, pi, lpr, DECI, row0=0, g=half)
-    errs["fm_chain"] = max(errs["fm_chain"], report(
-        "3 kernels", "fm_chain_window w3 vs plain (audio, last)",
-        max(max_err(a1, pa1), max_err(last1, plast1)), BUDGET["w3"]))
-    xc = torch.complex(i_main, q_main)  # the station, 2^24 complex64
-    got_c = kernels.quad_demod_fast(xc, GAIN_C)
-    want_c = kernels.quad_demod_fast_plain(xc, GAIN_C)
-    # unfused conjugate product in both; the polynomial's FMA contraction
-    # moves a few ulps; a +-pi branch flip is no error (wrapped)
-    errs["quad_demod"] = report(
-        "3 kernels", f"quad_demod gain {GAIN_C} n=2^24 vs plain (wrapped)",
-        wrapped_err(got_c, want_c, GAIN_C), 1e-6 * GAIN_C)
-    pre = xc[:N_PREFIX].cpu().numpy().astype(np.complex128)
-    pre_want = GAIN_C * np.angle(np.conj(pre[:-1]) * pre[1:])
-    report("3 kernels", "quad_demod vs float64 model, 2^18-sample prefix "
-           "(wrapped)", wrapped_err(got_c[: N_PREFIX - 1].cpu(),
-                                    torch.from_numpy(pre_want), GAIN_C),
-           2e-4 * GAIN_C)
-    del got_c, want_c
-    end_phase("3")
+    # ---- 4 and 5. the FM path, counted: the models and the Graph device loop
+    launches, loops = fm_phase(dev, card, sizes, gen, cap)
 
-    # ---- 3e. kernels A and B where the register-blocked design can break:
-    # one line per group, the case nearest its tolerance
-    def worst(what: str, cases) -> float:
-        cases = list(cases)
-        err, tol = max(cases, key=lambda c: c[0] / c[1])
-        report("3 edges", f"{what} ({len(cases)} cases)", err, tol)
-        return err
-
-    def slow_planes(n: int, ntaps: int, deci: int, precision: str):
-        """Wire-grid I/Q planes of an FM signal slow enough to pass a
-        unit-gain ``ntaps`` low-pass at full amplitude, and to turn by at
-        most 1 rad per output at ``deci``: no angle comes near +-pi, where
-        the last bit of the conjugate product picks the branch."""
-        d = min(0.9, 2.0 / ntaps, 1.0 / deci)
-        t = torch.arange(n, dtype=torch.float64, device=dev)
-        ph = torch.cumsum(d * torch.sin(t * (2e-3 * d)), 0)
-        out = []
-        for f in (torch.cos, torch.sin):
-            v = 0.45 * f(ph) + 0.02 * torch.randn(n, generator=gen, device=dev,
-                                                  dtype=torch.float64)
-            out.append(kernels.plane_cast(
-                (torch.round(torch.clamp(v * 128, -127, 128)) / 128).float(),
-                precision))
-        return out
-
-    def unit_lp(ntaps: int) -> np.ndarray:
-        w = np.hamming(ntaps) if ntaps > 1 else np.ones(1)
-        return (w / w.sum()).astype(np.float32)
-
-    def span_case(precision, ntaps, deci, first, count, shift, length):
-        """(err, tol) of kernel B's audio and of its last filtered sample
-        against the plain version on one span."""
-        a, b = slow_planes(length, ntaps, deci, precision)
-        kw = dict(first=first, count=count, shift=shift, precision=precision,
-                  offset=0.01, seed=(0.3, -0.2))
-        got, last = kernels.fm_chain_span(a, b, unit_lp(ntaps), deci, 0.9, **kw)
-        want, wlast = kernels.fm_chain_span_plain(a, b, unit_lp(ntaps), deci,
-                                                  0.9, **kw)
-        return [(max_err(got, want), BUDGET[precision]),
-                (max_err(last, wlast), 2e-5)]
-
-    # an input this small gets small tiles of 4 outputs a thread from the
-    # launcher; from WIDE outputs on it takes its widest shape (8 outputs a
-    # thread, tiles of 1024, and for deci 1, 2 and 4 the staging compiled
-    # with deci known), the shape of every full-size call: each case runs at
-    # its own count and again with WIDE outputs more
-    for extra in (0, WIDE):
-        size = f"+{extra} outputs"
-        tap_deci = [(1, 1), (7, 1), (9, 1), (3, 4), (5, 4), (49, 4), (49, 3),
-                    (1205, 1), (4096, 1), (4096, 50), (1, 50), (49, 50)]
-        errs["fm_chain"] = max(
-            errs["fm_chain"],
-            worst(f"{size}: fm_chain_span: the span starts at every "
-                  "residue of the 16-byte grid (f32, bf16, s8)",
-                  (c for prec, v in (("highest", 4), ("w3", 8), ("i8", 16))
-                   for r in range(v)
-                   for c in span_case(prec, 49, DECI, 3, 2500 + extra, -48 + r,
-                                      (1 << 15) + DECI * extra))),
-            worst(f"{size}: fm_chain_span: taps 1..4096, deci 1, 3, 4, "
-                  "50, spans past both ends of the plane (pad 0, -1 for "
-                  "s8)",
-                  (c for nt, d in tap_deci for prec in ("w3", "i8")
-                   for c in span_case(prec, nt, d, 0, 1500 + extra, 1 - nt,
-                                      (1500 + extra) * d + nt - 7))),
-            worst(f"{size}: fm_chain_span: counts 1, 2 and around a tile "
-                  "of 1024 and 2048",
-                  (c for cnt in (1, 2, 1023, 1024, 1025, 2047, 2049)
-                   for prec in ("w3", "i8")
-                   for c in span_case(prec, 49, DECI, 7, cnt + extra, -48,
-                                      (1 << 14) + DECI * extra))),
-            worst(f"{size}: fm_chain_span: a window that ends at the "
-                  "plane's last sample",
-                  (c for prec in ("w3", "i8")
-                   for c in span_case(prec, 49, DECI, 4096, 4096 + extra, 0,
-                                      (4096 + 4096 + extra - 1) * DECI + 49))))
-
-        def fir_cases():
-            for nt, d in [(1, 1), (3, 1), (5, 1), (7, 1), (9, 1), (49, 4), (49, 3),
-                          (65, 2), (1205, 1), (4096, 1), (4096, 50), (1, 50)]:
-                taps = np.random.RandomState(nt + d).randn(nt).astype(np.float32)
-                for n in (1, 1023 * 4, 1025 * 4 + 1, (1 << 16) + 3):
-                    n += extra * d
-                    base = torch.randn(n + 3, generator=gen, device=dev)
-                    for off in range(4):  # every residue of the 16-byte grid
-                        x = base[off : off + n]
-                        want = kernels.fir_decimate_plain(x, taps, d)
-                        yield (max_err(kernels.fir_decimate(x, taps, d), want),
-                               2e-5 * max(float(want.abs().max()), 1e-3))
-
-        errs["fir_decimate"] = max(errs["fir_decimate"], worst(
-            f"{size}: fir_decimate: taps 1..4096, deci 1..50, 1 to 2^16+3 "
-            "samples and up, every start residue", fir_cases()))
-    xc_edge = torch.complex(torch.randn((1 << 16) + 5, generator=gen, device=dev),
-                            torch.randn((1 << 16) + 5, generator=gen, device=dev))
-    before_edge = kernels.LAUNCHES["fir_decimate"]
-    both_planes = kernels.fir_decimate(xc_edge, lpr, DECI)
-    one_launch = kernels.LAUNCHES["fir_decimate"] - before_edge
-    each_plane = torch.complex(
-        kernels.fir_decimate(xc_edge.real.contiguous(), lpr, DECI),
-        kernels.fir_decimate(xc_edge.imag.contiguous(), lpr, DECI))
-    report("3 edges", f"fir_decimate complex input, real taps: {one_launch} "
-           "launch, against two 1-plane launches",
-           max_err(torch.view_as_real(both_planes),
-                   torch.view_as_real(each_plane)), 0.0)
-    if one_launch != 1:
-        failures.append(f"complex input took {one_launch} kernel-A launches")
-    null_seed = kernels.fm_chain_span(*packed["w3"], lpr, DECI, first=0,
-                                      count=4096, shift=3, precision="w3")
-    zero_seed = kernels.fm_chain_span(*packed["w3"], lpr, DECI, first=0,
-                                      count=4096, shift=3, precision="w3",
-                                      seed=(0.0, 0.0))
-    report("3 edges", "fm_chain_span without a seed == with the zero seed",
-           max(max_err(null_seed[0], zero_seed[0]),
-               max_err(null_seed[1], zero_seed[1])), 0.0)
-    del xc_edge, both_planes, each_plane
-    end_phase("3 edges")
-
-    # ---- 4 + 5. the FM path, counted
-    zero_counts()
-    outs = {}
-    for precision in ("w3", "i8"):
-        pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
-        outs[precision] = fm.fm_demod_chain_planar(pr, pi, precision=precision,
-                                                   n=n)
-    iq = torch.complex(i_main[:N_FIR], q_main[:N_FIR])
-    outs["complex"] = fm.fm_demod_chain(iq)
-    after_models = dict(kernels.LAUNCHES)
-
-    ring_i, ring_q, _ = rtl_fm_iq(RING, dev, gen)
-
-    def build_graph(cuda_graph=True):
-        g = Graph()
-        src = g.add(blocks.PackedIqRingSource(ring_i, ring_q, lpr, DECI,
-                                              precision="w3"))
-        fir = g.add(blocks.FirFilter(lpr, deci=DECI, precision="w3"), src)
-        qd = g.add(blocks.QuadratureDemod(1.0), fir)
-        g.add(blocks.DeviceFoldSink(fn=lambda c, x: c + x.sum() + (x * x).sum()),
-              qd)
-        return g.compile_device_loop(N_MAIN, N_CHUNKS, device=dev,
-                                     cuda_graph=cuda_graph)
-
-    # the device loop's first call runs the loop once eagerly (its warm-up,
-    # whose launches count apart), captures it into a CUDA graph and
-    # replays it; later calls only replay
-    loop = build_graph()
-    fold_t = next(iter(loop(0).values()))
-    fold = float(fold_t)
-    launches = dict(kernels.LAUNCHES)
-    graph_launches = launches["fm_chain"] - after_models["fm_chain"]
-    fold_again = next(iter(loop(0).values()))
-    replay_launches = kernels.LAUNCHES["fm_chain"] - launches["fm_chain"]
-    print(f"[4+5 main path] launches {json.dumps(launches)}; models "
-          f"{json.dumps(after_models)}; graph fm_chain launches "
-          f"{graph_launches} for {N_CHUNKS} chunks (first replay; its warm-up "
-          f"and capture counted apart), "
-          f"{replay_launches} for a replay alone")
-    require("FM", launches, ("fir_decimate", "fm_chain"))
-    if after_models["fir_decimate"] < 1 or after_models["fm_chain"] < 2:
-        failures.append("the models path launched fewer kernels than it calls")
-    if graph_launches != N_CHUNKS or replay_launches != N_CHUNKS:
-        failures.append(f"graph launched fm_chain {graph_launches} then "
-                        f"{replay_launches} times")
-
-    # ---- 4. checks of the models path
-    with plain_versions():
-        for precision in ("w3", "i8"):
-            pr, pi, n = fm.fm_pack_planes(i_main, q_main, precision=precision)
-            want = fm.fm_demod_chain_planar(pr, pi, precision=precision, n=n)
-            report("4 models", f"fm_pack_planes + fm_demod_chain_planar "
-                   f"{precision} n=2^24 vs plain", max_err(outs[precision], want),
-                   BUDGET[precision])
-        want = fm.fm_demod_chain(iq)
-    # exact atan2 on the filtered stream: f32 rounding amplified at small
-    # filtered samples, the chain budget of tests/test_pallas.py (1e-3 rad)
-    report("4 models", "fm_demod_chain n=2^22 complex vs plain",
-           max_err(outs["complex"], want), 1e-3)
-    # the demodulated audio is the station's: output k spans input samples
-    # 4k-24 .. 4k+4-24 (the 49-tap filter's 24-sample delay)
-    out = outs["w3"]
-    k = torch.arange(64, out.shape[0] - 64, device=dev)
-    truth = phase[DECI * (k + 1) - 24] - phase[DECI * k - 24]
-    corr = float(torch.corrcoef(torch.stack([out[k].double(), truth]))[0, 1])
-    finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
-    print(f"[4 models] w3 audio vs transmitted frequency: corr={corr:.6f} "
-          f"finite={finite} shape={tuple(out.shape)}")
-    if not (finite and corr > 0.99 and out.shape[0] == N_MAIN // DECI - 1):
-        failures.append("models output")
-    end_phase("4")
-
-    # ---- 5. the captured loop against the eager loop (bit-equal folds, at
-    # two offsets), then against the same graph on the plain versions
-    eager_loop = build_graph(cuda_graph=False)
-    # (offsets one chunk under and over 2^31 wrap the ring from its last
-    # chunk: the captures of other offsets)
-    far = [(o, next(iter(loop(o).values())))
-           for o in ((1 << 31) - N_MAIN, (1 << 31) + N_MAIN)]
-    for offset0, got_fold in [(0, fold_t), (0, fold_again),
-                              (2 * N_MAIN, next(iter(loop(2 * N_MAIN).values())))] + far:
-        want_fold = next(iter(eager_loop(offset0).values()))
-        report("5 graph", f"CUDA-graph replay == eager loop at offset0 "
-               f"{offset0} (fold {float(got_fold)!r})",
-               max_err(got_fold, want_fold), 0.0)
-    with plain_versions():
-        plain_loop = build_graph(cuda_graph=False)
-        plain_fold = float(next(iter(plain_loop(0).values())))
-    rel = abs(fold - plain_fold) / abs(plain_fold)
-    print(f"[5 graph] fold={fold!r} plain_fold={plain_fold!r} rel_err={rel:.3e}")
-    # f32 folds of 8 x 4M outputs (sum + sum of squares): rtol 1e-4
-    if not (math.isfinite(fold) and rel <= 1e-4):
-        failures.append("graph fold")
-    end_phase("5")
-
-    # ---- 6. the AX.25 1200 bd path, counted: the corpus at 24 kHz, then an
-    # IQ capture at 1.024 Msps
-    t0 = time.perf_counter()
-    audio = torch.from_numpy(audio_corpus(hdlc)).to(dev)
-    print(f"[6 ax25] corpus: {N_FRAMES} frames, {audio.shape[0]} samples at "
-          f"{FS_AUDIO:.0f} Hz, synthesized in {time.perf_counter() - t0:.1f} s")
-    zero_counts()
-    rx_s, rx = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO), reps=1)
-    got = decoded(rx, N_FRAMES)
-    ax_counts = dict(kernels.LAUNCHES)
-    tones = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO, demod="tones"), N_FRAMES)
-    tone_counts = dict(kernels.LAUNCHES)
-    with plain_versions():
-        plain_got = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO), N_FRAMES)
-    print(f"[6 ax25] ax25_1200_rx decoded {len(set(got))}/{N_FRAMES} on the "
-          f"kernels (first call {rx_s:.3f} s, native build included), "
-          f"{len(set(plain_got))}/{N_FRAMES} on the "
-          f"plain versions; tones {len(set(tones))}/{N_FRAMES}; launches "
-          f"{json.dumps(ax_counts)}, with tones {json.dumps(tone_counts)}")
-    require("AX.25", ax_counts, ("fir_decimate",))
-    front_end_errs("corpus at 24 kHz", audio, FS_AUDIO, tones=True)
-    for what, n, gate in (("kernels", got, FRAME_GATE),
-                          ("plain versions", plain_got, FRAME_GATE),
-                          ("tones", tones, TONES_GATE)):
-        if len(set(n)) < gate:
-            failures.append(f"ax25_1200_rx on the {what}: {len(set(n))} < {gate}")
-
-    t0 = time.perf_counter()
-    iq_np = iq_capture(hdlc)
-    print(f"[6 ax25] IQ capture: {N_IQ_FRAMES} frames, {len(iq_np)} samples at "
-          f"{FS_IQ:.0f} Hz, {IQ_DEV:.0f} Hz deviation, noise {IQ_NOISE} per "
-          f"component, synthesized in {time.perf_counter() - t0:.1f} s")
-    zero_counts()
-    iq_s, iq_rx = wall(lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev),
-                       reps=1)
-    iq_got = decoded(iq_rx, N_IQ_FRAMES)
-    iq_counts = dict(kernels.LAUNCHES)
-    with plain_versions():
-        iq_plain_s, iq_plain_rx = wall(
-            lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev), reps=1)
-    iq_plain = decoded(iq_plain_rx, N_IQ_FRAMES)
-    print(f"[6 ax25] ax25_1200_rx_iq decoded {len(set(iq_got))}/{N_IQ_FRAMES} "
-          f"on the kernels ({iq_s:.3f} s), {len(set(iq_plain))}/{N_IQ_FRAMES} "
-          f"on the plain versions ({iq_plain_s:.3f} s); same list: "
-          f"{iq_got == iq_plain}; launches {json.dumps(iq_counts)}; card: {card}")
-    require("AX.25 IQ", iq_counts, ("fir_decimate",))
-    if iq_got != iq_plain:
-        failures.append("ax25_1200_rx_iq: kernels and plain versions decode "
-                        "different frames")
-    if len(set(iq_got)) < IQ_FLOOR:
-        failures.append(f"ax25_1200_rx_iq: {len(set(iq_got))} < {IQ_FLOOR}")
-    # the channel filter (FFT route), resampler and discriminator launch no
-    # kernel: one IQ front-end output feeds the stages at 50 kHz
-    fm_audio = ax25.iq_front_end(iq_np, FS_IQ, device=dev)
-    front_end_errs("IQ capture at 50 kHz", fm_audio, 50_000.0, tones=False)
-    del iq_rx, iq_plain_rx, fm_audio  # iq_np comes back in phase 12
-    end_phase("6")
+    # ---- 6. the AX.25 1200 bd path, counted
+    audio, iq_np, got, ax_counts, iq_counts = ax25_phase(dev, card, sizes)
 
     # ---- 7. the discriminator op path, counted
-    zero_counts()
-    out_c = ops.quad_demod_fast(xc, GAIN_C)
-    op_counts = dict(kernels.LAUNCHES)
-    require("op", op_counts, ("quad_demod",))
-    # per-sample receiver noise caps the raw correlation near 0.96; over the
-    # FM chain's 4-sample decimation it is the station's audio
-    m = (out_c.shape[0] // DECI) * DECI
-    mean4 = (out_c[:m].double() / GAIN_C).reshape(-1, DECI).mean(1)
-    truth = (phase[1 : m + 1] - phase[:m]).reshape(-1, DECI).mean(1)
-    corr = float(torch.corrcoef(torch.stack([mean4, truth]))[0, 1])
-    finite = bool(torch.isfinite(out_c).all())
-    print(f"[7 op] quad_demod_fast n=2^24: launches {json.dumps(op_counts)}; "
-          f"vs transmitted frequency (4-sample means) corr={corr:.6f} "
-          f"finite={finite} shape={tuple(out_c.shape)}")
-    if not (finite and corr > 0.99 and out_c.shape[0] == N_MAIN - 1):
-        failures.append("quad_demod_fast output")
-    del out_c
-    end_phase("7")
+    op_counts = op_phase(dev, card, cap)
 
-    # ---- 8. times: kernel beside plain version, median of 5 (ms per call)
-    rows = {}
-
-    def timed(name, n_in, kernel_fn, plain_fn):
-        ms, pms = time_pair(kernel_fn, plain_fn, plain_versions)
-        rows[name] = (ms, pms)
-        print(f"[8 times] {name}: kernel {ms:.4f} ms ({n_in / ms / 1e3:.1f} "
-              f"Msps), plain {pms:.4f} ms ({n_in / pms / 1e3:.1f} Msps); "
-              f"card: {card}")
-
-    dev_ms, bounds, lib_ms = {}, {}, {}
-
-    def device_row(name, fn_k, bound_pair, library=None):
-        """The device time of ``fn_k(k)`` alone (a replayed CUDA graph of
-        ten calls, ``k`` rotating the inputs so that L2 starts cold)
-        beside the stream time, the bound and the library call."""
-        dev_ms[name], bounds[name] = graph_ms(fn_k), bound_pair
-        lib_ms[name] = None
-        lib = ""
-        if library is not None:
-            event_ms(library, kernels._true_f32, 10)
-            lib_ms[name] = statistics.median(
-                event_ms(library, kernels._true_f32, 10) for _ in range(5))
-            lib = f"; library call {lib_ms[name]:.4f} ms"
-        stream = f"in a stream {rows[name][0]:.4f} ms; " if name in rows else ""
-        print(f"[8 times] {name}: device alone {dev_ms[name]:.4f} ms (10 calls "
-              f"replayed from a CUDA graph, median of 5), {stream}bound "
-              f"{bound_pair[0]:.4f} ms ({bound_pair[1]}), share of bound "
-              f"{bound_pair[0] / dev_ms[name]:.1%}{lib}; card: {card}")
-
-    for precision in ("w3", "i8"):
-        pr, pi = packed[precision]
-        copies = [(pr, pi)] + [(pr.clone(), pi.clone()) for _ in range(2)]
-
-        def run(k=0, copies=copies, precision=precision):
-            a, b = copies[k % len(copies)]
-            kernels.fm_chain(a, b, lpr, DECI, precision=precision, n=N_MAIN)
-
-        name = f"fm_chain packed {precision} n=2^24"
-        timed(name, N_MAIN, run, run)
-        device_row(name, run, bound(kernels.fm_chain_work(
-            N_MAIN // DECI, len(lpr), DECI, pr.element_size())))
-        if precision == "w3":
-            b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
-                pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=N_MAIN)))
-        del copies
-    # the flat planes that rtl_fm --rtl_u8 gives kernel B (deci 1): the
-    # kernel alone on planes cast once (three copies, past L2), beside the
-    # wrapper with its cast in a stream
-    for precision in ("w3", "i8"):
-        flat = [tuple(kernels.plane_cast(p.roll(k), precision)
-                      for p in (i_main, q_main)) for k in range(3)]
-
-        def span(k=0, flat=flat, precision=precision):
-            a, b = flat[k % len(flat)]
-            kernels.fm_chain_span(a, b, lpr, 1, first=0, count=N_MAIN,
-                                  shift=1 - len(lpr), precision=precision)
-
-        def whole(precision=precision):
-            kernels.fm_chain(i_main, q_main, lpr, 1, precision=precision)
-
-        name = f"fm_chain flat {precision} deci 1 n=2^24"
-        timed(name, N_MAIN, whole, whole)
-        device_row(name, span, bound(kernels.fm_chain_work(
-            N_MAIN, len(lpr), 1, flat[0][0].element_size())))
-        del flat
-    xgs = [xg] + [xg.clone() for _ in range(3)]
-    for taps, deci in [(lpr, 4), (lp1205, 1)]:
-        def run(k=0, taps=taps, deci=deci):
-            kernels.fir_decimate(xgs[k % len(xgs)], taps, deci)
-
-        name = f"fir_decimate {len(taps)} taps deci {deci} n=2^22"
-        timed(name, N_FIR, run, lambda taps=taps, deci=deci:
-              kernels.fir_decimate_plain(xg, taps, deci))
-        m = -(-N_FIR // deci)
-        padded = torch.nn.functional.pad(
-            xg, (len(taps) - 1, m * deci - N_FIR))[None, None]
-        w = kernels.tapset(taps).trev("highest", dev)[None, None]
-        device_row(name, run, bound(kernels.fir_work(N_FIR, len(taps), deci)),
-                   library=lambda padded=padded, w=w, deci=deci:
-                   torch.nn.functional.conv1d(padded, w, stride=deci))
-    a_host = (host_us(lambda: kernels.fir_decimate(xg, lpr, DECI)),
-              host_us(lambda: kernels.fir_decimate(xg, kernels.tapset(lpr), DECI)))
-    print(f"[8 times] host cost per call, no synchronise between 200 calls: "
-          f"kernels.fm_chain packed w3 {b_host[0]:.1f} us with array taps, "
-          f"{b_host[1]:.1f} us with a TapSet; kernels.fir_decimate 49 taps "
-          f"{a_host[0]:.1f} us with array taps, {a_host[1]:.1f} us with a "
-          f"TapSet; card: {card}")
-    fft_ms = time_one(lambda: ops.fft_filter_float(xg, lp1205))
-    print(f"[8 times] the FFT route at 1205 taps n=2^22 (ops.fft_filter_float, "
-          f"torch.fft, no kernel): {fft_ms:.4f} ms beside kernel A's "
-          f"{rows['fir_decimate 1205 taps deci 1 n=2^22'][0]:.4f} ms; "
-          f"card: {card}")
-    del xgs
-    name = f"graph device loop w3 {N_CHUNKS} x 2^24"
-    timed(name, N_CHUNKS * N_MAIN, lambda: loop(0), lambda: plain_loop(0))
-    eager_ms = time_one(lambda: eager_loop(0))
-    loop_bound = bound([N_CHUNKS * w for w in kernels.fm_chain_work(
-        N_MAIN // DECI, len(lpr), DECI, 2)])
-    print(f"[8 times] {name}: CUDA-graph replay {rows[name][0]:.4f} ms, eager "
-          f"loop {eager_ms:.4f} ms per loop (each with its final "
-          f"synchronise); kernel B's bound for the {N_CHUNKS} chunks "
-          f"{loop_bound[0]:.4f} ms; card: {card}")
-    timed("quad_demod n=2^24", N_MAIN, lambda: ops.quad_demod_fast(xc, GAIN_C),
-          lambda: kernels.quad_demod_fast_plain(xc, GAIN_C))
-    device_row("quad_demod n=2^24", lambda k: ops.quad_demod_fast(xc, GAIN_C),
-               bound(kernels.quad_work(N_MAIN)))
-    # the AX.25 decode of the corpus: wall time of the whole call, and of
-    # its device front-end alone (synchronised); the rest is the host tail
-    # (NRZ copy-back, native symbol sync, slicer, NRZI, HDLC)
-    for label, ctx in (("kernels", contextlib.nullcontext),
-                       ("plain", plain_versions)):
-        with ctx():
-            total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO))
-            front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO))
-        print(f"[8 times] ax25_1200_rx {N_FRAMES} frames ({audio.shape[0]} "
-              f"samples) on the {label}: {total_s * 1e3:.1f} ms wall, device "
-              f"front-end {front_s * 1e3:.1f} ms, host tail "
-              f"{(total_s - front_s) * 1e3:.1f} ms (median of 3); card: {card}")
-
-    # the front-end's three kernel-A launches alone, at the corpus' shape
-    parts = []
-    for label, taps in (
-            ("band-pass", tapgen.band_pass(FS_AUDIO, 400.0, 2700.0, 65, "hamming")),
-            ("Hilbert", tapgen.hilbert(65, "hamming")),
-            ("low-pass", tapgen.low_pass(FS_AUDIO, 1100.0, 200.0, "hamming"))):
-        ms = graph_ms(lambda k, taps=taps: kernels.fir_decimate(audio, taps, 1))
-        b_ms, by = bound(kernels.fir_work(audio.shape[0], len(taps), 1))
-        parts.append(f"{label} {len(taps)} taps {ms:.4f} ms (bound {b_ms:.4f} "
-                     f"ms, {by})")
-    print(f"[8 times] the AX.25 front-end's kernel-A launches alone on the "
-          f"device, {audio.shape[0]} samples: {'; '.join(parts)}; card: {card}")
+    # ---- 8. times: kernel beside plain version
+    t = times_phase(dev, card, sizes, cap, loops, audio)
+    del loops
 
     # ---- 9. clock recovery (kernels D and E) and the wideband receiver
-    from rustradio_tpu_torch import native
-    from rustradio_tpu_torch.models import multichannel
-    from rustradio_tpu_torch.parallel import channelizer
-
-    def captured(name: str, fn):
-        """Run ``fn()`` and return the arguments of its first call of the
-        wrapper ``kernels.<name>``."""
-        with capturing(name) as got:
-            fn()
-        return got[name][0]
-
-    def outputs_equal(what, got, want) -> float:
-        """Bit-equality of two wrapper results (tuples of tensors); returns
-        the largest |difference| of the f32 outputs (tolerance 0)."""
-        err = max(max_err(g, w) for g, w in zip(got, want))
-        report("9 sync", what, err, 0.0)
-        return err
-
-    def events_check(what, args, window: int | None = None) -> float:
-        """Kernel D on a path's own captured arguments against its plain
-        version: every output (ev_mid, ev_clock, final fstate and istate).
-        The whole call when ``window`` is None (the plain loop stops at the
-        last slot holding a crossing); else the first ``window`` slots and
-        the slots from ``window`` before the last crossing (of the channel
-        with the most) to the end, each run from the state the kernel
-        reaches there, and each also held against the whole kernel run
-        (so the windows stand for it, positions near n and the padding
-        tail included)."""
-        events, n, *consts, fs, ist = args[:7]  # the windows run without
-        full = kernels.symbol_sync_events_scan(*args)  # the path's counts
-        real = int((events < n).sum(1).max())
-        print(f"[9 sync] {what}: {events.shape[0]} ch x {events.shape[1]} "
-              f"slots, n={n}, at most {real} crossings per channel")
-        if window is None or real <= 2 * window:
-            return outputs_equal(f"{what}: kernel D whole vs plain", full,
-                                 kernels.symbol_sync_events_scan_plain(*args))
-        a = real - window
-        _, _, fa, ia = kernels.symbol_sync_events_scan(
-            events[:, :a].contiguous(), n, *consts, fs, ist)
-        errs_ = []
-        for label, ev, f0, i0, sl in (
-                ("first", events[:, :window], fs, ist, slice(0, window)),
-                ("last", events[:, a:], fa, ia, slice(a, None))):
-            ev = ev.contiguous()
-            got = kernels.symbol_sync_events_scan(ev, n, *consts, f0, i0)
-            want = kernels.symbol_sync_events_scan_plain(ev, n, *consts, f0, i0)
-            errs_.append(outputs_equal(
-                f"{what}: kernel D {label} {window} crossings vs plain", got,
-                want))
-            whole = (full[0][:, sl], full[1][:, sl])
-            if label == "last":
-                whole += full[2:]
-            errs_.append(outputs_equal(
-                f"{what}: kernel D {label} window vs the whole run",
-                got[: len(whole)], whole))
-        return max(errs_)
-
-    def scan_check(what, args, window: int) -> float:
-        """Kernel E on a path's own captured arguments: each channel's
-        symbols over the whole call bit-equal to native ``rr_symbol_sync``
-        (the path starts from the fresh state native starts from), and the
-        first and last ``window`` samples against the plain version, each
-        run from the state the kernel reaches there and held against the
-        whole kernel run."""
-        x, sps, max_dev, taps, st = args
-        mask, clocks, st_out = kernels.symbol_sync_scan(*args)
-        x_np = x.cpu().numpy()
-        unequal = [c for c in range(x.shape[0]) if not np.array_equal(
-            x[c][mask[c]].cpu().numpy(),
-            native.symbol_sync_f32(x_np[c], sps, max_dev, taps))]
-        print(f"[9 sync] {what}: kernel E {x.shape[0]} ch x {x.shape[1]} "
-              f"samples vs native: {x.shape[0] - len(unequal)}/{x.shape[0]} "
-              f"channels emit the same symbols bit for bit")
-        if unequal:
-            failures.append(f"{what}: kernel E differs from native on "
-                            f"channels {unequal}")
-        a = x.shape[1] - window
-        _, _, sa = kernels.symbol_sync_scan(x[:, :a].contiguous(), sps,
-                                            max_dev, taps, st)
-        errs_ = []
-        for label, xs, s0, sl in (("first", x[:, :window], st, slice(0, window)),
-                                  ("last", x[:, a:], sa, slice(a, None))):
-            xs = xs.contiguous()
-            got = kernels.symbol_sync_scan(xs, sps, max_dev, taps, s0)
-            want = kernels.symbol_sync_scan_plain(xs, sps, max_dev, taps, s0)
-            errs_.append(outputs_equal(
-                f"{what}: kernel E {label} {window} samples vs plain", got, want))
-            whole = (mask[:, sl], clocks[:, sl]) + ((st_out,) if label == "last"
-                                                   else ())
-            errs_.append(outputs_equal(
-                f"{what}: kernel E {label} window vs the whole run",
-                got[: len(whole)], whole))
-        return max(errs_)
-
-    def sync_equal(what, got, want):
-        """Bit-equality of (mask, clocks[, valid]) outputs: report the
-        clocks' max |error| (tolerance 0) and count unequal masks."""
-        err = max_err(got[1], want[1])
-        report("9 sync", f"{what} clocks", err, 0.0)
-        for name, a, b in zip(("mask", "valid"), (got[0], *got[2:]),
-                              (want[0], *want[2:])):
-            if not torch.equal(a, b):
-                failures.append(f"{what}: {name} differs from the plain version")
-        return err
-
-    bank = decode_bank(dev, gen)
-    ev_out, ev_valid = ops.symbol_sync_events(bank, BANK_SPS,
-                                              max_events=BANK_EVENTS)
-    with plain_versions():
-        ev_plain, ev_pvalid = ops.symbol_sync_events(bank, BANK_SPS,
-                                                     max_events=BANK_EVENTS)
-    errs["symbol_sync_events"] = sync_equal(
-        f"kernel D {BANK_CH} x 2^16 sps {BANK_SPS} max_events {BANK_EVENTS}",
-        (ev_out[1], ev_out[2], ev_valid), (ev_plain[1], ev_plain[2], ev_pvalid))
-    if not bool(ev_valid.all()):
-        failures.append("decode bank: a channel overflowed its slot budget")
-    (sc_v, sc_m, _), _ = ops.symbol_sync(bank, BANK_SPS)
-    bank_np = bank.cpu().numpy()
-    unequal = [c for c in range(BANK_CH) if not np.array_equal(
-        ops.compact(sc_v[c], sc_m[c]).cpu().numpy(),
-        native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5)))]
-    print(f"[9 sync] kernel E {BANK_CH} x 2^16 vs native rr_symbol_sync: "
-          f"{BANK_CH - len(unequal)}/{BANK_CH} channels emit the same symbols "
-          f"bit for bit ({int(sc_m.sum())} symbols)")
-    if unequal:
-        failures.append(f"kernel E differs from native on channels {unequal}")
-    prefix = bank[:, :N_SYNC_PREFIX].contiguous()
-    (_, pm, pc), pst = ops.symbol_sync(prefix, BANK_SPS)
-    with plain_versions():
-        (_, qm, qc), qst = ops.symbol_sync(prefix, BANK_SPS)
-    errs["symbol_sync_scan"] = sync_equal(
-        f"kernel E {BANK_CH} x 2^12 prefix", (pm, pc), (qm, qc))
-    report("9 sync", "kernel E 2^12 prefix final state",
-           max(max_err(pst[k].float(), qst[k].float()) for k in pst), 0.0)
-    end_phase("9 sync")
-
-    # kernels D and E where their tiled, block-per-channel design can break
-    # (tools/sync_cases.py: sizes around a tile and the two in flight,
-    # misaligned rows, silence, chatter, crossings on a tile's edges, sps
-    # 2.5 to 100, 1 to 16 taps, cut streams): every output of the kernels
-    # on the card against the plain versions on CPU tensors, the chained
-    # runs against the whole ones
-    from rustradio_tpu_torch.tools import sync_cases, time_sync
-    edge_cases = sync_cases.cases(SEED)
-    unequal, compared = [], 0
-    for case in edge_cases:
-        got_e = sync_cases.run_case(case, dev)
-        compared += len(got_e)
-        unequal += [f"{case.name}: {k}" for k in
-                    sync_cases.mismatches(got_e, sync_cases.run_case(case, "cpu"))
-                    + sync_cases.self_mismatches(got_e)]
-    print(f"[9 edges] kernels D and E on {len(edge_cases)} edge cases "
-          f"({', '.join(c.name for c in edge_cases)}): {compared} outputs "
-          f"against the plain versions, bit for bit; unequal: {unequal}")
-    report("9 edges", "kernels D and E vs plain, unequal outputs",
-           float(len(unequal)), 0.0)
-    report("9 edges", "kernel E's jump over a quiet run: every f32 position "
-           "in [1, 2^17) x runs of 1..32 inside its binade, pairs where "
-           "pos + run differs from run additions of 1",
-           float(jump_mismatches(dev)), 0.0)
-    end_phase("9 edges")
-
-    # the AX.25 receiver on the corpus with the device clock recovery
-    zero_counts()
-    with capturing("symbol_sync_events_scan") as ax_calls:
-        ev_s, ev_rx = wall(
-            lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync="events"), reps=1)
-    ev_got = decoded(ev_rx, N_FRAMES)
-    ev_counts = dict(kernels.LAUNCHES)
-    print(f"[9 ax25 events] ax25_1200_rx(sync='events') decoded "
-          f"{len(set(ev_got))}/{N_FRAMES} ({ev_s:.3f} s, first call); "
-          f"native sync decoded {len(set(got))}; launches "
-          f"{json.dumps(ev_counts)}")
-    require("AX.25 events", ev_counts, ("fir_decimate", "symbol_sync_events"))
-    if len(set(ev_got)) < FRAME_GATE:
-        failures.append(f"ax25_1200_rx(sync='events'): {len(set(ev_got))} < "
-                        f"{FRAME_GATE}")
-    # the kernels' arguments on each path, checked here and timed below
-    path_args = {"kernel D, AX.25 events path":
-                 ax_calls["symbol_sync_events_scan"][0]}
-    errs["symbol_sync_events"] = max(errs["symbol_sync_events"], events_check(
-        "AX.25 events path", path_args["kernel D, AX.25 events path"],
-        window=N_SYNC_WINDOW))
-    del ax_calls
-    end_phase("9 ax25 events")
-
-    # the wideband receiver at full width, both sync methods
-    t0 = time.perf_counter()
-    wide = wideband_capture(hdlc, dev, gen)
-    torch.cuda.synchronize()
-    print(f"[9 wideband] capture: {len(WB_STATIONS)} stations on channels "
-          f"{list(WB_STATIONS)} of {WB_CHANNELS}, {len(WB_STATIONS) * WB_FRAMES} "
-          f"frames, {wide.shape[0]} samples at {FS_WB:.0f} Hz "
-          f"({wide.shape[0] / FS_WB:.1f} s), noise {WB_NOISE} per component, "
-          f"synthesized on the card in {time.perf_counter() - t0:.1f} s")
-    want_wb = {(WB_STATIONS[i // WB_FRAMES], corpus_payload(i))
-               for i in range(len(WB_STATIONS) * WB_FRAMES)}
-    wb_counts, wb_first = {}, {}
-
-    def wideband(method):
-        return multichannel.decode_band_ax25(
-            wide, FS_WB, n_channels=WB_CHANNELS, max_active=len(WB_STATIONS),
-            sync_method=method)
-
-    for method in ("scan", "events"):
-        zero_counts()
-        with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
-            wb_first[method], res = wall(lambda: wideband(method), reps=1)
-        wb_counts[method] = dict(kernels.LAUNCHES)
-        found = {(r.channel, bytes(p)) for r in res for p in r.packets}
-        ok = len(found & want_wb)
-        chans = sorted(r.channel for r in res)
-        print(f"[9 wideband] decode_band_ax25 sync {method}: {ok}/{len(want_wb)} "
-              f"frames on their channels, channels decoded {chans}, "
-              f"{sum(len(r.packets) for r in res)} packets "
-              f"({wb_first[method]:.3f} s, first call); launches "
-              f"{json.dumps(wb_counts[method])}")
-        require(f"wideband {method}", wb_counts[method],
-                ("fir_decimate", f"symbol_sync_{method}"))
-        if chans != sorted(WB_STATIONS):
-            failures.append(f"wideband {method}: channels {chans} decoded")
-        if ok < WB_FLOOR:
-            failures.append(f"wideband {method}: {ok} < {WB_FLOOR} frames")
-        # the kernels at the shapes this path gave them (E also re-runs
-        # the channels that overflowed their event budget)
-        for args in calls["symbol_sync_events_scan"][:1]:
-            path_args[f"kernel D, wideband {method}"] = args
-            errs["symbol_sync_events"] = max(errs["symbol_sync_events"],
-                                             events_check(f"wideband {method}",
-                                                          args))
-        for args in calls["symbol_sync_scan"][:1]:
-            path_args[f"kernel E, wideband {method}"] = args
-            errs["symbol_sync_scan"] = max(errs["symbol_sync_scan"], scan_check(
-                f"wideband {method}", args, N_SYNC_WINDOW))
-        del calls
-    end_phase("9 wideband")
-
-    cal = time_sync.calibrate(dev)
-    print(f"[9 times] a lone lane's dependent chain on this card "
-          f"(tools/csrc/chain_calib.cu, 2^20 links, median of 5): f32 addition "
-          f"{cal['fadd_cycles']:.2f} cycles, IEEE division "
-          f"{cal['fdiv_cycles']:.2f}, add-compare-subtract step "
-          f"{cal['step_cycles']:.2f}; SM clock {cal['sm_hz'] / 1e9:.3f} GHz; "
-          f"card: {card}")
-
-    # times, median of 5 (ms per call); the card beside each
-    def timed9(name, ms, pms, other="plain"):
-        rows[name] = (ms, pms)
-        print(f"[9 times] {name}: kernel {ms:.4f} ms, {other} {pms:.4f} ms; "
-              f"card: {card}")
-
-    pfb_x = torch.complex(torch.randn(N_PFB, generator=gen, device=dev),
-                          torch.randn(N_PFB, generator=gen, device=dev))
-    pfb_taps = channelizer.channelizer_taps(PFB_CH)
-    pfb_ms = time_one(lambda: channelizer.pfb_channelize(pfb_x, pfb_taps, PFB_CH))
-    print(f"[9 times] pfb_channelize {PFB_CH} channels x 2^22 (plain torch + "
-          f"cuFFT, no kernel): {pfb_ms:.4f} ms ({N_PFB / pfb_ms / 1e3:.1f} "
-          f"Msps); card: {card}")
-    del pfb_x
-    def chain_d(args):
-        """Kernel D's dependent-chain bound on these arguments, (ms, what)."""
-        cycles, what = d_chain(
-            args, kernels.symbol_sync_events_scan(*args)[1], cal)
-        return cycles / cal["sm_hz"] * 1e3, what
-
-    def work_d(args):
-        """Kernel D's work on these arguments: the slots' bytes, and every
-        channel's real slots times the operations of one."""
-        events, n, _, _, clock_taps = args[:5]
-        return kernels.events_work(events.numel(), int((events < n).sum()),
-                                   len(clock_taps) - 1)
-
-    def chain_e(args):
-        """Kernel E's dependent-chain bound on these arguments, (ms, what)."""
-        cycles, what = e_chain(args, kernels.symbol_sync_scan(*args)[1], cal)
-        return cycles / cal["sm_hz"] * 1e3, what
-
-    def work_e(args):
-        """Kernel E's work: one operation a sample, two an emission (one a
-        symbol), and every sign change as an applied crossing."""
-        x, sps, _, clock_taps = args[:4]
-        sign = x > 0
-        return kernels.scan_work(x.numel(), float(sps),
-                                 int((sign[:, 1:] != sign[:, :-1]).sum()),
-                                 len(clock_taps) - 1)
-
-    chains = {}  # row -> (ms, what): kernels D and E, beside their bound
-
-    def chain_line(name, ms, chain):
-        chains[name] = chain
-        print(f"[9 times] {name}: dependent-chain bound {chain[0]:.4f} ms "
-              f"({chain[1]} at {cal['sm_hz'] / 1e9:.3f} GHz), share of it "
-              f"{chain[0] / ms:.1%}; card: {card}")
-
-    d_args = captured("symbol_sync_events_scan", lambda: ops.symbol_sync_events(
-        bank, BANK_SPS, max_events=BANK_EVENTS))
-    d_name = f"kernel D {BANK_CH} x {BANK_EVENTS} slots"
-    timed9(d_name, *time_pair(
-        lambda: kernels.symbol_sync_events_scan(*d_args),
-        lambda: kernels.symbol_sync_events_scan_plain(*d_args),
-        contextlib.nullcontext, plain_calls=1))
-    # events in, both per-slot outputs out; the counted operations
-    device_row(d_name, lambda k: kernels.symbol_sync_events_scan(*d_args),
-               bound(work_d(d_args)))
-    chain_line(d_name, dev_ms[d_name], chain_d(d_args))
-    op_ms, op_pms = time_pair(
-        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
-        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=BANK_EVENTS),
-        plain_versions, plain_calls=1)
-    print(f"[9 times] symbol_sync_events op {BANK_CH} x 2^16 (crossing list, "
-          f"kernel D, mask pass): {op_ms:.4f} ms "
-          f"({BANK_CH * BANK_N / op_ms / 1e3:.1f} Msps), on the plain versions "
-          f"{op_pms:.4f} ms; card: {card}")
-    e_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(bank, BANK_SPS))
-
-    def native_bank():
-        for c in range(BANK_CH):
-            native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5))
-
-    nat_s = statistics.median(
-        [wall(native_bank, reps=1)[0] for _ in range(5)])
-    e_ms = time_one(lambda: kernels.symbol_sync_scan(*e_args), calls=3)
-    timed9(f"kernel E {BANK_CH} x 2^16", e_ms, nat_s * 1e3,
-           f"native rr_symbol_sync on the host, {BANK_CH} channels in turn,")
-    chain_line(f"kernel E {BANK_CH} x 2^16", e_ms, chain_e(e_args))
-    p_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(prefix, BANK_SPS))
-    e_name = f"kernel E {BANK_CH} x 2^12 prefix"
-    timed9(e_name, *time_pair(
-        lambda: kernels.symbol_sync_scan(*p_args),
-        lambda: kernels.symbol_sync_scan_plain(*p_args),
-        contextlib.nullcontext, plain_calls=1))
-    # samples in, a mask byte and a clock out; the counted operations
-    device_row(e_name, lambda k: kernels.symbol_sync_scan(*p_args),
-               bound(work_e(p_args)))
-    chain_line(e_name, dev_ms[e_name], chain_e(p_args))
-    for name, args in path_args.items():
-        is_d = name.startswith("kernel D")
-        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
-        ms = time_one(lambda: fn(*args), calls=3)
-        print(f"[9 times] {name}, the path's own arguments "
-              f"({args[0].shape[0]} x {args[0].shape[1]}): kernel {ms:.4f} ms; "
-              f"card: {card}")
-        chain_line(name, ms, (chain_d if is_d else chain_e)(args))
-    lone_ms = {}
-    # each kernel beside its one-thread-per-channel form
-    # (tools/csrc/symbol_sync_lone.cu) on the same arguments: every output equal
-    # bit for bit, then the device times alone, in turns
-    path_args[d_name] = d_args
-    path_args[f"kernel E {BANK_CH} x 2^16"] = e_args
-    path_args[e_name] = p_args
-    for name, args in path_args.items():
-        is_d = name.startswith("kernel D")
-        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
-        lone = time_sync.events_lone if is_d else time_sync.scan_lone
-        outputs_equal(f"{name}: block per channel vs one thread per channel",
-                      fn(*args), lone(*args))
-        calls = 2 if args[0].numel() > 1 << 21 else 5
-        new_ms = [graph_ms(lambda k: fn(*args), calls=calls)]
-        old_ms = [graph_ms(lambda k: lone(*args), calls=calls) for _ in "12"]
-        new_ms.append(graph_ms(lambda k: fn(*args), calls=calls))
-        lone_ms[name] = min(old_ms)
-        print(f"[9 times] {name} ({args[0].shape[0]} x {args[0].shape[1]}), "
-              f"device alone: block per channel {min(new_ms):.4f} ms, one "
-              f"thread per channel {min(old_ms):.4f} ms "
-              f"({min(old_ms) / min(new_ms):.2f}x); card: {card}")
-    end_phase("9 times")
-    front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO))
-    for sync in ("native", "events"):
-        total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync=sync))
-        print(f"[9 times] ax25_1200_rx sync={sync} {N_FRAMES} frames: "
-              f"{total_s * 1e3:.1f} ms wall, device front-end "
-              f"{front_s * 1e3:.1f} ms, clock recovery and tail "
-              f"{(total_s - front_s) * 1e3:.1f} ms (median of 3); card: {card}")
-    for method in ("scan", "events"):
-        wb_s, _ = wall(lambda: wideband(method))
-        print(f"[9 times] decode_band_ax25 sync {method}, {wide.shape[0]} "
-              f"samples: {wb_s * 1e3:.1f} ms wall (median of 3; first call "
-              f"{wb_first[method] * 1e3:.1f} ms); card: {card}")
+    sync_errs, ev_got, ev_counts, wb_counts, cal = sync_phase(
+        dev, card, sizes, gen, t, audio, got)
+    errs.update(sync_errs)
 
     # ---- 10. the FM family's apps and the streaming Graph, counted
     apps, call_errs = apps_phase(dev, card, AppsSizes(), i_main, q_main, audio,
@@ -4880,50 +5144,50 @@ def main() -> int:
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))
 
-    def entry(name, source, replaces, n_launches, row):
+    def entry(name, source, replaces, n_launches):
         """One kernel of the record: its launches on its paths, its error
         against the plain version, its time in a stream of calls (``ms``)
-        and alone on the device, the plain version's, the bound computed
-        from this run's inputs (bytes over the memory rate or operations
-        over the f32 peak), and the library call's where one exists.  One
-        walking lane per channel (kernels D and E) is held by neither: its
-        entry also has ``chain_bound_ms``, the dependent chain of the
-        busiest channel counted from the source at this run's calibrated
-        latencies, what it was counted from, and the device time of the
-        one-thread-per-channel form on the same arguments."""
+        and alone on the device at its row of ``t.record``, the plain
+        version's, the bound computed from this run's inputs (bytes over
+        the memory rate or operations over the f32 peak), and the library
+        call's where one exists.  One walking lane per channel (kernels D
+        and E) is held by neither: its entry also has ``chain_bound_ms``,
+        the dependent chain of the busiest channel counted from the source
+        at this run's calibrated latencies, what it was counted from, and
+        the device time of the one-thread-per-channel form on the same
+        arguments."""
+        row = t.record[name]
         out = {"name": name, "route": "cuda",
                "source": f"rustradio_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": n_launches,
-               "max_abs_err": errs[name], "ms": rows[row][0],
-               "plain_ms": rows[row][1], "device_ms": dev_ms[row],
-               "bound_ms": bounds[row][0], "bound_by": bounds[row][1],
-               "library_ms": lib_ms[row]}
-        if row in chains:
-            out["chain_bound_ms"], out["chain"] = chains[row]
-            out["one_thread_device_ms"] = lone_ms[row]
+               "max_abs_err": errs[name], "ms": t.rows[row][0],
+               "plain_ms": t.rows[row][1], "device_ms": t.dev_ms[row],
+               "bound_ms": t.bounds[row][0], "bound_by": t.bounds[row][1],
+               "library_ms": t.lib_ms[row]}
+        if row in t.chains:
+            out["chain_bound_ms"], out["chain"] = t.chains[row]
+            out["one_thread_device_ms"] = t.lone_ms[row]
         return out
 
     record = {"kernels": [
         entry("fir_decimate", "fir_decimate.cu",
               "rustradio_tpu/ops/pallas_kernels.py:202",
               launches["fir_decimate"] + ax_counts["fir_decimate"]
-              + iq_counts["fir_decimate"] + total("fir_decimate"),
-              "fir_decimate 49 taps deci 4 n=2^22"),
+              + iq_counts["fir_decimate"] + total("fir_decimate")),
         entry("fm_chain", "fm_chain.cu",
               "rustradio_tpu/ops/pallas_kernels.py:394,448,553",
-              launches["fm_chain"] + total("fm_chain"), "fm_chain packed w3 n=2^24"),
+              launches["fm_chain"] + total("fm_chain")),
         entry("quad_demod", "quad_demod.cu",
               "rustradio_tpu/ops/pallas_kernels.py:91",
-              op_counts["quad_demod"], "quad_demod n=2^24"),
+              op_counts["quad_demod"]),
         entry("symbol_sync_events", "symbol_sync.cu",
               "rustradio_tpu/ops/symbol_sync.py:305",
               ev_counts["symbol_sync_events"]
               + wb_counts["events"]["symbol_sync_events"]
-              + total("symbol_sync_events"), d_name),
+              + total("symbol_sync_events")),
         entry("symbol_sync_scan", "symbol_sync.cu",
               "rustradio_tpu/ops/symbol_sync.py:145",
-              wb_counts["scan"]["symbol_sync_scan"] + total("symbol_sync_scan"),
-              e_name),
+              wb_counts["scan"]["symbol_sync_scan"] + total("symbol_sync_scan")),
         recurrence_entry("cma", "cma.cu", "rustradio_tpu/ops/cma.py:45",
                          total("cma"), errs["cma"], live_times["cma"]),
         recurrence_entry("iir", "iir.cu", "rustradio_tpu/ops/iir.py:68",

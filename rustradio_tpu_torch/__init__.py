@@ -15,6 +15,8 @@ from .dtypes import Complex, Float, parse_frequency, parse_verbosity
 from .graph import CancellationToken, Graph
 from .streams import Pdu, StreamValue, Tag
 
+__version__ = "0.1.0"
+
 __all__ = [
     "CancellationToken",
     "Complex",

@@ -39,8 +39,19 @@
 //      shared memory, coalesced.
 //
 // The powers M^(2^j), j < kLevels, come from the host in f32 (computed in
-// float64; ops/kernels.py, iir_powers); each block copies those it uses
-// into shared memory.  Every sum adds only terms that
+// float64; ops/kernels.py, iir_powers) as a level m_j and a power-of-two
+// exponent e_j, M^(2^j) = m_j 2^(e_j): e_j = 0 wherever the power is a
+// finite f32 (every stable filter), else the least that makes m_j finite.
+// A product m_j v sums its rows, then scales each sum by 2^(e_j) (ldexpf:
+// exact, inf only where the true value passes f32's largest), so a zero
+// state stays zero and a tiny one stays finite wherever the true product
+// is, where an overflowed f32 power would give inf * 0 = NaN.  The
+// scaling sits on the carries' serial chain, so it is compiled apart: a
+// filter whose exponents are all 0 runs the kernels without it (the
+// arithmetic and the speed of the powers in plain f32), and any other the
+// general form (O = 0 below) with it.  Each block copies the levels it
+// uses into shared memory; the exponents come in the kernels' arguments.
+// Every sum adds only terms that
 // exist: no power multiplies a pad.  No block waits on another, nothing
 // is read back to the host, and a call with one chunk is one launch, with
 // one block two.
@@ -65,6 +76,8 @@ constexpr int kBlock = 128;            // chunks (threads) a block
 constexpr int kLogBlock = 7;
 constexpr int kLevels = 2 * kLogBlock + 1;  // M^(2^j), j < kLevels
 constexpr int kTile = kBlock * kChunk;      // a block's samples
+// past this exponent every nonzero f32 times 2^e is inf (2^-149 2^278)
+constexpr int kExpCap = 300;
 
 static_assert(kBlock == 1 << kLogBlock, "kBlock is a power of two");
 static_assert(kChunk % 32 == 0, "a chunk is whole 128-byte lines");
@@ -73,7 +86,15 @@ static_assert(kMaxOrder * kBlock <= kTile, "the scan fits the tile");
 struct Taps {
   float t[kMaxOrder + 1];
   int order;
+  int shift[kLevels];  // M^(2^j) = powers[j] * 2^shift[j]
 };
+
+// a product's row sum times 2^e, e >= 0 (S: the filter has an e > 0)
+template <bool S>
+__device__ __forceinline__ float scaled(float acc, int e) {
+  if constexpr (!S) return acc;
+  return e == 0 ? acc : ldexpf(acc, min(e, kExpCap));
+}
 
 // A chunk's samples lie in its own kChunk words of the tile as 16-byte
 // granules, granule g of chunk c at slot g ^ (c % 8): the 32 threads of a
@@ -89,8 +110,9 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 
 // O > 0: an order-O filter; O == 0: any order up to kMaxOrder, the terms
-// past the filter's order predicated off.
-template <int O>
+// past the filter's order predicated off.  S: products scaled by their
+// powers' exponents.
+template <int O, bool S>
 struct Iir {
   static constexpr int kH = O > 0 ? O : kMaxOrder;
 
@@ -129,8 +151,8 @@ struct Iir {
     }
   }
 
-  // w = m v, m a p x p row-major matrix in shared memory
-  static __device__ __forceinline__ void matvec(const float* m, int p,
+  // w = m v 2^e, m a p x p row-major matrix in shared memory
+  static __device__ __forceinline__ void matvec(const float* m, int e, int p,
                                                 const float (&v)[kH],
                                                 float (&w)[kH]) {
 #pragma unroll
@@ -140,18 +162,19 @@ struct Iir {
 #pragma unroll
       for (int c = 1; c < kH; ++c)
         if (live(c, p)) acc = __fadd_rn(acc, __fmul_rn(m[r * p + c], v[c]));
-      w[r] = acc;
+      w[r] = scaled<S>(acc, e);
     }
   }
 
   // v = pw[nbits - 1]^(bit) ... pw[0]^(bit) v over the bits of e, lowest
-  // first; pw: consecutive p x p powers
-  static __device__ __forceinline__ void power(const float* pw, int p, int e,
-                                               int nbits, float (&v)[kH]) {
+  // first; pw: consecutive p x p powers, level j's exponent sh[j]
+  static __device__ __forceinline__ void power(const float* pw, const int* sh,
+                                               int p, int e, int nbits,
+                                               float (&v)[kH]) {
     for (int j = 0; j < nbits; ++j) {
       if (!((e >> j) & 1)) continue;
       float w[kH];
-      matvec(pw + j * p * p, p, v, w);
+      matvec(pw + j * p * p, sh[j], p, v, w);
 #pragma unroll
       for (int r = 0; r < kH; ++r) v[r] = w[r];
     }
@@ -159,9 +182,10 @@ struct Iir {
 
   // Hillis-Steele over the block's kBlock vectors u (thread i's), in
   // place; su: p x kBlock floats of shared memory; level j adds
-  // pw[j] u[i - 2^j] where i >= 2^j
+  // pw[j] 2^sh[j] u[i - 2^j] where i >= 2^j
   static __device__ __forceinline__ void scan(float* su, float (&u)[kH],
-                                              const float* pw, int p, int i) {
+                                              const float* pw, const int* sh,
+                                              int p, int i) {
 #pragma unroll
     for (int r = 0; r < kH; ++r)
       if (live(r, p)) su[r * kBlock + i] = u[r];
@@ -176,7 +200,7 @@ struct Iir {
       __syncthreads();
       if (i >= d) {
         float w[kH];
-        matvec(pw + j * p * p, p, v, w);
+        matvec(pw + j * p * p, sh[j], p, v, w);
 #pragma unroll
         for (int r = 0; r < kH; ++r) {
           if (!live(r, p)) continue;
@@ -239,12 +263,12 @@ __device__ __forceinline__ void load(float* dst, const float* __restrict__ src,
 
 // Pass 1.  u: p x (blocks * kBlock) floats, u[r * stride + k].  Shared
 // memory: the tile, then M^(2^j), j < kLogBlock.
-template <int O>
+template <int O, bool S>
 __global__ void __launch_bounds__(kBlock) iir_ends(
     const float* __restrict__ x, long long n, Taps k,
     const float* __restrict__ hist, const float* __restrict__ pw,
     float* __restrict__ u, long long stride) {
-  using G = Iir<O>;
+  using G = Iir<O, S>;
   extern __shared__ __align__(16) float smem[];
   float* tile = smem;
   float* spw = smem + kTile;
@@ -259,7 +283,7 @@ __global__ void __launch_bounds__(kBlock) iir_ends(
   __syncthreads();
   G::template walk<false>(k, h, tile, i);
   __syncthreads();  // the tile's words become the scan's
-  G::scan(tile, h, spw, p, i);
+  G::scan(tile, h, spw, k.shift, p, i);
 #pragma unroll
   for (int r = 0; r < G::kH; ++r)
     if (G::live(r, p)) u[r * stride + chunk] = h[r];
@@ -269,11 +293,11 @@ __global__ void __launch_bounds__(kBlock) iir_ends(
 // b (b >= 1); the blocks' last ends are u[r * stride + b * kBlock + kBlock
 // - 1].  Shared memory: the scan's p x kBlock, then M^(kBlock 2^j), j <=
 // kLogBlock.
-template <int O>
+template <int O, bool S>
 __global__ void __launch_bounds__(kBlock) iir_carries(
     Taps k, const float* __restrict__ pw, const float* __restrict__ u,
     long long stride, long long blocks, float* __restrict__ c) {
-  using G = Iir<O>;
+  using G = Iir<O, S>;
   extern __shared__ __align__(16) float smem[];
   const int i = threadIdx.x, p = O > 0 ? O : k.order;
   float* su = smem;
@@ -287,12 +311,13 @@ __global__ void __launch_bounds__(kBlock) iir_carries(
 #pragma unroll
     for (int r = 0; r < G::kH; ++r)
       v[r] = real && G::live(r, p) ? u[r * stride + q * kBlock + kBlock - 1] : 0.0f;
-    G::scan(su, v, spw, p, i);  // its first barrier also covers the load
+    // the scan's first barrier also covers the load
+    G::scan(su, v, spw, k.shift + kLogBlock, p, i);
     if (t0 > 0) {
       float w[G::kH];
 #pragma unroll
       for (int r = 0; r < G::kH; ++r) w[r] = carry[r];
-      G::power(spw, p, i + 1, kLogBlock + 1, w);
+      G::power(spw, k.shift + kLogBlock, p, i + 1, kLogBlock + 1, w);
 #pragma unroll
       for (int r = 0; r < G::kH; ++r)
         if (G::live(r, p)) v[r] = __fadd_rn(v[r], w[r]);
@@ -316,13 +341,13 @@ __global__ void __launch_bounds__(kBlock) iir_carries(
 }
 
 // Pass 3.  Shared memory as pass 1's.
-template <int O>
+template <int O, bool S>
 __global__ void __launch_bounds__(kBlock) iir_walk(
     const float* __restrict__ x, long long n, Taps k,
     const float* __restrict__ hist, const float* __restrict__ pw,
     const float* __restrict__ u, long long stride, long long blocks,
     const float* __restrict__ c, float* __restrict__ y) {
-  using G = Iir<O>;
+  using G = Iir<O, S>;
   extern __shared__ __align__(16) float smem[];
   float* tile = smem;
   float* spw = smem + kTile;
@@ -343,7 +368,7 @@ __global__ void __launch_bounds__(kBlock) iir_walk(
 #pragma unroll
     for (int r = 0; r < G::kH; ++r) h[r] = G::live(r, p) ? c[r * blocks + b] : 0.0f;
     if (i > 0) {
-      G::power(spw, p, i, kLogBlock, h);
+      G::power(spw, k.shift, p, i, kLogBlock, h);
 #pragma unroll
       for (int r = 0; r < G::kH; ++r)
         if (G::live(r, p)) h[r] = __fadd_rn(u[r * stride + chunk - 1], h[r]);
@@ -373,17 +398,17 @@ cudaError_t allow(K kernel, size_t bytes, bool* done) {
   return e;
 }
 
-template <int O>
+template <int O, bool S>
 cudaError_t launch(cudaStream_t s, const float* x, long long n, const Taps& k,
                    const float* hist, const float* pw, float* scratch,
                    float* y) {
   // the attribute once per kernel, at the most its orders need
   static bool ends_ok = false, walk_ok = false, carries_ok = false;
   const int most = O > 0 ? O : kMaxOrder;
-  cudaError_t e = allow(iir_ends<O>, tile_bytes(most), &ends_ok);
-  if (e == cudaSuccess) e = allow(iir_walk<O>, tile_bytes(most), &walk_ok);
+  cudaError_t e = allow(iir_ends<O, S>, tile_bytes(most), &ends_ok);
+  if (e == cudaSuccess) e = allow(iir_walk<O, S>, tile_bytes(most), &walk_ok);
   if (e == cudaSuccess)
-    e = allow(iir_carries<O>, carry_bytes(most), &carries_ok);
+    e = allow(iir_carries<O, S>, carry_bytes(most), &carries_ok);
   if (e != cudaSuccess) return e;
   const int p = k.order;
   const long long chunks = (n + kChunk - 1) / kChunk;
@@ -393,16 +418,16 @@ cudaError_t launch(cudaStream_t s, const float* x, long long n, const Taps& k,
   float* u = scratch;
   float* c = scratch + (size_t)p * stride;
   if (chunks > 1) {
-    iir_ends<O><<<(unsigned)blocks, kBlock, tile_bytes(p), s>>>(
+    iir_ends<O, S><<<(unsigned)blocks, kBlock, tile_bytes(p), s>>>(
         x, n, k, hist, pw, u, stride);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   if (blocks > 1) {
-    iir_carries<O><<<1, kBlock, carry_bytes(p), s>>>(k, pw, u, stride,
-                                                         blocks, c);
+    iir_carries<O, S><<<1, kBlock, carry_bytes(p), s>>>(k, pw, u, stride,
+                                                            blocks, c);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  iir_walk<O><<<(unsigned)blocks, kBlock, tile_bytes(p), s>>>(
+  iir_walk<O, S><<<(unsigned)blocks, kBlock, tile_bytes(p), s>>>(
       x, n, k, hist, pw, u, stride, blocks, c, y);
   return cudaGetLastError();
 }
@@ -417,37 +442,46 @@ extern "C" void rr_iir_layout(int* out) {
   out[2] = kLevels;
 }
 
-// x: n f32; taps: ntaps host floats (order p = ntaps - 1, 1..32); hist: p
-// f32 on the device, the last outputs before x[0], most recent first;
-// powers: kLevels p x p f32 on the device, M^(2^j) row-major, M =
+// x: n f32; taps: ntaps host floats (order p = ntaps - 1, 1..32); shifts:
+// kLevels host ints, the powers' exponents (>= 0); hist: p f32 on the
+// device, the last outputs before x[0], most recent first; powers: kLevels
+// p x p f32 on the device, M^(2^j) = powers[j] * 2^shifts[j] row-major, M =
 // A^kChunk; scratch: p * blocks * (kBlock + 1) f32 on the device, blocks
 // = ceil(ceil(n / kChunk) / kBlock); y: n f32.  Returns the cudaError_t of
 // the launches (0 on success); cudaErrorInvalidValue for an order outside
-// 1..32 or n past 2^31 blocks.  n == 0 launches nothing.
+// 1..32, a negative exponent or n past 2^31 blocks.  n == 0 launches nothing.
 extern "C" int rr_iir_filter(const void* x, long long n, const float* taps,
-                             int ntaps, const void* hist, const void* powers,
-                             void* scratch, void* y, void* stream) {
+                             int ntaps, const int* shifts, const void* hist,
+                             const void* powers, void* scratch, void* y,
+                             void* stream) {
   const int order = ntaps - 1;
   if (order < 1 || order > kMaxOrder || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Taps k;
   for (int i = 0; i <= kMaxOrder; ++i) k.t[i] = i < ntaps ? taps[i] : 0.0f;
   k.order = order;
+  bool scale = false;
+  for (int j = 0; j < kLevels; ++j) {
+    if (shifts[j] < 0) return (int)cudaErrorInvalidValue;
+    k.shift[j] = shifts[j];
+    scale = scale || shifts[j] > 0;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   const float* xs = (const float*)x;
   const float* h = (const float*)hist;
   const float* pw = (const float*)powers;
   float* sc = (float*)scratch;
   float* ys = (float*)y;
+  if (scale) return (int)launch<0, true>(s, xs, n, k, h, pw, sc, ys);
   switch (order) {
-    case 1: return (int)launch<1>(s, xs, n, k, h, pw, sc, ys);
-    case 2: return (int)launch<2>(s, xs, n, k, h, pw, sc, ys);
-    case 3: return (int)launch<3>(s, xs, n, k, h, pw, sc, ys);
-    case 4: return (int)launch<4>(s, xs, n, k, h, pw, sc, ys);
-    case 5: return (int)launch<5>(s, xs, n, k, h, pw, sc, ys);
-    case 6: return (int)launch<6>(s, xs, n, k, h, pw, sc, ys);
-    case 7: return (int)launch<7>(s, xs, n, k, h, pw, sc, ys);
-    case 8: return (int)launch<8>(s, xs, n, k, h, pw, sc, ys);
-    default: return (int)launch<0>(s, xs, n, k, h, pw, sc, ys);
+    case 1: return (int)launch<1, false>(s, xs, n, k, h, pw, sc, ys);
+    case 2: return (int)launch<2, false>(s, xs, n, k, h, pw, sc, ys);
+    case 3: return (int)launch<3, false>(s, xs, n, k, h, pw, sc, ys);
+    case 4: return (int)launch<4, false>(s, xs, n, k, h, pw, sc, ys);
+    case 5: return (int)launch<5, false>(s, xs, n, k, h, pw, sc, ys);
+    case 6: return (int)launch<6, false>(s, xs, n, k, h, pw, sc, ys);
+    case 7: return (int)launch<7, false>(s, xs, n, k, h, pw, sc, ys);
+    case 8: return (int)launch<8, false>(s, xs, n, k, h, pw, sc, ys);
+    default: return (int)launch<0, false>(s, xs, n, k, h, pw, sc, ys);
   }
 }

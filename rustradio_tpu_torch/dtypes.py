@@ -9,11 +9,22 @@ complex64 and are not ported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Stream sample dtypes (reference src/lib.rs:245-249: Float=f32, Complex=c64).
 Float = torch.float32
 Complex = torch.complex64
+U8 = torch.uint8
+I16 = torch.int16
+I32 = torch.int32
+U32 = torch.uint32
+U64 = torch.uint64
+Bit = torch.uint8  # bits travel as u8 0/1, like the reference's ReadStream<u8>
+
+# numpy mirrors for host-side code
+NP_FLOAT = np.float32
+NP_COMPLEX = np.complex64
 
 #: Default streaming chunk size in samples.  The reference sizes its circular
 #: buffers at 4_096_000 bytes (src/stream.rs:105); here fixed-size chunks of

@@ -1110,7 +1110,8 @@ def cma_work(n: int, ntaps: int):
 
 def iir_work(n: int, order: int):
     """Kernel G: n f32 in and out, the history in; 2 * order + 1 f32
-    operations a sample."""
+    operations a sample (the recurrence's own; the chunked scan's matrix
+    products, and their scaling for a growing filter, are the design's)."""
     return float(8 * n + 4 * order), float(n * (2 * order + 1))
 
 
@@ -1132,21 +1133,27 @@ def cma_chain_links(nwin: int, ntaps: int) -> tuple[int, int]:
     return links, nwin
 
 
-def iir_chain_links(n: int, order: int) -> int:
+def iir_chain_links(n: int, taps) -> int:
     """The longest chain of dependent f32 operations in kernel G's call on
-    n samples (csrc/iir.cu): the walks (two links a sample, as the most
-    recent term is added last), and where there is more than one chunk the
-    first walk, a block's scan (seven levels of a row sum, order links, and
-    the addition into the state) and the powers applied to a carry (at
-    most seven matrix rows); where there is more than one block, the
-    carries' scan over its tiles (seven levels and eight powers a tile)."""
+    n samples of the filter ``taps`` (csrc/iir.cu): the walks (two links a
+    sample, as the most recent term is added last), and where there is
+    more than one chunk the first walk, a block's scan (seven levels of a
+    row sum, order links, and the addition into the state) and the powers
+    applied to a carry (at most seven matrix rows); where there is more
+    than one block, the carries' scan over its tiles (seven levels and
+    eight powers a tile).  A filter whose powers carry an exponent
+    (:func:`iir_exponents` not all 0: a growing filter) scales every row
+    sum of a product, one link more a row."""
+    taps = np.ascontiguousarray(taps, np.float32).reshape(-1)
     chunks = -(-n // IIR_CHUNK)
     blocks = -(-chunks // IIR_BLOCK)
+    # a product's row: its sum over the order's columns, then its scaling
+    row = len(taps) - 1 + int(iir_exponents(taps).any())
     links = 2 * IIR_CHUNK
     if chunks > 1:
-        links += 2 * IIR_CHUNK + 2 * 7 * (order + 1)
+        links += 2 * IIR_CHUNK + 2 * 7 * (row + 1)
     if blocks > 1:
-        links += -(-(blocks - 1) // IIR_BLOCK) * (7 * (order + 1) + 8 * order + 1)
+        links += -(-(blocks - 1) // IIR_BLOCK) * (7 * (row + 1) + 8 * row + 1)
     return links
 
 
@@ -1307,37 +1314,75 @@ def _check_iir(x: torch.Tensor, taps: np.ndarray, history: torch.Tensor) -> None
                          f"{history.dtype} on {history.device}")
 
 
+# past this exponent every nonzero f32 times 2^e overflows (2^-149 2^278 =
+# 2^129): products are scaled by 2^min(e, IIR_EXP_CAP), the same values
+IIR_EXP_CAP = 300
+
+
+def _iir_level(m: np.ndarray, e: int) -> tuple[np.ndarray, int]:
+    """(f32 level, exponent s) of the float64 power m * 2^e, level * 2^s
+    that power: s = 0 where it rounds to a finite f32 (each entry rounded
+    once, as m * 2^e itself), else the smallest s that makes it finite."""
+    if not np.isfinite(m).all():  # NaN or inf taps
+        return m.astype(np.float32), 0
+    big = float(np.abs(m).max())
+    s = max(0, int(np.frexp(big)[1]) + e - 128) if big else 0
+    while True:
+        with np.errstate(over="ignore"):
+            out = np.ldexp(m, e - s).astype(np.float32)
+        if np.isfinite(out).all():
+            return out, s
+        s += 1
+
+
 @functools.lru_cache(maxsize=64)
-def _iir_powers(taps_bytes: bytes) -> np.ndarray:
+def _iir_powers(taps_bytes: bytes) -> tuple[np.ndarray, np.ndarray]:
     taps = np.frombuffer(taps_bytes, np.float32).astype(np.float64)
     p = len(taps) - 1
     a = np.zeros((p, p))
     a[0] = taps[1:]
     a[np.arange(1, p), np.arange(p - 1)] = 1.0
-    out = np.empty((IIR_LEVELS, p, p), np.float32)
-    with np.errstate(over="ignore", invalid="ignore"):
-        m = a
-        for _ in range(IIR_CHUNK.bit_length() - 1):
-            m = m @ m
-        for j in range(IIR_LEVELS):
-            out[j] = m
-            m = m @ m
-    out.setflags(write=False)
-    return out
+    levels = np.empty((IIR_LEVELS, p, p), np.float32)
+    exps = np.zeros(IIR_LEVELS, np.int32)
+    first = IIR_CHUNK.bit_length() - 1  # M = A^IIR_CHUNK
+    m, e = a, 0  # the power A^(2^i) is m * 2^e
+    for i in range(first + IIR_LEVELS):
+        if i >= first:
+            levels[i - first], exps[i - first] = _iir_level(m, e)
+        m, e = m @ m, 2 * e
+        big = np.abs(m).max()
+        # past 2^500 (the next squaring would overflow float64) and from
+        # then on, m is kept at a largest entry in [0.5, 1)
+        if big > 2.0 ** 500 or (e and big):
+            k = int(np.frexp(big)[1])
+            m, e = np.ldexp(m, -k), e + k
+    levels.setflags(write=False)
+    exps.setflags(write=False)
+    return levels, exps
 
 
 def iir_powers(taps) -> np.ndarray:
-    """Kernel G's powers: (IIR_LEVELS, p, p) f32, level j = M^(2^j) with M
-    = A^IIR_CHUNK, A the companion matrix of the order-p filter ``taps``
-    (state most recent output first: A[0] = taps[1:], ones below the
-    diagonal).  Squared in float64 from the f32 taps, each level rounded to
-    f32 once; cached per taps (read-only)."""
-    return _iir_powers(np.ascontiguousarray(taps, np.float32).tobytes())
+    """Kernel G's powers: (IIR_LEVELS, p, p) f32, level j with M^(2^j) =
+    level j * 2^(:func:`iir_exponents` j), M = A^IIR_CHUNK, A the companion
+    matrix of the order-p filter ``taps`` (state most recent output first:
+    A[0] = taps[1:], ones below the diagonal).  Squared in float64 from the
+    f32 taps, carried as a float64 matrix and a power-of-two exponent where
+    float64 itself would overflow; a level that rounds to a finite f32 is
+    that rounding (exponent 0: every stable filter), else it is scaled by
+    the smallest power of two that makes it finite.  Cached per taps
+    (read-only)."""
+    return _iir_powers(np.ascontiguousarray(taps, np.float32).tobytes())[0]
+
+
+def iir_exponents(taps) -> np.ndarray:
+    """The (IIR_LEVELS,) int32 power-of-two exponents of
+    :func:`iir_powers`' levels: 0 wherever M^(2^j) is a finite f32."""
+    return _iir_powers(np.ascontiguousarray(taps, np.float32).tobytes())[1]
 
 
 @functools.lru_cache(maxsize=64)
 def _iir_powers_on(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_iir_powers(taps_bytes).copy()).to(device)
+    return torch.from_numpy(_iir_powers(taps_bytes)[0].copy()).to(device)
 
 
 def _iir_layout(n: int) -> tuple[int, int]:
@@ -1363,32 +1408,38 @@ def _iir_walk(tx: torch.Tensor, t: list, h: list, out: bool):
     return h, (torch.stack(ys, 1) if out else None)
 
 
-def _iir_matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _iir_matvec(m: torch.Tensor, v: torch.Tensor, shift: int) -> torch.Tensor:
     """m (p, p) times the columns of v (p, N), each row summed from column 0
-    up, every product and sum an f32 op of its own."""
+    up, every product and sum an f32 op of its own, then the sums times
+    2^shift (ldexpf's value: exact, inf only past f32's largest; a zero
+    stays zero)."""
     acc = m[:, :1] * v[:1]
     for c in range(1, m.shape[0]):
         acc = acc + m[:, c : c + 1] * v[c : c + 1]
+    shift = min(shift, IIR_EXP_CAP)
+    while shift > 0:  # powers of two of at most 2^126, each exact in f32
+        k = min(shift, 126)
+        acc, shift = acc * float(2 ** k), shift - k
     return acc
 
 
-def _iir_scan_blocks(u: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
+def _iir_scan_blocks(u: torch.Tensor, pw: torch.Tensor, ex) -> torch.Tensor:
     """Hillis-Steele over the last axis of u (p, blocks, IIR_BLOCK), each
-    block alone: level j adds pw[j] u[i - 2^j] where i >= 2^j."""
+    block alone: level j adds pw[j] 2^ex[j] u[i - 2^j] where i >= 2^j."""
     p, nb, b = u.shape
     for j in range(_IIR_LOG_BLOCK):
         d = 1 << j
-        add = _iir_matvec(pw[j], u[:, :, : b - d].reshape(p, -1))
+        add = _iir_matvec(pw[j], u[:, :, : b - d].reshape(p, -1), ex[j])
         u = torch.cat([u[:, :, :d], u[:, :, d:] + add.view(p, nb, b - d)], 2)
     return u
 
 
-def _iir_power(v: torch.Tensor, e: torch.Tensor, pw: torch.Tensor,
+def _iir_power(v: torch.Tensor, e: torch.Tensor, pw: torch.Tensor, ex,
                nbits: int) -> torch.Tensor:
-    """Each column v[:, i] times pw[j] for the set bits j of e[i], lowest
-    first."""
+    """Each column v[:, i] times pw[j] 2^ex[j] for the set bits j of e[i],
+    lowest first."""
     for j in range(nbits):
-        v = torch.where(((e >> j) & 1).bool(), _iir_matvec(pw[j], v), v)
+        v = torch.where(((e >> j) & 1).bool(), _iir_matvec(pw[j], v, ex[j]), v)
     return v
 
 
@@ -1412,7 +1463,9 @@ def iir_scan_plain(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor
        then every chunk walks again from it.
 
     Every matrix product is :func:`_iir_matvec`, with the f32 powers of
-    :func:`iir_powers`."""
+    :func:`iir_powers` and their exponents (:func:`iir_exponents`): a
+    product's sums are scaled by 2^exponent, so a zero state stays zero
+    and a tiny one gives a finite product wherever the true one is."""
     taps = np.asarray(taps, np.float32).reshape(-1)
     _check_iir(x, taps, history)
     t = [float(v) for v in taps]
@@ -1425,30 +1478,31 @@ def iir_scan_plain(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor
     start[:, 0] = history
     if chunks > 1:
         pw = _iir_powers_on(taps.tobytes(), x.device)
+        ex = [int(v) for v in _iir_powers(taps.tobytes())[1]]
         width = blocks * IIR_BLOCK
         ends, _ = _iir_walk(tx, t, list(start.unbind(0)), False)
         u = F.pad(torch.stack(ends), (0, width - chunks))
-        u = _iir_scan_blocks(u.view(p, blocks, IIR_BLOCK), pw).reshape(p, width)
+        u = _iir_scan_blocks(u.view(p, blocks, IIR_BLOCK), pw, ex).reshape(p, width)
         carry = torch.zeros((p, blocks), dtype=torch.float32, device=x.device)
         q = blocks - 1
         if q:
             tiles = -(-q // IIR_BLOCK)
             last = F.pad(u[:, IIR_BLOCK - 1 :: IIR_BLOCK][:, :q],
                          (0, tiles * IIR_BLOCK - q))
-            z = _iir_scan_blocks(last.view(p, tiles, IIR_BLOCK),
-                                 pw[_IIR_LOG_BLOCK:])
+            hi, hx = pw[_IIR_LOG_BLOCK:], ex[_IIR_LOG_BLOCK:]
+            z = _iir_scan_blocks(last.view(p, tiles, IIR_BLOCK), hi, hx)
             e = torch.arange(1, IIR_BLOCK + 1, device=x.device)
             out = [z[:, 0]]
             for tile in range(1, tiles):
                 c = out[-1][:, -1:].expand(p, IIR_BLOCK)
-                out.append(z[:, tile] + _iir_power(c, e, pw[_IIR_LOG_BLOCK:],
+                out.append(z[:, tile] + _iir_power(c, e, hi, hx,
                                                    _IIR_LOG_BLOCK + 1))
             carry[:, 1:] = torch.cat(out, 1)[:, :q]
         k = torch.arange(1, chunks, device=x.device)
         i = k % IIR_BLOCK
         prev = u[:, :chunks - 1]
         c = carry[:, k // IIR_BLOCK]
-        moved = prev + _iir_power(c, i, pw, _IIR_LOG_BLOCK)
+        moved = prev + _iir_power(c, i, pw, ex, _IIR_LOG_BLOCK)
         start[:, 1:] = torch.where(k < IIR_BLOCK, prev,
                                    torch.where(i == 0, c, moved))
     _, y = _iir_walk(tx, t, list(start.unbind(0)), True)
@@ -1479,18 +1533,12 @@ def iir_scan(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
     scratch = torch.empty(p * blocks * (IIR_BLOCK + 1), dtype=torch.float32,
                           device=x.device)
     pw = _iir_powers_on(taps.tobytes(), x.device)
+    ex = _iir_powers(taps.tobytes())[1]
     hist = history.contiguous()
     lib = cuda_lib.load()
     cuda_lib.check(lib.rr_iir_filter(
-        x.data_ptr(), n, taps.ctypes.data, len(taps), hist.data_ptr(),
-        pw.data_ptr(), scratch.data_ptr(), y.data_ptr(), _stream(x.device)),
-        "iir_filter")
-    _launched("iir", None, work)
-    return y
-    hist = history.contiguous()
-    lib = cuda_lib.load()
-    cuda_lib.check(lib.rr_iir_filter(
-        x.data_ptr(), x.shape[0], taps.ctypes.data, len(taps), hist.data_ptr(),
-        y.data_ptr(), _stream(x.device)), "iir_filter")
+        x.data_ptr(), n, taps.ctypes.data, len(taps), ex.ctypes.data,
+        hist.data_ptr(), pw.data_ptr(), scratch.data_ptr(), y.data_ptr(),
+        _stream(x.device)), "iir_filter")
     _launched("iir", None, work)
     return y

@@ -816,7 +816,8 @@ def test_torch_cuda_scramble_and_streaming_blocks(cuda_device):
 
 
 def _chip_smoke(monkeypatch):
-    """chip_smoke.py of the repository root (its IL2P frame builder)."""
+    """chip_smoke.py of the repository root (its IL2P frame builder, kernel
+    G's growing streams)."""
     import importlib.util
     import sys
     from pathlib import Path
@@ -1147,6 +1148,26 @@ def test_torch_cuda_iir_growing_filters_equal_plain(cuda_device, kind):
             got = kernels.iir_scan(x[:n], taps, h)
             want = kernels.iir_scan_plain(x[:n], taps, h)
             assert bool(torch.isfinite(want).all()) and _same(got, want), n
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_torch_cuda_iir_growing_streams_equal_plain(cuda_device, monkeypatch, case):
+    # chip_smoke.py's streams through growing filters, whose f32 powers
+    # overflow (2^18 samples): kernel G bit-equal to its plain version (NaN
+    # where it is NaN), both finite wherever the sequential f32 recurrence
+    # is, to within 4 samples of its first non-finite output
+    cs = _chip_smoke(monkeypatch)
+    what, taps, x, hist = cs.iir_growing_streams(1 << 18)[case]
+    got = kernels.iir_scan(x.to(cuda_device), taps, hist.to(cuda_device))
+    want = kernels.iir_scan_plain(x.to(cuda_device), taps, hist.to(cuda_device))
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan), what
+    assert torch.equal(got[~nan].cpu(), want[~nan].cpu()), what
+    seq = cs.first_non_finite(cs.iir_sequential(x, taps, hist))
+    end = cs.first_non_finite(got)
+    assert (end is None) == (seq is None) and (seq is None or abs(end - seq) <= 4), what
+    if what.startswith("zeros"):
+        assert not got.cpu().any(), what
 
 
 def test_torch_cuda_iir_layout_and_graph_capture(cuda_device):

@@ -87,6 +87,13 @@ def test_torch_dtypes_match_jax():
     for s in ("100k", "2M", "2.4g", "1_000"):
         assert dtypes.parse_frequency(s) == jdtypes.parse_frequency(s)
     assert (dtypes.Float, dtypes.Complex) == (torch.float32, torch.complex64)
+    # every JAX stream dtype by its numpy name (torch.uint8 -> "uint8")
+    for name in ("Float", "Complex", "U8", "I16", "I32", "U32", "U64", "Bit"):
+        want = np.dtype(getattr(jdtypes, name)).name
+        assert str(getattr(dtypes, name)).removeprefix("torch.") == want, name
+    assert dtypes.Bit is dtypes.U8
+    assert dtypes.NP_FLOAT is jdtypes.NP_FLOAT is np.float32
+    assert dtypes.NP_COMPLEX is jdtypes.NP_COMPLEX is np.complex64
 
 
 def test_torch_top_level_exports_cover_jax():
@@ -100,6 +107,7 @@ def test_torch_top_level_exports_cover_jax():
     token.cancel()
     assert token.is_cancelled()
     assert rr.dtypes is dtypes
+    assert rr.__version__ == jrr.__version__ == "0.1.0"
 
 
 def test_torch_utils_exports_rate_meter_and_roofline():

@@ -345,7 +345,8 @@ B = kernels.IIR_BLOCK
 
 def iir_blocked_numpy(x, taps, hist):
     """numpy f32 restatement of csrc/iir.cu's three passes (chunks of L
-    samples, blocks of B chunks, the f32 powers of kernels.iir_powers):
+    samples, blocks of B chunks, the f32 powers P of kernels.iir_powers,
+    each product's row sums times 2^E[j], E of kernels.iir_exponents):
 
     1. each chunk's walk from zeros (chunk 0 from the history), in
        iir_kernel_order's order, vectorised over the chunks; within each
@@ -362,16 +363,21 @@ def iir_blocked_numpy(x, taps, hist):
     f = np.float32
     t = np.asarray(taps, f)
     p, n = len(t) - 1, len(x)
-    pw = kernels.iir_powers(t)
+    pw, ex = kernels.iir_powers(t), kernels.iir_exponents(t)
 
-    def mv(m, v):  # (p, p) @ (p, N) in the kernel's order
-        # the zero pads past the last chunk (block, tile) are scanned too,
-        # and an overflowed power of a growing filter makes them NaN; no
-        # real entry reads a pad
+    def mv(j, v):  # P[j] 2^ex[j] @ (p, N) in the kernel's order
+        m = pw[j]
+        # the pads past the last chunk (block, tile) are scanned too: the
+        # scan carries real entries into them, where a growing filter's
+        # values overflow (inf - inf: NaN); no real entry reads a pad
         with np.errstate(invalid="ignore", over="ignore"):
             acc = m[:, :1] * v[:1]
             for c in range(1, p):
                 acc = acc + m[:, c : c + 1] * v[c : c + 1]
+        shift = min(int(ex[j]), kernels.IIR_EXP_CAP)
+        while shift > 0:  # ldexpf: exact steps of at most 2^126
+            k = min(shift, 126)
+            acc, shift = acc * f(2.0 ** k), shift - k
         return acc
 
     def walk(xc, h, keep):
@@ -390,14 +396,14 @@ def iir_blocked_numpy(x, taps, hist):
             d = 1 << j
             new = u.copy()
             for i in range(d, B):
-                new[:, :, i] = u[:, :, i] + mv(pw[first + j], u[:, :, i - d])
+                new[:, :, i] = u[:, :, i] + mv(first + j, u[:, :, i - d])
             u = new
         return u
 
     def bits(v, e, first, nbits):
         for j in range(nbits):
             if (e >> j) & 1:
-                v = mv(pw[first + j], v)
+                v = mv(first + j, v)
         return v
 
     k_n = -(-n // L)
@@ -583,3 +589,164 @@ def test_torch_recurrences_count_their_work():
     want_f = kernels.iir_work(100, 2)[1] + kernels.cma_work(100, 4)[1]
     assert kernels.WORK["bytes"] - before["bytes"] == want_b
     assert kernels.WORK["flops"] - before["flops"] == want_f
+
+
+# Growing filters whose f32 powers M^(2^j) overflow: a pole at 1.001 (past
+# f32's largest after ~88,700 samples from 1) and at 1 + 1/sqrt(2) (after
+# ~170).  The port's powers carry a power-of-two exponent, so a zero state
+# stays zero through any power and a tiny one stays finite wherever the
+# true value is: JAX's sequential scan is the reference, float64 the
+# arbiter.
+GROWING_N = 1 << 18
+SLOW_POLE = [1.0, 1.001]
+FAST_POLES = [1.0, 2.0, -0.5]
+
+
+def growing_stream(case):
+    """(taps, x, history) of a growing-filter case over GROWING_N samples."""
+    kind, taps = case.rsplit(" ", 1)
+    taps = np.asarray(SLOW_POLE if taps == "slow" else FAST_POLES, np.float32)
+    x = np.zeros(GROWING_N, np.float32)
+    hist = np.zeros(len(taps) - 1, np.float32)
+    if kind == "late impulse":
+        x[-2000] = 1.0
+    elif kind == "tiny impulse":
+        x[0] = 1e-30
+    elif kind == "tiny history":
+        hist[0] = 1e-30
+    return taps, x, hist
+
+
+def first_non_finite(y):
+    bad = np.flatnonzero(~np.isfinite(y))
+    return int(bad[0]) if len(bad) else None
+
+
+def worst_rel(y, f, upto):
+    """max |y - f| / |f| over the first ``upto`` samples where f != 0."""
+    y, f = y[:upto].astype(np.float64), f[:upto]
+    live = f != 0
+    return float((np.abs(y - f)[live] / np.abs(f[live])).max()) if live.any() else 0.0
+
+
+@pytest.mark.parametrize("case", ["zeros slow", "zeros fast", "late impulse slow",
+                                  "late impulse fast", "tiny impulse slow",
+                                  "tiny history slow"])
+def test_torch_iir_growing_filters_finite_where_jax_is(case):
+    # measured on a CPU (n = 2^18): the zero streams 0 everywhere in both;
+    # the late impulse through the slow pole ends at 7.374987 (JAX
+    # 7.374980, float64 7.3749896), largest error against float64 7.1e-7
+    # (JAX 1.3e-6), through the fast poles both overflow at 260,310; the
+    # tiny impulse (history) overflows at 157,872 (157,871) in both, the
+    # port's error 1.5e-6 beside JAX's 2.1e-5
+    taps, x, hist = growing_stream(case)
+    y = ops.iir_filter(x, taps, hist, device=CPU).numpy()
+    jy = np.asarray(jops.iir_filter(x, taps, hist))
+    with np.errstate(over="ignore", invalid="ignore"):
+        f = iir_f64_fast(x, taps, hist)
+    if case.startswith("zeros"):
+        assert not y.any() and not jy.any()
+        return
+    jb, pb = first_non_finite(jy), first_non_finite(y)
+    assert (jb is None) == (pb is None), (jb, pb)
+    if jb is not None:
+        assert abs(pb - jb) <= 4, (pb, jb)
+    upto = min(v for v in (jb, pb, GROWING_N) if v is not None)
+    assert worst_rel(y, f, upto) <= 2 * worst_rel(jy, f, upto)
+    if case == "late impulse slow":
+        assert np.isfinite(y[-1]) and abs(y[-1] - 7.375) < 1e-3
+        assert abs(y[-1] - f[-1]) <= 2 * abs(jy[-1] - f[-1])
+
+
+def old_powers(taps):
+    """The powers as they were before they carried an exponent: A^(L 2^j)
+    squared in float64, each level rounded once to f32."""
+    t = np.asarray(taps, np.float32).astype(np.float64)
+    p = len(t) - 1
+    a = np.zeros((p, p))
+    a[0] = t[1:]
+    a[np.arange(1, p), np.arange(p - 1)] = 1.0
+    out = []
+    with np.errstate(over="ignore", invalid="ignore"):
+        for _ in range(L.bit_length() - 1):
+            a = a @ a
+        for _ in range(kernels.IIR_LEVELS):
+            out.append(a.astype(np.float32))
+            a = a @ a
+    return np.stack(out)
+
+
+def _phase14_taps(monkeypatch):
+    """chip_smoke.py's phase 14 filters."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", mod)  # for its dataclasses
+    spec.loader.exec_module(mod)
+    return [np.asarray(t, np.float32) for t in mod.IIR_TAPS.values()]
+
+
+def test_torch_iir_powers_of_stable_filters_are_unchanged(monkeypatch):
+    # every filter whose f32 powers are finite keeps its levels bit for bit
+    # and every exponent 0: IIR_TAPS, phase 14's taps, the marginal filter
+    # and the stable filters of the tests at orders 16 and 32
+    rng = np.random.RandomState(3)
+    filters = ([np.asarray(t, np.float32) for o, t in IIR_TAPS.items() if o]
+               + _phase14_taps(monkeypatch) + [np.asarray(MARGINAL, np.float32)]
+               + [iir_taps(o, rng) for o in (16, 32)])
+    for taps in filters:
+        assert np.array_equal(kernels.iir_powers(taps), old_powers(taps)), taps
+        assert not kernels.iir_exponents(taps).any(), taps
+
+
+@pytest.mark.parametrize("taps", [SLOW_POLE, FAST_POLES, OUTSIDE], ids=str)
+def test_torch_iir_powers_of_growing_filters_carry_an_exponent(taps):
+    # level j * 2^e_j is A^(L 2^j): its largest entry's log2 against the
+    # dominant pole's; e_j = 0 where the level is a finite f32 as it was,
+    # else the least that keeps the level finite
+    taps = np.asarray(taps, np.float32)
+    pw, ex = kernels.iir_powers(taps), kernels.iir_exponents(taps)
+    old = old_powers(taps)
+    assert pw.dtype == np.float32 and ex.dtype == np.int32 and np.isfinite(pw).all()
+    pole = np.abs(np.roots(np.concatenate([[1.0], -taps[1:].astype(np.float64)]))).max()
+    for j in range(kernels.IIR_LEVELS):
+        if np.isfinite(old[j]).all():
+            assert ex[j] == 0 and np.array_equal(pw[j], old[j]), j
+            continue
+        top = np.abs(pw[j]).max()
+        assert ex[j] > 0 and top >= 2.0 ** 126, (j, ex[j], top)
+        log2 = np.log2(top) + ex[j]
+        assert abs(log2 - (L << j) * np.log2(pole)) <= 2 + 1e-6 * log2, j
+
+
+@pytest.mark.parametrize("case", ["tiny impulse slow", "late impulse fast"])
+def test_torch_iir_plain_is_the_numpy_restatement_on_growing_filters(case):
+    # the powers' exponents in the plain version's products: bit for bit
+    # the numpy restatement over three blocks, non-finite samples included
+    taps, x, hist = growing_stream(case)
+    n = 300 * L - 17
+    x = x[-n:].copy() if case.startswith("late") else x[:n]
+    got = kernels.iir_scan_plain(torch.from_numpy(x), taps,
+                                 torch.from_numpy(hist)).numpy()
+    with np.errstate(over="ignore", invalid="ignore"):  # past f32's largest
+        want = iir_blocked_numpy(x, taps, hist)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.nan_to_num(got), np.nan_to_num(want))
+
+
+def test_torch_iir_chain_links_count_the_scaling():
+    # a growing filter's products scale each row sum: one link more a row
+    # on the block scan and the carry's powers (2 x 7 rows), and on each
+    # tile of the carries' scan (7 + 8 rows); a stable filter's chain is
+    # the order's
+    for n, tiles in ((1 << 24, 8), ((B + 2) * B * L + 77, 2)):
+        for stable, growing in ((IIR_TAPS[1], [1.0, 1.001]),
+                                (IIR_TAPS[2], FAST_POLES)):
+            assert kernels.iir_chain_links(n, growing) - kernels.iir_chain_links(
+                n, stable) == 2 * 7 + tiles * (7 + 8)
+    order2 = 2 * L + 2 * L + 2 * 7 * 3 + 8 * (7 * 3 + 8 * 2 + 1)
+    assert kernels.iir_chain_links(1 << 24, IIR_TAPS[2]) == order2
+    assert kernels.iir_chain_links(L, FAST_POLES) == kernels.iir_chain_links(L, IIR_TAPS[2])
