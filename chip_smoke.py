@@ -115,7 +115,13 @@ just after, so that each shows it went through its kernels:
   ``time`` (the offline list, demoted once at the ragged end); each path
   counted, its replica lines and its 1-D mesh of the axis's size
   bit-equal, kernels A, D and E held on its calls; walls beside the 1-D
-  meshes of 2 and 4 shards and the unsharded calls.
+  meshes of 2 and 4 shards and the unsharded calls;
+* the benchmark programs (``bench_phase``, phase 18): the headline line of
+  ``tools/bench.py`` at its full sizes (kernel B on packed w3 and i8
+  planes of 2^24 samples, the Graph device loop of 8 x 2^24, the
+  256-channel channelizer and the events decode bank), one timing of 10
+  calls a row, each row checked, and ``tools/check_fm_accuracy.py``'s five
+  precision modes against float64, each within its budget.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -145,15 +151,17 @@ this run.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 3 to 17 are
+the last line is {"ok": true, "device": {...}}.  Phases 3 to 18 are
 functions of (device, card, sizes, ...) and rehearse on the CPU at small
 sizes on the plain versions, what only the card has stood in for
 (``CoreSizes`` for phases 3-9: ``kernels_phase``, ``fm_phase``,
 ``ax25_phase``, ``op_phase``, ``times_phase``, ``sync_phase``; then
 ``AppsSizes``, ``BurstSizes``, ``RadioSizes``, ``ScanSizes``,
-``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``, ``Mesh2dSizes``;
-tests/test_torch_chip_smoke.py).  Phases 1-2 (the environment, the build)
-need the card.
+``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``, ``Mesh2dSizes``, and
+``tools.bench_kernels.Sizes`` for phase 18; tests/test_torch_chip_smoke.py).
+The timers and the shared inputs are the package's (``tools/timing.py``,
+``tools/corpus.py``), imported here under their names.  Phases 1-2 (the
+environment, the build) need the card.
 """
 
 from __future__ import annotations
@@ -174,6 +182,15 @@ from unittest import mock
 import numpy as np
 import torch
 
+# the decode bank's shape (bench.py:223-232) and the shared inputs and
+# timers, from the package: tools/corpus.py and tools/timing.py
+from rustradio_tpu_torch.tools.corpus import (  # noqa: F401
+    BANK_CH, BANK_EVENTS, BANK_N, BANK_NOISE, BANK_SPS, decode_bank,
+    fm_chain_f64, rtl_fm_iq)
+from rustradio_tpu_torch.tools.timing import (  # noqa: F401
+    bound, event_ms, graph_ms, host_us, plain_versions, sync, time_one,
+    time_pair, wall)
+
 DECI = 4
 N_MAIN = 1 << 24          # samples per plane on the main path
 N_FIR = 1 << 22           # samples for the fir_decimate checks
@@ -192,11 +209,6 @@ IQ_DEV = 3_000.0          # narrowband FM deviation, Hz
 IQ_NOISE = 0.3            # receiver noise per I/Q component; carrier 1.0
 N_IQ_FRAMES = 200         # corpus frames carried on the IQ capture
 IQ_FLOOR = 196            # of them decoded by ax25_1200_rx_iq
-BANK_CH = 64              # bench.py's decode bank (bench.py:223-232):
-BANK_N = 1 << 16          # 64 channels x 2^16 NRZ samples at sps 36.75,
-BANK_SPS = 36.75          # noise 0.1, default clock taps
-BANK_NOISE = 0.1
-BANK_EVENTS = 7133        # slot budget, 4 * 2^16 / 36.75
 N_SYNC_PREFIX = 1 << 12   # kernel E against its plain per-sample loop
 N_SYNC_WINDOW = 2048      # samples (E) or crossings (D) per window held
                           # against the plain loops at a path's own shapes
@@ -418,30 +430,6 @@ def _kernels():
     return kernels
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Route every kernel call to its plain PyTorch version on the tensors'
-    device (same inputs, same surrounding code); asserts no kernel
-    launched."""
-    kernels = _kernels()
-    before = dict(kernels.LAUNCHES)
-    with mock.patch.object(kernels, "fir_decimate",
-                           kernels.fir_decimate_plain), \
-         mock.patch.object(kernels, "fm_chain_span",
-                           kernels.fm_chain_span_plain), \
-         mock.patch.object(kernels, "quad_demod_fast",
-                           kernels.quad_demod_fast_plain), \
-         mock.patch.object(kernels, "symbol_sync_scan",
-                           kernels.symbol_sync_scan_plain), \
-         mock.patch.object(kernels, "symbol_sync_events_scan",
-                           kernels.symbol_sync_events_scan_plain), \
-         mock.patch.object(kernels, "cma_scan", kernels.cma_scan_plain), \
-         mock.patch.object(kernels, "iir_scan", kernels.iir_scan_plain):
-        yield
-    if kernels.LAUNCHES != before:
-        raise SystemExit("chip_smoke: a plain run launched a kernel")
-
-
 def zero_counts():
     kernels = _kernels()
     for k in kernels.LAUNCHES:
@@ -471,38 +459,6 @@ def capturing(*names):
                 kernels, name, lambda *a, real=real, calls=got[name]:
                 calls.append(a) or real(*a)))
         yield got
-
-
-def rtl_fm_iq(n: int, device, gen: torch.Generator):
-    """A wideband FM station as 8-bit rtl-sdr I/Q on the (u8-127)/128 grid:
-    two audio tones at 75 kHz deviation, plus receiver noise.  Returns the
-    f32 I and Q planes and the f64 phase.  The phase's running sum is taken
-    on the host: the card's float64 scan adds its tiles in an order that
-    varies from run to run, and the CMA checks of phase 14 follow its last
-    bits."""
-    fs, dev = 1_024_000.0, 75_000.0
-    t = torch.arange(n, dtype=torch.float64, device=device)
-    audio = (0.6 * torch.sin(2 * math.pi * 1000.0 / fs * t)
-             + 0.3 * torch.sin(2 * math.pi * 3100.0 / fs * t + 0.5))
-    phase = torch.cumsum(audio.cpu(), 0).to(device) * (2 * math.pi * dev / fs)
-    del t, audio
-
-    def grid(v):
-        v = v + 0.02 * torch.randn(n, generator=gen, device=device,
-                                   dtype=torch.float64)
-        return (torch.round(torch.clamp(v * 128, -127, 128)) / 128).float()
-
-    return grid(0.45 * torch.cos(phase)), grid(0.45 * torch.sin(phase)), phase
-
-
-def fm_chain_f64(xr: np.ndarray, xi: np.ndarray, taps: np.ndarray, gain=1.0):
-    """Float64 numpy model: full-conv FIR, decimate, exact discriminator."""
-    def fir(x):
-        return np.convolve(x.astype(np.float64), taps.astype(np.float64)
-                           )[: len(x)][::DECI]
-    y = fir(xr) + 1j * fir(xi)
-    d = np.conj(y[:-1]) * y[1:]
-    return gain * np.arctan2(d.imag, d.real)
 
 
 def wrapped_err(a: torch.Tensor, b: torch.Tensor, gain: float) -> float:
@@ -618,131 +574,6 @@ def wideband_capture(hdlc, device, gen: torch.Generator, stations=WB_STATIONS,
         iq += torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
     noise = WB_NOISE * torch.randn((2, n), generator=gen, device=device)
     return iq + torch.complex(noise[0], noise[1])
-
-
-def decode_bank(device, gen: torch.Generator, channels: int = BANK_CH,
-                n: int = BANK_N) -> torch.Tensor:
-    """bench.py's decode-bank input: random bits held for round(sps)
-    samples, plus Gaussian noise, (BANK_CH, BANK_N) f32 on the card."""
-    rep = int(round(BANK_SPS))
-    bits = torch.randint(0, 2, (channels, n // rep + 1), generator=gen,
-                         device=device) * 2.0 - 1.0
-    nrz = torch.repeat_interleave(bits, rep, dim=1)[:, :n]
-    return (nrz + BANK_NOISE * torch.randn(nrz.shape, generator=gen,
-                                           device=device)).contiguous()
-
-
-def sync() -> None:
-    """Wait for the card, where there is one (a CPU rehearsal has none)."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-def wall(fn, reps: int = 3):
-    """Median host wall seconds of ``fn()`` between two synchronises, and
-    its last result."""
-    ts = []
-    for _ in range(reps):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        ts.append(time.perf_counter() - t0)
-    return statistics.median(ts), out
-
-
-def time_pair(kernel_fn, plain_fn, plain_ctx, reps: int = 5, calls: int = 10,
-              plain_calls: int | None = None):
-    """Median over ``reps`` CUDA-event timings of each, after a warm-up,
-    measured in turns; ``plain_fn`` runs inside ``plain_ctx()``.  One
-    timing spans ``calls`` back-to-back calls (``plain_calls`` for the
-    plain version, default the same) and is divided by that count, so the
-    host's launch latency overlaps the device work as it does in a stream
-    of calls."""
-    plain_calls = calls if plain_calls is None else plain_calls
-    event_ms(kernel_fn, contextlib.nullcontext, calls)
-    event_ms(plain_fn, plain_ctx, plain_calls)
-    k, p = [], []
-    for _ in range(reps):
-        k.append(event_ms(kernel_fn, contextlib.nullcontext, calls))
-        p.append(event_ms(plain_fn, plain_ctx, plain_calls))
-    return statistics.median(k), statistics.median(p)
-
-
-def time_one(fn, reps: int = 5, calls: int = 10) -> float:
-    """Median over ``reps`` CUDA-event timings of ``calls`` calls of
-    ``fn`` (ms per call), after a warm-up."""
-    event_ms(fn, contextlib.nullcontext, calls)
-    return statistics.median(event_ms(fn, contextlib.nullcontext, calls)
-                             for _ in range(reps))
-
-
-def event_ms(fn, ctx, calls: int) -> float:
-    """CUDA-event ms per call over ``calls`` back-to-back calls of ``fn``
-    inside ``ctx()``."""
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    with ctx():
-        s.record()
-        for _ in range(calls):
-            fn()
-        e.record()
-        e.synchronize()
-    return s.elapsed_time(e) / calls
-
-
-def graph_ms(fn, reps: int = 5, calls: int = 10) -> float:
-    """Device ms per call without the host: ``fn(k)`` for k < ``calls``
-    captured once into a CUDA graph (after a warm-up on a side stream),
-    median over ``reps`` replays between CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(0)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for k in range(calls):
-            fn(k)
-    graph.replay()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e) / calls)
-    return statistics.median(ts)
-
-
-def host_us(fn, calls: int = 200) -> float:
-    """Host microseconds per call: the wall time of ``calls`` calls with
-    no synchronise between them (the device runs behind)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
-
-
-def bound(work):
-    """(ms, "bytes" or "operations"): the least time this card could take
-    for ``work`` (bytes, f32 operations; ``kernels.*_work``), the larger of
-    the bytes over its memory rate and the operations over its peak
-    (``utils.stats``)."""
-    from rustradio_tpu_torch.utils import stats
-
-    peaks = stats.card_peaks(torch.cuda.get_device_name(0))
-    if peaks is None:
-        raise SystemExit(f"chip_smoke: no peaks known for "
-                         f"{torch.cuda.get_device_name(0)} (utils/stats.py)")
-    return stats.bound_ms(*work, *peaks)
 
 
 # ---- phases 3-9: the kernels against their plain versions, the FM and
@@ -5037,6 +4868,39 @@ def mesh2d_phase(dev, card: str, sizes: Mesh2dSizes, i_main, q_main, audio, want
     return counts, errs, times
 
 
+# ---- phase 18: the benchmark programs (tools/bench.py, tools/check_fm_accuracy.py)
+
+
+def bench_phase(dev, card: str, sizes, card_info):
+    """Phase 18 on ``dev``: ``tools/bench.py``'s headline line at ``sizes``
+    (a ``tools.bench_kernels.Sizes``: its full sizes on the card), one
+    timing of 10 calls a row, and ``tools/check_fm_accuracy.py``'s five
+    precision modes, both measured on ``card_info`` (a ``timing.Card``; None
+    leaves every time null).  A failure for every line that is not
+    correct (a row's check, or a mode past its budget).  Returns the
+    headline line and the modes' lines."""
+    from rustradio_tpu_torch.tools import bench, bench_kernels, check_fm_accuracy
+
+    t0 = time.perf_counter()
+    ctx = bench_kernels.Ctx(dev, sizes, SEED, card_info, reps=1)
+    head = bench.headline(ctx)
+    print(f"[18 bench] {json.dumps(head)}")
+    if not head["correct"]:
+        failures.append("18 bench: rows not correct: " + ", ".join(
+            k for k, r in head["rows"].items() if not r["correct"]))
+    acc = check_fm_accuracy.lines(dataclasses.replace(ctx, seed=7))
+    for line in acc:
+        print(f"[18 bench] {json.dumps(line)}")
+        if not line["correct"]:
+            failures.append(f"18 check_fm_accuracy: {line['precision']} error "
+                            f"{line['max_err_rad']:.3e} past {line['budget_rad']:.0e}")
+    print(f"[18 bench] headline {head['value']} Msamples/s, graph loop "
+          f"{head['graph_fm_chain_msps']}, {len(acc)} precision modes, in "
+          f"{time.perf_counter() - t0:.1f} s; card: {card}")
+    end_phase("18")
+    return head, acc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -5140,6 +5004,10 @@ def main() -> int:
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"17 {k}": v for k, v in mesh2d_counts.items()})
+
+    # ---- 18. the benchmark programs at their full sizes
+    from rustradio_tpu_torch.tools import bench_kernels, timing
+    bench_phase(dev, card, bench_kernels.Sizes(), timing.card())
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))

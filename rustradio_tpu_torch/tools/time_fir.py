@@ -13,36 +13,13 @@ the other, and compare only those.  Prints one JSON line.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 
 import numpy as np
 import torch
 
-
-def graph_ms(fn, reps: int = 5, calls: int = 10) -> float:
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(0)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for k in range(calls):
-            fn(k)
-    graph.replay()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e) / calls)
-    return statistics.median(ts)
+from .timing import graph_ms
 
 
 def main(argv: list[str]) -> int:

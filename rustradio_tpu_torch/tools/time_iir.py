@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from .time_fir import graph_ms
+from .timing import graph_ms
 
 TAPS = {
     2: (0.05, 1.6, -0.65),  # poles 0.8 +- 0.1j

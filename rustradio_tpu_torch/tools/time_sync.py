@@ -39,7 +39,7 @@ import torch
 from .. import _buildcache
 from ..ops import cuda_lib, kernels
 from . import sync_cases
-from .time_fir import graph_ms
+from .timing import graph_ms
 
 YARDSTICK_DIR = Path(__file__).resolve().parent / "csrc"
 

@@ -468,3 +468,24 @@ def test_torch_chip_smoke_sync_phase_rehearses_on_the_cpu(monkeypatch, capsys):
                         "symbol_sync_scan": "kernel E 4 x 2^8 prefix"}
     assert set(t.record.values()) <= set(t.chains) and set(t.chains) <= set(t.lone_ms)
     assert "1/1 frames on their channels" in out and cal["sm_hz"] == 1.98e9
+
+
+def test_torch_chip_smoke_bench_phase_rehearses_on_the_cpu(monkeypatch, capsys):
+    # phase 18 at the benchmark programs' small sizes on the plain versions:
+    # the headline line and the five precision modes, each row's checks,
+    # with the card's timers and name stood in for
+    from rustradio_tpu_torch.tools import bench_kernels
+    from test_torch_bench import bench_stand_ins
+
+    cs = _chip_smoke(monkeypatch)
+    card = bench_stand_ins(monkeypatch)
+    head, acc = cs.bench_phase(torch.device("cpu"), "cpu rehearsal",
+                               bench_kernels.SMALL, card)
+    out = capsys.readouterr().out
+    assert cs.failures == [], out
+    assert "[18] passed" in out and out.count("[18 bench] {") == 6
+    assert head["correct"] and head["platform"] == "gpu" and head["value"] > 0
+    assert set(head["rows"]) == {"fm_chain/w3", "fm_chain/i8", "graph_fm_chain",
+                                 "channelizer/256ch", "decode_bank_events/4ch"}
+    assert [line["precision"] for line in acc] == ["highest", "w3", "i8", "w2", "split3"]
+    assert all(line["correct"] and line["card"] == card.name for line in acc)

@@ -1213,3 +1213,25 @@ def test_torch_cuda_iir_goldens_order_zero_and_limit(cuda_device):
     assert ops.iir_filter(x[:0], [0.5, 0.5]).shape == (0,)
     with pytest.raises(ValueError, match="orders 1..32"):
         ops.iir_filter(x, np.full(kernels.MAX_IIR_ORDER + 2, 0.01))
+
+
+@pytest.mark.parametrize("program", ["bench_kernels", "bench", "check_fm_accuracy"])
+def test_torch_cuda_bench_programs_at_small_sizes(cuda_device, capsys, program):
+    # the benchmark programs' card path at their small sizes: every row
+    # correct and timed; where a kernel carries a row, launched and bounded
+    import importlib
+    import json
+
+    mod = importlib.import_module(f"rustradio_tpu_torch.tools.{program}")
+    assert mod.main(["--small"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    rows = lines[0]["rows"].values() if program == "bench" else lines
+    assert lines and all(line["platform"] == "gpu" and line["correct"]
+                         and line["card"] == torch.cuda.get_device_name(0)
+                         for line in lines)
+    for row in rows:
+        assert row["ms"] > 0 and row["correct"]
+        assert (row["launches"] is None) == (row["bound_ms"] is None)
+        assert row["launches"] is None or (row["launches"] >= 1
+                                           and row["device_ms"] > 0)

@@ -13,7 +13,7 @@ _BLOCK = """
 import importlib.abc, sys
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "rustradio_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "rustradio_tpu", "benches"):
             raise ImportError(f"blocked: {name}")
 sys.meta_path.insert(0, _Block())
 """
@@ -25,7 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "rustradio_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "rustradio_tpu", "benches"))
 print(len(names), " ".join(names), bad)
 assert not bad, bad
 """
@@ -241,6 +241,11 @@ assert np.array_equal(stream(m2)[0], stream(m1)[0])
 c = x.real[:256].reshape(4, 64).contiguous()
 assert torch.equal(pipeline_run([lambda v: v * 2, lambda v: v + 1], c, m2, axis="chan"),
                    c * 2 + 1)
+# the benchmark programs on the plain versions at their small sizes
+from rustradio_tpu_torch.tools import bench, bench_kernels, check_fm_accuracy
+for prog, args in ((bench_kernels, ["--only", "quad_demod,native"]), (bench, []),
+                   (check_fm_accuracy, [])):
+    assert prog.main(["--device", "cpu", "--small"] + args) == 0
 print("ok")
 """
 
@@ -277,7 +282,8 @@ def test_torch_port_never_imports_jax():
                  "io.websocket", "ui", "ui.server", "apps.rtl_data_stream",
                  "apps.ui_server", "parallel", "parallel.mesh", "parallel.halo",
                  "parallel.sharded", "parallel.graph_mesh", "parallel.pipeline",
-                 "tools.dryrun"):
+                 "tools.dryrun", "tools.bench", "tools.bench_kernels",
+                 "tools.check_fm_accuracy", "tools.timing", "tools.corpus"):
         assert f"rustradio_tpu_torch.{name}" in out
 
 
