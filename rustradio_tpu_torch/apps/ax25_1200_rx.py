@@ -13,6 +13,9 @@ Input: ``.au`` audio (``--audio``), a SigMF recording (``.sigmf``,
 ``--sample_rate`` overrides it) or raw complex64 IQ (``--sample_rate``
 required).  The capture is processed on ``--device`` (default ``cuda``);
 without a card, pass ``--device cpu`` (the kernels' plain versions).
+The closing line on standard error counts the packets decoded, the frames
+dropped on a CRC failure and those repaired by ``--fix_bits`` (the
+reference's HDLC drop log).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from ..dtypes import parse_frequency
 from ..io import au, rawfile, sigmf
 from ..models.ax25 import ax25_1200_rx, ax25_1200_rx_iq
+from ..ops import hdlc
 from . import add_device_arg, parse_device
 from .ax25_9600_rx import print_packets, write_packets
 
@@ -64,7 +68,7 @@ def main(argv=None) -> int:
     kw = dict(fix_bits=opt.fix_bits, symbol_taps=taps,
               symbol_max_deviation=opt.symbol_max_deviation, demod=opt.demod,
               keep_checksum=opt.keep_checksum, sync=opt.sync)
-    t0 = time.time()
+    t0, drops = time.time(), dict(hdlc.TOTALS)
     if opt.audio:
         audio, rate = au.au_read(opt.read,
                                  int(opt.sample_rate) if opt.sample_rate else None)
@@ -88,7 +92,9 @@ def main(argv=None) -> int:
     if opt.out:
         write_packets(opt.out, pkts)
     print_packets(pkts)
-    print(f"decoded {len(pkts)} packets in {dt:.2f}s", file=sys.stderr)
+    crc, fixed = (hdlc.TOTALS[k] - drops[k] for k in ("crc_error", "bitfixed"))
+    print(f"decoded {len(pkts)} packets ({crc} CRC failures, {fixed} bit-fixed) "
+          f"in {dt:.2f}s", file=sys.stderr)
     return 0
 
 

@@ -26,7 +26,8 @@ batched runner on the card).
 ``run`` and ``run_stream`` take ``profile_dir=``: a ``torch.profiler``
 trace (CPU activity, and CUDA activity on the card) written there as a
 Chrome trace, with one ``rr::<name>`` region per block, ``rr::segment:``
-per segment call and ``rr::scan:`` per replayed batch.  Every run keeps
+per segment call and ``rr::scan:`` per replayed batch (``utils.trace``
+spans: they open under any running profiler).  Every run keeps
 per-block seconds (CUDA events around each block on the card, read once
 at the end of the run; the host's clock elsewhere) and per-block costs
 for ``generate_stats()`` and ``costs()``.
@@ -60,6 +61,7 @@ from .blocks.base import Block, SourceBlock
 from .ops import kernels
 from .streams import Tag
 from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.trace import span
 
 _MESH = "mesh:"  # the state key of a mesh segment: "mesh:<first member>"
 
@@ -360,7 +362,6 @@ class Graph:
         self._edge = None  # the event that ended the last timed block
         self._stream = None
         self._device: torch.device | None = None
-        self._profiling = False
         #: the last trace ``profile_dir=`` wrote
         self.trace_path: str | None = None
         # the batched runner's captures, and what each captured
@@ -507,11 +508,6 @@ class Graph:
                        kernels.WORK["flops"] - w0["flops"]
                        + sum(o[1] for o in other))
 
-    def _annotate(self, name: str):
-        if not self._profiling:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(f"rr::{name}")
-
     @contextlib.contextmanager
     def _run_ctx(self, device: torch.device, profile_dir: str | None):
         """Around a run: the CUDA events of the block timings (read at its
@@ -532,12 +528,10 @@ class Graph:
                 acts.append(ProfilerActivity.CUDA)
             prof = profile(activities=acts)
             prof.__enter__()
-            self._profiling = True
         try:
             yield
         finally:
             if prof is not None:
-                self._profiling = False
                 prof.__exit__(None, None, None)
             self._settle()
             self._events = None
@@ -687,7 +681,7 @@ class Graph:
         w0 = dict(kernels.WORK)
         with self._accounted(seg[0].idx) as other, \
                 self._timed([m.idx for m in seg], seg[0].idx), \
-                self._annotate(f"mesh:{self._unit_name(seg)}"):
+                span(f"mesh:{self._unit_name(seg)}"):
             tails, outs, _ = ms.run_chunk(mesh_state["tails"], x, consumed,
                                           true_len=true_len)
             if kernels.WORK == w0:  # no kernel: the bytes in and out
@@ -809,7 +803,7 @@ class Graph:
                 else unit[0].block.name())
         with self._accounted(unit[0].idx) as other, \
                 self._timed([m.idx for m in unit], unit[0].idx), \
-                self._annotate(name):
+                span(name):
             new_states, _, cost = self._run_segment(unit, values, tags, states)
             other.append(cost)
         return new_states
@@ -820,7 +814,7 @@ class Graph:
         offsets)).  Fills ``values`` and ``tags`` for its output ports."""
         b = node.block
         if isinstance(b, SourceBlock):
-            with self._timed([node.idx]), self._annotate(b.name()):
+            with self._timed([node.idx]), span(b.name()):
                 if stream is None:
                     out = b.apply(device)
                     src_tags = b.emit_tags(0, b.total_len())
@@ -839,7 +833,7 @@ class Graph:
         if hasattr(b, "set_tags") and in_tags:
             b.set_tags(in_tags[0])
         with self._accounted(node.idx) as other, \
-                self._timed([node.idx], node.idx), self._annotate(b.name()):
+                self._timed([node.idx], node.idx), span(b.name()):
             if stream is None:
                 out, cost = self._costed(node.idx, xs, lambda: b.apply(*xs))
             else:
@@ -1151,7 +1145,7 @@ class Graph:
             keys = [(p.node.idx, p.index) for p in node.inputs]
             if isinstance(b, SourceBlock):
                 offs = [offset + bi * chunk_size for bi in range(nb)]
-                with self._timed([node.idx]), self._annotate(b.name()):
+                with self._timed([node.idx]), span(b.name()):
                     if hasattr(b, "emit_batch"):
                         values[(node.idx, 0)] = b.emit_batch(offset, chunk_size,
                                                              nb, device)
@@ -1167,7 +1161,7 @@ class Graph:
             if (b.n_out == 0 and hasattr(b, "accept_batch")
                     and not hasattr(b, "accept_tags")
                     and all(_stackable(values[k]) for k in keys)):
-                with self._timed([node.idx]), self._annotate(b.name()):
+                with self._timed([node.idx]), span(b.name()):
                     b.accept_batch(*[_stacked(values[k]) for k in keys])
                 continue
             outs = {(node.idx, k): [] for k in range(b.n_out)}
@@ -1206,7 +1200,7 @@ class Graph:
                 raise NotShardable("batch chunks of different shapes")
             with self._accounted(seg[0].idx) as other, \
                     self._timed([m.idx for m in seg], seg[0].idx), \
-                    self._annotate(f"mesh:{self._unit_name(seg)}"):
+                    span(f"mesh:{self._unit_name(seg)}"):
                 tails, outs, _ = ms.run_batch(mst["tails"], xs, consumed)
                 if kernels.WORK == w0:
                     other.append((float(_nbytes(xs) + _nbytes(outs)), 0.0))
@@ -1249,7 +1243,7 @@ class Graph:
             return
         with self._accounted(unit[0].idx) as other, \
                 self._timed([m.idx for m in unit], unit[0].idx), \
-                self._annotate(f"scan:{self._unit_name(unit)}"):
+                span(f"scan:{self._unit_name(unit)}"):
             values.update(cap.run({k: values[k] for k in ext_in}, states))
             other.append(tuple(nb * c for c in cap.chunk_cost))
         # tags per chunk on the lengths the warm-up chunk showed

@@ -56,6 +56,7 @@ from ..ops.scramble import descramble, scramble
 from ..ops.symbol_sync import compact, recover_symbols, symbol_sync_events
 from ..ops.vco import vco
 from ..ops.wpcr import wpcr_batch
+from ..utils.trace import span
 
 DEMODS = ("discriminator", "tones")
 _NP_DTYPE = {torch.float32: np.float32, torch.complex64: np.complex64}
@@ -207,23 +208,18 @@ def ax25_1200_rx(
     ``device=``.
     """
     _check_modes(demod, sync)
-    audio = _stream(audio, torch.float32, device)
-    if demod == "tones":
-        nrz = bell202_tone_demod(audio, float(samp_rate))
-    else:
-        nrz = bell202_demod(audio, float(samp_rate), band)
-    sps = float(samp_rate) / 1200.0
-    if sync == "events":
-        (vals, mask, _), _valid = symbol_sync_events(
-            nrz, sps, symbol_max_deviation, tuple(symbol_taps))
-        symbols = compact(vals, mask)  # stays on the device
-    else:
-        symbols = torch.from_numpy(recover_symbols(
-            nrz, sps, symbol_max_deviation, symbol_taps))
-    bits = nrzi.nrzi_decode(binary_slicer(symbols))
-    packets, _ = hdlc.hdlc_deframe(bits, 10, 1500, keep_checksum=keep_checksum,
-                                   fix_bits=fix_bits)
-    return [Ax25Packet(np.asarray(d), int(p)) for d, p in packets]
+    with span("ax25.rx"):
+        audio = _stream(audio, torch.float32, device)
+        with span("ax25.front_end"):
+            if demod == "tones":
+                nrz = bell202_tone_demod(audio, float(samp_rate))
+            else:
+                nrz = bell202_demod(audio, float(samp_rate), band)
+        symbols = _clock_recovery(nrz, float(samp_rate) / 1200.0,
+                                  symbol_max_deviation, symbol_taps, sync)
+        with span("ax25.bits"):
+            bits = nrzi.nrzi_decode(binary_slicer(symbols))
+        return _packets(bits, fix_bits, keep_checksum)
 
 
 def ax25_1200_rx_graph(
@@ -345,16 +341,22 @@ def _clock_recovery(nrz: torch.Tensor, sps: float, max_deviation: float,
                     taps, sync: str) -> torch.Tensor:
     """The recovered symbols: on the device (``sync="events"``, kernel D,
     only the symbols leave it) or on the host (native)."""
-    if sync == "events":
-        (vals, mask, _), _valid = symbol_sync_events(
-            nrz, sps, max_deviation, tuple(taps))
-        return compact(vals, mask)
-    return torch.from_numpy(recover_symbols(nrz, sps, max_deviation, taps))
+    with span("ax25.clock"):
+        if sync == "events":
+            (vals, mask, _), _valid = symbol_sync_events(
+                nrz, sps, max_deviation, tuple(taps))
+            # the mask's count is read here: the pass's first wait on the card
+            with span("ax25.compact"):
+                return compact(vals, mask)
+        return torch.from_numpy(recover_symbols(nrz, sps, max_deviation, taps))
 
 
-def _packets(bits, fix_bits: bool) -> list[Ax25Packet]:
-    packets, _ = hdlc.hdlc_deframe(bits, 10, 1500, fix_bits=fix_bits)
-    return [Ax25Packet(np.asarray(d), int(p)) for d, p in packets]
+def _packets(bits, fix_bits: bool,
+             keep_checksum: bool = False) -> list[Ax25Packet]:
+    packets, _ = hdlc.hdlc_deframe(bits, 10, 1500, keep_checksum=keep_checksum,
+                                   fix_bits=fix_bits)
+    with span("ax25.packets"):
+        return [Ax25Packet(np.asarray(d), int(p)) for d, p in packets]
 
 
 def ax25_9600_rx(

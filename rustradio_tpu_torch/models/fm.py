@@ -23,6 +23,7 @@ from ..ops.demod import quadrature_demod
 from ..ops.fft_filter import filter_complex, filter_float
 from ..ops.iir import single_pole_iir
 from ..ops.resampler import rational_resampler
+from ..utils.trace import span
 
 
 @functools.lru_cache(maxsize=16)
@@ -104,11 +105,12 @@ def fm_demod_chain_planar(
     (int8 planes); any DC convention (e.g. (x-127.4)/128) rides
     ``dc_offset``, which folds in after the dot.
     """
-    taps = _lp(samp_rate, cutoff, twidth)
-    i = _on_device(i, np.float32, device)
-    q = _on_device(q, np.float32, device)
-    return kernels.fm_chain(i, q, taps, deci, gain, offset=dc_offset,
-                            precision=precision, n=n)
+    with span("fm.chain"):
+        taps = _lp(samp_rate, cutoff, twidth)
+        i = _on_device(i, np.float32, device)
+        q = _on_device(q, np.float32, device)
+        return kernels.fm_chain(i, q, taps, deci, gain, offset=dc_offset,
+                                precision=precision, n=n)
 
 
 def am_rx(iq, samp_rate: float, audio_rate: float = 48_000.0,

@@ -20,6 +20,13 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.trace import span
+
+#: decoded / crc_error / bitfixed over every ``hdlc_deframe`` call of the
+#: process, the reference's drop-time log (src/hdlc_deframer.rs:103-110):
+#: read as differences around a call, as ``apps/ax25_1200_rx.py``'s closing
+#: line does
+TOTALS = {"decoded": 0, "crc_error": 0, "bitfixed": 0}
 
 
 def _make_crc_table() -> np.ndarray:
@@ -196,11 +203,18 @@ def hdlc_deframe(bits, min_size: int = 1, max_size: int = 1500,
 
     Returns (packets, stats): packets is a list of (bytes as uint8 numpy,
     stream_pos), stats counts decoded/crc_error/bitfixed like the
-    reference's Drop logging (src/hdlc_deframer.rs:103-110).
+    reference's Drop logging (src/hdlc_deframer.rs:103-110); each call
+    adds them to ``TOTALS``.
     """
+    with span("hdlc.to_host"):
+        host = _host_bits(bits)
     sm = native.HdlcDeframer(min_size, max_size, keep_checksum, fix_bits)
-    packets = sm.feed(_host_bits(bits))
-    return packets, sm.stats
+    with span("hdlc.deframe"):
+        packets = sm.feed(host)
+    stats = sm.stats
+    for k, v in stats.items():
+        TOTALS[k] += v
+    return packets, stats
 
 
 def hdlc_bit_hunt(bits):

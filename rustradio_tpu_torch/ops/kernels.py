@@ -107,6 +107,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from . import cuda_lib
 from .demod import demod_pairs
 
@@ -715,7 +716,8 @@ def fm_chain(xr, xi, taps, deci: int, gain: float = 1.0,
     taps = tapset(taps)
     ntaps = len(taps)
     if n is None:
-        pr, pi = plane_cast(xr, precision), plane_cast(xi, precision)
+        with span("kernels.plane_cast"):
+            pr, pi = plane_cast(xr, precision), plane_cast(xi, precision)
         m = -(-xr.shape[0] // deci)
         shift = 1 - ntaps
     else:
