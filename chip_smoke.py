@@ -1168,12 +1168,11 @@ def times_phase(dev, card: str, sizes: CoreSizes, cap: dict, loops, audio):
             b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
                 pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=n_main)))
         del copies
-    # the flat planes that rtl_fm --rtl_u8 gives kernel B (deci 1): the
-    # kernel alone on planes cast once (three copies, past L2), beside the
-    # wrapper with its cast in a stream
+    # the flat f32 planes that rtl_fm --rtl_u8 gives kernel B (deci 1),
+    # rounded to the precision's plane as the kernel loads them: the kernel
+    # alone (three copies, past L2), beside the wrapper in a stream
     for precision in ("w3", "i8"):
-        flat = [tuple(kernels.plane_cast(p.roll(k), precision)
-                      for p in (i_main, q_main)) for k in range(3)]
+        flat = [tuple(p.roll(k) for p in (i_main, q_main)) for k in range(3)]
 
         def span(k=0, flat=flat, precision=precision):
             a, b = flat[k % len(flat)]

@@ -225,6 +225,40 @@ struct Plane<int8_t> {
   }
 };
 
+// f32 planes read as the bf16 or s8 plane that the host's cast would make
+// of them (torch's x.to(bfloat16); to_s8: clamp(round(x * 128), -127,
+// 128) - 1), each value rounded in registers as it is loaded: the kernel
+// sees the same plane values as on the cast planes, without the cast's
+// pass over device memory.  The storage is one f32, so a vector holds 4.
+struct F32AsBf16 {
+  float v;
+  // round to nearest even, as torch's cast does for every value but NaN
+  static __device__ __forceinline__ float value(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+struct F32AsS8 {
+  float v;
+  // rintf rounds half to even, as torch.round; the s8 value u8 - 128
+  static __device__ __forceinline__ float value(float x) {
+    return fminf(fmaxf(rintf(x * 128.0f), -127.0f), 128.0f) - 1.0f;
+  }
+};
+template <typename S>
+struct RoundedPlane {
+  static __device__ __forceinline__ float one(S x) { return S::value(x.v); }
+  static __device__ __forceinline__ void vec(const uint4& raw, float (&v)[4]) {
+    v[0] = S::value(__uint_as_float(raw.x));
+    v[1] = S::value(__uint_as_float(raw.y));
+    v[2] = S::value(__uint_as_float(raw.z));
+    v[3] = S::value(__uint_as_float(raw.w));
+  }
+};
+template <>
+struct Plane<F32AsBf16> : RoundedPlane<F32AsBf16> {};
+template <>
+struct Plane<F32AsS8> : RoundedPlane<F32AsS8> {};
+
 // Taps into shared memory, phase-major: hp[p * tstride + q] = trev[q*deci + p].
 // D is deci where it is known when compiling, else 0 (as for Stager).
 template <int D>

@@ -11,6 +11,10 @@
 // One template over the plane type (float, __nv_bfloat16, int8_t) serves
 // the flat, packed and windowed entry points: the caller gives the plane,
 // its length and the index shift that maps output o to its input span.
+// Flat f32 planes under a bf16 or s8 precision come as two more source
+// types (F32AsBf16, F32AsS8 in fir_core.cuh): the kernel rounds each value
+// as it loads it, to the value the cast plane would hold, so no cast runs
+// before it and every output has the bits of the cast planes' launch.
 //
 // Each block stages one column more than its tile needs, and a helper
 // warp (one lane per plane) computes the one filtered sample before the
@@ -31,17 +35,22 @@
 // whose value is x = (v + 1) / 128).
 //
 // What bounds it on an H100: device memory.  It reads 2 B (bf16) or 1 B
-// (s8) per sample per plane and writes 4 B per output: at deci 4 and 2^24
+// (s8) per sample per plane of packed planes, 4 B of flat f32 planes in
+// every precision, and writes 4 B per output: packed at deci 4 and 2^24
 // samples 83.9 MB (w3) or 50.3 MB (i8), 25 or 15 us at 3.35 TB/s, against
-// 411 M FMA (12 us).  What the design does about it is the core's
-// (fir_core.cuh): the planes come in as 16-byte vectors (8 bf16 or 16 s8)
-// with the ends masked, tiles start at multiples of the tile size, and
-// each thread computes R consecutive outputs of both planes from register
-// windows, so the 49-tap dot product costs about a sixth of the
-// shared-memory loads of one output per thread.  Measured at 39% (w3) and
-// 25% (i8) of the memory bound on an H100 at 700 W; what is left is in
-// fir_core.cuh.  Every intermediate (filtered planes, products, angles) stays in
-// shared memory and registers; each thread writes its R outputs as float4.
+// 411 M FMA (12 us); flat at deci 1 and 2^26 samples (rtl_fm --rtl_u8)
+// 537 MB of planes and 268 MB of audio, 240 us, against 6.6 G FMA (196
+// us).  What the design does about it is the core's (fir_core.cuh): the
+// planes come in as 16-byte vectors (4 f32, 8 bf16 or 16 s8) with the ends
+// masked, tiles start at multiples of the tile size, and each thread
+// computes R consecutive outputs of both planes from register windows, so
+// the 49-tap dot product costs about a sixth of the shared-memory loads of
+// one output per thread.  Measured on an H100 at 700 W at 39% (packed w3)
+// and 25% (packed i8) of the memory bound, and at 43% on flat f32 planes
+// under w3 at deci 1 (0.562 ms at 2^26, against 0.584 ms on bf16 planes
+// cast beforehand); what is left is in fir_core.cuh.  Every intermediate
+// (filtered planes, products, angles) stays in shared memory and registers;
+// each thread writes its R outputs as float4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,7 +187,9 @@ int launch(const void* xr, const void* xi, long long L, long long shift, float p
 
 }  // namespace
 
-// dtype: 0 = float, 1 = bfloat16, 2 = int8.  Planes xr/xi hold L values;
+// dtype: 0 = float, 1 = bfloat16, 2 = int8, 3 = float rounded to bfloat16,
+// 4 = float rounded to int8 (the s8 value; pad and scale as for 2).
+// Planes xr/xi hold L values;
 // trev: ntaps f32 effective taps, reversed; seed: 2 f32 or null (zeros);
 // out: count f32; last: 2 f32.  Returns the cudaError_t of the launch (0
 // on success).
@@ -199,6 +210,14 @@ extern "C" int rr_fm_chain(int dtype, const void* xr, const void* xi, long long 
     case 2:
       return launch<int8_t>(xr, xi, L, shift, pad, trev, ntaps, deci, first, count,
                             scale, dc, gain, seed, out, last, s);
+    case 3:
+      return launch<rr::fir::F32AsBf16>(xr, xi, L, shift, pad, trev, ntaps, deci,
+                                        first, count, scale, dc, gain, seed, out,
+                                        last, s);
+    case 4:
+      return launch<rr::fir::F32AsS8>(xr, xi, L, shift, pad, trev, ntaps, deci,
+                                      first, count, scale, dc, gain, seed, out, last,
+                                      s);
     default:
       return (int)cudaErrorInvalidValue;
   }

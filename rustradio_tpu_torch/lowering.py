@@ -144,8 +144,7 @@ def _valid_chain(plan, xr, xi, seed):
     taps, deci, precision = plan["taps"], plan["deci"], plan["precision"]
     n_fir = (xr.shape[0] - len(taps)) // deci + 1
     return kernels.fm_chain_span(
-        kernels.plane_cast(xr, precision), kernels.plane_cast(xi, precision),
-        taps, deci, plan["gain"], first=0, count=n_fir, shift=0,
+        xr, xi, taps, deci, plan["gain"], first=0, count=n_fir, shift=0,
         precision=precision, seed=seed)
 
 

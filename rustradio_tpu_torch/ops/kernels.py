@@ -245,6 +245,9 @@ MAX_TAPS = 4096  # the kernels' bound, as ops/fir.py:74 in the JAX package
 _PLANE_DTYPE = {"highest": torch.float32, "split3": torch.float32,
                 "w3": torch.bfloat16, "w2": torch.bfloat16, "i8": torch.int8}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# f32 planes under a bf16 or s8 precision: kernel B rounds each value as
+# it loads it, to the value plane_cast gives (csrc/fir_core.cuh, F32As*)
+_ROUNDED_CODE = {torch.bfloat16: 3, torch.int8: 4}
 
 
 def plane_dtype(precision: str) -> torch.dtype:
@@ -596,13 +599,14 @@ def fir_decimate_plain(x: torch.Tensor, taps, deci: int) -> torch.Tensor:
 def _check_span(xr, xi, taps, deci, count, precision) -> None:
     dt = plane_dtype(precision)
     for p in (xr, xi):
-        if p.dim() != 1 or p.dtype != dt:
-            raise ValueError(f"precision {precision!r} needs 1-D {dt} planes, "
-                             f"got {tuple(p.shape)} {p.dtype}")
+        if p.dim() != 1 or p.dtype not in (dt, torch.float32):
+            raise ValueError(f"precision {precision!r} needs 1-D {dt} planes "
+                             f"(or float32 ones, rounded to {dt}), got "
+                             f"{tuple(p.shape)} {p.dtype}")
         if not p.is_contiguous():
             raise ValueError("fm_chain needs contiguous planes")
-    if xr.shape != xi.shape or xr.device != xi.device:
-        raise ValueError("I/Q planes differ in length or device")
+    if xr.shape != xi.shape or xr.dtype != xi.dtype or xr.device != xi.device:
+        raise ValueError("I/Q planes differ in length, dtype or device")
     if not 1 <= len(taps) <= MAX_TAPS:
         raise ValueError(f"fm_chain takes 1..{MAX_TAPS} taps, got {len(taps)}")
     if deci < 1 or count < 0:
@@ -633,6 +637,10 @@ def fm_chain_span_plain(xr, xi, taps, deci: int, gain: float = 1.0, *,
     """Plain PyTorch version of :func:`fm_chain_span` (any device)."""
     taps = tapset(taps)
     _check_span(xr, xi, taps, deci, count, precision)
+    if xr.dtype != plane_dtype(precision):
+        # f32 planes: the values kernel B rounds them to as it loads them
+        with span("kernels.plane_cast"):
+            xr, xi = plane_cast(xr, precision), plane_cast(xi, precision)
     ntaps = len(taps)
     scale, dc = taps.consts(precision, offset)
     pad = -1.0 if xr.dtype == torch.int8 else 0.0
@@ -653,7 +661,9 @@ def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
                   first: int, count: int, shift: int,
                   precision: str = "highest", offset: float = 0.0, seed=None):
     """Kernel B over outputs [first, first + count) of two planes in the
-    working dtype of ``precision``.
+    working dtype of ``precision``, or of two f32 planes, which the kernel
+    rounds to that dtype value by value as it loads them (the same bits as
+    on ``plane_cast`` planes, without the cast's pass).
 
     Filtered sample o is
     ``y[o] = scale * sum_k taps[ntaps-1-k] * X[o*deci + shift + k] + dc``
@@ -688,11 +698,13 @@ def fm_chain_span(xr, xi, taps, deci: int, gain: float = 1.0, *,
     trev = taps.trev(precision, dev)
     out = torch.empty(count, dtype=torch.float32, device=dev)
     last = torch.empty(2, dtype=torch.float32, device=dev)
+    dt = plane_dtype(precision)
+    code = _DTYPE_CODE[dt] if xr.dtype == dt else _ROUNDED_CODE[dt]
     lib = cuda_lib.load()
     # a null seed pointer is the zero seed: no fill is launched for it
     cuda_lib.check(lib.rr_fm_chain(
-        _DTYPE_CODE[xr.dtype], xr.data_ptr(), xi.data_ptr(), xr.shape[0],
-        shift, -1.0 if xr.dtype == torch.int8 else 0.0, trev.data_ptr(),
+        code, xr.data_ptr(), xi.data_ptr(), xr.shape[0],
+        shift, -1.0 if dt == torch.int8 else 0.0, trev.data_ptr(),
         len(taps), deci, first, count, scale, dc, float(gain),
         None if seed is None else seed.data_ptr(),
         out.data_ptr(), last.data_ptr(), _stream(dev)), "fm_chain")
@@ -707,17 +719,17 @@ def fm_chain(xr, xi, taps, deci: int, gain: float = 1.0,
     ``quadrature_demod(fir_decimate(x), gain)`` with the polynomial atan2,
     m - 1 outputs for m = ceil(n/deci).
 
-    Flat planes (``n=None``): f32 I/Q planes, cast to the working dtype of
-    ``precision`` here.  Packed planes: pass ``fm_plane_pack`` outputs and
-    the true sample count ``n=``; ``tile_rows`` must match the packing.
+    Flat planes (``n=None``): f32 I/Q planes, which kernel B rounds to the
+    working dtype of ``precision`` as it loads them.  Packed planes: pass
+    ``fm_plane_pack`` outputs and the true sample count ``n=``;
+    ``tile_rows`` must match the packing.
     ``offset`` is a DC offset folded in after the dot (filter(x + c) =
     filter(x) + c*sum(taps)), applied under the zero history too.
     """
     taps = tapset(taps)
     ntaps = len(taps)
     if n is None:
-        with span("kernels.plane_cast"):
-            pr, pi = plane_cast(xr, precision), plane_cast(xi, precision)
+        pr, pi = xr.float().contiguous(), xi.float().contiguous()
         m = -(-xr.shape[0] // deci)
         shift = 1 - ntaps
     else:

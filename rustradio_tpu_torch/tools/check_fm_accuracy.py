@@ -8,11 +8,12 @@
 The input is the JAX script's: 2^18 samples of I and Q on the 8-bit wire
 grid, (u8 - 127)/128 with u8 uniform from numpy's RandomState (seed 7 by
 default, the script's), through the 49-tap channel low-pass at
-decimation 4 on flat f32 planes (``kernels.fm_chain``, cast to each mode's
-plane once a call); the model is ``tools.corpus.fm_chain_f64``, the
-script's float64 model.  ``within_1e3_budget`` is the JAX script's
-1e-3 rad bar; ``correct`` holds each mode to its own budget (2e-4 rad
-highest, 3e-4 w3 and i8, 8e-3 w2, 3e-3 split3).  A line also carries the
+decimation 4 on flat f32 planes (``kernels.fm_chain``: kernel B rounds
+them to each mode's plane as it loads them); the model is
+``tools.corpus.fm_chain_f64``, the script's float64 model.
+``within_1e3_budget`` is the JAX script's 1e-3 rad bar; ``correct`` holds
+each mode to its own budget (2e-4 rad highest, 3e-4 w3 and i8, 8e-3 w2,
+3e-3 split3).  A line also carries the
 call's time (the median of 5 CUDA-event timings of 10 calls, with the
 quartiles; the planes fit in L2) and, since kernel B carries it, its
 device time, bound and rate.  Exits 1 if a mode misses its budget, or
@@ -59,7 +60,7 @@ def accuracy_rows(ctx):
         yield Row(f"check_fm_accuracy/{prec}", n, {"": run}, check,
                   kernel="fm_chain",
                   work=kernels.fm_chain_work(-(-n // DECI), len(lp), DECI,
-                                             bench_kernels.PLANE_BYTES[prec]),
+                                             da.element_size()),
                   fields=fields)
 
 

@@ -1,5 +1,8 @@
 """Device time of kernels A and B alone, at the shapes of the FM chain and
-of the AX.25 front-end, on one NVIDIA GPU.
+of the AX.25 front-end, on one NVIDIA GPU.  Kernel B also on the flat f32
+planes of ``rtl_fm --rtl_u8`` (2^26 samples at decimation 1), which it
+rounds to the precision's plane as it loads them, beside the same launch
+on planes cast to the precision's dtype beforehand.
 
     python -m rustradio_tpu_torch.tools.time_fir [label]
 
@@ -52,6 +55,20 @@ def main(argv: list[str]) -> int:
         out[f"B packed {precision} 2^24, 49 taps, deci 4"] = graph_ms(run)
         del planes
     del grid
+    n = 1 << 26
+    flat = [[(torch.randint(0, 256, (n,), generator=gen, device=dev).float()
+              - 127.0) / 128.0 for _ in range(2)] for _ in range(3)]
+    for precision in ("w3", "i8"):
+        cast = [[kernels.plane_cast(p, precision) for p in pair] for pair in flat]
+        for what, planes in (("f32 planes", flat), ("cast planes", cast)):
+            def run(k, planes=planes, precision=precision):
+                a, b = planes[k % len(planes)]
+                kernels.fm_chain_span(a, b, lp49, 1, first=0, count=n,
+                                      shift=1 - len(lp49), precision=precision)
+
+            out[f"B flat {precision} 2^26, deci 1, {what}"] = graph_ms(run)
+        del cast
+    del flat
     for ntaps, deci, length in ((49, 4, 1 << 22), (1205, 1, 1 << 22),
                                 (65, 1, 14_308_087), (289, 1, 14_308_087)):
         taps = lp49 if ntaps == 49 else kernels.tapset(

@@ -156,6 +156,103 @@ def test_torch_cuda_fm_chain_span_null_seed_is_zero_seed(cuda_device):
     assert torch.equal(got[0], zero[0]) and torch.equal(got[1], zero[1])
 
 
+# f32 values at the edges of plane_cast's rounding: bf16 ties (low half
+# 0x8000) on an even and on an odd last bit, subnormals (one a tie), values
+# that to_s8 rounds half to even or clamps; and, kept to the planes' ends
+# so that they spoil only the outputs there, values that round to bf16
+# +-inf, +-inf itself and values that overflow the discriminator.  NaN is
+# left out: to_s8 gives no defined value for it.
+EDGE_BITS = (0x3F808000, 0x3F818000, 0xBE808000, 0xBE818000, 0x00000001,
+             0x00008000, 0x00018000, 0x807FFFFF)
+EDGE_VALUES = (2.0, -3.0, 0.5 / 128, 1.5 / 128, -2.5 / 128, 127.5 / 128,
+               -127.5 / 128, 128.5 / 128)
+END_BITS = (0x7F800000, 0xFF800000, 0x7F7FFFFF, 0xFF7F8000, 0x7149F2CA,
+            0xF149F2CA)  # +-inf, two that round to +-inf, +-1e30
+
+
+def rounding_edges(rng, n, ntaps, deci):
+    """An f32 plane of n values off the 8-bit wire grid (``_slow_fm_planes``'
+    signal with continuous noise, so that every precision's rounding moves
+    nearly every value), the edge values at random places, and the end
+    values among the first and the last six (read by the guarded scalar
+    loads where the plane starts or ends off the 16-byte grid)."""
+    dev = min(0.9, 2.0 / ntaps, 1.0 / deci)
+    phase = np.cumsum(dev * np.sin(np.arange(n) * (2e-3 * dev)))
+    x = (0.45 * np.cos(phase + rng.uniform(0, 6)) + 0.02 * rng.randn(n)
+         ).astype(np.float32)
+    edges = np.concatenate([np.array(EDGE_BITS, np.uint32).view(np.float32),
+                            np.array(EDGE_VALUES, np.float32)])
+    x[rng.choice(np.arange(6, n - 6), 2 * len(edges), replace=False)] = (
+        np.tile(edges, 2))
+    ends = np.array(END_BITS, np.uint32).view(np.float32)
+    x[:6], x[-6:] = rng.permutation(ends), rng.permutation(ends)
+    return x
+
+
+def _same_bits(got, want):
+    """Bit-equal f32 tensors (NaN included)."""
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("precision", ["w2", "w3", "i8"])
+@pytest.mark.parametrize("ntaps,deci", [(49, 1), (49, 2), (49, 4), (49, 3),
+                                        (1205, 1), (1205, 4)])
+def test_torch_cuda_fm_chain_rounds_f32_planes_as_the_cast(
+        cuda_device, extra, precision, ntaps, deci):
+    # f32 planes, which kernel B rounds as it loads them, against the same
+    # launch on plane_cast's planes: the same bits, at every start of the
+    # plane on its 16-byte grid and lengths that are no multiple of 4
+    rng = np.random.RandomState(53 + ntaps + deci)
+    n = 4 * 1027 + 1 + extra * deci
+    taps = _lp(ntaps)
+    base = [torch.from_numpy(rounding_edges(rng, n + 3, ntaps, deci)).to(
+        cuda_device) for _ in range(2)]
+    for k in range(4):  # the planes start k floats past a 16-byte boundary
+        a, b = (p[k : k + n - 2 * (k % 2)] for p in base)
+        ca, cb = (kernels.plane_cast(p, precision) for p in (a, b))
+        m = -(-a.shape[0] // deci)
+        kw = dict(first=0, count=m, shift=1 - ntaps, precision=precision,
+                  offset=0.01)
+        before = kernels.LAUNCHES["fm_chain"]
+        got, last = kernels.fm_chain_span(a, b, taps, deci, 0.9, **kw)
+        flat = kernels.fm_chain(a, b, taps, deci, 0.9, offset=0.01,
+                                precision=precision)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fm_chain"] == before + 2
+        want, want_last = kernels.fm_chain_span(ca, cb, taps, deci, 0.9, **kw)
+        _same_bits(got, want)
+        _same_bits(last, want_last)
+        _same_bits(flat, want[1:])
+        assert int(torch.isfinite(want).sum()) > m // 2  # the ends alone spoilt
+
+
+@pytest.mark.parametrize("precision", ["w2", "w3", "i8"])
+def test_torch_cuda_fm_chain_rounded_spans_compose_with_the_seed(
+        cuda_device, extra, precision):
+    # two seeded spans of f32 planes, the second from first > 0 with the
+    # first's last sample, make the one span of the cast planes
+    rng = np.random.RandomState(54)
+    n = (1 << 14) + 3 + 4 * extra
+    a, b = (torch.from_numpy(rounding_edges(rng, n, 49, 4)).to(cuda_device)
+            for _ in range(2))
+    ca, cb = (kernels.plane_cast(p, precision) for p in (a, b))
+    c1, c2 = 1500 + extra // 2, 2100 + extra // 2
+    kw = dict(shift=-48, precision=precision, offset=0.01)
+    y1, last1 = kernels.fm_chain_span(a, b, _lp49(), 4, 0.9, first=0,
+                                      count=c1, seed=(0.3, -0.2), **kw)
+    y2, last2 = kernels.fm_chain_span(a, b, _lp49(), 4, 0.9, first=c1,
+                                      count=c2, seed=last1, **kw)
+    want, want_last = kernels.fm_chain_span(ca, cb, _lp49(), 4, 0.9, first=0,
+                                            count=c1 + c2, seed=(0.3, -0.2),
+                                            **kw)
+    _same_bits(torch.cat([y1, y2]), want)
+    _same_bits(last2, want_last)
+    cast2 = kernels.fm_chain_span(ca, cb, _lp49(), 4, 0.9, first=c1, count=c2,
+                                  seed=last1, **kw)
+    _same_bits(y2, cast2[0])
+
+
 @pytest.mark.parametrize("ntaps,deci", [(1, 1), (3, 1), (5, 1), (7, 1), (9, 1),
                                         (49, 4), (49, 3), (1205, 1), (4096, 1),
                                         (4096, 50), (1, 50), (65, 2)])

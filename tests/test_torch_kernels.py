@@ -18,6 +18,7 @@ import rustradio_tpu.ops.pallas_kernels as pk
 from rustradio_tpu_torch import convert, ops
 from rustradio_tpu_torch.ops import kernels
 from test_pallas_interpret import _fir_deci_f64, _fm_chain_f64
+from test_torch_cuda import rounding_edges
 
 # the reference's own budgets against float64 (test_pallas_interpret.py:78-98)
 BUDGET = {"highest": 2e-4, "w3": 3e-4, "w2": 8e-3, "split3": 8e-3, "i8": 3e-4}
@@ -208,6 +209,42 @@ def test_torch_fm_chain_span_no_seed_is_the_zero_seed(precision):
     assert torch.equal(
         kernels.fm_chain_span(a, b, _lp49(), 4, seed=(0.5, -1.0), **kw)[1],
         torch.tensor([0.5, -1.0]))
+
+
+@pytest.mark.parametrize("precision", ["w2", "w3", "i8"])
+def test_torch_fm_chain_span_takes_f32_planes(precision):
+    # flat f32 planes, off the wire grid and at the edges of the rounding:
+    # the bits of the same span on plane_cast's planes, and the work of a
+    # launch that reads 4 B a sample
+    rng = np.random.RandomState(14)
+    a, b = (_t(rounding_edges(rng, 4099, 49, 4)) for _ in range(2))
+    ca, cb = (kernels.plane_cast(p, precision) for p in (a, b))
+    kw = dict(first=3, count=900, shift=-48, precision=precision, offset=0.01,
+              seed=(0.3, -0.2))
+    work = kernels.active_work()
+    spans = []
+    for pa, pb in ((a, b), (ca, cb)):
+        bytes0 = work["bytes"]
+        spans.append(kernels.fm_chain_span(pa, pb, _lp49(), 4, 0.9, **kw))
+        assert work["bytes"] - bytes0 == kernels.fm_chain_work(
+            900, 49, 4, pa.element_size())[0]
+    assert kernels.fm_chain_work(900, 49, 4, 4)[0] == 2 * 900 * 4 * 4 + 4 * 900
+    flat = kernels.fm_chain(a, b, _lp49(), 4, 0.9, precision=precision)
+    whole = kernels.fm_chain_span(ca, cb, _lp49(), 4, 0.9, first=0, count=1025,
+                                  shift=-48, precision=precision)[0]
+    for got, want in [*zip(*spans), (flat, whole[1:])]:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("precision,dtypes", [
+    ("w3", (torch.float16, torch.float16)), ("w2", (torch.float64,) * 2),
+    ("i8", (torch.bfloat16,) * 2), ("w3", (torch.int8,) * 2),
+    ("highest", (torch.bfloat16,) * 2), ("w3", (torch.float32, torch.bfloat16))])
+def test_torch_fm_chain_span_refuses_other_planes(precision, dtypes):
+    xr, xi = (torch.zeros(64, dtype=d) for d in dtypes)
+    with pytest.raises(ValueError, match="needs 1-D|differ in length, dtype"):
+        kernels.fm_chain_span(xr, xi, _lp49(), 1, first=0, count=4, shift=0,
+                              precision=precision)
 
 
 def test_torch_fm_chain_window_bounds():

@@ -164,8 +164,8 @@ def test_torch_kernel_wrappers_check_inputs():
     with pytest.raises(ValueError, match="float32"):
         kernels.fir_decimate(x.double(), np.ones(3, np.float32), 1)
     with pytest.raises(ValueError, match="bfloat16"):
-        kernels.fm_chain_span(x, x, np.ones(3, np.float32), 1, first=0,
-                              count=4, shift=0, precision="w3")
+        kernels.fm_chain_span(x.double(), x.double(), np.ones(3, np.float32),
+                              1, first=0, count=4, shift=0, precision="w3")
     with pytest.raises(ValueError, match="real taps"):
         kernels.fm_chain(x, x, np.array([1j, 1], np.complex64), 1)
     with pytest.raises(ValueError, match="unknown precision"):
