@@ -76,9 +76,11 @@ def main(argv=None) -> int:
         iq = torch.from_numpy(rawfile.read_samples(opt.read, "c32")).to(device)
 
     if opt.decode:
-        from ..models.multichannel import decode_band_ax25
+        from ..models import multichannel
+        from ..ops import hdlc
 
-        results = decode_band_ax25(
+        band0, crc0 = dict(multichannel.TOTALS), hdlc.TOTALS["crc_error"]
+        results = multichannel.decode_band_ax25(
             iq, float(opt.sample_rate), n_channels=opt.channels,
             max_active=opt.max_active, sync_method=opt.sync,
         )
@@ -87,9 +89,10 @@ def main(argv=None) -> int:
                 route = ">".join(pkt.addresses[:2][::-1]) if pkt.addresses else "?"
                 print(f"ch{r.channel:4d} {r.freq/1e3:+9.1f}k  {route}: "
                       f"{pkt.info[:80]!r}")
-        total = sum(len(r.packets) for r in results)
-        print(f"decoded {total} packets on {len(results)} channels",
-              file=sys.stderr)
+        band = {k: v - band0[k] for k, v in multichannel.TOTALS.items()}
+        print(f"decoded {band['packets']} packets on {len(results)} channels "
+              f"({band['active']} in the bank, {band['rerun']} re-run, "
+              f"{hdlc.TOTALS['crc_error'] - crc0} CRC failures)", file=sys.stderr)
         return 0
 
     M = opt.channels

@@ -9,6 +9,7 @@ modulated at 3 kHz deviation onto channel centers of a 512 kHz capture.
 """
 
 import importlib
+import re
 
 import jax
 import numpy as np
@@ -202,6 +203,11 @@ def test_torch_scanner_decodes(one_station, capsys, sync):
     # channel line is stable
     assert cap.out.startswith("ch   2     +64.0k")
     assert "decoded 1 packets on 1 channels" in cap.err
+    # the closing line reads multichannel.TOTALS and hdlc.TOTALS: the bank
+    # of at most 4 channels, no channel re-run (the capture is quiet)
+    tail = re.search(r"on 1 channels \((\d) in the bank, 0 re-run, "
+                     r"(\d+) CRC failures\)", cap.err)
+    assert tail and 1 <= int(tail.group(1)) <= 4, cap.err
 
 
 def test_torch_scanner_refuses_sim_and_missing_card(one_station, capsys):
