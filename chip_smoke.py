@@ -220,6 +220,11 @@ WB_DEV = 3_000.0          # FM at 3 kHz deviation,
 WB_NOISE = 0.05           # complex noise per component
 WB_FLOOR = 196            # frames of 200 decoded per sync method
 PFB_CH, N_PFB = 256, 1 << 22  # bench.py's channelizer row (bench.py:194-209)
+CELL_CH, N_CELL = 128, 1 << 28  # the wideband cell's channelizer (aprs_wideband.scan)
+# kernel H against its plain version: the widest gap of the channels over
+# their RMS (each lies within 2e-5 of it from the float64 reference, so
+# the two within twice that of each other) and of the power, relative
+PFB_TOL, PFB_POWER_TOL = 4e-5, 1e-5
 # The kernels' bounds divide their work (bytes and f32 operations,
 # kernels.*_work, the count Graph.costs() reads) by the card's peaks from
 # rustradio_tpu_torch/utils/stats.py (NVIDIA data sheets: device memory,
@@ -610,7 +615,8 @@ class CoreSizes:
     wb_frames: int = WB_FRAMES
     wb_floor: int = WB_FLOOR
     wb_methods: tuple = ("scan", "events")  # its sync methods
-    pfb_n: int = N_PFB            # the channelizer's timed row
+    pfb_n: int = N_PFB            # the channelizer's timed rows: the bench's
+    pfb_cell_n: int = N_CELL      # and the wideband cell's
     reps: int = 3                 # runs of each timed wall (median)
 
 
@@ -1273,10 +1279,10 @@ def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
     gave them; then the times (added to ``t``): the card's latencies for
     a lone lane (``time_sync.calibrate``), the channelizer, D and E beside
     their plain versions, bounds, dependent chains and one-thread forms,
-    and the paths' walls.  Returns the largest |error| of D and E, the
+    and the paths' walls.  Returns the largest |error| of D, E and H, the
     events receiver's frames, the launch counts of the events path and of
     the wideband receiver by method, the calibration, and ``t``'s rows of
-    D and E (in ``t.record``)."""
+    D, E and H (in ``t.record``)."""
     from rustradio_tpu_torch import native, ops
     from rustradio_tpu_torch.models import ax25, multichannel
     from rustradio_tpu_torch.ops import hdlc, kernels
@@ -1505,7 +1511,7 @@ def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
               f"({wb_first[method]:.3f} s, first call); launches "
               f"{json.dumps(wb_counts[method])}")
         require(f"wideband {method}", wb_counts[method],
-                ("fir_decimate", f"symbol_sync_{method}"))
+                ("pfb_channelize", "fir_decimate", f"symbol_sync_{method}"))
         if chans != sorted(stations):
             failures.append(f"wideband {method}: channels {chans} decoded")
         if ok < sizes.wb_floor:
@@ -1538,14 +1544,47 @@ def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
         print(f"[9 times] {name}: kernel {ms:.4f} ms, {other} {pms:.4f} ms; "
               f"card: {card}")
 
-    pfb_x = torch.complex(torch.randn(sizes.pfb_n, generator=gen, device=dev),
-                          torch.randn(sizes.pfb_n, generator=gen, device=dev))
-    pfb_taps = channelizer.channelizer_taps(PFB_CH)
-    pfb_ms = time_one(lambda: channelizer.pfb_channelize(pfb_x, pfb_taps, PFB_CH))
-    print(f"[9 times] pfb_channelize {PFB_CH} channels x "
-          f"{size_label(sizes.pfb_n)} (plain torch + cuFFT, no kernel): "
-          f"{pfb_ms:.4f} ms ({sizes.pfb_n / pfb_ms / 1e3:.1f} Msps); card: {card}")
-    del pfb_x
+    def pfb_check(what, x, taps, m) -> float:
+        """Kernel H's channels and power on ``x`` against its plain
+        version's; returns the channels' largest |error|."""
+        ch, power = kernels.pfb_channelize(x, taps, m, power=True)
+        plain = kernels.pfb_channelize_plain(x, taps, m)
+        err = float((ch - plain).abs().max())
+        rms = float(plain.abs().pow(2).mean().sqrt())
+        want = kernels.pfb_power_plain(plain)
+        rel = float(((power - want).abs() / want).max())
+        del ch, plain
+        print(f"[9 times] {what} vs plain: channels max_abs_err={err:.3e} "
+              f"({err / rms:.3e} of their RMS, tol {PFB_TOL:.1e}), power "
+              f"{rel:.3e} relative (tol {PFB_POWER_TOL:.1e})")
+        if err > PFB_TOL * rms or not rel <= PFB_POWER_TOL:
+            failures.append(f"9 times {what}: kernel H vs plain")
+        return err
+
+    # kernel H with the channels' power beside its plain version (the
+    # torch form, cuFFT): the outputs held, the times and the bound, at
+    # the bench's shape and the cell's (the kernels line's row)
+    errs["pfb_channelize"] = 0.0
+    for m, n in ((PFB_CH, sizes.pfb_n), (CELL_CH, sizes.pfb_cell_n)):
+        pfb_x = torch.complex(torch.randn(n, generator=gen, device=dev),
+                              torch.randn(n, generator=gen, device=dev))
+        pfb_taps = channelizer.channelizer_taps(m)
+        h_name = f"kernel H pfb_channelize {m} x {size_label(n)}"
+        errs["pfb_channelize"] = max(errs["pfb_channelize"],
+                                     pfb_check(h_name, pfb_x, pfb_taps, m))
+        timed9(h_name, *time_pair(
+            lambda: kernels.pfb_channelize(pfb_x, pfb_taps, m, power=True),
+            lambda: kernels.pfb_power_plain(
+                kernels.pfb_channelize_plain(pfb_x, pfb_taps, m)),
+            contextlib.nullcontext))
+        # samples in, channels out; the counted operations
+        device_row(h_name,
+                   lambda k: kernels.pfb_channelize(pfb_x, pfb_taps, m, power=True),
+                   bound(kernels.pfb_work(n, m, len(pfb_taps) // m)))
+        print(f"[9 times] {h_name}: {n / rows[h_name][0] / 1e3:.1f} Msps; "
+              f"card: {card}")
+        del pfb_x
+    t.record["pfb_channelize"] = h_name
 
     def chain_d(args):
         """Kernel D's dependent-chain bound on these arguments, (ms, what)."""
@@ -5059,6 +5098,9 @@ def main() -> int:
                          total("cma"), errs["cma"], live_times["cma"]),
         recurrence_entry("iir", "iir.cu", "rustradio_tpu/ops/iir.py:68",
                          total("iir"), errs["iir"], live_times["iir"]),
+        entry("pfb_channelize", "pfb_channelize.cu", None,
+              sum(c["pfb_channelize"] for c in wb_counts.values())
+              + total("pfb_channelize")),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

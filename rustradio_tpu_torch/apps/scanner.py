@@ -28,7 +28,8 @@ import torch
 from ..dtypes import parse_frequency
 from . import add_device_arg, parse_device
 from ..io import rawfile
-from ..parallel.channelizer import channelizer_taps, pfb_channelize
+from ..ops.kernels import PFB_MAX_CHANNELS, PFB_MIN_CHANNELS, pfb_supported
+from ..parallel.channelizer import channelizer_taps, pfb_channelize_power
 
 
 def main(argv=None) -> int:
@@ -36,7 +37,8 @@ def main(argv=None) -> int:
     p.add_argument("-r", "--read", required=True,
                    help="complex64 IQ capture, or 'sim' for the loopback driver")
     p.add_argument("--sample_rate", type=parse_frequency, required=True)
-    p.add_argument("-n", "--channels", type=int, default=256)
+    p.add_argument("-n", "--channels", type=int, default=256,
+                   help="channels: on the card a power of two in 16..1024")
     p.add_argument("--top", type=int, default=10, help="channels to report")
     p.add_argument("--demod", type=int, help="FM-demod this channel index")
     p.add_argument("--decode", action="store_true",
@@ -63,6 +65,9 @@ def main(argv=None) -> int:
         if not opt.out:
             p.error("--demod requires --out")
     device = parse_device(p, opt.device)
+    if device.type == "cuda" and not pfb_supported(opt.channels, 8):
+        p.error(f"-n {opt.channels}: the channelizer on the card takes a power "
+                f"of two in {PFB_MIN_CHANNELS}..{PFB_MAX_CHANNELS}")
 
     if opt.read == "sim":
         from ..hw import SdrSource
@@ -97,8 +102,8 @@ def main(argv=None) -> int:
 
     M = opt.channels
     fs = float(opt.sample_rate)
-    ch = pfb_channelize(iq, channelizer_taps(M, 8), M)  # (frames, M)
-    power = (ch.real ** 2 + ch.imag ** 2).mean(0).cpu().numpy()
+    ch, power = pfb_channelize_power(iq, channelizer_taps(M, 8), M)  # (frames, M)
+    power = power.cpu().numpy()
     order = np.argsort(power)[::-1][: opt.top]
     print(f"{'chan':>5} {'freq':>12} {'power dB':>9}")
     for k in order:

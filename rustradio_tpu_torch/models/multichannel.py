@@ -26,7 +26,7 @@ import torch
 from ..ops import hdlc, nrzi
 from ..ops.elementwise import binary_slicer
 from ..ops.symbol_sync import compact, symbol_sync, symbol_sync_events
-from ..parallel.channelizer import channelizer_taps, pfb_channelize
+from ..parallel.channelizer import channelizer_taps, pfb_channelize_power
 from ..utils.trace import span
 from .ax25 import Ax25Packet, bell202_demod
 
@@ -159,11 +159,12 @@ def _decode(iq, fs: float, M: int, clock: tuple, max_active: int,
     ``ChannelDecode``, those without packets too, and the count of
     channels re-run on the exact scan."""
     with span("band.channelize"):
-        ch = pfb_channelize(iq, channelizer_taps(M, 8), M, device=device)
+        ch, power = pfb_channelize_power(iq, channelizer_taps(M, 8), M,
+                                         device=device)
     # the power's copy to the host is the pass's first wait: it waits out
     # the channelizer
     with span("band.select"):
-        power = (ch.real ** 2 + ch.imag ** 2).mean(0).cpu().numpy()
+        power = power.cpu().numpy()
         order = np.argsort(power)[::-1]
         floor = power[order[0]] * 10.0 ** (power_floor_db / 10.0)
         active = [int(k) for k in order[:max_active] if power[k] > floor]

@@ -105,6 +105,10 @@ def _bind(lib):
     lib.rr_cma_equalize.restype = i
     lib.rr_iir_filter.argtypes = [p, ll, p, i, p, p, p, p, p, p]
     lib.rr_iir_filter.restype = i
+    lib.rr_pfb_blocks.argtypes = [i, ctypes.POINTER(i)]
+    lib.rr_pfb_blocks.restype = i
+    lib.rr_pfb_channelize.argtypes = [p, ll, i, p, i, p, p, i, p]
+    lib.rr_pfb_channelize.restype = i
     lib.rr_iir_layout.argtypes = [p]
     lib.rr_iir_layout.restype = None
     lib.rr_cuda_error_string.argtypes = [i]

@@ -45,6 +45,18 @@ Two more replace the other per-sample ``lax.scan``s:
   SM: chunks of ``IIR_CHUNK`` samples walk at once, their starting states
   from a scan of the chunks' affine maps.
 
+And one replaces no TPU kernel, since the JAX package's channelizer
+(``rustradio_tpu/parallel/channelizer.py``) is jnp code whose inverse DFT
+is a TPU-only MXU product:
+
+* ``pfb_channelize`` (``csrc/pfb_channelize.cu``, kernel H) is the
+  critically sampled polyphase channelizer with each channel's mean power.
+  Bytes bound it (8 B in and 8 B out a sample against 4L + 5 log2 M + 3
+  operations), and its plain version makes a dozen passes over the (frames,
+  M) matrix; the kernel reads each sample once and writes each output once:
+  the branch filter on registers, the inverse DFT as two small-radix
+  passes through shared memory, the power summed beside the stores.
+
 ``tools/csrc/symbol_sync_lone.cu`` keeps D and E as one thread per channel,
 and ``tools/csrc/chain_calib.cu`` measures a lone lane's latencies:
 yardsticks that ``tools/time_sync.py`` builds into a library of its own
@@ -100,6 +112,7 @@ the working dtype, written once at ingest.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import typing
 
@@ -113,7 +126,7 @@ from .demod import demod_pairs
 
 LAUNCHES = {"fir_decimate": 0, "fm_chain": 0, "quad_demod": 0,
             "symbol_sync_events": 0, "symbol_sync_scan": 0, "cma": 0,
-            "iir": 0}
+            "iir": 0, "pfb_channelize": 0}
 
 
 
@@ -1556,3 +1569,134 @@ def iir_scan(x: torch.Tensor, taps, history: torch.Tensor) -> torch.Tensor:
         _stream(x.device)), "iir_filter")
     _launched("iir", None, work)
     return y
+
+
+# --------------------------------------------- kernel H: the channelizer
+
+PFB_MIN_CHANNELS = 16     # kernel H's channels: the powers of two from ..
+PFB_MAX_CHANNELS = 1024   # .. to (csrc/pfb_channelize.cu, one instance each)
+PFB_MAX_TAPS = 16         # and its taps a branch
+PFB_TILE = 8192           # channel-matrix entries a tile (kTile)
+
+
+def pfb_branch_taps(taps, n_channels: int) -> np.ndarray:
+    """The prototype as (L, M) f32 rows, ``h[l, m] = taps[l * M + m]``,
+    zero-padded to whole rows (L = ceil(len(taps) / M))."""
+    t = np.asarray(taps, np.float32).reshape(-1)
+    t = np.pad(t, (0, -len(t) % n_channels))
+    return t.reshape(-1, n_channels)
+
+
+def pfb_supported(n_channels: int, taps_per_branch: int) -> bool:
+    """Whether kernel H takes M = ``n_channels`` and L = ``taps_per_branch``:
+    M a power of two in 16..1024, L in 1..16."""
+    m = int(n_channels)
+    return (PFB_MIN_CHANNELS <= m <= PFB_MAX_CHANNELS and m & (m - 1) == 0
+            and 1 <= taps_per_branch <= PFB_MAX_TAPS)
+
+
+def pfb_work(n: int, n_channels: int, taps_per_branch: int):
+    """Kernel H over n complex64 samples: them in, the (n // M, M)
+    complex64 channels out; for each output, the branch filter's L
+    complex-by-real multiply-adds (4L operations), the inverse FFT (5 log2
+    M) and the power (3)."""
+    m, out = n_channels, n // n_channels * n_channels
+    ops = 4 * taps_per_branch + 5 * (m.bit_length() - 1) + 3
+    return float(8 * n + 8 * out), float(ops * out)
+
+
+def pfb_channelize_plain(x: torch.Tensor, taps, n_channels: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pfb_channelize` (any device): the
+    frames as a padded copy, the branch filter as L shifted multiply-adds
+    over the (frames, M) matrix, one batched inverse FFT, scaled by M."""
+    M = n_channels
+    h = torch.from_numpy(pfb_branch_taps(taps, M)).to(x.device)
+    L = h.shape[0]
+    nframes = x.shape[0] // M
+    # frame decomposition: f[i, m] = x[i*M - m], via a left pad of M-1 and
+    # a reshape with reversed columns
+    f = F.pad(x, (M - 1, 0))[: nframes * M].reshape(nframes, M).flip(1)
+    # per-branch causal FIR: v[i, m] = sum_l h[l*M + m] * f[i-l, m]
+    acc = torch.zeros_like(f)
+    for l in range(L):
+        acc = acc + h[l] * F.pad(f, (0, 0, l, 0))[:nframes]
+    # y_k[i] = sum_m e^{2 pi i k m / M} v[i, m]  ==  M * IFFT over m
+    return torch.fft.ifft(acc, dim=1) * M
+
+
+def pfb_power_plain(ch: torch.Tensor) -> torch.Tensor:
+    """Each channel's mean power over the frames, (M,) f32."""
+    return (ch.real ** 2 + ch.imag ** 2).mean(0)
+
+
+@functools.lru_cache(maxsize=64)
+def _pfb_taps(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
+    """The device copy of the (L, M) taps."""
+    return torch.from_numpy(np.frombuffer(taps_bytes, np.float32).copy()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _pfb_blocks(n_channels: int, device: torch.device) -> int:
+    """The blocks that fill ``device`` at M channels (the grid's ceiling);
+    called with ``device`` current."""
+    lib, blocks = cuda_lib.load(), ctypes.c_int()
+    cuda_lib.check(lib.rr_pfb_blocks(n_channels, ctypes.byref(blocks)),
+                   "pfb_blocks")
+    return blocks.value
+
+
+def _check_pfb(x: torch.Tensor) -> None:
+    if x.dim() != 1 or x.dtype != torch.complex64:
+        raise ValueError(f"pfb_channelize needs a 1-D complex64 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("pfb_channelize needs a contiguous tensor")
+
+
+def pfb_channelize(x: torch.Tensor, taps, n_channels: int, power: bool = False):
+    """The critically sampled polyphase channelizer of ``x`` (1-D complex64,
+    contiguous) with the real prototype ``taps`` (zero-padded to whole
+    branches of M = ``n_channels``): (n // M, M) complex64,
+    ``y[i, k] = sum_m e^{2 pi i k m / M} sum_l h[l M + m] x[(i - l) M - m]``,
+    zero history.  With ``power=True`` it returns ``(y, power)``, power the
+    (M,) f32 mean of |y[i, k]|^2 over the frames.
+
+    Kernel H on a CUDA tensor, run on the tensor's device; the plain
+    version on a CPU tensor.  A CUDA tensor of a shape the kernel does not
+    take (:func:`pfb_supported`: M a power of two in 16..1024, L =
+    ceil(len(taps) / M) in 1..16) raises ValueError: the plain version on
+    the card is :func:`pfb_channelize_plain`, called by name.  The kernel's
+    power is summed in f32 a thread and a block, then over the blocks in
+    float64, in a fixed order."""
+    _check_pfb(x)
+    M = int(n_channels)
+    h = pfb_branch_taps(taps, M)
+    L, n = h.shape[0], x.shape[0]
+    nframes = n // M
+    work = pfb_work(n, M, L)
+    if not _route(x):
+        _worked(work)
+        ch = pfb_channelize_plain(x, h, M)
+        return (ch, pfb_power_plain(ch)) if power else ch
+    if not pfb_supported(M, L):
+        raise ValueError(
+            f"pfb_channelize: kernel H takes M a power of two in "
+            f"{PFB_MIN_CHANNELS}..{PFB_MAX_CHANNELS} and 1..{PFB_MAX_TAPS} "
+            f"taps a branch (pfb_supported), got M={M}, L={L}; "
+            f"pfb_channelize_plain is the plain version")
+    if nframes == 0:
+        ch = x.new_empty((0, M))
+        return (ch, pfb_power_plain(ch)) if power else ch
+    ch = torch.empty((nframes, M), dtype=torch.complex64, device=x.device)
+    lib = cuda_lib.load()
+    with torch.cuda.device(x.device):
+        grid = min(_pfb_blocks(M, x.device), -(-nframes // (PFB_TILE // M)))
+        part = torch.empty((grid, M), dtype=torch.float32, device=x.device)
+        cuda_lib.check(lib.rr_pfb_channelize(
+            x.data_ptr(), nframes, M, _pfb_taps(h.tobytes(), x.device).data_ptr(),
+            L, ch.data_ptr(), part.data_ptr(), grid, _stream(x.device)),
+            "pfb_channelize")
+    _launched("pfb_channelize", None, work)
+    if not power:
+        return ch
+    return ch, (part.sum(0, dtype=torch.float64) / nframes).float()

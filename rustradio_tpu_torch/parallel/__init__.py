@@ -19,6 +19,7 @@ from .channelizer import (
     channelizer_fm_bank,
     channelizer_taps,
     pfb_channelize,
+    pfb_channelize_power,
     sharded_channelizer_fm,
 )
 from .halo import halo_exchange_left, halo_exchange_right
@@ -49,6 +50,7 @@ __all__ = [
     "make_mesh",
     "make_mesh_2d",
     "pfb_channelize",
+    "pfb_channelize_power",
     "pipeline_chain",
     "pipeline_run",
     "pipeline_run_rates",

@@ -6,19 +6,23 @@ Channel k of ``pfb_channelize(x, taps, M)`` equals the DDC
 
     y_k[n] = sum_j h[j] * x[n*M - j] * exp(2j pi k j / M)
 
-(the critically-sampled PFB identity).  The branch FIR is L row-shifted
-elementwise multiply-adds on the (nframes, M) frame matrix and the channel
-combine one batched inverse FFT (cuFFT on the card), on the input's device.
-The JAX package's MXU form of the inverse DFT (``_idft_mxu``) is a TPU
-workaround and is not ported.
+(the critically-sampled PFB identity).  On the card it is kernel H
+(``ops.kernels.pfb_channelize``, ``csrc/pfb_channelize.cu``): one read of
+the capture and one write of the channel matrix, the branch FIR and the
+inverse DFT in between, and each channel's power summed beside the stores.
+Its plain version, the form of the JAX package in torch ops (L row-shifted
+multiply-adds over the (nframes, M) frame matrix, one batched inverse FFT),
+runs on a CPU tensor; on the card a channel count or filter length the
+kernel does not take raises.  The JAX package's MXU form of the inverse DFT
+(``_idft_mxu``) is a TPU workaround and is not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..ops import kernels
 from .mesh import gather_lines, on_device
 
 
@@ -39,7 +43,7 @@ def _windowed_sinc(ntaps: int, cutoff: float) -> np.ndarray:
 
 def _complex_stream(x, device) -> torch.Tensor:
     if torch.is_tensor(x):
-        return x.to(torch.complex64)
+        return x.to(torch.complex64).contiguous()
     if device is None:
         raise ValueError("a numpy input needs device= (e.g. 'cuda' or 'cpu')")
     return torch.from_numpy(np.ascontiguousarray(x, np.complex64)).to(device)
@@ -50,25 +54,19 @@ def pfb_channelize(x, taps, n_channels: int, device=None) -> torch.Tensor:
 
     Returns (nframes, n_channels) complex64 on ``x``'s device; channel k is
     centered at k * fs / M (wrapping to negative frequencies above M/2).
-    ``x`` is a complex tensor, or numpy with ``device=``.
+    ``x`` is a complex tensor, or numpy with ``device=``.  Kernel H on the
+    card (``ops.kernels.pfb_channelize``, which says which shapes it takes).
     """
-    M = n_channels
-    x = _complex_stream(x, device)
-    taps = np.asarray(taps, np.float32)
-    if len(taps) % M:
-        taps = np.pad(taps, (0, M - len(taps) % M))
-    L = len(taps) // M
-    nframes = x.shape[0] // M
-    # frame decomposition: f[i, m] = x[i*M - m], via a left pad of M-1 and
-    # a reshape with reversed columns
-    f = F.pad(x, (M - 1, 0))[: nframes * M].reshape(nframes, M).flip(1)
-    # per-branch causal FIR: v[i, m] = sum_l h[l*M + m] * f[i-l, m]
-    h = torch.from_numpy(taps.reshape(L, M)).to(x.device)
-    acc = torch.zeros_like(f)
-    for l in range(L):
-        acc = acc + h[l] * F.pad(f, (0, 0, l, 0))[:nframes]
-    # y_k[i] = sum_m e^{2 pi i k m / M} v[i, m]  ==  M * IFFT over m
-    return torch.fft.ifft(acc, dim=1) * M
+    return kernels.pfb_channelize(_complex_stream(x, device), taps, n_channels)
+
+
+def pfb_channelize_power(x, taps, n_channels: int, device=None):
+    """:func:`pfb_channelize` and each channel's mean power over the
+    frames: ``(ch, power)``, power the (n_channels,) f32
+    ``(ch.real ** 2 + ch.imag ** 2).mean(0)``, which kernel H sums beside
+    its stores (no pass over ``ch``)."""
+    return kernels.pfb_channelize(_complex_stream(x, device), taps, n_channels,
+                                  power=True)
 
 
 def channelizer_fm_bank(x, taps, n_channels: int, gain: float = 1.0,

@@ -15,7 +15,8 @@ The rows (``tools/bench_kernels.py``'s, at bench.py's sizes):
   ``PackedIqRingSource -> FirFilter -> QuadratureDemod -> DeviceFoldSink``
   over a ring of 4 chunks of 2^24, through ``Graph.compile_device_loop``
   (8 chunks a call, one CUDA-graph replay);
-* ``channelizer_256ch_msps``: ``pfb_channelize``, 256 channels x 2^22;
+* ``channelizer_256ch_msps``: kernel H (``pfb_channelize`` with the
+  channels' power), 256 channels x 2^22;
 * ``decode_bank_events_msps``: ``recover_symbols_batch(method="events")``
   over 64 channels x 2^16 (kernel D).
 
@@ -95,7 +96,7 @@ def headline(ctx) -> dict:
     """bench.py's line from the rows, measured in ``ctx``."""
     rows = {}
     for group in (bench_kernels.fm_chain_rows(ctx, ("w3", "i8"), pack=False),
-                  graph_rows(ctx), bench_kernels.channelizer_rows(ctx),
+                  graph_rows(ctx), bench_kernels.channelizer_rows(ctx, cell=False),
                   bench_kernels.decode_bank_rows(ctx, ("events",))):
         for row in group:
             rows[row.bench] = bench_kernels.measure(row, ctx)

@@ -68,13 +68,16 @@ CALLS = 10                 # calls a timing
 BANK_SPS = corpus.BANK_SPS
 FS_BELL = 44_100.0         # bench_bell202_frontend's rate
 PFB_CH = 256               # the channelizer's channels
+CELL_CH = 128              # and the wideband cell's (aprs_wideband.scan)
+POWER_TOL = 1e-5           # relative, kernel H's channel power against plain
 STREAM_GAIN = 0.5          # the streams' MultiplyConst
 PLANE_BYTES = {"highest": 4, "split3": 4, "w3": 2, "w2": 2, "i8": 1}
 # the leaf wrapper that launches each kernel (a kernels.LAUNCHES key)
 LEAF = {"fir_decimate": "_fir_planes", "fm_chain": "fm_chain_span",
         "quad_demod": "quad_demod_fast",
         "symbol_sync_events": "symbol_sync_events_scan",
-        "symbol_sync_scan": "symbol_sync_scan"}
+        "symbol_sync_scan": "symbol_sync_scan",
+        "pfb_channelize": "pfb_channelize"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +90,7 @@ class Sizes:
     fft_n: int = 1 << 23       # bench_fft_filter
     quad_n: int = 1 << 23      # bench_quad_demod
     chan_n: int = 1 << 22      # bench_channelizer (256 channels)
+    cell_n: int = 1 << 28      # the channelizer at the wideband cell's shape
     bell_n: int = 1 << 22      # bench_bell202_frontend
     bank_ch: int = 64          # bench_decode_bank
     bank_n: int = 1 << 16
@@ -104,10 +108,11 @@ class Sizes:
 
 
 SMALL = Sizes(fm_n=1 << 16, fir_n=1 << 16, fft_n=1 << 16, quad_n=1 << 16,
-              chan_n=1 << 16, bell_n=1 << 16, bank_ch=4, bank_n=1 << 11,
-              stream_chunk=1 << 13, device_chunk=1 << 13, stream_chunks=8,
-              native_n=1 << 16, hdlc_frames=8, hdlc_repeats=2, loop_n=1 << 14,
-              loop_chunks=4, tile_rows=32, prefix=1 << 14, sync_prefix=1 << 10)
+              chan_n=1 << 16, cell_n=1 << 16, bell_n=1 << 16, bank_ch=4,
+              bank_n=1 << 11, stream_chunk=1 << 13, device_chunk=1 << 13,
+              stream_chunks=8, native_n=1 << 16, hdlc_frames=8, hdlc_repeats=2,
+              loop_n=1 << 14, loop_chunks=4, tile_rows=32, prefix=1 << 14,
+              sync_prefix=1 << 10)
 
 
 @dataclasses.dataclass
@@ -376,28 +381,44 @@ def pfb_f64(x: np.ndarray, taps: np.ndarray, m: int, frames: int) -> np.ndarray:
     return np.fft.ifft(v, axis=1) * m
 
 
-def channelizer_rows(ctx: Ctx):
-    """bench_channelizer: ``pfb_channelize``, 256 channels (torch ops and
-    torch.fft; no kernel)."""
-    from ..parallel.channelizer import channelizer_taps, pfb_channelize
+def channelizer_rows(ctx: Ctx, cell: bool = True):
+    """bench_channelizer: kernel H (``kernels.pfb_channelize`` with the
+    channels' power, as the wideband receiver calls it) beside its plain
+    version, 256 channels; with ``cell``, also at the wideband cell's shape
+    (``aprs_wideband.scan``: 128 channels, 8 taps a branch)."""
+    from ..ops import kernels
+    from ..parallel.channelizer import channelizer_taps
 
     s = ctx.sizes
-    n = s.chan_n - s.chan_n % PFB_CH
-    taps = channelizer_taps(PFB_CH)
-    xs = complex_noise(ctx, n, 5)
+    shapes = [(PFB_CH, s.chan_n, 5)] + ([(CELL_CH, s.cell_n, 6)] if cell else [])
+    for m, size, salt in shapes:
+        n = size - size % m
+        taps = channelizer_taps(m)
+        xs = complex_noise(ctx, n, salt)
 
-    def run(k):
-        return pfb_channelize(xs[k % len(xs)], taps, PFB_CH)
+        def run(k, xs=xs, taps=taps, m=m):
+            return kernels.pfb_channelize(xs[k % len(xs)], taps, m, power=True)
 
-    def check():
-        frames = min(s.prefix, n) // PFB_CH
-        want = pfb_f64(xs[0].cpu().numpy(), taps, PFB_CH, frames)
-        got = torch.view_as_real(run(0)[:frames])
-        return {"float64 model, prefix frames": (
-            abs_err(got, np.stack([want.real, want.imag], -1)),
-            FIR_TOL * float(np.abs(want).max()))}
+        def plain(k, xs=xs, taps=taps, m=m):
+            ch = kernels.pfb_channelize_plain(xs[k % len(xs)], taps, m)
+            return ch, kernels.pfb_power_plain(ch)
 
-    yield Row(f"channelizer/{PFB_CH}ch", n, {"": run}, check, rotation=len(xs))
+        def check(run=run, plain=plain, xs=xs, taps=taps, m=m, n=n):
+            frames = min(s.prefix, n) // m
+            want = pfb_f64(xs[0].cpu().numpy(), taps, m, frames)
+            (got, power), (pch, ppower) = run(0), plain(0)
+            return {"float64 model, prefix frames": (
+                abs_err(torch.view_as_real(got[:frames]),
+                        np.stack([want.real, want.imag], -1)),
+                FIR_TOL * float(np.abs(want).max())),
+                "plain version, power (relative)": (
+                    float(((power - ppower).abs() / ppower).max()), POWER_TOL)}
+
+        yield Row(f"channelizer/{m}ch", n, {"": run, "plain": plain}, check,
+                  kernel="pfb_channelize", work=kernels.pfb_work(n, m, len(taps) // m),
+                  rotation=len(xs), fields={"channels": m,
+                                            "taps_per_branch": len(taps) // m})
+        del xs
 
 
 def bell202_taps(fs: float):

@@ -86,7 +86,8 @@ def test_torch_bench_kernels_rows_rehearse_on_the_cpu(group, capsys):
             "decode_bank": {"decode_bank/4ch", "decode_bank_events/4ch"},
             "scan_stream": {"scan_stream"}, "scan_stream_device": {"scan_stream_device"},
             "bell202": {"bell202_frontend"}, "fft_filter": {"fft_filter_decimate"},
-            "quad_demod": {"quad_demod"}, "channelizer": {"channelizer/256ch"}}
+            "quad_demod": {"quad_demod"},
+            "channelizer": {"channelizer/256ch", "channelizer/128ch"}}
     assert names == want[group]
 
 
@@ -334,6 +335,8 @@ def _want_work(line):
         return kernels.fir_work(n, line["ntaps"], line["deci"])
     if b == "quad_demod":
         return kernels.quad_work(n)
+    if b.startswith("channelizer/"):
+        return kernels.pfb_work(n, line["channels"], line["taps_per_branch"])
     if b == "bell202_frontend":
         parts = [kernels.fir_work(n, len(t), 1)
                  for t in bench_kernels.bell202_taps(bench_kernels.FS_BELL)]

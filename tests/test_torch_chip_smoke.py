@@ -440,7 +440,8 @@ def rehearse_sync_phase(monkeypatch, capsys, methods, stations):
                          bank_events=111, sync_prefix=1 << 8, sync_window=64,
                          edge_cases=("taps1",), jump_binades=2, jump_step=1 << 12,
                          wb_stations=stations, wb_frames=1, wb_floor=len(stations),
-                         wb_methods=methods, pfb_n=1 << 14, reps=1)
+                         wb_methods=methods, pfb_n=1 << 14, pfb_cell_n=1 << 14,
+                         reps=1)
     audio = torch.from_numpy(cs.audio_corpus(hdlc, sizes.frames))
     got = cs.decoded(ax25.ax25_1200_rx(audio, cs.FS_AUDIO), sizes.frames)
     t = cs.Timings("cpu rehearsal")
@@ -462,11 +463,16 @@ def test_torch_chip_smoke_sync_phase_rehearses_on_the_cpu(monkeypatch, capsys):
     # one-thread forms stood in for
     cs, (errs, ev_got, ev_counts, wb_counts, cal), t, out = rehearse_sync_phase(
         monkeypatch, capsys, ("events",), (38,))
-    assert errs == {"symbol_sync_events": 0.0, "symbol_sync_scan": 0.0}
+    assert errs == {"symbol_sync_events": 0.0, "symbol_sync_scan": 0.0,
+                    "pfb_channelize": 0.0}
     assert len(set(ev_got)) == 1 and set(wb_counts) == {"events"}
     assert t.record == {"symbol_sync_events": "kernel D 4 x 111 slots",
-                        "symbol_sync_scan": "kernel E 4 x 2^8 prefix"}
-    assert set(t.record.values()) <= set(t.chains) and set(t.chains) <= set(t.lone_ms)
+                        "symbol_sync_scan": "kernel E 4 x 2^8 prefix",
+                        "pfb_channelize": "kernel H pfb_channelize 128 x 2^14"}
+    assert t.record["pfb_channelize"] in t.dev_ms
+    assert out.count("vs plain: channels max_abs_err=0.000e+00") == 2
+    chained = {t.record["symbol_sync_events"], t.record["symbol_sync_scan"]}
+    assert chained <= set(t.chains) and set(t.chains) <= set(t.lone_ms)
     assert "1/1 frames on their channels" in out and cal["sm_hz"] == 1.98e9
 
 
