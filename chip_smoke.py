@@ -58,8 +58,8 @@ just after, so that each shows it went through its kernels:
   ``VectorSink`` and device-resident (``emit_batch`` / ``accept_batch``):
   each batch one CUDA-graph replay, kernel B once a chunk, the output
   bit-equal to the per-chunk card run and within kernel B's budget of the
-  plain versions, walls, the device's busy share from ``profile_dir``
-  traces and ``generate_stats()``; ``ax25_1200_rx_graph`` on the corpus
+  plain versions, a traced run (``profile_dir``) and
+  ``generate_stats()``; ``ax25_1200_rx_graph`` on the corpus
   with ``scan_chunks=16``, both syncs (kernel A on the segment's outputs,
   kernel D on its calls); every capturable block class alone over three
   batches; and the generator apps ``tone``, ``fm_tx`` into ``rtl_fm``,
@@ -84,7 +84,7 @@ just after, so that each shows it went through its kernels:
   of the plain versions' bytes, the app's stdin/stdout protocol in a
   process of its own, 4 concurrent TCP clients);
   ``DeviceFeeder`` on a 512 MiB c32 and a 128 MiB u8iq file (every chunk
-  exact, the host-to-card rate beside one pinned copy); and
+  exact); and
   ``ui_server``'s ``SpectrumFeed`` and ``UiServer`` on the main capture
   (rows within 0.1 dB of a float64 spectrogram, the peak at the station,
   one HTTP and one websocket fetch);
@@ -97,8 +97,7 @@ just after, so that each shows it went through its kernels:
   shard), bit-equal to the unsharded call; the 256-channel
   ``sharded_channelizer_fm`` against ``channelizer_fm_bank``; the AX.25
   front-end sharded over the corpus with the native tail, the offline
-  receiver's list; and ``tools.dryrun.dryrun_multichip(4)``; each sharded
-  call timed beside its unsharded counterpart;
+  receiver's list; and ``tools.dryrun.dryrun_multichip(4)``;
 * the multi-device layer, streamed (``mesh_stream_phase``, phase 16), 4
   shards on the card: the AX.25 corpus through ``ax25_1200_rx_graph(mesh=,
   chunk_size=2**18)`` with both syncs, per chunk and with
@@ -107,21 +106,14 @@ just after, so that each shows it went through its kernels:
   no other, kernel A and D held on the events run's own calls; phase 13's
   FM chain streamed on the mesh per chunk and batched, bit-equal to
   ``shard_chain`` over the whole stream and within kernel B's budget of
-  the unsharded stream; walls beside the unsharded runs;
+  the unsharded stream;
 * 2-D meshes (``mesh2d_phase``, phase 17): ``make_mesh_2d(2, 2)`` on the
   card at phases 15-16's widths: the sharded FM chain over ``time``, the
   channelizer and the decode bank (both syncs) over ``chan``, the corpus
   streamed through the front-end and ``ax25_1200_rx_graph(mesh=)`` over
   ``time`` (the offline list, demoted once at the ragged end); each path
   counted, its replica lines and its 1-D mesh of the axis's size
-  bit-equal, kernels A, D and E held on its calls; walls beside the 1-D
-  meshes of 2 and 4 shards and the unsharded calls;
-* the benchmark programs (``bench_phase``, phase 18): the headline line of
-  ``tools/bench.py`` at its full sizes (kernel B on packed w3 and i8
-  planes of 2^24 samples, the Graph device loop of 8 x 2^24, the
-  256-channel channelizer and the events decode bank), one timing of 10
-  calls a row, each row checked, and ``tools/check_fm_accuracy.py``'s five
-  precision modes against float64, each within its budget.
+  bit-equal, kernels A, D and E held on its calls.
 
 Kernels A and B are also held against their plain versions where their
 register-blocked design can break (every start residue of the 16-byte
@@ -133,35 +125,26 @@ E are held bit for bit against their plain versions on the edge inputs of
 ``rustradio_tpu_torch/tools/sync_cases.py``
 (sizes around their tiles, misaligned rows, silence, chatter, crossings on
 a tile's edges, 2.5 to 100 samples per symbol, 1 to 16 clock taps, cut
-streams), and against their one-thread-per-channel forms
-(``rustradio_tpu_torch/tools/csrc/symbol_sync_lone.cu``, a library that
-``tools/time_sync.py`` builds) on every path's own arguments.
+streams), and kernel H against its plain version at the benchmark's
+256 x 2^22 and the wideband cell's 128 x 2^28.
 
-Then it times kernel beside plain version (or native): per call in a
-stream of calls, and the device time alone (ten calls replayed from a
-captured CUDA graph, inputs rotated so that the L2 cache starts cold),
-beside each kernel's bound on this card, the library call where one
-computes the same function, and the wrappers' host cost per call; and the
-AX.25 decode split into its device front-end and host tail.  Kernels D and
-E are timed beside their one-thread forms, and their dependent chains are
-counted at the latencies that ``tools/csrc/chain_calib.cu`` measures in
-this run.
+It times nothing: a kernel's time alone comes from
+``tools/bench_kernels.py``, a cell's from radiobench (``BENCHMARK.json``).
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.  The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}.  Phases 3 to 18 are
+the last line is {"ok": true, "device": {...}}.  Phases 3 to 17 are
 functions of (device, card, sizes, ...) and rehearse on the CPU at small
 sizes on the plain versions, what only the card has stood in for
 (``CoreSizes`` for phases 3-9: ``kernels_phase``, ``fm_phase``,
-``ax25_phase``, ``op_phase``, ``times_phase``, ``sync_phase``; then
-``AppsSizes``, ``BurstSizes``, ``RadioSizes``, ``ScanSizes``,
-``LiveSizes``, ``MeshSizes``, ``MeshStreamSizes``, ``Mesh2dSizes``, and
-``tools.bench_kernels.Sizes`` for phase 18; tests/test_torch_chip_smoke.py).
-The timers and the shared inputs are the package's (``tools/timing.py``,
-``tools/corpus.py``), imported here under their names.  Phases 1-2 (the
-environment, the build) need the card.
+``ax25_phase``, ``op_phase``, ``sync_phase``; then ``AppsSizes``,
+``BurstSizes``, ``RadioSizes``, ``ScanSizes``, ``LiveSizes``,
+``MeshSizes``, ``MeshStreamSizes``, ``Mesh2dSizes``;
+tests/test_torch_chip_smoke.py).  The shared inputs and float64 models
+are the package's (``tools/corpus.py``), imported here under their names.
+Phases 1-2 (the environment, the build) need the card.
 """
 
 from __future__ import annotations
@@ -170,11 +153,8 @@ import contextlib
 import dataclasses
 import json
 import math
-import shutil
-import statistics
 import subprocess
 import sys
-import time
 import urllib.request
 from pathlib import Path
 from unittest import mock
@@ -182,14 +162,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-# the decode bank's shape (bench.py:223-232) and the shared inputs and
-# timers, from the package: tools/corpus.py and tools/timing.py
+# the decode bank's shape (bench.py:223-232), the shared inputs and
+# float64 models, and the plain-version switch, from the package
 from rustradio_tpu_torch.tools.corpus import (  # noqa: F401
-    BANK_CH, BANK_EVENTS, BANK_N, BANK_NOISE, BANK_SPS, decode_bank,
-    fm_chain_f64, rtl_fm_iq)
-from rustradio_tpu_torch.tools.timing import (  # noqa: F401
-    bound, event_ms, graph_ms, host_us, plain_versions, sync, time_one,
-    time_pair, wall)
+    BANK_CH, BANK_EVENTS, BANK_N, BANK_NOISE, BANK_SPS, CMA_MU, CMA_TAPS,
+    CMA_TOL, IIR_TAPS, IIR_TOL, cma_channel, cma_sequential, decode_bank,
+    fm_chain_f64, iir_f64, rtl_fm_iq)
+from rustradio_tpu_torch.tools.timing import plain_versions, sync  # noqa: F401
 
 DECI = 4
 N_MAIN = 1 << 24          # samples per plane on the main path
@@ -225,137 +204,6 @@ CELL_CH, N_CELL = 128, 1 << 28  # the wideband cell's channelizer (aprs_wideband
 # their RMS (each lies within 2e-5 of it from the float64 reference, so
 # the two within twice that of each other) and of the power, relative
 PFB_TOL, PFB_POWER_TOL = 4e-5, 1e-5
-# The kernels' bounds divide their work (bytes and f32 operations,
-# kernels.*_work, the count Graph.costs() reads) by the card's peaks from
-# rustradio_tpu_torch/utils/stats.py (NVIDIA data sheets: device memory,
-# and f32 outside the tensor cores).
-# The bound of kernels D and E is the longest chain of operations that each
-# need the one before: the recurrences of csrc/sync_core.cuh read as a
-# dataflow graph, whatever could run beside the chain left out of it.  A
-# link is (f32 operations, IEEE divisions, compares that a later link
-# waits for), each at the latency this run measures on the card
-# (tools/csrc/chain_calib.cu: a lone lane's chain of additions, of
-# divisions, and of add-compare-subtract steps) at the SM clock measured
-# with it.  Selects, clamps and conversions count as operations.
-#
-# Kernel D (EventsWalker::tile).  The gap, its conversion, t0_raw and both
-# quotients' numerators read only the slots and constants (bnd_off is 0
-# after a call's first slot): on no chain.  Two recurrences remain:
-# * clock to clock, at a slot whose crossing is applied: the division by
-#   the old clock, ted_reduce's pre-reduction (floor, - 1, max; k0 * clock,
-#   t0_raw - that: 5), one subtraction for each reduction step this slot
-#   takes, the loop's exit test and the range test (2 compares; the range
-#   test's two run side by side), the clock filter (t - sps, taps[0] *
-#   that, one addition a history tap, two clamps, + sps: 5 + order);
-# * mid_off to mid_off, at a slot that is not applied: gap - mid_off, the
-#   division, floor, to int, + 1, max, min, to float, * clock, + mid_off,
-#   - gap (10 and a division).  The clock stays, so these slots are off the
-#   clock's chain and run beside the applied slots that follow them.
-# An applied slot starts mid_off afresh from its new clock (clock / 2, -
-# t0_raw, the division, ceil, max, * clock, +, max: 7 and a division), so
-# a mid_off chain is that plus the not-applied slots up to the next applied
-# one.  The bound is the longer of the clock chain over all applied slots
-# and the latest end of a mid_off chain hanging off it (d_chain below
-# counts both from this run's slots and clocks).
-#
-# Kernel E (ScanWalker::tile).  Position to position: the samples between
-# two step backs are one addition, because position + run equals run
-# additions of 1 while the sums stay in the position's binade (add_ones;
-# jump_mismatches below checks every case), so the positions' chain is one
-# addition, the step back's test and its subtraction (2 and a compare) a
-# step back, one in 10 symbols: n / (10 sps) of them.  Emissions (next_mid)
-# and crossings (last boundary) read the position and feed it only through
-# the step back, so they run beside it.  The clock's own chain, at each
-# applied crossing t - clock, ted_walk's exit test and the range test (2
-# compares), the filter (5 + order), is the longer one wherever crossings
-# are applied; the written clocks show an applied crossing only where the
-# clock changed, so a clock held at its clamp counts as none (the bound
-# errs low).  The bound is the longer of the two: a small part of what a
-# lone lane needs to run the samples' tests, which no chain holds.
-#
-# The kernels' operations in their bytes-and-operations bound are all they
-# do, on a chain or not: kernels.d_slot_work a real slot of kernel D;
-# kernel E one a sample, two an emission, kernels.e_crossing_work a
-# crossing (kernels.events_work, kernels.scan_work).
-
-
-def d_applied_ops(order: int, steps):
-    """(operations, divisions, compares) of kernel D's clock-to-clock chain
-    at an applied slot that takes ``steps`` reduction steps."""
-    return 10 + order + steps, 1, 2
-
-
-D_QUIET_OPS = (10, 1, 0)   # mid_off to mid_off at a slot that is not applied
-D_MIDDLE_OPS = (7, 1, 0)   # new clock to mid_off at an applied slot
-E_STEP_BACK_OPS = (2, 0, 1)  # position to position at a step back
-
-
-def e_crossing_ops(order: int) -> tuple[int, int, int]:
-    """(operations, divisions, compares) of kernel E's clock-to-clock chain
-    at an applied crossing (no reduction step counted)."""
-    return 6 + order, 0, 2
-
-
-def chain_cycles(ops, divisions: int, compares: int, cal: dict):
-    """Cycles of a dependent chain of these links at the calibrated
-    latencies ``cal`` (tools/time_sync.calibrate): an addition, a
-    division, and a compare that the next link waits for (the
-    add-compare-subtract step less its two additions)."""
-    compare = cal["step_cycles"] - 2 * cal["fadd_cycles"]
-    return (ops * cal["fadd_cycles"] + divisions * cal["fdiv_cycles"]
-            + compares * compare)
-
-
-def d_slot_profile(args, ev_clock: torch.Tensor):
-    """What each slot of kernel D's arguments does, recomputed from the
-    slots and the clocks the kernel wrote: (real, applied, reduction
-    steps), each (C, E)."""
-    from rustradio_tpu_torch.ops import kernels
-    events, n, sps, max_dev, taps, fstate, istate = args[:7]
-    k = kernels.sync_consts(sps, max_dev, taps)
-    p_prev = torch.cat([istate[:, :1], events[:, :-1]], 1)
-    clock = torch.cat([fstate[:, :1], ev_clock[:, :-1]], 1)
-    t0 = (events - p_prev).float()
-    t0[:, 0] += fstate[:, 2]
-    t = t0 - torch.clamp(torch.floor((t0 - k.mx) / clock) - 1.0, min=0.0) * clock
-    steps = torch.zeros_like(events)
-    for _ in range(6):
-        t2 = t - clock
-        step = (t > k.mx) & (t2.abs() >= (t2 - clock).abs())
-        t = torch.where(step, t2, t)
-        steps += step
-    past_start = (istate[:, 2:3] != 0) | (events > 0)
-    have_b = torch.cat([istate[:, 1:2] != 0, past_start[:, :-1]], 1)
-    real = events < n
-    applied = real & past_start & have_b & (t > k.mi08) & (t < k.mx12)
-    return real, applied, steps
-
-
-def d_chain(args, ev_clock: torch.Tensor, cal: dict):
-    """Kernel D's bound on these arguments, (cycles, what): the channel
-    with the longest dependent chain."""
-    real, applied, steps = d_slot_profile(args, ev_clock)
-    order = len(args[4]) - 1
-    if real.shape[1] == 0:
-        return 0.0, "no slot"
-    link = chain_cycles(*d_applied_ops(order, steps.double()), cal)
-    clock_at = torch.cumsum(torch.where(applied, link, 0.0), 1)
-    # a slot that is not applied ends a mid_off chain that began at the
-    # last applied slot before it (or at the call's start)
-    at = torch.arange(real.shape[1], device=real.device).expand_as(real)
-    last = torch.cummax(torch.where(applied, at, -1), 1).values
-    mid_at = (clock_at + (last >= 0) * chain_cycles(*D_MIDDLE_OPS, cal)
-              + (at - last) * chain_cycles(*D_QUIET_OPS, cal))
-    mid_end = torch.where(real & ~applied, mid_at, 0.0).max(1).values
-    path = torch.maximum(clock_at[:, -1], mid_end)
-    c = int(path.argmax())
-    n_applied = int(applied[c].sum())
-    return float(path[c]), (
-        f"{n_applied} applied of {int(real[c].sum())} real slots, "
-        f"{float(clock_at[c, -1]) / max(n_applied, 1):.1f} cycles an applied "
-        f"slot with {float(steps[c][applied[c]].double().mean()) if n_applied else 0.0:.2f} "
-        f"reduction steps; the latest mid_off chain ends at "
-        f"{float(mid_end[c]):.0f} of {float(path[c]):.0f} cycles")
 
 
 def jump_mismatches(device, binades: int = 17, step: int = 1) -> int:
@@ -377,20 +225,6 @@ def jump_mismatches(device, binades: int = 17, step: int = 1) -> int:
     return int(bad)
 
 
-def e_chain(args, clocks: torch.Tensor, cal: dict):
-    """Kernel E's bound on these arguments, (cycles, what): the positions'
-    chain, or the clock's on the channel whose clock changes most often
-    (a change of the written clocks is an applied crossing)."""
-    n, sps, order = args[0].shape[1], float(args[1]), len(args[3]) - 1
-    changes = int((clocks[:, 1:] != clocks[:, :-1]).sum(1).max()) if n else 0
-    backs = math.ceil(n / (10.0 * sps))
-    per_back = chain_cycles(*E_STEP_BACK_OPS, cal)
-    per_cross = chain_cycles(*e_crossing_ops(order), cal)
-    return max(backs * per_back, changes * per_cross), (
-        f"{changes} clock changes x {per_cross:.1f} cycles; beside them "
-        f"{backs} step backs x {per_back:.1f} over {n} samples")
-
-
 # outputs from which the FIR core's launcher takes its widest shape (two
 # blocks of 1024 outputs per SM)
 WIDE = 264 * 1024
@@ -398,7 +232,6 @@ SEED = 0
 DEVICE = "cuda"
 
 failures: list[str] = []
-T0 = time.perf_counter()
 
 
 def report(phase: str, what: str, err: float, tol: float) -> float:
@@ -413,7 +246,7 @@ def report(phase: str, what: str, err: float, tol: float) -> float:
 def end_phase(phase: str) -> None:
     if failures:
         raise SystemExit(f"chip_smoke: phase {phase} failed: {failures}")
-    print(f"[{phase}] passed, {time.perf_counter() - T0:.1f} s since the start")
+    print(f"[{phase}] passed")
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -582,7 +415,7 @@ def wideband_capture(hdlc, device, gen: torch.Generator, stations=WB_STATIONS,
 
 
 # ---- phases 3-9: the kernels against their plain versions, the FM and
-# AX.25 paths, the discriminator op, the times, the clock recovery
+# AX.25 paths, the discriminator op, the clock recovery and the channelizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -590,7 +423,7 @@ class CoreSizes:
     """Phases 3-9's sizes: the defaults on the card; a CPU rehearsal
     (``tests/test_torch_chip_smoke.py``) takes small ones."""
 
-    fir_n: int = N_FIR            # kernel A's noise, held and timed
+    fir_n: int = N_FIR            # kernel A's noise
     main_n: int = N_MAIN          # the main path's capture (>= 2^20: two
                                   # fm_chain_window tiles)
     prefix: int = N_PREFIX        # held against the float64 models
@@ -615,58 +448,13 @@ class CoreSizes:
     wb_frames: int = WB_FRAMES
     wb_floor: int = WB_FLOOR
     wb_methods: tuple = ("scan", "events")  # its sync methods
-    pfb_n: int = N_PFB            # the channelizer's timed rows: the bench's
+    pfb_n: int = N_PFB            # the channelizer's checks: the bench's shape
     pfb_cell_n: int = N_CELL      # and the wideband cell's
-    reps: int = 3                 # runs of each timed wall (median)
 
 
 def size_label(n: int) -> str:
     """``2^k`` for a power of two, else the number."""
     return f"2^{n.bit_length() - 1}" if n > 0 and n & (n - 1) == 0 else str(n)
-
-
-@dataclasses.dataclass
-class Timings:
-    """Phases 8 and 9's times by row name: (stream ms, plain ms), the
-    device ms alone, the bound, the library call's ms, the dependent-chain
-    bounds and the one-thread forms' device ms; ``record`` names the row
-    of each kernel in the kernels line."""
-
-    card: str
-    rows: dict = dataclasses.field(default_factory=dict)
-    dev_ms: dict = dataclasses.field(default_factory=dict)
-    bounds: dict = dataclasses.field(default_factory=dict)
-    lib_ms: dict = dataclasses.field(default_factory=dict)
-    chains: dict = dataclasses.field(default_factory=dict)
-    lone_ms: dict = dataclasses.field(default_factory=dict)
-    record: dict = dataclasses.field(default_factory=dict)
-
-    def timed(self, name, n_in, kernel_fn, plain_fn):
-        ms, pms = time_pair(kernel_fn, plain_fn, plain_versions)
-        self.rows[name] = (ms, pms)
-        print(f"[8 times] {name}: kernel {ms:.4f} ms ({n_in / ms / 1e3:.1f} "
-              f"Msps), plain {pms:.4f} ms ({n_in / pms / 1e3:.1f} Msps); "
-              f"card: {self.card}")
-
-    def device_row(self, name, fn_k, bound_pair, library=None):
-        """The device time of ``fn_k(k)`` alone (a replayed CUDA graph of
-        ten calls, ``k`` rotating the inputs so that L2 starts cold)
-        beside the stream time, the bound and the library call."""
-        kernels = _kernels()
-        self.dev_ms[name], self.bounds[name] = graph_ms(fn_k), bound_pair
-        self.lib_ms[name] = None
-        lib = ""
-        if library is not None:
-            event_ms(library, kernels._true_f32, 10)
-            self.lib_ms[name] = statistics.median(
-                event_ms(library, kernels._true_f32, 10) for _ in range(5))
-            lib = f"; library call {self.lib_ms[name]:.4f} ms"
-        stream = (f"in a stream {self.rows[name][0]:.4f} ms; "
-                  if name in self.rows else "")
-        print(f"[8 times] {name}: device alone {self.dev_ms[name]:.4f} ms (10 calls "
-              f"replayed from a CUDA graph, median of 5), {stream}bound "
-              f"{bound_pair[0]:.4f} ms ({bound_pair[1]}), share of bound "
-              f"{bound_pair[0] / self.dev_ms[name]:.1%}{lib}; card: {self.card}")
 
 
 def kernels_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator):
@@ -889,8 +677,7 @@ def fm_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator, cap: dict):
     card); then the models against the plain versions and the transmitted
     frequency, and the captured loop against the eager loop at five
     offsets and against the plain versions.  Returns the launch counts
-    after the loop's first replay and the loops, captured, eager and on
-    the plain versions (phase 8 times them)."""
+    after the loop's first replay."""
     from rustradio_tpu_torch import blocks
     from rustradio_tpu_torch.graph import Graph
     from rustradio_tpu_torch.models import fm
@@ -995,7 +782,7 @@ def fm_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator, cap: dict):
     if not (math.isfinite(fold) and rel <= 1e-4):
         failures.append("graph fold")
     end_phase("5")
-    return launches, (loop, eager_loop, plain_loop)
+    return launches
 
 
 def ax25_phase(dev, card: str, sizes: CoreSizes):
@@ -1048,21 +835,18 @@ def ax25_phase(dev, card: str, sizes: CoreSizes):
     # ---- 6. the AX.25 1200 bd path, counted: the corpus at 24 kHz, then an
     # IQ capture at 1.024 Msps
     n_frames, n_iq = sizes.frames, sizes.iq_frames
-    t0 = time.perf_counter()
     audio = torch.from_numpy(audio_corpus(hdlc, n_frames)).to(dev)
     print(f"[6 ax25] corpus: {n_frames} frames, {audio.shape[0]} samples at "
-          f"{FS_AUDIO:.0f} Hz, synthesized in {time.perf_counter() - t0:.1f} s")
+          f"{FS_AUDIO:.0f} Hz")
     zero_counts()
-    rx_s, rx = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO), reps=1)
-    got = decoded(rx, n_frames)
+    got = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO), n_frames)
     ax_counts = dict(kernels.LAUNCHES)
     tones = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO, demod="tones"), n_frames)
     tone_counts = dict(kernels.LAUNCHES)
     with plain_versions():
         plain_got = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO), n_frames)
     print(f"[6 ax25] ax25_1200_rx decoded {len(set(got))}/{n_frames} on the "
-          f"kernels (first call {rx_s:.3f} s, native build included), "
-          f"{len(set(plain_got))}/{n_frames} on the "
+          f"kernels, {len(set(plain_got))}/{n_frames} on the "
           f"plain versions; tones {len(set(tones))}/{n_frames}; launches "
           f"{json.dumps(ax_counts)}, with tones {json.dumps(tone_counts)}")
     require("AX.25", ax_counts, ("fir_decimate",))
@@ -1073,24 +857,19 @@ def ax25_phase(dev, card: str, sizes: CoreSizes):
         if len(set(n)) < gate:
             failures.append(f"ax25_1200_rx on the {what}: {len(set(n))} < {gate}")
 
-    t0 = time.perf_counter()
     iq_np = iq_capture(hdlc, n_iq)
     print(f"[6 ax25] IQ capture: {n_iq} frames, {len(iq_np)} samples at "
           f"{FS_IQ:.0f} Hz, {IQ_DEV:.0f} Hz deviation, noise {IQ_NOISE} per "
-          f"component, synthesized in {time.perf_counter() - t0:.1f} s")
+          f"component")
     zero_counts()
-    iq_s, iq_rx = wall(lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev),
-                       reps=1)
-    iq_got = decoded(iq_rx, n_iq)
+    iq_got = decoded(ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev), n_iq)
     iq_counts = dict(kernels.LAUNCHES)
     with plain_versions():
-        iq_plain_s, iq_plain_rx = wall(
-            lambda: ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev), reps=1)
-    iq_plain = decoded(iq_plain_rx, n_iq)
+        iq_plain = decoded(ax25.ax25_1200_rx_iq(iq_np, FS_IQ, device=dev), n_iq)
     print(f"[6 ax25] ax25_1200_rx_iq decoded {len(set(iq_got))}/{n_iq} "
-          f"on the kernels ({iq_s:.3f} s), {len(set(iq_plain))}/{n_iq} "
-          f"on the plain versions ({iq_plain_s:.3f} s); same list: "
-          f"{iq_got == iq_plain}; launches {json.dumps(iq_counts)}; card: {card}")
+          f"on the kernels, {len(set(iq_plain))}/{n_iq} on the plain versions; "
+          f"same list: {iq_got == iq_plain}; launches {json.dumps(iq_counts)}; "
+          f"card: {card}")
     require("AX.25 IQ", iq_counts, ("fir_decimate",))
     if iq_got != iq_plain:
         failures.append("ax25_1200_rx_iq: kernels and plain versions decode "
@@ -1101,7 +880,7 @@ def ax25_phase(dev, card: str, sizes: CoreSizes):
     # kernel: one IQ front-end output feeds the stages at 50 kHz
     fm_audio = ax25.iq_front_end(iq_np, FS_IQ, device=dev)
     front_end_errs("IQ capture at 50 kHz", fm_audio, 50_000.0, tones=False)
-    del iq_rx, iq_plain_rx, fm_audio  # iq_np comes back in phase 12
+    del fm_audio  # iq_np comes back in phase 12
     end_phase("6")
     return audio, iq_np, got, ax_counts, iq_counts
 
@@ -1137,168 +916,28 @@ def op_phase(dev, card: str, cap: dict) -> dict:
     return op_counts
 
 
-def times_phase(dev, card: str, sizes: CoreSizes, cap: dict, loops, audio):
-    """Phase 8 on ``dev``: kernels A, B and C timed beside their plain
-    versions (per call in a stream of calls, median of 5), alone on the
-    device (a replayed CUDA graph), beside their bounds and, for A,
-    ``F.conv1d``; the wrappers' host cost, the FFT route, the Graph loops
-    of ``fm_phase`` (captured, eager, plain), and the AX.25 decode of the
-    corpus ``audio`` split into its device front-end and host tail.
-    Returns the :class:`Timings`."""
-    from rustradio_tpu_torch import ops, taps as tapgen
-    from rustradio_tpu_torch.models import ax25
-    from rustradio_tpu_torch.ops import kernels
-
-    lpr, lp1205, xg, i_main, q_main, packed, xc = (
-        cap[k] for k in ("lpr", "lp1205", "xg", "i_main", "q_main", "packed", "xc"))
-    loop, eager_loop, plain_loop = loops
-    n_main, n_fir = i_main.shape[0], xg.shape[0]
-    t = Timings(card)
-    timed, device_row, rows = t.timed, t.device_row, t.rows
-
-    # ---- 8. times: kernel beside plain version, median of 5 (ms per call)
-    for precision in ("w3", "i8"):
-        pr, pi = packed[precision]
-        copies = [(pr, pi)] + [(pr.clone(), pi.clone()) for _ in range(2)]
-
-        def run(k=0, copies=copies, precision=precision):
-            a, b = copies[k % len(copies)]
-            kernels.fm_chain(a, b, lpr, DECI, precision=precision, n=n_main)
-
-        name = f"fm_chain packed {precision} n={size_label(n_main)}"
-        timed(name, n_main, run, run)
-        device_row(name, run, bound(kernels.fm_chain_work(
-            n_main // DECI, len(lpr), DECI, pr.element_size())))
-        if precision == "w3":
-            t.record["fm_chain"] = name
-            b_host = (host_us(run), host_us(lambda: kernels.fm_chain(
-                pr, pi, kernels.tapset(lpr), DECI, precision="w3", n=n_main)))
-        del copies
-    # the flat f32 planes that rtl_fm --rtl_u8 gives kernel B (deci 1),
-    # rounded to the precision's plane as the kernel loads them: the kernel
-    # alone (three copies, past L2), beside the wrapper in a stream
-    for precision in ("w3", "i8"):
-        flat = [tuple(p.roll(k) for p in (i_main, q_main)) for k in range(3)]
-
-        def span(k=0, flat=flat, precision=precision):
-            a, b = flat[k % len(flat)]
-            kernels.fm_chain_span(a, b, lpr, 1, first=0, count=n_main,
-                                  shift=1 - len(lpr), precision=precision)
-
-        def whole(precision=precision):
-            kernels.fm_chain(i_main, q_main, lpr, 1, precision=precision)
-
-        name = f"fm_chain flat {precision} deci 1 n={size_label(n_main)}"
-        timed(name, n_main, whole, whole)
-        device_row(name, span, bound(kernels.fm_chain_work(
-            n_main, len(lpr), 1, flat[0][0].element_size())))
-        del flat
-    xgs = [xg] + [xg.clone() for _ in range(3)]
-    for taps, deci in [(lpr, 4), (lp1205, 1)]:
-        def run(k=0, taps=taps, deci=deci):
-            kernels.fir_decimate(xgs[k % len(xgs)], taps, deci)
-
-        name = f"fir_decimate {len(taps)} taps deci {deci} n={size_label(n_fir)}"
-        if deci == DECI:  # the FM chain's filter: kernel A's row of the record
-            t.record["fir_decimate"] = name
-        timed(name, n_fir, run, lambda taps=taps, deci=deci:
-              kernels.fir_decimate_plain(xg, taps, deci))
-        m = -(-n_fir // deci)
-        padded = torch.nn.functional.pad(
-            xg, (len(taps) - 1, m * deci - n_fir))[None, None]
-        w = kernels.tapset(taps).trev("highest", dev)[None, None]
-        device_row(name, run, bound(kernels.fir_work(n_fir, len(taps), deci)),
-                   library=lambda padded=padded, w=w, deci=deci:
-                   torch.nn.functional.conv1d(padded, w, stride=deci))
-    a_host = (host_us(lambda: kernels.fir_decimate(xg, lpr, DECI)),
-              host_us(lambda: kernels.fir_decimate(xg, kernels.tapset(lpr), DECI)))
-    print(f"[8 times] host cost per call, no synchronise between 200 calls: "
-          f"kernels.fm_chain packed w3 {b_host[0]:.1f} us with array taps, "
-          f"{b_host[1]:.1f} us with a TapSet; kernels.fir_decimate 49 taps "
-          f"{a_host[0]:.1f} us with array taps, {a_host[1]:.1f} us with a "
-          f"TapSet; card: {card}")
-    fft_ms = time_one(lambda: ops.fft_filter_float(xg, lp1205))
-    long_row = f"fir_decimate 1205 taps deci 1 n={size_label(n_fir)}"
-    print(f"[8 times] the FFT route at 1205 taps n={size_label(n_fir)} "
-          f"(ops.fft_filter_float, torch.fft, no kernel): {fft_ms:.4f} ms beside "
-          f"kernel A's {rows[long_row][0]:.4f} ms; card: {card}")
-    del xgs
-    name = f"graph device loop w3 {sizes.chunks} x {size_label(sizes.loop_n)}"
-    timed(name, sizes.chunks * sizes.loop_n, lambda: loop(0), lambda: plain_loop(0))
-    eager_ms = time_one(lambda: eager_loop(0))
-    loop_bound = bound([sizes.chunks * w for w in kernels.fm_chain_work(
-        sizes.loop_n // DECI, len(lpr), DECI, 2)])
-    print(f"[8 times] {name}: CUDA-graph replay {rows[name][0]:.4f} ms, eager "
-          f"loop {eager_ms:.4f} ms per loop (each with its final "
-          f"synchronise); kernel B's bound for the {sizes.chunks} chunks "
-          f"{loop_bound[0]:.4f} ms; card: {card}")
-    name = f"quad_demod n={size_label(xc.shape[0])}"
-    t.record["quad_demod"] = name
-    timed(name, xc.shape[0], lambda: ops.quad_demod_fast(xc, GAIN_C),
-          lambda: kernels.quad_demod_fast_plain(xc, GAIN_C))
-    device_row(name, lambda k: ops.quad_demod_fast(xc, GAIN_C),
-               bound(kernels.quad_work(xc.shape[0])))
-    # the AX.25 decode of the corpus: wall time of the whole call, and of
-    # its device front-end alone (synchronised); the rest is the host tail
-    # (NRZ copy-back, native symbol sync, slicer, NRZI, HDLC)
-    for label, ctx in (("kernels", contextlib.nullcontext),
-                       ("plain", plain_versions)):
-        with ctx():
-            total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO), sizes.reps)
-            front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO), sizes.reps)
-        print(f"[8 times] ax25_1200_rx {sizes.frames} frames ({audio.shape[0]} "
-              f"samples) on the {label}: {total_s * 1e3:.1f} ms wall, device "
-              f"front-end {front_s * 1e3:.1f} ms, host tail "
-              f"{(total_s - front_s) * 1e3:.1f} ms (median of {sizes.reps}); "
-              f"card: {card}")
-
-    # the front-end's three kernel-A launches alone, at the corpus' shape
-    parts = []
-    for label, taps in (
-            ("band-pass", tapgen.band_pass(FS_AUDIO, 400.0, 2700.0, 65, "hamming")),
-            ("Hilbert", tapgen.hilbert(65, "hamming")),
-            ("low-pass", tapgen.low_pass(FS_AUDIO, 1100.0, 200.0, "hamming"))):
-        ms = graph_ms(lambda k, taps=taps: kernels.fir_decimate(audio, taps, 1))
-        b_ms, by = bound(kernels.fir_work(audio.shape[0], len(taps), 1))
-        parts.append(f"{label} {len(taps)} taps {ms:.4f} ms (bound {b_ms:.4f} "
-                     f"ms, {by})")
-    print(f"[8 times] the AX.25 front-end's kernel-A launches alone on the "
-          f"device, {audio.shape[0]} samples: {'; '.join(parts)}; card: {card}")
-    return t
-
-
 def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
-               t: Timings, audio, got):
+               audio, got):
     """Phase 9 on ``dev``: kernels D and E at the decode bank's shape
     (``sizes.bank_ch`` x ``sizes.bank_n``) against their plain versions
     (E also against native ``rr_symbol_sync``) and on the edge inputs of
     ``tools/sync_cases.py``; the AX.25 receiver on the corpus ``audio``
     with ``sync="events"`` (``got``: its frames with the native sync), and
     the wideband receiver on a capture of ``sizes.wb_stations`` with each
-    sync method of ``sizes.wb_methods``, counted, with D and E held again on the arguments these paths
-    gave them; then the times (added to ``t``): the card's latencies for
-    a lone lane (``time_sync.calibrate``), the channelizer, D and E beside
-    their plain versions, bounds, dependent chains and one-thread forms,
-    and the paths' walls.  Returns the largest |error| of D, E and H, the
-    events receiver's frames, the launch counts of the events path and of
-    the wideband receiver by method, the calibration, and ``t``'s rows of
-    D, E and H (in ``t.record``)."""
+    sync method of ``sizes.wb_methods``, counted, with D and E held again
+    on the arguments these paths gave them; then kernel H, the channels and
+    their power, against its plain version at the bench's shape and the
+    wideband cell's.  Returns the largest |error| of D, E and H, the
+    events receiver's frames, and the launch counts of the events path and
+    of the wideband receiver by method."""
     from rustradio_tpu_torch import native, ops
     from rustradio_tpu_torch.models import ax25, multichannel
     from rustradio_tpu_torch.ops import hdlc, kernels
     from rustradio_tpu_torch.parallel import channelizer
-    from rustradio_tpu_torch.tools import sync_cases, time_sync
+    from rustradio_tpu_torch.tools import sync_cases
 
     errs = {}
-    rows, device_row = t.rows, t.device_row
     bank_label = f"{sizes.bank_ch} x {size_label(sizes.bank_n)}"
-
-    def captured(name: str, fn):
-        """Run ``fn()`` and return the arguments of its first call of the
-        wrapper ``kernels.<name>``."""
-        with capturing(name) as got:
-            fn()
-        return got[name][0]
 
     def outputs_equal(what, got, want) -> float:
         """Bit-equality of two wrapper results (tuples of tensors); returns
@@ -1457,58 +1096,46 @@ def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
     n_frames = sizes.frames
     zero_counts()
     with capturing("symbol_sync_events_scan") as ax_calls:
-        ev_s, ev_rx = wall(
-            lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync="events"), reps=1)
-    ev_got = decoded(ev_rx, n_frames)
+        ev_got = decoded(ax25.ax25_1200_rx(audio, FS_AUDIO, sync="events"),
+                         n_frames)
     ev_counts = dict(kernels.LAUNCHES)
     print(f"[9 ax25 events] ax25_1200_rx(sync='events') decoded "
-          f"{len(set(ev_got))}/{n_frames} ({ev_s:.3f} s, first call); "
-          f"native sync decoded {len(set(got))}; launches "
+          f"{len(set(ev_got))}/{n_frames}; native sync decoded {len(set(got))}; launches "
           f"{json.dumps(ev_counts)}")
     require("AX.25 events", ev_counts, ("fir_decimate", "symbol_sync_events"))
     if len(set(ev_got)) < sizes.frame_gate:
         failures.append(f"ax25_1200_rx(sync='events'): {len(set(ev_got))} < "
                         f"{sizes.frame_gate}")
-    # the kernels' arguments on each path, checked here and timed below
-    path_args = {"kernel D, AX.25 events path":
-                 ax_calls["symbol_sync_events_scan"][0]}
+    # the kernel on the path's own arguments
     errs["symbol_sync_events"] = max(errs["symbol_sync_events"], events_check(
-        "AX.25 events path", path_args["kernel D, AX.25 events path"],
+        "AX.25 events path", ax_calls["symbol_sync_events_scan"][0],
         window=sizes.sync_window))
     del ax_calls
     end_phase("9 ax25 events")
 
     # the wideband receiver at full width, both sync methods
     stations, wb_frames = sizes.wb_stations, sizes.wb_frames
-    t0 = time.perf_counter()
     wide = wideband_capture(hdlc, dev, gen, stations, wb_frames)
-    sync()
     print(f"[9 wideband] capture: {len(stations)} stations on channels "
           f"{list(stations)} of {WB_CHANNELS}, {len(stations) * wb_frames} "
           f"frames, {wide.shape[0]} samples at {FS_WB:.0f} Hz "
-          f"({wide.shape[0] / FS_WB:.1f} s), noise {WB_NOISE} per component, "
-          f"synthesized on the card in {time.perf_counter() - t0:.1f} s")
+          f"({wide.shape[0] / FS_WB:.1f} s), noise {WB_NOISE} per component")
     want_wb = {(stations[i // wb_frames], corpus_payload(i))
                for i in range(len(stations) * wb_frames)}
-    wb_counts, wb_first = {}, {}
-
-    def wideband(method):
-        return multichannel.decode_band_ax25(
-            wide, FS_WB, n_channels=WB_CHANNELS, max_active=len(stations),
-            sync_method=method)
-
+    wb_counts = {}
     for method in sizes.wb_methods:
         zero_counts()
         with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
-            wb_first[method], res = wall(lambda: wideband(method), reps=1)
+            res = multichannel.decode_band_ax25(
+                wide, FS_WB, n_channels=WB_CHANNELS, max_active=len(stations),
+                sync_method=method)
         wb_counts[method] = dict(kernels.LAUNCHES)
         found = {(r.channel, bytes(p)) for r in res for p in r.packets}
         ok = len(found & want_wb)
         chans = sorted(r.channel for r in res)
         print(f"[9 wideband] decode_band_ax25 sync {method}: {ok}/{len(want_wb)} "
               f"frames on their channels, channels decoded {chans}, "
-              f"{sum(len(r.packets) for r in res)} packets "
-              f"({wb_first[method]:.3f} s, first call); launches "
+              f"{sum(len(r.packets) for r in res)} packets; launches "
               f"{json.dumps(wb_counts[method])}")
         require(f"wideband {method}", wb_counts[method],
                 ("pfb_channelize", "fir_decimate", f"symbol_sync_{method}"))
@@ -1519,194 +1146,40 @@ def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
         # the kernels at the shapes this path gave them (E also re-runs
         # the channels that overflowed their event budget)
         for args in calls["symbol_sync_events_scan"][:1]:
-            path_args[f"kernel D, wideband {method}"] = args
             errs["symbol_sync_events"] = max(errs["symbol_sync_events"],
                                              events_check(f"wideband {method}",
                                                           args))
         for args in calls["symbol_sync_scan"][:1]:
-            path_args[f"kernel E, wideband {method}"] = args
             errs["symbol_sync_scan"] = max(errs["symbol_sync_scan"], scan_check(
                 f"wideband {method}", args, sizes.sync_window))
         del calls
+    del wide
     end_phase("9 wideband")
 
-    cal = time_sync.calibrate(dev)
-    print(f"[9 times] a lone lane's dependent chain on this card "
-          f"(tools/csrc/chain_calib.cu, 2^20 links, median of 5): f32 addition "
-          f"{cal['fadd_cycles']:.2f} cycles, IEEE division "
-          f"{cal['fdiv_cycles']:.2f}, add-compare-subtract step "
-          f"{cal['step_cycles']:.2f}; SM clock {cal['sm_hz'] / 1e9:.3f} GHz; "
-          f"card: {card}")
-
-    # times, median of 5 (ms per call); the card beside each
-    def timed9(name, ms, pms, other="plain"):
-        rows[name] = (ms, pms)
-        print(f"[9 times] {name}: kernel {ms:.4f} ms, {other} {pms:.4f} ms; "
-              f"card: {card}")
-
-    def pfb_check(what, x, taps, m) -> float:
-        """Kernel H's channels and power on ``x`` against its plain
-        version's; returns the channels' largest |error|."""
+    # kernel H, the channels and their power, against its plain version
+    # (the torch form, cuFFT) at the bench's shape and the wideband cell's
+    errs["pfb_channelize"] = 0.0
+    for m, n in ((PFB_CH, sizes.pfb_n), (CELL_CH, sizes.pfb_cell_n)):
+        x = torch.complex(torch.randn(n, generator=gen, device=dev),
+                          torch.randn(n, generator=gen, device=dev))
+        taps = channelizer.channelizer_taps(m)
         ch, power = kernels.pfb_channelize(x, taps, m, power=True)
         plain = kernels.pfb_channelize_plain(x, taps, m)
+        del x
         err = float((ch - plain).abs().max())
         rms = float(plain.abs().pow(2).mean().sqrt())
         want = kernels.pfb_power_plain(plain)
         rel = float(((power - want).abs() / want).max())
         del ch, plain
-        print(f"[9 times] {what} vs plain: channels max_abs_err={err:.3e} "
-              f"({err / rms:.3e} of their RMS, tol {PFB_TOL:.1e}), power "
-              f"{rel:.3e} relative (tol {PFB_POWER_TOL:.1e})")
+        print(f"[9 channelizer] kernel H pfb_channelize {m} x {size_label(n)} "
+              f"vs plain: channels max_abs_err={err:.3e} ({err / rms:.3e} of "
+              f"their RMS, tol {PFB_TOL:.1e}), power {rel:.3e} relative (tol "
+              f"{PFB_POWER_TOL:.1e})")
         if err > PFB_TOL * rms or not rel <= PFB_POWER_TOL:
-            failures.append(f"9 times {what}: kernel H vs plain")
-        return err
-
-    # kernel H with the channels' power beside its plain version (the
-    # torch form, cuFFT): the outputs held, the times and the bound, at
-    # the bench's shape and the cell's (the kernels line's row)
-    errs["pfb_channelize"] = 0.0
-    for m, n in ((PFB_CH, sizes.pfb_n), (CELL_CH, sizes.pfb_cell_n)):
-        pfb_x = torch.complex(torch.randn(n, generator=gen, device=dev),
-                              torch.randn(n, generator=gen, device=dev))
-        pfb_taps = channelizer.channelizer_taps(m)
-        h_name = f"kernel H pfb_channelize {m} x {size_label(n)}"
-        errs["pfb_channelize"] = max(errs["pfb_channelize"],
-                                     pfb_check(h_name, pfb_x, pfb_taps, m))
-        timed9(h_name, *time_pair(
-            lambda: kernels.pfb_channelize(pfb_x, pfb_taps, m, power=True),
-            lambda: kernels.pfb_power_plain(
-                kernels.pfb_channelize_plain(pfb_x, pfb_taps, m)),
-            contextlib.nullcontext))
-        # samples in, channels out; the counted operations
-        device_row(h_name,
-                   lambda k: kernels.pfb_channelize(pfb_x, pfb_taps, m, power=True),
-                   bound(kernels.pfb_work(n, m, len(pfb_taps) // m)))
-        print(f"[9 times] {h_name}: {n / rows[h_name][0] / 1e3:.1f} Msps; "
-              f"card: {card}")
-        del pfb_x
-    t.record["pfb_channelize"] = h_name
-
-    def chain_d(args):
-        """Kernel D's dependent-chain bound on these arguments, (ms, what)."""
-        cycles, what = d_chain(
-            args, kernels.symbol_sync_events_scan(*args)[1], cal)
-        return cycles / cal["sm_hz"] * 1e3, what
-
-    def work_d(args):
-        """Kernel D's work on these arguments: the slots' bytes, and every
-        channel's real slots times the operations of one."""
-        events, n, _, _, clock_taps = args[:5]
-        return kernels.events_work(events.numel(), int((events < n).sum()),
-                                   len(clock_taps) - 1)
-
-    def chain_e(args):
-        """Kernel E's dependent-chain bound on these arguments, (ms, what)."""
-        cycles, what = e_chain(args, kernels.symbol_sync_scan(*args)[1], cal)
-        return cycles / cal["sm_hz"] * 1e3, what
-
-    def work_e(args):
-        """Kernel E's work: one operation a sample, two an emission (one a
-        symbol), and every sign change as an applied crossing."""
-        x, sps, _, clock_taps = args[:4]
-        sign = x > 0
-        return kernels.scan_work(x.numel(), float(sps),
-                                 int((sign[:, 1:] != sign[:, :-1]).sum()),
-                                 len(clock_taps) - 1)
-
-    def chain_line(name, ms, chain):
-        t.chains[name] = chain
-        print(f"[9 times] {name}: dependent-chain bound {chain[0]:.4f} ms "
-              f"({chain[1]} at {cal['sm_hz'] / 1e9:.3f} GHz), share of it "
-              f"{chain[0] / ms:.1%}; card: {card}")
-
-    d_args = captured("symbol_sync_events_scan", lambda: ops.symbol_sync_events(
-        bank, BANK_SPS, max_events=sizes.bank_events))
-    d_name = f"kernel D {sizes.bank_ch} x {sizes.bank_events} slots"
-    timed9(d_name, *time_pair(
-        lambda: kernels.symbol_sync_events_scan(*d_args),
-        lambda: kernels.symbol_sync_events_scan_plain(*d_args),
-        contextlib.nullcontext, plain_calls=1))
-    # events in, both per-slot outputs out; the counted operations
-    device_row(d_name, lambda k: kernels.symbol_sync_events_scan(*d_args),
-               bound(work_d(d_args)))
-    chain_line(d_name, t.dev_ms[d_name], chain_d(d_args))
-    op_ms, op_pms = time_pair(
-        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=sizes.bank_events),
-        lambda: ops.symbol_sync_events(bank, BANK_SPS, max_events=sizes.bank_events),
-        plain_versions, plain_calls=1)
-    print(f"[9 times] symbol_sync_events op {bank_label} (crossing list, "
-          f"kernel D, mask pass): {op_ms:.4f} ms "
-          f"({sizes.bank_ch * sizes.bank_n / op_ms / 1e3:.1f} Msps), on the "
-          f"plain versions {op_pms:.4f} ms; card: {card}")
-    e_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(bank, BANK_SPS))
-
-    def native_bank():
-        for c in range(sizes.bank_ch):
-            native.symbol_sync_f32(bank_np[c], BANK_SPS, 0.5, (0.5, 0.5))
-
-    nat_s = statistics.median(
-        [wall(native_bank, reps=1)[0] for _ in range(5)])
-    e_ms = time_one(lambda: kernels.symbol_sync_scan(*e_args), calls=3)
-    e_bank = f"kernel E {bank_label}"
-    timed9(e_bank, e_ms, nat_s * 1e3,
-           f"native rr_symbol_sync on the host, {sizes.bank_ch} channels in turn,")
-    chain_line(e_bank, e_ms, chain_e(e_args))
-    p_args = captured("symbol_sync_scan", lambda: ops.symbol_sync(prefix, BANK_SPS))
-    e_name = f"kernel E {sizes.bank_ch} x {n_prefix} prefix"
-    timed9(e_name, *time_pair(
-        lambda: kernels.symbol_sync_scan(*p_args),
-        lambda: kernels.symbol_sync_scan_plain(*p_args),
-        contextlib.nullcontext, plain_calls=1))
-    # samples in, a mask byte and a clock out; the counted operations
-    device_row(e_name, lambda k: kernels.symbol_sync_scan(*p_args),
-               bound(work_e(p_args)))
-    chain_line(e_name, t.dev_ms[e_name], chain_e(p_args))
-    for name, args in path_args.items():
-        is_d = name.startswith("kernel D")
-        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
-        ms = time_one(lambda: fn(*args), calls=3)
-        print(f"[9 times] {name}, the path's own arguments "
-              f"({args[0].shape[0]} x {args[0].shape[1]}): kernel {ms:.4f} ms; "
-              f"card: {card}")
-        chain_line(name, ms, (chain_d if is_d else chain_e)(args))
-    # each kernel beside its one-thread-per-channel form
-    # (tools/csrc/symbol_sync_lone.cu) on the same arguments: every output equal
-    # bit for bit, then the device times alone, in turns
-    path_args[d_name] = d_args
-    path_args[e_bank] = e_args
-    path_args[e_name] = p_args
-    for name, args in path_args.items():
-        is_d = name.startswith("kernel D")
-        fn = kernels.symbol_sync_events_scan if is_d else kernels.symbol_sync_scan
-        lone = time_sync.events_lone if is_d else time_sync.scan_lone
-        outputs_equal(f"{name}: block per channel vs one thread per channel",
-                      fn(*args), lone(*args))
-        calls = 2 if args[0].numel() > 1 << 21 else 5
-        new_ms = [graph_ms(lambda k: fn(*args), calls=calls)]
-        old_ms = [graph_ms(lambda k: lone(*args), calls=calls) for _ in "12"]
-        new_ms.append(graph_ms(lambda k: fn(*args), calls=calls))
-        t.lone_ms[name] = min(old_ms)
-        print(f"[9 times] {name} ({args[0].shape[0]} x {args[0].shape[1]}), "
-              f"device alone: block per channel {min(new_ms):.4f} ms, one "
-              f"thread per channel {min(old_ms):.4f} ms "
-              f"({min(old_ms) / min(new_ms):.2f}x); card: {card}")
-    end_phase("9 times")
-    front_s, _ = wall(lambda: ax25.bell202_demod(audio, FS_AUDIO), sizes.reps)
-    for sync_kind in ("native", "events"):
-        total_s, _ = wall(lambda: ax25.ax25_1200_rx(audio, FS_AUDIO, sync=sync_kind),
-                          sizes.reps)
-        print(f"[9 times] ax25_1200_rx sync={sync_kind} {n_frames} frames: "
-              f"{total_s * 1e3:.1f} ms wall, device front-end "
-              f"{front_s * 1e3:.1f} ms, clock recovery and tail "
-              f"{(total_s - front_s) * 1e3:.1f} ms (median of {sizes.reps}); "
-              f"card: {card}")
-    for method in sizes.wb_methods:
-        wb_s, _ = wall(lambda: wideband(method), sizes.reps)
-        print(f"[9 times] decode_band_ax25 sync {method}, {wide.shape[0]} "
-              f"samples: {wb_s * 1e3:.1f} ms wall (median of {sizes.reps}; first "
-              f"call {wb_first[method] * 1e3:.1f} ms); card: {card}")
-    t.record["symbol_sync_events"], t.record["symbol_sync_scan"] = d_name, e_name
-    return errs, ev_got, ev_counts, wb_counts, cal
+            failures.append(f"9 channelizer {m} x {size_label(n)}: kernel H vs plain")
+        errs["pfb_channelize"] = max(errs["pfb_channelize"], err)
+    end_phase("9 channelizer")
+    return errs, ev_got, ev_counts, wb_counts
 
 
 # ---- phase 10: the FM family's apps and the streaming Graph
@@ -1730,7 +1203,6 @@ class AppsSizes:
     frame_gate: int = FRAME_GATE
     stream_chunk: int = STREAM_CHUNK  # run_stream's chunk
     resume_after: int = RESUME_AFTER  # chunks before the checkpointed pause
-    reps: int = 3                     # runs of each timed path (median wall)
 
 
 def tone_fit(audio: np.ndarray, rate: float, tones, skip: int = 256):
@@ -2015,11 +1487,10 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
         out, plain_out = d / f"{mode}.au", d / f"{mode}_plain.au"
         zero_counts()
         args = args + ["--device", str(dev)]
-        secs, _ = wall(lambda: rtl_fm.main(args + ["--out", str(out)]), sizes.reps)
-        counts[f"rtl_fm {mode}"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+        rtl_fm.main(args + ["--out", str(out)])
+        counts[f"rtl_fm {mode}"] = dict(kernels.LAUNCHES)
         with plain_versions():
-            plain_s, _ = wall(lambda: rtl_fm.main(args + ["--out", str(plain_out)]),
-                              reps=1)
+            rtl_fm.main(args + ["--out", str(plain_out)])
         got, want = au.au_read(str(out))[0], au.au_read(str(plain_out))[0]
         if mode == "c32":
             # kernel A at 2e-5 of max|y| on each sample of a pair, through
@@ -2036,8 +1507,7 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
         amps, resid = tone_fit(got, AUDIO_RATE, APP_TONES)
         print(f"[10 rtl_fm] rtl_fm {mode}: {len(got)} audio samples, tones "
               f"{[round(a, 4) for a in amps]} (sent {[a for _, a in APP_TONES]}), "
-              f"residual {resid:.4f} of the audio; {secs:.3f} s wall (median "
-              f"of 3), plain versions {plain_s:.3f} s; launches "
+              f"residual {resid:.4f} of the audio; launches "
               f"{json.dumps(counts[f'rtl_fm {mode}'])}; card: {card}")
         if not (len(got) == -(-n * 3 // 64)
                 and all(abs(a / s - 1) < 0.05 for a, (_, s) in zip(amps, APP_TONES))
@@ -2051,8 +1521,8 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
     with plain_versions():
         w_ratio = envelope_ratio(ops.filter_complex(x, lpw), len(lpw))
     zero_counts()
-    secs, got_w = wall(lambda: fm.wbfm_rx(x, FS_RTL), sizes.reps)
-    counts["wbfm_rx"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+    got_w = fm.wbfm_rx(x, FS_RTL)
+    counts["wbfm_rx"] = dict(kernels.LAUNCHES)
     with plain_versions():
         want_w = fm.wbfm_rx(x, FS_RTL)
     # as rtl_fm c32 (the de-emphasis has gain <= 1)
@@ -2062,7 +1532,7 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
     sent = [a * deemphasis_gain(f, AUDIO_RATE) for f, a in APP_TONES]
     print(f"[10 wbfm] wbfm_rx: tones {[round(a, 4) for a in amps]} (sent, "
           f"de-emphasized {[round(a, 4) for a in sent]}), residual {resid:.4f}; "
-          f"{secs:.3f} s wall (median of {sizes.reps}); launches "
+          f"launches "
           f"{json.dumps(counts['wbfm_rx'])}; card: {card}")
     if not (all(abs(a / s - 1) < 0.05 for a, s in zip(amps, sent)) and resid < 0.25):
         failures.append("wbfm_rx: the tones did not come out")
@@ -2085,9 +1555,8 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
     args = ["-r", str(d / "am.c32"), "--sample_rate", "1.024m", "--device",
             str(dev)]
     zero_counts()
-    secs, _ = wall(lambda: am_decode.main(args + ["-o", str(d / "am.f32")]),
-                   sizes.reps)
-    counts["am_decode"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+    am_decode.main(args + ["-o", str(d / "am.f32")])
+    counts["am_decode"] = dict(kernels.LAUNCHES)
     with plain_versions():
         am_decode.main(args + ["-o", str(d / "am_plain.f32")])
     got_a = np.fromfile(d / "am.f32", "<f4")
@@ -2101,7 +1570,7 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
            else math.inf, tol)
     amps, resid = tone_fit(got_a, AUDIO_RATE, ((AM_TONE, 0.0),))
     print(f"[10 am] am_decode: tone {amps[0]:.4f} (sent {0.5 * AM_DEPTH}), "
-          f"residual {resid:.4f}; {secs:.3f} s wall (median of {sizes.reps}); launches "
+          f"residual {resid:.4f}; launches "
           f"{json.dumps(counts['am_decode'])}; card: {card}")
     if not (abs(amps[0] / (0.5 * AM_DEPTH) - 1) < 0.05 and resid < 0.1):
         failures.append("am_decode: the tone did not come out")
@@ -2113,33 +1582,17 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
     def receiver(sync, upto=None):
         return ax25_receiver(audio, sync, upto)
 
-    n_chunks = -(-audio.shape[0] // sizes.stream_chunk)
-    for sync in want_lists:
-        # the streaming runner's host time a chunk, the chain cut after the
-        # dense front-end (one device segment: 3 kernel-A launches a
-        # chunk), after the clock recovery, slicer and NRZI, and whole
-        parts = []
-        for upto, label in ((6, "front-end"), (9, "+ clock recovery, slicer, "
-                            "NRZI"), (None, "+ HDLC")):
-            secs, _ = wall(lambda: receiver(sync, upto)[0].run_stream(
-                chunk_size=sizes.stream_chunk, device=dev), sizes.reps)
-            parts.append(f"{label} {secs * 1e3 / n_chunks:.3f}")
-        print(f"[10 ax25 graph] run_stream sync={sync}, host ms a chunk of "
-              f"{sizes.stream_chunk} ({n_chunks} chunks, wall / chunks, median of {sizes.reps}): "
-              f"{'; '.join(parts)}; card: {card}")
-
     for sync, want in want_lists.items():
         for chunk in (None, sizes.stream_chunk):
             label = f"{sync} {'streamed' if chunk else 'offline'}"
             zero_counts()
-            secs, out = wall(lambda: ax25.ax25_1200_rx_graph(
-                audio, FS_AUDIO, chunk_size=chunk, sync=sync, device=dev), sizes.reps)
-            counts[f"graph {label}"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+            out = ax25.ax25_1200_rx_graph(audio, FS_AUDIO, chunk_size=chunk,
+                                          sync=sync, device=dev)
+            counts[f"graph {label}"] = dict(kernels.LAUNCHES)
             got = decoded(out, sizes.frames)
             print(f"[10 ax25 graph] ax25_1200_rx_graph sync={label} (chunks of "
                   f"{chunk or audio.shape[0]}): {len(set(got))}/{sizes.frames} "
-                  f"decoded, same list as ax25_1200_rx: {got == want}; "
-                  f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
+                  f"decoded, same list as ax25_1200_rx: {got == want}; launches "
                   f"{json.dumps(counts[f'graph {label}'])}; card: {card}")
             if len(set(got)) < sizes.frame_gate or got != want:
                 failures.append(f"ax25_1200_rx_graph {label}: {len(set(got))} "
@@ -2154,14 +1607,13 @@ def apps_phase(dev, card, sizes: AppsSizes, i_main, q_main, audio, want_lists):
         g.run_stream(chunk_size=sizes.stream_chunk, max_chunks=sizes.resume_after,
                      checkpoint_path=ck, checkpoint_every=sizes.resume_after, device=dev)
         g, rest = receiver("events")
-        secs, _ = wall(lambda: g.run_stream(chunk_size=sizes.stream_chunk,
-                                            resume_from=ck, device=dev), reps=1)
+        g.run_stream(chunk_size=sizes.stream_chunk, resume_from=ck, device=dev)
         counts["graph events resumed"] = dict(kernels.LAUNCHES)
     a = decoded([bytes(np.asarray(p.data)) for p in first.pdus()], sizes.frames)
     b = decoded([bytes(np.asarray(p.data)) for p in rest.pdus()], sizes.frames)
     print(f"[10 ax25 graph] events streamed, paused after {sizes.resume_after} chunks "
-          f"at a checkpoint ({len(a)} frames), resumed ({len(b)} frames, "
-          f"{secs * 1e3:.1f} ms wall): the uninterrupted list "
+          f"at a checkpoint ({len(a)} frames), resumed ({len(b)} frames): "
+          f"the uninterrupted list "
           f"{a + b == want_lists['events']}; launches "
           f"{json.dumps(counts['graph events resumed'])}; card: {card}")
     if a + b != want_lists["events"] or not a or not b:
@@ -2213,7 +1665,6 @@ class BurstSizes:
     wpcr_bursts: int = 200            # bursts of the WPCR corpus
     wpcr_gate: int = WPCR_GATE
     burst_chunk: int = BURST_CHUNK
-    reps: int = 3                     # runs of each timed path (median wall)
 
 
 def noisy(iq: torch.Tensor, sigma: float, gen: torch.Generator) -> torch.Tensor:
@@ -2325,7 +1776,6 @@ def burst_phase(dev, card, sizes: BurstSizes):
 
     # the captures; the transmitter's kernel-A calls (the 723-tap channel
     # filter at 300 kHz, both planes) each held against the plain version
-    t0 = time.perf_counter()
     zero_counts()
     with capturing("fir_decimate") as calls:
         clean = ax25.g3ruh_modulate(frames, FS_G3, device=dev)
@@ -2339,14 +1789,9 @@ def burst_phase(dev, card, sizes: BurstSizes):
     g3_iq = burst_capture(g3_one, int(G3_GAP * FS_G3), G3_GAP_NOISE, gen)
     afsk_iq = burst_capture([afsk_burst(i, hdlc, ops, dev) for i in range(sizes.frames)],
                             int(AFSK_GAP * FS_AFSK), AFSK_GAP_NOISE, gen)
-    sync()
     print(f"[11 captures] G3RUH stream {clean.shape[0]} samples at {FS_G3:.0f} Hz "
           f"(noise {G3_NOISE}), G3RUH bursts {g3_iq.shape[0]}, AFSK bursts "
-          f"{afsk_iq.shape[0]} at {FS_AFSK:.0f} Hz, {sizes.frames} corpus frames each, "
-          f"made on the card in {time.perf_counter() - t0:.1f} s")
-    secs, _ = wall(lambda: ax25.g3ruh_modulate(frames, FS_G3, device=dev), sizes.reps)
-    print(f"[11 g3ruh] g3ruh_modulate {sizes.frames} frames -> {clean.shape[0]} samples: "
-          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); card: {card}")
+          f"{afsk_iq.shape[0]} at {FS_AFSK:.0f} Hz, {sizes.frames} corpus frames each")
 
     # the VCO's phase reaches ~1500 rad here (an f32 step of 1.2e-4): each
     # stream the card makes is held against the same stream with its
@@ -2378,12 +1823,12 @@ def burst_phase(dev, card, sizes: BurstSizes):
     del refs
 
     def path(name, fn, gate, needs, plain=None):
-        """Decode with ``fn`` three times (launches counted) and once on the
-        plain versions (unless ``plain`` gives the list to match): the same
-        list, and at least ``gate`` frames."""
+        """Decode with ``fn`` (launches counted) and once on the plain
+        versions (unless ``plain`` gives the list to match): the same list,
+        and at least ``gate`` frames."""
         zero_counts()
-        secs, out = wall(fn, sizes.reps)
-        counts[name] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+        out = fn()
+        counts[name] = dict(kernels.LAUNCHES)
         got = decoded(out, sizes.frames)
         what = "the native form's list" if plain is not None else \
             "the plain versions' list"
@@ -2391,9 +1836,7 @@ def burst_phase(dev, card, sizes: BurstSizes):
             with plain_versions():
                 plain = decoded(fn(), sizes.frames)
         print(f"[11 {name}] {len(set(got))}/{sizes.frames} decoded, {what}: "
-              f"{got == plain}; {secs * 1e3:.1f} ms wall (median of {sizes.reps}); "
-              f"launches {json.dumps(counts[name])}; card: {card} "
-              f"({time.perf_counter() - T0:.1f} s since the start)")
+              f"{got == plain}; launches {json.dumps(counts[name])}; card: {card}")
         if len(set(got)) < gate or got != plain:
             failures.append(f"{name}: {len(set(got))} frames, or not the plain "
                             "versions' list")
@@ -2441,13 +1884,11 @@ def burst_phase(dev, card, sizes: BurstSizes):
     bursts, payloads = wpcr_corpus(hdlc, sizes.wpcr_bursts)
     on_card = [torch.from_numpy(b).to(dev) for b in bursts]
     zero_counts()
-    secs, res = wall(lambda: ops.wpcr_batch(on_card), sizes.reps)
-    counts["wpcr_batch"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+    res = ops.wpcr_batch(on_card)
+    counts["wpcr_batch"] = dict(kernels.LAUNCHES)
     res_cpu = ops.wpcr_batch(bursts, device="cpu")
     centred = [ops.midpoint(torch.from_numpy(b))[0].numpy() for b in bursts]
-    t0 = time.perf_counter()
     golden = [wpcr_numpy(c) for c in centred]
-    numpy_s = time.perf_counter() - t0
     n_dec, unequal, disagree, moved = 0, [], [], 0
     for i, ((s, info), (cs, cinfo)) in enumerate(zip(res, res_cpu)):
         if info != cinfo or not torch.equal(s.cpu(), cs):
@@ -2464,10 +1905,7 @@ def burst_phase(dev, card, sizes: BurstSizes):
     print(f"[11 wpcr] wpcr_batch on the WPCR corpus: {n_dec}/{len(bursts)} decoded, "
           f"{sum(i['found'] for _, i in res)} found; bursts unlike the CPU run "
           f"{unequal}, unlike wpcr_numpy {disagree} ({moved} symbols a sample "
-          f"away at a phase within 1e-4 of an integer); near-ties {ties}; "
-          f"{secs * 1e3 / len(bursts):.4f} ms a burst on the card (median of "
-          f"{sizes.reps}), "
-          f"wpcr_numpy {numpy_s * 1e3 / len(bursts):.4f} ms a burst on the host; launches "
+          f"away at a phase within 1e-4 of an integer); near-ties {ties}; launches "
           f"{json.dumps(counts['wpcr_batch'])}; card: {card}")
     if n_dec < sizes.wpcr_gate or unequal or disagree:
         failures.append(f"wpcr corpus: {n_dec} decoded, unequal {unequal}, "
@@ -2486,24 +1924,21 @@ def burst_phase(dev, card, sizes: BurstSizes):
         """``main(args)`` once, its output to the console kept aside."""
         zero_counts()
         out = io.TextIOWrapper(io.BytesIO())
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
             rc = main(args + dev_arg)
-        sync()
-        secs = time.perf_counter() - t0
         counts[f"app {name}"] = dict(kernels.LAUNCHES)
         if rc != 0:
             failures.append(f"app {name}: exit code {rc}")
         require(f"app {name}", counts[f"app {name}"], needs)
         out.flush()
-        return secs, out.buffer.getvalue()
+        return out.buffer.getvalue()
 
     def written(out_dir):
         return [p.read_bytes() for p in sorted(Path(out_dir).iterdir())]
 
-    def app_line(name, secs, ok, what):
-        print(f"[11 apps] {name}: {what}: {ok}; {secs * 1e3:.1f} ms wall (one "
-              f"call); launches {json.dumps(counts[f'app {name}'])}; card: {card}")
+    def app_line(name, ok, what):
+        print(f"[11 apps] {name}: {what}: {ok}; launches "
+              f"{json.dumps(counts[f'app {name}'])}; card: {card}")
         if not ok:
             failures.append(f"app {name}: {what}")
 
@@ -2517,29 +1952,29 @@ def burst_phase(dev, card, sizes: BurstSizes):
             ("ax25_1200_wpcr", ax25_1200_wpcr.main,
              ["-r", str(d / "afsk.c32"), "--threshold", str(BURST_THRESHOLD)],
              rx["wpcr 1200"], ("fir_decimate",))):
-        secs, _ = app(name, main_fn, args + ["-o", str(d / name)], needs)
-        app_line(name, secs, written(d / name) == want,
+        app(name, main_fn, args + ["-o", str(d / name)], needs)
+        app_line(name, written(d / name) == want,
                  f"-o wrote the model call's {len(want)} frames")
-    secs, kiss = app("g3ruh rx", g3ruh.main,
-                     ["-r", str(d / "g3.c32"), "--symbol_max_deviation",
-                      str(G3_MAX_DEV), "--symbol_taps", "0.0001,0.99999999"])
-    app_line("g3ruh rx", secs, [bytes(f) for f in g3ruh.kiss_decode_stream(kiss)]
+    kiss = app("g3ruh rx", g3ruh.main,
+               ["-r", str(d / "g3.c32"), "--symbol_max_deviation",
+                str(G3_MAX_DEV), "--symbol_taps", "0.0001,0.99999999"])
+    app_line("g3ruh rx", [bytes(f) for f in g3ruh.kiss_decode_stream(kiss)]
              == rx["native"], f"KISS out holds the model call's {len(rx['native'])} frames")
-    secs, _ = app("g3ruh tx", g3ruh.main, ["--tx_in", str(d / "tx.kiss"), "--tx_out",
-                                           str(d / "tx.c32")], ("fir_decimate",))
+    app("g3ruh tx", g3ruh.main, ["--tx_in", str(d / "tx.kiss"), "--tx_out",
+                                 str(d / "tx.c32")], ("fir_decimate",))
     tx = torch.from_numpy(np.fromfile(d / "tx.c32", np.complex64))
     err = (max_err(torch.view_as_real(tx).to(dev), ref64)
            if tx.shape == clean.shape else math.inf)
-    app_line("g3ruh tx", secs, err <= vco_tol, f"--tx_in {sizes.frames} KISS frames -> "
+    app_line("g3ruh tx", err <= vco_tol, f"--tx_in {sizes.frames} KISS frames -> "
              f"--tx_out the G3RUH stream, max |error| {err:.3e} against its phase "
              f"in float64 (tol {vco_tol:.3e})")
     # the burst gate's tail (5000 samples by default) would outlast the
     # 2500-sample gaps at 50 kHz and swallow the next start
-    secs, _ = app("burst_saver", burst_saver.main,
-                  ["-r", str(d / "g3b.c32"), "-o", str(d / "bursts"), "--threshold",
-                   str(BURST_THRESHOLD), "--delay", "500", "--tail", "500"])
+    app("burst_saver", burst_saver.main,
+        ["-r", str(d / "g3b.c32"), "-o", str(d / "bursts"), "--threshold",
+         str(BURST_THRESHOLD), "--delay", "500", "--tail", "500"])
     n_saved = len(list((d / "bursts").iterdir()))
-    app_line("burst_saver", secs, n_saved == sizes.frames,
+    app_line("burst_saver", n_saved == sizes.frames,
              f"cut {n_saved} bursts of the {sizes.frames} G3RUH bursts")
     tmp.cleanup()
     end_phase("11 apps")
@@ -2631,11 +2066,11 @@ def burst_phase(dev, card, sizes: BurstSizes):
     for label, chunk in (("offline", None), (f"streamed (chunks of {sizes.burst_chunk})",
                                              sizes.burst_chunk)):
         zero_counts()
-        secs, (pdus, cuts) = wall(lambda: run_front(chunk), sizes.reps)
-        counts[f"graph {label}"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+        pdus, cuts = run_front(chunk)
+        counts[f"graph {label}"] = dict(kernels.LAUNCHES)
         held(label, pdus, cuts, chunk is None)
-        print(f"[11 block graph] {label}: {secs * 1e3:.1f} ms wall (median of {sizes.reps}); "
-              f"launches {json.dumps(counts[f'graph {label}'])}; card: {card}")
+        print(f"[11 block graph] {label}: launches "
+              f"{json.dumps(counts[f'graph {label}'])}; card: {card}")
     with tempfile.TemporaryDirectory() as ck_dir:
         ck = str(Path(ck_dir) / "burst.pkl")
         first, first_cuts = run_front(sizes.burst_chunk, max_chunks=pause,
@@ -2691,7 +2126,6 @@ class RadioSizes:
     il2p_gap: int = IL2P_GAP        # random bits before each IL2P frame
     sim_samples: int = 1 << 24      # rtl_fm -r sim, soapy_fm -d sim
     scan_samples: int = 1 << 20     # scanner -r sim
-    reps: int = 3                   # runs of each timed path (median wall)
 
 
 def il2p_fields(i: int):
@@ -2837,35 +2271,22 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
         hold(phase, what, calls)
         return out
 
-    def app(phase, name, main_fn, args, needs=(), stdin="", device=True,
-            out_dir=None):
-        """``main_fn(args)`` ``sizes.reps`` times (on ``dev`` unless
-        ``device`` is False; ``out_dir`` emptied before each run): the
-        first run's launches counted and each kernel held on each of its
-        calls.  Returns (the median wall in seconds, the last run's
-        standard output)."""
-        secs = []
-        for rep in range(sizes.reps):
-            if out_dir is not None:
-                shutil.rmtree(out_dir, ignore_errors=True)
-            zero_counts()
-            out = io.StringIO()
-            with (capturing(*wrappers) if rep == 0 else
-                  contextlib.nullcontext()) as calls, \
-                    contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(io.StringIO()), \
-                    mock.patch("sys.stdin", io.StringIO(stdin)):
-                t0 = time.perf_counter()
-                rc = main_fn(args + (["--device", str(dev)] if device else []))
-                sync()
-                secs.append(time.perf_counter() - t0)
-            if rc != 0:
-                failures.append(f"app {name}: exit code {rc}")
-            if rep == 0:
-                counts[name] = dict(kernels.LAUNCHES)
-                require(name, counts[name], needs)
-                hold(phase, name, calls)
-        return statistics.median(secs), out.getvalue()
+    def app(phase, name, main_fn, args, needs=(), stdin="", device=True):
+        """``main_fn(args)`` (on ``dev`` unless ``device`` is False): its
+        launches counted and each kernel held on each of its calls.
+        Returns its standard output."""
+        zero_counts()
+        out = io.StringIO()
+        with capturing(*wrappers) as calls, contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()), \
+                mock.patch("sys.stdin", io.StringIO(stdin)):
+            rc = main_fn(args + (["--device", str(dev)] if device else []))
+        if rc != 0:
+            failures.append(f"app {name}: exit code {rc}")
+        counts[name] = dict(kernels.LAUNCHES)
+        require(name, counts[name], needs)
+        hold(phase, name, calls)
+        return out.getvalue()
 
     def written(out_dir):
         return [p.read_bytes() for p in sorted(Path(out_dir).iterdir())]
@@ -2883,42 +2304,36 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
         want = decoded(held("12 ax25", f"ax25_1200_rx {sync_m}", lambda:
                             ax25.ax25_1200_rx(pcm, FS_AUDIO, symbol_taps=APP_TAPS,
                                               sync=sync_m)), sizes.frames)
-        secs, _ = app("12 ax25", name, ax25_1200_rx.main,
-                      ["-a", "-r", str(d / "corpus.au"), "-o", str(d / name),
-                       "--sync", sync_m],
-                      ("fir_decimate", "symbol_sync_events") if sync_m == "events"
-                      else ("fir_decimate",), out_dir=d / name)
+        app("12 ax25", name, ax25_1200_rx.main,
+            ["-a", "-r", str(d / "corpus.au"), "-o", str(d / name), "--sync", sync_m],
+            ("fir_decimate", "symbol_sync_events") if sync_m == "events"
+            else ("fir_decimate",))
         got = decoded(written(d / name), sizes.frames)
         check("12 ax25", f"{name}: {len(set(got))}/{sizes.frames} decoded (gate "
               f"{sizes.frame_gate}), the model's list with taps {APP_TAPS}",
               len(set(got)) >= sizes.frame_gate and got == want,
-              f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}, the file read "
-              f"included); launches {json.dumps(counts[name])}")
+              f"launches {json.dumps(counts[name])}")
     del pcm
     end_phase("12 ax25 au")
 
     # the IQ capture as raw c32, then as SigMF written by the capture app
     iq_np.tofile(d / "iq.c32")
-    secs, _ = app("12 ax25", "capture", capture.main,
-                  ["-r", str(d / "iq.c32"), "--sample_rate", str(FS_IQ),
-                   "--frequency", "144.39m", "--out", str(d / "iq")], device=False)
-    print(f"[12 ax25] capture: {iq_np.shape[0]} samples to SigMF in "
-          f"{secs * 1e3:.1f} ms (median of {sizes.reps})")
+    app("12 ax25", "capture", capture.main,
+        ["-r", str(d / "iq.c32"), "--sample_rate", str(FS_IQ),
+         "--frequency", "144.39m", "--out", str(d / "iq")], device=False)
     want = decoded(held("12 ax25", "ax25_1200_rx_iq", lambda: ax25.ax25_1200_rx_iq(
         iq_np, FS_IQ, device=dev, symbol_taps=APP_TAPS)), sizes.iq_frames)
     lists = []
     for form, args in (("c32", ["-r", str(d / "iq.c32"), "--sample_rate", "1.024m"]),
                        ("SigMF", ["-r", str(d / "iq.sigmf-meta")])):
         name = f"ax25_1200_rx {form}"
-        secs, _ = app("12 ax25", name, ax25_1200_rx.main,
-                      args + ["-o", str(d / name)], ("fir_decimate",),
-                      out_dir=d / name)
+        app("12 ax25", name, ax25_1200_rx.main, args + ["-o", str(d / name)],
+            ("fir_decimate",))
         lists.append(decoded(written(d / name), sizes.iq_frames))
         check("12 ax25", f"{name}: {len(set(lists[-1]))}/{sizes.iq_frames} "
               f"decoded (gate {sizes.iq_gate}), the model's list",
               len(set(lists[-1])) >= sizes.iq_gate and lists[-1] == want,
-              f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
-              f"{json.dumps(counts[name])}")
+              f"launches {json.dumps(counts[name])}")
     check("12 ax25", "raw c32 and SigMF give the same list", lists[0] == lists[1],
           f"{len(lists[0])} frames")
     (d / "iq.c32").unlink()
@@ -2927,53 +2342,47 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
     # bell202_tx -> ax25_1200_rx at 44.1 kHz
     lines = [f"CHIP SMOKE BELL-202 LINE {i:03d} {'z' * (i % 37)}"
              for i in range(sizes.bell_lines)]
-    secs_tx, _ = app("12 bell202", "bell202_tx", bell202_tx.main,
-                     ["--src", "N0CALL-7", "--dst", "APRS", "--out",
-                      str(d / "bell.au")], stdin="\n".join(lines) + "\n")
-    secs, _ = app("12 bell202", "ax25_1200_rx bell202", ax25_1200_rx.main,
-                  ["-a", "-r", str(d / "bell.au"), "-o", str(d / "bell")],
-                  ("fir_decimate",), out_dir=d / "bell")
+    app("12 bell202", "bell202_tx", bell202_tx.main,
+        ["--src", "N0CALL-7", "--dst", "APRS", "--out", str(d / "bell.au")],
+        stdin="\n".join(lines) + "\n")
+    app("12 bell202", "ax25_1200_rx bell202", ax25_1200_rx.main,
+        ["-a", "-r", str(d / "bell.au"), "-o", str(d / "bell")], ("fir_decimate",))
     got = written(d / "bell")
     sent = [bytes(bell202_tx.make_ax25_ui("APRS", "N0CALL-7", s.encode()))
             for s in lines]
     check("12 bell202", f"bell202_tx {len(lines)} lines at {FS_BELL:.0f} Hz -> "
           f"ax25_1200_rx: {len(got)}/{len(lines)} decoded, the frames sent",
-          got == sent, f"{secs_tx * 1e3:.1f} ms tx, {secs * 1e3:.1f} ms rx (median "
-          f"of {sizes.reps} each); launches tx {json.dumps(counts['bell202_tx'])}, rx "
+          got == sent, f"launches tx {json.dumps(counts['bell202_tx'])}, rx "
           f"{json.dumps(counts['ax25_1200_rx bell202'])}")
     end_phase("12 ax25 iq and bell202")
 
     # IL2P: the capture through the model (kernels, plain versions), the app
-    t0 = time.perf_counter()
     bits, ends, want = il2p_bits(sizes.il2p_frames, SEED + 12, sizes.il2p_gap)
     il2p_iq = il2p_capture(bits, SEED + 12)
     print(f"[12 il2p] {sizes.il2p_frames} IL2P frames, {len(bits)} bits, "
-          f"{il2p_iq.shape[0]} samples at {IL2P_FS:.0f} Hz (noise {IL2P_NOISE}), "
-          f"made on the host in {time.perf_counter() - t0:.1f} s")
+          f"{il2p_iq.shape[0]} samples at {IL2P_FS:.0f} Hz (noise {IL2P_NOISE})")
     x = torch.from_numpy(il2p_iq).to(dev)
 
     def headers(hs):
         return [(h.src, h.dst, h.describe()) for h in hs]
 
     zero_counts()
-    secs, got = wall(lambda: headers(ax25.il2p_1200_rx(x, IL2P_FS)), sizes.reps)
-    counts["il2p_1200_rx"] = {k: v // sizes.reps for k, v in kernels.LAUNCHES.items()}
+    got = headers(ax25.il2p_1200_rx(x, IL2P_FS))
+    counts["il2p_1200_rx"] = dict(kernels.LAUNCHES)
     require("il2p_1200_rx", counts["il2p_1200_rx"], ("fir_decimate",))
     held("12 il2p", "il2p_1200_rx", lambda: ax25.il2p_1200_rx(x, IL2P_FS))
     with plain_versions():
         plain = headers(ax25.il2p_1200_rx(x, IL2P_FS))
     check("12 il2p", f"il2p_1200_rx: {len(got)}/{len(want)} headers (src, dst, "
           "type) as sent, the plain versions' list", got == want and plain == got,
-          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
-          f"{json.dumps(counts['il2p_1200_rx'])}")
+          f"launches {json.dumps(counts['il2p_1200_rx'])}")
     il2p_iq.tofile(d / "il2p.c32")
     del x, il2p_iq
-    secs, out = app("12 il2p", "il2p_1200_rx app", il2p_1200_rx.main,
-                    ["-r", str(d / "il2p.c32")], ("fir_decimate",))
+    out = app("12 il2p", "il2p_1200_rx app", il2p_1200_rx.main,
+              ["-r", str(d / "il2p.c32")], ("fir_decimate",))
     check("12 il2p", "il2p_1200_rx app: the types of the headers sent",
           out.splitlines() == [t for _, _, t in want],
-          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps}); launches "
-          f"{json.dumps(counts['il2p_1200_rx app'])}")
+          f"launches {json.dumps(counts['il2p_1200_rx app'])}")
 
     # the IL2P bits through the blocks, offline and streamed in chunks of
     # IL2P_CHUNK: the sync tags and the headers equal the op's, seams or not
@@ -2996,15 +2405,13 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
     op = np.flatnonzero(ops.correlate_access_code(bits_dev, SYNC_WORD).cpu().numpy())
     chunk_n = sizes.il2p_chunk
     seams = sum((e - 23) // chunk_n != (e + 120) // chunk_n for e in ends)
-    runs = {}
     for label, chunk in (("offline", None), (f"streamed ({chunk_n})", chunk_n)):
-        secs, runs[label] = wall(lambda: il2p_graph(chunk), sizes.reps)
-        pos, hs, pdu_tags = runs[label]
+        pos, hs, pdu_tags = il2p_graph(chunk)
         check("12 il2p blocks", f"{label}: {len(pos)} sync tags at the op's "
               f"positions, {len(hs)} headers as sent, one PDU each",
               list(pos) == list(op) == ends and hs == want and seams > 0
               and pdu_tags == [list(h) for h in want], f"{seams} headers across "
-              f"a seam; {secs * 1e3:.1f} ms wall (median of {sizes.reps})")
+              "a seam")
     end_phase("12 il2p")
 
     # rtl_fm -r sim: the simulated carrier (0.8, 1 kHz at 37.5 kHz deviation)
@@ -3018,8 +2425,8 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
     with plain_versions():
         y_ratio = envelope_ratio(ops.filter_complex(sim.emit(0, n, dev), lp), len(lp))
     args = ["-r", "sim", "--seconds", secs_arg]
-    secs, _ = app("12 sdr", "rtl_fm sim", rtl_fm.main,
-                  args + ["--out", str(d / "sim.au")], ("fir_decimate",))
+    app("12 sdr", "rtl_fm sim", rtl_fm.main, args + ["--out", str(d / "sim.au")],
+        ("fir_decimate",))
     with plain_versions(), contextlib.redirect_stderr(io.StringIO()):
         rtl_fm.main(args + ["--out", str(d / "sim_plain.au"), "--device", str(dev)])
     got, want_a = (au.au_read(str(d / f))[0] for f in ("sim.au", "sim_plain.au"))
@@ -3031,40 +2438,36 @@ def radio_phase(dev, card: str, sizes: RadioSizes, audio: np.ndarray,
     check("12 sdr", f"rtl_fm -r sim: the {SIM_TONE:.0f} Hz tone at "
           f"{amps[0]:.4f} (sent 0.5), residual {resid:.4f}",
           len(got) == -(-n * 3 // 64) and abs(amps[0] / 0.5 - 1) < 0.05
-          and resid < 0.25, f"{secs:.3f} s wall (median of {sizes.reps}); "
-          f"launches {json.dumps(counts['rtl_fm sim'])}")
+          and resid < 0.25, f"launches {json.dumps(counts['rtl_fm sim'])}")
 
     # soapy_fm -d sim: a carrier at 75 kHz deviation through wbfm_rx
-    secs, _ = app("12 sdr", "soapy_fm sim", soapy_fm.main,
-                  ["-d", "sim", "--seconds", secs_arg, "-o", str(d / "soapy.au")],
-                  ("fir_decimate",))
+    app("12 sdr", "soapy_fm sim", soapy_fm.main,
+        ["-d", "sim", "--seconds", secs_arg, "-o", str(d / "soapy.au")],
+        ("fir_decimate",))
     got = au.au_read(str(d / "soapy.au"))[0]
     sent = deemphasis_gain(SIM_TONE, AUDIO_RATE)
     amps, resid = tone_fit(got, AUDIO_RATE, ((SIM_TONE, sent),))
     check("12 sdr", f"soapy_fm -d sim: the {SIM_TONE:.0f} Hz tone at "
           f"{amps[0]:.4f} (sent, de-emphasized {sent:.4f}), residual {resid:.4f}",
           abs(amps[0] / sent - 1) < 0.05 and resid < 0.25,
-          f"{secs:.3f} s wall (median of {sizes.reps}); launches "
-          f"{json.dumps(counts['soapy_fm sim'])}")
+          f"launches {json.dumps(counts['soapy_fm sim'])}")
 
     # scanner -r sim: its two default tones, +0.2 and -0.35 MHz; and the
     # decode bank over the same band (CW carries no packet)
     scan_args = ["-r", "sim", "--sample_rate", str(FS_SCAN), "--seconds",
                  repr(sizes.scan_samples / FS_SCAN)]
-    secs, out = app("12 sdr", "scanner sim", scanner.main,
-                    scan_args + ["-n", str(SCAN_CHANNELS), "--top", "2"])
+    out = app("12 sdr", "scanner sim", scanner.main,
+              scan_args + ["-n", str(SCAN_CHANNELS), "--top", "2"])
     rows = [r.split()[:2] for r in out.splitlines()[1:]]
     width = FS_SCAN / SCAN_CHANNELS
     want_rows = [[str(round(f / width) % SCAN_CHANNELS),
                   f"{round(f / width) * width / 1e3:.1f}k"] for f in (0.2e6, -0.35e6)]
     check("12 sdr", f"scanner -r sim: the strongest channels {rows} at the tones' "
           f"offsets {want_rows}", rows == want_rows,
-          f"{secs * 1e3:.1f} ms wall (median of {sizes.reps})")
-    secs, _ = app("12 sdr", "scanner sim decode", scanner.main,
-                  scan_args + ["-n", "64", "--decode"],
-                  ("fir_decimate", "symbol_sync_scan"))
-    print(f"[12 sdr] scanner -r sim --decode (64 channels): {secs * 1e3:.1f} ms "
-          f"wall (median of {sizes.reps}); launches "
+          f"launches {json.dumps(counts['scanner sim'])}")
+    app("12 sdr", "scanner sim decode", scanner.main,
+        scan_args + ["-n", "64", "--decode"], ("fir_decimate", "symbol_sync_scan"))
+    print(f"[12 sdr] scanner -r sim --decode (64 channels): launches "
           f"{json.dumps(counts['scanner sim decode'])}; card: {card}")
     tmp.cleanup()
     end_phase("12 sdr")
@@ -3086,7 +2489,6 @@ class ScanSizes:
     chunk: int = 1 << 20            # the FM chain stream (benches/bench_kernels.py:331-420)
     chunks: int = 64
     scans: tuple = (64, 24)         # scan_chunks: one batch, and a remainder
-    reps: int = 5                   # runs of each timed stream (median wall)
     ax_chunk: int = 1 << 18         # ax25_1200_rx_graph's stream
     ax_scan: int = 16
     frames: int = N_FRAMES          # corpus frames of the audio given
@@ -3094,7 +2496,6 @@ class ScanSizes:
     block_chunk: int = 1 << 16      # each capturable block alone: 1 + 3 x 4 chunks
     tone_n: int = 1 << 24           # tone's samples
     fm_seconds: float = 10.0        # fm_tx's audio
-    app_reps: int = 3               # runs of each generator app (median wall)
 
 
 def capturable_cases(blocks, rng):
@@ -3168,8 +2569,9 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
     with a VectorSink and in a device-resident form (``emit_batch`` and
     ``accept_batch``), per chunk and batched: each batch one replay,
     kernel B's launches the chunks, the output bit-equal to the per-chunk
-    run and within kernel B's budget of the plain versions, the walls, the
-    device's busy share from ``profile_dir`` traces, ``generate_stats()``;
+    run and within kernel B's budget of the plain versions, a second run
+    replaying the first run's captures, a traced run (``profile_dir``),
+    ``generate_stats()``;
     ``ax25_1200_rx_graph`` on the corpus batched, both sync methods, with
     kernel A held on the segment's outputs and kernel D on its calls; every
     capturable block class alone over three batches; and the generator
@@ -3231,10 +2633,7 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
             label = f"fm chain {form} scan_chunks={scan}"
             g, sink = fm_graph(form)
             zero_counts()
-            t0 = time.perf_counter()
             g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan)
-            sync()
-            first_s = time.perf_counter() - t0
             counts[label] = dict(kernels.LAUNCHES)
             got = out_of(sink)
             if ref is None:
@@ -3248,22 +2647,15 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
                     max_err(got, plain), BUDGET["highest"]))
                 del plain, pg, psink
             equal = got.shape == ref.shape and bool(torch.equal(got, ref))
-            walls = []
-            for _ in range(sizes.reps):
-                sink.__init__()
-                secs, _ = wall(lambda: g.run_stream(chunk_size=sizes.chunk,
-                                                    device=dev, scan_chunks=scan),
-                               reps=1)
-                walls.append(secs)
+            sink.__init__()  # a second run replays the first run's captures
+            g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan)
             caps = [(e["unit"], e["nb"], e["replays"], e["warm_up"], e["recorded"])
                     for e in g.capture_log]
             print(f"[13 fm stream] {label}: {sizes.chunks} chunks of {sizes.chunk}, "
                   f"bit-equal to the per-chunk card run: {equal}; launches "
-                  f"{json.dumps(counts[label])}; wall {statistics.median(walls) * 1e3:.2f} "
-                  f"ms (median of {sizes.reps}; first run with its captures "
-                  f"{first_s * 1e3:.1f} ms), {n / statistics.median(walls) / 1e6:.1f} "
-                  f"Msps; captured (unit, nb, replays over the {1 + sizes.reps} "
-                  f"runs, warm-up launches, recorded launches): {caps}; card: {card}")
+                  f"{json.dumps(counts[label])}; captured (unit, nb, replays over "
+                  f"the 2 runs, warm-up launches, recorded launches): {caps}; "
+                  f"card: {card}")
             if not equal:
                 failures.append(f"{label}: not the per-chunk card run")
             nbs = batches(scan)
@@ -3272,31 +2664,34 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
                     failures.append(f"{label}: kernel B launched "
                                     f"{counts[label]['fm_chain']} times for "
                                     f"{sizes.chunks} chunks")
-                want_caps = sorted({(nb, nbs.count(nb) * (1 + sizes.reps))
-                                    for nb in nbs})
+                want_caps = sorted({(nb, nbs.count(nb) * 2) for nb in nbs})
                 if sorted((c[1], c[2]) for c in caps) != want_caps:
                     failures.append(f"{label}: captures {caps}, want (nb, "
                                     f"replays) {want_caps}")
             require(label, counts[label], ("fm_chain",))
             del g, sink, got
-    # the device's busy share in a traced run of each, and the stats table
+    # a traced run of each (profile_dir), read by utils.stats
     for scan in (None,) + tuple(sizes.scans):
         g, sink = fm_graph("device")  # one warm run (and its captures), then
         g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan)
         sink.__init__()  # the traced one
         g.run_stream(chunk_size=sizes.chunk, device=dev, scan_chunks=scan,
                      profile_dir=str(d / f"trace_{scan}"))
-        busy, span, n_dev = stats.device_busy_share(g.trace_path)
-        share = (f"device busy {busy * 1e3:.2f} ms of {span * 1e3:.2f} ms "
-                 f"traced, share {busy / max(span, 1e-12):.3f} ({n_dev} device "
-                 f"events)" if n_dev else "the trace held no device events: "
-                 "busy share not measured")
+        n_dev = stats.device_busy_share(g.trace_path)[2]
         print(f"[13 fm stream] traced run, device form, scan_chunks={scan}: "
-              f"{share}; card: {card}")
+              + (f"the trace held {n_dev} device events" if n_dev else
+                 "the trace held no device events") + f"; card: {card}")
+        # the stats table: a row for each block, then the total; the costs'
+        # columns (kernel B's work from its launches and replays)
+        table = g.generate_stats().splitlines()
+        names = [row.split()[0] for row in table[1:]]
+        want_names = [nd.block.name() for nd in g.nodes] + ["TOTAL"]
         print(f"[13 fm stream] generate_stats() over the warm run and the "
-              f"traced one, scan_chunks={scan} (costs: kernel B's work from "
-              f"its launches and replays, bytes in and out elsewhere; roof% "
-              f"against {stats.device_hbm_gbps(dev)} GB/s):\n{g.generate_stats()}")
+              f"traced one, scan_chunks={scan}: columns {table[0].split()}, "
+              f"rows {names}; card: {card}")
+        if names != want_names or "GFLOP" not in table[0]:
+            failures.append(f"13 fm stream scan_chunks={scan}: generate_stats() "
+                            f"rows {names}, want {want_names} with costs")
         del g, sink
     del ref, x_dev, x_host
     end_phase("13 fm stream")
@@ -3336,22 +2731,16 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
         zero_counts()
         with mock.patch.object(Graph, "run_stream", run_stream), \
                 capturing("symbol_sync_events_scan") as calls:
-            t0 = time.perf_counter()
             out = receive(label, sizes.ax_scan, sync_method)
-            sync()
-            secs = time.perf_counter() - t0
         counts[label] = dict(kernels.LAUNCHES)
         got = decoded(out, sizes.frames)
         caps = [(e["unit"], e["nb"], e["replays"]) for e in graphs[0].capture_log]
-        per_chunk_s, _ = wall(lambda: receive(f"{label} per chunk", None,
-                                              sync_method), reps=1)
+        receive(f"{label} per chunk", None, sync_method)
         print(f"[13 ax25 graph] ax25_1200_rx_graph sync={sync_method} chunks of "
               f"{sizes.ax_chunk}, scan_chunks={sizes.ax_scan}: "
               f"{len(set(got))}/{sizes.frames} decoded, the per-chunk run's "
-              f"list: {got == want}; {secs * 1e3:.1f} ms wall (first run, with "
-              f"its captures), per chunk {per_chunk_s * 1e3:.1f} ms; captured "
-              f"(unit, nb, replays): {caps}; launches "
-              f"{json.dumps(counts[label])}; card: {card}")
+              f"list: {got == want}; captured (unit, nb, replays): {caps}; "
+              f"launches {json.dumps(counts[label])}; card: {card}")
         if len(set(got)) < sizes.frame_gate or got != want:
             failures.append(f"{label}: {len(set(got))} frames, or not the "
                             "per-chunk run's list")
@@ -3402,24 +2791,17 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
 
     # ---- the generators at full width
     def app(name, main_fn, args, needs=()):
-        """``main_fn(args + --device)`` ``sizes.app_reps`` times; the first
-        run's launches counted.  Returns (median wall s, stdout)."""
-        secs = []
-        for rep in range(sizes.app_reps):
-            zero_counts()
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(io.StringIO()):
-                t0 = time.perf_counter()
-                rc = main_fn(args + ["--device", str(dev)])
-                sync()
-                secs.append(time.perf_counter() - t0)
-            if rc != 0:
-                failures.append(f"app {name}: exit code {rc}")
-            if rep == 0:
-                counts[name] = dict(kernels.LAUNCHES)
-                require(name, counts[name], needs)
-        return statistics.median(secs), out.getvalue()
+        """``main_fn(args + --device)``, its launches counted.  Returns its
+        standard output."""
+        zero_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc = main_fn(args + ["--device", str(dev)])
+        if rc != 0:
+            failures.append(f"app {name}: exit code {rc}")
+        counts[name] = dict(kernels.LAUNCHES)
+        require(name, counts[name], needs)
+        return out.getvalue()
 
     def check(what, ok, line):
         print(f"[13 generators] {what}: {ok}; {line}; card: {card}")
@@ -3428,42 +2810,38 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
 
     # tone: 2^24 samples against a float64 sine
     fs_t, f_t, a_t = float(sizes.tone_n), 1_234_567.0, 0.5
-    secs, _ = app("tone", tone.main, ["--freq", str(f_t), "--sample_rate", str(fs_t),
-                                      "--seconds", "1", "--amplitude", str(a_t),
-                                      "--out", str(d / "tone.c32")])
+    app("tone", tone.main, ["--freq", str(f_t), "--sample_rate", str(fs_t),
+                            "--seconds", "1", "--amplitude", str(a_t),
+                            "--out", str(d / "tone.c32")])
     y = rawfile.read_samples(str(d / "tone.c32"), "c32")
     t = np.mod(np.arange(1, sizes.tone_n + 1) * (2 * np.pi * f_t / fs_t), 2 * np.pi)
     err = float(np.abs(y - a_t * (np.sin(t) - 1j * np.cos(t))).max()) \
         if len(y) == sizes.tone_n else math.inf
     report("13 generators", f"tone {sizes.tone_n} samples vs a float64 sine",
            err, 1e-6)
-    print(f"[13 generators] tone: {len(y)} samples, {secs * 1e3:.1f} ms wall "
-          f"(median of {sizes.app_reps}); card: {card}")
     del y, t
     # fm_tx: a 10 s tone as .au -> FM at 240 kHz -> rtl_fm back
     ar, tone_f, tone_a = 48_000, 1000.0, 0.5
     k = np.arange(int(sizes.fm_seconds * ar))
     (d / "tx.au").write_bytes(au.au_encode(
         (tone_a * np.sin(2 * np.pi * tone_f / ar * k)).astype(np.float32), ar))
-    secs, _ = app("fm_tx", fm_tx.main, ["-r", str(d / "tx.au"), "--out",
-                                        str(d / "tx.c32")])
+    app("fm_tx", fm_tx.main, ["-r", str(d / "tx.au"), "--out", str(d / "tx.c32")])
     iq = rawfile.read_samples(str(d / "tx.c32"), "c32")
-    rx_s, _ = app("rtl_fm fm_tx", rtl_fm.main, ["-r", str(d / "tx.c32"),
-                                                 "--sample_rate", "240k", "--out",
-                                                 str(d / "rx.au")], ("fir_decimate",))
+    app("rtl_fm fm_tx", rtl_fm.main, ["-r", str(d / "tx.c32"), "--sample_rate",
+                                      "240k", "--out", str(d / "rx.au")],
+        ("fir_decimate",))
     rx = au.au_read(str(d / "rx.au"))[0]
     amps, resid = tone_fit(rx, float(ar), ((tone_f, tone_a),))
     check("fm_tx into rtl_fm: the tone back within 1%",
           len(iq) == len(k) * 5 and abs(amps[0] / tone_a - 1) < 0.01 and resid < 0.01,
           f"{len(iq)} IQ samples, tone {amps[0]:.5f} (sent {tone_a}), residual "
-          f"{resid:.5f}; fm_tx {secs * 1e3:.1f} ms, rtl_fm {rx_s * 1e3:.1f} ms wall "
-          f"(median of {sizes.app_reps})")
+          f"{resid:.5f}")
     del iq, rx
     # spectrum: the main path's capture peaks at the station's bin
     cap = torch.complex(i_main, q_main)
     rawfile.write_samples(str(d / "main.c32"), cap.cpu().numpy())
-    secs, text = app("spectrum", spectrum.main, ["-r", str(d / "main.c32"),
-                                                 "--sample_rate", "1.024m"])
+    text = app("spectrum", spectrum.main, ["-r", str(d / "main.c32"),
+                                           "--sample_rate", "1.024m"])
     db = spectrogram(cap, 1024)
     mean = (10 ** (db / 10)).mean(0)
     peak = int(mean.argmax())
@@ -3471,27 +2849,23 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
     half = int(75_000 / FS_RTL * 1024)
     check("spectrum peaks at the station", abs(peak - 512) <= half and "span:" in text,
           f"{db.shape[0]} frames of 1024, the mean power's peak at bin {peak} "
-          f"(the station: 512 +- {half}); {secs * 1e3:.1f} ms wall (median of "
-          f"{sizes.app_reps})")
+          f"(the station: 512 +- {half})")
     del cap, db
     # morse_beacon: its envelope is its keying
-    secs, _ = app("morse_beacon", morse_beacon.main,
-                  ["--msg", "CQ CQ DE N0CALL", "--out", str(d / "cw.c32")])
+    app("morse_beacon", morse_beacon.main,
+        ["--msg", "CQ CQ DE N0CALL", "--out", str(d / "cw.c32")])
     cw = rawfile.read_samples(str(d / "cw.c32"), "c32")
     key = np.repeat(blocks.morse_encode_bits("CQ CQ DE N0CALL"), int(48_000 * 1.2 / 20))
     check("morse_beacon envelope equals its keying bits",
           len(cw) == len(key) and np.array_equal(np.abs(cw) > 0.5, key == 1),
-          f"{len(cw)} samples; {secs * 1e3:.1f} ms wall (median of {sizes.app_reps})")
+          f"{len(cw)} samples")
     # pw_tone through run_stream into the file backend
-    secs, _ = app("pw_tone", pw_tone.main, ["--freq", "1k", "--seconds", "2",
-                                            "--volume", "0.3", "--backend", "file",
-                                            "--out", str(d / "pw.f32")])
+    app("pw_tone", pw_tone.main, ["--freq", "1k", "--seconds", "2", "--volume",
+                                  "0.3", "--backend", "file", "--out", str(d / "pw.f32")])
     pw = np.fromfile(d / "pw.f32", "<f4")
     t = np.arange(1, 96_001) * (2 * np.pi * 1000.0 / 48_000.0)
     err = float(np.abs(pw - 0.3 * np.sin(t)).max()) if len(pw) == 96_000 else math.inf
     report("13 generators", "pw_tone --backend file vs a float64 sine", err, 1e-6)
-    print(f"[13 generators] pw_tone: {len(pw)} samples, {secs * 1e3:.1f} ms wall "
-          f"(median of {sizes.app_reps}); card: {card}")
     tmp.cleanup()
     end_phase("13 generators")
     return counts, errs
@@ -3499,19 +2873,6 @@ def scan_phase(dev, card: str, sizes: ScanSizes, i_main, q_main,
 
 # ---- phase 14: the recurrences (kernels F and G) and the live feeds
 
-CMA_TAPS, CMA_MU = 16, 1e-3     # CmaEqualizer(16, 1.0, 1e-3)
-CMA_ECHO = complex(0.3 * np.exp(0.7j))  # a pre-echo two samples ahead
-CMA_NOISE = 0.01                # complex noise, per component
-CMA_TOL = 1e-5          # of max|y| (max|taps|): calls split elsewhere than at
-                        # a block of windows (tests/test_torch_recurrences.py)
-IIR_TAPS = {
-    "order 2": (0.05, 1.6, -0.65),  # poles 0.8 +- 0.1j
-    # poles 0.95 e^{+-0.3j}, 0.9 e^{+-0.9j}, 0.85 e^{+-1.6j}, 0.8 e^{+-2.4j},
-    # unit gain at DC (also tests/test_torch_recurrences.py)
-    "order 8": (0.3017025, 1.7045681, -1.5572132, 1.1628689, -0.8696898,
-                0.672317, -0.5769415, 0.500414, -0.33802596),
-}
-IIR_TOL = 5e-6          # of max|y|, against the float64 model (iir_f64)
 # growing filters whose f32 powers overflow: a pole at 1.001 and one at
 # 1 + 1/sqrt(2) (also tests/test_torch_recurrences.py)
 IIR_GROWING = {"slow pole": (1.0, 1.001), "fast poles": (1.0, 2.0, -0.5)}
@@ -3537,7 +2898,6 @@ class LiveSizes:
     feed_u8: int = 1 << 26      # and its u8iq file: 128 MiB
     feed_chunk: int = 1 << 20
     ui_fft: int = 2048
-    reps: int = 3               # runs of each timed wall (median)
 
 
 def start_app(module: str, args: list, stdin, stdout) -> subprocess.Popen:
@@ -3546,60 +2906,6 @@ def start_app(module: str, args: list, stdin, stdout) -> subprocess.Popen:
     return subprocess.Popen([sys.executable, "-m", module, *args], stdin=stdin,
                             stdout=stdout, stderr=subprocess.PIPE,
                             cwd=Path(__file__).resolve().parent)
-
-
-def recurrence_entry(name, source, replaces, n_launches, err, t):
-    """The kernels line's entry of kernel F or G: its times at phase 14's
-    held window (``live_phase``'s ``times``), the bound of its bytes and
-    operations, and ``chain_bound_ms``, its longest dependent chain at the
-    latencies this run calibrated (``kernels.cma_chain_links`` and
-    ``kernels.iir_chain_links``).  No PyTorch call computes either recurrence:
-    ``library_ms`` is None."""
-    return {"name": name, "route": "cuda",
-            "source": f"rustradio_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": n_launches, "max_abs_err": err, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
-            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            "library_ms": None, "chain_bound_ms": t["chain"][0],
-            "chain": t["chain"][1], "shape": t["shape"]}
-
-
-def cma_sequential(x: np.ndarray, ntaps: int, r: float, mu: float,
-                   dtype=np.complex128) -> np.ndarray:
-    """``cma_equalize(x, ntaps, r, mu)`` from the default taps, window after
-    window on the host (numpy): in float64 (complex128) the model, in f32
-    (complex64) the sequential recurrence, each step rounded as the JAX
-    reference's ``lax.scan`` rounds it (the sum's order aside)."""
-    real = np.float64 if dtype == np.complex128 else np.float32
-    r, mu = real(r), real(mu)
-    w = np.lib.stride_tricks.sliding_window_view(x.astype(dtype), ntaps)
-    t = np.zeros(ntaps, dtype)
-    t[0] = 1.0
-    ys = np.empty(len(w), dtype)
-    for i, wi in enumerate(w):
-        y = (t * wi).sum()
-        ys[i] = y
-        t = t + (mu * (r - (y.real * y.real + y.imag * y.imag))) * y * wi.conj()
-    return ys
-
-
-def iir_f64(x: torch.Tensor, taps, length: int = 2048) -> torch.Tensor:
-    """Float64 model of ``iir_filter(x, taps)`` from a zero history: ``x``
-    convolved (float64 FFTs, on its device) with the filter's impulse
-    response, its first ``length`` samples computed by the recurrence in
-    float64.  The filters of phase 14 have their poles inside radius 0.95,
-    so what is left out is below 0.95^2048 (1e-45) of the response's
-    peak."""
-    t = np.asarray(taps, np.float32).astype(np.float64)
-    h, hist = np.zeros(length), np.zeros(len(t) - 1)
-    for k in range(length):
-        h[k] = (t[0] if k == 0 else 0.0) + hist @ t[1:]
-        hist = np.concatenate([[h[k]], hist[:-1]])
-    n = x.shape[0]
-    m = 1 << (n + length - 1).bit_length()
-    spec = (torch.fft.rfft(x.double(), m)
-            * torch.fft.rfft(torch.from_numpy(h).to(x.device), m))
-    return torch.fft.irfft(spec, m)[:n]
 
 
 def iir_sequential(x: torch.Tensor, taps, hist: torch.Tensor) -> torch.Tensor:
@@ -3652,8 +2958,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return (torch.view_as_real(t) if t.is_complex() else t).cpu()
 
 
-def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
-               cal=None):
+def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main):
     """Phase 14 on ``dev``: kernel F (``ops.cma_equalize``, the
     ``CmaEqualizer`` block streamed) on the main path's station at unit
     modulus through a pre-echo channel, held bit-equal to its plain
@@ -3668,12 +2973,9 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     held on its calls, the plain versions' bytes within one LSB, the app's
     stdin/stdout protocol in a process of its own, ``sizes.clients`` TCP
     clients); ``DeviceFeeder`` on a c32 and a u8iq file; ``ui_server``'s
-    ``SpectrumFeed`` and ``UiServer`` on the main capture.  ``cal`` (the
-    card's latencies, ``time_sync.calibrate``) gives F's and G's chain
-    bounds.  Returns the launch counts of each path, the largest |error| of
-    each kernel held here, and F's and G's times at ``sizes.window``
-    outputs, both also at the main path's size, F at ``sizes.cma_n``
-    samples and G at ``sizes.iir_n`` (on the card; empty on the CPU)."""
+    ``SpectrumFeed`` and ``UiServer`` on the main capture.  Returns the
+    launch counts of each path and the largest |error| of each kernel held
+    here."""
     import asyncio
     import io
     import tempfile
@@ -3686,8 +2988,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     from rustradio_tpu_torch.ops import kernels
     from rustradio_tpu_torch.ui import SpectrumFeed, UiServer
 
-    on_card = dev.type == "cuda"
-    counts, times = {}, {}
+    counts = {}
     errs = {"cma": 0.0, "iir": 0.0, "fir_decimate": 0.0}
     tmp = tempfile.TemporaryDirectory()
     d = Path(tmp.name)
@@ -3740,10 +3041,6 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     report("14 rtl_data_stream", f"downsample_u8 of {n} samples vs the plain "
            f"versions' run, largest byte difference (LSB; {int((a != b).sum())} "
            f"of {len(a)} bytes differ)", lsb, 1)
-    secs, _ = wall(lambda: rds.downsample_u8(raw, FS_RDS, DS_RDS), reps=sizes.reps)
-    print(f"[14 rtl_data_stream] downsample_u8 {n} samples ({2 * n} bytes) "
-          f"250k -> 50k: {secs * 1e3:.1f} ms wall (median of {sizes.reps}), "
-          f"{n / secs / 1e6:.1f} Msps, {len(payload)} bytes out; card: {card}")
     out = io.BytesIO()
     rds.serve_stdio(payload, io.BytesIO(ctl), out)
     events = data_stream.BytesReader().feed(out.getvalue())
@@ -3771,34 +3068,25 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
             writer.close()
             return bytes(buf)
 
-        t0 = time.perf_counter()
         got = await asyncio.gather(*[client() for _ in range(sizes.clients)])
-        secs = time.perf_counter() - t0
         await srv.close()
-        return got, secs
+        return got
 
-    got, secs = asyncio.run(asyncio.wait_for(tcp_clients(), timeout=300))
+    got = asyncio.run(asyncio.wait_for(tcp_clients(), timeout=300))
     check("14 rtl_data_stream", f"--tcp: {sizes.clients} concurrent clients on "
           "loopback each receive the whole payload",
-          all(g == payload for g in got),
-          f"{[len(g) for g in got]} bytes in {secs * 1e3:.1f} ms")
+          all(g == payload for g in got), f"{[len(g) for g in got]} bytes")
     end_phase("14 rtl_data_stream")
 
     # ---- kernel F: the CMA equalizer on the station at unit modulus
     n = sizes.cma_n
-    s = torch.polar(torch.ones(n + 2, dtype=torch.float64, device=dev),
-                    phase_f64[: n + 2])
-    noise = torch.randn((2, n), generator=gen, device=dev, dtype=torch.float64)
-    x = (s[:n] + CMA_ECHO * s[2:] + CMA_NOISE * torch.complex(noise[0], noise[1])
-         ).to(torch.complex64)
-    del s, noise
+    x = cma_channel(phase_f64, n, gen)
     zero_counts()
     y, taps_end = ops.cma_equalize(x, CMA_TAPS, 1.0, CMA_MU)
     g = Graph()
     sink = g.add(blocks.VectorSink(), g.add(blocks.CmaEqualizer(CMA_TAPS, 1.0, CMA_MU),
                                             g.add(blocks.VectorSource(x))))
     g.run_stream(chunk_size=sizes.cma_chunk, device=dev)
-    sync()
     counts["cma"] = dict(kernels.LAUNCHES)
     require("cma_equalize and CmaEqualizer", counts["cma"], ("cma",))
 
@@ -3875,7 +3163,6 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     outs = {}
     for name, taps in IIR_TAPS.items():
         outs[name] = ops.iir_filter(xi, taps)
-    sync()
     counts["iir"] = dict(kernels.LAUNCHES)
     require("iir_filter", counts["iir"], ("iir",))
     head = min(n, kernels.IIR_CHUNK)
@@ -3936,99 +3223,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
           + (f"; stderr: {err.decode()[-500:]}" if app.returncode else ""))
     end_phase("14 rtl_data_stream app")
 
-    # ---- F's and G's times at the held windows, beside their bounds
-    if on_card:
-        tw = t0.to(dev)
-
-        def f_times(xf, reps):
-            """Kernel F on xf from the default taps: the call's device time
-            (one launch; median of ``reps``), its bound and its longest
-            chain at this run's latencies."""
-            nwin = xf.shape[0] - CMA_TAPS + 1
-            links, shuffles = kernels.cma_chain_links(nwin, CMA_TAPS)
-            cycles = links * cal["fadd_cycles"] + shuffles * cal["shfl_add_cycles"]
-            return dict(
-                device_ms=statistics.median(event_ms(
-                    lambda: kernels.cma_scan(xf, tw, 1.0, CMA_MU),
-                    contextlib.nullcontext, 1) for _ in range(reps)),
-                bound=bound(kernels.cma_work(xf.shape[0], CMA_TAPS)),
-                chain=(cycles / cal["sm_hz"] * 1e3,
-                       f"{links} f32 links at {cal['fadd_cycles']:.2f} + "
-                       f"{shuffles} shuffle-add links at "
-                       f"{cal['shfl_add_cycles']:.2f} cycles"),
-                n=nwin, shape=f"{CMA_TAPS} taps, {nwin} windows")
-
-        xw = x[: win + CMA_TAPS - 1].contiguous()
-
-        def f_call(k=0):
-            kernels.cma_scan(xw, tw, 1.0, CMA_MU)
-
-        times["cma"] = f_times(xw, 5)
-        times["cma"].update(ms=time_one(f_call), device_ms=graph_ms(f_call),
-                            host_us=host_us(f_call))
-        event_ms(lambda: kernels.cma_scan_plain(xw[:64 + CMA_TAPS - 1], tw, 1.0,
-                                                CMA_MU), contextlib.nullcontext, 1)
-        times["cma"]["plain_ms"] = event_ms(
-            lambda: kernels.cma_scan_plain(xw, tw, 1.0, CMA_MU),
-            contextlib.nullcontext, 1)
-        times["cma"]["full"] = f_times(x, sizes.reps)
-        for name, r in (("", times["cma"]), (", the main path's call",
-                                             times["cma"]["full"])):
-            extra = (f"in a stream {r['ms']:.4f} ms, device alone (a CUDA graph) "
-                     f"{r['device_ms']:.4f} ms, the wrapper's host "
-                     f"{r['host_us']:.1f} us a call, plain version "
-                     f"{r['plain_ms']:.1f} ms" if "ms" in r else
-                     f"device {r['device_ms']:.3f} ms (one launch, median of "
-                     f"{sizes.reps})")
-            print(f"[14 times] kernel F{name} ({r['shape']}): {extra}, "
-                  f"{r['device_ms'] * 1e-3 * cal['sm_hz'] / r['n']:.1f} cycles a "
-                  f"window at {cal['sm_hz'] / 1e9:.3f} GHz, bound "
-                  f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), share of it "
-                  f"{r['bound'][0] / r['device_ms']:.4%}, dependent-chain bound "
-                  f"{r['chain'][0]:.4f} ms ({r['chain'][1]}), share of it "
-                  f"{r['chain'][0] / r['device_ms']:.1%}; card: {card}")
-
-        def g_times(xg, taps):
-            """Kernel G on xg: in a stream, on the device alone, the
-            wrapper's host cost, the bytes bound and the longest chain."""
-            order = len(taps) - 1
-            hz = torch.zeros(order, device=dev)
-
-            def g_call(k=0):
-                kernels.iir_scan(xg, taps, hz)
-
-            n_g = xg.shape[0]
-            links = kernels.iir_chain_links(n_g, taps)
-            return dict(
-                ms=time_one(g_call), device_ms=graph_ms(g_call),
-                host_us=host_us(g_call), bound=bound(kernels.iir_work(n_g, order)),
-                chain=(links * cal["fadd_cycles"] / cal["sm_hz"] * 1e3,
-                       f"the chunked scan's longest chain, {links} f32 links "
-                       f"at {cal['fadd_cycles']:.2f} cycles"),
-                n=n_g, shape=f"order {order}, {n_g} samples")
-
-        xg = xi[:win].contiguous()
-        taps2 = IIR_TAPS["order 2"]
-        hz = torch.zeros(2, device=dev)
-        times["iir"] = g_times(xg, taps2)
-        times["iir"]["plain_ms"] = event_ms(
-            lambda: kernels.iir_scan_plain(xg, taps2, hz), contextlib.nullcontext, 1)
-        times["iir"]["full"] = {name: g_times(xi, taps)
-                                for name, taps in IIR_TAPS.items()}
-        for name, r in [("order 2", times["iir"]), *times["iir"]["full"].items()]:
-            plain = (f", plain version {r['plain_ms']:.1f} ms" if "plain_ms" in r
-                     else "")
-            print(f"[14 times] kernel G ({r['shape']}): in a stream {r['ms']:.4f} "
-                  f"ms, device alone {r['device_ms']:.4f} ms, the wrapper's host "
-                  f"{r['host_us']:.1f} us a call{plain}, bound {r['bound'][0]:.5f} "
-                  f"ms ({r['bound'][1]}), share of it "
-                  f"{r['bound'][0] / r['device_ms']:.1%}, "
-                  f"{r['device_ms'] * 1e-3 * cal['sm_hz'] / r['n']:.4f} cycles a "
-                  f"sample at {cal['sm_hz'] / 1e9:.3f} GHz; {r['chain'][1]}: "
-                  f"{r['chain'][0]:.4f} ms; card: {card}")
-        del xw, xg
     del x, y, y1, y2, xi
-    end_phase("14 times")
 
     # ---- DeviceFeeder: a c32 and a u8iq file to the card
     c32 = torch.complex(torch.randn(sizes.feed_c32, generator=gen, device=dev),
@@ -4040,12 +3235,8 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     for fmt, fname in (("c32", "feed.c32"), ("u8iq", "feed.u8")):
         path = d / fname
         nbytes = path.stat().st_size
-        sync()
-        t_start = time.perf_counter()
         with runtime.DeviceFeeder(str(path), fmt, sizes.feed_chunk, device=dev) as feed:
             chunks = list(feed)
-        sync()
-        secs = time.perf_counter() - t_start
         raw_np = np.fromfile(path, np.uint8)
         if fmt == "c32":
             v = raw_np.view(np.complex64)
@@ -4058,24 +3249,10 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
         for k in (0, 1):
             ok = ok and torch.equal(torch.cat([c[k] for c in chunks]),
                                     torch.from_numpy(want[k]).to(dev))
-        line = (f"{len(chunks)} chunks of {sizes.feed_chunk} samples, "
-                f"{nbytes / 2**20:.0f} MiB in {secs * 1e3:.1f} ms: "
-                f"{nbytes / secs / 1e9:.2f} GB/s")
-        if on_card:
-            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-            copies = []
-            for _ in range(sizes.reps):
-                sync()
-                t_copy = time.perf_counter()
-                host.to(dev, non_blocking=True)
-                sync()
-                copies.append(time.perf_counter() - t_copy)
-            line += (f"; one pinned copy of the same {nbytes / 2**20:.0f} MiB: "
-                     f"{nbytes / statistics.median(copies) / 1e9:.2f} GB/s "
-                     f"(median of {sizes.reps})")
-            del host
         check("14 feeder", f"DeviceFeeder {fmt}: every chunk kept equals "
-              "np.fromfile's planes after the last copy", ok, line)
+              "np.fromfile's planes after the last copy", ok,
+              f"{len(chunks)} chunks of {sizes.feed_chunk} samples, "
+              f"{nbytes / 2**20:.0f} MiB")
         del chunks, want
     end_phase("14 feeder")
 
@@ -4087,9 +3264,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
     feed = SpectrumFeed(iter(parts), FS_RTL, fft_size=fft, realtime=False,
                         device=dev, history=4096)
     srv = UiServer(feed).start()
-    t_start = time.perf_counter()
     feed.join(timeout=600)
-    secs = time.perf_counter() - t_start
     try:
         start, nxt, rows = feed.frames_since(0, limit=1 << 20)
         hop = max(int(FS_RTL / feed.fps), fft)
@@ -4114,9 +3289,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
         half = int(75_000 / FS_RTL * fft)
         check("14 ui", "the mean power peaks at the station",
               abs(peak - fft // 2) <= half,
-              f"bin {peak} (the station: {fft // 2} +- {half}); {len(rows)} rows "
-              f"in {secs * 1e3:.1f} ms: {len(rows) / secs:.1f} rows/s, "
-              f"{cap.shape[0] / secs / 1e6:.1f} Msps")
+              f"bin {peak} (the station: {fft // 2} +- {half}); {len(rows)} rows")
         with urllib.request.urlopen(srv.address + "/api/frames?since=0",
                                     timeout=30) as r:
             body = json.loads(r.read())
@@ -4143,7 +3316,7 @@ def live_phase(dev, card: str, sizes: LiveSizes, phase_f64, i_main, q_main,
         srv.stop()
     tmp.cleanup()
     end_phase("14 ui")
-    return counts, errs, times
+    return counts, errs
 
 
 # ---- phase 15: the multi-device layer, one shot
@@ -4169,15 +3342,6 @@ class MeshSizes:
     frame_gate: int = FRAME_GATE
 
 
-def chain_halo_bytes(chain, mesh, dtype) -> int:
-    """Bytes a shard boundary carries for a shard chain of ``chain`` on an
-    input of ``dtype``: every member's halo of its own input."""
-    from rustradio_tpu_torch.parallel.graph_mesh import chain_segment
-
-    carries = chain_segment(chain, mesh).init_carries(torch.zeros(0, dtype=dtype))
-    return sum(c.numel() * c.element_size() for c in carries.values())
-
-
 def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
     """Phase 15: the multi-device layer's one-shot half on a mesh of
     ``sizes.shards`` shards, all on ``dev`` (the one card): the sharded FM
@@ -4189,16 +3353,12 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
     AX.25 front-end sharded over the corpus ``audio`` and the native tail,
     its list ``want`` (the offline receiver's); and
     ``tools.dryrun.dryrun_multichip``.  Each sharded call is counted apart
-    (the kernels launched once a shard).  On the card it times each
-    sharded call beside its unsharded counterpart: four shards on one card
-    time the halos and the per-shard launches, not multi-GPU scaling.
-    Returns the launch counts of each path, the largest |error| of each
-    kernel held here, and the times (empty off the card)."""
-    from rustradio_tpu_torch import blocks, ops, parallel, taps as tapgen
+    (the kernels launched once a shard).  Returns the launch counts of each
+    path and the largest |error| of each kernel held here."""
+    from rustradio_tpu_torch import ops, parallel, taps as tapgen
     from rustradio_tpu_torch.models.ax25 import bell202_demod
     from rustradio_tpu_torch.models.multichannel import recover_symbols_batch
     from rustradio_tpu_torch.ops import kernels
-    from rustradio_tpu_torch.parallel.sharded import bell202_chain
     from rustradio_tpu_torch.tools.dryrun import dryrun_multichip
 
     on_card = dev.type == "cuda"
@@ -4206,7 +3366,7 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
     n_sh = sizes.shards
     mesh = parallel.make_mesh(n_sh, device=mdev)
     cmesh = parallel.make_mesh(n_sh, axis="chan", device=mdev)
-    counts, errs, times, halos = {}, {}, {}, {}
+    counts, errs = {}, {}
 
     def counted(name, fn, needs):
         """``fn()`` with the counts set to 0 just before and read just
@@ -4250,9 +3410,6 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
         "15 mesh", f"sharded_fm_demod {what}, 49 taps deci 4: {m} outputs vs the "
         f"offline chain ({unequal} not bit-equal)", wrapped_err(y[:m], want_fm[:m], 1.0),
         2 * 2e-5 * envelope_ratio(filt, 0))
-    halos["sharded_fm_demod"] = chain_halo_bytes(
-        [blocks.FirFilter(lp, DECI), blocks.QuadratureDemod(1.0)], mesh,
-        torch.complex64)
     del y2
     # kernel A on the sharded chain's own calls (each shard's window and its
     # halo) against its plain version
@@ -4271,7 +3428,6 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
            f"fir_filter_full ({unequal} not bit-equal)", max_err(
                torch.view_as_real(got), torch.view_as_real(want_f)),
            2e-5 * float(want_f.abs().max()))
-    halos["sharded_fir_filter"] = (len(lp) - 1) * 8
     got = counted("sharded_fft_filter", lambda: parallel.sharded_fft_filter(
         iq, lp, mesh), {})
     want_f = ops.fft_filter(iq, lp)
@@ -4279,7 +3435,6 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
     report("15 mesh", f"sharded_fft_filter {what}, 49 taps vs fft_filter",
            max_err(torch.view_as_real(got), torch.view_as_real(want_f)),
            1e-5 * float(want_f.abs().max()))
-    halos["sharded_fft_filter"] = (len(lp) - 1) * 8
     del got, want_f
 
     # the discriminator alone: a right halo of one sample; the last global
@@ -4293,7 +3448,6 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
            wrapped_err(got[:-1], want_q, GAIN_C), 1e-6 * GAIN_C)
     if float(got[-1]) != 0.0:
         failures.append("sharded_quadrature_demod: the last output is not 0")
-    halos["sharded_quadrature_demod"] = 8
     del got, want_q
     end_phase("15 mesh fm")
 
@@ -4312,7 +3466,6 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
         report("15 bank", f"{name}: {sizes.bank_ch} x {sizes.bank_n} over {n_sh} "
                f"shards of {sizes.bank_ch // n_sh} channels vs the unsharded call "
                f"(values, mask, clocks, valid; {int(got[3].sum())} valid)", err, 0.0)
-        halos[name] = 0
     # kernels E and D on the shards' own calls against their plain versions
     with capturing("symbol_sync_scan", "symbol_sync_events_scan") as calls:
         for method in ("scan", "events"):
@@ -4335,7 +3488,6 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
            f"{sizes.chan_n} samples over {n_sh} shards vs channelizer_fm_bank "
            f"({int((got != want_c).sum()) if got.shape == want_c.shape else -1} "
            "not bit-equal)", max_err(got, want_c), 1e-5)
-    halos["sharded_channelizer_fm"] = 0
     del got, want_c
     end_phase("15 bank")
 
@@ -4362,58 +3514,17 @@ def mesh_phase(dev, card: str, sizes: MeshSizes, i_main, q_main, audio, want):
     if len(set(got_l)) < sizes.frame_gate or got_l != want:
         failures.append(f"sharded_bell202_demod: {len(set(got_l))} frames, or not "
                         "the offline receiver's list")
-    halos["sharded_bell202_demod"] = chain_halo_bytes(
-        bell202_chain(FS_AUDIO), mesh, torch.float32)
     end_phase("15 ax25")
 
     res = dryrun_multichip(sizes.shards, device=mdev)
     if not res.get("ok"):
         failures.append(f"dryrun_multichip: {res}")
     end_phase("15 dryrun")
-
-    if on_card:
-        pairs = (
-            ("sharded_fm_demod",
-             lambda: parallel.sharded_fm_demod(iq, lp, mesh, deci=DECI),
-             lambda: ops.quadrature_demod(ops.fir_filter(iq, lp, DECI), 1.0)),
-            ("sharded_fir_filter",
-             lambda: parallel.sharded_fir_filter(iq, lp, mesh, deci=DECI),
-             lambda: ops.fir_filter_full(iq, lp, DECI)),
-            ("sharded_fft_filter", lambda: parallel.sharded_fft_filter(iq, lp, mesh),
-             lambda: ops.fft_filter(iq, lp)),
-            ("sharded_quadrature_demod",
-             lambda: parallel.sharded_quadrature_demod(iq, GAIN_C, mesh),
-             lambda: ops.quadrature_demod(iq, GAIN_C)),
-            ("sharded_channelizer_fm",
-             lambda: parallel.sharded_channelizer_fm(xw, ctaps, sizes.channels, cmesh),
-             lambda: parallel.channelizer_fm_bank(xw, ctaps, sizes.channels)),
-            ("sharded_bell202_demod",
-             lambda: parallel.sharded_bell202_demod(audio_p, FS_AUDIO, mesh),
-             lambda: bell202_demod(audio_p, FS_AUDIO)),
-        )
-        bank = decode_bank(dev, gen, sizes.bank_ch, sizes.bank_n)
-        pairs += tuple(
-            (f"sharded_symbol_sync_bank {method}",
-             lambda method=method: parallel.sharded_symbol_sync_bank(
-                 bank, BANK_SPS, cmesh, method=method, max_events=sizes.bank_events),
-             lambda method=method: recover_symbols_batch(
-                 bank, BANK_SPS, method=method, max_events=sizes.bank_events))
-            for method in ("scan", "events"))
-        for name, sharded, single in pairs:
-            t_sh, t_one = time_one(sharded), time_one(single)
-            h_sh, h_one = host_us(sharded, 20), host_us(single, 20)
-            times[name] = {"ms": t_sh, "unsharded_ms": t_one, "host_us": h_sh,
-                           "unsharded_host_us": h_one, "halo_bytes": halos[name]}
-            print(f"[15 times] {name}: {t_sh:.4f} ms over {n_sh} shards on one "
-                  f"card, {t_one:.4f} ms unsharded (CUDA events, median of "
-                  f"5 timings of 10 calls); host {h_sh:.1f} / "
-                  f"{h_one:.1f} us a call; halo {halos[name]} B a shard boundary; "
-                  f"card: {card}")
-        end_phase("15 times")
-    return counts, errs, times
+    return counts, errs
 
 
 # ---- phase 16: the multi-device layer, streamed
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshStreamSizes:
@@ -4430,7 +3541,6 @@ class MeshStreamSizes:
     fm_chunk: int = 1 << 20           # phase 13's FM stream on the mesh
     fm_chunks: int = 64
     fm_scan: int = 64
-    reps: int = 3                     # runs of each timed stream (median wall)
 
 
 def graph_of(fn):
@@ -4468,9 +3578,8 @@ def mesh_stream_phase(dev, card: str, sizes: MeshStreamSizes, audio):
     on the card (kernel A's sum for an output does not depend on where its
     call starts; the discriminator is exact), the batched run bit-equal to
     the per-chunk one, within kernel B's budget of the unsharded stream
-    (which lowers the pair to kernel B), never demoted.  Walls beside the
-    unsharded runs, host ms a chunk.  Returns the launch counts of each
-    path and the largest |error| of each kernel held here."""
+    (which lowers the pair to kernel B), never demoted.  Returns the launch
+    counts of each path and the largest |error| of each kernel held here."""
     import tempfile
 
     from rustradio_tpu_torch import blocks, ops, parallel
@@ -4519,14 +3628,11 @@ def mesh_stream_phase(dev, card: str, sizes: MeshStreamSizes, audio):
             failures.append(f"{label}: kernel A launched {c['fir_decimate']} "
                             f"times, not {want_a}")
 
-    walls = {}
     for method in ("native", "events"):
         needs = ("fir_decimate", "symbol_sync_events") if method == "events" else (
             "fir_decimate",)
-        secs, want = wall(lambda: decoded(ax25.ax25_1200_rx_graph(
-            audio, FS_AUDIO, chunk_size=sizes.chunk, sync=method), sizes.frames),
-            sizes.reps)
-        walls[f"{method} unsharded"] = secs
+        want = decoded(ax25.ax25_1200_rx_graph(
+            audio, FS_AUDIO, chunk_size=sizes.chunk, sync=method), sizes.frames)
         for scan in (None, sizes.scan):
             label = f"ax25_1200_rx_graph mesh sync={method} scan_chunks={scan}"
             zero_counts()
@@ -4536,23 +3642,8 @@ def mesh_stream_phase(dev, card: str, sizes: MeshStreamSizes, audio):
             counts[label] = dict(kernels.LAUNCHES)
             check_run(label, got, want, g.demotions)
             require(label, counts[label], needs)
-            walls[label], _ = wall(lambda: ax25.ax25_1200_rx_graph(
-                audio, FS_AUDIO, mesh, chunk_size=sizes.chunk, sync=method,
-                scan_chunks=scan), sizes.reps)
         if method == "events":
             want_events = want
-    # the dense front-end alone (the chain cut after AddConst), a chunk's
-    # host time on the mesh and unsharded: wall / chunks
-    for m, label in ((mesh, "mesh"), (None, "unsharded")):
-        secs, _ = wall(lambda: ax25_receiver(audio, "native", 6)[0].run_stream(
-            chunk_size=sizes.chunk, device=mdev, mesh=m), sizes.reps)
-        walls[f"front-end {label}"] = secs
-    print(f"[16 mesh ax25] walls, ms a run of {chunks} chunks of {sizes.chunk} "
-          f"(median of {sizes.reps}): "
-          + "; ".join(f"{k} {v * 1e3:.1f}" for k, v in walls.items())
-          + f"; the front-end alone {walls['front-end mesh'] * 1e6 / chunks:.0f} us "
-          f"a chunk on {n_sh} shards against "
-          f"{walls['front-end unsharded'] * 1e6 / chunks:.0f} unsharded; card: {card}")
 
     # 20 + 35 chunks around a checkpoint of the mesh run
     with tempfile.TemporaryDirectory() as ck_dir:
@@ -4600,35 +3691,26 @@ def mesh_stream_phase(dev, card: str, sizes: MeshStreamSizes, audio):
         return [blocks.FirFilter(lpr, deci=SCAN_TAPS_DECI), blocks.QuadratureDemod(1.0),
                 blocks.MultiplyConst(SCAN_GAIN)]
 
-    def fm_graph():
+    def fm_run(m, scan):
+        """The chain streamed from a fresh graph: (its output, the graph)."""
         g, sink = Graph(), batch_sink()
         g.chain(blocks.VectorSource(x), *fm_blocks(), sink)
-        return g, sink
-
-    def fm_run(g, sink, m, scan):
-        sink.__init__()
         g.run_stream(chunk_size=sizes.fm_chunk, device=mdev, scan_chunks=scan, mesh=m)
-        return sink.data()
+        return sink.data(), g
 
     zero_counts()
     whole = shard_chain(fm_blocks(), mesh)(x)
     counts["fm shard_chain"] = dict(kernels.LAUNCHES)
-    outs, fm_walls = {}, {}
+    outs = {}
     for m, scan, label in ((mesh, None, "mesh"), (mesh, sizes.fm_scan, "mesh batched"),
                            (None, None, "unsharded"),
                            (None, sizes.fm_scan, "unsharded batched")):
-        g, sink = fm_graph()
         zero_counts()
-        outs[label] = fm_run(g, sink, m, scan)
-        sync()
+        outs[label], g = fm_run(m, scan)
         counts[f"fm {label}"] = c = dict(kernels.LAUNCHES)
-        # the same graph again (the unsharded batches replay their captures)
-        fm_walls[label], _ = wall(lambda: fm_run(g, sink, m, scan), sizes.reps)
         print(f"[16 mesh fm] {label} (scan_chunks={scan}): {sizes.fm_chunks} chunks "
               f"of {sizes.fm_chunk}; demotions {g.demotions}; launches "
-              f"{json.dumps(c)}; wall {fm_walls[label] * 1e3:.2f} ms (median of "
-              f"{sizes.reps} runs after the first), "
-              f"{fm_walls[label] * 1e6 / sizes.fm_chunks:.0f} us a chunk; card: {card}")
+              f"{json.dumps(c)}; card: {card}")
         if g.demotions:
             failures.append(f"fm {label}: demoted {g.demotions}")
         if on_card and m is not None and (c["fir_decimate"] != n_sh * sizes.fm_chunks
@@ -4682,7 +3764,6 @@ class Mesh2dSizes:
     chunk: int = 1 << 18
     frames: int = N_FRAMES
     frame_gate: int = N_FRAMES        # 1000/1000, as the unsharded graph
-    reps: int = 3
 
 
 def same(a, b) -> bool:
@@ -4709,12 +3790,9 @@ def mesh2d_phase(dev, card: str, sizes: Mesh2dSizes, i_main, q_main, audio, want
     output equal to the others bit for bit (``Mesh.replicas``),
     and the output equal bit for bit to the same call on a 1-D mesh of
     the axis's size.  Kernels A, D and E are held against their plain
-    versions on the 2-D calls' captured arguments.  On the card it times
-    each path on the 2-D mesh beside the 1-D meshes of 2 and 4 shards and
-    the unsharded call: on one card a 2-D mesh times the host loop over
-    its shards and replicas, not scaling.  Returns the launch counts of
-    each path, the largest |error| of each kernel held here, and the
-    times (empty off the card)."""
+    versions on the 2-D calls' captured arguments.  Returns the launch
+    counts of each path and the largest |error| of each kernel held
+    here."""
     from rustradio_tpu_torch import ops, parallel, taps as tapgen
     from rustradio_tpu_torch.graph import Graph
     from rustradio_tpu_torch.models import ax25
@@ -4729,7 +3807,7 @@ def mesh2d_phase(dev, card: str, sizes: Mesh2dSizes, i_main, q_main, audio, want
     one = {a: parallel.make_mesh(m2.shape[a], axis=a, device=mdev)
            for a in ("time", "chan")}
     grid = f"make_mesh_2d({sizes.n_time}, {sizes.n_chan})"
-    counts, errs, times = {}, {}, {}
+    counts, errs = {}, {}
 
     def run(name, axis, fn, needs):
         """``fn(m2)`` with the counts set to 0 just before and read just
@@ -4865,78 +3943,7 @@ def mesh2d_phase(dev, card: str, sizes: Mesh2dSizes, i_main, q_main, audio, want
         failures.append(f"mesh2d receiver: {len(set(got_l))} frames, another list, or "
                         f"demoted at {dem[m2.grid]}")
     end_phase("17 mesh2d streamed")
-
-    if on_card:
-        wide = {a: parallel.make_mesh(MESH_SHARDS, axis=a, device=mdev)
-                for a in ("time", "chan")}
-        cases = (
-            ("sharded_fm_demod", "time",
-             lambda m: parallel.sharded_fm_demod(iq, lp, m, deci=DECI),
-             lambda: ops.quadrature_demod(ops.fir_filter(iq, lp, DECI), 1.0)),
-            ("sharded_channelizer_fm", "chan",
-             lambda m: parallel.sharded_channelizer_fm(xw, ctaps, sizes.channels, m),
-             lambda: parallel.channelizer_fm_bank(xw, ctaps, sizes.channels)),
-        ) + tuple(
-            (f"sharded_symbol_sync_bank {method}", "chan",
-             lambda m, method=method: parallel.sharded_symbol_sync_bank(
-                 bank, BANK_SPS, m, method=method, max_events=sizes.bank_events),
-             lambda method=method: recover_symbols_batch(
-                 bank, BANK_SPS, method=method, max_events=sizes.bank_events))
-            for method in ("scan", "events"))
-        for name, axis, sharded, single in cases:
-            t = {"2-D": time_one(lambda: sharded(m2)),
-                 f"1-D {m2.shape[axis]}": time_one(lambda: sharded(one[axis])),
-                 f"1-D {MESH_SHARDS}": time_one(lambda: sharded(wide[axis])),
-                 "unsharded": time_one(single)}
-            times[name] = t
-            print(f"[17 times] {name} over {axis}: ms a call (CUDA events, median of 5 "
-                  "timings of 10 calls): " + "; ".join(f"{k} {v:.4f}" for k, v in t.items())
-                  + f"; card: {card}")
-        t = {}
-        for label, m in (("2-D", m2), ("1-D 2", one["time"]),
-                         (f"1-D {MESH_SHARDS}", wide["time"]), ("unsharded", None)):
-            secs, _ = wall(lambda: ax25_receiver(audio, "native", 6)[0].run_stream(
-                chunk_size=sizes.chunk, device=mdev, mesh=m), sizes.reps)
-            t[label] = secs * 1e6 / chunks
-        times["ax25 front-end streamed, us a chunk"] = t
-        print(f"[17 times] the AX.25 front-end streamed in {chunks} chunks of "
-              f"{sizes.chunk}, us a chunk (wall, median of {sizes.reps}): "
-              + "; ".join(f"{k} {v:.0f}" for k, v in t.items()) + f"; card: {card}")
-        end_phase("17 times")
-    return counts, errs, times
-
-
-# ---- phase 18: the benchmark programs (tools/bench.py, tools/check_fm_accuracy.py)
-
-
-def bench_phase(dev, card: str, sizes, card_info):
-    """Phase 18 on ``dev``: ``tools/bench.py``'s headline line at ``sizes``
-    (a ``tools.bench_kernels.Sizes``: its full sizes on the card), one
-    timing of 10 calls a row, and ``tools/check_fm_accuracy.py``'s five
-    precision modes, both measured on ``card_info`` (a ``timing.Card``; None
-    leaves every time null).  A failure for every line that is not
-    correct (a row's check, or a mode past its budget).  Returns the
-    headline line and the modes' lines."""
-    from rustradio_tpu_torch.tools import bench, bench_kernels, check_fm_accuracy
-
-    t0 = time.perf_counter()
-    ctx = bench_kernels.Ctx(dev, sizes, SEED, card_info, reps=1)
-    head = bench.headline(ctx)
-    print(f"[18 bench] {json.dumps(head)}")
-    if not head["correct"]:
-        failures.append("18 bench: rows not correct: " + ", ".join(
-            k for k, r in head["rows"].items() if not r["correct"]))
-    acc = check_fm_accuracy.lines(dataclasses.replace(ctx, seed=7))
-    for line in acc:
-        print(f"[18 bench] {json.dumps(line)}")
-        if not line["correct"]:
-            failures.append(f"18 check_fm_accuracy: {line['precision']} error "
-                            f"{line['max_err_rad']:.3e} past {line['budget_rad']:.0e}")
-    print(f"[18 bench] headline {head['value']} Msamples/s, graph loop "
-          f"{head['graph_fm_chain_msps']}, {len(acc)} precision modes, in "
-          f"{time.perf_counter() - t0:.1f} s; card: {card}")
-    end_phase("18")
-    return head, acc
+    return counts, errs
 
 
 def main() -> int:
@@ -4960,11 +3967,9 @@ def main() -> int:
     print(f"[1 env] card: {card}")
 
     # ---- 2. build
-    t0 = time.perf_counter()
     cuda_lib.load()
-    info = cuda_lib.BUILD_INFO
-    print(f"[2 build] {info['path']} cached={info['cached']} "
-          f"nvcc_s={info['seconds']:.1f} load_s={time.perf_counter() - t0:.1f}")
+    print(f"[2 build] {cuda_lib.BUILD_INFO['path']} "
+          f"cached={cuda_lib.BUILD_INFO['cached']}")
 
     sizes = CoreSizes()
     # ---- 3 and 3e. kernels A, B and C against their plain versions
@@ -4972,7 +3977,7 @@ def main() -> int:
     i_main, q_main, phase = cap["i_main"], cap["q_main"], cap["phase"]
 
     # ---- 4 and 5. the FM path, counted: the models and the Graph device loop
-    launches, loops = fm_phase(dev, card, sizes, gen, cap)
+    launches = fm_phase(dev, card, sizes, gen, cap)
 
     # ---- 6. the AX.25 1200 bd path, counted
     audio, iq_np, got, ax_counts, iq_counts = ax25_phase(dev, card, sizes)
@@ -4980,13 +3985,10 @@ def main() -> int:
     # ---- 7. the discriminator op path, counted
     op_counts = op_phase(dev, card, cap)
 
-    # ---- 8. times: kernel beside plain version
-    t = times_phase(dev, card, sizes, cap, loops, audio)
-    del loops
-
-    # ---- 9. clock recovery (kernels D and E) and the wideband receiver
-    sync_errs, ev_got, ev_counts, wb_counts, cal = sync_phase(
-        dev, card, sizes, gen, t, audio, got)
+    # ---- 9. clock recovery (kernels D and E), the wideband receiver and
+    # the channelizer (kernel H)
+    sync_errs, ev_got, ev_counts, wb_counts = sync_phase(
+        dev, card, sizes, gen, audio, got)
     errs.update(sync_errs)
 
     # ---- 10. the FM family's apps and the streaming Graph, counted
@@ -5017,15 +4019,15 @@ def main() -> int:
     apps.update({f"13 {k}": v for k, v in scan_counts.items()})
 
     # ---- 14. the recurrences (kernels F and G) and the live feeds, counted
-    live_counts, call_errs, live_times = live_phase(
-        dev, card, LiveSizes(), phase, i_main, q_main, cal)
+    live_counts, call_errs = live_phase(dev, card, LiveSizes(), phase, i_main,
+                                        q_main)
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"14 {k}": v for k, v in live_counts.items()})
 
     # ---- 15. the multi-device layer, one shot: 4 shards on the card, counted
-    mesh_counts, call_errs, _ = mesh_phase(dev, card, MeshSizes(), i_main, q_main,
-                                           audio, got)
+    mesh_counts, call_errs = mesh_phase(dev, card, MeshSizes(), i_main, q_main,
+                                        audio, got)
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"15 {k}": v for k, v in mesh_counts.items()})
@@ -5037,43 +4039,22 @@ def main() -> int:
     apps.update({f"16 {k}": v for k, v in stream_counts.items()})
 
     # ---- 17. 2-D meshes: a (chan, time) mesh of 2 x 2 shards on the card, counted
-    mesh2d_counts, call_errs, _ = mesh2d_phase(dev, card, Mesh2dSizes(), i_main,
-                                               q_main, audio, got)
+    mesh2d_counts, call_errs = mesh2d_phase(dev, card, Mesh2dSizes(), i_main,
+                                            q_main, audio, got)
     for name, err in call_errs.items():
         errs[name] = max(errs.get(name, 0.0), err)
     apps.update({f"17 {k}": v for k, v in mesh2d_counts.items()})
-
-    # ---- 18. the benchmark programs at their full sizes
-    from rustradio_tpu_torch.tools import bench_kernels, timing
-    bench_phase(dev, card, bench_kernels.Sizes(), timing.card())
 
     def total(name, prefix=""):
         return sum(c[name] for k, c in apps.items() if k.startswith(prefix))
 
     def entry(name, source, replaces, n_launches):
-        """One kernel of the record: its launches on its paths, its error
-        against the plain version, its time in a stream of calls (``ms``)
-        and alone on the device at its row of ``t.record``, the plain
-        version's, the bound computed from this run's inputs (bytes over
-        the memory rate or operations over the f32 peak), and the library
-        call's where one exists.  One walking lane per channel (kernels D
-        and E) is held by neither: its entry also has ``chain_bound_ms``,
-        the dependent chain of the busiest channel counted from the source
-        at this run's calibrated latencies, what it was counted from, and
-        the device time of the one-thread-per-channel form on the same
-        arguments."""
-        row = t.record[name]
-        out = {"name": name, "route": "cuda",
-               "source": f"rustradio_tpu_torch/csrc/{source}",
-               "replaces": replaces, "launches": n_launches,
-               "max_abs_err": errs[name], "ms": t.rows[row][0],
-               "plain_ms": t.rows[row][1], "device_ms": t.dev_ms[row],
-               "bound_ms": t.bounds[row][0], "bound_by": t.bounds[row][1],
-               "library_ms": t.lib_ms[row]}
-        if row in t.chains:
-            out["chain_bound_ms"], out["chain"] = t.chains[row]
-            out["one_thread_device_ms"] = t.lone_ms[row]
-        return out
+        """One kernel of the record: its launches on its paths and its
+        largest |error| against its plain version."""
+        return {"name": name, "route": "cuda",
+                "source": f"rustradio_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": errs[name]}
 
     record = {"kernels": [
         entry("fir_decimate", "fir_decimate.cu",
@@ -5094,10 +4075,8 @@ def main() -> int:
         entry("symbol_sync_scan", "symbol_sync.cu",
               "rustradio_tpu/ops/symbol_sync.py:145",
               wb_counts["scan"]["symbol_sync_scan"] + total("symbol_sync_scan")),
-        recurrence_entry("cma", "cma.cu", "rustradio_tpu/ops/cma.py:45",
-                         total("cma"), errs["cma"], live_times["cma"]),
-        recurrence_entry("iir", "iir.cu", "rustradio_tpu/ops/iir.py:68",
-                         total("iir"), errs["iir"], live_times["iir"]),
+        entry("cma", "cma.cu", "rustradio_tpu/ops/cma.py:45", total("cma")),
+        entry("iir", "iir.cu", "rustradio_tpu/ops/iir.py:68", total("iir")),
         entry("pfb_channelize", "pfb_channelize.cu", None,
               sum(c["pfb_channelize"] for c in wb_counts.values())
               + total("pfb_channelize")),

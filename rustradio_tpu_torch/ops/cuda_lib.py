@@ -10,11 +10,6 @@ the sources.  The library lands in ``rustradio_tpu_torch/_build/``
 is a cache hit.  The build happens at
 first use, never at import: a machine without ``nvcc`` imports every
 module and runs the plain versions on CPU tensors.  A failed build raises.
-
-:func:`build` also makes a second library from another directory of
-sources (``tools/csrc/``: the yardsticks of ``tools/time_sync.py``, which
-include the headers of ``csrc/``), so that nothing but the kernels of the
-paths is compiled into, or bound from, the library every user loads.
 """
 
 from __future__ import annotations
@@ -49,41 +44,37 @@ def _nvcc() -> str:
     return path
 
 
-def sources(src_dir: Path = CSRC_DIR) -> list[Path]:
-    return sorted(src_dir.glob("*.cu"))
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path(src_dir: Path = CSRC_DIR, prefix: str = "librr_cuda") -> Path:
-    """The library's file, named by the flags and every file of ``csrc/``
-    (and of ``src_dir``, where that is another directory: its sources may
-    include the headers of ``csrc/``)."""
+def library_path() -> Path:
+    """The library's file, named by the flags and every file of ``csrc/``."""
     parts = [" ".join(NVCC_FLAGS[:-2]), " ".join(LINK_FLAGS)]
-    for folder in dict.fromkeys((CSRC_DIR, src_dir)):
-        for src in sorted(folder.iterdir()):
-            parts += [src.name, src.read_bytes()]
-    return _buildcache.hashed_path(BUILD_DIR, prefix, parts)
+    for src in sorted(CSRC_DIR.iterdir()):
+        parts += [src.name, src.read_bytes()]
+    return _buildcache.hashed_path(BUILD_DIR, "librr_cuda", parts)
 
 
-def build(src_dir: Path = CSRC_DIR, prefix: str = "librr_cuda") -> Path:
-    """Compile ``src_dir``/*.cu unless a library of the same hash exists:
-    the sources in parallel into objects in a temporary directory, then
-    one link."""
-    out = library_path(src_dir, prefix)
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless a library of the same hash exists: the
+    sources in parallel into objects in a temporary directory, then one
+    link."""
+    out = library_path()
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         def compile_then_link(tmp: Path) -> list[str]:
             nvcc = _nvcc()
-            srcs = sources(src_dir)
+            srcs = sources()
             objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in srcs]
             _buildcache.run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
                                  for src, obj in zip(srcs, objs)])
             return [nvcc, *LINK_FLAGS, "-o", str(tmp), *objs]
 
         cached = _buildcache.build(out, compile_then_link)
-    if src_dir == CSRC_DIR:
-        BUILD_INFO.update(path=str(out), cached=cached,
-                          seconds=0.0 if cached else time.perf_counter() - t0)
+    BUILD_INFO.update(path=str(out), cached=cached,
+                      seconds=0.0 if cached else time.perf_counter() - t0)
     return out
 
 

@@ -57,11 +57,6 @@ is a TPU-only MXU product:
   the branch filter on registers, the inverse DFT as two small-radix
   passes through shared memory, the power summed beside the stores.
 
-``tools/csrc/symbol_sync_lone.cu`` keeps D and E as one thread per channel,
-and ``tools/csrc/chain_calib.cu`` measures a lone lane's latencies:
-yardsticks that ``tools/time_sync.py`` builds into a library of its own
-(for itself and ``chip_smoke.py``); the package's library holds neither.
-
 Routing: a wrapper runs the plain version only because its tensor lies on
 the CPU.  For a CUDA tensor it launches the kernel or raises; nothing
 falls back.  ``*_plain`` are the plain versions themselves, callable on
@@ -1140,48 +1135,6 @@ def iir_work(n: int, order: int):
     operations a sample (the recurrence's own; the chunked scan's matrix
     products, and their scaling for a growing filter, are the design's)."""
     return float(8 * n + 4 * order), float(n * (2 * order + 1))
-
-
-def cma_chain_links(nwin: int, ntaps: int) -> tuple[int, int]:
-    """(f32 links, shuffle-add links) of the longest dependent chain in
-    kernel F's call on nwin windows (csrc/cma.cu), blocks of ``CMA_BLOCK``
-    windows.  Every window's c goes to every lane by a shuffle, whose
-    first dependent operation (a multiplication) makes a shuffle-add link.
-    A window takes its partial as y (|y|^2 2 links, e 1, mu * e 1, c 1);
-    a block's later windows first add the newest term (the product's
-    subtraction 1 after its shuffle-add link, the addition 1); after a
-    block's last window the taps' update (2 after its shuffle-add link),
-    and before every block its bases (the product 2, the lane sums one a
-    slot of 32 taps, the fold 5).  The shared-memory store and load of the
-    taps between the update and the bases are not counted."""
-    blocks = -(-nwin // CMA_BLOCK)
-    bases = 7 + -(-ntaps // 32)
-    links = 5 * nwin + 2 * (nwin - blocks) + 2 * blocks + bases * blocks
-    return links, nwin
-
-
-def iir_chain_links(n: int, taps) -> int:
-    """The longest chain of dependent f32 operations in kernel G's call on
-    n samples of the filter ``taps`` (csrc/iir.cu): the walks (two links a
-    sample, as the most recent term is added last), and where there is
-    more than one chunk the first walk, a block's scan (seven levels of a
-    row sum, order links, and the addition into the state) and the powers
-    applied to a carry (at most seven matrix rows); where there is more
-    than one block, the carries' scan over its tiles (seven levels and
-    eight powers a tile).  A filter whose powers carry an exponent
-    (:func:`iir_exponents` not all 0: a growing filter) scales every row
-    sum of a product, one link more a row."""
-    taps = np.ascontiguousarray(taps, np.float32).reshape(-1)
-    chunks = -(-n // IIR_CHUNK)
-    blocks = -(-chunks // IIR_BLOCK)
-    # a product's row: its sum over the order's columns, then its scaling
-    row = len(taps) - 1 + int(iir_exponents(taps).any())
-    links = 2 * IIR_CHUNK
-    if chunks > 1:
-        links += 2 * IIR_CHUNK + 2 * 7 * (row + 1)
-    if blocks > 1:
-        links += -(-(blocks - 1) // IIR_BLOCK) * (7 * (row + 1) + 8 * row + 1)
-    return links
 
 
 def _f32(v: float) -> float:

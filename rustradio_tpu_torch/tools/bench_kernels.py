@@ -9,8 +9,9 @@ timed.
 
 Groups (``--only``, the JAX script's names): fm_chain, native, bell202,
 fir, fft_filter, quad_demod, channelizer, decode_bank, scan_stream,
-scan_stream_device.  Inputs come from ``--seed`` (torch.Generator on the
-device, numpy for the host rows).
+scan_stream_device; and recurrences, kernels F and G, which the JAX
+script has no row for.  Inputs come from ``--seed`` (torch.Generator on
+the device, numpy for the host rows).
 
 Method.  A device row's time is the median of 5 CUDA-event timings of 10
 back-to-back calls after 2 warm-up calls, with the quartiles and the
@@ -65,11 +66,13 @@ FIR_TOL = 2e-5             # of max|y|, the FIR rows against float64
 QUAD_TOL = 1e-6            # of |gain|, kernel C against its plain version
 QUAD_F64_TOL = 2e-4        # of |gain|, kernel C against float64 (fast atan2)
 CALLS = 10                 # calls a timing
+REPS = 5                   # timings a row
 BANK_SPS = corpus.BANK_SPS
 FS_BELL = 44_100.0         # bench_bell202_frontend's rate
 PFB_CH = 256               # the channelizer's channels
 CELL_CH = 128              # and the wideband cell's (aprs_wideband.scan)
 POWER_TOL = 1e-5           # relative, kernel H's channel power against plain
+CMA_TAPS, CMA_MU = corpus.CMA_TAPS, corpus.CMA_MU
 STREAM_GAIN = 0.5          # the streams' MultiplyConst
 PLANE_BYTES = {"highest": 4, "split3": 4, "w3": 2, "w2": 2, "i8": 1}
 # the leaf wrapper that launches each kernel (a kernels.LAUNCHES key)
@@ -77,7 +80,7 @@ LEAF = {"fir_decimate": "_fir_planes", "fm_chain": "fm_chain_span",
         "quad_demod": "quad_demod_fast",
         "symbol_sync_events": "symbol_sync_events_scan",
         "symbol_sync_scan": "symbol_sync_scan",
-        "pfb_channelize": "pfb_channelize"}
+        "pfb_channelize": "pfb_channelize", "cma": "cma_scan", "iir": "iir_scan"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +108,9 @@ class Sizes:
     tile_rows: int = 1024      # and its packed ring's tile rows
     prefix: int = 1 << 18      # samples held against float64 models
     sync_prefix: int = 1 << 12  # native symbol sync against the plain loop
+    recur_window: int = 1 << 14  # kernels F and G: the window held bit for bit,
+    cma_call: int = 1 << 22    # F's windows at the main path's call,
+    iir_call: int = 1 << 24    # G's samples at the main path's stream
 
 
 SMALL = Sizes(fm_n=1 << 16, fir_n=1 << 16, fft_n=1 << 16, quad_n=1 << 16,
@@ -112,20 +118,19 @@ SMALL = Sizes(fm_n=1 << 16, fir_n=1 << 16, fft_n=1 << 16, quad_n=1 << 16,
               bank_n=1 << 11, stream_chunk=1 << 13, device_chunk=1 << 13,
               stream_chunks=8, native_n=1 << 16, hdlc_frames=8, hdlc_repeats=2,
               loop_n=1 << 14, loop_chunks=4, tile_rows=32, prefix=1 << 14,
-              sync_prefix=1 << 10)
+              sync_prefix=1 << 10, recur_window=1 << 8, cma_call=1 << 10,
+              iir_call=1 << 14)
 
 
 @dataclasses.dataclass
 class Ctx:
     """What every row is made from: the device, the sizes, the seed, the
-    card (None on the CPU), the timings a row (chip_smoke's phase 18 takes
-    one) and whether to trace."""
+    card (None on the CPU) and whether to trace."""
 
     device: torch.device
     sizes: Sizes
     seed: int = 0
     card: timing.Card | None = None
-    reps: int = 5
     trace: bool = False
 
     def gen(self, salt: int) -> torch.Generator:
@@ -653,6 +658,86 @@ def native_rows(ctx: Ctx):
               host=True, fields={"bits": len(stream)}, rate="mbps")
 
 
+def cma_rows(ctx: Ctx):
+    """Kernel F (``ops.cma_equalize``, 16 taps) on ``corpus.cma_channel``
+    of the main path's station, as chip_smoke's phase 14 feeds it: over
+    the held window and at the main path's call.  Its first
+    ``recur_window`` windows are held bit-equal to the plain version (a
+    Python loop over the windows: the whole call only at the window) and
+    to the float64 recurrence (numpy on the host)."""
+    from .. import ops
+    from ..ops import kernels
+
+    s = ctx.sizes
+    t0 = torch.zeros(CMA_TAPS, dtype=torch.complex64, device=ctx.device)
+    t0[0] = 1.0
+    for label, nwin, salt in (("window", s.recur_window, 12),
+                              ("call", s.cma_call, 13)):
+        n = nwin + CMA_TAPS - 1
+        gen = ctx.gen(salt)
+        phase = corpus.rtl_fm_iq(n + 2, ctx.device, gen)[2]
+        xs = [corpus.cma_channel(phase, n, gen) for _ in range(3)]
+        del phase
+
+        def run(k, xs=xs):
+            return ops.cma_equalize(xs[k % len(xs)], CMA_TAPS, 1.0, CMA_MU)
+
+        def check(run=run, xs=xs, nwin=nwin):
+            y, taps = run(0)
+            k = min(s.recur_window, nwin)
+            head = xs[0][: k + CMA_TAPS - 1]
+            py, ptaps = kernels.cma_scan_plain(head, t0, 1.0, CMA_MU)
+            y64 = corpus.cma_sequential(head.cpu().numpy(), CMA_TAPS, 1.0, CMA_MU)
+            want = torch.from_numpy(y64).to(ctx.device)
+            out = {f"plain version, the first {k} windows": (
+                abs_err(torch.view_as_real(y[:k]), torch.view_as_real(py)), 0.0),
+                f"float64 model, the first {k} windows, |error| / max|y|": (
+                    float((y[:k] - want).abs().max() / want.abs().max()),
+                    corpus.CMA_TOL)}
+            if k == nwin:
+                out["plain version, the final taps"] = (
+                    abs_err(torch.view_as_real(taps), torch.view_as_real(ptaps)), 0.0)
+            return out
+
+        yield Row(f"cma/{CMA_TAPS}taps_{label}", n, {"": run}, check, kernel="cma",
+                  work=kernels.cma_work(n, CMA_TAPS), rotation=len(xs),
+                  fields={"ntaps": CMA_TAPS, "windows": nwin})
+        del xs
+
+
+def iir_rows(ctx: Ctx):
+    """Kernel G (``ops.iir_filter``) at orders 2 and 8 on noise, over the
+    held window and at the main path's stream, each call bit-equal to the
+    plain version and within ``corpus.IIR_TOL`` of the float64 model."""
+    from .. import ops
+    from ..ops import kernels
+
+    s = ctx.sizes
+    for label, n, salt in (("window", s.recur_window, 14), ("call", s.iir_call, 15)):
+        gen = ctx.gen(salt)
+        xs = [torch.randn(n, generator=gen, device=ctx.device) for _ in range(4)]
+        for taps in corpus.IIR_TAPS.values():
+            order = len(taps) - 1
+
+            def run(k, xs=xs, taps=taps):
+                return ops.iir_filter(xs[k % len(xs)], taps)
+
+            def check(run=run, xs=xs, taps=taps, order=order):
+                y = run(0)
+                plain = kernels.iir_scan_plain(
+                    xs[0], taps, torch.zeros(order, device=ctx.device))
+                want = corpus.iir_f64(xs[0], taps)
+                return {"plain version": (abs_err(y, plain), 0.0),
+                        "float64 model, |error| / max|y|": (
+                            float((y.double() - want).abs().max() / want.abs().max()),
+                            corpus.IIR_TOL)}
+
+            yield Row(f"iir/order{order}_{label}", n, {"": run}, check, kernel="iir",
+                      work=kernels.iir_work(n, order), rotation=len(xs),
+                      fields={"order": order})
+        del xs
+
+
 BENCHES = {
     "fm_chain": fm_chain_rows,
     "native": native_rows,
@@ -664,6 +749,7 @@ BENCHES = {
     "decode_bank": decode_bank_rows,
     "scan_stream": lambda ctx: stream_rows(ctx, resident=False),
     "scan_stream_device": lambda ctx: stream_rows(ctx, resident=True),
+    "recurrences": lambda ctx: itertools.chain(cma_rows(ctx), iir_rows(ctx)),
 }
 
 
@@ -717,9 +803,9 @@ def measure(row: Row, ctx: Ctx) -> dict:
             ks = itertools.count()
             call = (lambda fn=fn, ks=ks: fn(next(ks) % row.rotation))
             if row.host:
-                st = timing.host_stats(call, reps=ctx.reps)
+                st = timing.host_stats(call, reps=REPS)
             else:
-                st = timing.event_stats(call, reps=ctx.reps, calls=CALLS)
+                st = timing.event_stats(call, reps=REPS, calls=CALLS)
             ms, msps = st["median"], row.n / st["median"] / 1e3
             if i == 0:
                 timed.update({row.rate: msps}, ms=ms, ms_q1=st["q1"],
@@ -746,8 +832,7 @@ def measure(row: Row, ctx: Ctx) -> dict:
                 for f, a, kw in calls[k % len(calls)]:
                     f(*a, **kw)
 
-            timed["device_ms"] = timing.graph_ms(replay, reps=ctx.reps,
-                                                 calls=CALLS)
+            timed["device_ms"] = timing.graph_ms(replay, reps=REPS, calls=CALLS)
             if not row.host:
                 timed["host_us"] = timing.host_us(lambda: fn0(0), calls=50)
             timed["bound_ms"], timed["bound_by"] = timing.bound(row.work,

@@ -1,7 +1,8 @@
-"""The synthetic inputs and the float64 model shared by ``chip_smoke.py``
+"""The synthetic inputs and the float64 models shared by ``chip_smoke.py``
 and the benchmark programs (``tools/bench*.py``): an FM station and noise
-on rtl-sdr's 8-bit wire grid, the decode bank's noisy NRZ, and the FM
-chain in float64 numpy."""
+on rtl-sdr's 8-bit wire grid, the decode bank's noisy NRZ, the FM chain in
+float64 numpy, and the recurrences of kernels F and G (the CMA equalizer
+window after window, the IIR filter by its impulse response)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,20 @@ BANK_N = 1 << 16          # 64 channels x 2^16 NRZ samples at sps 36.75,
 BANK_SPS = 36.75          # noise 0.1, default clock taps
 BANK_NOISE = 0.1
 BANK_EVENTS = 7133        # slot budget, 4 * 2^16 / 36.75
+CMA_TAPS, CMA_MU = 16, 1e-3     # CmaEqualizer(16, 1.0, 1e-3)
+CMA_ECHO = complex(0.3 * np.exp(0.7j))  # a pre-echo two samples ahead
+CMA_NOISE = 0.01                # complex noise, per component
+CMA_TOL = 1e-5          # of max|y| (max|taps|): kernel F against float64, and
+                        # calls split elsewhere than at a block of windows
+                        # against one call (tests/test_torch_recurrences.py)
+IIR_TOL = 5e-6          # of max|y|, kernel G against float64 (iir_f64)
+IIR_TAPS = {
+    "order 2": (0.05, 1.6, -0.65),  # poles 0.8 +- 0.1j
+    # poles 0.95 e^{+-0.3j}, 0.9 e^{+-0.9j}, 0.85 e^{+-1.6j}, 0.8 e^{+-2.4j},
+    # unit gain at DC (also tests/test_torch_recurrences.py)
+    "order 8": (0.3017025, 1.7045681, -1.5572132, 1.1628689, -0.8696898,
+                0.672317, -0.5769415, 0.500414, -0.33802596),
+}
 
 
 def fm_taps() -> np.ndarray:
@@ -90,3 +105,54 @@ def decode_bank(device, gen: torch.Generator, channels: int = BANK_CH,
     nrz = torch.repeat_interleave(bits, rep, dim=1)[:, :n]
     return (nrz + BANK_NOISE * torch.randn(nrz.shape, generator=gen,
                                            device=device)).contiguous()
+
+
+def cma_channel(phase: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
+    """Kernel F's input: n samples of the station whose phase (float64) is
+    ``phase`` at unit modulus through a pre-echo ``CMA_ECHO`` two samples
+    ahead, plus complex noise of ``CMA_NOISE`` per component; complex64 on
+    the phase's device."""
+    dev = phase.device
+    s = torch.polar(torch.ones(n + 2, dtype=torch.float64, device=dev),
+                    phase[: n + 2])
+    noise = torch.randn((2, n), generator=gen, device=dev, dtype=torch.float64)
+    return (s[:n] + CMA_ECHO * s[2:] + CMA_NOISE * torch.complex(noise[0], noise[1])
+            ).to(torch.complex64)
+
+
+def cma_sequential(x: np.ndarray, ntaps: int, r: float, mu: float,
+                   dtype=np.complex128) -> np.ndarray:
+    """``cma_equalize(x, ntaps, r, mu)`` from the default taps, window after
+    window on the host (numpy): in float64 (complex128) the model, in f32
+    (complex64) the sequential recurrence, each step rounded as the JAX
+    reference's ``lax.scan`` rounds it (the sum's order aside)."""
+    real = np.float64 if dtype == np.complex128 else np.float32
+    r, mu = real(r), real(mu)
+    w = np.lib.stride_tricks.sliding_window_view(x.astype(dtype), ntaps)
+    t = np.zeros(ntaps, dtype)
+    t[0] = 1.0
+    ys = np.empty(len(w), dtype)
+    for i, wi in enumerate(w):
+        y = (t * wi).sum()
+        ys[i] = y
+        t = t + (mu * (r - (y.real * y.real + y.imag * y.imag))) * y * wi.conj()
+    return ys
+
+
+def iir_f64(x: torch.Tensor, taps, length: int = 2048) -> torch.Tensor:
+    """Float64 model of ``iir_filter(x, taps)`` from a zero history: ``x``
+    convolved (float64 FFTs, on its device) with the filter's impulse
+    response, its first ``length`` samples computed by the recurrence in
+    float64.  For the filters of ``IIR_TAPS``, whose poles lie inside
+    radius 0.95, what is left out is below 0.95^2048 (1e-45) of the
+    response's peak."""
+    t = np.asarray(taps, np.float32).astype(np.float64)
+    h, hist = np.zeros(length), np.zeros(len(t) - 1)
+    for k in range(length):
+        h[k] = (t[0] if k == 0 else 0.0) + hist @ t[1:]
+        hist = np.concatenate([[h[k]], hist[:-1]])
+    n = x.shape[0]
+    m = 1 << (n + length - 1).bit_length()
+    spec = (torch.fft.rfft(x.double(), m)
+            * torch.fft.rfft(torch.from_numpy(h).to(x.device), m))
+    return torch.fft.irfft(spec, m)[:n]

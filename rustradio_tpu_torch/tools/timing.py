@@ -1,11 +1,12 @@
-"""The timers, the card's identity and bounds, and the plain-version switch
-shared by ``chip_smoke.py`` and the benchmark programs (``tools/bench*.py``).
+"""The benchmark programs' timers (``tools/bench*.py``), the card's
+identity and bounds, and the plain-version switch that they and
+``chip_smoke.py`` share.
 
 Device times come from CUDA events: per call in a stream of calls
-(``event_ms``, ``event_stats``), or the device alone from a replayed CUDA
-graph (``graph_ms``).  Host times end in ``torch.cuda.synchronize()``
-(``wall``, ``host_stats``); ``host_us`` is a wrapper's host cost a call.
-Every timer except ``sync`` and ``wall`` needs a card.
+(``event_stats``), or the device alone from a replayed CUDA graph
+(``graph_ms``).  Host times end in ``torch.cuda.synchronize()``
+(``host_stats``); ``host_us`` is a wrapper's host cost a call.  Every
+timer needs a card.
 """
 
 from __future__ import annotations
@@ -37,32 +38,6 @@ def wall(fn, reps: int = 3):
         sync()
         ts.append(time.perf_counter() - t0)
     return statistics.median(ts), out
-
-
-def time_pair(kernel_fn, plain_fn, plain_ctx, reps: int = 5, calls: int = 10,
-              plain_calls: int | None = None):
-    """Median over ``reps`` CUDA-event timings of each, after a warm-up,
-    measured in turns; ``plain_fn`` runs inside ``plain_ctx()``.  One
-    timing spans ``calls`` back-to-back calls (``plain_calls`` for the
-    plain version, default the same) and is divided by that count, so the
-    host's launch latency overlaps the device work as it does in a stream
-    of calls."""
-    plain_calls = calls if plain_calls is None else plain_calls
-    event_ms(kernel_fn, contextlib.nullcontext, calls)
-    event_ms(plain_fn, plain_ctx, plain_calls)
-    k, p = [], []
-    for _ in range(reps):
-        k.append(event_ms(kernel_fn, contextlib.nullcontext, calls))
-        p.append(event_ms(plain_fn, plain_ctx, plain_calls))
-    return statistics.median(k), statistics.median(p)
-
-
-def time_one(fn, reps: int = 5, calls: int = 10) -> float:
-    """Median over ``reps`` CUDA-event timings of ``calls`` calls of
-    ``fn`` (ms per call), after a warm-up."""
-    event_ms(fn, contextlib.nullcontext, calls)
-    return statistics.median(event_ms(fn, contextlib.nullcontext, calls)
-                             for _ in range(reps))
 
 
 def event_ms(fn, ctx, calls: int) -> float:

@@ -87,7 +87,10 @@ def test_torch_bench_kernels_rows_rehearse_on_the_cpu(group, capsys):
             "scan_stream": {"scan_stream"}, "scan_stream_device": {"scan_stream_device"},
             "bell202": {"bell202_frontend"}, "fft_filter": {"fft_filter_decimate"},
             "quad_demod": {"quad_demod"},
-            "channelizer": {"channelizer/256ch", "channelizer/128ch"}}
+            "channelizer": {"channelizer/256ch", "channelizer/128ch"},
+            "recurrences": {"cma/16taps_window", "cma/16taps_call",
+                            "iir/order2_window", "iir/order8_window",
+                            "iir/order2_call", "iir/order8_call"}}
     assert names == want[group]
 
 
@@ -353,6 +356,10 @@ def _want_work(line):
             return kernels.events_work(ch * line["slots"],
                                        int(cross.clamp(max=line["slots"]).sum()), 1)
         return kernels.scan_work(ch * per, 36.75, int(cross.sum()), 1)
+    if b.startswith("cma/"):
+        return kernels.cma_work(n, line["ntaps"])
+    if b.startswith("iir/"):
+        return kernels.iir_work(n, line["order"])
     return None
 
 
@@ -405,7 +412,9 @@ def test_torch_bench_without_a_card_exits_non_zero(monkeypatch, capsys, program)
 
 @pytest.mark.parametrize("group,plain", [("quad_demod", "quad_demod_fast_plain"),
                                          ("fir", "_fir_planes_plain"),
-                                         ("fm_chain", "fm_chain_span_plain")])
+                                         ("fm_chain", "fm_chain_span_plain"),
+                                         ("recurrences", "cma_scan_plain"),
+                                         ("recurrences", "iir_scan_plain")])
 def test_torch_bench_a_wrong_plain_version_fails_the_row(monkeypatch, capsys, group,
                                                          plain):
     real = getattr(kernels, plain)

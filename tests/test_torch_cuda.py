@@ -617,23 +617,6 @@ def test_torch_cuda_symbol_sync_events_scan_counts(cuda_device):
                 assert torch.equal(g.cpu(), w)
 
 
-def test_torch_cuda_symbol_sync_one_thread_forms_agree(cuda_device):
-    # the one-thread-per-channel yardsticks that tools/time_sync.py times
-    # the kernels against compute the same function
-    from rustradio_tpu_torch.tools import time_sync
-
-    case = SYNC_CASES["n2049"]
-    x = torch.from_numpy(case.x).to(cuda_device)
-    args = sync_cases.fresh_event_args(x, case, 1024)
-    for g, w in zip(time_sync.events_lone(*args),
-                    kernels.symbol_sync_events_scan(*args)):
-        assert torch.equal(g, w)
-    st = torch.tensor([[10.0, 0.0, 0.0, 0.0, 5.0, 10.0]] * 3, device=cuda_device)
-    for g, w in zip(time_sync.scan_lone(x, 10.0, 0.5, (0.5, 0.5), st),
-                    kernels.symbol_sync_scan(x, 10.0, 0.5, (0.5, 0.5), st)):
-        assert torch.equal(g, w)
-
-
 def test_torch_cuda_graph_run_defaults_to_the_card(cuda_device):
     rng = np.random.RandomState(62)
     taps = rng.randn(33).astype(np.float32) / 5

@@ -735,18 +735,3 @@ def test_torch_iir_plain_is_the_numpy_restatement_on_growing_filters(case):
         want = iir_blocked_numpy(x, taps, hist)
     assert np.array_equal(np.isnan(got), np.isnan(want))
     assert np.array_equal(np.nan_to_num(got), np.nan_to_num(want))
-
-
-def test_torch_iir_chain_links_count_the_scaling():
-    # a growing filter's products scale each row sum: one link more a row
-    # on the block scan and the carry's powers (2 x 7 rows), and on each
-    # tile of the carries' scan (7 + 8 rows); a stable filter's chain is
-    # the order's
-    for n, tiles in ((1 << 24, 8), ((B + 2) * B * L + 77, 2)):
-        for stable, growing in ((IIR_TAPS[1], [1.0, 1.001]),
-                                (IIR_TAPS[2], FAST_POLES)):
-            assert kernels.iir_chain_links(n, growing) - kernels.iir_chain_links(
-                n, stable) == 2 * 7 + tiles * (7 + 8)
-    order2 = 2 * L + 2 * L + 2 * 7 * 3 + 8 * (7 * 3 + 8 * 2 + 1)
-    assert kernels.iir_chain_links(1 << 24, IIR_TAPS[2]) == order2
-    assert kernels.iir_chain_links(L, FAST_POLES) == kernels.iir_chain_links(L, IIR_TAPS[2])
