@@ -206,22 +206,27 @@ CELL_CH, N_CELL = 128, 1 << 28  # the wideband cell's channelizer (aprs_wideband
 PFB_TOL, PFB_POWER_TOL = 4e-5, 1e-5
 
 
-def jump_mismatches(device, binades: int = 17, step: int = 1) -> int:
-    """Kernel E's jump over a quiet run (ScanWalker::add_ones), checked
-    exhaustively: for every f32 position in [1, 2^binades) (every
-    ``step``-th mantissa; 1: all) and every run of 1 to 32 samples that
-    ends at or under the top of the position's binade, position + run in
-    one addition against run additions of 1, each rounded.  Returns the
-    number of pairs that differ."""
+def jump_mismatches(device, binades: int = 21, step: int = 1,
+                    runs: int = 64) -> int:
+    """Kernel E's jump between events (csrc/sync_core.cuh, ScanWalker's
+    positions), checked exhaustively: for every f32 position in [1,
+    2^binades) (every ``step``-th mantissa; 1: all) and every run of 1 to
+    ``runs`` samples up to the walker's limit, 3 top + ceil(top - position)
+    - 1 (top: the power of two above the position; the sums cross at most
+    two powers of two), position + run in one addition against run
+    additions of 1, each rounded.  Returns the number of pairs that
+    differ."""
     bad = torch.zeros((), dtype=torch.int64, device=device)
     mantissas = torch.arange(0, 1 << 23, step, dtype=torch.int32, device=device)
     for e in range(binades):
         base = (mantissas + ((127 + e) << 23)).view(torch.float32)
+        top = 2.0 ** (e + 1)
+        lim = 3.0 * top + torch.ceil(top - base) - 1.0
         chain = base.clone()
-        for run in range(1, 33):
+        for run in range(1, runs + 1):
             chain += 1.0
             single = base + float(run)
-            bad += ((single <= 2.0 ** (e + 1)) & (single != chain)).sum()
+            bad += ((run <= lim) & (single != chain)).sum()
     return int(bad)
 
 
@@ -442,7 +447,7 @@ class CoreSizes:
     sync_prefix: int = N_SYNC_PREFIX
     sync_window: int = N_SYNC_WINDOW
     edge_cases: tuple | None = None  # tools/sync_cases.py's, by name (None: all)
-    jump_binades: int = 17        # kernel E's jump check over [1, 2^binades),
+    jump_binades: int = 21        # kernel E's jump check over [1, 2^binades),
     jump_step: int = 1            # every jump_step-th mantissa
     wb_stations: tuple = WB_STATIONS  # the wideband capture
     wb_frames: int = WB_FRAMES
@@ -1086,9 +1091,9 @@ def sync_phase(dev, card: str, sizes: CoreSizes, gen: torch.Generator,
           f"against the plain versions, bit for bit; unequal: {unequal}")
     report("9 edges", "kernels D and E vs plain, unequal outputs",
            float(len(unequal)), 0.0)
-    report("9 edges", "kernel E's jump over a quiet run: every f32 position "
-           f"in [1, 2^{sizes.jump_binades}) x runs of 1..32 inside its binade, "
-           "pairs where pos + run differs from run additions of 1",
+    report("9 edges", "kernel E's jump between events: every f32 position "
+           f"in [1, 2^{sizes.jump_binades}) x runs of 1..64 up to the walker's "
+           "limit, pairs where pos + run differs from run additions of 1",
            float(jump_mismatches(dev, sizes.jump_binades, sizes.jump_step)), 0.0)
     end_phase("9 edges")
 

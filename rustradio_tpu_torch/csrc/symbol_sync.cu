@@ -12,14 +12,17 @@
 //   symbol_sync (:145): the step of :87-143, which is also rr_symbol_sync of
 //   native/rr_native.cpp:292-369.
 //
-// What bounds them on an H100 is one lane's dependent chain, and the design
-// (sync_core.cuh says both at length) keeps everything else off that lane:
-// in each block lane 0 of warp 0 walks the channel on registers and shared
-// memory only, warp 1 loads the next tile (kernel E: reduced to one sign
-// bit a sample; kernel D: the slot positions and the tile's first padding
-// slot), warps 2-3 write the previous tile's results out, and one
-// __syncthreads() a tile hands the three buffers on.  Both kernels equal
-// their plain PyTorch versions (ops/kernels.py) bit for bit.
+// What bounds them on an H100 is one lane's dependent chain and its
+// control flow, and the design (sync_core.cuh says both at length) keeps
+// everything else off that lane: in each block lane 0 of warp 0 walks the
+// channel on registers and shared memory only (kernel E from crossing to
+// crossing, jumping the samples between), warp 1 loads the next tile
+// (kernel E: reduced to the list of its crossings; kernel D: the slot
+// positions and the tile's first padding slot), warps 2-3 write the
+// previous tile's results out (kernel E: placing the jumped gaps'
+// emissions first), and one __syncthreads() a tile hands the three buffers
+// on.  Both kernels equal their plain PyTorch versions (ops/kernels.py) bit
+// for bit.
 
 #include <cuda_runtime.h>
 
@@ -29,15 +32,19 @@ namespace {
 
 using namespace rr::sync;
 
-// Kernel E.  Round t: the walker walks tile t, the loader brings the signs
-// of tile t + 1, the flushers write tile t - 1.
+// Kernel E.  Round t: the walker walks tile t, the loader lists the
+// crossings of tile t + 1, the flushers write tile t - 1.  counts, when
+// not null, takes each channel's crossings walked and samples stepped one
+// by one.
 template <int NT>
 __global__ void __launch_bounds__(kThreads) symbol_sync_scan_kernel(
     const float* __restrict__ x, long long n, Consts k,
     float* __restrict__ state, int state_len, unsigned char* __restrict__ mask,
-    float* __restrict__ clocks) {
-  __shared__ uint32_t s_sign[2][kWords];
+    float* __restrict__ clocks, int* __restrict__ counts) {
+  __shared__ ScanIn s_in[2];
   __shared__ ScanTile s_out[2];
+  static_assert(sizeof(s_in) + sizeof(s_out) <= 48 * 1024,
+                "kernel E's static shared memory");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long row = (long long)blockIdx.x * n;
   const float* xr = x + row;
@@ -45,17 +52,18 @@ __global__ void __launch_bounds__(kThreads) symbol_sync_scan_kernel(
   const long long tiles = (n + kTile - 1) / kTile;
   ScanWalker<NT> walker;
   if (tid == 0) walker.load(k, st);
-  if (warp == 1) load_signs(xr, n, 0, s_sign[0], lane);
+  if (warp == 1) load_crossings(xr, n, 0, st[1] != 0.0f, s_in[0], lane);
   __syncthreads();
   for (long long t = 0; t <= tiles; ++t) {
     const int buf = (int)(t & 1);
     if (warp == 0) {
       if (tid == 0 && t < tiles)
-        walker.tile(k, s_sign[buf], (int)min((long long)kTile, n - t * kTile),
+        walker.tile(k, s_in[buf], (int)min((long long)kTile, n - t * kTile),
                     s_out[buf]);
       __syncwarp();
     } else if (warp == 1) {
-      if (t + 1 < tiles) load_signs(xr, n, t + 1, s_sign[buf ^ 1], lane);
+      if (t + 1 < tiles)
+        load_crossings(xr, n, t + 1, false, s_in[buf ^ 1], lane);
     } else if (t > 0) {
       const long long i0 = (t - 1) * kTile;
       flush_scan(s_out[buf ^ 1], (int)min((long long)kTile, n - i0),
@@ -63,7 +71,13 @@ __global__ void __launch_bounds__(kThreads) symbol_sync_scan_kernel(
     }
     __syncthreads();
   }
-  if (tid == 0) walker.store(k, st);
+  if (tid == 0) {
+    walker.store(k, st);
+    if (counts != nullptr) {
+      counts[2 * blockIdx.x] = walker.crossings;
+      counts[2 * blockIdx.x + 1] = walker.stepped;
+    }
+  }
 }
 
 // Kernel D.  Slots hold crossing positions, ascending, padded with n; a
@@ -153,9 +167,9 @@ template <int NT>
 struct LaunchScan {
   static void run(int channels, cudaStream_t stream, const float* x,
                   long long n, Consts k, float* state, int state_len,
-                  unsigned char* mask, float* clocks) {
+                  unsigned char* mask, float* clocks, int* counts) {
     symbol_sync_scan_kernel<NT><<<channels, kThreads, 0, stream>>>(
-        x, n, k, state, state_len, mask, clocks);
+        x, n, k, state, state_len, mask, clocks, counts);
   }
 };
 
@@ -175,12 +189,14 @@ struct LaunchEvents {
 
 // x: (channels, n) f32; state: (channels, state_len) f32, updated in place
 // (state_len = 5 + max(ntaps - 1, 1)); mask: (channels, n) bytes 0/1;
-// clocks: (channels, n) f32.  taps: ntaps host floats.  Returns the
-// cudaError_t of the launch (0 on success).
+// clocks: (channels, n) f32; counts: (channels, 2) int32, each channel's
+// crossings walked and samples stepped one by one, or null.  taps: ntaps
+// host floats.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int rr_symbol_sync_scan(const void* x, int channels, long long n,
                                    float sps, float max_dev, const float* taps,
                                    int ntaps, void* state, int state_len,
-                                   void* mask, void* clocks, void* stream) {
+                                   void* mask, void* clocks, void* counts,
+                                   void* stream) {
   Consts k;
   if (!make_consts(sps, max_dev, taps, ntaps, &k) ||
       state_len != 5 + history_len(ntaps) || n < 0)
@@ -188,7 +204,8 @@ extern "C" int rr_symbol_sync_scan(const void* x, int channels, long long n,
   if (channels <= 0) return 0;
   return (int)by_taps<LaunchScan>(
       ntaps, channels, (cudaStream_t)stream, (const float*)x, n, k,
-      (float*)state, state_len, (unsigned char*)mask, (float*)clocks);
+      (float*)state, state_len, (unsigned char*)mask, (float*)clocks,
+      (int*)counts);
 }
 
 // events: (channels, n_events) int32 crossing positions, ascending, padded

@@ -7,23 +7,22 @@
 // so a channel is one lane walking its stream.  Bytes and operations are
 // nowhere near a limit (9 B and two operations a sample).  The least time is
 // the longest recurrence of the busiest channel, each f32 operation rounded
-// on its own, at the card's latency between dependent operations
-// (chip_smoke.py measures it with tools/csrc/chain_calib.cu and counts the
-// chains from the run's data).  In kernel D that is clock to clock over the
-// slots whose crossing is applied: one division, ten operations and the
-// filter, 123-141 cycles; the gap, the second quotient and the next middle
-// run beside it.  In kernel E it is the clock filter over applied crossings
-// (~58 cycles each); the positions between two step backs are one exact
-// addition (add_ones), so they hold nothing.  Measured on an H100 at 700 W,
-// a lone lane pays 4.4 cycles for a dependent addition, 44.6 for an IEEE
-// division, ~14 for a compare it has to wait for and ~25 for every taken
-// branch, and the walkers take ~470 cycles a real slot (D) and ~38 a sample
-// (E): D runs at about a quarter of its chain, E at about a fiftieth of
-// its.  Control flow and running every sample's tests on one lane, not
-// arithmetic, is what they pay for.  A lone lane that also loads its input
-// and stores its results waits for every load on top: the
-// one-thread-per-channel form (tools/csrc/symbol_sync_lone.cu) spends ~200
-// cycles a sample and ~800 a real slot.
+// on its own, at the card's latency between dependent operations.  In
+// kernel D that is clock to clock over the slots whose crossing is applied:
+// one division, ten operations and the filter, 123-141 cycles; the gap, the
+// second quotient and the next middle run beside it.  In kernel E it is the
+// clock filter over applied crossings (~58 cycles each); the positions
+// between two step backs are sums of 1 that a jump takes in one addition,
+// so they hold nothing.  Measured on an H100 at 700 W, a lone lane pays 4.4
+// cycles for a dependent addition, 44.6 for an IEEE division, ~14 for a
+// compare it has to wait for and ~25 for every taken branch, and it issues
+// one instruction a cycle at best.  Kernel D takes ~470 cycles a real slot,
+// about a quarter of its chain: control flow and every slot's tests on one
+// lane, not arithmetic, is what it pays for.  Kernel E's walker therefore
+// does no work per sample at all: it goes from crossing to crossing, each
+// gap one jump, each crossing one stretch of code with no branch, so that
+// its time follows the crossings (~100 instructions each) and not the
+// samples; the rest of a tile's work goes to the other warps.
 //
 // What the design does about it: one block of kThreads per channel, with
 // roles.
@@ -32,26 +31,35 @@
 //   * the loader, warp 1, brings the next tile of the channel's input into
 //     shared memory with coalesced loads (a row starts at c*n elements, at
 //     any 4-byte residue: a lane loads one element, so nothing is peeled)
-//     and reduces it to what the walker needs: for kernel E one sign bit a
-//     sample (__ballot_sync), for kernel D the slot positions and the
-//     tile's first padding slot;
+//     and reduces it to what the walker needs: for kernel E the list of
+//     its crossings (__ballot_sync, then a __popc prefix), for kernel D the
+//     slot positions and the tile's first padding slot;
 //   * the flushers, warps 2-3, write the walker's results of the previous
-//     tile to device memory, coalesced, expanding kernel E's emit bits and
-//     clock changes into the (C, N) mask bytes and clocks.
+//     tile to device memory, coalesced: for kernel E they first place the
+//     emissions of the gaps the walker jumped and expand its lists of
+//     emitted samples and clock changes into the (C, N) mask bytes and
+//     clocks.
 // Three tiles are in flight (load t+1, walk t, flush t-1) behind one
-// __syncthreads() per tile; a tile takes the walker ~40,000 cycles, the
-// loader and flushers a few hundred, so neither asynchronous copies nor
-// mbarrier pairs would shorten anything.  Channels are independent blocks;
-// more channels than the card holds at once queue.
+// __syncthreads() per tile; the loader and the flushers take a few
+// thousand cycles a tile, under the walker's, so neither asynchronous
+// copies nor mbarrier pairs would shorten anything.  Channels are
+// independent blocks; more channels than the card holds at once queue.
 //   * the clock filter is compiled per tap count (1, 2, 6; any count up to
 //     16 through the general form), its history in registers;
 //   * the timing-error reduction leaves at the first step that changes
 //     nothing and carries t - clock into the next step;
 //   * x / 2 is __fmul_rn(x, 0.5f): exact, as the division is;
-//   * kernel E walks from crossing to crossing of a sign word (__ffs), and
-//     between them proves runs of samples quiet (no emission, no step
-//     back: ScanWalker::quiet_run), whose whole step is pos + 1; a run
-//     inside the position's binade is one addition (ScanWalker::add_ones);
+//   * kernel E's walk (ScanWalker: Positions, gap, quiet, straight): between
+//     two crossings no sample's step does more than pos + 1 and the
+//     emission and step-back tests, so the walker jumps the gap with one
+//     addition and finds its emissions by exact compares; a crossing and
+//     the gap before it run as one stretch of code (straight) where no step
+//     back falls in the gap, the clock is at least 2, the position is in
+//     [1, 2^21) and stays under 4 times its binade's top, and the loops
+//     need no more than their inline rounds; the other crossings (a few in
+//     a hundred) are walked again by the general path, which still jumps
+//     from event to event and steps sample by sample only below position 1,
+//     at 2^21 or more, or with a NaN middle, and counts those samples;
 //   * kernel D takes each channel's count of real slots from the caller
 //     where it has one, else the loader finds the first padding slot by a
 //     ballot; either way the walker compares no sentinel.
@@ -132,6 +140,20 @@ struct ClockFilter {
     if (kHist > 0) hist[0] = ret;
     return ret;
   }
+  // step() in two halves, for a caller that decides afterwards whether the
+  // step happened: the clamped output, and the history's shift
+  __device__ __forceinline__ float output(const Consts& k, float sample) const {
+    float ret = __fmul_rn(k.taps[0], sample);
+#pragma unroll
+    for (int j = 0; j < kHist; ++j)
+      ret = __fadd_rn(ret, __fmul_rn(k.taps[j + 1], hist[j]));
+    return fminf(fmaxf(ret, k.lo), k.hi);
+  }
+  __device__ __forceinline__ void push_if(const Consts&, bool on, float ret) {
+#pragma unroll
+    for (int j = kHist - 1; j > 0; --j) hist[j] = on ? hist[j - 1] : hist[j];
+    if (kHist > 0) hist[0] = on ? ret : hist[0];
+  }
 };
 
 // Any tap count up to kMaxTaps: the steps past the filter's order are
@@ -162,6 +184,21 @@ struct ClockFilter<0> {
       if (j < order) hist[j] = hist[j - 1];
     if (order > 0) hist[0] = ret;
     return ret;
+  }
+  __device__ __forceinline__ float output(const Consts& k, float sample) const {
+    const int order = k.ntaps - 1;
+    float ret = __fmul_rn(k.taps[0], sample);
+#pragma unroll
+    for (int j = 0; j < kMaxTaps - 1; ++j)
+      if (j < order) ret = __fadd_rn(ret, __fmul_rn(k.taps[j + 1], hist[j]));
+    return fminf(fmaxf(ret, k.lo), k.hi);
+  }
+  __device__ __forceinline__ void push_if(const Consts& k, bool on, float ret) {
+    const int order = k.ntaps - 1;
+#pragma unroll
+    for (int j = kMaxTaps - 2; j > 0; --j)
+      if (on && j < order) hist[j] = hist[j - 1];
+    if (on && order > 0) hist[0] = ret;
   }
 };
 
@@ -200,38 +237,131 @@ __device__ __forceinline__ float ted_reduce(float t0_raw, float q, float clock,
   return t;
 }
 
-// ---- kernel E: the per-sample recurrence
+// ---- kernel E: the per-sample recurrence, walked from event to event
 
-// What a tile of kernel E leaves for the flushers: a sample's mask byte is
-// its bit of emit; its clock is list[base[w] + the bits of chg[w] below
-// it], list[0] being the clock at the tile's first sample and each set bit
-// of chg a sample after which the clock changed.
+// What the loader leaves for the walker: the offsets in the tile of its
+// crossing samples (sign unlike the sample before), ascending, then the
+// tile's length twice, so that the walker reads one entry ahead.
+struct ScanIn {
+  uint16_t cross[kTile + 2];
+  int count;
+};
+
+// What a tile of kernel E leaves for the flushers.  The gaps the walker
+// jumped with a crossing at their end (ng): each one's first sample and its
+// samples, crossing included (span: first | samples << 16), its first
+// position and its middle; the flushers place its emissions (ScanWalker::
+// straight).  The other samples that emitted (ne, ascending), the samples
+// after which the clock changed (nc, ascending) and the clocks, list[0] the
+// clock at the tile's first sample and list[j + 1] the clock after
+// changes[j].  The flushers turn the lists into bit words (a sample's clock
+// is list[base[w] + the changes in its word before it]).  The walker's
+// stores past a list's end are overwritten or never read.
 struct ScanTile {
+  float gpos[kTile + 1];
+  float gmid[kTile + 1];
+  int span[kTile + 1];
+  float list[kTile + 1];
+  uint16_t emits[kTile + 8];
+  uint16_t changes[kTile + 2];
   uint32_t emit[kWords];
   uint32_t chg[kWords];
   int base[kWords];
-  float list[kTile + 1];
+  int ne, nc, ng;
 };
 
-// Loader: the sign bits of tile `tile` of the row, 32 samples a word;
-// samples past the row read as 0.
-__device__ __forceinline__ void load_signs(const float* __restrict__ xr,
-                                           long long n, long long tile,
-                                           uint32_t* sign, int lane) {
-  const long long i0 = tile * kTile + lane;
-#pragma unroll 8
+// Loader: the crossings of tile `tile` of the row (__ballot_sync, then a
+// __popc prefix gives each its slot); `prev` is the sign before the tile:
+// the state's last sign for the first tile, else the sample before it.
+// Samples past the row hold no crossing.  The tile's 32 loads a lane are
+// all in flight before the first ballot: one wait for device memory a
+// tile, not one a word (32 waits take about as long as the walker's tile).
+__device__ __forceinline__ void load_crossings(const float* __restrict__ xr,
+                                               long long n, long long tile,
+                                               bool prev, ScanIn& in,
+                                               int lane) {
+  const long long i0 = tile * kTile;
+  const uint32_t below = (1u << lane) - 1u;
+  uint32_t last = tile == 0 ? (uint32_t)prev : __ldg(xr + i0 - 1) > 0.0f;
+  float v[kWords];
+#pragma unroll
   for (int w = 0; w < kWords; ++w) {
-    const long long i = i0 + w * 32;
-    const float v = i < n ? __ldg(xr + i) : 0.0f;
-    const uint32_t bits = __ballot_sync(0xffffffffu, v > 0.0f);
-    if (lane == 0) sign[w] = bits;
+    const long long i = i0 + w * 32 + lane;
+    v[w] = i < n ? __ldg(xr + i) : 0.0f;
+  }
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const long long i = i0 + w * 32 + lane;
+    const uint32_t sw = __ballot_sync(0xffffffffu, v[w] > 0.0f);
+    const uint32_t live = __ballot_sync(0xffffffffu, i < n);
+    const uint32_t cross = (sw ^ ((sw << 1) | last)) & live;
+    if ((cross >> lane) & 1u) in.cross[count + __popc(cross & below)] = w * 32 + lane;
+    count += __popc(cross);
+    last = sw >> 31;
+  }
+  if (lane == 0) {
+    const int len = (int)min((long long)kTile, n - i0);
+    in.cross[count] = len;
+    in.cross[count + 1] = len;
+    in.count = count;
   }
 }
 
-// Flushers: mask bytes and clocks of the tile's `len` samples.
-__device__ __forceinline__ void flush_scan(const ScanTile& out, int len,
+// The two flusher warps alone (named barrier 1).
+__device__ __forceinline__ void flushers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kFlushers) : "memory");
+}
+
+// The least j with pos + j (one rounded addition) >= mid, where it is at
+// most the jump limit of pos (ScanWalker, Positions).
+__device__ __forceinline__ float first_at(float pos, float mid) {
+  const float e0 = ceilf(fminf(fmaxf(__fsub_rn(mid, pos), 0.0f), 4096.0f));
+  const bool dn = (e0 > 0.0f) & (__fadd_rn(pos, __fsub_rn(e0, 1.0f)) >= mid);
+  const bool up = __fadd_rn(pos, e0) < mid;
+  return __fadd_rn(e0, dn ? -1.0f : up ? 1.0f : 0.0f);
+}
+
+// Flushers: mask bytes and clocks of the tile's `len` samples, from the
+// walker's lists: the clock changes and the listed emissions first, then
+// the emissions of the jumped gaps, each from its first position and
+// middle by the clock at its first sample.
+__device__ __forceinline__ void flush_scan(ScanTile& out, int len,
                                            unsigned char* __restrict__ mr,
                                            float* __restrict__ cr, int rank) {
+  if (rank < kWords)
+    out.emit[rank] = 0u;
+  else if (rank < 2 * kWords)
+    out.chg[rank - kWords] = 0u;
+  flushers_sync();
+  for (int i = rank; i < out.ne; i += kFlushers)
+    atomicOr(&out.emit[out.emits[i] >> 5], 1u << (out.emits[i] & 31));
+  for (int i = rank; i < out.nc; i += kFlushers)
+    atomicOr(&out.chg[out.changes[i] >> 5], 1u << (out.changes[i] & 31));
+  flushers_sync();
+  if (rank < kWords) {  // base[w]: the clock changes before word w
+    const int own = __popc(out.chg[rank]);
+    int sum = own;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, sum, d);
+      if (rank >= d) sum += v;
+    }
+    out.base[rank] = sum - own;
+  }
+  flushers_sync();
+  for (int i = rank; i < out.ng; i += kFlushers) {
+    const int b = out.span[i] & 0xffff, w = b >> 5;
+    const float pos = out.gpos[i];
+    const float clock =
+        out.list[out.base[w] + __popc(out.chg[w] & ((1u << (b & 31)) - 1u))];
+    const float last = __fadd_rn(pos, __int2float_rn((out.span[i] >> 16) - 1));
+    for (float nm = out.gmid[i]; nm <= last; nm = __fadd_rn(nm, clock)) {
+      const int j = b + __float2int_rz(first_at(pos, nm));
+      atomicOr(&out.emit[j >> 5], 1u << (j & 31));
+    }
+  }
+  flushers_sync();
   for (int j = rank; j < len; j += kFlushers) {
     const int w = j >> 5, l = j & 31;
     mr[j] = (out.emit[w] >> l) & 1u;
@@ -241,10 +371,31 @@ __device__ __forceinline__ void flush_scan(const ScanTile& out, int len,
 
 // The walker of kernel E.  state row: [clock, last_sign, stream_pos,
 // last_boundary, next_mid, history...].
+//
+// Positions.  Every sample's step ends with pos + 1, rounded.  From pos in
+// [1, 2^21), the reference's position after j such steps (no step back
+// between) is P(j) = pos + j in one rounded addition while pos + j < 4 top
+// (top: the power of two above pos).  Below top each sum is exact (1 is a
+// whole number of pos's last places); the sum that reaches top rounds once
+// to the next binade's grid, whose sums are exact again, and so on at 2
+// top.  One rounding of pos + j to the grid at 2 top equals the two
+// roundings, ties included: to even at each (the grids halve and double,
+// and j is a whole multiple of twice their spacing).  A third top would
+// break that.  So a jump of up to top + ceil(top - pos) - 1 + 2 top
+// samples (jump_limit) is one addition, and P(j) lies within 3/8 of pos +
+// j.  chip_smoke.py checks it exhaustively over every f32 position.
+//
+// A sample's emission test passes where P(j) >= next_mid: the least such j
+// is within one of ceil(next_mid - pos), the difference rounded once, and
+// the exact compares of P at that estimate and one below settle it
+// (first_at).
 template <int NT>
 struct ScanWalker {
   float clock, pos, last_b, next_mid, sb;
   uint32_t last_sign;
+  int crossings, stepped;  // crossings walked, samples stepped one by one
+  uint16_t* ev;            // the tile's listed emissions, ne so far
+  int ne, ng;              // and its jumped gaps
   ClockFilter<NT> filt;
 
   __device__ __forceinline__ void load(const Consts& k, const float* st) {
@@ -254,6 +405,8 @@ struct ScanWalker {
     last_b = st[3];
     next_mid = st[4];
     sb = __fmul_rn(10.0f, clock);
+    crossings = 0;
+    stepped = 0;
     filt.load(k, st + 5);
   }
   __device__ __forceinline__ void store(const Consts& k, float* st) const {
@@ -266,127 +419,232 @@ struct ScanWalker {
   }
 
   // The end of every sample's step: advance, and step back by 10 clocks to
-  // stay near zero (src/symbol_sync.rs:200-209); true when it stepped back.
-  __device__ __forceinline__ bool advance() {
+  // stay near zero (src/symbol_sync.rs:200-209).
+  __device__ __forceinline__ void advance() {
     pos = __fadd_rn(pos, 1.0f);
-    const bool back = pos > sb && last_b > sb && next_mid > sb;
-    if (back) {
-      pos = __fsub_rn(pos, sb);
-      last_b = __fsub_rn(last_b, sb);
-      next_mid = __fsub_rn(next_mid, sb);
-    }
-    return back;
+    const bool back = (pos > sb) & (last_b > sb) & (next_mid > sb);
+    pos = back ? __fsub_rn(pos, sb) : pos;
+    last_b = back ? __fsub_rn(last_b, sb) : last_b;
+    next_mid = back ? __fsub_rn(next_mid, sb) : next_mid;
   }
 
-  // The emission test that opens every sample's step; true when it emitted.
-  __device__ __forceinline__ bool emit(uint32_t& emits, int b) {
+  // The emission test that opens every sample's step, at sample b.
+  __device__ __forceinline__ void emit(int b) {
     const bool due = pos >= next_mid;
-    const float bumped = __fadd_rn(next_mid, clock);
-    if (due) {
-      emits |= 1u << b;
-      next_mid = bumped;
-    }
-    return due;
+    ev[ne] = b;
+    ne += due;
+    next_mid = due ? __fadd_rn(next_mid, clock) : next_mid;
   }
 
-  // `run` times pos = pos + 1, each sum rounded as the reference rounds it.
-  // While pos >= 1, 1 is a whole number of pos's last places, and every
-  // sum up to the top of pos's binade (the next power of two) is one too:
-  // each addition is exact, and so is pos + run in one addition, the same
-  // value.  A run that leaves the binade, or starts below 1, takes its
-  // additions one by one.
-  __device__ __forceinline__ void add_ones(int run) {
+  // The most samples a jump from pos may cover (Positions, above).
+  __device__ __forceinline__ float jump_limit() const {
     const float top =
         __int_as_float((__float_as_int(pos) & 0x7f800000) + 0x00800000);
-    const float jumped = __fadd_rn(pos, __int2float_rn(run));
-    if (__builtin_expect(pos >= 1.0f && jumped <= top, 1)) {
-      pos = jumped;
-    } else {
-#pragma unroll 1
-      for (int i = 0; i < run; ++i) pos = __fadd_rn(pos, 1.0f);
+    return __fadd_rn(__fmul_rn(3.0f, top),
+                     __fsub_rn(ceilf(__fsub_rn(top, pos)), 1.0f));
+  }
+
+  // Whether the g samples from here to P(g) = pg, none a crossing, are one
+  // jump: pos in [1, 2^21) and P(g) under 4 top (Positions), the clock at
+  // least 2 and the middle past P(-1), so that each emission lands past
+  // the sample of the one before and is first_at's j, and no step back in
+  // between (the boundary is behind 10 clocks, or so is P(g)).
+  __device__ __forceinline__ bool jumpable(float pg) const {
+    const float top4 =
+        __int_as_float((__float_as_int(pos) & 0x7f800000) + 0x01800000);
+    return (pos >= 1.0f) & (pos < 2097152.0f) & (pg < top4) &
+           (clock >= 2.0f) & (__fsub_rn(next_mid, pos) > -1.0f) &
+           !((last_b > sb) & (pg > sb));
+  }
+
+  // Samples b .. b + g - 1, none a crossing: the emission test, pos + 1
+  // and the step-back test each.  A jumpable gap's emissions are
+  // next_mid, next_mid + clock, ... while they reach P(g - 1); any other
+  // gap takes quiet().
+  __device__ __forceinline__ void gap(int b, int g) {
+    const float pg = __fadd_rn(pos, __int2float_rn(g));
+    if (!jumpable(pg)) {
+      quiet(b, g);
+      return;
     }
+    const float last = __fadd_rn(pos, __int2float_rn(g - 1));
+    for (; next_mid <= last; next_mid = __fadd_rn(next_mid, clock))
+      ev[ne++] = b + __float2int_rz(first_at(pos, next_mid));
+    pos = pg;
   }
 
-  // How many samples from here provably neither emit nor step back, so
-  // that their whole step is pos = pos + 1 (at most 32; 0 when that cannot
-  // be shown).  While 0 <= pos < 2^17, each of up to 32 additions of 1
-  // rounds by at most 2^-7 (half an ulp below 2^18), so the i-th position
-  // from here is at most pos + i + 0.25; a difference of two such values,
-  // and 0.73 added to it, are each off by at most 2^-7, under 0.02 in all.
-  // No emission in r samples needs pos + (r - 1) + 0.25 < next_mid, that
-  // is r < (next_mid - pos) + 0.75, which r <= floor((next_mid - pos) +
-  // 0.73) gives; no step back needs pos + r + 0.25 <= 10 clocks, which
-  // r <= floor((10 clocks - pos) - 0.27) gives, unless the boundary or the
-  // middle, which such samples leave alone, forbids the step back anyway.
-  // The positions themselves stay the sums of the reference, one rounding
-  // a sample.  Written without branches: a compare that feeds a branch
-  // costs a lone lane several additions' time.
-  __device__ __forceinline__ int quiet_run() const {
-    const bool in_range = pos >= 0.0f && pos < 131072.0f;
-    const bool may_step_back = last_b > sb && next_mid > sb;
-    const float to_mid = __fadd_rn(__fsub_rn(next_mid, pos), 0.73f);
-    const float room = __fsub_rn(__fsub_rn(sb, pos), 0.27f);
-    float r = fminf(to_mid, may_step_back ? room : 32.0f);
-    r = fminf(fmaxf(in_range ? r : 0.0f, 0.0f), 32.0f);  // a NaN gives 0
-    return __float2int_rd(r);
-  }
-
-  // `len` samples from their sign words; no global access.
-  __device__ __forceinline__ void tile(const Consts& k, const uint32_t* sign,
-                                       int len, ScanTile& out) {
-    int nlist = 0;
-    out.list[0] = clock;
-    for (int w = 0; w * 32 < len; ++w) {
-      const int nbits = min(32, len - w * 32);
-      const uint32_t sw = sign[w];
-      // bit b: sample b's sign differs from the sample before it
-      uint32_t cross = sw ^ ((sw << 1) | last_sign);
-      if (nbits < 32) cross &= (1u << nbits) - 1u;
-      last_sign = (sw >> (nbits - 1)) & 1u;
-      out.base[w] = nlist;
-      uint32_t emits = 0, chg = 0;
-      int b = 0;
-      while (b < nbits) {
-        const int stop = cross ? __ffs(cross) - 1 : nbits;
-        while (b < stop) {
-          // the samples that only advance
-          const int quiet = quiet_run();
-          const int run = min(quiet, stop - b);
-          add_ones(run);
-          b += run;
-          if (quiet == 32 || b == stop) continue;
-          // within a sample or two of an emission or a step back: full
-          // steps until one of them has happened
-          bool event;
-          do {
-            event = emit(emits, b);
-            event |= advance();
-            ++b;
-          } while (!event && b < stop);
-        }
-        if (b >= nbits) break;
-        // sample b is a crossing
-        cross &= cross - 1u;
-        emit(emits, b);
-        if (pos > 0.0f && last_b > 0.0f) {
-          const float t = ted_walk(__fsub_rn(pos, last_b), clock, k.mx);
-          if (t > k.mi08 && t < k.mx12) {
-            clock = __fadd_rn(filt.step(k, __fsub_rn(t, k.sps)), k.sps);
-            sb = __fmul_rn(10.0f, clock);
-            float nm = __fadd_rn(last_b, __fmul_rn(clock, 0.5f));
-            while (nm < pos) nm = __fadd_rn(nm, clock);
-            next_mid = nm;
-            chg |= 1u << b;
-            out.list[++nlist] = clock;
-          }
-        }
-        last_b = pos;
+  // A gap that is not jumpable, in jumps from event to event: to the
+  // sample of the first emission (first_at), the sample after which the
+  // first step back can come (the least j with P(j + 1) > 10 clocks, found
+  // the same way, where the boundary allows one; the middle's test is made
+  // there), or the jump limit, whichever is first.  Below 1, at 2^21 or
+  // more, or with a NaN middle the walker takes the reference's step
+  // sample by sample, and counts it.
+  __device__ __forceinline__ void quiet(int b, int r) {
+    while (r > 0) {
+      const float d = __fsub_rn(next_mid, pos);
+      if (!(pos >= 1.0f && pos < 2097152.0f) || d != d) {
+        emit(b);
         advance();
         ++b;
+        --r;
+        ++stepped;
+        continue;
       }
-      out.emit[w] = emits;
-      out.chg[w] = chg;
+      const float m = fminf(__int2float_rn(r), jump_limit());
+      const float e = first_at(pos, next_mid);
+      float s = m;
+      if (last_b > sb) {
+        const float ds = fminf(fmaxf(__fsub_rn(sb, pos), 0.0f), 4096.0f);
+        const float i0 = __fadd_rn(floorf(ds), 1.0f);
+        const bool s_dn =
+            i0 > 1.0f && __fadd_rn(pos, __fsub_rn(i0, 1.0f)) > sb;
+        const bool s_up = !(__fadd_rn(pos, i0) > sb);
+        s = s_dn ? __fsub_rn(i0, 2.0f) : s_up ? i0 : __fsub_rn(i0, 1.0f);
+      }
+      const float kf = fminf(fminf(e, s), m);
+      const bool event = kf < m;
+      const float adv = event ? __fadd_rn(kf, 1.0f) : m;
+      pos = __fadd_rn(pos, adv);
+      if (event && kf == e) {
+        ev[ne++] = b + __float2int_rz(kf);
+        next_mid = __fadd_rn(next_mid, clock);
+      }
+      if (event && kf == s && next_mid > sb) {
+        pos = __fsub_rn(pos, sb);
+        last_b = __fsub_rn(last_b, sb);
+        next_mid = __fsub_rn(next_mid, sb);
+      }
+      const int n = __float2int_rz(adv);
+      b += n;
+      r -= n;
     }
+  }
+
+  // Sample c, a crossing: the reference's step, each operation as it
+  // rounds it.
+  __device__ __forceinline__ void crossing(const Consts& k, int c,
+                                           ScanTile& out, int& nc) {
+    emit(c);
+    if (pos > 0.0f && last_b > 0.0f) {
+      const float t = ted_walk(__fsub_rn(pos, last_b), clock, k.mx);
+      if (t > k.mi08 && t < k.mx12) {
+        clock = __fadd_rn(filt.step(k, __fsub_rn(t, k.sps)), k.sps);
+        sb = __fmul_rn(10.0f, clock);
+        float nm = __fadd_rn(last_b, __fmul_rn(clock, 0.5f));
+        while (nm < pos) nm = __fadd_rn(nm, clock);
+        next_mid = nm;
+        out.changes[nc] = c;
+        out.list[++nc] = clock;
+      }
+    }
+    last_b = pos;
+    advance();
+  }
+
+  // gap(b, c - b) and crossing(c) as one run of code with no branch.  A
+  // jumpable gap's emissions and the crossing's own (that sample's test is
+  // pos = P(g) >= the middle) are next_mid, next_mid + clock, ... while
+  // they reach P(g): the walker counts up to five of them and leaves the
+  // gap to the flushers, who place them (flush_scan).  Each loop's first
+  // rounds run unconditionally, one chain of additions with its compares
+  // beside it, and a select keeps the round the loop would have stopped
+  // at: five of the middle's, four of the timing-error walk, four of the
+  // next middle's catch-up.  Returns false, the walker's state then being
+  // of no use, where the gap is not jumpable or a loop needs a round more:
+  // the caller then walks the two from the state before.
+  __device__ __forceinline__ bool straight(const Consts& k, int b, int c,
+                                           ScanTile& out, int& nc) {
+    const float pg = __fadd_rn(pos, __int2float_rn(c - b));
+    const float m0 = next_mid;
+    bool ok = jumpable(pg);
+    out.gpos[ng] = pos;
+    out.gmid[ng] = m0;
+    out.span[ng] = b | (c - b + 1) << 16;
+    ++ng;
+    const float m1 = __fadd_rn(m0, clock), m2 = __fadd_rn(m1, clock);
+    const float m3 = __fadd_rn(m2, clock), m4 = __fadd_rn(m3, clock);
+    const float m5 = __fadd_rn(m4, clock);
+    float nm = m4 <= pg ? m5 : m4;
+    nm = m3 <= pg ? nm : m3;
+    nm = m2 <= pg ? nm : m2;
+    nm = m1 <= pg ? nm : m1;
+    nm = m0 <= pg ? nm : m0;
+    ok &= !(m5 <= pg);
+    pos = pg;
+    // the timing-error walk: while t > mx and t - clock is no farther from
+    // zero than t - 2 clock, t -= clock
+    const float t0 = __fsub_rn(pos, last_b);
+    const float t1 = __fsub_rn(t0, clock), t2 = __fsub_rn(t1, clock);
+    const float t3 = __fsub_rn(t2, clock), t4 = __fsub_rn(t3, clock);
+    const float t5 = __fsub_rn(t4, clock);
+    const bool s1 = (t0 > k.mx) & !(fabsf(t1) < fabsf(t2));
+    const bool s2 = s1 & (t1 > k.mx) & !(fabsf(t2) < fabsf(t3));
+    const bool s3 = s2 & (t2 > k.mx) & !(fabsf(t3) < fabsf(t4));
+    const bool s4 = s3 & (t3 > k.mx) & !(fabsf(t4) < fabsf(t5));
+    const float t = s4 ? t4 : s3 ? t3 : s2 ? t2 : s1 ? t1 : t0;
+    ok &= !(s4 & (t4 > k.mx));
+    const bool apply =
+        (pos > 0.0f) & (last_b > 0.0f) & (t > k.mi08) & (t < k.mx12);
+    const float ret = filt.output(k, __fsub_rn(t, k.sps));
+    filt.push_if(k, apply, ret);
+    const float nclk = __fadd_rn(ret, k.sps);
+    // the next middle: boundary + clock / 2, bumped up to pos
+    const float c0 = __fadd_rn(last_b, __fmul_rn(nclk, 0.5f));
+    const float c1 = __fadd_rn(c0, nclk), c2 = __fadd_rn(c1, nclk);
+    const float c3 = __fadd_rn(c2, nclk), c4 = __fadd_rn(c3, nclk);
+    float mid = c3 < pos ? c4 : c3;
+    mid = c2 < pos ? mid : c2;
+    mid = c1 < pos ? mid : c1;
+    mid = c0 < pos ? mid : c0;
+    ok &= !(apply & (c4 < pos));
+    clock = apply ? nclk : clock;
+    sb = apply ? __fmul_rn(10.0f, nclk) : sb;
+    next_mid = apply ? mid : nm;
+    out.changes[nc] = c;
+    out.list[nc + 1] = clock;
+    nc += apply;
+    last_b = pos;
+    advance();
+    return ok;
+  }
+
+  // `len` samples from the loader's crossing list; no global access.  The
+  // walk goes crossing by crossing through straight(); a crossing it
+  // cannot take is walked again by gap() and crossing(), out of the
+  // common path's way.
+  __device__ __forceinline__ void tile(const Consts& k, const ScanIn& in,
+                                       int len, ScanTile& out) {
+    ev = out.emits;
+    ne = 0;
+    ng = 0;
+    int nc = 0, wc = 0, i = 1, b = 0, c = in.cross[0], next = 0;
+    ScanWalker w;
+    out.list[0] = clock;
+    if (c >= len) goto tail;
+  walk:
+    next = in.cross[i++];
+    w = *this;
+    wc = nc;
+    if (__builtin_expect(!w.straight(k, b, c, out, wc), 0)) goto again;
+    *this = w;
+    nc = wc;
+  step:
+    b = c + 1;
+    c = next;
+    if (c < len) goto walk;
+  tail:
+    gap(b, len - b);
+    out.ne = ne;
+    out.nc = nc;
+    out.ng = ng;
+    crossings += in.count;
+    last_sign ^= (uint32_t)in.count & 1u;
+    return;
+  again:
+    gap(b, c - b);
+    crossing(k, c, out, nc);
+    goto step;
   }
 };
 

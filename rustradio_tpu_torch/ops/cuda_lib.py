@@ -87,7 +87,7 @@ def _bind(lib):
     lib.rr_fm_chain.restype = i
     lib.rr_quad_demod.argtypes = [p, ll, f, p, p]
     lib.rr_quad_demod.restype = i
-    lib.rr_symbol_sync_scan.argtypes = [p, i, ll, f, f, p, i, p, i, p, p, p]
+    lib.rr_symbol_sync_scan.argtypes = [p, i, ll, f, f, p, i, p, i, p, p, p, p]
     lib.rr_symbol_sync_scan.restype = i
     lib.rr_symbol_sync_events.argtypes = [p, p, i, i, i, f, f, p, i, p, i, p,
                                           p, p, p]

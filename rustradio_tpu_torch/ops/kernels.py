@@ -957,6 +957,14 @@ def symbol_sync_scan_plain(x: torch.Tensor, sps: float, max_deviation: float,
     return mask, clocks, out
 
 
+#: Kernel E's counter of its last launch: a (C, 2) int32 tensor on the
+#: card, each channel's crossings walked and samples it stepped one by one
+#: (below position 1, past 2^21, or with a NaN middle), the rest of its
+#: samples jumped over between events.  None before the first launch; the
+#: plain version leaves it as it is.  Nothing on a pass's path reads it.
+SCAN_COUNTS: torch.Tensor | None = None
+
+
 def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
                      clock_taps, state: torch.Tensor):
     """The per-sample clock recovery of every channel of ``x`` (C, N),
@@ -966,8 +974,8 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
 
     Returns ``(mask, clocks, new_state)``: ``mask`` (C, N) bool marks the
     emitted samples, ``clocks`` (C, N) f32 the clock at each sample before
-    its step.  Kernel E on CUDA tensors; the plain version on CPU
-    tensors."""
+    its step.  Kernel E on CUDA tensors, its walk counted into
+    :data:`SCAN_COUNTS`; the plain version on CPU tensors."""
     k = sync_consts(sps, max_deviation, clock_taps)
     _check_sync(x, torch.float32, state, 5 + k.nf, "symbol_sync_scan")
     # from the shapes: the most the call could need, every sample a crossing
@@ -975,6 +983,7 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
     if not _route(x):
         _worked(work)
         return symbol_sync_scan_plain(x, sps, max_deviation, clock_taps, state)
+    global SCAN_COUNTS
     c, n = x.shape
     mask = torch.empty((c, n), dtype=torch.bool, device=x.device)
     clocks = torch.empty((c, n), dtype=torch.float32, device=x.device)
@@ -982,13 +991,15 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
     if c == 0 or n == 0:
         return mask, clocks, out
     taps = np.asarray(k.taps, np.float32)
+    counts = torch.empty((c, 2), dtype=torch.int32, device=x.device)
     lib = cuda_lib.load()
     cuda_lib.check(lib.rr_symbol_sync_scan(
         x.data_ptr(), c, n, k.sps, float(np.float32(max_deviation)),
         taps.ctypes.data, len(taps), out.data_ptr(), out.shape[1],
-        mask.data_ptr(), clocks.data_ptr(), _stream(x.device)),
-        "symbol_sync_scan")
+        mask.data_ptr(), clocks.data_ptr(), counts.data_ptr(),
+        _stream(x.device)), "symbol_sync_scan")
     _launched("symbol_sync_scan", None, work)
+    SCAN_COUNTS = counts
     return mask, clocks, out
 
 

@@ -9,8 +9,10 @@ timed.
 
 Groups (``--only``, the JAX script's names): fm_chain, native, bell202,
 fir, fft_filter, quad_demod, channelizer, decode_bank, scan_stream,
-scan_stream_device; and recurrences, kernels F and G, which the JAX
-script has no row for.  Inputs come from ``--seed`` (torch.Generator on
+scan_stream_device; and two the JAX script has no row for: recurrences,
+kernels F and G, and band_clock, kernel E alone at the wideband cell's
+shape and clock (with its ``kernels.SCAN_COUNTS`` per channel and its
+cycles a sample).  Inputs come from ``--seed`` (torch.Generator on
 the device, numpy for the host rows).
 
 Method.  A device row's time is the median of 5 CUDA-event timings of 10
@@ -97,6 +99,8 @@ class Sizes:
     bell_n: int = 1 << 22      # bench_bell202_frontend
     bank_ch: int = 64          # bench_decode_bank
     bank_n: int = 1 << 16
+    band_ch: int = corpus.BAND_CH   # band_clock: the wideband cell's bank
+    band_n: int = corpus.BAND_N
     stream_chunk: int = 1 << 18   # bench_scan_stream
     device_chunk: int = 1 << 20   # bench_scan_stream_device
     stream_chunks: int = 64
@@ -115,7 +119,7 @@ class Sizes:
 
 SMALL = Sizes(fm_n=1 << 16, fir_n=1 << 16, fft_n=1 << 16, quad_n=1 << 16,
               chan_n=1 << 16, cell_n=1 << 16, bell_n=1 << 16, bank_ch=4,
-              bank_n=1 << 11, stream_chunk=1 << 13, device_chunk=1 << 13,
+              bank_n=1 << 11, band_n=1 << 13, stream_chunk=1 << 13, device_chunk=1 << 13,
               stream_chunks=8, native_n=1 << 16, hdlc_frames=8, hdlc_repeats=2,
               loop_n=1 << 14, loop_chunks=4, tile_rows=32, prefix=1 << 14,
               sync_prefix=1 << 10, recur_window=1 << 8, cma_call=1 << 10,
@@ -150,7 +154,8 @@ class Row:
     carries the row, ``work`` its (bytes, f32 operations) at the row's
     shapes, ``record(k)`` what the kernel's calls are recorded from
     (default the first variant); ``host`` rows take the host clock;
-    ``rate`` names the row's ``n`` a microsecond (the JAX row's key)."""
+    ``rate`` names the row's ``n`` a microsecond (the JAX row's key);
+    ``derive(line)`` gives fields computed from the measured line."""
 
     bench: str
     n: int
@@ -163,6 +168,7 @@ class Row:
     host: bool = False
     fields: dict = dataclasses.field(default_factory=dict)
     rate: str = "msps"
+    derive: typing.Callable[[dict], dict] | None = None
 
 
 def wrapped(a: torch.Tensor, b, gain: float = 1.0) -> float:
@@ -525,6 +531,72 @@ def decode_bank_rows(ctx: Ctx, methods=("scan", "events")):
                           if method == "events" else None})
 
 
+def band_clock_rows(ctx: Ctx):
+    """Kernel E alone at the wideband cell's shape and clock (8 x 2^21,
+    sps 2.56e6 / 128 / 1200, six taps of 1/6, deviation 0.5) on
+    ``corpus.band_nrz``, from the fresh state: each channel against native
+    ``rr_symbol_sync`` (its symbols, their clocks, the final state) and,
+    on the first ``sync_prefix`` samples, bit for bit against the plain
+    version; ``kernels.SCAN_COUNTS`` per channel (crossings a sample, the
+    share of samples stepped one by one) and the cycles a sample of the
+    device time at the row's SM clock."""
+    from .. import native
+    from ..ops import kernels
+
+    s = ctx.sizes
+    ch, n, sps, taps = s.band_ch, s.band_n, corpus.BAND_SPS, corpus.BAND_TAPS
+    gen, rng = ctx.gen(11), ctx.rng(11)
+    banks = [corpus.band_nrz(ctx.device, gen, rng, ch, n) for _ in range(3)]
+    k = kernels.sync_consts(sps, 0.5, taps)
+    state = torch.tensor([k.sps, 0.0, 0.0, 0.0, k.sps / 2] + [k.sps] * k.nf,
+                         dtype=torch.float32, device=ctx.device)
+    state = state.expand(ch, -1).contiguous()
+    counts = {}
+
+    def run(j, x=None):
+        return kernels.symbol_sync_scan(banks[j % len(banks)] if x is None
+                                        else x, sps, 0.5, taps, state)
+
+    def check():
+        mask, clocks, out = run(0)
+        got = kernels.SCAN_COUNTS
+        if got is not None and ctx.card is not None:
+            counts["cross"], counts["stepped"] = (got.cpu().double() / n).T.tolist()
+        x, m, c, o = (t.cpu().numpy() for t in (banks[0], mask, clocks, out))
+        unequal = 0
+        for r in range(ch):
+            sym, clk, fin = native.symbol_sync_f32_state(x[r], sps, 0.5, taps)
+            row = np.array([fin["clock"], float(fin["last_sign"]),
+                            fin["stream_pos"], fin["last_sym_boundary_pos"],
+                            fin["next_sym_middle"], *fin["fbuf"]], np.float32)
+            unequal += not (np.array_equal(x[r][m[r]], sym)
+                            and np.array_equal(c[r][m[r]], clk)
+                            and np.array_equal(o[r], row))
+        p = min(s.sync_prefix, n)
+        head = banks[0][:, :p].contiguous()
+        plain = kernels.symbol_sync_scan_plain(head.cpu(), sps, 0.5, taps,
+                                               state.cpu())
+        differ = sum(not torch.equal(g.cpu(), w)
+                     for g, w in zip(run(0, head), plain))
+        return {"channels unequal to native rr_symbol_sync": (unequal, 0),
+                f"outputs unequal to the plain version (first {p})": (differ, 0)}
+
+    def derive(line):
+        cyc = None
+        if line.get("device_ms") is not None and line.get("sm_clock_mhz"):
+            cyc = line["device_ms"] * 1e3 * line["sm_clock_mhz"] / n
+        return {"cycles_per_sample": cyc,
+                "crossings_per_sample": counts.get("cross"),
+                "stepped_share": counts.get("stepped")}
+
+    cross = int(crossings(banks[0]).sum())
+    yield Row(f"band_clock/{ch}ch", ch * n, {"": run}, check,
+              kernel="symbol_sync_scan",
+              work=kernels.scan_work(ch * n, sps, cross, len(taps) - 1),
+              rotation=len(banks), derive=derive,
+              fields={"nch": ch, "sps": sps, "taps": len(taps)})
+
+
 def device_sink(keep: bool = False):
     """A device-domain sink that keeps the last chunk (with ``keep``, every
     chunk: ``data()``) and takes a ``scan_chunks`` batch in one call."""
@@ -747,6 +819,7 @@ BENCHES = {
     "quad_demod": quad_demod_rows,
     "channelizer": channelizer_rows,
     "decode_bank": decode_bank_rows,
+    "band_clock": band_clock_rows,
     "scan_stream": lambda ctx: stream_rows(ctx, resident=False),
     "scan_stream_device": lambda ctx: stream_rows(ctx, resident=True),
     "recurrences": lambda ctx: itertools.chain(cma_rows(ctx), iir_rows(ctx)),
@@ -846,6 +919,8 @@ def measure(row: Row, ctx: Ctx) -> dict:
         if ctx.trace:
             timed["trace"] = trace_fields(lambda: next(iter(row.runs.values()))(0))
     line.update(timed)
+    if row.derive is not None:
+        line.update(row.derive(line))
     line["checks"] = {k: {"err": e, "tol": t} for k, (e, t) in checks.items()}
     line["correct"] = all(e <= t for e, t in checks.values())
     return line

@@ -1,6 +1,7 @@
 """The synthetic inputs and the float64 models shared by ``chip_smoke.py``
 and the benchmark programs (``tools/bench*.py``): an FM station and noise
-on rtl-sdr's 8-bit wire grid, the decode bank's noisy NRZ, the FM chain in
+on rtl-sdr's 8-bit wire grid, the decode bank's noisy NRZ, a wideband
+bank's NRZ (bursts between stretches of low-passed noise), the FM chain in
 float64 numpy, and the recurrences of kernels F and G (the CMA equalizer
 window after window, the IIR filter by its impulse response)."""
 
@@ -105,6 +106,52 @@ def decode_bank(device, gen: torch.Generator, channels: int = BANK_CH,
     nrz = torch.repeat_interleave(bits, rep, dim=1)[:, :n]
     return (nrz + BANK_NOISE * torch.randn(nrz.shape, generator=gen,
                                            device=device)).contiguous()
+
+
+BAND_CH = 8               # the wideband cell's bank (aprs_wideband.scan):
+BAND_N = 1 << 21          # 8 channels of 2^21 samples at 20 kHz,
+BAND_SPS = 2.56e6 / 128 / 1200   # 16.67 samples a symbol,
+BAND_STATIONS = 6         # six of them keyed a third of the time
+BAND_TAPS = (1 / 6,) * 6  # ax25-1200-rx.rs's clock filter (symbol_taps)
+BAND_FC = 0.047           # the noise's cut-off, cycles a sample
+BAND_FIR = 127            # taps of its low-pass
+
+
+def band_nrz(device, gen: torch.Generator, rng: np.random.RandomState,
+             channels: int = BAND_CH, n: int = BAND_N,
+             stations: int = BAND_STATIONS, burst=(10_000, 25_000),
+             gap: float = 30_000.0) -> torch.Tensor:
+    """A wideband bank's clock-recovery input as the cell's channels give
+    it: Gaussian noise low-passed to ``BAND_FC`` (a Hamming-windowed sinc
+    of ``BAND_FIR`` taps: ~5.1 crossings in 100 samples, half the gaps 15
+    samples or less, as a channel with no station has), and on the first
+    ``stations`` channels bursts of ``burst`` samples (uniform) of random
+    bits held for ``BAND_SPS`` samples at 3 times the noise's RMS, with 0.3
+    of the noise on them, exponential gaps of ``gap`` on average between
+    (~4.3 crossings in 100 at the defaults).  (channels, n) f32 on
+    ``device``: the noise and the bits from ``gen``, the bursts' times from
+    ``rng``."""
+    t = np.arange(BAND_FIR) - (BAND_FIR - 1) / 2
+    h = np.sinc(2 * BAND_FC * t) * np.hamming(BAND_FIR)
+    h = torch.tensor(h / np.sqrt((h ** 2).sum()), dtype=torch.float32,
+                     device=device)
+    white = torch.randn((channels, 1, n + BAND_FIR - 1), generator=gen,
+                        device=device)
+    noise = torch.nn.functional.conv1d(white, h.view(1, 1, -1)).view(channels, n)
+    nbits = int(n / BAND_SPS) + 2
+    bits = torch.randint(0, 2, (channels, nbits), generator=gen,
+                         device=device) * 2.0 - 1.0
+    at = torch.clamp((torch.arange(n, device=device, dtype=torch.float64)
+                      / BAND_SPS).long(), max=nbits - 1)
+    keyed = np.zeros((channels, n), bool)
+    for c in range(min(stations, channels)):
+        i = int(rng.exponential(gap))
+        while i < n:
+            length = rng.randint(*burst)
+            keyed[c, i:i + length] = True
+            i += length + int(rng.exponential(gap))
+    keyed = torch.from_numpy(keyed).to(device)
+    return torch.where(keyed, 3.0 * bits[:, at] + 0.3 * noise, noise).contiguous()
 
 
 def cma_channel(phase: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:

@@ -10,7 +10,13 @@ last sample, 2.5 to 100 samples per symbol, 1 to 16 clock taps, and streams
 cut at arbitrary positions and chained through the carried state, and
 streams entered from a state whose position is far from zero (around 2^16
 and 2^17, where an f32 position's last place is worth 2^-7 and 2^-6 of a
-sample).
+sample).  And where kernel E's walk from event to event can break: an
+emission on a crossing and on the sample before one, several emissions
+in one gap between crossings, a step back on the sample before a
+crossing and a crossing just after one with the position below 1, gaps
+across the position's binade tops (64, 128, 256), and the wideband
+cell's own clock over bursts of NRZ between stretches of low-passed
+noise.
 
 :func:`run_case` runs one case through every entry point on a device and
 returns the outputs by name, so two runs (card and CPU, or port and
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from . import corpus
 
 # the module (the package exports a function of the same name)
 tss = importlib.import_module("..ops.symbol_sync", __package__)
@@ -123,7 +130,100 @@ def cases(seed: int = 0) -> list[SyncCase]:
             stream_pos=pos, last_sym_boundary_pos=np.full(4, 3.7, np.float32),
             next_sym_middle=pos + np.float32(3.125),
             fbuf=np.full((4, 1), 100.0, np.float32))))
+    _walk_cases(rng, out)
     return out
+
+
+def _state(c: int, sps: float, nf: int, **rows) -> dict:
+    """An entry state of ``c`` channels: the fresh one (clock sps, position
+    0, boundary 0, middle sps / 2, last sign low) with ``rows`` put in."""
+    sps32 = np.float32(sps)
+    st = dict(clock=np.full(c, sps32), last_sign=np.zeros(c, bool),
+              stream_pos=np.zeros(c, np.float32),
+              last_sym_boundary_pos=np.zeros(c, np.float32),
+              next_sym_middle=np.full(c, sps32 / np.float32(2.0)),
+              fbuf=np.full((c, nf), sps32))
+    for key, v in rows.items():
+        st[key] = np.asarray(v, st[key].dtype)
+    return st
+
+
+def _runs(rng, c: int, n: int, sps: float, longest: int, sigma: float):
+    """NRZ whose symbols come in runs of 1 to ``longest`` equal bits, so the
+    gaps between crossings hold up to ``longest`` symbols: (c, n)."""
+    out = np.empty((c, n), np.float32)
+    for ch in range(c):
+        bits, level = [], 1.0
+        while len(bits) < n / sps + 2:
+            bits += [level] * rng.randint(1, longest + 1)
+            level = -level
+        at = np.minimum((np.arange(n) / sps).astype(int), len(bits) - 1)
+        out[ch] = np.asarray(bits)[at] + rng.randn(n) * sigma
+    return out
+
+
+def _walk_cases(rng, out: list) -> None:
+    """The cases of kernel E's walk from event to event (module docstring)."""
+    two = (0.5, 0.5)
+    f32 = np.float32
+
+    def add(name, x, sps, state, cuts, taps=two):
+        out.append(SyncCase(name, np.ascontiguousarray(x, np.float32), sps,
+                            0.5, tuple(taps), tuple(cuts), None, state))
+
+    # an emission on the crossing at sample 5 (middles at 5 and 5.25
+    # samples on), on the sample before it (4, 4.5), one and two samples
+    # earlier (3.5, 3); the crossing applies (interval 10), and NRZ at 10
+    # samples a symbol follows
+    d = np.array([5.0, 5.25, 4.0, 4.5, 3.5, 3.0], np.float32)
+    x = nrz(rng, len(d), 3 * TILE, 10.0, 0.1)
+    x[:, :5], x[:, 5:10] = 0.6, -0.6
+    add("emit_at_crossing", x, 10.0, _state(
+        len(d), 10.0, 1, clock=np.full(len(d), 10.0), last_sign=np.ones(len(d)),
+        stream_pos=np.full(len(d), 20.0), last_sym_boundary_pos=np.full(len(d), 15.0),
+        next_sym_middle=f32(20.0) + d), (5, 6, TILE + 3))
+    # two, three and more emissions in one gap: runs of up to 10 equal
+    # symbols at 2.5 and 4 samples a symbol
+    for sps in (2.5, 4.0):
+        add(f"gaps_sps{sps}", _runs(rng, 3, 3 * TILE + 7, sps, 10, 0.15), sps,
+            None, (TILE - 2, 2 * TILE + 1))
+    # 10 clocks are 100 samples.  Channel 0 steps back on sample 0 (position
+    # 101 -> 2) and crosses on sample 1; channel 1 steps back on sample 2,
+    # the sample before its crossing; channels 2 and 3 step back to 0.5 and
+    # 0.75 (a boundary past the position, as only an entry state has) and
+    # cross on the next sample, below 1; channel 4 starts at 0.25 and
+    # crosses on sample 0, channel 5 at -2.5 and crosses on sample 2
+    x = nrz(rng, 6, 2 * TILE + 50, 10.0, 0.2)
+    first = [1, 3, 1, 1, 0, 2]
+    for ch, at in enumerate(first):
+        x[ch, :at] = 0.6
+        x[ch, at:at + 6] = -0.6
+    add("step_back_edges", x, 10.0, _state(
+        6, 10.0, 1, clock=np.full(6, 10.0), last_sign=np.ones(6),
+        stream_pos=[101.0, 98.0, 99.5, 99.75, 0.25, -2.5],
+        last_sym_boundary_pos=[100.5, 97.0 + 3.5, 100.25, 100.5, 0.125, -3.0],
+        next_sym_middle=[103.0, 104.0, 102.0, 101.0, 2.0, 1.0]), (2, 3, 777))
+    # gaps across the position's binade tops: at 30 samples a symbol the
+    # position runs up to 10 clocks, 300; channels 0-2 enter an odd number
+    # of last places under 64, 128 and 256 with their middle just past it,
+    # channel 3 is fresh
+    tops = np.array([64.0, 128.0, 256.0], np.float32)
+    pos = tops - f32(20.0) + np.array([3, 5, 7], np.float32) * np.spacing(tops / 2)
+    x = _runs(rng, 4, 3 * TILE + 300, 30.0, 6, 0.1)
+    x[:3, :40] = 0.6
+    add("binade_tops", x, 30.0, _state(
+        4, 30.0, 1, last_sign=[1, 1, 1, 0],
+        stream_pos=np.append(pos, 0.0),
+        last_sym_boundary_pos=np.append(pos - f32(7.0), 0.0),
+        next_sym_middle=np.append(tops + np.spacing(tops), 15.0)),
+        (29, TILE + 1))
+    # the wideband cell's clock and filter over its kind of channel (two
+    # with bursts, one noise alone), five tiles long, chained at arbitrary
+    # cuts
+    gen = torch.Generator().manual_seed(int(rng.randint(1 << 31)))
+    x = corpus.band_nrz("cpu", gen, rng, 3, 5 * TILE + 11, 2, (700, 1600), 900.0)
+    add("cell_clock", x.numpy(), corpus.BAND_SPS, None,
+        (1, 1500, 2 * TILE + 1, 3333, 4 * TILE), taps=corpus.BAND_TAPS)
 
 
 def fresh_event_args(x: torch.Tensor, case: SyncCase, max_events: int):

@@ -84,6 +84,7 @@ def test_torch_bench_kernels_rows_rehearse_on_the_cpu(group, capsys):
             "fir": {f"fir_banded/deci{d}_taps{t}" for d, t in bench_kernels.FIR_SHAPES},
             "native": {"native_symbol_sync", "native_hdlc_deframe"},
             "decode_bank": {"decode_bank/4ch", "decode_bank_events/4ch"},
+            "band_clock": {"band_clock/8ch"},
             "scan_stream": {"scan_stream"}, "scan_stream_device": {"scan_stream_device"},
             "bell202": {"bell202_frontend"}, "fft_filter": {"fft_filter_decimate"},
             "quad_demod": {"quad_demod"},
@@ -356,6 +357,13 @@ def _want_work(line):
             return kernels.events_work(ch * line["slots"],
                                        int(cross.clamp(max=line["slots"]).sum()), 1)
         return kernels.scan_work(ch * per, 36.75, int(cross.sum()), 1)
+    if b.startswith("band_clock/"):  # the row's first bank's crossings
+        bank = corpus.band_nrz("cpu", torch.Generator().manual_seed(11),
+                               np.random.RandomState(11), line["nch"],
+                               bench_kernels.SMALL.band_n)
+        sign = bank > 0
+        cross = int((sign[:, 1:] != sign[:, :-1]).sum())
+        return kernels.scan_work(n, corpus.BAND_SPS, cross, 5)
     if b.startswith("cma/"):
         return kernels.cma_work(n, line["ntaps"])
     if b.startswith("iir/"):

@@ -579,6 +579,35 @@ def test_torch_cuda_symbol_sync_edge_case(cuda_device, name):
     assert sync_cases.self_mismatches(got) == []
 
 
+@pytest.mark.parametrize("name", list(SYNC_CASES))
+def test_torch_cuda_symbol_sync_scan_counts(cuda_device, name):
+    # kernel E's counter of its last launch, kernels.SCAN_COUNTS: a row a
+    # channel, its crossings walked equal to the input's sign changes (the
+    # first sample's against the entry state's last sign), and no more
+    # samples stepped one by one than the channel has; an empty stream
+    # launches nothing and leaves the counter as it was
+    case = SYNC_CASES[name]
+    x = torch.from_numpy(case.x).to(cuda_device)
+    c, n = x.shape
+    before = kernels.SCAN_COUNTS
+    ops.symbol_sync(x, case.sps, case.max_deviation, case.taps,
+                    state=case.state0)
+    counts = kernels.SCAN_COUNTS
+    if not (c and n):  # nothing launched, nothing counted
+        assert counts is before
+        return
+    assert counts.device == x.device and counts.dtype == torch.int32
+    assert tuple(counts.shape) == (c, 2)
+    last = (torch.zeros(c, dtype=torch.bool) if case.state0 is None
+            else torch.from_numpy(np.asarray(case.state0["last_sign"], bool)))
+    sign = torch.from_numpy(case.x) > 0
+    changes = ((sign[:, 0] != last).int()
+               + (sign[:, 1:] != sign[:, :-1]).sum(1, dtype=torch.int32))
+    got = counts.cpu()
+    assert torch.equal(got[:, 0], changes.int())
+    assert ((got[:, 1] >= 0) & (got[:, 1] <= n)).all()
+
+
 def test_torch_cuda_symbol_sync_more_channels_than_sms(cuda_device):
     # 300 channels are 300 blocks on 132 SMs: every channel against the
     # plain version (the per-sample form on a prefix: its plain loop is slow)
