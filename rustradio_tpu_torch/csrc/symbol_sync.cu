@@ -16,7 +16,8 @@
 // control flow, and the design (sync_core.cuh says both at length) keeps
 // everything else off that lane: in each block lane 0 of warp 0 walks the
 // channel on registers and shared memory only (kernel E from crossing to
-// crossing, jumping the samples between), warp 1 loads the next tile
+// crossing, jumping the samples between; kernel D four slots at a time in
+// one stretch with no branch), warp 1 loads the next tile
 // (kernel E: reduced to the list of its crossings; kernel D: the slot
 // positions and the tile's first padding slot), warps 2-3 write the
 // previous tile's results out (kernel E: placing the jumped gaps'
@@ -86,14 +87,15 @@ __global__ void __launch_bounds__(kThreads) symbol_sync_scan_kernel(
 // padding slot (round t: walk tile t, load tile t + 1, flush tile t - 1),
 // and then the whole block writes the constant final state into the
 // padding tail: budgets are several times the real crossings, and the tail
-// is most of the slots.
+// is most of the slots.  walk, when not null, takes each channel's real
+// slots walked and those walked again on the general path.
 template <int NT>
 __global__ void __launch_bounds__(kThreads) symbol_sync_events_kernel(
     const int* __restrict__ events, const int* __restrict__ counts,
     int n_events, int n, Consts k, float* __restrict__ fstate, int fstate_len,
     int* __restrict__ istate, float* __restrict__ ev_mid,
-    float* __restrict__ ev_clock) {
-  __shared__ int s_ev[2][kTile];
+    float* __restrict__ ev_clock, int* __restrict__ walk) {
+  __shared__ int s_ev[2][kTile + kGroup];
   __shared__ float s_mid[2][kTile], s_clk[2][kTile];
   __shared__ int s_cnt[2];
   __shared__ float s_fin[2];
@@ -142,6 +144,10 @@ __global__ void __launch_bounds__(kThreads) symbol_sync_events_kernel(
     walker.store(k, fs, is);
     s_fin[0] = walker.mid_off;
     s_fin[1] = walker.clock;
+    if (walk != nullptr) {
+      walk[2 * blockIdx.x] = walker.walked;
+      walk[2 * blockIdx.x + 1] = walker.general;
+    }
   }
   __syncthreads();
   for (int e = end + tid; e < n_events; e += kThreads) {
@@ -178,10 +184,10 @@ struct LaunchEvents {
   static void run(int channels, cudaStream_t stream, const int* events,
                   const int* counts, int n_events, int n, Consts k,
                   float* fstate, int fstate_len, int* istate, float* ev_mid,
-                  float* ev_clock) {
+                  float* ev_clock, int* walk) {
     symbol_sync_events_kernel<NT><<<channels, kThreads, 0, stream>>>(
         events, counts, n_events, n, k, fstate, fstate_len, istate, ev_mid,
-        ev_clock);
+        ev_clock, walk);
   }
 };
 
@@ -213,14 +219,13 @@ extern "C" int rr_symbol_sync_scan(const void* x, int channels, long long n,
 // loader then finds them); fstate: (channels, fstate_len) f32 (fstate_len
 // = 3 + max(ntaps - 1, 1)) and istate: (channels, 3) int32, both updated
 // in place; ev_mid and ev_clock: (channels, n_events) f32, the state after
-// each slot.
-extern "C" int rr_symbol_sync_events(const void* events, const void* counts,
-                                     int channels, int n_events, int n,
-                                     float sps, float max_dev,
-                                     const float* taps, int ntaps,
-                                     void* fstate, int fstate_len,
-                                     void* istate, void* ev_mid,
-                                     void* ev_clock, void* stream) {
+// each slot; walk: (channels, 2) int32, each channel's real slots walked
+// and those walked again on the general path, or null.
+extern "C" int rr_symbol_sync_events_counted(
+    const void* events, const void* counts, int channels, int n_events, int n,
+    float sps, float max_dev, const float* taps, int ntaps, void* fstate,
+    int fstate_len, void* istate, void* ev_mid, void* ev_clock, void* walk,
+    void* stream) {
   Consts k;
   if (!make_consts(sps, max_dev, taps, ntaps, &k) ||
       fstate_len != 3 + history_len(ntaps) || n_events < 0)
@@ -229,5 +234,19 @@ extern "C" int rr_symbol_sync_events(const void* events, const void* counts,
   return (int)by_taps<LaunchEvents>(
       ntaps, channels, (cudaStream_t)stream, (const int*)events,
       (const int*)counts, n_events, n, k, (float*)fstate, fstate_len,
-      (int*)istate, (float*)ev_mid, (float*)ev_clock);
+      (int*)istate, (float*)ev_mid, (float*)ev_clock, (int*)walk);
+}
+
+// rr_symbol_sync_events_counted without the walk counts.
+extern "C" int rr_symbol_sync_events(const void* events, const void* counts,
+                                     int channels, int n_events, int n,
+                                     float sps, float max_dev,
+                                     const float* taps, int ntaps,
+                                     void* fstate, int fstate_len,
+                                     void* istate, void* ev_mid,
+                                     void* ev_clock, void* stream) {
+  return rr_symbol_sync_events_counted(events, counts, channels, n_events, n,
+                                       sps, max_dev, taps, ntaps, fstate,
+                                       fstate_len, istate, ev_mid, ev_clock,
+                                       nullptr, stream);
 }

@@ -8,21 +8,25 @@
 // nowhere near a limit (9 B and two operations a sample).  The least time is
 // the longest recurrence of the busiest channel, each f32 operation rounded
 // on its own, at the card's latency between dependent operations.  In
-// kernel D that is clock to clock over the slots whose crossing is applied:
-// one division, ten operations and the filter, 123-141 cycles; the gap, the
-// second quotient and the next middle run beside it.  In kernel E it is the
-// clock filter over applied crossings (~58 cycles each); the positions
-// between two step backs are sums of 1 that a jump takes in one addition,
-// so they hold nothing.  Measured on an H100 at 700 W, a lone lane pays 4.4
-// cycles for a dependent addition, 44.6 for an IEEE division, ~14 for a
-// compare it has to wait for and ~25 for every taken branch, and it issues
-// one instruction a cycle at best.  Kernel D takes ~470 cycles a real slot,
-// about a quarter of its chain: control flow and every slot's tests on one
-// lane, not arithmetic, is what it pays for.  Kernel E's walker therefore
-// does no work per sample at all: it goes from crossing to crossing, each
-// gap one jump, each crossing one stretch of code with no branch, so that
-// its time follows the crossings (~100 instructions each) and not the
-// samples; the rest of a tile's work goes to the other warps.
+// kernel D that is clock to clock over every slot: the reduction's first
+// quotient (through the clock's reciprocal), the reduction and the clock
+// filter, ~110 cycles at the latencies below; the gap, the other quotients
+// and the next middle run beside it.  In kernel E it is the clock filter
+// over applied crossings (~58 cycles each); the positions between two step
+// backs are sums of 1 that a jump takes in one addition, so they hold
+// nothing.  Measured on an H100 at 700 W, a lone lane pays 4.1 cycles for
+// a dependent addition, 44.4 for an IEEE division, 19 for a reciprocal
+// (MUFU.RCP) or a rounding to a whole number (FRND), ~15 for a compare it
+// has to wait for, ~25 for every taken branch, and it issues one
+// instruction a cycle at best.  Control flow and every slot's tests, not
+// arithmetic, are what a walker with a branch a test pays for (kernel D
+// took ~480 cycles a real slot so, four times its chain).  So both walkers
+// take their common step as one stretch of code with no branch and redo
+// the rare one on a general path: kernel E goes from crossing to crossing,
+// each gap one jump, so that its time follows the crossings (~100
+// instructions each) and not the samples; kernel D takes four slots at a
+// time (~100 instructions and ~220 cycles a slot in the AX.25 cell).  The
+// rest of a tile's work goes to the other warps.
 //
 // What the design does about it: one block of kThreads per channel, with
 // roles.
@@ -62,7 +66,12 @@
 //     at 2^21 or more, or with a NaN middle, and counts those samples;
 //   * kernel D takes each channel's count of real slots from the caller
 //     where it has one, else the loader finds the first padding slot by a
-//     ballot; either way the walker compares no sentinel.
+//     ballot; either way the walker compares no sentinel;
+//   * kernel D's walk (EventsWalker: straight, step, tile): the common slot
+//     in one stretch with no branch, its quotients' floors from the clock's
+//     reciprocal where they are decided (floor_exact), four slots to one
+//     branch; a group with another slot is walked again slot by slot, that
+//     slot through the general path, the scan's operations as written.
 //
 // Numerics: every f32 operation is rounded on its own (__fadd_rn,
 // __fsub_rn, __fmul_rn, __fdiv_rn), because nvcc contracts a*b+c into an
@@ -70,7 +79,9 @@
 // value is computed by the operations of the JAX scans
 // (rustradio_tpu/ops/symbol_sync.py:87-143, :246-292) and of native
 // rr_symbol_sync, in their order, so both kernels equal their plain PyTorch
-// versions (ops/kernels.py) bit for bit.
+// versions (ops/kernels.py) bit for bit.  Where kernel D's straight stretch
+// takes a floor or a ceiling of a quotient from a reciprocal, or a floor
+// by additions, the comment beside it proves the value the same.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -650,38 +661,105 @@ struct ScanWalker {
 
 // ---- kernel D: the event step over crossing slots
 
+constexpr int kGroup = 4;  // slots a straight stretch of kernel D takes at once
+
 // Loader: the positions of tile `tile` of the slot row into `ev`, and into
 // *count its real slots, those before the row's first padding slot
 // (position >= n; slots past the row count as padding).  `real` is the
 // row's count of real slots where the caller knows it; below 0 the loader
-// finds the tile's first padding slot by a ballot.
+// finds the tile's first padding slot by a ballot.  The tile's 32 loads a
+// lane are all in flight before the first store or ballot, and the kGroup
+// slots after the tile hold n, so that the walker reads the next group's
+// positions ahead without a clamp.
 __device__ __forceinline__ void load_slots(const int* __restrict__ er,
                                            int n_events, int n, int tile,
                                            int real, int* ev, int* count,
                                            int lane) {
   const int i0 = tile * kTile;
-  int first = kTile;
-#pragma unroll 8
+  int v[kWords];
+#pragma unroll
   for (int w = 0; w < kWords; ++w) {
     const int j = w * 32 + lane;
-    const int p = i0 + j < n_events ? __ldg(er + i0 + j) : n;
-    ev[j] = p;
+    v[w] = i0 + j < n_events ? __ldg(er + i0 + j) : n;
+  }
+  int first = kTile;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    ev[w * 32 + lane] = v[w];
     if (real < 0) {
-      const uint32_t pad = __ballot_sync(0xffffffffu, p >= n);
+      const uint32_t pad = __ballot_sync(0xffffffffu, v[w] >= n);
       if (pad && first == kTile) first = w * 32 + __ffs(pad) - 1;
     }
   }
+  if (lane < kGroup) ev[kTile + lane] = n;
   if (real >= 0) first = min(max(real - i0, 0), kTile);
   if (lane == 0) *count = first;
 }
 
+// A fast reciprocal (one MUFU.RCP; subnormals flushed), for the straight
+// stretch's quotients only.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// Whether r is within 2^-21 of 1/c, relative: e = 1 - c r in one rounding
+// (an FMA) measures its error, whatever the hardware's approximation gives.
+__device__ __forceinline__ bool rcp_close(float c, float r) {
+  return fabsf(__fmaf_rn(-c, r, 1.0f)) <= 0x1p-21f;
+}
+
+// Whether q = x * r (one rounding, r within 2^-21 of 1/c) has the floor and
+// the ceiling of __fdiv_rn(x, c).  Proof: with e = 1 - c r, |e| <= 2^-21
+// (1 + 2^-23), q = (x / c)(1 - e)(1 + d) + s with |d| <= 2^-24 and |s| <=
+// 2^-150 (a subnormal product), so |q - x / c| <= |x / c| 2^-20.8 +
+// 2^-149; the rounded quotient lies within |x / c| 2^-24 + 2^-150 of x /
+// c.  Both therefore lie within |q| 2^-19.7 + 2^-147 of q, less than tol
+// = |q| 2^-18 + 2^-100 however tol rounds.  Where q's distance to its
+// nearest integer exceeds tol (that distance is exact: q - rint(q) is
+// exact below 2^23, and q is whole above), no integer lies between q, x /
+// c and the rounded quotient, nor on one of them: their floors are equal,
+// their ceilings are equal, and both have q's sign (a ceiling of -0 for q
+// in (-1, 0) included).  NaN and infinities fail the test.
+__device__ __forceinline__ bool floor_exact(float q) {
+  return fabsf(__fsub_rn(q, rintf(q))) >
+         __fmaf_rn(fabsf(q), 0x1p-18f, 0x1p-100f);
+}
+
 // The walker of kernel D.  fstate row: [clock, mid_off, bnd_off,
 // history...]; istate row: [p_prev, have_boundary, started].
+//
+// A slot is one step of the JAX scan's event_step: its two quotients by
+// the clock, the timing error reduced (ted_reduce), then either the clock
+// filter and the next middle (the crossing applied), or the emissions in
+// the gap bumping the middle on.  Two paths compute it, bit for bit the
+// same:
+//   * step(), the general path: the scan's operations as written, with
+//     __fdiv_rn and ted_reduce's loop;
+//   * straight(), one stretch with no branch, for the common slot (the
+//     state past its first boundary, the reduction done in two rounds,
+//     every quotient's floor decided): the quotients' floors and ceilings
+//     from the reciprocal of the clock (floor_exact), carried beside it and
+//     taken again only where a crossing applies; the reduction as a chain
+//     of subtractions with their compares beside it and a select, the
+//     clock filter run on each of its three outcomes meanwhile; both arms
+//     of the apply test computed and committed by selects, the filter's
+//     history shifted only where the crossing applies.  It says whether
+//     the slot was common.
+// tile() walks kGroup slots at a time through straight(), one run of code
+// the compiler schedules across the slots (slot j's next middle beside
+// slot j + 1's clock), and where a group holds a slot that is not common,
+// walks that group again slot by slot, each slot that is not common
+// through step().  The clock is the recurrence's chain: a quotient, the
+// reduction, the filter and the reciprocal of the new clock.
 template <int NT>
 struct EventsWalker {
   float clock, mid_off, bnd_off;
+  float rcp;  // ~1 / clock
   int p_prev;
-  bool have_b, started;
+  bool have_b, started, rcp_ok;  // rcp_ok: rcp_close(clock, rcp)
+  int walked, general;           // slots walked, and through step()
   ClockFilter<NT> filt;
 
   __device__ __forceinline__ void load(const Consts& k, const float* fs,
@@ -693,6 +771,10 @@ struct EventsWalker {
     p_prev = is[0];
     have_b = is[1] != 0;
     started = is[2] != 0;
+    rcp = rcp_approx(clock);
+    rcp_ok = rcp_close(clock, rcp);
+    walked = 0;
+    general = 0;
   }
   __device__ __forceinline__ void store(const Consts& k, float* fs,
                                         int* is) const {
@@ -704,43 +786,140 @@ struct EventsWalker {
     is[1] = have_b ? 1 : 0;
   }
 
-  // event_step over `cnt` real slots; the state after each goes to om / oc.
-  // No global access.
+  // The slot at p on the general path; the state after it to om / oc.
+  __device__ __forceinline__ void step(const Consts& k, int p, float* om,
+                                       float* oc) {
+    const int gap_i = p - p_prev;
+    const float gap = __int2float_rn(gap_i);
+    const float t0_raw = __fadd_rn(gap, bnd_off);
+    const float q_mid = __fdiv_rn(__fsub_rn(gap, mid_off), clock);
+    const float q_ted = __fdiv_rn(__fsub_rn(t0_raw, k.mx), clock);
+    const float t = ted_reduce(t0_raw, q_ted, clock, k.mx);
+    const bool past_start = started || p > 0;
+    if (past_start && have_b && t > k.mi08 && t < k.mx12) {
+      const float new_clock =
+          __fadd_rn(filt.step(k, __fsub_rn(t, k.sps)), k.sps);
+      // next middle = boundary + clock/2, bumped to >= p in closed form
+      const float nm0 = __fsub_rn(__fmul_rn(new_clock, 0.5f), t0_raw);
+      const float kk = fmaxf(0.0f, ceilf(__fdiv_rn(-nm0, new_clock)));
+      clock = new_clock;
+      mid_off = fmaxf(__fadd_rn(nm0, __fmul_rn(kk, new_clock)), 0.0f);
+      rcp = rcp_approx(clock);
+      rcp_ok = rcp_close(clock, rcp);
+    } else {
+      // emissions in (p_prev, p] bump mid before the crossing adjusts it
+      const int e_unc = (int)floorf(q_mid) + 1;
+      const int emitted = min(max(e_unc, 0), gap_i);
+      mid_off = __fsub_rn(
+          __fadd_rn(mid_off, __fmul_rn(__int2float_rn(emitted), clock)), gap);
+    }
+    p_prev = p;
+    bnd_off = 0.0f;
+    have_b = past_start;
+    *om = mid_off;
+    *oc = clock;
+    ++general;
+  }
+
+  // The slot at p as step() computes it, in one stretch with no branch;
+  // false (the state then of no use) where the slot is not common.
+  __device__ __forceinline__ bool straight(const Consts& k, int p, float& om,
+                                           float& oc) {
+    const int gap_i = p - p_prev;
+    const float gap = __int2float_rn(gap_i);
+    const float t0_raw = __fadd_rn(gap, bnd_off);
+    const float q_ted = __fmul_rn(__fsub_rn(t0_raw, k.mx), rcp);
+    const float q_mid = __fmul_rn(__fsub_rn(gap, mid_off), rcp);
+    bool ok = rcp_ok & have_b & (started | (p > 0)) & floor_exact(q_ted);
+    // ted_reduce: from t0_raw - k0 clock, while t > mx and t - clock is no
+    // farther from zero than t - 2 clock, t -= clock (two rounds here).
+    // k0 = max(0, floor(q_ted) - 1) is max(0, rint(q_ted - 1.5)), rounded
+    // by adding and taking off 1.5 2^23: where floor_exact holds, |q_ted| <
+    // 2^17 and q_ted is no integer, so from q_ted >= 2 on q_ted - 1.5 is
+    // exact and no half-integer, its nearest integer floor - 1, and below 2
+    // both are at most 0
+    const float k0 = fmaxf(0.0f, __fsub_rn(__fadd_rn(__fsub_rn(q_ted, 1.5f),
+                                                     0x1.8p23f), 0x1.8p23f));
+    const float u0 = __fsub_rn(t0_raw, __fmul_rn(k0, clock));
+    const float u1 = __fsub_rn(u0, clock), u2 = __fsub_rn(u1, clock);
+    const float u3 = __fsub_rn(u2, clock), u4 = __fsub_rn(u3, clock);
+    const bool a1 = (u0 > k.mx) & (fabsf(u1) >= fabsf(u2));
+    const bool a2 = a1 & (u1 > k.mx) & (fabsf(u2) >= fabsf(u3));
+    ok &= !(a2 & (u2 > k.mx) & (fabsf(u3) >= fabsf(u4)));
+    const float t = a2 ? u2 : a1 ? u1 : u0;
+    const bool apply = (t > k.mi08) & (t < k.mx12);
+    // the filter on each outcome of the reduction, beside its compares
+    const float o0 = filt.output(k, __fsub_rn(u0, k.sps));
+    const float o1 = filt.output(k, __fsub_rn(u1, k.sps));
+    const float o2 = filt.output(k, __fsub_rn(u2, k.sps));
+    const float ret = a2 ? o2 : a1 ? o1 : o0;
+    filt.push_if(k, apply, ret);
+    const float nclk = __fadd_rn(ret, k.sps);
+    const float nrcp = rcp_approx(nclk);
+    const bool nrcp_ok = rcp_close(nclk, nrcp);
+    // applied: the next middle = boundary + clock / 2, bumped to >= p
+    const float nm0 = __fsub_rn(__fmul_rn(nclk, 0.5f), t0_raw);
+    const float q_kk = __fmul_rn(-nm0, nrcp);
+    const float kk = fmaxf(0.0f, ceilf(q_kk));
+    const float mid_a = fmaxf(__fadd_rn(nm0, __fmul_rn(kk, nclk)), 0.0f);
+    // not applied: the emissions in (p_prev, p] bump the middle on; the
+    // count min(max(floor + 1, 0), gap) in f32 is exact, the floor being
+    // under 2^23 (floor_exact)
+    const float e =
+        fminf(fmaxf(__fadd_rn(floorf(q_mid), 1.0f), 0.0f), gap);
+    const float mid_b = __fsub_rn(__fadd_rn(mid_off, __fmul_rn(e, clock)), gap);
+    ok &= apply ? nrcp_ok & floor_exact(q_kk) : floor_exact(q_mid);
+    clock = apply ? nclk : clock;
+    rcp = apply ? nrcp : rcp;
+    mid_off = apply ? mid_a : mid_b;
+    p_prev = p;
+    bnd_off = 0.0f;
+    om = mid_off;
+    oc = clock;
+    return ok;
+  }
+
+  // event_step over `cnt` real slots at ev (kGroup readable past them); the
+  // state after each goes to om / oc.  No global access.
   __device__ __forceinline__ void tile(const Consts& k, const int* ev, int cnt,
                                        float* om, float* oc) {
-    int p = ev[0];
-    for (int j = 0; j < cnt; ++j) {
-      const int p_next = ev[min(j + 1, kTile - 1)];
-      const int gap_i = p - p_prev;
-      const float gap = __int2float_rn(gap_i);
-      const float t0_raw = __fadd_rn(gap, bnd_off);
-      // both quotients by the old clock, neither waiting for the other
-      const float q_mid = __fdiv_rn(__fsub_rn(gap, mid_off), clock);
-      const float q_ted = __fdiv_rn(__fsub_rn(t0_raw, k.mx), clock);
-      const float t = ted_reduce(t0_raw, q_ted, clock, k.mx);
-      const bool past_start = started || p > 0;
-      if (past_start && have_b && t > k.mi08 && t < k.mx12) {
-        const float new_clock =
-            __fadd_rn(filt.step(k, __fsub_rn(t, k.sps)), k.sps);
-        // next middle = boundary + clock/2, bumped to >= p in closed form
-        const float nm0 = __fsub_rn(__fmul_rn(new_clock, 0.5f), t0_raw);
-        const float kk = fmaxf(0.0f, ceilf(__fdiv_rn(-nm0, new_clock)));
-        clock = new_clock;
-        mid_off = fmaxf(__fadd_rn(nm0, __fmul_rn(kk, new_clock)), 0.0f);
-      } else {
-        // emissions in (p_prev, p] bump mid before the crossing adjusts it
-        const int e_unc = (int)floorf(q_mid) + 1;
-        const int emitted = min(max(e_unc, 0), gap_i);
-        mid_off = __fsub_rn(
-            __fadd_rn(mid_off, __fmul_rn(__int2float_rn(emitted), clock)), gap);
+    int p[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) p[g] = ev[g];
+    int j = 0;
+    while (j < cnt) {
+      int stop = cnt;
+      if (j + kGroup <= cnt) {
+        int next[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) next[g] = ev[j + kGroup + g];
+        EventsWalker w = *this;
+        bool ok = true;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          ok &= w.straight(k, p[g], om[j + g], oc[j + g]);
+        if (__builtin_expect(ok, 1)) {
+          *this = w;
+          j += kGroup;
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) p[g] = next[g];
+          continue;
+        }
+        stop = j + kGroup;
       }
-      p_prev = p;
-      bnd_off = 0.0f;
-      have_b = past_start;
-      om[j] = mid_off;
-      oc[j] = clock;
-      p = p_next;
+      // a group with a slot that is not common, or the tile's last slots
+#pragma unroll 1
+      for (; j < stop; ++j) {
+        EventsWalker w = *this;
+        if (w.straight(k, ev[j], om[j], oc[j]))
+          *this = w;
+        else
+          step(k, ev[j], om + j, oc + j);
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) p[g] = ev[j + g];
     }
+    walked += cnt;
   }
 };
 

@@ -92,6 +92,9 @@ def _bind(lib):
     lib.rr_symbol_sync_events.argtypes = [p, p, i, i, i, f, f, p, i, p, i, p,
                                           p, p, p]
     lib.rr_symbol_sync_events.restype = i
+    lib.rr_symbol_sync_events_counted.argtypes = [p, p, i, i, i, f, f, p, i, p, i,
+                                                  p, p, p, p, p]
+    lib.rr_symbol_sync_events_counted.restype = i
     lib.rr_cma_equalize.argtypes = [p, ll, i, f, f, p, p, p]
     lib.rr_cma_equalize.restype = i
     lib.rr_iir_filter.argtypes = [p, ll, p, i, p, p, p, p, p, p]

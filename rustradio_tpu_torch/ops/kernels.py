@@ -1003,6 +1003,14 @@ def symbol_sync_scan(x: torch.Tensor, sps: float, max_deviation: float,
     return mask, clocks, out
 
 
+#: Kernel D's counter of its last launch: a (C, 2) int32 tensor on the
+#: card, each channel's real slots walked and those walked again on its
+#: general path (the rest took its straight stretch).  None before the
+#: first launch; the plain version leaves it as it is.  Nothing on a
+#: pass's path reads it.
+EVENTS_COUNTS: torch.Tensor | None = None
+
+
 def _check_events(events: torch.Tensor, n: int, fstate: torch.Tensor,
                   istate: torch.Tensor, k: SyncConsts,
                   counts: torch.Tensor | None) -> None:
@@ -1091,8 +1099,8 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
     ``ev_clock`` (C, E) f32 the mid offset and clock after each slot.
     ``counts`` (C,) int32, where the caller has it, is each channel's
     number of crossing slots (the slots before its padding); the kernel
-    then looks for no padding.  Kernel D on CUDA tensors; the plain version
-    on CPU tensors."""
+    then looks for no padding.  Kernel D on CUDA tensors, its walk counted
+    into :data:`EVENTS_COUNTS`; the plain version on CPU tensors."""
     k = sync_consts(sps, max_deviation, clock_taps)
     _check_events(events, n, fstate, istate, k, counts)
     # from the shapes: the most the call could need, every slot real
@@ -1101,6 +1109,7 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
         _worked(work)
         return symbol_sync_events_scan_plain(events, n, sps, max_deviation,
                                              clock_taps, fstate, istate, counts)
+    global EVENTS_COUNTS
     c, n_ev = events.shape
     ev_mid = torch.empty((c, n_ev), dtype=torch.float32, device=events.device)
     ev_clock = torch.empty_like(ev_mid)
@@ -1108,14 +1117,16 @@ def symbol_sync_events_scan(events: torch.Tensor, n: int, sps: float,
     if c == 0:
         return ev_mid, ev_clock, fout, iout
     taps = np.asarray(k.taps, np.float32)
+    walk = torch.empty((c, 2), dtype=torch.int32, device=events.device)
     lib = cuda_lib.load()
-    cuda_lib.check(lib.rr_symbol_sync_events(
+    cuda_lib.check(lib.rr_symbol_sync_events_counted(
         events.data_ptr(), None if counts is None else counts.data_ptr(),
         c, n_ev, n, k.sps, float(np.float32(max_deviation)),
         taps.ctypes.data, len(taps), fout.data_ptr(), fout.shape[1],
         iout.data_ptr(), ev_mid.data_ptr(), ev_clock.data_ptr(),
-        _stream(events.device)), "symbol_sync_events")
+        walk.data_ptr(), _stream(events.device)), "symbol_sync_events")
     _launched("symbol_sync_events", None, work)
+    EVENTS_COUNTS = walk
     return ev_mid, ev_clock, fout, iout
 
 

@@ -9,11 +9,12 @@ timed.
 
 Groups (``--only``, the JAX script's names): fm_chain, native, bell202,
 fir, fft_filter, quad_demod, channelizer, decode_bank, scan_stream,
-scan_stream_device; and two the JAX script has no row for: recurrences,
-kernels F and G, and band_clock, kernel E alone at the wideband cell's
-shape and clock (with its ``kernels.SCAN_COUNTS`` per channel and its
-cycles a sample).  Inputs come from ``--seed`` (torch.Generator on
-the device, numpy for the host rows).
+scan_stream_device; and three the JAX script has no row for: recurrences,
+kernels F and G; band_clock, kernel E alone at the wideband cell's shape
+and clock (with its ``kernels.SCAN_COUNTS`` per channel and its cycles a
+sample); and ax25_clock, kernel D alone at the AX.25 cell's shape (with
+its ``kernels.EVENTS_COUNTS`` and its cycles a real slot).  Inputs come
+from ``--seed`` (torch.Generator on the device, numpy for the host rows).
 
 Method.  A device row's time is the median of 5 CUDA-event timings of 10
 back-to-back calls after 2 warm-up calls, with the quartiles and the
@@ -101,6 +102,7 @@ class Sizes:
     bank_n: int = 1 << 16
     band_ch: int = corpus.BAND_CH   # band_clock: the wideband cell's bank
     band_n: int = corpus.BAND_N
+    aprs_n: int = corpus.APRS_N     # ax25_clock: the AX.25 cell's capture
     stream_chunk: int = 1 << 18   # bench_scan_stream
     device_chunk: int = 1 << 20   # bench_scan_stream_device
     stream_chunks: int = 64
@@ -121,7 +123,8 @@ SMALL = Sizes(fm_n=1 << 16, fir_n=1 << 16, fft_n=1 << 16, quad_n=1 << 16,
               chan_n=1 << 16, cell_n=1 << 16, bell_n=1 << 16, bank_ch=4,
               bank_n=1 << 11, band_n=1 << 13, stream_chunk=1 << 13, device_chunk=1 << 13,
               stream_chunks=8, native_n=1 << 16, hdlc_frames=8, hdlc_repeats=2,
-              loop_n=1 << 14, loop_chunks=4, tile_rows=32, prefix=1 << 14,
+              aprs_n=1 << 16, loop_n=1 << 14, loop_chunks=4, tile_rows=32,
+              prefix=1 << 14,
               sync_prefix=1 << 10, recur_window=1 << 8, cma_call=1 << 10,
               iir_call=1 << 14)
 
@@ -597,6 +600,68 @@ def band_clock_rows(ctx: Ctx):
               fields={"nch": ch, "sps": sps, "taps": len(taps)})
 
 
+def ax25_clock_rows(ctx: Ctx):
+    """Kernel D alone at the AX.25 cell's shape (aprs1200.events): one
+    channel of Bell 202 front-end output at 44.1 kHz (``corpus.aprs_audio``
+    through ``models.ax25.bell202_demod``, 2^24 samples), the cell's slot
+    budget (``default_max_events``), six taps of 1/6, deviation 0.5, from
+    the fresh state; bit for bit against the plain version (every slot's
+    outputs and the final state, the plain loop over every real slot);
+    ``kernels.EVENTS_COUNTS`` (the real slots, the share walked again on
+    the general path) and the cycles a real slot of the device time at the
+    row's SM clock."""
+    import importlib
+
+    from ..models import ax25
+    from ..ops import kernels
+
+    tss = importlib.import_module("..ops.symbol_sync", __package__)
+    sps, taps = corpus.APRS_SPS, corpus.APRS_TAPS
+    audio = torch.from_numpy(corpus.aprs_audio(ctx.rng(12), ctx.sizes.aprs_n))
+    nrz = ax25.bell202_demod(audio.to(ctx.device), corpus.APRS_FS)[None]
+    n = nrz.shape[1]
+    budget = tss.default_max_events(n, sps)
+    sign = nrz > 0.0
+    changed = torch.cat([sign[:, :1], sign[:, 1:] != sign[:, :-1]], 1)
+    events = tss._crossings(changed, budget)
+    real = changed.sum(1, dtype=torch.int32).clamp(max=budget)
+    k = kernels.sync_consts(sps, 0.5, taps)
+    mid0 = float(np.float32(k.sps) / np.float32(2.0) + np.float32(1.0))
+    fstate = torch.tensor([[k.sps, mid0, 1.0] + [k.sps] * k.nf], device=ctx.device)
+    istate = torch.tensor([[-1, 0, 0]], dtype=torch.int32, device=ctx.device)
+    args = (events, n, sps, 0.5, taps, fstate, istate, real)
+    counts = {}
+
+    def run(j):
+        return kernels.symbol_sync_events_scan(*args)
+
+    def check():
+        got = run(0)
+        walk = kernels.EVENTS_COUNTS
+        if walk is not None and ctx.card is not None:
+            walked, general = walk[0].tolist()
+            counts.update(real=walked, general=general / max(walked, 1))
+        want = kernels.symbol_sync_events_scan_plain(
+            *(a.cpu() if torch.is_tensor(a) else a for a in args))
+        slots = sum(int((g.cpu() != w).sum()) for g, w in zip(got[:2], want[:2]))
+        final = sum(not torch.equal(g.cpu(), w) for g, w in zip(got[2:], want[2:]))
+        return {f"slots unequal to the plain version (all {budget})": (slots, 0),
+                "final states unequal to the plain version's": (final, 0)}
+
+    def derive(line):
+        cyc = None
+        if line.get("device_ms") is not None and line.get("sm_clock_mhz") \
+                and counts.get("real"):
+            cyc = line["device_ms"] * 1e3 * line["sm_clock_mhz"] / counts["real"]
+        return {"cycles_per_real_slot": cyc, "real_slots": counts.get("real"),
+                "general_share": counts.get("general")}
+
+    yield Row("ax25_clock/1ch", n, {"": run}, check, kernel="symbol_sync_events",
+              work=kernels.events_work(budget, int(real.sum()), len(taps) - 1),
+              derive=derive, fields={"nch": 1, "sps": sps, "taps": len(taps),
+                                     "slots": budget})
+
+
 def device_sink(keep: bool = False):
     """A device-domain sink that keeps the last chunk (with ``keep``, every
     chunk: ``data()``) and takes a ``scan_chunks`` batch in one call."""
@@ -820,6 +885,7 @@ BENCHES = {
     "channelizer": channelizer_rows,
     "decode_bank": decode_bank_rows,
     "band_clock": band_clock_rows,
+    "ax25_clock": ax25_clock_rows,
     "scan_stream": lambda ctx: stream_rows(ctx, resident=False),
     "scan_stream_device": lambda ctx: stream_rows(ctx, resident=True),
     "recurrences": lambda ctx: itertools.chain(cma_rows(ctx), iir_rows(ctx)),

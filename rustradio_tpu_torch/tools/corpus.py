@@ -1,7 +1,8 @@
 """The synthetic inputs and the float64 models shared by ``chip_smoke.py``
 and the benchmark programs (``tools/bench*.py``): an FM station and noise
 on rtl-sdr's 8-bit wire grid, the decode bank's noisy NRZ, a wideband
-bank's NRZ (bursts between stretches of low-passed noise), the FM chain in
+bank's NRZ (bursts between stretches of low-passed noise), APRS audio
+(Bell 202 frames between silence at a packet channel's density), the FM chain in
 float64 numpy, and the recurrences of kernels F and G (the CMA equalizer
 window after window, the IIR filter by its impulse response)."""
 
@@ -152,6 +153,57 @@ def band_nrz(device, gen: torch.Generator, rng: np.random.RandomState,
             i += length + int(rng.exponential(gap))
     keyed = torch.from_numpy(keyed).to(device)
     return torch.where(keyed, 3.0 * bits[:, at] + 0.3 * noise, noise).contiguous()
+
+
+APRS_FS = 44_100.0         # the APRS audio of aprs1200.events:
+APRS_N = 1 << 24           # 2^24 samples at 44.1 kHz (6.3 min)
+APRS_FRAMES = 158          # with 158 frames (WA8LMF track 1's density)
+APRS_SPS = APRS_FS / 1200  # 36.75 samples a symbol
+APRS_TAPS = (1 / 6,) * 6   # ax25_1200_rx's clock filter (symbol_taps)
+APRS_LEAD = 735            # noise before and after each frame's tones
+
+
+def aprs_audio(rng: np.random.RandomState, n: int = APRS_N,
+               frames: int | None = None) -> np.ndarray:
+    """APRS audio as the packet cell's capture has it: ``frames`` AX.25
+    UI frames (default: APRS_FRAMES scaled to ``n``, at least 1) of 40-100
+    random printable bytes, HDLC-framed with 20 flags each side, NRZI, as
+    Bell 202 tones (1200 / 2200 Hz) at 1200 baud x (1 + drift), drift
+    -1.5..1.5%, amplitude 0.05-1.0 and noise up to 0.4x of it over the
+    tones and their ``APRS_LEAD``-sample leads; silence between the frames,
+    exponential gaps.  (n,) f32 numpy, from ``rng``."""
+    from ..ops import hdlc
+
+    if frames is None:
+        frames = max(1, round(APRS_FRAMES * n / APRS_N))
+    amps = np.linspace(0.05, 1.0, 10)
+    noises = (0.0, 0.15, 0.3, 0.35, 0.4)
+    drifts = np.linspace(-0.015, 0.015, 7)
+    bursts = []
+    for i in range(frames):
+        payload = rng.randint(0x20, 0x7F, rng.randint(40, 101)).astype(np.uint8)
+        line = (1 + np.cumsum(1 - hdlc.hdlc_frame(hdlc.fcs_add(payload)))) % 2
+        sps = APRS_FS / (1200.0 * (1.0 + drifts[i % len(drifts)]))
+        m = int(len(line) * sps)
+        freqs = np.where(line[np.minimum((np.arange(m) / sps).astype(int),
+                                         len(line) - 1)] == 1, 1200.0, 2200.0)
+        amp = amps[rng.randint(len(amps))]
+        tone = np.zeros(m + 2 * APRS_LEAD)
+        tone[APRS_LEAD:APRS_LEAD + m] = amp * np.sin(np.cumsum(2 * np.pi * freqs
+                                                               / APRS_FS))
+        bursts.append(tone + rng.randn(tone.size) * (noises[i % 5] * amp))
+    free = n - sum(b.size for b in bursts)
+    if free < frames + 1:
+        raise ValueError(f"{frames} frames do not fit in {n} samples")
+    w = rng.exponential(size=frames + 1)
+    gaps = np.floor(w / w.sum() * free).astype(int)
+    out = np.zeros(n, np.float32)
+    at = 0
+    for g, b in zip(gaps, bursts):
+        at += g
+        out[at:at + b.size] = b
+        at += b.size
+    return out
 
 
 def cma_channel(phase: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:

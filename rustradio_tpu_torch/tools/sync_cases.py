@@ -49,6 +49,7 @@ class SyncCase(typing.NamedTuple):
     cuts: tuple               # where a chained run cuts the stream
     max_events: int | None    # slot budget of the event form (None: default)
     state0: dict | None = None  # the per-sample form starts here (None: fresh)
+    ev_state0: dict | None = None  # and the event form (None: fresh)
 
 
 def nrz(rng, c: int, n: int, sps: float, sigma: float) -> np.ndarray:
@@ -131,6 +132,7 @@ def cases(seed: int = 0) -> list[SyncCase]:
             next_sym_middle=pos + np.float32(3.125),
             fbuf=np.full((4, 1), 100.0, np.float32))))
     _walk_cases(rng, out)
+    _slot_cases(rng, out)
     return out
 
 
@@ -226,19 +228,128 @@ def _walk_cases(rng, out: list) -> None:
         (1, 1500, 2 * TILE + 1, 3333, 4 * TILE), taps=corpus.BAND_TAPS)
 
 
+def _line(lead: int, gaps, n: int, level: float = 0.6) -> np.ndarray:
+    """A row of ``n`` samples at +-``level`` whose sign turns after ``lead``
+    samples and then after each of ``gaps``; the last level holds."""
+    x = np.empty(n, np.float32)
+    at, sign = 0, 1.0
+    for g in (lead, *gaps):
+        x[at:at + g] = sign * level
+        at += g
+        sign = -sign
+        if at >= n:
+            return x
+    x[at:] = sign * level
+    return x
+
+
+def _slot_cases(rng, out: list) -> None:
+    """The cases where kernel D's straight stretch hands a slot over to its
+    general path (csrc/sync_core.cuh, EventsWalker): the first crossing on
+    sample 0 of a fresh stream (no boundary before it), a stream cut
+    before its first boundary, a long gap whose reduction of the timing
+    error starts from a quotient past 2^23 and takes more rounds than the
+    stretch holds, intervals exactly at the applied
+    range's ends (t = 0.8 mi and 1.2 mx), the filter at both clamps, and
+    runs of applied and ignored crossings across a tile's last slot with
+    a cut there."""
+    two = (0.5, 0.5)
+
+    # sps 17.5 and deviation 2.5: 0.8 mi = 12 and 1.2 mx = 24 in f32, and
+    # an interval of 24 is no round of the reduction while the clock is
+    # above 16.  Channel 0 measures 12 and 24 (neither applied) between
+    # applied ones; channel 1 a run of 23s (the filter at its top clamp),
+    # then of 13s (its bottom one); channel 2 the two ends at both clamps
+    # (then symbols of one to three clocks: no gap long enough for a whole
+    # clock's reduction, whose product the JAX scan may contract)
+    ends, tail = [12, 24, 12, 24, 13, 23, 12, 24], [17, 18, 35, 17, 52, 18] * 20
+    gaps = [ends + tail, [23] * 12 + [13] * 12 + tail,
+            [23] * 8 + [24, 12] + [13] * 8 + [24, 12, 17] + [23] * 3 + [12, 24] + tail]
+    x = np.stack([_line(30, g, 3 * TILE + 100) for g in gaps])
+    # (two taps and six: kernel D's instances; six whose products are exact,
+    # so that no contraction of the JAX scan moves a clock)
+    for taps in (two, (0.25, 0.25, 0.125, 0.125, 0.125, 0.125)):
+        out.append(SyncCase(f"ted_bounds_taps{len(taps)}", x, 17.5, 2.5, taps,
+                            (55, 400, TILE + 5), None))
+    # the first crossing on sample 0 of a fresh stream, then NRZ (channel
+    # 0), a crossing on samples 0 and 1 (channel 1), on sample 0 and none
+    # until after the second cut (channel 2), none until after it (channel
+    # 3): each of the last two enters the next call with no boundary
+    x = nrz(rng, 4, 2 * TILE + 77, 10.0, 0.2)
+    x[:, 0] = 0.5
+    x[0, 1:12] = -0.5
+    x[1, 1], x[1, 2:15] = -0.5, 0.5
+    x[2, 1:300] = 0.5
+    x[3, :300] = -0.5
+    out.append(SyncCase("first_at_zero", x, 10.0, 0.5, two, (1, 200, TILE + 7),
+                        None))
+    # a long gap after silence (sps 1.01, deviation 0.95, a clock of
+    # 0.09375 whose products with whole numbers of clocks are exact in f32,
+    # so that no contraction of the JAX scan changes them).  Before the
+    # first crossing 1,572,867 samples passed: the first
+    # quotient of the reduction passes 2^24 and rounds two clocks off, and
+    # the loop takes four rounds (six is the most it may; no decided
+    # quotient leaves more than three), so the slot is handed over.
+    # Crossings 1 or 2 samples apart follow (no more whole clocks to reduce
+    # by), on the stretch again
+    sps, dev = float(np.float32(1.01)), 0.95
+    clock = np.float32(0.09375)
+    gaps = np.array([1572867], np.int32)
+    x = np.stack([-_line(5, rng.randint(1, 3, 2 * TILE), 2 * TILE + 60)
+                  for _ in gaps])
+    c = len(gaps)
+    ev = dict(clock=np.full(c, clock), p_prev=5 - gaps,
+              mid_off=np.full(c, 0.25, np.float32), bnd_off=np.zeros(c, np.float32),
+              have_boundary=np.ones(c, bool),
+              fbuf=np.full((c, 1), clock - np.float32(sps), np.float32))
+    out.append(SyncCase("long_gap_rounds", x, sps, dev, two, (7, TILE + 3),
+                        x.shape[1], ev_state0=dict(ev=ev, last_sign=np.zeros(c, bool),
+                                                   started=np.ones(c, bool))))
+    # runs of 1-6 applied crossings (7-9 samples at 8 a symbol) and of 1-6
+    # ignored ones (2-3 samples, under 0.8 mi) over 1,100 slots, cut at
+    # channel 0's 1024th crossing (its first call's tile ends there) and
+    # just after its 1050th
+    rows, at = [], []
+    for ch in range(3):
+        g, applied = [], ch == 1
+        while len(g) < 1100:
+            g += list(rng.randint(7, 10, rng.randint(1, 7)) if applied
+                      else rng.randint(2, 4, rng.randint(1, 7)))
+            applied = not applied
+        rows.append(g)
+        at.append(np.cumsum([20 + ch] + g))
+    n = int(min(a[-1] for a in at))
+    x = np.stack([_line(20 + ch, rows[ch], n) for ch in range(3)])
+    out.append(SyncCase("tile_edge_runs", x, 8.0, 0.5, two,
+                        (int(at[0][1023]) + 1, int(at[0][1049]) + 2), None))
+
+
 def fresh_event_args(x: torch.Tensor, case: SyncCase, max_events: int):
-    """Kernel D's arguments for ``x`` (C, N) from the fresh state: the
-    crossing slots and the states."""
+    """Kernel D's arguments for ``x`` (C, N) from the case's entry state of
+    the event form (the fresh state where it has none): the crossing slots
+    and the states."""
     c, n = x.shape
     k = kernels.sync_consts(case.sps, case.max_deviation, case.taps)
+    st = case.ev_state0
+    if st is None:
+        last = torch.zeros(c, dtype=torch.bool, device=x.device)
+        mid0 = float(np.float32(k.sps) / np.float32(2.0) + np.float32(1.0))
+        fstate = torch.tensor([k.sps, mid0, 1.0] + [k.sps] * k.nf,
+                              device=x.device).expand(c, -1).contiguous()
+        istate = torch.tensor([-1, 0, 0], dtype=torch.int32,
+                              device=x.device).expand(c, -1).contiguous()
+    else:
+        ev = {key: torch.as_tensor(v, device=x.device) for key, v in st["ev"].items()}
+        last = torch.as_tensor(st["last_sign"], device=x.device)
+        fstate = torch.cat([torch.stack([ev["clock"], ev["mid_off"], ev["bnd_off"]], 1),
+                            ev["fbuf"].reshape(c, k.nf)], 1).float().contiguous()
+        istate = torch.stack([ev["p_prev"], ev["have_boundary"],
+                              torch.as_tensor(st["started"], device=x.device)],
+                             1).to(torch.int32).contiguous()
     sign = x > 0.0
-    changed = torch.cat([sign[:, :1], sign[:, 1:] != sign[:, :-1]], 1)
+    changed = torch.cat([sign[:, :1] != last[:, None],
+                         sign[:, 1:] != sign[:, :-1]], 1)
     events = tss._crossings(changed, max_events)
-    mid0 = float(np.float32(k.sps) / np.float32(2.0) + np.float32(1.0))
-    fstate = torch.tensor([k.sps, mid0, 1.0] + [k.sps] * k.nf,
-                          device=x.device).expand(c, -1).contiguous()
-    istate = torch.tensor([-1, 0, 0], dtype=torch.int32,
-                          device=x.device).expand(c, -1).contiguous()
     return (events, n, case.sps, case.max_deviation, case.taps, fstate,
             istate)
 
@@ -270,7 +381,7 @@ def run_case(case: SyncCase, device,
     if "scan" in forms:
         _run_scan(x, args, bounds, case.state0, out)
     if "events" in forms:
-        _run_events(x, args, bounds, case.max_events, out)
+        _run_events(x, args, bounds, case.max_events, case.ev_state0, out)
     if "slots" in forms:
         _run_slots(x, case, out)
     return {k: v.cpu() for k, v in out.items()}
@@ -289,14 +400,14 @@ def _run_scan(x, args, bounds, state0, out) -> None:
     _flat("scan_cut.state", state, out)
 
 
-def _run_events(x, args, bounds, max_events, out) -> None:
+def _run_events(x, args, bounds, max_events, state0, out) -> None:
     kw = {} if max_events is None else {"max_events": max_events}
     (_, mask, clocks), valid, state = tss.symbol_sync_events(
-        x, *args, return_state=True, **kw)
+        x, *args, state=state0, return_state=True, **kw)
     out["events.mask"], out["events.clocks"] = mask, clocks
     out["events.valid"] = valid
     _flat("events.state", state, out)
-    parts, state = [], None
+    parts, state = [], state0
     for a, b in zip(bounds, bounds[1:]):
         (_, m, c), v, state = tss.symbol_sync_events(
             x[:, a:b], *args, state=state, return_state=True, **kw)

@@ -84,7 +84,7 @@ def test_torch_bench_kernels_rows_rehearse_on_the_cpu(group, capsys):
             "fir": {f"fir_banded/deci{d}_taps{t}" for d, t in bench_kernels.FIR_SHAPES},
             "native": {"native_symbol_sync", "native_hdlc_deframe"},
             "decode_bank": {"decode_bank/4ch", "decode_bank_events/4ch"},
-            "band_clock": {"band_clock/8ch"},
+            "band_clock": {"band_clock/8ch"}, "ax25_clock": {"ax25_clock/1ch"},
             "scan_stream": {"scan_stream"}, "scan_stream_device": {"scan_stream_device"},
             "bell202": {"bell202_frontend"}, "fft_filter": {"fft_filter_decimate"},
             "quad_demod": {"quad_demod"},
@@ -364,6 +364,11 @@ def _want_work(line):
         sign = bank > 0
         cross = int((sign[:, 1:] != sign[:, :-1]).sum())
         return kernels.scan_work(n, corpus.BAND_SPS, cross, 5)
+    if b.startswith("ax25_clock/"):  # the row's capture's crossings
+        audio = corpus.aprs_audio(np.random.RandomState(12), bench_kernels.SMALL.aprs_n)
+        sign = ax25.bell202_demod(_t(audio), corpus.APRS_FS) > 0
+        cross = int(sign[0]) + int((sign[1:] != sign[:-1]).sum())
+        return kernels.events_work(line["slots"], min(cross, line["slots"]), 5)
     if b.startswith("cma/"):
         return kernels.cma_work(n, line["ntaps"])
     if b.startswith("iir/"):

@@ -646,6 +646,46 @@ def test_torch_cuda_symbol_sync_events_scan_counts(cuda_device):
                 assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("name", ["slots2049", "chatter_sps2.5"])
+def test_torch_cuda_symbol_sync_events_counts(cuda_device, name):
+    # kernel D's counter of its last launch, kernels.EVENTS_COUNTS: a row a
+    # channel, its slots walked equal to the channel's real slots and its
+    # share redone on the general path in [0, 1].  ops.symbol_sync_events
+    # from a state on the card reads nothing back to the host (a
+    # synchronising call raises in the "error" sync debug mode), so the
+    # counter costs a pass no wait
+    case = SYNC_CASES[name]
+    x = torch.from_numpy(case.x).to(cuda_device)
+    c, n = x.shape
+    budget = case.max_events or n // 4
+    args = (case.sps, case.max_deviation, case.taps)
+    _, _, state = ops.symbol_sync_events(x[:, :1], *args, max_events=8,
+                                         return_state=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.symbol_sync_events(x[:, 1:], *args, max_events=budget, state=state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = kernels.EVENTS_COUNTS
+    assert counts.device == x.device and counts.dtype == torch.int32
+    assert tuple(counts.shape) == (c, 2)
+    sign = torch.from_numpy(case.x) > 0
+    changes = (sign[:, 1:] != sign[:, :-1]).sum(1, dtype=torch.int32)
+    got = counts.cpu()
+    assert torch.equal(got[:, 0], changes.clamp(max=budget))
+    share = got[:, 1].double() / got[:, 0].clamp(min=1).double()
+    assert ((share >= 0) & (share <= 1)).all()
+    # from the kernel's own arguments, with the real slots given and not
+    args = sync_cases.fresh_event_args(x, case, budget)
+    real = (args[0] < args[1]).sum(1, dtype=torch.int32)
+    kernels.symbol_sync_events_scan(*args, real)
+    got = kernels.EVENTS_COUNTS.cpu()
+    assert torch.equal(got[:, 0], real.cpu()) and (got[:, 1] <= got[:, 0]).all()
+    kernels.symbol_sync_events_scan(*args)
+    assert torch.equal(kernels.EVENTS_COUNTS.cpu(), got)
+
+
 def test_torch_cuda_graph_run_defaults_to_the_card(cuda_device):
     rng = np.random.RandomState(62)
     taps = rng.randn(33).astype(np.float32) / 5

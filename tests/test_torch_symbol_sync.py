@@ -320,12 +320,18 @@ def test_torch_symbol_sync_edge_case_matches_jax(name):
                 native.symbol_sync_f32(case.x[ch], *args))
 
 
+def _channel_state(state: dict, ch: int) -> dict:
+    """Channel ``ch`` of an event-form entry state, as JAX arrays."""
+    return {k: _channel_state(v, ch) if isinstance(v, dict) else jnp.asarray(v[ch])
+            for k, v in state.items()}
+
+
 @pytest.mark.parametrize("name", list(EDGE_CASES))
 def test_torch_symbol_sync_events_edge_case_matches_jax(name):
-    # the event form at the case's slot budget: masks and valid flags equal
-    # to the JAX package's, clocks as above, on the channels that did not
-    # overflow (an overflowed channel's output is declared untrustworthy by
-    # both); chained chunks equal the whole stream
+    # the event form at the case's slot budget, from the case's entry state:
+    # masks and valid flags equal to the JAX package's, clocks as above, on
+    # the channels that did not overflow (an overflowed channel's output is
+    # declared untrustworthy by both); chained chunks equal the whole stream
     case = EDGE_CASES[name]
     got = sync_cases.run_case(case, "cpu", forms=("events",))
     assert sync_cases.self_mismatches(got) == []
@@ -334,9 +340,18 @@ def test_torch_symbol_sync_events_edge_case_matches_jax(name):
         assert got["events.mask"].shape == case.x.shape
         assert got["events.valid"].all()
         return
-    _, jm, jc, jvalid = (np.asarray(o) for o in jbatch(
-        case.x, case.sps, case.max_deviation, case.taps, unroll=1,
-        method="events", max_events=case.max_events, return_valid=True))
+    if case.ev_state0 is None:
+        _, jm, jc, jvalid = (np.asarray(o) for o in jbatch(
+            case.x, case.sps, case.max_deviation, case.taps, unroll=1,
+            method="events", max_events=case.max_events, return_valid=True))
+    else:
+        # from the case's entry state, channel by channel
+        runs = [jss.symbol_sync_events(
+            case.x[ch], case.sps, case.max_deviation, case.taps,
+            max_events=case.max_events, unroll=1, return_state=True,
+            state=_channel_state(case.ev_state0, ch)) for ch in range(len(case.x))]
+        jm, jc = (np.stack([np.asarray(r[0][i]) for r in runs]) for i in (1, 2))
+        jvalid = np.array([bool(r[1]) for r in runs])
     ok = got["events.valid"].numpy()
     np.testing.assert_array_equal(ok, jvalid)
     np.testing.assert_array_equal(got["events.mask"].numpy()[ok], jm[ok])
