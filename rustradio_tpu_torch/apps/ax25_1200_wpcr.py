@@ -18,7 +18,8 @@ import time
 
 from ..dtypes import parse_frequency
 from ..models.ax25 import ax25_1200_wpcr_rx
-from ..ops.wpcr import prewarm_buckets
+from ..ops import hdlc
+from ..ops.wpcr import TOTALS as BURSTS, prewarm_buckets
 from . import add_device_arg, parse_device
 from .ax25_9600_rx import print_packets, read_capture, write_packets
 
@@ -44,6 +45,7 @@ def main(argv=None) -> int:
         prewarm_buckets(batches=(1, 2, 4), device=device)
 
     iq = read_capture(opt.read, device)
+    bursts0, crc0 = dict(BURSTS), hdlc.TOTALS["crc_error"]
     t0 = time.time()
     pkts = ax25_1200_wpcr_rx(
         iq, float(opt.sample_rate),
@@ -54,7 +56,11 @@ def main(argv=None) -> int:
     if opt.out:
         write_packets(opt.out, pkts)
     print_packets(pkts)
-    print(f"decoded {len(pkts)} packets in {dt:.2f}s", file=sys.stderr)
+    b = {k: v - bursts0[k] for k, v in BURSTS.items()}
+    print(f"decoded {len(pkts)} packets from {b['bursts']} bursts "
+          f"({b['too_long']} too long, {b['found']} clock found, "
+          f"{hdlc.TOTALS['crc_error'] - crc0} CRC failures) in {dt:.2f} s",
+          file=sys.stderr)
     return 0
 
 

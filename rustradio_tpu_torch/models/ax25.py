@@ -25,8 +25,12 @@ filter, resampling to 50 kHz, the discriminator, then the same clock
 recovery (``sync``), slicer, NRZI, G3RUH descrambler and HDLC.  The burst
 receivers ``ax25_1200_wpcr_rx`` and ``ax25_9600_wpcr_rx``
 (examples/ax25-{1200,9600}-wpcr.rs) gate the stream on its power, cut the
-bursts (``ops.stream_to_pdu``) and recover each burst's clock with one
-batched ``ops.wpcr_batch`` on the device.  ``g3ruh_modulate`` is the TX
+bursts (``ops.burst.burst_cuts``, the cuts of ``ops.stream_to_pdu``) and
+recover each burst's clock with one ``ops.wpcr.wpcr_runs`` over the
+stream on the device (no tensor a burst), then slice, NRZI-decode (and descramble) every burst at once and
+deframe them with one deframer, as a fresh chain a burst would; their spans are ``rr::wpcr.rx`` (the call), ``.front``, ``.cut``,
+``.clock`` and ``.bits``, and each call adds its counts to
+``ops.wpcr.TOTALS``.  ``g3ruh_modulate`` is the TX
 half of examples/g3ruh.rs.  ``il2p_1200_rx`` (examples/il2p-1200-rx.rs)
 takes the IQ front-end and the Bell-202 demod of ``ax25_1200_rx``, the
 native clock recovery, the slicer inverted, and the IL2P header hunt.
@@ -48,14 +52,14 @@ from .. import taps as tapgen
 from ..ops import demod as demod_ops
 from .._device import target_device
 from ..ops import fir, hdlc, hilbert, iir, nrzi, resampler
-from ..ops.burst import burst_tagger, stream_to_pdu
+from ..ops.burst import burst_cuts, burst_tagger
 from ..ops.elementwise import add_const, binary_slicer, complex_to_mag2
 from ..ops.fft_filter import filter_complex, filter_float
 from ..ops.il2p import Il2pHeader, il2p_deframe
 from ..ops.scramble import descramble, scramble
 from ..ops.symbol_sync import compact, recover_symbols, symbol_sync_events
 from ..ops.vco import vco
-from ..ops.wpcr import wpcr_batch
+from ..ops.wpcr import record as record_bursts, wpcr_runs
 from ..utils.trace import span
 
 DEMODS = ("discriminator", "tones")
@@ -405,23 +409,97 @@ def _afsk_discriminator(fm: torch.Tensor, samp_rate, cutoff) -> torch.Tensor:
     return filter_float(afsk, lp)
 
 
-def _burst_bits(power, data, threshold, max_size, tail, descrambled):
-    """Gate ``data`` on ``power``, cut the bursts, recover each one's clock
-    (one ``wpcr_batch`` on the device) and return each found burst's bits
-    on the host: sliced, NRZI-decoded and, for G3RUH, descrambled."""
+#: ones before each burst in the deframer's stream: from any state the
+#: deframer aborts within 7 ones and 8 leave its register all ones, so it
+#: meets each burst as a fresh one would
+_APART = 8
+#: zeros before each burst in the descrambler's input: its history, as a
+#: fresh descrambler holds it
+_DESCRAMBLE_HISTORY = 17
+
+
+def _apart(bits: torch.Tensor, burst: torch.Tensor, count: int, gap: int,
+           fill: int):
+    """``bits`` with ``gap`` bits of ``fill`` before each of its ``count``
+    bursts (``burst``: each bit's burst), and each bit's place there."""
+    at = torch.arange(bits.shape[0], device=bits.device) + gap * (burst + 1)
+    out = bits.new_full((bits.shape[0] + gap * count,), fill)
+    out[at] = bits
+    return out, at
+
+
+def _burst_bits(power, data, threshold, max_size, tail):
+    """Gate ``data`` on ``power``, cut the bursts and recover each one's
+    clock (one ``wpcr_runs`` on the device): the found bursts' symbols,
+    flat on the device, their counts, and the counts that ``_burst_rx``
+    adds to ``ops.wpcr.TOTALS``."""
     n = min(int(data.shape[0]), int(power.shape[0]))
-    start, end = burst_tagger(power[:n], threshold)
-    bursts = stream_to_pdu(data[:n], start, end, max_size, tail)
-    found = [syms for syms, info in wpcr_batch(bursts) if info["found"]]
-    if not found:
-        return []
-    # one slicer pass and one copy to the host for every burst's symbols
-    bits = binary_slicer(torch.cat(found)).cpu()
-    out = []
-    for b in torch.split(bits, [len(s) for s in found]):
-        b = nrzi.nrzi_decode(b)
-        out.append(descramble(b) if descrambled else b)
-    return out
+    with span("wpcr.cut"):
+        start, end = burst_tagger(power[:n], threshold)
+        # the edges' positions are the pass's first read: it waits out
+        # the front-end
+        cuts, too_long = burst_cuts(start, end, n, max_size, tail)
+    lengths = [b - a for a, b in cuts]
+    with span("wpcr.clock"):
+        syms, table = wpcr_runs(data, [a for a, _ in cuts], lengths)
+    found = table[:, 2] > 0
+    return (syms, table[found, 5].astype(np.int64),
+            (lengths, too_long, int(found.sum())))
+
+
+def _burst_stream(syms: torch.Tensor, lengths: np.ndarray,
+                  descrambled: bool):
+    """The bursts' symbols (flat, ``lengths`` each) sliced and NRZI-decoded
+    (and, for G3RUH, descrambled) as a fresh chain a burst would, as one
+    stream with ``_APART`` ones before each burst, on the host; and each
+    burst's first place there.  One slicer, NRZI and copy for all."""
+    x = binary_slicer(syms)
+    burst = torch.repeat_interleave(
+        torch.arange(len(lengths), device=x.device),
+        torch.from_numpy(lengths).to(x.device), output_size=int(lengths.sum()))
+    fresh, at = _apart(x, burst, len(lengths), 1, 0)  # line state 0
+    bits = nrzi.nrzi_decode(fresh)[at]
+    if descrambled:
+        fresh, at = _apart(bits, burst, len(lengths), _DESCRAMBLE_HISTORY, 0)
+        bits = descramble(fresh)[at]
+    stream = _apart(bits, burst, len(lengths), _APART, 1)[0].cpu()
+    return stream, (np.cumsum(lengths) - lengths
+                    + _APART * np.arange(1, len(lengths) + 1))
+
+
+def _burst_frames(syms: torch.Tensor, lengths: np.ndarray, fix_bits: bool,
+                  descrambled: bool):
+    """The frames of each burst's symbols as a fresh chain finds them
+    (``_burst_stream``, one deframer over it), each at its position in its
+    burst; and the count of bursts that gave one."""
+    if not len(lengths):
+        return [], 0
+    with span("wpcr.bits"):
+        stream, firsts = _burst_stream(syms, lengths, descrambled)
+    packets = _packets(stream, fix_bits)
+    which = np.searchsorted(firsts, [p.bit_pos for p in packets],
+                            side="right") - 1
+    for p, b in zip(packets, which.tolist()):
+        p.bit_pos -= int(firsts[b])
+    return packets, len(set(which.tolist()))
+
+
+def _burst_rx(iq, samp_rate, new_rate, iir_alpha, threshold, max_size, tail,
+              fix_bits, afsk, device) -> list[Ax25Packet]:
+    """The burst receivers' one body: the front-end, then for AFSK the tone
+    discriminator, the bursts' symbols and their frames; one
+    ``record_bursts`` a call (``ops.wpcr.TOTALS``)."""
+    with span("wpcr.front"):
+        power, data = _burst_front(_stream(iq, torch.complex64, device),
+                                   float(samp_rate), float(new_rate), 20_000.0,
+                                   float(iir_alpha))
+        if afsk:
+            data = _afsk_discriminator(data, float(new_rate), 2400.0)
+    syms, counts, (lengths, too_long, found) = _burst_bits(
+        power, data, threshold, max_size, tail)
+    packets, decoded = _burst_frames(syms, counts, fix_bits, not afsk)
+    record_bursts(lengths, too_long, found, decoded)
+    return packets
 
 
 def ax25_1200_wpcr_rx(
@@ -438,16 +516,12 @@ def ax25_1200_wpcr_rx(
     (reference examples/ax25-1200-wpcr.rs:45-135): channel filter -> resample
     -> FM demod -> Hilbert -> second FM demod (AFSK tone discriminator) ->
     2.4 kHz low-pass -> power-gated burst capture -> Midpointer -> WPCR ->
-    slicer -> NRZI -> HDLC (no descrambler at 1200 bd).  ``iq`` is a tensor
-    (it stays on its device) or a numpy array with ``device=``."""
-    power, fm = _burst_front(_stream(iq, torch.complex64, device),
-                             float(samp_rate), float(new_rate), 20_000.0,
-                             float(iir_alpha))
-    nrz = _afsk_discriminator(fm, float(new_rate), 2400.0)
-    packets: list[Ax25Packet] = []
-    for bits in _burst_bits(power, nrz, threshold, int(new_rate), tail, False):
-        packets += _packets(bits, fix_bits)
-    return packets
+    slicer -> NRZI -> HDLC (no descrambler at 1200 bd); bursts up to
+    ``new_rate`` samples.  ``iq`` is a tensor (it stays on its device) or a
+    numpy array with ``device=``."""
+    with span("wpcr.rx"):
+        return _burst_rx(iq, samp_rate, new_rate, iir_alpha, threshold,
+                         int(new_rate), tail, fix_bits, True, device)
 
 
 def ax25_9600_wpcr_rx(
@@ -466,13 +540,9 @@ def ax25_9600_wpcr_rx(
     burst Midpointer -> WPCR -> slicer -> NRZI -> G3RUH descrambler ->
     HDLC.  ``iq`` is a tensor (it stays on its device) or a numpy array with
     ``device=``."""
-    power, demod = _burst_front(_stream(iq, torch.complex64, device),
-                                float(samp_rate), float(new_rate), 20_000.0,
-                                float(iir_alpha))
-    packets: list[Ax25Packet] = []
-    for bits in _burst_bits(power, demod, threshold, max_burst, tail, True):
-        packets += _packets(bits, fix_bits)
-    return packets
+    with span("wpcr.rx"):
+        return _burst_rx(iq, samp_rate, new_rate, iir_alpha, threshold,
+                         max_burst, tail, fix_bits, False, device)
 
 
 def g3ruh_modulate(

@@ -6,9 +6,10 @@
   shift on the trigger's device.
 * ``stream_to_pdu`` (reference src/stream_to_pdu.rs:167-260): cuts the data
   stream into bursts [start_edge, end_edge) plus ``tail`` extra samples,
-  dropping bursts longer than ``max_size``.  The edges are read on the host
-  (their positions decide the cuts); the bursts are slices of the data, on
-  its device.
+  dropping bursts longer than ``max_size``.  The edges' positions decide
+  the cuts: they are found on the edge streams' device and only they are
+  read on the host (``burst_cuts``), not the streams; the bursts are slices
+  of the data, on its device.
 """
 
 from __future__ import annotations
@@ -33,10 +34,38 @@ def burst_tagger(trigger, threshold: float, last: bool = False):
     return cur & ~prev, ~cur & prev
 
 
-def _host_bool(a) -> np.ndarray:
-    if torch.is_tensor(a):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a, bool)
+def _edges(start, end) -> np.ndarray:
+    """(3, k) int64 on the host: each edge's position and its start and end
+    flags.  Tensors are searched on their device, so that only the edges
+    are copied."""
+    if torch.is_tensor(start) and torch.is_tensor(end):
+        start, end = start.to(torch.bool), end.to(torch.bool)
+        pos = torch.nonzero(start | end).flatten()
+        return torch.stack([pos, start[pos].long(), end[pos].long()]).cpu().numpy()
+    start, end = np.asarray(start, bool), np.asarray(end, bool)
+    pos = np.flatnonzero(start | end)
+    return np.stack([pos, start[pos], end[pos]]).astype(np.int64)
+
+
+def burst_cuts(start, end, n: int, max_size: int, tail: int = 0):
+    """The cuts of ``stream_to_pdu`` over a stream of ``n`` samples:
+    ([(first, stop)] of the bursts kept, the count dropped as longer than
+    ``max_size``)."""
+    cuts, too_long = [], 0
+    in_burst = False
+    burst_start = 0
+    for i, is_start, is_end in _edges(start, end).T.tolist():
+        if not in_burst and is_start:
+            in_burst = True
+            burst_start = i
+        elif in_burst and is_end:
+            stop = min(i + tail, n)
+            if stop - burst_start <= max_size:
+                cuts.append((burst_start, stop))
+            else:
+                too_long += 1
+            in_burst = False
+    return cuts, too_long
 
 
 def stream_to_pdu(data, start, end, max_size: int, tail: int = 0) -> list:
@@ -49,22 +78,8 @@ def stream_to_pdu(data, start, end, max_size: int, tail: int = 0) -> list:
     end is dropped (the reference would keep waiting).  The bursts are
     slices of ``data`` (tensors on its device, or numpy arrays).
     """
-    start = _host_bool(start)
-    end = _host_bool(end)
-    pdus = []
-    in_burst = False
-    burst_start = 0
-    n = len(data)
-    for i in np.flatnonzero(start | end).tolist():
-        if not in_burst and start[i]:
-            in_burst = True
-            burst_start = i
-        elif in_burst and end[i]:
-            seg = data[burst_start : min(i + tail, n)]
-            if len(seg) <= max_size:
-                pdus.append(seg)
-            in_burst = False
-    return pdus
+    cuts, _ = burst_cuts(start, end, len(data), max_size, tail)
+    return [data[a:b] for a, b in cuts]
 
 
 def pdu_to_stream(pdus: list):

@@ -15,9 +15,9 @@ One FFT over the whole burst instead of a per-sample feedback loop.
 ``midpoint`` (src/wpcr.rs:53-82): re-centre a burst on the midpoint of the
 median high and low levels.
 
-Batches (``wpcr_batch``, ``midpoint_batch``) pad the bursts of one
-power-of-two bucket into rows and run each step once for all of them, on
-the bursts' device.  The DFT of each row at its own length m - 1 is the
+Batches (``wpcr_runs`` over runs of one stream, ``wpcr_batch``,
+``midpoint_batch``) gather the bursts of one power-of-two bucket into rows
+and run each step once for all of them, on the bursts' device.  The DFT of each row at its own length m - 1 is the
 chirp-Z (Bluestein) form over the bucket, as in the JAX package: two
 forward and one inverse FFT of length 2L for the whole bucket, whatever
 the bursts' lengths, so the FFT plans are per bucket (``prewarm_buckets``
@@ -42,6 +42,17 @@ import numpy as np
 import torch
 
 _NEAR = 1e-5  # relative distance of a near tie in the best-bin rule
+
+#: the burst receivers' counts over every call of the process, added once
+#: a call (``record``): bursts cut, dropped as longer than the size limit
+#: or shorter than 4 samples, whose clock was found and that gave a
+#: frame; the buckets, their bursts (``rows``) and rows with their
+#: padding (``_rows``), the bursts' samples and the buckets' (padded rows x
+#: bucket length).  Read as differences around a call, as
+#: ``apps/ax25_1200_wpcr.py``'s closing line does
+TOTALS = dict.fromkeys(
+    ("calls", "bursts", "too_long", "too_short", "found", "decoded",
+     "buckets", "rows", "rows_padded", "burst_samples", "padded_samples"), 0)
 
 
 def _rows_midpoint(v: torch.Tensor, m: torch.Tensor):
@@ -154,15 +165,54 @@ def _bucket_len(n: int) -> int:
     return 1 << max(6, (n - 1).bit_length())
 
 
-def _padded(bursts: list, idxs: list[int], L: int, rows: int):
-    """The bursts ``idxs`` as the first rows of a (rows, L) zero-padded
-    tensor, and their lengths."""
-    seqs = [bursts[i] for i in idxs]
-    v = torch.nn.utils.rnn.pad_sequence(seqs, batch_first=True)
-    v = torch.nn.functional.pad(v, (0, L - v.shape[1], 0, rows - v.shape[0]))
-    m = torch.tensor([len(s) for s in seqs] + [0] * (rows - len(seqs)),
-                     dtype=torch.int64)
-    return v, m.to(v.device)
+def _rows(count: int) -> int:
+    """A bucket's rows: its bursts rounded up to four significant bits
+    (zero-length rows, under 1/8 more), which bounds the FFT plans to 8 an
+    octave of counts, and moves the work with the count in steps of at most
+    1/8."""
+    step = 1 << max(0, (count - 1).bit_length() - 4)
+    return -(-count // step) * step
+
+
+def _plan(lengths) -> dict[int, list[int]]:
+    """The bursts of each bucket, by its length; bursts under 4 samples
+    are in none."""
+    buckets: dict[int, list[int]] = {}
+    for i, n in enumerate(lengths):
+        if n >= 4:
+            buckets.setdefault(_bucket_len(n), []).append(i)
+    return buckets
+
+
+def record(lengths, too_long: int, found: int, decoded: int) -> None:
+    """Add one receiver call to ``TOTALS``: the lengths of the bursts it
+    cut and kept, the bursts it dropped as too long, those whose clock was
+    found and those that gave a frame."""
+    plan = _plan(lengths)
+    rows = {L: _rows(len(i)) for L, i in plan.items()}
+    kept = [n for n in lengths if n >= 4]
+    counts = {"calls": 1, "bursts": len(lengths) + too_long,
+              "too_long": too_long, "too_short": len(lengths) - len(kept),
+              "found": found, "decoded": decoded, "buckets": len(plan),
+              "rows": len(kept), "rows_padded": sum(rows.values()),
+              "burst_samples": sum(kept),
+              "padded_samples": sum(L * r for L, r in rows.items())}
+    for k, v in counts.items():
+        TOTALS[k] += v
+
+
+def _gathered(data: torch.Tensor, firsts, lengths, L: int, rows: int):
+    """The runs ``data[f : f + n]`` as the first rows of a (rows, L)
+    zero-padded tensor (one gather), and their lengths (0 past them)."""
+    f = np.zeros(rows, np.int64)
+    m = np.zeros(rows, np.int64)
+    f[: len(firsts)], m[: len(lengths)] = firsts, lengths
+    f = torch.from_numpy(f).to(data.device)
+    m = torch.from_numpy(m).to(data.device)
+    k = torch.arange(L, device=data.device)
+    valid = k[None, :] < m[:, None]
+    v = data[torch.where(valid, f[:, None] + k[None, :], 0)]
+    return torch.where(valid, v, 0.0), m
 
 
 def midpoint(v):
@@ -204,13 +254,50 @@ def _not_found(device) -> tuple:
             dict(sps=0.0, phase=0.0, found=False, bin=0, near_tie=False))
 
 
-def wpcr_batch(bursts, midpoint_first: bool = True, device=None):
-    """Batched WPCR over many bursts, on their device.
+def wpcr_runs(data: torch.Tensor, firsts, lengths,
+              midpoint_first: bool = True):
+    """WPCR over the runs ``data[f : f + n]`` of one stream, on its device,
+    with no tensor a run: each power-of-two bucket of runs gathered into
+    rows at once (midpoint, the chirp-Z DFT at each run's own length, the
+    best bin and the symbol mask), one small table read a bucket.
 
-    Buckets the bursts into power-of-two padded lengths and runs each
-    bucket once (midpoint, the chirp-Z DFT at each burst's own length, the
-    best bin and the symbol mask), reading back one small table per bucket.
-    Bursts are tensors (on their device) or numpy arrays with ``device=``.
+    Returns (symbols, table): the emitted symbols of the runs whose clock
+    was found, flat in run order on ``data``'s device, and a (runs, 6)
+    float64 numpy table of ``sps``, ``phase``, ``found``, ``bin``,
+    ``near_tie`` and the count of symbols (zeros for runs under 4
+    samples)."""
+    data = data.to(torch.float32)
+    firsts = np.asarray(firsts, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    table = np.zeros((len(lengths), 6))
+    flats, src = [], np.zeros(len(lengths), np.int64)
+    base = 0
+    for L, idxs in _plan(lengths.tolist()).items():
+        v, m = _gathered(data, firsts[idxs], lengths[idxs], L,
+                         _rows(len(idxs)))
+        v, mask, sps, phase, found, bin_, near = _bucket(v, m, midpoint_first)
+        flats.append(v[mask])
+        table[idxs] = torch.stack(
+            [sps.double(), phase.double(), found.double(), bin_.double(),
+             near.double(), mask.sum(1).double()], 1)[: len(idxs)].cpu().numpy()
+        counts = table[idxs, 5].astype(np.int64)
+        src[idxs] = base + np.cumsum(counts) - counts
+        base += int(counts.sum())
+    if not base:
+        return data.new_zeros(0), table
+    # each run's symbols from its bucket's place to its own
+    counts = table[:, 5].astype(np.int64)
+    shift = torch.from_numpy(src - (np.cumsum(counts) - counts))
+    at = torch.repeat_interleave(shift.to(data.device),
+                                 torch.from_numpy(counts).to(data.device),
+                                 output_size=base)
+    return torch.cat(flats)[at + torch.arange(base, device=data.device)], table
+
+
+def wpcr_batch(bursts, midpoint_first: bool = True, device=None):
+    """Batched WPCR over many bursts, on their device (``wpcr_runs`` over
+    their concatenation).  Bursts are tensors (on one device) or numpy
+    arrays with ``device=``.
 
     Returns a list aligned with ``bursts``: each entry is ``(syms, info)``,
     syms a tensor on the bursts' device and info a dict of ``sps``,
@@ -219,33 +306,21 @@ def wpcr_batch(bursts, midpoint_first: bool = True, device=None):
     empty syms, mirroring the reference's process_one returning None.
     """
     tensors = [_burst_tensor(b, device) for b in bursts]
-    results: list = [None] * len(tensors)
-    buckets: dict[int, list[int]] = {}
-    for i, b in enumerate(tensors):
-        if len(b) < 4:
-            results[i] = _not_found(b.device)
-            continue
-        buckets.setdefault(_bucket_len(len(b)), []).append(i)
-    for L, idxs in buckets.items():
-        # the batch rounds up to a power of two (zero-length rows), which
-        # bounds the FFT plans and lets prewarm_buckets hit real shapes
-        rows = 1 << (len(idxs) - 1).bit_length()
-        v, m = _padded(tensors, idxs, L, rows)
-        v, mask, sps, phase, found, bin_, near = _bucket(v, m, midpoint_first)
-        counts = mask.sum(1)
-        flat = v[mask]
-        table = torch.stack([sps.double(), phase.double(), found.double(),
-                             bin_.double(), near.double(),
-                             counts.double()], 1).cpu().tolist()
-        syms = torch.split(flat, [int(r[5]) for r in table])
-        for row, i in enumerate(idxs):
-            s, p, f, b, nt, _ = table[row]
-            if not f:
-                results[i] = _not_found(v.device)
-                results[i][1].update(bin=int(b), near_tie=bool(nt))
-                continue
-            results[i] = (syms[row], dict(sps=s, phase=p, found=True,
-                                          bin=int(b), near_tie=bool(nt)))
+    if not tensors:
+        return []
+    lengths = np.asarray([len(b) for b in tensors], np.int64)
+    syms, table = wpcr_runs(torch.cat(tensors), np.cumsum(lengths) - lengths,
+                            lengths, midpoint_first)
+    parts = torch.split(syms, table[:, 5].astype(np.int64).tolist())
+    results = []
+    for b, row, part in zip(tensors, table.tolist(), parts):
+        s, p, f, bin_, nt, _ = row
+        if f:
+            results.append((part, dict(sps=s, phase=p, found=True,
+                                       bin=int(bin_), near_tie=bool(nt))))
+        else:
+            results.append(_not_found(b.device))
+            results[-1][1].update(bin=int(bin_), near_tie=bool(nt))
     return results
 
 
@@ -260,8 +335,13 @@ def midpoint_batch(bursts, device=None):
             results[i] = (b, False)
             continue
         buckets.setdefault(_bucket_len(len(b)), []).append(i)
+    if not buckets:
+        return results
+    lengths = np.asarray([len(b) for b in tensors], np.int64)
+    firsts = np.cumsum(lengths) - lengths
+    data = torch.cat(tensors)
     for L, idxs in buckets.items():
-        v, m = _padded(tensors, idxs, L, len(idxs))
+        v, m = _gathered(data, firsts[idxs], lengths[idxs], L, len(idxs))
         c, ok = _rows_midpoint(v, m)
         ok = ok.cpu().tolist()
         for row, i in enumerate(idxs):

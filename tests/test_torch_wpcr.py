@@ -137,6 +137,30 @@ def test_torch_wpcr_one_burst_equals_batch():
             assert float(ii["phase"]) == pytest.approx(info["phase"], abs=0)
 
 
+def test_torch_wpcr_runs_over_a_stream_equal_the_batch():
+    # runs of one stream, apart and out of bucket order, with a run under
+    # 4 samples: each run's table row and symbols as wpcr_batch gives them
+    # for its slice alone, the symbols flat in run order
+    from rustradio_tpu_torch.ops.wpcr import wpcr_runs
+
+    bursts = _bursts()
+    rng = np.random.RandomState(2)
+    gaps = [rng.randn(int(rng.randint(0, 30))).astype(np.float32)
+            for _ in bursts]
+    stream = np.concatenate([x for g, b in zip(gaps, bursts) for x in (g, b)])
+    lengths = np.asarray([len(b) for b in bursts])
+    firsts = np.cumsum([len(g) for g in gaps]) + np.cumsum(lengths) - lengths
+    syms, table = wpcr_runs(torch.from_numpy(stream), firsts, lengths)
+    batch = [ops.wpcr_batch([b], device="cpu")[0] for b in bursts]
+    assert table[:, 2].sum() >= 12
+    for row, (s, info) in zip(table.tolist(), batch):
+        assert row[2:5] == [info["found"], info["bin"], info["near_tie"]]
+        if info["found"]:
+            assert row[:2] == [info["sps"], info["phase"]]
+        assert row[5] == len(s)
+    assert torch.equal(syms, torch.cat([s for s, _ in batch]))
+
+
 def test_torch_wpcr_batch_long_burst():
     # 35000 samples: past the JAX package's int32 chirp bound (its eager
     # path); the port's int64 chirp takes it in its bucket
